@@ -1,0 +1,168 @@
+"""Decoder transformer over dense attention segments (counterpart of
+``repro/models/transformer.py``).
+
+``param_specs(cfg)`` is the single source of truth for shapes (the same
+tree paths as the reference, with the stacked leading ``layers`` axis);
+``init_params`` materializes it; ``forward`` runs any of the three phases
+(``full`` train/eval, ``prefill``, ``decode``).  Where the reference scans
+the stacked layers, the port walks them with a Python loop over per-layer
+views, and it updates the KV cache in place.
+
+Only dense attention layers are ported: SSM, cross-attention, MoE and MLA
+segments raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models import modules as M
+from repro_torch.models.config import ATTN, ModelConfig
+from repro_torch.models.modules import ParamSpec, tree_leaves, tree_map
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.mla or cfg.moe or not cfg.embed_inputs:
+        raise NotImplementedError(
+            f"{cfg.name}: only dense token-input GQA decoders are ported")
+    for seg in cfg.segments():
+        for ls in seg.unit_spec:
+            if ls.kind != ATTN or ls.moe:
+                raise NotImplementedError(
+                    f"{cfg.name}: layer {ls} not yet ported")
+
+
+# ===================================================================== #
+# Specs
+# ===================================================================== #
+def _layer_specs(cfg: ModelConfig, spec) -> dict:
+    D = cfg.d_model
+    return {"ln1": ParamSpec((D,), ("embed",), "ones"),
+            "attn": M.attn_specs(cfg),
+            "ln2": ParamSpec((D,), ("embed",), "ones"),
+            "mlp": M.mlp_specs(cfg)}
+
+
+def _stack(specs, n: int):
+    return tree_map(lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes,
+                                        s.init, s.scale),
+                    specs, is_leaf=lambda x: isinstance(x, ParamSpec))
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    _check_ported(cfg)
+    D, V = cfg.d_model, cfg.vocab_size
+    out = {"embed": ParamSpec((V, D), ("vocab", "embed"))}
+    out["segments"] = tuple(
+        _stack(tuple(_layer_specs(cfg, ls) for ls in seg.unit_spec),
+               seg.n_units)
+        for seg in cfg.segments())
+    out["final_norm"] = ParamSpec((D,), ("embed",), "ones")
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ParamSpec((D, V), ("embed", "vocab"))
+    return out
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    """Parameters in ``cfg.param_dtype`` on ``generator``'s device."""
+    return M.init_tree(param_specs(cfg), generator, cfg.pdtype)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    return int(sum(np.prod(s.shape) for s in tree_leaves(
+        param_specs(cfg), is_leaf=lambda x: isinstance(x, ParamSpec))))
+
+
+# ===================================================================== #
+# Caches
+# ===================================================================== #
+def _layer_cache_shapes(cfg: ModelConfig, spec, batch: int, max_len: int):
+    win = spec.sliding_window or cfg.sliding_window
+    return M.attn_cache_shape(cfg, batch, max_len, win)
+
+
+def cache_struct(cfg: ModelConfig, batch: int, max_len: int):
+    """``(shape, dtype)`` leaves of the cache tree: per segment, a tuple of
+    per-unit-layer dicts whose leaves stack ``n_units`` layers."""
+    _check_ported(cfg)
+    return tuple(
+        tuple({k: ((seg.n_units,) + shp, cfg.cdtype)
+               for k, shp in _layer_cache_shapes(cfg, ls, batch,
+                                                 max_len).items()}
+              for ls in seg.unit_spec)
+        for seg in cfg.segments())
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    return tree_map(
+        lambda s: torch.zeros(s[0], dtype=s[1], device=device),
+        cache_struct(cfg, batch, max_len),
+        is_leaf=lambda x: isinstance(x, tuple) and len(x) == 2
+        and isinstance(x[1], torch.dtype))
+
+
+# ===================================================================== #
+# Forward
+# ===================================================================== #
+def cast_params(cfg: ModelConfig, params):
+    """Compute-dtype view of the (fp32 master) params.  A leaf already in
+    the compute dtype is returned as is, so casting once up front (the
+    serving engine does) makes the cast inside :func:`forward` free."""
+    return tree_map(lambda p: p.to(cfg.cdtype)
+                    if torch.is_floating_point(p) else p, params)
+
+
+def _unstack(tree, n: int) -> list:
+    """Stacked-layer tree -> list of ``n`` per-layer trees of views."""
+    return [tree_map(lambda t: t[i], tree) for i in range(n)]
+
+
+def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
+            mode: str = "full", cache=None, positions=None,
+            block_tables=None):
+    """Returns (hidden (B,L,D), cache, aux_loss).
+
+    mode='full'    — training / scoring, no cache.
+    mode='prefill' — like full but also fills ``cache``.
+    mode='decode'  — single token step; ``positions`` is (B,1) absolute.
+
+    ``cache`` is updated in place and returned (the reference returns a new
+    tree built from its donated input)."""
+    if block_tables is not None:
+        raise NotImplementedError("paged KV cache: not yet ported")
+    _check_ported(cfg)
+    params = cast_params(cfg, params)
+    x = params["embed"][tokens] if tokens is not None else embeds
+    x = x.to(cfg.cdtype)
+    B, L = x.shape[0], x.shape[1]
+    if positions is None:
+        positions = torch.arange(L, device=x.device)[None].expand(B, L)
+    rope = M.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    for si, seg in enumerate(cfg.segments()):
+        layer_params = _unstack(params["segments"][si], seg.n_units)
+        layer_caches = (_unstack(cache[si], seg.n_units)
+                        if cache is not None else [None] * seg.n_units)
+        for up, uc in zip(layer_params, layer_caches):
+            for i, spec in enumerate(seg.unit_spec):
+                lp = up[i]
+                lc = uc[i] if uc is not None else None
+                win = spec.sliding_window or cfg.sliding_window
+                h = M.rmsnorm(x, lp["ln1"], cfg.rms_eps, cfg.use_kernels)
+                att, _ = M.attn_apply(cfg, lp["attn"], h, positions=positions,
+                                      mode=mode, cache=lc, window=win,
+                                      rope=rope)
+                x = x + att
+                h2 = M.rmsnorm(x, lp["ln2"], cfg.rms_eps, cfg.use_kernels)
+                x = x + M.mlp_apply(lp["mlp"], h2, cfg)
+    x = M.rmsnorm(x, params["final_norm"], cfg.rms_eps, cfg.use_kernels)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, cache, aux
+
+
+def lm_head(cfg: ModelConfig, params):
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return head.to(cfg.cdtype)
+
+
+def logits_fn(cfg: ModelConfig, params, hidden):
+    return (hidden @ lm_head(cfg, params)).float()

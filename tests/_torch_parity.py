@@ -1,0 +1,69 @@
+"""Helpers shared by the ``test_torch_*`` parity tests: matching config
+pairs, weights carried from the JAX package to the port through numpy, and
+a greedy JAX reference built from ``repro.models.transformer`` alone (the
+reference's ``repro.serving`` does not import on Python 3.12: its
+``StepEvent`` has a numpy dataclass default)."""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro import configs as jconfigs
+from repro.models import transformer as JT
+from repro_torch import configs as tconfigs
+from repro_torch.models import convert
+
+ARCHS = ("opt-1.3b", "smollm-135m")
+
+
+def config_pair(arch: str, **kw):
+    """(JAX cfg, port cfg) of ``reduced(arch)`` with the same overrides;
+    the port runs its own plain code (``use_kernels=False``) unless
+    ``use_kernels`` is given."""
+    use_kernels = kw.pop("use_kernels", False)
+    jcfg = jconfigs.reduced(jconfigs.get_config(arch)).replace(
+        use_pallas=use_kernels, **kw)
+    tcfg = tconfigs.reduced(tconfigs.get_config(arch)).replace(
+        use_kernels=use_kernels, **kw)
+    return jcfg, tcfg
+
+
+def params_pair(jcfg, seed: int = 0):
+    """JAX params from ``init_params`` and the same weights as tensors."""
+    jparams = JT.init_params(jcfg, jax.random.PRNGKey(seed))
+    tparams = convert.params_from_numpy(
+        jax.tree.map(np.asarray, jparams), "cpu")
+    return jparams, tparams
+
+
+def to_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def jax_greedy(jcfg, jparams, prompt, max_new: int, eos_id=None):
+    """Greedy decode of one prompt with the JAX model, mirroring
+    ``repro/serving/generate.py`` (prefill, then one decode step per token,
+    EOS forced after the first EOS).  Returns the generated tokens."""
+    Lp = len(prompt)
+    fwd_prefill = jax.jit(lambda p, t, c: JT.forward(
+        jcfg, p, tokens=t, mode="prefill", cache=c))
+    fwd_decode = jax.jit(lambda p, t, c, pos: JT.forward(
+        jcfg, p, tokens=t, mode="decode", cache=c, positions=pos))
+    logits_fn = jax.jit(lambda p, h: JT.logits_fn(jcfg, p, h))
+    cache = JT.init_cache(jcfg, 1, Lp + max_new)
+    hidden, cache, _ = fwd_prefill(jparams, jnp.asarray(prompt)[None], cache)
+    logits = logits_fn(jparams, hidden[:, -1:])[0, 0]
+    toks, done = [], False
+    for t in range(max_new):
+        tok = eos_id if done else int(jnp.argmax(logits))
+        toks.append(tok)
+        done = done or (eos_id is not None and tok == eos_id)
+        hidden, cache, _ = fwd_decode(
+            jparams, jnp.asarray([[tok]], jnp.int32), cache,
+            jnp.asarray([[Lp + t]], jnp.int32))
+        logits = logits_fn(jparams, hidden)[0, 0]
+    return toks

@@ -31,6 +31,10 @@ def pytest_configure(config):
         "producer/consumer threads); runs under a SIGALRM watchdog of "
         f"{ASYNC_RLHF_TIMEOUT_S}s so a deadlock fails fast "
         "(override with ASYNC_RLHF_TIMEOUT_S)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the PyTorch/CUDA port's "
+        "kernels); skipped where torch.cuda.is_available() is False")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -31,6 +31,13 @@
 // skipped (exact: a skipped key would get probability 0, since every query
 // row keeps its own diagonal key).  Rows past Lq are computed but not
 // stored, so no block size has to divide Lq or Lk.
+//
+// LSE (training): given a non-null `lse` pointer, lane 0 of each warp also
+// writes its rows' log-sum-exp m + log(max(l, 1e-20)) into a contiguous
+// (B, KV, G, Lq) fp32 tensor, straight from the registers that hold the
+// running max and sum.  The backward kernel (flash_attention_bwd.cu)
+// recomputes the probabilities from it.  The serving call passes null and
+// runs exactly as before.
 #include "common.cuh"
 
 namespace {
@@ -56,6 +63,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, KV, G, Lq) contiguous, or null
   int64_t q_sb, q_sk, q_sg, q_sl;
   int64_t k_sb, k_sk, k_sl;
   int64_t v_sb, v_sk, v_sl;
@@ -204,6 +212,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
       for (int u = 0; u < DPL; ++u)
         ob[static_cast<int64_t>(r) * p.o_sl + u * 32 + lane] =
             repro::from_float<T>(acc[i][u] / lsum);
+      if (p.lse != nullptr && lane == 0)
+        p.lse[(static_cast<int64_t>(b * p.KV + kvh) * p.G + g) * p.Lq + r] =
+            m[i] + logf(lsum);
     }
   }
 }
@@ -238,9 +249,10 @@ int dispatch_d(const Params& p, int D, cudaStream_t stream) {
 
 // strides (elements): q (b, kv, g, l), k (b, kv, l), v (b, kv, l),
 // o (b, kv, g, l) — 14 values; the D axis has unit stride everywhere.
-// window < 0 means no sliding window.  Returns a cudaError_t code.
+// window < 0 means no sliding window; lse may be null.  Returns a
+// cudaError_t code.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o,
+                                   const void* v, void* o, float* lse,
                                    const int64_t* strides, int B, int KV,
                                    int G, int Lq, int Lk, int D, int causal,
                                    int window, float scale, int dtype,
@@ -250,6 +262,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.q_sb = strides[0];
   p.q_sk = strides[1];
   p.q_sg = strides[2];

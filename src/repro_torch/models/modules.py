@@ -1,16 +1,19 @@
-"""Model primitives of the dense serving path (counterpart of
+"""Model primitives of the dense decoder (counterpart of
 ``repro/models/modules.py``): parameter specs, RMSNorm, RoPE, GQA attention
-(qk-norm, sliding window, ring-buffer cache) and the SwiGLU MLP.
+(qk-norm, sliding window, ring-buffer cache) and the SwiGLU MLP, for the
+serving and the training paths.
 
 Parameters are nested dicts/tuples of tensors whose structure comes from
 ``ParamSpec`` trees, the same paths as the reference's pytrees, so weights
 move between the packages through numpy (``models/convert.py``).
 
 Attention is blockwise with an online softmax (the full L x L score matrix
-is never built).  With ``cfg.use_kernels`` RMSNorm and attention dispatch
-to ``repro_torch.kernels.ops``: the CUDA kernels on the card, their plain
-versions on the CPU.  Without it the model runs its own plain code below,
-the port of the reference's jnp path.
+is never built, forward or backward).  With ``cfg.use_kernels`` RMSNorm
+and attention dispatch to ``repro_torch.kernels.ops``: the CUDA kernels on
+the card, their plain versions on the CPU; in ``full`` mode (training)
+attention goes through the differentiable ``ops.FlashAttention``.  Without
+it the model runs its own plain code below, the port of the reference's
+jnp path.
 
 The reference's sharding helpers (``wgather``, ``constrain_batch``,
 ``opt_barrier``) are no-ops on this single-device path and are dropped.
@@ -37,16 +40,18 @@ NEG_INF = -1e30
 # ===================================================================== #
 def tree_map(fn, tree, *rest, is_leaf=None):
     """Map ``fn`` over the leaves of ``tree`` (and the matching leaves of
-    ``rest``), keeping the dict/tuple/list structure."""
+    ``rest``), keeping the dict/tuple/list/NamedTuple structure."""
     if is_leaf is not None and is_leaf(tree):
         return fn(tree, *rest)
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
                             is_leaf=is_leaf) for k in tree}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, t, *(r[i] for r in rest),
-                                   is_leaf=is_leaf)
-                          for i, t in enumerate(tree))
+        kids = [tree_map(fn, t, *(r[i] for r in rest), is_leaf=is_leaf)
+                for i, t in enumerate(tree)]
+        if hasattr(tree, "_fields"):            # NamedTuple: fields by position
+            return type(tree)(*kids)
+        return type(tree)(kids)
     return fn(tree, *rest)
 
 
@@ -54,6 +59,13 @@ def tree_leaves(tree, is_leaf=None) -> list:
     out = []
     tree_map(lambda x: out.append(x), tree, is_leaf=is_leaf)
     return out
+
+
+def tree_unflatten(tree, leaves, is_leaf=None):
+    """``tree``'s structure with ``leaves`` (in :func:`tree_leaves` order)
+    in place of its leaves."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree, is_leaf=is_leaf)
 
 
 # ===================================================================== #
@@ -146,8 +158,12 @@ def apply_rope(x, positions, theta: float, cos_sin=None):
 
 
 # ===================================================================== #
-# Flash attention (plain, block-wise online softmax; forward only — the
-# reference's custom VJP comes with the training slice)
+# Flash attention (plain, block-wise online softmax, recompute backward)
+#
+# The backward recomputes the probabilities block by block from the saved
+# log-sum-exp (FlashAttention-2 style), the port of the reference's custom
+# VJP ``_flash`` / ``_flash_bwd``: left to autograd, the loops below would
+# keep every (q_block, k_block) score tile alive until the backward.
 # ===================================================================== #
 def _tile_mask(qpos, kpos, causal, window):
     mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
@@ -164,19 +180,26 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_block=512,
     """Memory-efficient attention.
 
     q: (B, Lq, H, D); k, v: (B, Lk, KV, D) with H = KV * G.
-    Never materializes (Lq, Lk): walks KV blocks with an online softmax.
-    ``qpos0`` offsets query positions (prefill continuation); ``window``
-    applies sliding-window masking.  The last block of each axis is simply
-    shorter, so no block size has to divide the lengths.
+    Never materializes (Lq, Lk): walks KV blocks with an online softmax,
+    forward and backward.  ``qpos0`` offsets query positions (prefill
+    continuation); ``window`` applies sliding-window masking.  The last
+    block of each axis is simply shorter, so no block size has to divide
+    the lengths.
     """
+    Lq, Lk = q.shape[1], k.shape[1]
+    return _Flash.apply(q, k, v, bool(causal), window, min(q_block, Lq),
+                        min(k_block, Lk), int(qpos0))
+
+
+def _flash_fwd_impl(q, k, v, causal, window, qb, kb, qpos0):
+    """Returns (out (B, Lq, H, D), lse (B, KV, G, Lq) fp32)."""
     B, Lq, H, D = q.shape
     Lk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    qb, kb = min(q_block, Lq), min(k_block, Lk)
     scale = 1.0 / math.sqrt(D)
     dev = q.device
     q5 = q.reshape(B, Lq, KV, G, D)
-    outs = []
+    outs, lses = [], []
     for q0 in range(0, Lq, qb):
         qt = q5[:, q0:q0 + qb].float()
         nq = qt.shape[1]
@@ -199,8 +222,65 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_block=512,
                 "bkgqs,bskd->bkgqd", p.to(vt.dtype).float(), vt.float())
             m = m_new
         outs.append(acc / torch.clamp(l, min=1e-20)[..., None])
+        lses.append(m + torch.log(torch.clamp(l, min=1e-20)))
     out = torch.cat(outs, dim=3)                   # (B, KV, G, Lq, D)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Lq, H, D).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Lq, H, D).to(q.dtype)
+    return out, torch.cat(lses, dim=3)
+
+
+def _flash_bwd_impl(q, k, v, out, lse, g, causal, window, qb, kb, qpos0):
+    """(dq, dk, dv) from the saved lse, block by block (the reference's
+    ``_flash_bwd``): p = exp(s - lse), exactly 0 where masked."""
+    B, Lq, H, D = q.shape
+    Lk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    q5 = q.reshape(B, Lq, KV, G, D)
+    g5 = g.reshape(B, Lq, KV, G, D)
+    delta = torch.sum(g5.float() * out.reshape(B, Lq, KV, G, D).float(),
+                      dim=-1).permute(0, 2, 3, 1)  # (B, KV, G, Lq)
+    lse_safe = torch.where(lse <= NEG_INF / 2, 0.0, lse)
+    dk = torch.zeros((B, Lk, KV, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    dqs = []
+    for q0 in range(0, Lq, qb):
+        qt = q5[:, q0:q0 + qb].float()
+        gt = g5[:, q0:q0 + qb].float()
+        nq = qt.shape[1]
+        qpos = qpos0 + q0 + torch.arange(nq, device=dev)
+        ls = lse_safe[..., q0:q0 + nq, None]
+        dl = delta[..., q0:q0 + nq, None]
+        dq = torch.zeros((B, nq, KV, G, D), dtype=torch.float32, device=dev)
+        for k0 in range(0, Lk, kb):
+            kt, vt = k[:, k0:k0 + kb].float(), v[:, k0:k0 + kb].float()
+            kpos = k0 + torch.arange(kt.shape[1], device=dev)
+            s = torch.einsum("bqkgd,bskd->bkgqs", qt, kt) * scale
+            p = torch.where(_tile_mask(qpos, kpos, causal, window),
+                            torch.exp(s - ls), 0.0)
+            dv[:, k0:k0 + kb] += torch.einsum("bkgqs,bqkgd->bskd", p, gt)
+            dp = torch.einsum("bqkgd,bskd->bkgqs", gt, vt)
+            ds = p * (dp - dl) * scale
+            dq += torch.einsum("bkgqs,bskd->bqkgd", ds, kt)
+            dk[:, k0:k0 + kb] += torch.einsum("bkgqs,bqkgd->bskd", ds, qt)
+        dqs.append(dq)
+    dq = torch.cat(dqs, dim=1).reshape(B, Lq, H, D)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, qb, kb, qpos0):
+        out, lse = _flash_fwd_impl(q, k, v, causal, window, qb, kb, qpos0)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.meta = (causal, window, qb, kb, qpos0)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, out, lse, g, *ctx.meta)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask, use_kernels=False):
@@ -307,8 +387,11 @@ def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
             v_att = torch.cat([cache["hv"], v], dim=1)
         if cfg.use_kernels:
             from repro_torch.kernels import ops as kops
-            o = kops.flash_attention(q, k_att, v_att, causal=True,
-                                     window=window)
+            if mode == "full":                      # training / scoring
+                o = kops.FlashAttention.apply(q, k_att, v_att, True, window)
+            else:
+                o = kops.flash_attention(q, k_att, v_att, causal=True,
+                                         window=window)
         else:
             o = flash_attention(q, k_att, v_att, causal=True, window=window,
                                 qpos0=k_att.shape[1] - q.shape[1])

@@ -6,7 +6,10 @@ tree paths as the reference, with the stacked leading ``layers`` axis);
 ``init_params`` materializes it; ``forward`` runs any of the three phases
 (``full`` train/eval, ``prefill``, ``decode``).  Where the reference scans
 the stacked layers, the port walks them with a Python loop over per-layer
-views, and it updates the KV cache in place.
+views, and it updates the KV cache in place.  Training checkpoints each
+layer when ``cfg.remat`` (the reference's ``jax.checkpoint`` of the scan
+body), and :func:`lm_loss` / :func:`per_token_logprobs` never build more
+than ``cfg.logit_chunk`` positions of logits at a time.
 
 Only dense attention layers are ported: SSM, cross-attention, MoE and MLA
 segments raise ``NotImplementedError``.
@@ -15,10 +18,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import modules as M
 from repro_torch.models.config import ATTN, ModelConfig
-from repro_torch.models.modules import ParamSpec, tree_leaves, tree_map
+from repro_torch.models.modules import (ParamSpec, tree_leaves, tree_map,
+                                        tree_unflatten)
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -113,8 +118,22 @@ def cast_params(cfg: ModelConfig, params):
 
 
 def _unstack(tree, n: int) -> list:
-    """Stacked-layer tree -> list of ``n`` per-layer trees of views."""
-    return [tree_map(lambda t: t[i], tree) for i in range(n)]
+    """Stacked-layer tree -> list of ``n`` per-layer trees of views: one
+    ``unbind`` per leaf, whose backward stacks the per-layer gradients
+    once (indexing each layer would add a zero-filled stacked gradient per
+    layer)."""
+    per_leaf = [t.unbind(0) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, [u[i] for u in per_leaf]) for i in range(n)]
+
+
+def _layer(cfg: ModelConfig, spec, lp, x, positions, mode, lc, rope):
+    win = spec.sliding_window or cfg.sliding_window
+    h = M.rmsnorm(x, lp["ln1"], cfg.rms_eps, cfg.use_kernels)
+    att, _ = M.attn_apply(cfg, lp["attn"], h, positions=positions, mode=mode,
+                          cache=lc, window=win, rope=rope)
+    x = x + att
+    h2 = M.rmsnorm(x, lp["ln2"], cfg.rms_eps, cfg.use_kernels)
+    return x + M.mlp_apply(lp["mlp"], h2, cfg)
 
 
 def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
@@ -138,22 +157,22 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
     if positions is None:
         positions = torch.arange(L, device=x.device)[None].expand(B, L)
     rope = M.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    # activation checkpointing: each layer's activations are recomputed in
+    # the backward instead of kept (the reference's jax.checkpoint)
+    remat = cfg.remat and mode == "full" and torch.is_grad_enabled()
     for si, seg in enumerate(cfg.segments()):
         layer_params = _unstack(params["segments"][si], seg.n_units)
         layer_caches = (_unstack(cache[si], seg.n_units)
                         if cache is not None else [None] * seg.n_units)
         for up, uc in zip(layer_params, layer_caches):
             for i, spec in enumerate(seg.unit_spec):
-                lp = up[i]
                 lc = uc[i] if uc is not None else None
-                win = spec.sliding_window or cfg.sliding_window
-                h = M.rmsnorm(x, lp["ln1"], cfg.rms_eps, cfg.use_kernels)
-                att, _ = M.attn_apply(cfg, lp["attn"], h, positions=positions,
-                                      mode=mode, cache=lc, window=win,
-                                      rope=rope)
-                x = x + att
-                h2 = M.rmsnorm(x, lp["ln2"], cfg.rms_eps, cfg.use_kernels)
-                x = x + M.mlp_apply(lp["mlp"], h2, cfg)
+                if remat:
+                    x = checkpoint(_layer, cfg, spec, up[i], x, positions,
+                                   mode, lc, rope, use_reentrant=False)
+                else:
+                    x = _layer(cfg, spec, up[i], x, positions, mode, lc,
+                               rope)
     x = M.rmsnorm(x, params["final_norm"], cfg.rms_eps, cfg.use_kernels)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, cache, aux
@@ -166,3 +185,48 @@ def lm_head(cfg: ModelConfig, params):
 
 def logits_fn(cfg: ModelConfig, params, hidden):
     return (hidden @ lm_head(cfg, params)).float()
+
+
+def _chunks(L: int, chunk: int):
+    chunk = min(chunk or L, L)
+    return [(c0, min(c0 + chunk, L)) for c0 in range(0, L, chunk)]
+
+
+def _nll_chunk(h, head, labels, mask):
+    """Summed masked NLL of one chunk of positions, and the mask's sum."""
+    logits = (h @ head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def lm_loss(cfg: ModelConfig, params, hidden, labels, mask):
+    """Chunked cross-entropy over ``cfg.logit_chunk`` positions at a time;
+    each chunk is checkpointed, so its (B, chunk, V) fp32 logits are
+    recomputed in the backward and never kept (vocabs reach 202k)."""
+    head = lm_head(cfg, params)
+    labels = labels.long()
+    mask = mask.float()
+    remat = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0, c1 in _chunks(hidden.shape[1], cfg.logit_chunk):
+        args = (hidden[:, c0:c1], head, labels[:, c0:c1], mask[:, c0:c1])
+        nll, m = (checkpoint(_nll_chunk, *args, use_reentrant=False)
+                  if remat else _nll_chunk(*args))
+        tot, cnt = tot + nll, cnt + m
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def per_token_logprobs(cfg: ModelConfig, params, hidden, labels):
+    """log p(labels | context) per position (B, L) fp32, chunked like
+    :func:`lm_loss`."""
+    head = lm_head(cfg, params)
+    labels = labels.long()
+    out = []
+    for c0, c1 in _chunks(hidden.shape[1], cfg.logit_chunk):
+        logits = (hidden[:, c0:c1] @ head).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, c0:c1, None])[..., 0]
+        out.append(gold - lse)
+    return torch.cat(out, dim=1)

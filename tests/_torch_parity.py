@@ -1,8 +1,11 @@
 """Helpers shared by the ``test_torch_*`` parity tests: matching config
-pairs, weights carried from the JAX package to the port through numpy, and
-a greedy JAX reference built from ``repro.models.transformer`` alone (the
+pairs, weights carried from the JAX package to the port through numpy, a
+greedy JAX reference built from ``repro.models.transformer`` alone (the
 reference's ``repro.serving`` does not import on Python 3.12: its
-``StepEvent`` has a numpy dataclass default)."""
+``StepEvent`` has a numpy dataclass default), and the reference's SFT loop
+built from ``repro.training`` and ``repro.data`` (its
+``repro.launch.train`` does not import either: it imports ``repro.core``).
+"""
 from __future__ import annotations
 
 import jax
@@ -11,7 +14,11 @@ import numpy as np
 import torch
 
 from repro import configs as jconfigs
+from repro.data import CopyTaskDataset, DataBlender, SortTaskDataset
 from repro.models import transformer as JT
+from repro.training import schedules as jschedules
+from repro.training.steps import lm_train_step as j_lm_train_step
+from repro.training.train_state import TrainState as JTrainState
 from repro_torch import configs as tconfigs
 from repro_torch.models import convert
 
@@ -67,3 +74,32 @@ def jax_greedy(jcfg, jparams, prompt, max_new: int, eos_id=None):
             jnp.asarray([[Lp + t]], jnp.int32))
         logits = logits_fn(jparams, hidden)[0, 0]
     return toks
+
+
+def state_pair(jparams):
+    """A fresh JAX TrainState and the same state in the port."""
+    jstate = JTrainState.create(jparams)
+    return jstate, convert.train_state_from_numpy(
+        jax.tree.map(np.asarray, jstate), "cpu")
+
+
+def jax_lm_loop(jcfg, jstate, *, steps, batch, seq, lr, seed=0, micro=1):
+    """The LM loop of ``repro/launch/train.py`` (lines 222-279: the copy +
+    sort blend, ``cosine_warmup(lr, steps // 10 + 1, steps)``, a jitted
+    ``lm_train_step``), from ``jstate``.  Returns (state, losses,
+    grad norms)."""
+    half = seq // 2
+    V = min(jcfg.vocab_size, 256)
+    ds = [CopyTaskDataset(10_000, half, seq - half, V, seed=1),
+          SortTaskDataset(10_000, half, seq - half, V, seed=2)]
+    bl = DataBlender(ds, seed=seed)
+    lr_fn = jschedules.cosine_warmup(lr, steps // 10 + 1, steps)
+    step = jax.jit(lambda s, b, lr: j_lm_train_step(jcfg, s, b, lr,
+                                                    micro=micro))
+    losses, gnorms = [], []
+    for i, b in enumerate(bl.sft_batches(batch, steps)):
+        jstate, m = step(jstate, {k: jnp.asarray(v) for k, v in b.items()},
+                         lr_fn(i))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    return jstate, losses, gnorms

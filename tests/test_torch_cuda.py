@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, and the serving
-path on the card against the same path on the CPU.  Needs an NVIDIA GPU
+and training paths on the card against the same paths on the CPU or the
+plain path.  Needs an NVIDIA GPU
 with nvcc (Hopper, sm_90a): marked ``cuda`` and skipped without one.  Run
 on the card with
 
@@ -14,6 +15,7 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 
 pytestmark = pytest.mark.cuda
@@ -120,4 +122,90 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
         outs[dev] = {c.uid: c.tokens.tolist() for c in eng.serve(
             p, reqs, torch.Generator(device=dev).manual_seed(0), slots=2)}
     assert outs["cpu"] == outs["cuda"]
-    assert all(n > 0 for n in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("rmsnorm", "flash_attention_fwd",
+                                       "decode_attention_fwd"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,Lq,Lk,window,D", [
+    (2, 1, 37, 37, None, 64), (3, 3, 50, 50, 17, 64),
+    (2, 3, 13, 70, None, 32), (1, 2, 33, 33, None, 128),
+    (2, 1, 130, 130, 40, 64)])
+def test_flash_lse_kernel_matches_plain(cuda, KV, G, Lq, Lk, window, D,
+                                        dtype):
+    q = _randn(cuda, (2, KV, G, Lq, D), dtype)
+    k = _randn(cuda, (2, KV, Lk, D), dtype)
+    lse = torch.empty((2, KV, G, Lq), device="cuda")
+    flash_attention_fwd(q, k, k, window=window, lse=lse)
+    want = ref.flash_attention_lse_ref(q, k, window=window)
+    assert (lse - want).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,Lq,Lk,window,D", [
+    (2, 1, 37, 37, None, 64), (3, 3, 50, 50, 17, 64),
+    (2, 3, 13, 70, None, 32), (1, 2, 33, 33, None, 128),
+    (2, 1, 130, 130, 40, 64), (1, 4, 100, 300, None, 64)])
+def test_flash_bwd_kernel_matches_plain(cuda, KV, G, Lq, Lk, window, D,
+                                        dtype):
+    """Through ``ops.FlashAttention`` in the model layout (strided views,
+    a non-contiguous dO): dq, dk, dv against the plain backward fed the
+    same lse and delta, relative to max |ref|."""
+    B = 2
+    q = _randn(cuda, (B, Lq, KV * G, D), dtype).requires_grad_()
+    k = _randn(cuda, (B, Lk, KV, D), dtype).requires_grad_()
+    v = _randn(cuda, (B, Lk, KV, D), dtype).requires_grad_()
+    dout = _randn(cuda, (B, KV * G, Lq, D), dtype).transpose(1, 2)
+    before = flash_attention_bwd.launches
+    out = ops.FlashAttention.apply(q, k, v, True, window)
+    out.backward(dout)
+    assert flash_attention_bwd.launches == before + 2
+    q5 = q.detach().unflatten(2, (KV, G)).permute(0, 2, 3, 1, 4)
+    k4, v4 = k.detach().transpose(1, 2), v.detach().transpose(1, 2)
+    do5 = dout.unflatten(2, (KV, G)).permute(0, 2, 3, 1, 4)
+    o5 = out.detach().unflatten(2, (KV, G)).permute(0, 2, 3, 1, 4)
+    lse = ref.flash_attention_lse_ref(q5, k4, window=window)
+    delta = (do5.float() * o5.float()).sum(-1)
+    wq, wk, wv = ref.flash_attention_bwd_ref(q5, k4, v4, do5, lse, delta,
+                                             window=window)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in ((q.grad.unflatten(2, (KV, G)).permute(0, 2, 3, 1, 4),
+                       wq), (k.grad.transpose(1, 2), wk),
+                      (v.grad.transpose(1, 2), wv)):
+        scale = want.float().abs().max().clamp(min=1e-6)
+        assert (got.float() - want.float()).abs().max() / scale <= tol
+
+
+def test_train_step_on_the_card_matches_the_plain_path(cuda):
+    """One reduced OPT-1.3B LM step in fp32: the kernel path (RMSNorm and
+    flash forward/backward kernels) against the plain path on the card,
+    and against the CPU; every training kernel launched."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import lm_data, to_device
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_leaves, tree_map
+    from repro_torch.training.steps import lm_value_and_grad
+
+    cfg = reduced(get_config("opt-1.3b")).replace(remat=True,
+                                                  logit_chunk=16)
+    params = T.init_params(cfg, torch.Generator().manual_seed(7))
+    batch = next(lm_data(cfg, 40, 0).sft_batches(4, 1))
+    runs = {}
+    ops.reset_launch_counts()
+    for name, dev, uk in (("kernels", "cuda", True), ("plain", "cuda", False),
+                          ("cpu", "cpu", True)):
+        (loss, _), grads = lm_value_and_grad(
+            cfg.replace(use_kernels=uk), tree_map(lambda t: t.to(dev),
+                                                  params),
+            to_device(batch, dev))
+        runs[name] = (float(loss), [g.cpu() for g in tree_leaves(grads)])
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("rmsnorm", "flash_attention_fwd",
+                                       "flash_attention_bwd"))
+    ref_loss, ref_grads = runs["kernels"]
+    for name in ("plain", "cpu"):
+        loss, grads = runs[name]
+        assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+        for a, b in zip(ref_grads, grads):
+            assert (a - b).abs().max() <= 1e-4 * b.abs().max().clamp(min=1e-9)

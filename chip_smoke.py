@@ -36,6 +36,25 @@ Phases (any failure raises, so the run exits non-zero):
    have launched); then one more step under ``torch.profiler`` for the
    device time by kernel; (c) 5 reward-model steps at OPT-350M, full width
    and depth, on ``DataBlender.reward_batches(8, ...)`` at seq 512.
+7. ``rlhf``    — the 3-stage pipeline (``repro_torch.core.RLHFPipeline``)
+   at full width and depth: OPT-1.3B actor and reference, OPT-350M critic
+   and reward model, bf16 compute on fp32 masters, the copy + sort blend
+   at 256 prompt + 256 response tokens, batch 8.  4 SFT steps, 4 RM steps,
+   3 PPO iterations generating 256 tokens on an int8 KV cache (ptx 0.05,
+   EMA on), then 1 iteration with a bf16 KV cache on the same trainer.
+   Per iteration: generation s and tok/s, scoring ms, actor and critic
+   step ms, ratio_mean, approx_kl, reward score, peak memory and launches
+   per kernel.  Fails unless every number is finite, the first ratio_mean
+   is 1 to 1e-3, the reference and reward checksums are unchanged by stage
+   3, and the int8 iterations launched the int8 decode kernel and never
+   the bf16 one (the bf16 iteration the reverse).  Then ``torch.profiler``
+   over 8 int8 decode steps and over scoring + one actor and critic step.
+
+The kernel phase also holds ``decode_attention_quant_fwd`` (int8 K/V with
+fp32 row scales) to its plain version at the PPO (B = 8) and serve (B = 16)
+shapes, with dequant-then-SDPA as a yardstick; the parity phase adds a
+greedy int8-KV decode of OPT-1.3B cut to 4 layers (kernel vs plain path),
+and the serve phase a ``--kv-quant`` run of the same workload.
 
 The last lines are the card's ``name, power.limit``, one JSON object with a
 row per kernel, and ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -55,7 +74,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("device", "build", "kernels", "parity", "serve", "train")
+PHASES = ("device", "build", "kernels", "parity", "serve", "train", "rlhf")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the time bound of a kernel is
 # the larger of bytes / memory rate and operations / peak rate for the type
@@ -73,11 +92,18 @@ KERNEL_META = {
     "decode_attention_fwd": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:77"),
+    "decode_attention_quant_fwd": (
+        "src/repro_torch/kernels/csrc/decode_attention_quant.cu",
+        "src/repro/kernels/decode_attention.py:162"),
 }
 
 # the kernels each main path must launch
 SERVE_KERNELS = ("rmsnorm", "flash_attention_fwd", "decode_attention_fwd")
+SERVE_INT8_KERNELS = ("rmsnorm", "flash_attention_fwd",
+                      "decode_attention_quant_fwd")
 TRAIN_KERNELS = ("rmsnorm", "flash_attention_fwd", "flash_attention_bwd")
+RLHF_KERNELS = ("rmsnorm", "flash_attention_fwd", "flash_attention_bwd",
+                "decode_attention_quant_fwd")
 
 
 def log(msg: str) -> None:
@@ -182,6 +208,20 @@ def _err(out, ref, rel: bool) -> float:
     return float(d.max())
 
 
+def _decode_valid(gen, B, S, lo):
+    """Decode masks ``(B, S)``: ``valid``, ragged with ``lo..S`` rows per
+    sequence (one full), the pattern that is timed and bounded; and
+    ``masked``, the same with sequence 0 fully masked (an idle slot, whose
+    answer is the mean of V), checked but not timed."""
+    import torch
+    n_valid = torch.randint(lo, S + 1, (B,), generator=gen, device="cuda")
+    n_valid[1] = S
+    valid = torch.arange(S, device="cuda")[None] < n_valid[:, None]
+    masked = valid.clone()
+    masked[0] = False
+    return valid, masked
+
+
 def phase_kernels(state):
     import torch
     import torch.nn.functional as F
@@ -202,7 +242,7 @@ def phase_kernels(state):
            ("bwd", "fp32"): 1e-4, ("bwd", "bf16"): 2e-2}
     failures = []
     log("kernels: rmsnorm, flash_attention_fwd (+ LSE), flash_attention_bwd, "
-        "decode_attention_fwd")
+        "decode_attention_fwd, decode_attention_quant_fwd")
 
     def record(name, label, dname, err, limit, k_ms, p_ms, lib_ms, bnd,
                main, abs_err=None):
@@ -384,27 +424,23 @@ def phase_kernels(state):
             q = _case_inputs(gen, (B, KV * G, D), dt)
             k_arena = _case_inputs(gen, (B, S, KV, D), dt)
             v_arena = _case_inputs(gen, (B, S, KV, D), dt)
-            n_valid = torch.randint(1, S + 1, (B,), generator=gen,
-                                    device="cuda")
-            n_valid[0] = 0                     # one fully masked row
-            n_valid[1] = S
-            valid = torch.arange(S, device="cuda")[None] < n_valid[:, None]
+            valid, masked = _decode_valid(gen, B, S, 1)
             q4 = q.unflatten(1, (KV, G))
             k4, v4 = k_arena.transpose(1, 2), v_arena.transpose(1, 2)
             out = decode_attention_fwd(q4, k4, v4, valid)
             r = ref.decode_attention_ref(q4, k4, v4, valid)
+            out_m = decode_attention_fwd(q4, k4, v4, masked)
+            r_m = ref.decode_attention_ref(q4, k4, v4, masked)
             torch.cuda.synchronize()
-            err = _err(out, r, rel=False)
+            err = max(_err(out, r, rel=False), _err(out_m, r_m, rel=False))
             mean_v = v4[0].float().mean(dim=1)            # (KV, D)
-            err_mean = _err(out[0].float(), mean_v[:, None].expand(KV, G, D),
-                            rel=False)
+            err_mean = _err(out_m[0].float(),
+                            mean_v[:, None].expand(KV, G, D), rel=False)
             if err_mean > tol[("attn", dname)]:
                 failures.append(f"decode {dname}: fully masked row is not "
                                 f"the mean of V (err {err_mean:.3g})")
             eb = q.element_size()
-            rows_needed = torch.where(n_valid > 0, n_valid,
-                                      torch.full_like(n_valid, S))
-            need = int(rows_needed.sum())
+            need = int(valid.sum())                 # valid rows, timed case
             bnd = bound(2 * B * KV * G * D * eb + B * S
                         + 2 * need * KV * D * eb,
                         4 * KV * G * D * need,
@@ -421,6 +457,71 @@ def phase_kernels(state):
                                                             valid)),
                    lib, bnd,
                    main=(KV, S, dname) == (32, 512, "bf16"))
+    # ---- int8 decode attention over the in-place int8 arena and its
+    # scale planes: PPO generation (B = 8), serve (B = 16), smollm's G = 3
+    from repro_torch.kernels.decode_attention import \
+        decode_attention_quant_fwd
+    from repro_torch.models.modules import _kv_quant
+    # PPO generation attends its 256 prompt rows and the tokens so far
+    for (B, KV, G, S, lo, model) in ((8, 32, 1, 512, 257, "opt-1.3b ppo"),
+                                     (16, 32, 1, 512, 1, "opt-1.3b serve"),
+                                     (16, 3, 3, 512, 1, "smollm-135m")):
+        D = 64
+        for dname, dt in dtypes.items():
+            q = _case_inputs(gen, (B, KV * G, D), dt)
+            k_arena, k_sc = _kv_quant(_case_inputs(gen, (B, S, KV, D), dt))
+            v_arena, v_sc = _kv_quant(_case_inputs(gen, (B, S, KV, D), dt))
+            valid, masked = _decode_valid(gen, B, S, lo)
+            q4 = q.unflatten(1, (KV, G))
+            k4, v4 = k_arena.transpose(1, 2), v_arena.transpose(1, 2)
+            ks3, vs3 = k_sc.transpose(1, 2), v_sc.transpose(1, 2)
+            out = decode_attention_quant_fwd(q4, k4, v4, ks3, vs3, valid)
+            r = ref.decode_attention_quant_ref(q4, k4, v4, ks3, vs3, valid)
+            out_m = decode_attention_quant_fwd(q4, k4, v4, ks3, vs3, masked)
+            r_m = ref.decode_attention_quant_ref(q4, k4, v4, ks3, vs3,
+                                                 masked)
+            torch.cuda.synchronize()
+            scale = float(r.float().abs().max())
+            err = max(_err(out, r, rel=False),           # of max |plain|
+                      _err(out_m, r_m, rel=False)) / scale
+            mean_v = (v4[0].float() * vs3[0][..., None]).mean(dim=1)
+            err_mean = _err(out_m[0].float(),
+                            mean_v[:, None].expand(KV, G, D),
+                            rel=False) / scale
+            if err_mean > tol[("attn", dname)]:
+                failures.append(f"decode int8 {dname}: fully masked row is "
+                                f"not the mean of V (err {err_mean:.3g})")
+            eb = q.element_size()
+            need = int(valid.sum())                 # valid rows, timed case
+            bnd = bound(2 * B * KV * G * D * eb + B * S
+                        + need * KV * (2 * D + 8),
+                        4 * KV * G * D * need,
+                        "bf16" if dname == "bf16" else "fp32")
+            qs = q.unflatten(1, (KV * G, 1))               # (B, H, 1, D)
+            mask = valid[:, None, None, :]
+
+            def dequant_sdpa():
+                kf = (k4.float() * ks3[..., None]).to(dt)
+                vf = (v4.float() * vs3[..., None]).to(dt)
+                return F.scaled_dot_product_attention(
+                    qs, kf, vf, attn_mask=mask, enable_gqa=G > 1)
+
+            yard = time_ms(dequant_sdpa)
+            label = f"{model} B={B} KV={KV} G={G} S={S} valid {lo}-{S}"
+            record("decode_attention_quant_fwd", label, dname, err,
+                   tol[("attn", dname)],
+                   time_ms(lambda: decode_attention_quant_fwd(
+                       q4, k4, v4, ks3, vs3, valid)),
+                   time_ms(lambda: ref.decode_attention_quant_ref(
+                       q4, k4, v4, ks3, vs3, valid)),
+                   None, bnd, main=(B, KV, dname) == (8, 32, "bf16"),
+                   abs_err=max(_err(out, r, rel=False),
+                               _err(out_m, r_m, rel=False)))
+            log(f"[kernels] decode_attention_quant_fwd {label} {dname}: "
+                f"dequant-then-SDPA yardstick {yard:.4f} ms (no library "
+                f"call computes int8 decode)")
+            if (B, KV, dname) == (8, 32, "bf16"):
+                rows["decode_attention_quant_fwd"]["yardstick_ms"] = yard
     state["kernel_rows"] = rows
     if failures:
         raise AssertionError("kernel checks failed:\n" + "\n".join(failures))
@@ -430,6 +531,7 @@ def phase_parity(state):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_map
     from repro_torch.serving.generate import decode_step, prefill
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -467,6 +569,89 @@ def phase_parity(state):
     torch.cuda.empty_cache()
     if rel > 1e-4:
         raise AssertionError(f"parity: relative logit error {rel:.3g}")
+
+    # int8 KV: OPT-1.3B at full width cut to 4 layers, fp32, greedy decode
+    # of 32 tokens on the int8 arena, kernel path vs plain path (each path
+    # picks its own tokens).  The paths' K/V rows differ by ~1e-7 before
+    # the first quantization; values on a rounding edge land one int8 step
+    # apart, and each such step moves later layers' rows further.  So the
+    # decode math is held at 1e-4 on one shared cache (the witness below),
+    # and the free-running gap to the int8 cache's own error (the plain
+    # path with an fp32 cache, teacher-forced on the same tokens): at most
+    # a tenth of it, with the tokens identical and no value more than one
+    # step off
+    cfg = get_config("opt-1.3b").replace(n_layers=4, compute_dtype="float32",
+                                         kv_quant=True)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
+    prompt = torch.randint(0, cfg.vocab_size, (1, Lp), generator=gen,
+                           device="cuda")
+    runs = {}
+    for name, c, forced in (
+            ("kernel", cfg, None),
+            ("plain", cfg.replace(use_kernels=False), None),
+            ("plain-fp32-cache",
+             cfg.replace(use_kernels=False, kv_quant=False), "plain")):
+        cache = T.init_cache(c, 1, Lp + n_dec, device="cuda")
+        lg, cache = prefill(c, params, prompt, cache)
+        steps, toks = [lg], []
+        for t in range(n_dec):
+            tok = lg.argmax(-1) if forced is None else runs[forced][1][t:t + 1]
+            toks.append(tok)
+            pos = torch.full((1,), Lp + t, dtype=torch.long, device="cuda")
+            lg, cache = decode_step(c, params, tok, cache, pos)
+            steps.append(lg)
+        runs[name] = (torch.cat(steps).float(), torch.cat(toks), cache)
+    (a, ta, kcache), (b, tb, pcache) = runs["kernel"], runs["plain"]
+    ca, cb = kcache[0][0], pcache[0][0]
+    fp = runs["plain-fp32-cache"][0]
+    # witness: each decode step again, both paths from one cache (the
+    # kernel path's own int8 rows, cloned per path and step), so only the
+    # decode math differs; held to 1e-4 relative like the fp32 parity
+    wit = {True: [], False: []}
+    for t in range(n_dec):
+        pos = torch.full((1,), Lp + t, dtype=torch.long, device="cuda")
+        for use_kernels in (True, False):
+            lg, _ = decode_step(cfg.replace(use_kernels=use_kernels), params,
+                                ta[t:t + 1], tree_map(torch.clone, kcache),
+                                pos)
+            wit[use_kernels].append(lg.float())
+    wa, wb = torch.cat(wit[True]), torch.cat(wit[False])
+    rel_wit = float((wa - wb).abs().max() / wb.abs().max())
+    wit_same = bool(torch.equal(wa.argmax(-1), wb.argmax(-1)))
+    if ca["k"].dtype != torch.int8:
+        raise AssertionError("parity: the int8 run did not use an int8 "
+                             "cache")
+    rel8 = float((a - b).abs().max() / b.abs().max())
+    quant_err = float((b - fp).abs().max() / fp.abs().max())
+    same = bool(torch.equal(ta, tb))
+    steps_apart = max(int((ca[n].int() - cb[n].int()).abs().max())
+                      for n in ("k", "v"))
+    n_diff = sum(int((ca[n] != cb[n]).sum()) for n in ("k", "v"))
+    n_all = ca["k"].numel() + ca["v"].numel()
+    log(f"[parity] opt-1.3b 4 layers fp32, int8 KV, {n_dec} decode steps "
+        f"from one int8 cache (the kernel path's): kernel vs plain "
+        f"max|dlogits|/max|logits| = {rel_wit:.3g} (tol 1e-4), argmax "
+        f"identical: {wit_same}")
+    log(f"[parity] opt-1.3b 4 layers fp32, int8 KV, {Lp} prefill + {n_dec} "
+        f"greedy steps: kernel vs plain path max|dlogits|/max|logits| = "
+        f"{rel8:.3g}; int8 cache vs fp32 cache (plain path) {quant_err:.3g}; "
+        f"gap / int8 error = {rel8 / quant_err:.3g} (tol 0.1); tokens "
+        f"identical: {same}; int8 rows: {n_diff} of {n_all} values differ, "
+        f"by at most {steps_apart} step (tol 1)")
+    state["parity_int8"] = {"rel": rel8, "quant_err": quant_err,
+                            "n_diff": n_diff, "n_all": n_all,
+                            "rel_one_cache": rel_wit}
+    del params, cache, runs, ca, cb, kcache, pcache, wit, wa, wb
+    torch.cuda.empty_cache()
+    if not (torch.isfinite(a).all() and wit_same and rel_wit <= 1e-4):
+        raise AssertionError(f"parity: int8 KV decode from one cache: "
+                             f"kernel vs plain rel {rel_wit:.3g} (tol 1e-4),"
+                             f" argmax identical {wit_same}")
+    if not (same and steps_apart <= 1 and rel8 <= 0.1 * quant_err):
+        raise AssertionError(f"parity: int8 KV kernel path vs plain path: "
+                             f"rel {rel8:.3g} vs int8 error {quant_err:.3g}, "
+                             f"tokens identical {same}, {n_diff} int8 values "
+                             f"differ by up to {steps_apart}")
 
 
 def phase_serve(state):
@@ -542,6 +727,24 @@ def phase_serve(state):
         if not all(0 <= t < cfg.vocab_size for t in got):
             raise AssertionError(f"serve: request {r.uid} token out of range")
     state.setdefault("launches", {})["serve"] = counts
+
+    # the same workload on the int8 arena
+    argv8 = argv + ["--kv-quant"]
+    log(f"[serve] python -m repro_torch.launch.serve {' '.join(argv8)}")
+    ops.reset_launch_counts()
+    res8 = serve.main(argv8)
+    counts8 = ops.launch_counts()
+    log(f"[serve] opt-1.3b bf16, int8 KV: {res8['tokens']} tokens in "
+        f"{res8['seconds']:.3f}s = {res8['tok_s']:.1f} tok/s (bf16 KV above: "
+        f"{res['tok_s']:.1f}), stats {res8['stats']}")
+    log(f"[serve] kernel launches during the int8 run: {counts8}")
+    missing = [k for k in SERVE_INT8_KERNELS if counts8[k] == 0]
+    if missing or counts8["decode_attention_fwd"]:
+        raise AssertionError(f"serve --kv-quant: launches {counts8}")
+    if res8["tokens"] != res["tokens"]:
+        raise AssertionError("serve --kv-quant: the run lost tokens")
+    state["launches"]["serve_int8"] = counts8
+    state["serve"] = {"tok_s": res["tok_s"], "tok_s_int8": res8["tok_s"]}
 
     argv = ["--arch", "smollm-135m", "--requests", "8", "--ragged",
             "--prompt-len", "64", "--max-new", "32", "--batch", "4",
@@ -750,9 +953,199 @@ def phase_train(state):
         raise AssertionError(f"train: reward losses not finite: {rlosses}")
 
 
+def _checksum(params) -> float:
+    """A float64 sum over every leaf, to show a frozen model did not move."""
+    import torch
+    from repro_torch.models.modules import tree_leaves
+    return float(sum(t.double().sum() for t in tree_leaves(params)))
+
+
+def phase_rlhf(state):
+    import math
+
+    import torch
+    from repro_torch import to_device
+    from repro_torch.configs import get_config
+    from repro_torch.core import (PPOConfig, RLHFEngine, RLHFPipeline,
+                                  StageConfig)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import lm_data
+    from repro_torch.serving.engine import GenerationEngine
+
+    # the paper's single-GPU recipe at full width and depth: OPT-1.3B actor
+    # and reference, OPT-350M critic and reward model, bf16 compute on fp32
+    # masters; 256 prompt + 256 generated tokens on the copy + sort blend
+    actor, critic = get_config("opt-1.3b"), get_config("opt-350m")
+    bl = lm_data(actor, 512, 0)
+    stages = StageConfig(sft_steps=4, sft_batch=8, rm_steps=4, rm_batch=8,
+                         ppo_steps=3, ppo_batch=8)
+    ppo = PPOConfig(max_new_tokens=256, temperature=1.0, ptx_coef=0.05,
+                    use_ema=True, kv_quant=True)
+    torch.cuda.reset_peak_memory_stats()
+    eng = RLHFEngine(actor, critic,
+                     torch.Generator(device="cuda").manual_seed(0))
+    pipe = RLHFPipeline(eng, bl, stages, ppo)
+    log(f"[rlhf] actor {actor.name} ({actor.n_params() / 1e9:.2f} B), "
+        f"critic/reward {critic.name} ({critic.n_params() / 1e9:.2f} B); "
+        f"SFT {stages.sft_steps} steps, RM {stages.rm_steps} steps, PPO "
+        f"{stages.ppo_steps} iterations with int8 KV + 1 with bf16 KV; "
+        f"batch 8, 256 + 256 tokens, ptx 0.05, EMA on")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pipe.run_sft()
+    pipe.run_reward()
+    log(f"[rlhf] stage 1 (SFT): {pipe.timings['stage1']:.2f}s, losses "
+        f"{' '.join(f'{x:.4f}' for x in pipe.log['stage1'])}, step ms "
+        f"{' '.join(f'{x:.1f}' for x in pipe.step_ms['stage1'])}")
+    log(f"[rlhf] stage 2 (RM): {pipe.timings['stage2']:.2f}s, losses "
+        f"{' '.join(f'{x:.4f}' for x in pipe.log['stage2'])}, acc "
+        f"{' '.join(f'{x:.3f}' for x in pipe.rm_acc)}, step ms "
+        f"{' '.join(f'{x:.1f}' for x in pipe.step_ms['stage2'])}")
+    log(f"[rlhf] peak memory over stages 1-2: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    frozen = {"ref": _checksum(eng.ref_params),
+              "reward": _checksum(eng.reward_params)}
+
+    snaps, peaks = [], []
+
+    def iter_hook(i):
+        # launches and peak memory per iteration, read at the next hook
+        if snaps:
+            peaks.append(torch.cuda.max_memory_allocated())
+        snaps.append(ops.launch_counts())
+        torch.cuda.reset_peak_memory_stats()
+
+    pipe.iter_hook = iter_hook
+    pipe.run_ppo()
+    peaks.append(torch.cuda.max_memory_allocated())
+    snaps.append(ops.launch_counts())
+    trainer = pipe.trainer
+    iters = [dict(m, kv="int8") for m in pipe.log["stage3"]]
+
+    # one more iteration on the same trainer with a bf16 KV cache
+    trainer.gen_engine = GenerationEngine(
+        actor, max_new_tokens=ppo.max_new_tokens,
+        temperature=ppo.temperature, chunk=ppo.decode_chunk, device="cuda")
+    batch = next(bl.prompt_batches(8, 4, skip=3))
+    ptx = to_device(next(bl.pretrain_batches(8, 4, skip=3)), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    exp, gm = trainer.generate_experience(
+        batch["prompts"], torch.Generator(device="cuda").manual_seed(7))
+    tm = trainer.train_rlhf(exp, ptx)
+    peaks.append(torch.cuda.max_memory_allocated())
+    snaps.append(ops.launch_counts())
+    iters.append(dict(gm, **tm, kv="bf16"))
+    total = ops.launch_counts()
+    state.setdefault("launches", {})["rlhf"] = total
+    wall = time.perf_counter() - t0
+
+    failures = []
+    for i, m in enumerate(iters):
+        launches = {k: snaps[i + 1][k] - snaps[i][k] for k in total}
+        m["launches"] = launches
+        m["peak_gib"] = peaks[i] / 2**30
+        log(f"[rlhf] PPO iteration {i} ({m['kv']} KV): gen {m['gen_s']:.2f}s "
+            f"= {m['gen_tok_s']:.1f} tok/s ({m['decode_steps']:.0f} decode "
+            f"steps), scoring {m['score_ms']:.1f} ms, actor step "
+            f"{m['actor_ms']:.1f} ms, critic step {m['critic_ms']:.1f} ms; "
+            f"ratio_mean {m['ratio_mean']:.6f} approx_kl "
+            f"{m['approx_kl']:.3g} reward_score {m['reward_score']:.4f} "
+            f"actor_loss {m['actor_loss']:.4f} ptx_loss {m['ptx_loss']:.4f} "
+            f"v_loss {m['v_loss']:.4f}; peak {m['peak_gib']:.2f} GiB")
+        log(f"[rlhf]   launches: {launches}")
+        nums = [v for k, v in m.items() if isinstance(v, float)]
+        if not all(math.isfinite(v) for v in nums):
+            failures.append(f"iteration {i}: non-finite metric")
+        used, unused = (("decode_attention_quant_fwd", "decode_attention_fwd")
+                        if m["kv"] == "int8" else
+                        ("decode_attention_fwd", "decode_attention_quant_fwd"))
+        if launches[used] == 0 or launches[unused] != 0:
+            failures.append(f"iteration {i} ({m['kv']} KV): launches "
+                            f"{launches}")
+    if abs(iters[0]["ratio_mean"] - 1.0) > 1e-3:
+        failures.append(f"first ratio_mean {iters[0]['ratio_mean']} != 1")
+    after = {"ref": _checksum(trainer.ref_params),
+             "reward": _checksum(trainer.reward_params)}
+    log(f"[rlhf] checksums before stage 3 {frozen}, after {after}")
+    if after != frozen:
+        failures.append("the frozen reference or reward model moved")
+    if _checksum(trainer.actor.params) == _checksum(eng.ref_params):
+        failures.append("the actor did not move")
+    missing = [k for k in RLHF_KERNELS if total[k] == 0]
+    if missing:
+        failures.append(f"kernels never launched: {missing}")
+    log(f"[rlhf] pipeline {wall:.1f}s; stage 3 (3 int8 iterations) "
+        f"{pipe.timings['stage3']:.1f}s, gen {pipe.gen_tok_s:.1f} tok/s "
+        f"mean; peak memory over the phase "
+        f"{max(peaks) / 2**30:.2f} GiB; launches {total}")
+    state["rlhf"] = {"iters": iters, "timings": dict(pipe.timings),
+                     "step_ms": pipe.step_ms}
+
+    # where the time goes: device time by kernel over 8 decode steps of
+    # the int8 generation, and over scoring + actor + critic step
+    from repro_torch.serving.generate import decode_step, prefill
+    from repro_torch.models import transformer as T
+    gen_cfg = actor.replace(kv_quant=True)
+    params = T.cast_params(gen_cfg, trainer.actor.params)
+    toks = torch.as_tensor(batch["prompts"], device="cuda").long()
+    cache = T.init_cache(gen_cfg, 8, 512, device="cuda")
+    lg, cache = prefill(gen_cfg, params, toks, cache)
+    tok = lg.argmax(-1)
+    pos = torch.full((8,), 256, dtype=torch.long, device="cuda")
+
+    def eight_steps():
+        for t in range(8):
+            decode_step(gen_cfg, params, tok, cache, pos + t)
+
+    eight_steps()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eight_steps()
+    torch.cuda.synchronize()
+    dec_wall = (time.perf_counter() - t1) * 1e3
+    from repro_torch.core import RolloutBatch
+    resp = torch.cat([torch.zeros_like(exp.mask[:, :1], dtype=torch.bool),
+                      exp.mask > 0], dim=1)
+    rollout = RolloutBatch(sequences=exp.sequences, response_mask=resp)
+
+    def score_train():
+        trainer.train_rlhf(trainer.score_rollout(rollout)[0], ptx)
+
+    for name, fn, kinds, wall_ms in (
+            ("8 int8 decode steps", eight_steps,
+             ("decode_quant", "rmsnorm", "flash"), dec_wall),
+            ("scoring + actor + critic step", score_train,
+             ("flash_bwd", "flash_fwd", "rmsnorm", "decode"), None)):
+        if wall_ms is None:             # unprofiled run: a fault fails
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+        try:
+            prof = _profile_step(fn, kernels=kinds)
+        except Exception as e:          # the profiler only, not a check
+            prof = None
+            log(f"[rlhf] torch.profiler failed: {e!r}")
+        if prof is None:
+            continue
+        total_ms, buckets, top = prof
+        log(f"[rlhf] {name}: {wall_ms:.1f} ms host clock, {total_ms:.1f} ms "
+            f"of kernel time (torch.profiler); device idle "
+            f"~{max(0.0, 1 - total_ms / wall_ms):.1%}; by kind: " + ", ".join(
+                f"{k} {v:.2f} ms ({v / total_ms:.1%})"
+                for k, v in buckets.items()))
+        for kname, ms in top[:6]:
+            log(f"[rlhf]   {ms:9.3f} ms  {kname[:100]}")
+    del params, cache, trainer, pipe, eng, exp
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("rlhf: " + "; ".join(failures))
+
+
 PHASE_FNS = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "parity": phase_parity,
-             "serve": phase_serve, "train": phase_train}
+             "serve": phase_serve, "train": phase_train, "rlhf": phase_rlhf}
 
 
 def main() -> int:
@@ -801,6 +1194,8 @@ def main() -> int:
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"),
             "library_ms": row.get("library_ms"),
+            **({"yardstick_ms": row["yardstick_ms"]}
+               if "yardstick_ms" in row else {}),
         })
     print(state.get("smi") or nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))

@@ -32,4 +32,16 @@ def resolve_device(device=None) -> torch.device:
     raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
 
 
-__all__ = ["resolve_device"]
+def to_device(batch: dict, device) -> dict:
+    """A batch of numpy arrays as tensors on ``device`` (token ids and
+    other integers as int64)."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(v)
+        if not torch.is_floating_point(t):
+            t = t.long()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+__all__ = ["resolve_device", "to_device"]

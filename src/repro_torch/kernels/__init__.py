@@ -8,7 +8,8 @@ and a plain PyTorch version in ``ref.py``:
 - ``rmsnorm``          — fused normalization (bandwidth-bound)
 - ``flash_attention``  — prefill attention, online softmax in registers
 - ``decode_attention`` — single-token GQA attention over the dense KV arena,
-                         read in place
+                         read in place, with bf16/fp32 or int8 K/V
+                         (``decode_attention_quant_fwd``)
 
 ``ops.py`` adapts the model's layout and dispatches on the tensors' device.
 """

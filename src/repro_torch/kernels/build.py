@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("rmsnorm", "flash_attention", "flash_attention_bwd",
-           "decode_attention")
+           "decode_attention", "decode_attention_quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # dtype codes of csrc/common.cuh (repro::DtypeCode)

@@ -34,6 +34,7 @@ KERNELS = {
     "flash_attention_fwd": _fa.flash_attention_fwd,
     "flash_attention_bwd": _fab.flash_attention_bwd,
     "decode_attention_fwd": _dec.decode_attention_fwd,
+    "decode_attention_quant_fwd": _dec.decode_attention_quant_fwd,
 }
 
 
@@ -114,6 +115,20 @@ def decode_attention(q, k_cache, v_cache, valid):
                               k_cache.transpose(1, 2),
                               v_cache.transpose(1, 2), valid,
                               out=out.unflatten(1, (KV, G)))
+    return out
+
+
+def decode_attention_quant(q, k_cache, v_cache, k_scale, v_scale, valid):
+    """Int8-KV decode.  q: (B, H, D); caches: (B, S, KV, D) int8 and
+    scales (B, S, KV) fp32, all read in place; valid: (B, S)."""
+    B, H, D = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    _dec.decode_attention_quant_fwd(
+        q.unflatten(1, (KV, G)), k_cache.transpose(1, 2),
+        v_cache.transpose(1, 2), k_scale.transpose(1, 2),
+        v_scale.transpose(1, 2), valid, out=out.unflatten(1, (KV, G)))
     return out
 
 

@@ -98,6 +98,22 @@ def decode_attention_ref(q, k_cache, v_cache, valid):
     return o.to(q.dtype)
 
 
+def decode_attention_quant_ref(q, k_cache, v_cache, k_scale, v_scale,
+                               valid):
+    """Decode over an int8 cache.  q: (B, KV, G, D) fp; caches: (B, KV, S,
+    D) int8; scales: (B, KV, S) fp32; valid: (B, S) bool.  The scales
+    multiply the score and probability matrices (the kernel's algebra),
+    never a dequantized K/V copy."""
+    D = q.shape[-1]
+    s = torch.einsum("bkgd,bksd->bkgs", q.float(),
+                     k_cache.float()) / math.sqrt(D)
+    s = s * k_scale.float()[:, :, None, :]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1) * v_scale.float()[:, :, None, :]
+    o = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
+    return o.to(q.dtype)
+
+
 def rmsnorm_ref(x, w, eps=1e-5):
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)

@@ -26,10 +26,14 @@ request per line and per-request sampling fields::
 
 ``--chat`` drops into a toy conversation loop on one persistent core.
 
+``--kv-quant`` stores the dense arena's K/V rows as int8 with per-(token,
+kv-head) fp32 absmax scales; decode attention then runs the int8 kernel,
+which dequantizes on the score and probability tiles.
+
 Runs on CUDA; ``--device cpu`` runs on the CPU with the kernels' plain
 versions.  Weights are random, drawn from ``--seed``.  The reference's
-``--kv-layout paged``, ``--kv-quant``, ``--prefix-cache on``, ``--mesh``
-and ``--ckpt`` are not ported yet and are refused.
+``--kv-layout paged``, ``--prefix-cache on``, ``--mesh`` and ``--ckpt``
+are not ported yet and are refused.
 """
 from __future__ import annotations
 
@@ -196,7 +200,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--num-blocks", type=int, default=None)
     ap.add_argument("--watermark", type=int, default=None)
-    ap.add_argument("--kv-quant", action="store_true")
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV cache: K/V rows stored as int8 with "
+                         "per-(token, kv-head) fp32 absmax scales")
     ap.add_argument("--prefix-cache", choices=["on", "off"], default="off")
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--temperature", type=float, default=0.8)
@@ -215,7 +221,6 @@ def main(argv=None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
     for flag, refused in (("--kv-layout paged", args.kv_layout == "paged"),
-                          ("--kv-quant", args.kv_quant),
                           ("--prefix-cache on", args.prefix_cache == "on"),
                           ("--mesh", args.mesh is not None),
                           ("--ckpt", args.ckpt is not None)):
@@ -231,6 +236,8 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.kv_quant:
+        cfg = cfg.replace(kv_quant=True)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.init_params(cfg, gen)
 
@@ -262,7 +269,8 @@ def main(argv=None) -> dict:
         torch.Generator(device=device).manual_seed(args.seed + 1),
         **sched_kw)
     util = n_tok / max(stats["scheduled_tokens"], 1)
-    print(f"scheduler={args.scheduler}  kv={args.kv_layout}  "
+    kv = args.kv_layout + ("-int8" if args.kv_quant else "")
+    print(f"scheduler={args.scheduler}  kv={kv}  "
           f"requests={len(reqs)}  "
           f"generated {n_tok} tokens in {dt:.3f}s  ({n_tok / dt:.1f} tok/s, "
           f"slot utilization {util:.1%})")

@@ -93,7 +93,7 @@ class ModelConfig:
     embed_inputs: bool = True          # False -> inputs are embeddings
 
     # --- numerics / misc ---
-    kv_quant: bool = False             # int8 KV cache (not yet ported)
+    kv_quant: bool = False             # int8 KV cache + fp32 row scales
     tie_embeddings: bool = False
     rms_eps: float = 1e-5
     param_dtype: str = "float32"

@@ -17,8 +17,9 @@ jnp path.
 
 The reference's sharding helpers (``wgather``, ``constrain_batch``,
 ``opt_barrier``) are no-ops on this single-device path and are dropped.
-The paged and int8-KV branches of :func:`attn_apply` are not ported yet and
-raise ``NotImplementedError``.
+The dense int8 KV cache (``cfg.kv_quant``: int8 K/V rows plus fp32
+per-row scale planes) is ported; the paged branch of :func:`attn_apply` and
+an int8 prefix history are not yet, and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -306,6 +307,46 @@ def decode_attention(q, k_cache, v_cache, valid_mask, use_kernels=False):
     return o.reshape(B, H, D).to(q.dtype)
 
 
+def _kv_quant(x):
+    """absmax int8 quantization over the head dim.
+    x: (..., hd) -> (int8 (..., hd), fp32 scale (...,)).
+
+    The scale is *floored* at 1e-8 (a guard for all-zero rows), not
+    inflated by an additive epsilon, as in the reference; ``torch.round``
+    rounds half to even, like ``jnp.round``."""
+    x32 = x.float()
+    scale = torch.clamp(x32.abs().amax(dim=-1) / 127.0, min=1e-8)
+    xi = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return xi.to(torch.int8), scale
+
+
+def decode_attention_quant(q, k_i8, v_i8, k_scale, v_scale, valid_mask,
+                           use_kernels=False):
+    """Single-token attention over an int8 KV cache.  The per-row scales
+    multiply the score and probability matrices, never a dequantized copy
+    of the cache (the probabilities stay fp32: unlike
+    :func:`decode_attention`, they are not cast to the cache dtype).
+
+    q: (B, H, D); k_i8/v_i8: (B, S, KV, D) int8; scales: (B, S, KV) fp32;
+    valid_mask: (B, S) bool.  Returns (B, H, D)."""
+    if use_kernels:
+        from repro_torch.kernels import ops as kops
+        return kops.decode_attention_quant(q, k_i8, v_i8, k_scale, v_scale,
+                                           valid_mask)
+    B, H, D = q.shape
+    KV = k_i8.shape[2]
+    G = H // KV
+    qs = q.reshape(B, KV, G, D)
+    s = torch.einsum("bkgd,bskd->bkgs", qs.float(),
+                     k_i8.float()) / math.sqrt(D)
+    s = s * k_scale.permute(0, 2, 1)[:, :, None, :]          # (B,KV,1,S)
+    s = torch.where(valid_mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    pv = p * v_scale.permute(0, 2, 1)[:, :, None, :]
+    o = torch.einsum("bkgs,bskd->bkgd", pv, v_i8.float())
+    return o.reshape(B, H, D).to(q.dtype)
+
+
 # ===================================================================== #
 # GQA attention layer (qk-norm, sliding window, ring-buffer cache)
 # ===================================================================== #
@@ -325,11 +366,15 @@ def attn_specs(cfg: ModelConfig) -> dict:
 
 def attn_cache_shape(cfg: ModelConfig, batch: int, max_len: int,
                      window: Optional[int]):
-    if cfg.kv_quant:
-        raise NotImplementedError("int8 KV cache: not yet ported")
+    """Per-layer arena shapes; with ``cfg.kv_quant`` the int8 K/V rows
+    carry fp32 ``k_scale``/``v_scale`` planes (batch, S, KV)."""
     S = max_len if window is None else min(window, max_len)
-    return dict(k=(batch, S, cfg.n_kv_heads, cfg.head_dim),
-                v=(batch, S, cfg.n_kv_heads, cfg.head_dim))
+    out = dict(k=(batch, S, cfg.n_kv_heads, cfg.head_dim),
+               v=(batch, S, cfg.n_kv_heads, cfg.head_dim))
+    if cfg.kv_quant:
+        out["k_scale"] = (batch, S, cfg.n_kv_heads)
+        out["v_scale"] = (batch, S, cfg.n_kv_heads)
+    return out
 
 
 def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
@@ -337,17 +382,16 @@ def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
     """mode: 'full' (train / full prefill) | 'prefill' (also fills cache) |
     'decode' (x is (B,1,D), cache holds history).
 
-    ``cache`` holds this layer's ``k``/``v`` arena views ``(B, S, KV, hd)``.
-    Where the reference rebuilds the (donated) arena with ``.at[].set``,
-    the port writes the new rows into it in place and returns the same
-    dict.  A prefill cache may also carry a read-only history
-    (``hk``/``hv``) that the current tokens attend to but never rewrite.
-    ``rope`` is :func:`rope_cos_sin` of ``positions`` when the caller
-    shares it across layers."""
+    ``cache`` holds this layer's ``k``/``v`` arena views ``(B, S, KV, hd)``
+    (int8 with fp32 ``k_scale``/``v_scale`` planes ``(B, S, KV)`` under
+    ``cfg.kv_quant``).  Where the reference rebuilds the (donated) arena
+    with ``.at[].set``, the port writes the new rows into it in place and
+    returns the same dict.  A prefill cache may also carry a read-only
+    history (``hk``/``hv``) that the current tokens attend to but never
+    rewrite.  ``rope`` is :func:`rope_cos_sin` of ``positions`` when the
+    caller shares it across layers."""
     if block_tables is not None:
         raise NotImplementedError("paged KV cache: not yet ported")
-    if cfg.kv_quant:
-        raise NotImplementedError("int8 KV cache: not yet ported")
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, -1, H, hd)
@@ -367,14 +411,25 @@ def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
         pos = positions[:, 0]                       # (B,)
         slot = pos % S                              # ring-buffer slot
         rows = torch.arange(B, device=x.device)
-        # in place: the arena row of each sequence gets its new K/V
-        cache["k"][rows, slot] = k[:, 0]
-        cache["v"][rows, slot] = v[:, 0]
         n_valid = torch.clamp(pos + 1, max=S)
         valid = (torch.arange(S, device=x.device)[None, :]
                  < n_valid[:, None])
-        o = decode_attention(q[:, 0], cache["k"], cache["v"], valid,
-                             use_kernels=cfg.use_kernels)
+        # in place: the arena row of each sequence gets its new K/V
+        if cfg.kv_quant:
+            ki, ks = _kv_quant(k[:, 0])             # (B,KV,hd), (B,KV)
+            vi, vs = _kv_quant(v[:, 0])
+            cache["k"][rows, slot] = ki
+            cache["v"][rows, slot] = vi
+            cache["k_scale"][rows, slot] = ks
+            cache["v_scale"][rows, slot] = vs
+            o = decode_attention_quant(
+                q[:, 0], cache["k"], cache["v"], cache["k_scale"],
+                cache["v_scale"], valid, use_kernels=cfg.use_kernels)
+        else:
+            cache["k"][rows, slot] = k[:, 0]
+            cache["v"][rows, slot] = v[:, 0]
+            o = decode_attention(q[:, 0], cache["k"], cache["v"], valid,
+                                 use_kernels=cfg.use_kernels)
         new_cache = cache
         o = o[:, None]                              # (B,1,H,hd)
     else:
@@ -383,6 +438,9 @@ def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
         # kernels' rectangular-causal convention (q_offset = Lk - Lq)
         k_att, v_att = k, v
         if cache is not None and "hk" in cache:
+            if cfg.kv_quant:
+                raise NotImplementedError(
+                    "int8 prefix history: not yet ported")
             k_att = torch.cat([cache["hk"], k], dim=1)
             v_att = torch.cat([cache["hv"], v], dim=1)
         if cfg.use_kernels:
@@ -399,15 +457,19 @@ def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
             assert cache is not None
             S = cache["k"].shape[1]
             L = k.shape[1]
-            if L <= S:
-                cache["k"][:, :L] = k
-                cache["v"][:, :L] = v
-            else:                                   # keep last S (window)
-                # ring layout: entry for pos t lives at slot t % S
-                roll = (-(L - S)) % S
-                cache["k"].copy_(torch.roll(k[:, -S:], shifts=-roll, dims=1))
-                cache["v"].copy_(torch.roll(v[:, -S:], shifts=-roll, dims=1))
-            new_cache = dict(k=cache["k"], v=cache["v"])
+            rows = dict(k=k, v=v)
+            if cfg.kv_quant:                        # int8 rows + scales
+                rows["k"], rows["k_scale"] = _kv_quant(k)
+                rows["v"], rows["v_scale"] = _kv_quant(v)
+            for name, r in rows.items():
+                if L <= S:
+                    cache[name][:, :L] = r
+                else:                               # keep last S (window)
+                    # ring layout: entry for pos t lives at slot t % S
+                    roll = (-(L - S)) % S
+                    cache[name].copy_(torch.roll(r[:, -S:], shifts=-roll,
+                                                 dims=1))
+            new_cache = {name: cache[name] for name in rows}
     out = o.reshape(B, -1, H * hd) @ p["wo"]
     return out, new_cache
 

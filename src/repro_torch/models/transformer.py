@@ -86,12 +86,22 @@ def _layer_cache_shapes(cfg: ModelConfig, spec, batch: int, max_len: int):
     return M.attn_cache_shape(cfg, batch, max_len, win)
 
 
+def _cache_dtype(cfg: ModelConfig, key: str) -> torch.dtype:
+    """Scale planes are fp32; K/V rows are int8 under ``cfg.kv_quant``,
+    else in the compute dtype."""
+    if key.endswith("_scale"):
+        return torch.float32
+    if cfg.kv_quant and key in ("k", "v"):
+        return torch.int8
+    return cfg.cdtype
+
+
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int):
     """``(shape, dtype)`` leaves of the cache tree: per segment, a tuple of
     per-unit-layer dicts whose leaves stack ``n_units`` layers."""
     _check_ported(cfg)
     return tuple(
-        tuple({k: ((seg.n_units,) + shp, cfg.cdtype)
+        tuple({k: ((seg.n_units,) + shp, _cache_dtype(cfg, k))
                for k, shp in _layer_cache_shapes(cfg, ls, batch,
                                                  max_len).items()}
               for ls in seg.unit_spec)

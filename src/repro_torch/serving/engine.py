@@ -23,12 +23,13 @@ top-p / EOS ride along as ``(slots,)`` tensors into
 draws from its own generator, so its stream does not depend on the batch.
 
 The KV arena is the **dense** layout: a fixed ``(slots, S)`` arena in
-which every slot reserves ``max_seq_len`` rows for its lifetime.  Where the
-reference donates the arena to each jitted call and rebinds the result,
-the port updates it in place: admission prefills straight into the slot's
-arena rows and decode writes one row per slot per step.  The paged layout,
-the prefix cache and meshes are not ported yet and raise
-``NotImplementedError``.
+which every slot reserves ``max_seq_len`` rows for its lifetime, in the
+compute dtype or, with ``cfg.kv_quant``, as int8 rows with fp32 per-row
+scale planes.  Where the reference donates the arena to each jitted call
+and rebinds the result, the port updates it in place: admission prefills
+straight into the slot's arena rows (and scale rows) and decode writes one
+row per slot per step.  The paged layout, the prefix cache and meshes are
+not ported yet and raise ``NotImplementedError``.
 
 Ragged prefill correctness: prompts are right-padded to a shape bucket and
 prefilled with causal attention, so real tokens never attend padding.  The
@@ -200,8 +201,9 @@ class GenerationEngine:
         every sequence has emitted EOS.  ``self.last_stats`` records how
         many decode steps actually ran.  Draws advance ``generator``."""
         cfg = self.cfg
-        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
-                                 device=self.device)
+        if not isinstance(tokens, torch.Tensor):
+            tokens = torch.as_tensor(np.asarray(tokens))
+        tokens = tokens.to(device=self.device, dtype=torch.long)
         B, Lp = tokens.shape
         max_new = self.max_new_tokens
         if max_new == 0:
@@ -383,7 +385,8 @@ class _DenseBackend:
               max_new: int) -> None:
         c, e = self.core, self.core.engine
         padded = _pad_bucket(tokens, min(_next_bucket(Lp), c.S))
-        # the slot's arena rows as a one-row cache: prefill writes in place
+        # the slot's arena rows (K/V and, with int8 KV, their scale
+        # planes) as a one-row cache: prefill writes in place
         row = tree_map(lambda a: a[:, slot:slot + 1], self.cache)
         logit = e._prefill_row(c.params, torch.as_tensor(
             padded, device=e.device), Lp, row)

@@ -2,11 +2,18 @@
 pairs, weights carried from the JAX package to the port through numpy, a
 greedy JAX reference built from ``repro.models.transformer`` alone (the
 reference's ``repro.serving`` does not import on Python 3.12: its
-``StepEvent`` has a numpy dataclass default), and the reference's SFT loop
+``StepEvent`` has a numpy dataclass default), the reference's SFT loop
 built from ``repro.training`` and ``repro.data`` (its
-``repro.launch.train`` does not import either: it imports ``repro.core``).
+``repro.launch.train`` does not import either: it imports ``repro.core``),
+and the reference's PPO modules loaded by file path
+(:func:`reference_core`).
 """
 from __future__ import annotations
+
+import importlib
+import sys
+import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -54,7 +61,9 @@ def to_np(x):
 def jax_greedy(jcfg, jparams, prompt, max_new: int, eos_id=None):
     """Greedy decode of one prompt with the JAX model, mirroring
     ``repro/serving/generate.py`` (prefill, then one decode step per token,
-    EOS forced after the first EOS).  Returns the generated tokens."""
+    EOS forced after the first EOS).  With ``jcfg.kv_quant`` the cache is
+    the reference's int8 arena with its scale planes.  Returns the
+    generated tokens."""
     Lp = len(prompt)
     fwd_prefill = jax.jit(lambda p, t, c: JT.forward(
         jcfg, p, tokens=t, mode="prefill", cache=c))
@@ -103,3 +112,48 @@ def jax_lm_loop(jcfg, jstate, *, steps, batch, seq, lr, seed=0, micro=1):
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
     return jstate, losses, gnorms
+
+
+class _NoEngine:
+    """Stands in for ``repro.serving.engine.GenerationEngine``, which does
+    not import here; the reference's PPO functions never call it."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+
+_REF_CORE = None
+
+
+def reference_core():
+    """The reference's ``repro/core/{experience,ema,ppo}.py``, loaded by
+    file path: ``repro.core`` and ``repro.serving.engine`` do not import on
+    Python 3.12 (ROADMAP Queue 3, R1).  A bare ``repro.core`` package and a
+    stub ``repro.serving.engine`` stand in while the three modules load;
+    then ``sys.modules`` is restored to exactly what it was, so other tests
+    in the same process see what they saw before.  Returns a namespace with
+    ``experience``, ``ema`` and ``ppo``."""
+    global _REF_CORE
+    if _REF_CORE is not None:
+        return _REF_CORE
+    # what the modules import and does import here, loaded for good
+    for name in ("jax.sharding", "repro.models.reward",
+                 "repro.models.transformer", "repro.sharding.strategy",
+                 "repro.training.steps", "repro.training.train_state"):
+        importlib.import_module(name)
+    saved = dict(sys.modules)
+    core_dir = Path(__file__).resolve().parents[1] / "src" / "repro" / "core"
+    try:
+        core = types.ModuleType("repro.core")
+        core.__path__ = [str(core_dir)]
+        engine = types.ModuleType("repro.serving.engine")
+        engine.GenerationEngine = _NoEngine
+        sys.modules["repro.core"] = core
+        sys.modules["repro.serving.engine"] = engine
+        mods = {n: importlib.import_module(f"repro.core.{n}")
+                for n in ("experience", "ema", "ppo")}
+    finally:
+        sys.modules.clear()
+        sys.modules.update(saved)
+    _REF_CORE = types.SimpleNamespace(**mods)
+    return _REF_CORE

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import decode_attention_fwd
+from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+                                                  decode_attention_quant_fwd)
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
@@ -86,12 +87,48 @@ def test_decode_kernel_reads_arena_in_place(cuda, KV, G, S, D, dtype):
     assert (got[0].float() - mean_v).abs().max() <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,S,D", [(2, 1, 37, 64), (3, 3, 100, 64),
+                                      (1, 8, 64, 32), (2, 2, 45, 128),
+                                      (32, 1, 512, 64)])
+def test_decode_quant_kernel_reads_int8_arena_in_place(cuda, KV, G, S, D,
+                                                       dtype):
+    """The int8 decode kernel over a (B, S, KV, D) int8 arena and its
+    (B, S, KV) scale planes, read in place, against its plain version:
+    fp32 1e-4, bf16 2e-2 of max |plain|."""
+    from repro_torch.models.modules import _kv_quant
+    B = 3
+    q = _randn(cuda, (B, KV * G, D), dtype)
+    k, ks = _kv_quant(_randn(cuda, (B, S, KV, D), dtype))
+    v, vs = _kv_quant(_randn(cuda, (B, S, KV, D), dtype))
+    nv = torch.tensor([0, S // 2, S], device="cuda")
+    valid = torch.arange(S, device="cuda")[None] < nv[:, None]
+    before = decode_attention_quant_fwd.launches
+    got = ops.decode_attention_quant(q, k, v, ks, vs, valid)
+    torch.cuda.synchronize()
+    assert decode_attention_quant_fwd.launches == before + 1
+    want = ref.decode_attention_quant_ref(
+        q.unflatten(1, (KV, G)), k.transpose(1, 2), v.transpose(1, 2),
+        ks.transpose(1, 2), vs.transpose(1, 2), valid).reshape(got.shape)
+    scale = want.float().abs().max()
+    assert (got.float() - want.float()).abs().max() <= TOL[dtype] * scale
+    # the fully masked row is the mean of the dequantized V, not NaN
+    mean_v = (v[0].float() * vs[0][..., None]).mean(0)
+    assert (got[0].float() - mean_v.repeat_interleave(G, 0)).abs().max() \
+        <= TOL[dtype] * scale
+
+
 def test_kernels_raise_instead_of_falling_back(cuda):
     q = torch.randn(1, 2, 9, 64, device="cuda")          # G = 9 > 8
     k = torch.randn(1, 2, 16, 64, device="cuda")
     with pytest.raises(ValueError):
         decode_attention_fwd(q, k, k, torch.ones(1, 16, dtype=torch.bool,
                                                  device="cuda"))
+    i8 = torch.zeros(1, 2, 16, 64, dtype=torch.int8, device="cuda")
+    sc = torch.ones(1, 2, 16, device="cuda")
+    with pytest.raises(ValueError):
+        decode_attention_quant_fwd(q, i8, i8, sc, sc, torch.ones(
+            1, 16, dtype=torch.bool, device="cuda"))
     with pytest.raises(ValueError):
         flash_attention_fwd(torch.randn(1, 1, 1, 4, 48, device="cuda"),
                             torch.randn(1, 1, 4, 48, device="cuda"),
@@ -209,3 +246,51 @@ def test_train_step_on_the_card_matches_the_plain_path(cuda):
         assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
         for a, b in zip(ref_grads, grads):
             assert (a - b).abs().max() <= 1e-4 * b.abs().max().clamp(min=1e-9)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16kv", "int8kv"])
+def test_ppo_iteration_on_the_card_matches_the_cpu(cuda, kv_quant):
+    """One greedy PPO iteration (generate, score, actor + critic steps,
+    EMA) at the reduced OPT-1.3B actor / smollm-135m critic in fp32: the
+    card (kernels) and the CPU (plain versions) give the same tokens and
+    the same experience and metrics to 1e-4; generation launched the
+    decode kernel of its cache's dtype and only that one."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.ppo import PPOConfig, PPOTrainer
+    from repro_torch.models import reward as R
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_map
+
+    actor = reduced(get_config("opt-1.3b"))
+    critic = reduced(get_config("smollm-135m"))
+    g = torch.Generator().manual_seed(5)
+    weights = [T.init_params(actor, g), T.init_params(actor, g),
+               R.init_params(critic, g), R.init_params(critic, g)]
+    prompts = torch.randint(0, actor.vocab_size, (3, 9), generator=g)
+    ppo = PPOConfig(max_new_tokens=7, temperature=0.0, ptx_coef=0.0,
+                    kv_quant=kv_quant)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        # copies: the trainer updates the actor and critic in place
+        w = [tree_map(lambda t: t.to(dev, copy=True), x) for x in weights]
+        trainer = PPOTrainer(actor_cfg=actor, critic_cfg=critic,
+                             actor_params=w[0], ref_params=w[1],
+                             critic_params=w[2], reward_params=w[3], ppo=ppo)
+        ops.reset_launch_counts()
+        exp, gm = trainer.generate_experience(
+            prompts, torch.Generator(device=dev).manual_seed(0))
+        counts = ops.launch_counts()
+        tm = trainer.train_rlhf(exp)
+        runs[dev] = (exp, {**gm, **tm}, counts)
+    (ce, cm, _), (ge, gm, counts) = runs["cpu"], runs["cuda"]
+    assert torch.equal(ce.sequences, ge.sequences.cpu())
+    for a, b in zip(ge, ce):
+        assert (a.cpu().float() - b.float()).abs().max() \
+            <= 1e-4 * max(1.0, float(b.float().abs().max()))
+    for k in ("reward_score", "pg_loss", "ratio_mean", "approx_kl",
+              "v_loss", "actor_gnorm", "critic_gnorm"):
+        assert abs(gm[k] - cm[k]) <= 1e-4 * max(1.0, abs(cm[k])), k
+    used, unused = (("decode_attention_quant_fwd", "decode_attention_fwd")
+                    if kv_quant else
+                    ("decode_attention_fwd", "decode_attention_quant_fwd"))
+    assert counts[used] > 0 and counts[unused] == 0

@@ -162,12 +162,17 @@ def test_cpu_tensors_never_launch_a_kernel():
     tops.decode_attention(torch.randn(1, 2, 32), torch.randn(1, 8, 2, 32),
                           torch.randn(1, 8, 2, 32),
                           torch.ones(1, 8, dtype=torch.bool))
+    tops.decode_attention_quant(
+        torch.randn(1, 2, 32), torch.zeros(1, 8, 2, 32, dtype=torch.int8),
+        torch.zeros(1, 8, 2, 32, dtype=torch.int8), torch.ones(1, 8, 2),
+        torch.ones(1, 8, 2), torch.ones(1, 8, dtype=torch.bool))
     q = torch.randn(1, 8, 2, 32, requires_grad=True)
     tops.FlashAttention.apply(q, torch.randn(1, 8, 2, 32),
                               torch.randn(1, 8, 2, 32)).sum().backward()
     assert tops.launch_counts() == {"rmsnorm": 0, "flash_attention_fwd": 0,
                                     "flash_attention_bwd": 0,
-                                    "decode_attention_fwd": 0}
+                                    "decode_attention_fwd": 0,
+                                    "decode_attention_quant_fwd": 0}
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "group", "dtype", "device",

@@ -55,7 +55,8 @@ def test_serve_cli_runs_on_cpu():
                      r"utilization 100\.0%", res.stdout), res.stdout
 
 
-@pytest.mark.parametrize("flag", [["--kv-layout", "paged"], ["--kv-quant"],
+@pytest.mark.parametrize("flag", [["--kv-layout", "paged"],
+                                  ["--kv-quant", "--kv-layout", "paged"],
                                   ["--prefix-cache", "on"],
                                   ["--mesh", "1,1"], ["--ckpt", "x"]])
 def test_serve_cli_refuses_unported_flags(flag):

@@ -457,7 +457,8 @@ def test_train_main_returns_a_summary():
 @pytest.mark.parametrize("flag", [
     ["--lora", "8"], ["--ckpt", "x.npz"], ["--ckpt-dir", "d"],
     ["--save-every", "2"], ["--resume"], ["--mesh", "1,1"],
-    ["--strategy", "zero3"], ["--zero", "1"], ["--rlhf"], ["--async-rlhf"],
+    ["--strategy", "zero3"], ["--zero", "1"], ["--rlhf", "--async-rlhf"],
+    ["--async-rlhf"],
     ["--rollout-mesh", "2"], ["--train-mesh", "2"], ["--queue-depth", "2"],
     ["--publish-every", "1"], ["--max-lag", "1"], ["--is-ratio-abort", "2"],
     ["--max-new", "8"], ["--kv-quant"]])

@@ -56,6 +56,27 @@ shapes, with dequant-then-SDPA as a yardstick; the parity phase adds a
 greedy int8-KV decode of OPT-1.3B cut to 4 layers (kernel vs plain path),
 and the serve phase a ``--kv-quant`` run of the same workload.
 
+The paged layout (block pool, prefix cache, paged int8): the kernel phase
+holds ``paged_decode_attention_fwd`` and ``paged_decode_attention_quant_fwd``
+to their plain versions (fp32 and bf16 queries) at the serve (B = 16 over a
+513-block pool, 1..512 rows), PPO (B = 8, 257..512 rows) and smollm-135m
+(G = 3) shapes, over shuffled non-contiguous tables, with the port's dense
+decode kernel on the rows gathered beforehand and gather + SDPA as
+yardsticks, and checks untimed that rows no sequence may read never change
+the output (they hold NaN) and that ``lens = 0`` gives zeros.  The parity
+phase runs OPT-1.3B (4 layers, fp32) teacher-forced through the paged
+kernel, dense kernel and paged plain paths (1e-4), and the int8 pair of
+checks on a paged int8 pool.  The serve phase times a paged decode step,
+runs the 32-request workload with ``--kv-layout paged`` (bf16 and
+``--kv-quant``), greedy dense vs paged (identical streams), a 201-block
+pool that preempts (identical streams), and the prefix cache on a
+shared-system-prompt mix (hit rate >= 0.5; greedy streams on vs off
+identical in fp32, counted in bf16, whose suffix GEMMs round otherwise than
+the full prompt's); paged runs
+must launch a paged kernel and never a dense decode kernel.  The rlhf phase
+ends with one PPO iteration on the request path: 8 prompts x 4 samples of
+256 tokens on the paged int8 pool with the prefix cache.
+
 The last lines are the card's ``name, power.limit``, one JSON object with a
 row per kernel, and ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the repository's ``src/`` beside this file, it exits non-zero and
@@ -95,6 +116,12 @@ KERNEL_META = {
     "decode_attention_quant_fwd": (
         "src/repro_torch/kernels/csrc/decode_attention_quant.cu",
         "src/repro/kernels/decode_attention.py:162"),
+    "paged_decode_attention_fwd": (
+        "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/paged_attention.py:188"),
+    "paged_decode_attention_quant_fwd": (
+        "src/repro_torch/kernels/csrc/paged_decode_attention_quant.cu",
+        "src/repro/kernels/paged_attention.py:141"),
 }
 
 # the kernels each main path must launch
@@ -104,6 +131,13 @@ SERVE_INT8_KERNELS = ("rmsnorm", "flash_attention_fwd",
 TRAIN_KERNELS = ("rmsnorm", "flash_attention_fwd", "flash_attention_bwd")
 RLHF_KERNELS = ("rmsnorm", "flash_attention_fwd", "flash_attention_bwd",
                 "decode_attention_quant_fwd")
+SERVE_PAGED_KERNELS = ("rmsnorm", "flash_attention_fwd",
+                       "paged_decode_attention_fwd")
+SERVE_PAGED_INT8_KERNELS = ("rmsnorm", "flash_attention_fwd",
+                            "paged_decode_attention_quant_fwd")
+RLHF_PAGED_KERNELS = ("rmsnorm", "flash_attention_fwd", "flash_attention_bwd",
+                      "paged_decode_attention_quant_fwd")
+DENSE_DECODE = ("decode_attention_fwd", "decode_attention_quant_fwd")
 
 
 def log(msg: str) -> None:
@@ -522,9 +556,158 @@ def phase_kernels(state):
                 f"call computes int8 decode)")
             if (B, KV, dname) == (8, 32, "bf16"):
                 rows["decode_attention_quant_fwd"]["yardstick_ms"] = yard
+    _paged_kernel_rows(gen, dtypes, tol, record, rows, failures)
     state["kernel_rows"] = rows
     if failures:
         raise AssertionError("kernel checks failed:\n" + "\n".join(failures))
+
+
+def _paged_case(gen, B, KV, G, D, bs, nb, lo, dt, quant):
+    """A paged decode case on the card: ``lens`` ragged in ``lo..nb*bs``
+    (one sequence full, one ending inside a block), each sequence's
+    ``ceil(lens / bs)`` blocks drawn shuffled and non-contiguous from a
+    ``B * nb + 1``-block pool, the rest of its table the trash block 0."""
+    import torch
+    from repro_torch.models.modules import _kv_quant
+    S, nblocks = nb * bs, B * nb + 1
+    lens = torch.randint(lo, S + 1, (B,), generator=gen, device="cuda")
+    lens[1] = S
+    if int(lens[0]) % bs == 0:
+        lens[0] -= 1 if int(lens[0]) > lo else -1
+    perm = torch.randperm(nblocks - 1, generator=gen, device="cuda") + 1
+    tables = torch.zeros((B, nb), dtype=torch.int32, device="cuda")
+    for b in range(B):
+        n = -(-int(lens[b]) // bs)
+        tables[b, :n] = perm[b * nb:b * nb + n].int()
+    q = _case_inputs(gen, (B, KV, G, D), dt)
+    k = _case_inputs(gen, (nblocks, bs, KV, D), dt)
+    v = _case_inputs(gen, (nblocks, bs, KV, D), dt)
+    scales = ()
+    if quant:
+        (k, ks), (v, vs) = _kv_quant(k), _kv_quant(v)
+        scales = (ks, vs)
+    return q, k, v, scales, tables, lens.int()
+
+
+def _paged_kernel_rows(gen, dtypes, tol, record, rows, failures):
+    """Both paged kernels against their plain versions: the serve shape
+    (OPT-1.3B, B = 16 over a 513-block pool, 1..512 rows), the PPO shape
+    (B = 8, 257..512 rows) and smollm-135m's G = 3; with the port's dense
+    decode kernel over the same rows gathered into an arena beforehand and
+    gather + SDPA as yardsticks.  Then, untimed: the rows no sequence may
+    read poisoned with NaN (the output must not change) and lens = 0 (the
+    Pallas kernel's zeros, ROADMAP R8)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_fwd, decode_attention_quant_fwd)
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_fwd, paged_decode_attention_quant_fwd)
+
+    gather = ref.gather_blocks                  # (B, nb * bs, ...) rows
+
+    D, bs, nb = 64, 16, 32
+    for quant in (False, True):
+        name = ("paged_decode_attention_quant_fwd" if quant
+                else "paged_decode_attention_fwd")
+        for (B, KV, G, lo, model) in ((16, 32, 1, 1, "opt-1.3b serve"),
+                                      (8, 32, 1, 257, "opt-1.3b ppo"),
+                                      (16, 3, 3, 1, "smollm-135m")):
+            for dname, dt in dtypes.items():
+                q, k, v, sc, tables, lens = _paged_case(
+                    gen, B, KV, G, D, bs, nb, lo, dt, quant)
+                if quant:
+                    kern = lambda: paged_decode_attention_quant_fwd(
+                        q, k, v, *sc, tables, lens)
+                    plain = lambda: ref.paged_decode_attention_quant_ref(
+                        q, k, v, *sc, tables, lens)
+                else:
+                    kern = lambda: paged_decode_attention_fwd(
+                        q, k, v, tables, lens)
+                    plain = lambda: ref.paged_decode_attention_ref(
+                        q, k, v, tables, lens)
+                out, r = kern(), plain()
+                torch.cuda.synchronize()
+                abs_err = _err(out, r, rel=False)
+                scale = float(r.float().abs().max())
+                err = abs_err / scale if quant else abs_err
+                # the dense kernel over the same rows, gathered beforehand
+                ka, va = gather(k, tables), gather(v, tables)
+                valid = (torch.arange(nb * bs, device="cuda")[None]
+                         < lens[:, None])
+                if quant:
+                    ksa, vsa = (gather(t, tables).transpose(1, 2)
+                                for t in sc)
+                    dense = lambda: decode_attention_quant_fwd(
+                        q, ka.transpose(1, 2), va.transpose(1, 2), ksa, vsa,
+                        valid)
+                else:
+                    dense = lambda: decode_attention_fwd(
+                        q, ka.transpose(1, 2), va.transpose(1, 2), valid)
+                qs = q.flatten(1, 2)[:, :, None]           # (B, H, 1, D)
+                mask = valid[:, None, None, :]
+
+                def gather_sdpa():
+                    kg, vg = gather(k, tables), gather(v, tables)
+                    if quant:
+                        kg = (kg.float() * gather(sc[0], tables)[..., None]
+                              ).to(dt)
+                        vg = (vg.float() * gather(sc[1], tables)[..., None]
+                              ).to(dt)
+                    return F.scaled_dot_product_attention(
+                        qs, kg.transpose(1, 2), vg.transpose(1, 2),
+                        attn_mask=mask, enable_gqa=G > 1)
+
+                eb = q.element_size()
+                need = int(lens.sum())              # valid rows
+                row_bytes = (2 * D + 8) if quant else 2 * D * eb
+                bnd = bound(2 * B * KV * G * D * eb + 4 * B * (nb + 1)
+                            + need * KV * row_bytes,
+                            4 * KV * G * D * need,
+                            "bf16" if dname == "bf16" else "fp32")
+                dense_ms = time_ms(dense)
+                sdpa_ms = time_ms(gather_sdpa)
+                label = (f"{model} B={B} KV={KV} G={G} bs={bs} nb={nb} "
+                         f"lens {lo}-{nb * bs}")
+                main = (B, KV, dname) == ((8, 32, "bf16") if quant
+                                          else (16, 32, "bf16"))
+                record(name, label, dname, err, tol[("attn", dname)],
+                       time_ms(kern), time_ms(plain), None, bnd, main,
+                       abs_err=abs_err)
+                log(f"[kernels] {name} {label} {dname}: yardsticks: the "
+                    f"dense decode kernel over the rows gathered into an "
+                    f"arena {dense_ms:.4f} ms, gather + SDPA {sdpa_ms:.4f} "
+                    f"ms (no library call computes paged decode)")
+                if main:
+                    rows[name].update(dense_kernel_ms=dense_ms,
+                                      gather_sdpa_ms=sdpa_ms)
+                # untimed: poisoned rows are never read; lens = 0 gives 0
+                dead = torch.ones(k.shape[:2], dtype=torch.bool,
+                                  device="cuda")
+                for b in range(B):
+                    rr = torch.arange(int(lens[b]), device="cuda")
+                    dead[tables[b].long()[rr // bs], rr % bs] = False
+                if quant:
+                    for t in sc:
+                        t[dead] = float("nan")
+                else:
+                    k[dead] = float("nan")
+                    v[dead] = float("nan")
+                same = torch.equal(kern(), out)
+                lens.zero_()
+                zero = kern()
+                torch.cuda.synchronize()
+                zeros = torch.equal(zero, torch.zeros_like(zero))
+                if not (same and zeros):
+                    failures.append(f"{name} {label} {dname}: poisoned rows "
+                                    f"changed the output: {not same}; "
+                                    f"lens = 0 not zeros: {not zeros}")
+                log(f"[kernels] {name} {label} {dname}: NaN in every row "
+                    f"no sequence may read leaves the output bitwise "
+                    f"unchanged: {same}; lens = 0 gives zeros (the Pallas "
+                    f"kernel's answer, R8): {zeros}")
+                del q, k, v, sc, ka, va
 
 
 def phase_parity(state):
@@ -652,6 +835,144 @@ def phase_parity(state):
                              f"rel {rel8:.3g} vs int8 error {quant_err:.3g}, "
                              f"tokens identical {same}, {n_diff} int8 values "
                              f"differ by up to {steps_apart}")
+    _paged_parity(state)
+
+
+def _paged_stream(cfg, params, tokens, Lp, n_dec, *, layout, bs=16,
+                  forced=None):
+    """Prefill ``tokens[:, :Lp]`` and run ``n_dec`` decode steps, on the
+    dense arena or on a paged pool (the prompt scattered into shuffled,
+    non-contiguous blocks, as the engine's admission does).  Teacher-forced
+    on ``tokens`` (or on ``forced``), or greedy when both run out.  Returns
+    (logits (1 + n_dec, V), fed tokens, cache, block tables or None)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import _scatter_row_blocks
+    from repro_torch.serving.generate import decode_step, prefill
+    S = Lp + n_dec
+    tables = None
+    if layout == "paged":
+        nb = -(-S // bs)
+        perm = torch.randperm(2 * nb, generator=torch.Generator()
+                              .manual_seed(nb))[:nb] + 1
+        tables = perm.int().cuda()[None]
+        row = T.init_cache(cfg, 1, Lp, device="cuda")
+        lg, row = prefill(cfg, params, tokens[:, :Lp], row)
+        cache = T.init_paged_cache(cfg, 2 * nb + 1, bs, device="cuda")
+        n_pre = -(-Lp // bs)
+        _scatter_row_blocks(cache, row, tables[0, :n_pre].long(), bs)
+    else:
+        cache = T.init_cache(cfg, 1, S, device="cuda")
+        lg, cache = prefill(cfg, params, tokens[:, :Lp], cache)
+    steps, fed = [lg], []
+    for t in range(n_dec):
+        if forced is not None:
+            tok = forced[t:t + 1]
+        elif tokens.shape[1] > Lp + t:
+            tok = tokens[:, Lp + t]
+        else:
+            tok = lg.argmax(-1)
+        fed.append(tok)
+        pos = torch.full((1,), Lp + t, dtype=torch.long, device="cuda")
+        lg, cache = decode_step(cfg, params, tok, cache, pos,
+                                block_tables=tables)
+        steps.append(lg)
+    return torch.cat(steps).float(), torch.cat(fed), cache, tables
+
+
+def _paged_parity(state):
+    """OPT-1.3B at full width, 4 layers, fp32: one teacher-forced stream
+    (prefill 256 + 32 decode steps) through the paged kernel path, the
+    dense kernel path and the paged plain path (1e-4 relative on logits);
+    then the dense int8 pair of checks on the paged int8 pool: each decode
+    step from one int8 pool through both paths (1e-4, argmax identical),
+    and the free-running greedy runs (tokens identical, no int8 value more
+    than one step apart, logit gap at most 0.1 of the int8 cache's own
+    error)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_map
+    from repro_torch.serving.generate import decode_step
+
+    cfg = get_config("opt-1.3b").replace(n_layers=4, compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = T.init_params(cfg, gen)
+    Lp, n_dec = 256, 32
+    tokens = torch.randint(0, cfg.vocab_size, (1, Lp + n_dec), generator=gen,
+                           device="cuda")
+    ops_paths = {}
+    from repro_torch.kernels import ops
+    for name, c, layout in (("paged kernel", cfg, "paged"),
+                            ("dense kernel", cfg, "dense"),
+                            ("paged plain", cfg.replace(use_kernels=False),
+                             "paged")):
+        ops.reset_launch_counts()
+        ops_paths[name] = (_paged_stream(c, params, tokens, Lp, n_dec,
+                                         layout=layout)[0],
+                           ops.launch_counts())
+    ref_lg = ops_paths["paged plain"][0]
+    rels = {n: float((lg - ref_lg).abs().max() / ref_lg.abs().max())
+            for n, (lg, _) in ops_paths.items() if n != "paged plain"}
+    counts = ops_paths["paged kernel"][1]
+    same = torch.equal(ops_paths["paged kernel"][0],
+                       ops_paths["dense kernel"][0])
+    log(f"[parity] opt-1.3b 4 layers fp32, {Lp} prefill + {n_dec} decode "
+        f"steps (teacher-forced), max|dlogits|/max|logits| against the "
+        f"paged plain path: paged kernel {rels['paged kernel']:.3g}, dense "
+        f"kernel {rels['dense kernel']:.3g} (tol 1e-4); paged kernel path "
+        f"== dense kernel path bitwise: {same}; paged kernel launches "
+        f"{counts}")
+    if not (max(rels.values()) <= 1e-4 and torch.isfinite(ref_lg).all()
+            and counts["paged_decode_attention_fwd"] == n_dec * 4
+            and not any(counts[k] for k in DENSE_DECODE)):
+        raise AssertionError(f"parity: paged paths {rels}, launches "
+                             f"{counts}")
+
+    # int8 paged pool: witness from one pool, then free-running greedy
+    cfg8 = cfg.replace(kv_quant=True)
+    prompt = tokens[:, :Lp]
+    runs = {}
+    for name, c, forced in (
+            ("kernel", cfg8, None),
+            ("plain", cfg8.replace(use_kernels=False), None),
+            ("plain-fp32-cache", cfg.replace(use_kernels=False), "plain")):
+        f = None if forced is None else runs[forced][1]
+        runs[name] = _paged_stream(c, params, prompt, Lp, n_dec,
+                                   layout="paged", forced=f)
+    (a, ta, kpool, tables), (b, tb, ppool, _) = runs["kernel"], runs["plain"]
+    fp = runs["plain-fp32-cache"][0]
+    wit = {True: [], False: []}
+    for t in range(n_dec):
+        pos = torch.full((1,), Lp + t, dtype=torch.long, device="cuda")
+        for uk in (True, False):
+            lg, _ = decode_step(cfg8.replace(use_kernels=uk), params,
+                                ta[t:t + 1], tree_map(torch.clone, kpool),
+                                pos, block_tables=tables)
+            wit[uk].append(lg.float())
+    wa, wb = torch.cat(wit[True]), torch.cat(wit[False])
+    rel_wit = float((wa - wb).abs().max() / wb.abs().max())
+    wit_same = bool(torch.equal(wa.argmax(-1), wb.argmax(-1)))
+    ka, kb = kpool[0][0], ppool[0][0]
+    used = tables[0].long()
+    rel8 = float((a - b).abs().max() / b.abs().max())
+    quant_err = float((b - fp).abs().max() / fp.abs().max())
+    same = bool(torch.equal(ta, tb))
+    apart = max(int((ka[n][:, used].int() - kb[n][:, used].int()).abs().max())
+                for n in ("k", "v"))
+    log(f"[parity] opt-1.3b 4 layers fp32, paged int8 pool: {n_dec} decode "
+        f"steps from one pool, kernel vs plain max|dlogits|/max|logits| = "
+        f"{rel_wit:.3g} (tol 1e-4), argmax identical {wit_same}; free-"
+        f"running greedy: gap {rel8:.3g}, int8 error {quant_err:.3g}, gap / "
+        f"int8 error {rel8 / quant_err:.3g} (tol 0.1), tokens identical "
+        f"{same}, int8 values at most {apart} step apart (tol 1)")
+    state["parity_paged"] = {"rel": rels, "rel_int8_one_pool": rel_wit,
+                             "rel_int8": rel8, "quant_err": quant_err}
+    del params, runs, kpool, ppool, wit
+    torch.cuda.empty_cache()
+    if not (wit_same and rel_wit <= 1e-4 and same and apart <= 1
+            and rel8 <= 0.1 * quant_err):
+        raise AssertionError("parity: paged int8 pool checks failed")
 
 
 def phase_serve(state):
@@ -755,6 +1076,203 @@ def phase_serve(state):
         raise AssertionError("serve: smollm-135m run lost tokens")
     log(f"[serve] smollm-135m greedy: {res['tokens']} tokens, "
         f"{res['tok_s']:.1f} tok/s")
+    _paged_serve(state)
+
+
+SERVE_ARGV = ["--arch", "opt-1.3b", "--requests", "32", "--ragged",
+              "--prompt-len", "256", "--max-new", "256", "--batch", "16",
+              "--chunk", "8"]
+PAGED = ["--kv-layout", "paged", "--block-size", "16"]
+
+
+def _serve_run(argv, tag, must, state):
+    """``serve.main(argv)`` with the launch counts set to 0 just before and
+    read just after; fails unless every kernel of ``must`` launched and, on
+    the paged layout, neither dense decode kernel did."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    log(f"[serve] python -m repro_torch.launch.serve {' '.join(argv)}")
+    ops.reset_launch_counts()
+    res = serve.main(argv)
+    counts = ops.launch_counts()
+    st = res["stats"]
+    extra = ""
+    if "block_high_water" in st:
+        extra = (f", block_high_water {st['block_high_water']} of "
+                 f"{st['num_blocks']}, mean_concurrency "
+                 f"{st['mean_concurrency']:.2f}, preemptions "
+                 f"{st['preemptions']}, prefill_hit_rate "
+                 f"{st['prefill_hit_rate']:.3f}")
+    log(f"[serve] {tag}: {res['tokens']} tokens in {res['seconds']:.3f}s = "
+        f"{res['tok_s']:.1f} tok/s{extra}; launches {counts}")
+    missing = [k for k in must if counts[k] == 0]
+    paged = "--kv-layout" in argv
+    if missing or (paged and any(counts[k] for k in DENSE_DECODE)):
+        raise AssertionError(f"serve {tag}: launches {counts}")
+    for r in res["requests"]:
+        got = res["completions"].get(r.uid)
+        if got is None or len(got) != r.max_new_tokens:
+            raise AssertionError(f"serve {tag}: request {r.uid} returned "
+                                 f"{None if got is None else len(got)} "
+                                 f"tokens, wanted {r.max_new_tokens}")
+    state.setdefault("launches", {})[tag] = counts
+    return res
+
+
+def _shared_prompt_requests(vocab: int, seed: int = 0):
+    """32 chat turns sharing a 192-token system prompt: each adds 16-64
+    tokens of its own and asks for up to 128 new tokens."""
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, 192)
+    return [Request(uid=i, tokens=np.concatenate(
+        [system, rng.integers(0, vocab, int(rng.integers(16, 65)))]).astype(
+            np.int32), max_new_tokens=int(rng.integers(32, 129)))
+            for i in range(32)]
+
+
+def _paged_serve(state):
+    """The paged layout at OPT-1.3B: one decode step against the dense
+    one; the 32-request workload on the pool in bf16 and int8; greedy
+    dense vs paged (identical streams); a pool small enough to preempt
+    (identical streams again); the prefix cache on a shared-system-prompt
+    mix (hit rate >= 0.5; on vs off identical greedy streams in fp32)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.generate import decode_step
+
+    # one decode step over a 513-block pool, 16 slots at the dense step's
+    # positions, each table as long as its position needs
+    cfg = get_config("opt-1.3b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.cast_params(cfg, T.init_params(cfg, gen))
+    slots, bs, nb = 16, 16, 32
+    pool = T.init_paged_cache(cfg, slots * nb + 1, bs, device="cuda")
+    pos = torch.randint(64, nb * bs, (slots,), generator=gen, device="cuda")
+    tables = torch.zeros((slots, nb), dtype=torch.int32, device="cuda")
+    perm = torch.randperm(slots * nb, generator=gen, device="cuda") + 1
+    for b in range(slots):
+        n = int(pos[b]) // bs + 1
+        tables[b, :n] = perm[b * nb:b * nb + n].int()
+    tok = torch.randint(0, cfg.vocab_size, (slots,), generator=gen,
+                        device="cuda")
+    step = lambda: decode_step(cfg, params, tok, pool, pos,
+                               block_tables=tables)
+    ops.reset_launch_counts()
+    step()
+    per_step = ops.launch_counts()
+    wall = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    graph_ms = time_ms(step, inner=4, repeats=5)
+    eager_ms = statistics.median(wall)
+    dense = state.get("step", {})
+    log(f"[serve] opt-1.3b paged decode step, 16 slots, bs 16, 513-block "
+        f"pool: eager {eager_ms:.3f} ms (host clock), CUDA-graph replay "
+        f"{graph_ms:.3f} ms (device); dense step above: eager "
+        f"{dense.get('eager_ms', float('nan')):.3f}, graph "
+        f"{dense.get('graph_ms', float('nan')):.3f}; launches {per_step}")
+    state["step_paged"] = {"eager_ms": eager_ms, "graph_ms": graph_ms}
+    del params, pool
+    torch.cuda.empty_cache()
+
+    res = _serve_run(SERVE_ARGV + PAGED, "serve_paged", SERVE_PAGED_KERNELS,
+                     state)
+    res8 = _serve_run(SERVE_ARGV + PAGED + ["--kv-quant"],
+                      "serve_paged_int8", SERVE_PAGED_INT8_KERNELS, state)
+    state["serve"].update(tok_s_paged=res["tok_s"],
+                          tok_s_paged_int8=res8["tok_s"])
+
+    # greedy: dense vs paged, then a pool that must preempt
+    greedy = SERVE_ARGV + ["--temperature", "0"]
+    d = _serve_run(greedy, "serve_greedy_dense", SERVE_KERNELS, state)
+    p = _serve_run(greedy + PAGED, "serve_greedy_paged", SERVE_PAGED_KERNELS,
+                   state)
+    pre = _serve_run(greedy + PAGED + ["--num-blocks", "201"],
+                     "serve_greedy_preempt", SERVE_PAGED_KERNELS, state)
+    same = d["completions"] == p["completions"]
+    same_pre = pre["completions"] == p["completions"]
+    n_pre = pre["stats"]["preemptions"]
+    log(f"[serve] greedy streams: paged == dense {same}; a 201-block pool "
+        f"preempted {n_pre} times, streams == the unconstrained paged run "
+        f"{same_pre}")
+    state["serve"].update(tok_s_greedy_dense=d["tok_s"],
+                          tok_s_greedy_paged=p["tok_s"],
+                          tok_s_greedy_preempt=pre["tok_s"],
+                          preemptions=n_pre)
+    if not (same and same_pre and n_pre > 0):
+        raise AssertionError(f"serve: greedy paged == dense {same}, "
+                             f"preempted run == paged {same_pre}, "
+                             f"preemptions {n_pre}")
+
+    # the prefix cache on chat turns sharing a system prompt, in bf16 (the
+    # serving dtype: tok/s and the hit rate) and in fp32 (TF32 off), where
+    # cache on and off must give identical greedy streams.  In bf16 they
+    # need not: the suffix prefill's GEMMs have another row count than the
+    # full prompt's (64 against 256 here), so cuBLAS sums in another order
+    # and the bf16 rounding of the suffix rows differs; a near-tie argmax
+    # then flips.  So bf16 reports how many streams are identical
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reqs = _shared_prompt_requests(get_config("opt-1.3b").vocab_size)
+    S = max(len(r.tokens) + r.max_new_tokens for r in reqs)
+    for dname in ("bfloat16", "float32"):
+        cfg = get_config("opt-1.3b").replace(compute_dtype=dname)
+        params = T.init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(0))
+        outs = {}
+        for pc in (False, True):
+            eng = GenerationEngine(cfg, max_new_tokens=128, temperature=0.0,
+                                   chunk=8, kv_layout="paged", block_size=16,
+                                   prefix_cache=pc, device="cuda")
+            kw = dict(mode="continuous", slots=16, max_seq_len=S)
+            serve.run_schedule(eng, params, reqs[:16], torch.Generator(
+                device="cuda").manual_seed(0), **kw)        # warm-up
+            ops.reset_launch_counts()
+            n_tok, st, dt, fin = serve.run_schedule(
+                eng, params, reqs,
+                torch.Generator(device="cuda").manual_seed(1), **kw)
+            counts = ops.launch_counts()
+            tag = f"serve_prefix_{'on' if pc else 'off'}_{dname}"
+            state["launches"][tag] = counts
+            outs[pc] = (fin, st, n_tok / dt)
+            log(f"[serve] shared-system-prompt mix (32 requests, 192 + "
+                f"16-64 prompt tokens, 32-128 new), {tag}: {n_tok} tokens "
+                f"in {dt:.3f}s = {n_tok / dt:.1f} tok/s, prefill_hit_rate "
+                f"{st['prefill_hit_rate']:.3f} (cached "
+                f"{st['cached_prefill_tokens']}, computed "
+                f"{st['computed_prefill_tokens']} prompt tokens), "
+                f"block_high_water {st['block_high_water']}, "
+                f"mean_concurrency {st['mean_concurrency']:.2f}; launches "
+                f"{counts}")
+            if (counts["paged_decode_attention_fwd"] == 0
+                    or any(counts[k] for k in DENSE_DECODE)):
+                raise AssertionError(f"serve {tag}: launches {counts}")
+        on, off = outs[True][0], outs[False][0]
+        same = [u for u in off if on[u] == off[u]]
+        first = sorted(next(i for i, (a, b) in enumerate(zip(on[u], off[u]))
+                            if a != b) for u in off if u not in same)
+        hit = outs[True][1]["prefill_hit_rate"]
+        log(f"[serve] prefix cache on vs off, {dname}: {len(same)} of "
+            f"{len(off)} greedy streams identical; the others first differ "
+            f"at generated token {first}")
+        state["serve"][f"prefix_{dname}"] = {
+            "hit_rate": hit, "tok_s_on": outs[True][2],
+            "tok_s_off": outs[False][2], "identical": len(same)}
+        del params
+        torch.cuda.empty_cache()
+        if hit < 0.5 or (dname == "float32" and len(same) != len(off)):
+            raise AssertionError(f"serve: prefix cache, {dname}: hit rate "
+                                 f"{hit:.3f} (want >= 0.5), {len(same)} of "
+                                 f"{len(off)} streams identical")
 
 
 def _profile_step(step_fn, kernels=("flash_bwd", "flash_fwd", "rmsnorm")):
@@ -1137,10 +1655,79 @@ def phase_rlhf(state):
                 for k, v in buckets.items()))
         for kname, ms in top[:6]:
             log(f"[rlhf]   {ms:9.3f} ms  {kname[:100]}")
-    del params, cache, trainer, pipe, eng, exp
+    del params, cache
+    torch.cuda.empty_cache()
+    failures += _paged_ppo_iteration(state, trainer, bl, ptx)
+    del trainer, pipe, eng, exp
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError("rlhf: " + "; ".join(failures))
+
+
+def _paged_ppo_iteration(state, trainer, bl, ptx) -> list:
+    """One more PPO iteration on the same trainer, on the request path
+    with the reference's best-of-n recipe: 8 prompts x 4 samples of 256
+    new tokens, generated on the paged int8 pool with the prefix cache.
+    Returns the failed gates: every metric finite, the paged int8 kernel
+    launched and neither dense decode kernel, the hit rate reported."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import GenerationEngine, Request
+
+    ppo = dataclasses.replace(trainer.ppo, kv_layout="paged",
+                              kv_block_size=16, kv_quant=True,
+                              prefix_cache=True, n_samples_per_prompt=4)
+    trainer.ppo = ppo
+    trainer.gen_engine = GenerationEngine(
+        trainer.actor_cfg.replace(kv_quant=True),
+        max_new_tokens=ppo.max_new_tokens, temperature=ppo.temperature,
+        chunk=ppo.decode_chunk, kv_layout="paged", block_size=16,
+        prefix_cache=True, device="cuda")
+    prompts = next(bl.prompt_batches(8, 5, skip=4))["prompts"]
+    reqs = [Request(uid=i, tokens=np.asarray(p, np.int32),
+                    max_new_tokens=ppo.max_new_tokens)
+            for i, p in enumerate(np.asarray(prompts))]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    exp, gm = trainer.generate_experience(
+        reqs, torch.Generator(device="cuda").manual_seed(9))
+    tm = trainer.train_rlhf(exp, ptx)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    state.setdefault("launches", {})["rlhf_paged"] = counts
+    m = {**gm, **tm}
+    st = trainer.gen_engine.last_stats
+    log(f"[rlhf] PPO iteration on the request path, paged int8 pool + "
+        f"prefix cache, 8 prompts x 4 samples x {ppo.max_new_tokens} new "
+        f"tokens (8 slots): {wall:.2f}s; gen {m['gen_s']:.2f}s = "
+        f"{m['gen_tok_s']:.1f} tok/s ({m['decode_steps']:.0f} decode "
+        f"steps), prefill_hit_rate {m.get('prefill_hit_rate', float('nan')):.3f}"
+        f", block_high_water {st['block_high_water']} of "
+        f"{st['num_blocks']}, preemptions {st['preemptions']}; scoring "
+        f"{m['score_ms']:.1f} ms, actor step {m['actor_ms']:.1f} ms, critic "
+        f"step {m['critic_ms']:.1f} ms; ratio_mean {m['ratio_mean']:.6f} "
+        f"reward_score {m['reward_score']:.4f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[rlhf]   launches: {counts}")
+    state["rlhf_paged"] = {k: v for k, v in m.items()
+                           if isinstance(v, float)}
+    failures = []
+    if exp.sequences.shape[0] != 32:
+        failures.append(f"paged iteration: {exp.sequences.shape[0]} rows")
+    if not all(math.isfinite(v) for v in state["rlhf_paged"].values()):
+        failures.append("paged iteration: non-finite metric")
+    if (counts["paged_decode_attention_quant_fwd"] == 0
+            or any(counts[k] for k in DENSE_DECODE)
+            or min(counts[k] for k in RLHF_PAGED_KERNELS) == 0):
+        failures.append(f"paged iteration: launches {counts}")
+    if "prefill_hit_rate" not in m:
+        failures.append("paged iteration: no prefill_hit_rate")
+    return failures
 
 
 PHASE_FNS = {"device": phase_device, "build": phase_build,
@@ -1194,8 +1781,8 @@ def main() -> int:
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"),
             "library_ms": row.get("library_ms"),
-            **({"yardstick_ms": row["yardstick_ms"]}
-               if "yardstick_ms" in row else {}),
+            **{k: row[k] for k in ("yardstick_ms", "dense_kernel_ms",
+                                   "gather_sdpa_ms") if k in row},
         })
     print(state.get("smi") or nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))

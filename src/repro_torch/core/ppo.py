@@ -12,7 +12,9 @@ Losses follow DeepSpeed-Chat / InstructGPT: clipped surrogate for the actor
 (+ optional pretrain-mixture term), clipped value loss for the critic, EMA
 collection of actor weights.  Experience is generated by the port's
 :class:`~repro_torch.serving.engine.GenerationEngine` (early-exit decode on
-the dense KV arena, int8 with ``PPOConfig.kv_quant``) and scored by
+the dense KV arena for a fixed-shape batch; the request path runs on
+``PPOConfig.kv_layout``, paged with ``kv_block_size`` and the prefix cache
+if asked; int8 with ``PPOConfig.kv_quant``) and scored by
 :func:`make_experience` under ``torch.no_grad()``: the same forward (the
 same kernels, the same logit chunks) as the actor step's, so the first
 step's importance ratio is 1.
@@ -22,9 +24,8 @@ optimizer updates the actor's and critic's params in place: the trainer
 owns the params it is given (``TrainState.create`` keeps them), and the
 frozen reference and reward params must not share storage with them
 (:class:`~repro_torch.core.pipeline.RLHFPipeline` clones both; the trainer
-refuses aliases).  The reference's Hybrid Engine (``engine=``), rollout
-mesh, paged KV and prefix cache belong to later slices and raise
-``NotImplementedError``.
+refuses aliases).  The reference's Hybrid Engine (``engine=``) and rollout
+mesh belong to later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -57,9 +58,12 @@ class PPOConfig:
     decode_chunk: int = 32         # decode dispatch granularity (engine)
     # best-of-n experience generation: each prompt is sampled n times
     # (fixed-shape prompt batches are row-tiled; request lists are
-    # expanded with per-copy seeds)
+    # expanded with per-copy seeds); with the paged engine's prefix cache
+    # on, the request path reuses each prompt's prefilled KV blocks, so
+    # the prompt prefill is paid once, not n times
     n_samples_per_prompt: int = 1
     kv_layout: str = "dense"       # generation engine KV layout
+    kv_block_size: int = 16        # paged: tokens per KV block
     prefix_cache: bool = False     # paged: prefix-aware block reuse
     # int8 KV cache for experience generation: only the generation
     # engine's cfg flips, training forwards are untouched
@@ -211,10 +215,6 @@ class PPOTrainer:
         if rollout_mesh is not None:
             raise NotImplementedError("PPOTrainer(rollout_mesh=): "
                                       "not yet ported")
-        if ppo.kv_layout != "dense" or ppo.prefix_cache:
-            raise NotImplementedError("paged KV / prefix cache for "
-                                      "experience generation: not yet "
-                                      "ported")
         if _shares_storage(actor_params, ref_params):
             raise ValueError("ref_params share storage with actor_params: "
                              "the actor's in-place updates would move the "
@@ -239,8 +239,8 @@ class PPOTrainer:
             gen_cfg, max_new_tokens=ppo.max_new_tokens,
             temperature=ppo.temperature, top_k=ppo.top_k, top_p=ppo.top_p,
             eos_id=ppo.eos_id, chunk=ppo.decode_chunk,
-            kv_layout=ppo.kv_layout, prefix_cache=ppo.prefix_cache,
-            device=self.device)
+            kv_layout=ppo.kv_layout, block_size=ppo.kv_block_size,
+            prefix_cache=ppo.prefix_cache, device=self.device)
 
     # -------------------------------------------------------------- #
     def generate_experience(self, prompts, generator: torch.Generator):
@@ -350,6 +350,9 @@ class PPOTrainer:
               "gen_len": float(resp.sum(1).mean()),
               "gen_tok_s": n_gen / max(gen_s, 1e-9), "gen_s": gen_s,
               "decode_steps": float(eng.last_stats["decode_steps"])}
+        if "prefill_hit_rate" in eng.last_stats:     # paged engine
+            gm["prefill_hit_rate"] = float(
+                eng.last_stats["prefill_hit_rate"])
         return exp, gm
 
     # ---------------------- state tree ---------------------------- #

@@ -10,6 +10,9 @@ and a plain PyTorch version in ``ref.py``:
 - ``decode_attention`` — single-token GQA attention over the dense KV arena,
                          read in place, with bf16/fp32 or int8 K/V
                          (``decode_attention_quant_fwd``)
+- ``paged_attention``  — the same over a shared block pool reached through
+                         per-sequence block tables, bf16/fp32 or int8
+                         (``paged_decode_attention{,_quant}_fwd``)
 
 ``ops.py`` adapts the model's layout and dispatches on the tensors' device.
 """

@@ -26,6 +26,7 @@ import torch
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
+from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rms
 
@@ -35,6 +36,9 @@ KERNELS = {
     "flash_attention_bwd": _fab.flash_attention_bwd,
     "decode_attention_fwd": _dec.decode_attention_fwd,
     "decode_attention_quant_fwd": _dec.decode_attention_quant_fwd,
+    "paged_decode_attention_fwd": _paged.paged_decode_attention_fwd,
+    "paged_decode_attention_quant_fwd":
+        _paged.paged_decode_attention_quant_fwd,
 }
 
 
@@ -129,6 +133,33 @@ def decode_attention_quant(q, k_cache, v_cache, k_scale, v_scale, valid):
         q.unflatten(1, (KV, G)), k_cache.transpose(1, 2),
         v_cache.transpose(1, 2), k_scale.transpose(1, 2),
         v_scale.transpose(1, 2), valid, out=out.unflatten(1, (KV, G)))
+    return out
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lens):
+    """q: (B, H, D); pools: (nblocks, bs, KV, D), the model's per-layer
+    pool views, read in place; block_tables: (B, nb) int32; lens: (B,)
+    int32 valid-row counts."""
+    B, H, D = q.shape
+    KV = k_pool.shape[2]
+    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    _paged.paged_decode_attention_fwd(
+        q.unflatten(1, (KV, H // KV)), k_pool, v_pool, block_tables, lens,
+        out=out.unflatten(1, (KV, H // KV)))
+    return out
+
+
+def paged_decode_attention_quant(q, k_pool, v_pool, k_scale, v_scale,
+                                 block_tables, lens):
+    """Int8 paged decode.  q: (B, H, D); pools: (nblocks, bs, KV, D) int8
+    and scale planes (nblocks, bs, KV) fp32, all read in place;
+    block_tables: (B, nb) int32; lens: (B,) int32."""
+    B, H, D = q.shape
+    KV = k_pool.shape[2]
+    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    _paged.paged_decode_attention_quant_fwd(
+        q.unflatten(1, (KV, H // KV)), k_pool, v_pool, k_scale, v_scale,
+        block_tables, lens, out=out.unflatten(1, (KV, H // KV)))
     return out
 
 

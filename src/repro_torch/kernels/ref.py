@@ -114,6 +114,47 @@ def decode_attention_quant_ref(q, k_cache, v_cache, k_scale, v_scale,
     return o.to(q.dtype)
 
 
+def gather_blocks(pool, block_tables):
+    """(nblocks, bs, ...) pool rows of each sequence's table, as a dense
+    virtual cache (B, nb * bs, ...)."""
+    B, nb = block_tables.shape
+    g = pool[block_tables.long()]                 # (B, nb, bs, ...)
+    return g.reshape(B, nb * pool.shape[1], *pool.shape[2:])
+
+
+def lens_mask(lens, S):
+    """(B, S) bool: the first ``lens[b]`` rows of each sequence."""
+    return torch.arange(S, device=lens.device)[None, :] < lens[:, None]
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lens):
+    """q: (B, KV, G, D); pools: (nblocks, bs, KV, D); block_tables: (B, nb)
+    int32; lens: (B,) int32.  Gathers each sequence's blocks into a dense
+    virtual cache and reuses the dense decode (the reference oracle's
+    answer, including ``lens = 0``: the mean of V, where the kernels return
+    zeros)."""
+    k_virt = gather_blocks(k_pool, block_tables)     # (B, S, KV, D)
+    v_virt = gather_blocks(v_pool, block_tables)
+    valid = lens_mask(lens, k_virt.shape[1])
+    return decode_attention_ref(q, k_virt.transpose(1, 2),
+                                v_virt.transpose(1, 2), valid)
+
+
+def paged_decode_attention_quant_ref(q, k_pool, v_pool, k_scale, v_scale,
+                                     block_tables, lens):
+    """Int8 paged decode.  q: (B, KV, G, D); pools: (nblocks, bs, KV, D)
+    int8; scale planes: (nblocks, bs, KV) fp32, gathered through the same
+    tables; block_tables: (B, nb) int32; lens: (B,) int32."""
+    k_virt = gather_blocks(k_pool, block_tables)
+    v_virt = gather_blocks(v_pool, block_tables)
+    ks_virt = gather_blocks(k_scale, block_tables)   # (B, S, KV)
+    vs_virt = gather_blocks(v_scale, block_tables)
+    valid = lens_mask(lens, k_virt.shape[1])
+    return decode_attention_quant_ref(
+        q, k_virt.transpose(1, 2), v_virt.transpose(1, 2),
+        ks_virt.transpose(1, 2), vs_virt.transpose(1, 2), valid)
+
+
 def rmsnorm_ref(x, w, eps=1e-5):
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)

@@ -1,11 +1,12 @@
-"""Serving launcher (counterpart of ``repro/launch/serve.py``, dense KV).
+"""Serving launcher (counterpart of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b \\
         --requests 32 --ragged --prompt-len 256 --max-new 256 --batch 16
 
 Drives the stepwise request-level core
 (:class:`repro_torch.serving.engine.EngineCore`) behind
-:class:`repro_torch.serving.engine.GenerationEngine` on the dense KV arena.
+:class:`repro_torch.serving.engine.GenerationEngine`, on the dense KV arena
+or (``--kv-layout paged``) on a shared block pool.
 Both schedulers run the SAME drain loop and differ only in when requests
 are fed to the core:
 
@@ -26,14 +27,19 @@ request per line and per-request sampling fields::
 
 ``--chat`` drops into a toy conversation loop on one persistent core.
 
-``--kv-quant`` stores the dense arena's K/V rows as int8 with per-(token,
-kv-head) fp32 absmax scales; decode attention then runs the int8 kernel,
-which dequantizes on the score and probability tiles.
+``--kv-quant`` stores the K/V rows (arena or pool) as int8 with
+per-(token, kv-head) fp32 absmax scales; decode attention then runs the
+int8 kernel, which dequantizes on the score and probability tiles.
+
+``--kv-layout paged`` serves from a pool of ``--block-size``-token blocks
+(``--num-blocks`` incl. the trash block, default: dense-arena parity;
+``--watermark`` free blocks kept at admission, default: one chunk of
+appends per running slot); ``--prefix-cache on`` adds prefix-aware block
+reuse.  The summary line then reports the pool (and cache) statistics.
 
 Runs on CUDA; ``--device cpu`` runs on the CPU with the kernels' plain
 versions.  Weights are random, drawn from ``--seed``.  The reference's
-``--kv-layout paged``, ``--prefix-cache on``, ``--mesh`` and ``--ckpt``
-are not ported yet and are refused.
+``--mesh`` and ``--ckpt`` are not ported yet and are refused.
 """
 from __future__ import annotations
 
@@ -103,14 +109,15 @@ def load_requests(path: str, cfg, tok: ByteTokenizer,
 
 
 def run_schedule(engine, params, reqs, generator, *, mode: str, slots: int,
-                 max_seq_len: int):
+                 max_seq_len: int, num_blocks=None, watermark=None):
     """The one drain loop both schedulers share: feed the core, step it,
     count finished tokens from the event stream.  ``continuous`` queues
     every request up front; ``fixed`` feeds slot-sized waves and starts
     the next wave only when the core goes idle.  Returns (finished tokens,
     core stats, seconds, completions {uid: tokens})."""
     core = engine.core(params, generator, slots=slots,
-                       max_seq_len=max_seq_len)
+                       max_seq_len=max_seq_len, num_blocks=num_blocks,
+                       watermark=watermark)
     pending = deque(reqs)
     streams: dict = {}
     finished: dict = {}
@@ -124,6 +131,9 @@ def run_schedule(engine, params, reqs, generator, *, mode: str, slots: int,
             for _ in range(min(slots, len(pending))):
                 core.add_request(pending.popleft())
         for ev in core.step():
+            if ev.preempted:                   # generated again from scratch
+                streams[ev.uid] = []
+                continue
             streams.setdefault(ev.uid, []).extend(ev.new_tokens.tolist())
             if ev.finished:
                 finished[ev.uid] = streams.pop(ev.uid)
@@ -196,14 +206,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--chunk", type=int, default=8)
     ap.add_argument("--kv-layout", choices=["dense", "paged"],
-                    default="dense")
-    ap.add_argument("--block-size", type=int, default=16)
-    ap.add_argument("--num-blocks", type=int, default=None)
-    ap.add_argument("--watermark", type=int, default=None)
+                    default="dense",
+                    help="KV layout behind the core: fixed arena or "
+                         "block-pooled paged cache")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="paged: tokens per KV block")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="paged: pool size in blocks incl. the trash "
+                         "block (default: dense-arena parity)")
+    ap.add_argument("--watermark", type=int, default=None,
+                    help="paged: free blocks reserved at admission "
+                         "(default: one chunk of appends per running slot)")
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache: K/V rows stored as int8 with "
                          "per-(token, kv-head) fp32 absmax scales")
-    ap.add_argument("--prefix-cache", choices=["on", "off"], default="off")
+    ap.add_argument("--prefix-cache", choices=["on", "off"], default="off",
+                    help="paged: prefix-aware block reuse (cached prompt "
+                         "prefixes are mapped, only the suffix prefilled)")
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--top-k", type=int, default=40)
@@ -220,14 +239,15 @@ def main(argv=None) -> dict:
     return it as a dict (tokens, seconds, tok_s, slot_util, stats)."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    for flag, refused in (("--kv-layout paged", args.kv_layout == "paged"),
-                          ("--prefix-cache on", args.prefix_cache == "on"),
-                          ("--mesh", args.mesh is not None),
+    for flag, refused in (("--mesh", args.mesh is not None),
                           ("--ckpt", args.ckpt is not None)):
         if refused:
             ap.error(f"{flag}: not yet ported")
-    if args.num_blocks is not None or args.watermark is not None:
+    if args.kv_layout == "dense" and (args.num_blocks is not None
+                                      or args.watermark is not None):
         ap.error("--num-blocks/--watermark require --kv-layout paged")
+    if args.prefix_cache == "on" and args.kv_layout != "paged":
+        ap.error("--prefix-cache on requires --kv-layout paged")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -246,6 +266,9 @@ def main(argv=None) -> dict:
                               temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p,
                               eos_id=args.eos_id, chunk=args.chunk,
+                              kv_layout=args.kv_layout,
+                              block_size=args.block_size,
+                              prefix_cache=args.prefix_cache == "on",
                               device=device)
     if args.chat:
         chat_loop(engine, params, tok, args)
@@ -260,7 +283,8 @@ def main(argv=None) -> dict:
     # kernel builds, cuBLAS heuristics, allocator growth)
     S = max(len(r.tokens) + engine.resolve(r)[3] for r in reqs)
     warm = reqs[:min(len(reqs), args.batch)]
-    sched_kw = dict(mode=args.scheduler, slots=args.batch, max_seq_len=S)
+    sched_kw = dict(mode=args.scheduler, slots=args.batch, max_seq_len=S,
+                    num_blocks=args.num_blocks, watermark=args.watermark)
     run_schedule(engine, params, warm,
                  torch.Generator(device=device).manual_seed(args.seed),
                  **sched_kw)
@@ -270,10 +294,23 @@ def main(argv=None) -> dict:
         **sched_kw)
     util = n_tok / max(stats["scheduled_tokens"], 1)
     kv = args.kv_layout + ("-int8" if args.kv_quant else "")
+    extra = ""
+    if args.kv_layout == "paged":
+        extra = (f"  [paged: blocks={stats['num_blocks']} "
+                 f"hwm={stats['block_high_water']} "
+                 f"preempt={stats['preemptions']} "
+                 f"mean_conc={stats['mean_concurrency']:.1f}]")
+        if args.prefix_cache == "on":
+            extra += (
+                f"  [prefix-cache: hit_rate={stats['prefill_hit_rate']:.1%}"
+                f" cached_tokens={stats['cached_prefill_tokens']}"
+                f" computed_tokens={stats['computed_prefill_tokens']}"
+                f" evictions={stats['cache_evictions']}"
+                f" cached_blocks={stats['cached_blocks']}]")
     print(f"scheduler={args.scheduler}  kv={kv}  "
           f"requests={len(reqs)}  "
           f"generated {n_tok} tokens in {dt:.3f}s  ({n_tok / dt:.1f} tok/s, "
-          f"slot utilization {util:.1%})")
+          f"slot utilization {util:.1%}){extra}")
     return {"tokens": n_tok, "seconds": dt, "tok_s": n_tok / dt,
             "slot_util": util, "stats": stats, "requests": reqs,
             "completions": finished}

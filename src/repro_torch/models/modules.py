@@ -17,9 +17,11 @@ jnp path.
 
 The reference's sharding helpers (``wgather``, ``constrain_batch``,
 ``opt_barrier``) are no-ops on this single-device path and are dropped.
-The dense int8 KV cache (``cfg.kv_quant``: int8 K/V rows plus fp32
-per-row scale planes) is ported; the paged branch of :func:`attn_apply` and
-an int8 prefix history are not yet, and raise ``NotImplementedError``.
+The int8 KV cache (``cfg.kv_quant``: int8 K/V rows plus fp32 per-row
+scale planes) and the paged layout (a shared block pool reached through
+per-sequence block tables, bf16/fp32 or int8) are ported, with the prefix
+cache's read-only history (``hk``/``hv``, dequantized from int8 blocks when
+the pool is int8).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ref import gather_blocks, lens_mask
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
@@ -377,6 +380,65 @@ def attn_cache_shape(cfg: ModelConfig, batch: int, max_len: int,
     return out
 
 
+def paged_attn_cache_shape(cfg: ModelConfig, num_blocks: int,
+                           block_size: int):
+    """Paged layout: a shared pool of ``num_blocks`` fixed-size KV blocks
+    (block 0 is the trash block) instead of a per-slot ``(batch, S)``
+    arena; a block's rows follow the arena's ``(S, KV, D)`` convention with
+    ``S -> block_size``.  With ``cfg.kv_quant`` the pool stores int8 K/V
+    and fp32 scale planes ``(num_blocks, bs, KV)`` that travel with their
+    blocks.  Full-context GQA only."""
+    if cfg.mla:
+        raise NotImplementedError("paged KV: GQA only (MLA caches latents)")
+    out = dict(k=(num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim),
+               v=(num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim))
+    if cfg.kv_quant:
+        out["k_scale"] = (num_blocks, block_size, cfg.n_kv_heads)
+        out["v_scale"] = (num_blocks, block_size, cfg.n_kv_heads)
+    return out
+
+
+def decode_attention_paged(q, k_pool, v_pool, block_tables, lens,
+                           use_kernels=False):
+    """Single-token attention over a block-pooled KV cache.
+
+    q: (B, H, D); k/v pool: (nblocks, bs, KV, D); block_tables: (B, nb)
+    int32 (entries past a sequence's allocated prefix point at trash block
+    0); lens: (B,) int32 valid-row counts.  The plain path gathers each
+    sequence's blocks into a dense (B, nb*bs, KV, D) virtual cache and
+    reuses the dense decode math, bit-identical to the dense arena when
+    ``nb*bs`` equals the arena length; the kernel walks the table."""
+    if use_kernels:
+        from repro_torch.kernels import ops as kops
+        return kops.paged_decode_attention(q, k_pool, v_pool, block_tables,
+                                           lens)
+    k_virt = gather_blocks(k_pool, block_tables)
+    v_virt = gather_blocks(v_pool, block_tables)
+    return decode_attention(q, k_virt, v_virt,
+                            lens_mask(lens, k_virt.shape[1]))
+
+
+def decode_attention_paged_quant(q, k_pool, v_pool, k_scale, v_scale,
+                                 block_tables, lens, use_kernels=False):
+    """Single-token attention over an int8 block-pooled KV cache: the
+    plain path gathers blocks and their scale rows into a dense virtual
+    cache and reuses :func:`decode_attention_quant`; the kernel walks the
+    table with dequant fused into its online softmax.
+
+    q: (B, H, D); k/v pool: (nblocks, bs, KV, D) int8; scale pools:
+    (nblocks, bs, KV) fp32; block_tables: (B, nb) int32; lens: (B,)."""
+    if use_kernels:
+        from repro_torch.kernels import ops as kops
+        return kops.paged_decode_attention_quant(
+            q, k_pool, v_pool, k_scale, v_scale, block_tables, lens)
+    k_virt = gather_blocks(k_pool, block_tables)
+    v_virt = gather_blocks(v_pool, block_tables)
+    return decode_attention_quant(
+        q, k_virt, v_virt, gather_blocks(k_scale, block_tables),
+        gather_blocks(v_scale, block_tables),
+        lens_mask(lens, k_virt.shape[1]))
+
+
 def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
                window=None, block_tables=None, rope=None):
     """mode: 'full' (train / full prefill) | 'prefill' (also fills cache) |
@@ -387,11 +449,13 @@ def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
     ``cfg.kv_quant``).  Where the reference rebuilds the (donated) arena
     with ``.at[].set``, the port writes the new rows into it in place and
     returns the same dict.  A prefill cache may also carry a read-only
-    history (``hk``/``hv``) that the current tokens attend to but never
-    rewrite.  ``rope`` is :func:`rope_cos_sin` of ``positions`` when the
-    caller shares it across layers."""
-    if block_tables is not None:
-        raise NotImplementedError("paged KV cache: not yet ported")
+    history (``hk``/``hv``, int8 with ``hk_scale``/``hv_scale`` under
+    ``cfg.kv_quant``) that the current tokens attend to but never rewrite.
+    ``block_tables`` selects the paged decode: ``cache`` is then this
+    layer's view of the shared block pool (:func:`paged_attn_cache_shape`)
+    and each row's K/V is written and read through its table.  ``rope`` is
+    :func:`rope_cos_sin` of ``positions`` when the caller shares it across
+    layers."""
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, -1, H, hd)
@@ -405,7 +469,46 @@ def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
     k = apply_rope(k, positions, cfg.rope_theta, rope)
 
     new_cache = None
-    if mode == "decode":
+    if mode == "decode" and block_tables is not None:
+        # paged: write the new row at (table[pos // bs], pos % bs) and
+        # attend through the table.  Rows past a slot's allocated prefix
+        # resolve to the trash block (table padding = 0); with a FULLY
+        # allocated table the clamped index instead wraps post-EOS writes
+        # into the slot's own last block: dead for decode (a finished
+        # slot's output is dropped until harvest), and the prefix cache
+        # never indexes that block, so its stale rows are never reused
+        assert cache is not None
+        if window is not None:
+            raise NotImplementedError("paged KV: full-context attention "
+                                      "only")
+        bs = cache["k"].shape[1]
+        nb = block_tables.shape[1]
+        pos = positions[:, 0]                       # (B,)
+        bi = torch.clamp(pos // bs, max=nb - 1)
+        blk = torch.gather(block_tables, 1, bi[:, None])[:, 0].long()
+        off = pos % bs
+        lens = torch.clamp(pos + 1, max=nb * bs).to(torch.int32)
+        # in place: the new rows land in their pool blocks
+        if cfg.kv_quant:
+            ki, ks = _kv_quant(k[:, 0])             # (B,KV,hd), (B,KV)
+            vi, vs = _kv_quant(v[:, 0])
+            cache["k"][blk, off] = ki
+            cache["v"][blk, off] = vi
+            cache["k_scale"][blk, off] = ks
+            cache["v_scale"][blk, off] = vs
+            o = decode_attention_paged_quant(
+                q[:, 0], cache["k"], cache["v"], cache["k_scale"],
+                cache["v_scale"], block_tables, lens,
+                use_kernels=cfg.use_kernels)
+        else:
+            cache["k"][blk, off] = k[:, 0]
+            cache["v"][blk, off] = v[:, 0]
+            o = decode_attention_paged(q[:, 0], cache["k"], cache["v"],
+                                       block_tables, lens,
+                                       use_kernels=cfg.use_kernels)
+        new_cache = cache
+        o = o[:, None]                              # (B,1,H,hd)
+    elif mode == "decode":
         assert cache is not None
         S = cache["k"].shape[1]
         pos = positions[:, 0]                       # (B,)
@@ -438,11 +541,14 @@ def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
         # kernels' rectangular-causal convention (q_offset = Lk - Lq)
         k_att, v_att = k, v
         if cache is not None and "hk" in cache:
+            hk, hv = cache["hk"], cache["hv"]
             if cfg.kv_quant:
-                raise NotImplementedError(
-                    "int8 prefix history: not yet ported")
-            k_att = torch.cat([cache["hk"], k], dim=1)
-            v_att = torch.cat([cache["hv"], v], dim=1)
+                # int8 history: dequantized before the concat, a
+                # (B, P, KV, hd) temporary; the pool itself stays int8
+                hk = (hk.float() * cache["hk_scale"][..., None]).to(k.dtype)
+                hv = (hv.float() * cache["hv_scale"][..., None]).to(v.dtype)
+            k_att = torch.cat([hk, k], dim=1)
+            v_att = torch.cat([hv, v], dim=1)
         if cfg.use_kernels:
             from repro_torch.kernels import ops as kops
             if mode == "full":                      # training / scoring

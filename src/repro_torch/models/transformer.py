@@ -12,7 +12,9 @@ body), and :func:`lm_loss` / :func:`per_token_logprobs` never build more
 than ``cfg.logit_chunk`` positions of logits at a time.
 
 Only dense attention layers are ported: SSM, cross-attention, MoE and MLA
-segments raise ``NotImplementedError``.
+segments raise ``NotImplementedError``.  The KV cache is the dense arena
+(:func:`init_cache`) or the paged block pool (:func:`init_paged_cache`,
+decode through ``block_tables``).
 """
 from __future__ import annotations
 
@@ -108,12 +110,46 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int):
         for seg in cfg.segments())
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def _zeros_of(struct, device):
     return tree_map(
-        lambda s: torch.zeros(s[0], dtype=s[1], device=device),
-        cache_struct(cfg, batch, max_len),
+        lambda s: torch.zeros(s[0], dtype=s[1], device=device), struct,
         is_leaf=lambda x: isinstance(x, tuple) and len(x) == 2
         and isinstance(x[1], torch.dtype))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    return _zeros_of(cache_struct(cfg, batch, max_len), device)
+
+
+def paged_cache_struct(cfg: ModelConfig, num_blocks: int, block_size: int):
+    """``(shape, dtype)`` leaves of the **paged** cache tree: each attention
+    layer holds a shared ``(num_blocks, block_size, KV, D)`` block pool
+    instead of a per-slot arena (block 0 is the trash block; see
+    :mod:`repro_torch.serving.block_pool`), stacked over ``n_units`` like
+    the arena.  The per-slot block tables are not part of the tree: they
+    are the same for every layer and go to :func:`forward` beside it.
+    Full-context attention layers only; with ``cfg.kv_quant`` the pools are
+    int8 with fp32 ``k_scale``/``v_scale`` planes ``(num_blocks, bs,
+    KV)``."""
+    _check_ported(cfg)
+    segs = []
+    for seg in cfg.segments():
+        unit = []
+        for ls in seg.unit_spec:
+            if ls.kind != ATTN or ls.sliding_window or cfg.sliding_window:
+                raise NotImplementedError(
+                    "paged KV cache supports full-context attention "
+                    f"layers only (got {ls})")
+            shapes = M.paged_attn_cache_shape(cfg, num_blocks, block_size)
+            unit.append({k: ((seg.n_units,) + shp, _cache_dtype(cfg, k))
+                         for k, shp in shapes.items()})
+        segs.append(tuple(unit))
+    return tuple(segs)
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     device=None):
+    return _zeros_of(paged_cache_struct(cfg, num_blocks, block_size), device)
 
 
 # ===================================================================== #
@@ -136,11 +172,13 @@ def _unstack(tree, n: int) -> list:
     return [tree_unflatten(tree, [u[i] for u in per_leaf]) for i in range(n)]
 
 
-def _layer(cfg: ModelConfig, spec, lp, x, positions, mode, lc, rope):
+def _layer(cfg: ModelConfig, spec, lp, x, positions, mode, lc, rope,
+           block_tables=None):
     win = spec.sliding_window or cfg.sliding_window
     h = M.rmsnorm(x, lp["ln1"], cfg.rms_eps, cfg.use_kernels)
     att, _ = M.attn_apply(cfg, lp["attn"], h, positions=positions, mode=mode,
-                          cache=lc, window=win, rope=rope)
+                          cache=lc, window=win, block_tables=block_tables,
+                          rope=rope)
     x = x + att
     h2 = M.rmsnorm(x, lp["ln2"], cfg.rms_eps, cfg.use_kernels)
     return x + M.mlp_apply(lp["mlp"], h2, cfg)
@@ -155,10 +193,11 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
     mode='prefill' — like full but also fills ``cache``.
     mode='decode'  — single token step; ``positions`` is (B,1) absolute.
 
+    ``block_tables`` ((B, nb) int32) switches decode to the paged layout:
+    ``cache`` is then the pool tree of :func:`init_paged_cache`.
+
     ``cache`` is updated in place and returned (the reference returns a new
     tree built from its donated input)."""
-    if block_tables is not None:
-        raise NotImplementedError("paged KV cache: not yet ported")
     _check_ported(cfg)
     params = cast_params(cfg, params)
     x = params["embed"][tokens] if tokens is not None else embeds
@@ -182,7 +221,7 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
                                    mode, lc, rope, use_reentrant=False)
                 else:
                     x = _layer(cfg, spec, up[i], x, positions, mode, lc,
-                               rope)
+                               rope, block_tables)
     x = M.rmsnorm(x, params["final_norm"], cfg.rms_eps, cfg.use_kernels)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, cache, aux

@@ -1,5 +1,5 @@
 """Serving-grade generation: early-exit decode + a stepwise request core
-(counterpart of ``repro/serving/engine.py``, dense KV layout).
+(counterpart of ``repro/serving/engine.py``).
 
 1. **Early-exit decode** (:meth:`GenerationEngine.generate`): decode runs
    in ``chunk``-token segments; after each segment the (tiny) ``done``
@@ -22,13 +22,38 @@ top-p / EOS ride along as ``(slots,)`` tensors into
 ``seed`` draw from the core's shared ``torch.Generator``; a seeded request
 draws from its own generator, so its stream does not depend on the batch.
 
-The KV arena is the **dense** layout: a fixed ``(slots, S)`` arena in
-which every slot reserves ``max_seq_len`` rows for its lifetime, in the
-compute dtype or, with ``cfg.kv_quant``, as int8 rows with fp32 per-row
-scale planes.  Where the reference donates the arena to each jitted call
-and rebinds the result, the port updates it in place: admission prefills
-straight into the slot's arena rows (and scale rows) and decode writes one
-row per slot per step.  The paged layout, the prefix cache and meshes are
+The KV cache behind the core comes in two layouts (``kv_layout``), cache
+backends behind the same scheduling loop, in the compute dtype or, with
+``cfg.kv_quant``, as int8 rows with fp32 per-row scale planes:
+
+- ``"dense"``: a fixed ``(slots, S)`` arena in which every slot reserves
+  ``max_seq_len`` rows for its lifetime.  Admission prefills straight into
+  the slot's arena rows.
+- ``"paged"``: a shared pool of ``block_size``-token blocks plus per-slot
+  block tables (:mod:`repro_torch.serving.block_pool`).  A slot holds only
+  the blocks its tokens occupy: prompt blocks are allocated and scattered
+  at admission, decode blocks are appended at chunk boundaries (the host
+  mirrors each slot's position, so a top-up never syncs the device), and
+  release returns them.  Admission needs a free slot and enough free
+  blocks for the prompt beyond a ``watermark`` reserve; when a top-up
+  still finds the pool empty the newest slot is preempted and requeued at
+  the queue front, so the oldest sequences always progress.  Decode
+  attention walks the block table (the CUDA paged kernels on the card).
+  With ``prefix_cache=True`` blocks are ref-counted and indexed by a
+  content hash chained over their token prefix: admission maps the
+  longest cached prefix into the slot's table as shared read-only blocks
+  and prefills only the uncached suffix against the gathered prefix KV
+  (rectangular causal masking, positions ``P0 + arange(Lb)``), and
+  harvest parks a finished sequence's full blocks in an LRU, evicted
+  before any preemption.  Given the same admission order, the paged
+  token streams are the dense layout's.  With the cache they are the same
+  up to rounding: the suffix prefill computes the full prefill's logits
+  with GEMMs of another row count, so in bf16 a near-tie may flip a greedy
+  token (fp32 streams are identical).
+
+Where the reference donates the cache to each jitted call and rebinds the
+result, the port updates it in place: decode writes one row per slot per
+step (into the arena row, or into the block its table names).  Meshes are
 not ported yet and raise ``NotImplementedError``.
 
 Ragged prefill correctness: prompts are right-padded to a shape bucket and
@@ -37,7 +62,12 @@ padded KV rows beyond the true prompt length are garbage, but decode
 attention only exposes cache rows ``< pos + 1`` and the first decode steps
 overwrite exactly those rows (row ``pos`` is written before ``pos`` becomes
 visible), so the garbage is dead by construction.  The same holds for the
-stale rows a previous occupant of the slot left behind.
+stale rows a previous occupant of the slot left behind.  In the paged
+layout, padding rows past the prompt's last allocated block (and post-EOS
+decode writes before harvest) fall through the table's trash padding into
+block 0, which nothing reads; a finished slot with a fully allocated table
+wraps such writes into its own last block instead, which the prefix cache
+never indexes.
 """
 from __future__ import annotations
 
@@ -49,9 +79,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels.paged_attention import check_tables
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import tree_map
+from repro_torch.serving.block_pool import (TRASH_BLOCK, BlockAllocator,
+                                            BlockTables, blocks_for)
 from repro_torch.serving.generate import (decode_scan_step, decode_step,
                                           prefill)
 from repro_torch.serving.sampling import sample_rows
@@ -119,8 +152,9 @@ class StepEvent:
       (empty for pure state changes).
     - ``finished`` + ``finish_reason``: the request completed; its slot is
       already reclaimed.
-    - ``preempted``: the request was evicted and requeued (paged layout
-      only; never raised by the dense layout).
+    - ``preempted``: the paged pool ran dry and this request was evicted
+      and requeued at the queue front; every token streamed for it so far
+      is invalid and will be generated again.
 
     (A numpy array is not a valid dataclass default; the reference's
     ``new_tokens = np.zeros(0)`` default fails on Python 3.12, so this one
@@ -147,6 +181,44 @@ def _pad_bucket(tokens: np.ndarray, width: int) -> np.ndarray:
     return out
 
 
+def _scatter_row_blocks(pool, row, blk_ids, bs: int) -> None:
+    """Scatter a single-row prefill cache (leaves ``(n_units, 1, Lb,
+    ...)``) block-wise into the paged pool at ``blk_ids``, in place: the
+    one pool-write primitive of both paged admission paths.  Rows past the
+    last real block land in the trash entries ``blk_ids`` is padded with
+    (duplicate trash indices are fine: nothing reads block 0).  Only the
+    pool's own leaves are read from ``row`` (not a prefix history)."""
+    nbp = blk_ids.shape[0]
+
+    def scatter(pool_leaf, row_leaf):
+        r = row_leaf[:, 0]                    # (n_units, Lb, ...)
+        pad = nbp * bs - r.shape[1]
+        if pad:
+            r = torch.cat([r, r.new_zeros((r.shape[0], pad) + r.shape[2:])],
+                          dim=1)
+        pool_leaf[:, blk_ids] = r.reshape((r.shape[0], nbp, bs)
+                                          + r.shape[2:])
+
+    tree_map(scatter, pool, row)
+
+
+def _with_history(row, pool, prefix_ids):
+    """``row``'s per-layer dicts with the read-only prefix history gathered
+    from the pool blocks ``prefix_ids``: ``hk``/``hv`` ``(n_units, 1, P0,
+    KV, hd)``, and with an int8 pool their ``hk_scale``/``hv_scale``."""
+    if isinstance(row, dict):
+        def gather(leaf):
+            h = leaf[:, prefix_ids]            # (n_units, n_pre, bs, ...)
+            return h.reshape((h.shape[0], 1, h.shape[1] * h.shape[2])
+                             + h.shape[3:])
+        out = {**row, "hk": gather(pool["k"]), "hv": gather(pool["v"])}
+        if "k_scale" in pool:                  # int8 pool: scales travel
+            out["hk_scale"] = gather(pool["k_scale"])
+            out["hv_scale"] = gather(pool["v_scale"])
+        return out
+    return tuple(_with_history(r, p, prefix_ids) for r, p in zip(row, pool))
+
+
 @dataclasses.dataclass
 class _Active:
     """Host-side state of one occupied slot."""
@@ -160,28 +232,38 @@ class GenerationEngine:
     """Engine for experience generation and the serve launcher.
 
     Construction-time sampling settings are *defaults*: the fixed-batch
-    :meth:`generate` path uses them for the whole batch, while the
-    request-level core resolves them per request against each
-    :class:`SamplingParams`.  Params are passed per call (fp32 masters or
-    already in the compute dtype); ``device`` defaults to CUDA and must be
-    where the params live.
+    :meth:`generate` path uses them for the whole batch (always on the
+    dense arena, as in the reference), while the request-level core
+    resolves them per request against each :class:`SamplingParams` and
+    runs on the ``kv_layout`` backend.  Params are passed per call (fp32
+    masters or already in the compute dtype); ``device`` defaults to CUDA
+    and must be where the params live.
     """
 
     def __init__(self, cfg: ModelConfig, *, max_new_tokens: int,
                  temperature: float = 1.0, top_k: int = 0,
                  top_p: float = 1.0, eos_id: Optional[int] = None,
                  chunk: int = 32, kv_layout: str = "dense",
-                 prefix_cache: bool = False, mesh=None, device=None):
+                 block_size: int = 16, prefix_cache: bool = False,
+                 mesh=None, device=None):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout={kv_layout!r}")
         if prefix_cache and kv_layout != "paged":
             raise ValueError("prefix_cache requires kv_layout='paged'")
-        if kv_layout == "paged" or prefix_cache:
-            raise NotImplementedError("paged KV cache / prefix cache: "
-                                      "not yet ported")
         if mesh is not None:
             raise NotImplementedError("device meshes: not yet ported")
         T.cache_struct(cfg, 1, 1)            # raises for unported archs
+        self.kv_layout = kv_layout
+        self.block_size = max(1, int(block_size))
+        self.prefix_cache = bool(prefix_cache)
+        if kv_layout == "paged":
+            # raises for sliding-window layers; MLA caches latents (dense
+            # geometry only)
+            if cfg.mla or cfg.arch_type == "vlm":
+                raise NotImplementedError(
+                    "paged KV cache supports plain-GQA token-input "
+                    "decoder LMs (no MLA / VLM)")
+            T.paged_cache_struct(cfg, 2, self.block_size)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_new_tokens = int(max_new_tokens)
@@ -261,22 +343,26 @@ class GenerationEngine:
     # ================================================================ #
     # admission and the serve chunk
     # ================================================================ #
-    def _prefill_row(self, params, tokens, length, row):
+    def _prefill_row(self, params, tokens, length, row, positions=None):
         """Prefill one padded prompt into the single-row cache ``row`` (in
         place); returns the logits of the TRUE last prompt token
-        (``length`` is the unpadded prompt length)."""
+        (``length`` is the unpadded prompt length).  A prefix-cache
+        admission passes the suffix, its ``positions`` and a ``row`` that
+        carries the prefix history."""
         cfg = self.cfg
         hidden, _, _ = T.forward(cfg, params, tokens=tokens, mode="prefill",
-                                 cache=row)
+                                 cache=row, positions=positions)
         h_last = hidden[0, length - 1]
         return T.logits_fn(cfg, params, h_last[None, None])[0, 0]
 
-    def _serve_chunk(self, core: "EngineCore", cache):
-        """``chunk`` decode steps over the whole arena with per-slot stop
-        limits (absolute position ``prompt_len + max_new_tokens``) and
-        per-slot sampling tensors, run back to back on the device.  Updates
-        the core's logits/pos/done and returns the (chunk, slots) tokens
-        and pre-step done flags, still on the device."""
+    def _serve_chunk(self, core: "EngineCore", cache, block_tables=None):
+        """``chunk`` decode steps over the whole slot batch with per-slot
+        stop limits (absolute position ``prompt_len + max_new_tokens``) and
+        per-slot sampling tensors, run back to back on the device; with
+        ``block_tables`` the KV is read and written through them (the same
+        step body for both layouts).  Updates the core's logits/pos/done
+        and returns the (chunk, slots) tokens and pre-step done flags,
+        still on the device."""
         cfg, params = self.cfg, core.params
         temp, top_k, top_p, eos = core.sampling_tensors()
         pad_tok = torch.where(eos >= 0, eos, 0)
@@ -288,7 +374,8 @@ class GenerationEngine:
                               top_k=top_k, top_p=top_p,
                               row_generators=core.slot_generators)
             tok = torch.where(done, pad_tok, tok)
-            logits, cache = decode_step(cfg, params, tok, cache, pos)
+            logits, cache = decode_step(cfg, params, tok, cache, pos,
+                                        block_tables=block_tables)
             toks.append(tok)
             was.append(done)
             done = done | (pos + 1 >= limit) | ((eos >= 0) & (tok == eos))
@@ -332,15 +419,24 @@ class GenerationEngine:
         """Drain a queue of ragged requests through the stepwise core and
         return their :class:`Completion`\\ s in finish order.  Free slots
         are refilled at chunk boundaries; each slot attends only its own
-        arena rows, so greedy results equal running each request alone."""
-        if num_blocks is not None or watermark is not None:
+        rows, so greedy results equal running each request alone.
+
+        With ``kv_layout="paged"``, ``num_blocks`` sizes the shared pool
+        (default: dense-arena parity, ``slots * ceil(S / block_size)``
+        usable blocks plus the trash block) and ``watermark`` is the
+        free-block reserve kept by admission (default: one chunk of decode
+        appends per running slot).  Both are refused for the dense
+        layout."""
+        if self.kv_layout != "paged" and (num_blocks is not None
+                                          or watermark is not None):
             raise ValueError("num_blocks/watermark require kv_layout='paged'")
         need = max((len(r.tokens) + self.resolve(r)[3] for r in requests),
                    default=1)
         S = max_seq_len or need
         if need > S:
             raise ValueError(f"max_seq_len={S} < longest request ({need})")
-        core = self.core(params, generator, slots=slots, max_seq_len=S)
+        core = self.core(params, generator, slots=slots, max_seq_len=S,
+                         num_blocks=num_blocks, watermark=watermark)
         prompts: Dict[int, np.ndarray] = {}
         for r in requests:
             core.add_request(r)
@@ -349,6 +445,9 @@ class GenerationEngine:
         out: List[Completion] = []
         while core.has_work():
             for ev in core.step():
+                if ev.preempted:
+                    streams[ev.uid] = []       # generated again from scratch
+                    continue
                 buf = streams.setdefault(ev.uid, [])
                 buf.extend(ev.new_tokens.tolist())
                 if ev.finished:
@@ -361,11 +460,14 @@ class GenerationEngine:
 
 
 # ===================================================================== #
-# the dense cache backend
+# cache backends: the dense arena and the paged block pool present the
+# same check / admit / prepare / dispatch / release surface to the core
 # ===================================================================== #
 class _DenseBackend:
     """Fixed ``(slots, S)`` KV arena: a slot owns ``S`` rows for life, so
     admission needs nothing beyond a free slot and release is free."""
+
+    wants_seq_tokens = False           # release() ignores seq_tokens
 
     def __init__(self, core: "EngineCore"):
         self.core = core
@@ -390,10 +492,7 @@ class _DenseBackend:
         row = tree_map(lambda a: a[:, slot:slot + 1], self.cache)
         logit = e._prefill_row(c.params, torch.as_tensor(
             padded, device=e.device), Lp, row)
-        c.logits[slot] = logit
-        c.pos[slot] = Lp
-        c.done[slot] = False
-        c.limit[slot] = Lp + max_new
+        c.slot_reset(slot, logit, Lp, max_new)
 
     def prepare_chunk(self, events: List[StepEvent]) -> None:
         pass                                   # nothing to top up
@@ -401,11 +500,200 @@ class _DenseBackend:
     def dispatch(self):
         return self.core.engine._serve_chunk(self.core, self.cache)
 
-    def release(self, slot: int) -> None:
+    def release(self, slot: int,
+                seq_tokens: Optional[np.ndarray] = None) -> None:
         pass                                   # rows are reused in place
 
     def stats(self) -> dict:
         return {}
+
+
+class _PagedBackend:
+    """Block-pooled KV cache: admission allocates prompt blocks under a
+    watermark reserve, every chunk boundary tops tables up to cover the
+    next chunk (preempting the newest slot if the pool runs dry), and
+    release returns a slot's blocks to the pool.
+
+    With ``prefix_cache`` on, admission first matches the prompt against
+    the allocator's content-hash index and maps the longest cached prefix
+    (full blocks only) into the slot's table as shared read-only blocks;
+    only the uncached suffix is prefilled, against the gathered prefix KV,
+    into freshly allocated private blocks.  Tail blocks are copied, never
+    shared: decode appends (positions ``>= prompt_len``) land strictly past
+    the shared prefix.  Harvest indexes a finished sequence's full blocks
+    instead of freeing them (they park in the allocator's LRU once
+    unreferenced), and allocation evicts those before the engine ever
+    preempts a running slot."""
+
+    def __init__(self, core: "EngineCore", num_blocks: Optional[int],
+                 watermark: Optional[int]):
+        self.core = core
+        e = core.engine
+        bs = e.block_size
+        self.nbmax = core.S // bs
+        if num_blocks is None:
+            num_blocks = core.slots * self.nbmax + 1   # arena parity + trash
+        self.num_blocks = num_blocks
+        self.alloc = BlockAllocator(num_blocks, bs)
+        self.tables = BlockTables(self.alloc, core.slots, self.nbmax)
+        self.watermark = watermark
+        self.prefix_cache = e.prefix_cache
+        # release() harvests into the index only with the cache on; the
+        # core skips building the stream otherwise
+        self.wants_seq_tokens = self.prefix_cache
+        # admission reserve: ``watermark`` blocks, or one chunk of decode
+        # appends per *running* slot
+        self.chunk_blocks = blocks_for(e.chunk, bs)
+        self.pool = T.init_paged_cache(core.cfg, num_blocks, bs,
+                                       device=e.device)
+        # host mirror of pos/limit: admission sets them and every chunk
+        # advances every slot by exactly ``chunk`` steps, so a top-up never
+        # reads device state
+        self.host_pos = [0] * core.slots
+        self.host_limit = [0] * core.slots
+        self.conc: List[int] = []
+        self.used_samples: List[int] = []
+        self.cached_prefill_tokens = 0         # prompt rows served by cache
+        self.computed_prefill_tokens = 0       # prompt rows prefilled
+
+    def check(self, uid: int, Lp: int, max_new: int) -> None:
+        if Lp + max_new > self.core.S:
+            raise ValueError(
+                f"request {uid} needs {Lp + max_new} KV rows > "
+                f"max_seq_len={self.core.S}")
+        if not self.alloc.fits(Lp + max_new):
+            raise ValueError(
+                f"request {uid} needs "
+                f"{self.alloc.blocks_for(Lp + max_new)} blocks; "
+                f"pool holds {self.alloc.capacity}")
+
+    def can_admit(self, n_prompt_tokens: int) -> bool:
+        # the watermark is waived when nothing runs: the reserve protects
+        # nobody and waiting would wedge the scheduler
+        n_active = self.core.n_active
+        reserve = (self.watermark if self.watermark is not None
+                   else n_active * self.chunk_blocks)
+        return self.alloc.can_admit(n_prompt_tokens, reserve=reserve,
+                                    ignore_watermark=n_active == 0)
+
+    def admit(self, slot: int, tokens: np.ndarray, Lp: int,
+              max_new: int) -> None:
+        c, e = self.core, self.core.engine
+        bs, dev = e.block_size, e.device
+        tokens = np.asarray(tokens, np.int32)
+        # one hash pass serves both the match and the insert below
+        keys = self.alloc.chunk_keys(tokens) if self.prefix_cache else None
+        shared = (self.alloc.match(tokens, keys=keys)
+                  if self.prefix_cache else [])
+        P0 = len(shared) * bs                  # cached prefix rows
+        Ls = Lp - P0                           # uncached suffix (>= 1)
+        own = self.alloc.alloc(self.alloc.blocks_for(Lp) - len(shared))
+        assert own is not None, "can_admit must bound admission demand"
+        self.tables.assign(slot, shared + own)
+        self.cached_prefill_tokens += P0
+        self.computed_prefill_tokens += Ls
+        padded = _pad_bucket(tokens[P0:], min(_next_bucket(Ls), c.S - P0))
+        Lb = padded.shape[1]
+        blk_ids = np.full((-(-Lb // bs),), TRASH_BLOCK, np.int64)
+        blk_ids[:len(own)] = own
+        row = T.init_cache(c.cfg, 1, Lb, device=dev)
+        positions = None
+        if shared:
+            # the suffix attends [prefix; suffix] with rectangular causal
+            # masking at its absolute positions; shared blocks are read,
+            # never written
+            row = _with_history(row, self.pool, torch.as_tensor(
+                np.asarray(shared, np.int64), device=dev))
+            positions = P0 + torch.arange(Lb, device=dev)[None]
+        logit = e._prefill_row(c.params, torch.as_tensor(padded, device=dev),
+                               Ls, row, positions)
+        _scatter_row_blocks(self.pool, row,
+                            torch.as_tensor(blk_ids, device=dev), bs)
+        c.slot_reset(slot, logit, Lp, max_new)
+        if self.prefix_cache:
+            # index the prompt's full blocks now, so batchmates (PPO's n
+            # samples of one prompt, chat turns sharing a system prompt)
+            # hit them before this sequence finishes; the running slot
+            # never writes them (decode appends start at ``Lp``)
+            self.alloc.insert(tokens, self.tables.blocks[slot], keys=keys)
+        self.host_pos[slot] = Lp
+        self.host_limit[slot] = Lp + max_new
+
+    def prepare_chunk(self, events: List[StepEvent]) -> None:
+        """Top up every active slot's table to cover the next chunk;
+        preempt the newest slot on pool exhaustion (the oldest always
+        progresses, so the scheduler cannot deadlock)."""
+        c = self.core
+        active = [b for b in range(c.slots) if c.active[b] is not None]
+        for b in sorted(active, key=lambda x: c.stamp[x]):
+            if c.active[b] is None:              # preempted this round
+                continue
+            cover = min(self.host_pos[b] + c.engine.chunk,
+                        self.host_limit[b])
+            want = min(self.alloc.blocks_for(cover), self.nbmax)
+            while not self.tables.grow(b, want):
+                # evict the newest sequence overall, possibly the
+                # requester itself, so an older slot is never starved by
+                # a younger one
+                victims = [v for v in range(c.slots)
+                           if c.active[v] is not None]
+                if not victims:      # unreachable: check() bounds demand
+                    raise RuntimeError("paged KV pool exhausted with "
+                                       "no slot to preempt")
+                victim = max(victims, key=lambda v: c.stamp[v])
+                c.release_slot(victim, requeue=True, events=events)
+                if victim == b:
+                    break
+
+    def dispatch(self):
+        c, e = self.core, self.core.engine
+        self.conc.append(c.n_active)
+        self.used_samples.append(self.alloc.num_live)
+        check_tables(self.tables.table, self.num_blocks)
+        tables = torch.as_tensor(self.tables.table, device=e.device)
+        out = e._serve_chunk(c, self.pool, tables)   # one upload a chunk
+        for b in range(c.slots):
+            self.host_pos[b] += e.chunk
+        return out
+
+    def release(self, slot: int,
+                seq_tokens: Optional[np.ndarray] = None) -> None:
+        """Drop the slot's block references.  On a harvest with the cache
+        on (``seq_tokens`` = prompt + generated stream) the sequence's full
+        blocks are indexed first, so they park in the LRU once
+        unreferenced; except the last block of a FULLY allocated table,
+        whose rows a finished slot's clamped post-EOS writes may have
+        wrapped into: it is never indexed."""
+        if self.prefix_cache and seq_tokens is not None:
+            blocks = self.tables.blocks[slot]
+            n_ok = len(blocks)
+            if n_ok == self.nbmax:
+                n_ok -= 1
+            self.alloc.insert(seq_tokens, blocks[:n_ok])
+        self.tables.release(slot)
+
+    def stats(self) -> dict:
+        bs = self.core.engine.block_size
+        total_prefill = (self.cached_prefill_tokens
+                         + self.computed_prefill_tokens)
+        return {
+            "preemptions": self.core.preemptions,
+            "max_concurrency": max(self.conc, default=0),
+            "mean_concurrency": (float(np.mean(self.conc))
+                                 if self.conc else 0.0),
+            "block_size": bs,
+            "num_blocks": self.num_blocks,
+            "block_high_water": self.alloc.high_water,
+            "mean_blocks_used": (float(np.mean(self.used_samples))
+                                 if self.used_samples else 0.0),
+            "kv_budget_tokens": self.alloc.capacity * bs,
+            "prefix_cache": self.prefix_cache,
+            "cached_prefill_tokens": self.cached_prefill_tokens,
+            "computed_prefill_tokens": self.computed_prefill_tokens,
+            "prefill_hit_rate": (self.cached_prefill_tokens / total_prefill
+                                 if total_prefill else 0.0),
+            **self.alloc.cache_stats(),
+        }
 
 
 # ===================================================================== #
@@ -437,7 +725,8 @@ class EngineCore:
                  max_seq_len: int, num_blocks: Optional[int] = None,
                  watermark: Optional[int] = None):
         cfg = engine.cfg
-        if num_blocks is not None or watermark is not None:
+        if engine.kv_layout != "paged" and (num_blocks is not None
+                                            or watermark is not None):
             raise ValueError("num_blocks/watermark require kv_layout='paged'")
         dev = engine.device
         if params["embed"].device != dev:
@@ -447,7 +736,10 @@ class EngineCore:
         self.cfg = cfg
         self.params = T.cast_params(cfg, params)
         self.slots = int(slots)
-        self.S = int(max_seq_len)
+        S = int(max_seq_len)
+        if engine.kv_layout == "paged":        # a whole number of blocks
+            S = -(-S // engine.block_size) * engine.block_size
+        self.S = S
 
         # device state of the decode loop
         self.generator = generator
@@ -469,15 +761,20 @@ class EngineCore:
 
         self.queue: deque = deque()
         self.active: List[Optional[_Active]] = [None] * self.slots
+        self.stamp = [0] * self.slots          # admission order, newest=max
+        self._tick = 0
         self._live: Set[int] = set()           # uids queued or running
         self._cancelled: Set[int] = set()
 
-        self.admitted = 0
+        self.admitted = 0                      # includes re-admissions
         self.chunks = 0
         self.completed = 0
         self.gen_tokens = 0
+        self.preemptions = 0
 
-        self.backend = _DenseBackend(self)
+        self.backend = (_PagedBackend(self, num_blocks, watermark)
+                        if engine.kv_layout == "paged"
+                        else _DenseBackend(self))
 
     # ---------------------------------------------------------------- #
     @property
@@ -517,12 +814,30 @@ class EngineCore:
         self._cancelled.add(uid)
         return True
 
+    def slot_reset(self, slot: int, logit, Lp: int, max_new: int) -> None:
+        """Reset slot ``slot``'s decode state for a fresh admission."""
+        self.logits[slot] = logit
+        self.pos[slot] = Lp
+        self.done[slot] = False
+        self.limit[slot] = Lp + max_new
+
     # ---------------------------------------------------------------- #
-    def release_slot(self, b: int) -> None:
-        """Free slot ``b``.  The slot's device state keeps decoding garbage
-        into its own arena row until the next admission resets it; nothing
-        reads it."""
-        self.backend.release(b)
+    def release_slot(self, b: int, *, requeue: bool,
+                     events: Optional[List[StepEvent]] = None,
+                     seq_tokens: Optional[np.ndarray] = None) -> None:
+        """Free slot ``b`` (under the paged backend its blocks go back to
+        the pool, or on a harvest with the prefix cache into the cache
+        LRU); with ``requeue`` its request goes back to the queue front
+        (preemption).  The slot's device state keeps decoding garbage
+        (dense: into its own arena row; paged: into the trash block) until
+        the next admission resets it; nothing reads it."""
+        a = self.active[b]
+        self.backend.release(b, seq_tokens)
+        if requeue and a is not None:
+            self.queue.appendleft(a.req)
+            self.preemptions += 1
+            if events is not None:
+                events.append(StepEvent(uid=a.req.uid, preempted=True))
         self.active[b] = None
 
     def _finish(self, b: int, new: np.ndarray, reason: str,
@@ -533,7 +848,14 @@ class EngineCore:
         self._live.discard(a.req.uid)
         events.append(StepEvent(uid=a.req.uid, new_tokens=new,
                                 finished=True, finish_reason=reason))
-        self.release_slot(b)
+        # harvest the finished stream into the prefix cache (a cancelled
+        # stream too: its blocks hold exactly prompt + streamed rows); only
+        # the prefix-caching backend reads it
+        seq = None
+        if self.backend.wants_seq_tokens:
+            seq = np.concatenate([np.asarray(a.req.tokens, np.int32),
+                                  np.asarray(a.toks, np.int32)])
+        self.release_slot(b, requeue=False, seq_tokens=seq)
 
     def _process_cancels(self, events: List[StepEvent]) -> None:
         if not self._cancelled:
@@ -592,6 +914,8 @@ class EngineCore:
         self.slot_generators[b] = None if seed is None else \
             torch.Generator(device=self.engine.device).manual_seed(seed)
         self.active[b] = _Active(req=r, max_new=max_new, eos=eos)
+        self._tick += 1
+        self.stamp[b] = self._tick
         self.admitted += 1
 
     def step(self) -> List[StepEvent]:
@@ -605,7 +929,9 @@ class EngineCore:
         self._admit_phase(events)
         if self.n_active == 0:
             return events
-        self.backend.prepare_chunk(events)
+        self.backend.prepare_chunk(events)     # paged top-up / preemption
+        if self.n_active == 0:
+            return events
         toks, was = self.backend.dispatch()
         self.chunks += 1
         # the one host sync of the chunk

@@ -31,12 +31,16 @@ def prefill(cfg: ModelConfig, params, tokens, cache):
     return logits, cache
 
 
-def decode_step(cfg: ModelConfig, params, token, cache, position):
+def decode_step(cfg: ModelConfig, params, token, cache, position, *,
+                block_tables=None):
     """One decode step.  token: (B,) int; position: (B,) absolute.
-    Returns (logits (B, V), cache), the cache updated in place."""
+    Returns (logits (B, V), cache), the cache updated in place.  With
+    ``block_tables`` set, ``cache`` is the paged block pool (see
+    :func:`repro_torch.models.transformer.init_paged_cache`)."""
     hidden, cache, _ = T.forward(cfg, params, tokens=token[:, None],
                                  mode="decode", cache=cache,
-                                 positions=position[:, None])
+                                 positions=position[:, None],
+                                 block_tables=block_tables)
     logits = T.logits_fn(cfg, params, hidden)[:, 0]
     return logits, cache
 

@@ -17,6 +17,8 @@ from repro_torch.kernels.decode_attention import (decode_attention_fwd,
                                                   decode_attention_quant_fwd)
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+from repro_torch.kernels.paged_attention import (
+    paged_decode_attention_fwd, paged_decode_attention_quant_fwd)
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 
 pytestmark = pytest.mark.cuda
@@ -118,6 +120,78 @@ def test_decode_quant_kernel_reads_int8_arena_in_place(cuda, KV, G, S, D,
         <= TOL[dtype] * scale
 
 
+def _paged_pool(gen, nblocks, bs, KV, D, kind):
+    """Pools (and int8 scale planes) on the card; fp pools in ``kind``."""
+    from repro_torch.models.modules import _kv_quant
+    x = [_randn(gen, (nblocks, bs, KV, D), torch.float32) for _ in "kv"]
+    if kind == "int8":
+        (k, ks), (v, vs) = _kv_quant(x[0]), _kv_quant(x[1])
+        return k, v, (ks, vs)
+    return x[0].to(kind), x[1].to(kind), ()
+
+
+@pytest.mark.parametrize("kind", [torch.float32, torch.bfloat16, "int8"])
+@pytest.mark.parametrize("KV,G,D,bs,nb", [(2, 1, 64, 16, 6), (3, 3, 64, 4, 9),
+                                          (1, 8, 32, 8, 5),
+                                          (2, 2, 128, 16, 3)])
+def test_paged_kernels_walk_the_table(cuda, KV, G, D, bs, nb, kind):
+    """Both paged kernels against their plain versions over shuffled,
+    non-contiguous tables with ragged lens (one row, a partial last block,
+    a full table): fp32 1e-4, bf16 2e-2 of max |plain|.  Rows the kernel
+    must never read (the trash block, blocks past lens, rows past lens in
+    the last block) hold NaN and leave the output unchanged; lens = 0
+    gives 0 (the Pallas kernel's answer, ROADMAP R8); an entry outside the
+    pool gives NaN instead of a read past it."""
+    B, nblocks = 3, 3 * nb + 2
+    dt = torch.float32 if kind == "int8" else kind
+    q = _randn(cuda, (B, KV, G, D), dt)
+    k, v, scales = _paged_pool(cuda, nblocks, bs, KV, D, kind)
+    perm = torch.randperm(nblocks - 1, generator=torch.Generator()
+                          .manual_seed(nb)) + 1
+    tables = torch.zeros(B, nb, dtype=torch.int32)
+    lens = torch.tensor([1, bs * (nb // 2) + bs // 2 + 1, nb * bs],
+                        dtype=torch.int32)
+    for b in range(B):
+        n = -(-int(lens[b]) // bs)
+        tables[b, :n] = perm[b * nb:b * nb + n]
+    tables, lens = tables.cuda(), lens.cuda()
+    run = ((lambda *a: paged_decode_attention_quant_fwd(
+        q, a[0], a[1], *scales, *a[2:])) if kind == "int8" else
+        (lambda *a: paged_decode_attention_fwd(q, *a)))
+    plain = ((lambda *a: ref.paged_decode_attention_quant_ref(
+        q, a[0], a[1], *scales, *a[2:])) if kind == "int8" else
+        (lambda *a: ref.paged_decode_attention_ref(q, *a)))
+    launches = (paged_decode_attention_quant_fwd if kind == "int8"
+                else paged_decode_attention_fwd)
+    before = launches.launches
+    got = run(k, v, tables, lens)
+    torch.cuda.synchronize()
+    assert launches.launches == before + 1
+    want = plain(k, v, tables, lens)
+    scale = want.float().abs().max()
+    assert (got.float() - want.float()).abs().max() <= TOL[dt] * scale
+    # poison every row no sequence may read (int8: its scales)
+    dead = torch.ones(nblocks, bs, dtype=torch.bool, device="cuda")
+    for b in range(B):
+        n = int(lens[b])
+        rows = torch.arange(n, device="cuda")
+        dead[tables[b].long()[rows // bs], rows % bs] = False
+    if kind == "int8":
+        for s in scales:
+            s[dead] = float("nan")
+    else:
+        k[dead], v[dead] = float("nan"), float("nan")
+    assert torch.equal(run(k, v, tables, lens), got)
+    zero = run(k, v, tables, torch.zeros_like(lens))
+    assert torch.equal(zero, torch.zeros_like(zero))
+    bad = tables.clone()
+    bad[1, 0] = nblocks
+    out = run(k, v, bad, lens)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[1].float()).all()
+    assert torch.equal(out[0], got[0]) and torch.equal(out[2], got[2])
+
+
 def test_kernels_raise_instead_of_falling_back(cuda):
     q = torch.randn(1, 2, 9, 64, device="cuda")          # G = 9 > 8
     k = torch.randn(1, 2, 16, 64, device="cuda")
@@ -162,6 +236,52 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
     counts = ops.launch_counts()
     assert all(counts[k] > 0 for k in ("rmsnorm", "flash_attention_fwd",
                                        "decode_attention_fwd"))
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16kv", "int8kv"])
+def test_paged_serving_on_the_card_matches_the_cpu(cuda, kv_quant):
+    """Greedy serving on the paged pool with the prefix cache and
+    preemption (a small pool) at the reduced OPT-1.3B config in fp32: the
+    card (kernels) and the CPU (plain versions) emit the same tokens, the
+    same as the dense layout's, and the card launched the paged kernel of
+    its cache's dtype and never a dense decode kernel."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_map
+    from repro_torch.serving.engine import GenerationEngine, Request
+
+    cfg = reduced(get_config("opt-1.3b")).replace(kv_quant=kv_quant)
+    params = T.init_params(cfg, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(4)
+    shared = rng.integers(0, cfg.vocab_size, 9)
+    reqs = [Request(uid=i, tokens=np.concatenate(
+        [shared, rng.integers(0, cfg.vocab_size, n)]).astype(np.int32),
+        max_new_tokens=mn)
+        for i, (n, mn) in enumerate([(2, 6), (5, 4), (1, 8), (4, 5),
+                                      (3, 7)])]
+    outs = {}
+    for dev, layout in (("cpu", "dense"), ("cpu", "paged"),
+                        ("cuda", "paged")):
+        eng = GenerationEngine(cfg, max_new_tokens=8, temperature=0.0,
+                               chunk=2, kv_layout=layout, block_size=4,
+                               prefix_cache=layout == "paged", device=dev)
+        p = tree_map(lambda t: t.to(dev), params)
+        kw = dict(num_blocks=8, watermark=0) if layout == "paged" else {}
+        ops.reset_launch_counts()
+        outs[dev, layout] = {c.uid: c.tokens.tolist() for c in eng.serve(
+            p, reqs, torch.Generator(device=dev).manual_seed(0), slots=3,
+            **kw)}
+        if layout == "paged":
+            assert eng.last_stats["preemptions"] > 0
+            assert eng.last_stats["prefill_hit_rate"] > 0
+    assert outs["cpu", "dense"] == outs["cpu", "paged"] == outs["cuda",
+                                                                "paged"]
+    counts = ops.launch_counts()
+    used = ("paged_decode_attention_quant_fwd" if kv_quant
+            else "paged_decode_attention_fwd")
+    assert counts[used] > 0 and counts["flash_attention_fwd"] > 0
+    assert counts["decode_attention_fwd"] == 0
+    assert counts["decode_attention_quant_fwd"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

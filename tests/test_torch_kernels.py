@@ -166,13 +166,24 @@ def test_cpu_tensors_never_launch_a_kernel():
         torch.randn(1, 2, 32), torch.zeros(1, 8, 2, 32, dtype=torch.int8),
         torch.zeros(1, 8, 2, 32, dtype=torch.int8), torch.ones(1, 8, 2),
         torch.ones(1, 8, 2), torch.ones(1, 8, dtype=torch.bool))
+    tables = torch.tensor([[1, 2]], dtype=torch.int32)
+    lens = torch.tensor([7], dtype=torch.int32)
+    tops.paged_decode_attention(torch.randn(1, 2, 32),
+                                torch.randn(3, 4, 2, 32),
+                                torch.randn(3, 4, 2, 32), tables, lens)
+    tops.paged_decode_attention_quant(
+        torch.randn(1, 2, 32), torch.zeros(3, 4, 2, 32, dtype=torch.int8),
+        torch.zeros(3, 4, 2, 32, dtype=torch.int8), torch.ones(3, 4, 2),
+        torch.ones(3, 4, 2), tables, lens)
     q = torch.randn(1, 8, 2, 32, requires_grad=True)
     tops.FlashAttention.apply(q, torch.randn(1, 8, 2, 32),
                               torch.randn(1, 8, 2, 32)).sum().backward()
     assert tops.launch_counts() == {"rmsnorm": 0, "flash_attention_fwd": 0,
                                     "flash_attention_bwd": 0,
                                     "decode_attention_fwd": 0,
-                                    "decode_attention_quant_fwd": 0}
+                                    "decode_attention_quant_fwd": 0,
+                                    "paged_decode_attention_fwd": 0,
+                                    "paged_decode_attention_quant_fwd": 0}
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "group", "dtype", "device",

@@ -7,9 +7,10 @@
   jnp oracle and its Pallas ``decode_attention_quant_fwd`` in interpret
   mode: fp32, rtol = atol = 1e-5 (the same math summed in another order),
   GQA groups of 1 and 3, ragged masks with a fully masked row.
-- The attention layer's int8 prefill and decode against the reference's:
-  outputs at 1e-5, cache scales at 1e-5, int8 rows equal (one step apart
-  at most where a value sits on a rounding edge).
+- The attention layer's int8 prefill (also over an int8 prefix-cache
+  history) and decode against the reference's: outputs at 1e-5, cache
+  scales at 1e-5, int8 rows equal (one step apart at most where a value
+  sits on a rounding edge).
 - Greedy generation on the int8 arena through ``GenerationEngine.generate``
   and ``EngineCore`` (``serve``): tokens identical to the reference's
   greedy decode on the same weights; teacher-forced logits within 1e-5 of
@@ -242,19 +243,44 @@ def test_attn_apply_int8_matches_reference(case, use_kernels):
                                    **TOL)
 
 
-def test_int8_prefix_history_is_not_ported():
-    _, tcfg = config_pair("smollm-135m", kv_quant=True)
-    _, tparams = params_pair(config_pair("smollm-135m")[0], seed=5)
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["plain", "kernels"])
+def test_int8_prefix_history_matches_reference(use_kernels):
+    """A prefix-cache suffix prefill over an int8 pool: the read-only
+    history ``hk``/``hv`` is int8 with ``hk_scale``/``hv_scale``, is
+    dequantized before the concat, and the suffix attends [history;
+    suffix] rectangularly at positions P .. P + L - 1; the suffix's own
+    rows are quantized into the arena."""
+    jcfg, tcfg = config_pair("smollm-135m", use_kernels=use_kernels,
+                             kv_quant=True)
+    jcfg = jcfg.replace(use_pallas=False)
+    jparams, tparams = params_pair(jcfg, seed=5)
+    jp = _layer0(jparams["segments"][0][0])["attn"]
     tp = _layer0(tparams["segments"][0][0])["attn"]
-    B, L, P, S = 1, 2, 3, 8
-    cache = {k: torch.from_numpy(v) for k, v in _int8_cache(
-        tcfg, B, S, np.random.default_rng(5)).items()}
-    cache["hk"] = torch.zeros(B, P, tcfg.n_kv_heads, tcfg.head_dim)
-    cache["hv"] = torch.zeros(B, P, tcfg.n_kv_heads, tcfg.head_dim)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TM.attn_apply(tcfg, tp, torch.zeros(B, L, tcfg.d_model),
-                      positions=P + torch.arange(L)[None], mode="prefill",
-                      cache=cache)
+    rng = np.random.default_rng(5)
+    B, L, P, S = 1, 5, 8, 8
+    x = _normal(rng, (B, L, jcfg.d_model))
+    cache = _int8_cache(jcfg, B, S, rng)
+    hist = _int8_cache(jcfg, B, P, rng)
+    cache.update(hk=hist["k"], hv=hist["v"], hk_scale=hist["k_scale"],
+                 hv_scale=hist["v_scale"])
+    pos = (P + np.arange(L, dtype=np.int32))[None]
+    jout, jc = JM.attn_apply(jcfg, jp, jnp.asarray(x),
+                             positions=jnp.asarray(pos), mode="prefill",
+                             cache={k: jnp.asarray(v)
+                                    for k, v in cache.items()})
+    tcache = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
+    tout, tc = TM.attn_apply(tcfg, tp, torch.from_numpy(x),
+                             positions=torch.from_numpy(pos),
+                             mode="prefill", cache=tcache)
+    np.testing.assert_allclose(to_np(tout), np.asarray(jout), **TOL)
+    for name in ("k", "v"):
+        d = np.abs(tc[name].numpy().astype(np.int32)
+                   - np.asarray(jc[name]).astype(np.int32))
+        assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+    for name in ("k_scale", "v_scale"):
+        np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]),
+                                   **TOL)
 
 
 # --------------------------------------------------------------------- #

@@ -1,6 +1,8 @@
 """Rules of the port: ``repro_torch`` never imports JAX or the ``repro``
-package, its serve launcher runs on the CPU when asked to, and without a
-card it refuses to run instead of falling back to the CPU."""
+package, its serve launcher runs on the CPU when asked to (the paged
+layout and the prefix cache included, held to the reference's greedy
+decode), and without a card it refuses to run instead of falling back to
+the CPU."""
 import os
 import re
 import subprocess
@@ -55,15 +57,52 @@ def test_serve_cli_runs_on_cpu():
                      r"utilization 100\.0%", res.stdout), res.stdout
 
 
-@pytest.mark.parametrize("flag", [["--kv-layout", "paged"],
-                                  ["--kv-quant", "--kv-layout", "paged"],
-                                  ["--prefix-cache", "on"],
-                                  ["--mesh", "1,1"], ["--ckpt", "x"]])
+@pytest.mark.parametrize("flag", [["--mesh", "1,1"], ["--ckpt", "x"]])
 def test_serve_cli_refuses_unported_flags(flag):
     res = _run(["-m", "repro_torch.launch.serve", "--device", "cpu",
                 "--arch", "smollm-135m", "--reduced", *flag])
     assert res.returncode != 0
     assert "not yet ported" in res.stderr
+
+
+@pytest.mark.parametrize("flag", [
+    ["--kv-layout", "paged"], ["--kv-quant", "--kv-layout", "paged"],
+    ["--kv-layout", "paged", "--prefix-cache", "on", "--num-blocks", "14"]],
+    ids=["paged", "paged-int8", "prefix-cache"])
+def test_serve_cli_paged_flags_run_on_cpu_and_match_the_reference(flag,
+                                                                  capsys):
+    """The paged flags (refused before the paged layout was ported) run on
+    the CPU: greedy, each request's tokens equal the reference's greedy
+    decode on the launcher's own weights (int8 cache with ``--kv-quant``),
+    and the summary line carries the pool statistics."""
+    import jax
+    import jax.numpy as jnp
+
+    from _torch_parity import jax_greedy
+    from repro import configs as jconfigs
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    argv = ["--device", "cpu", "--arch", "smollm-135m", "--reduced",
+            "--requests", "3", "--ragged", "--prompt-len", "12",
+            "--max-new", "6", "--batch", "2", "--chunk", "4",
+            "--block-size", "4", "--temperature", "0", *flag]
+    out = serve.main(argv)
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    kv = "paged-int8" if "--kv-quant" in flag else "paged"
+    assert re.search(rf"kv={kv}  requests=3  generated \d+ tokens .*"
+                     r"\[paged: blocks=\d+ hwm=\d+ preempt=\d+", line), line
+    assert ("[prefix-cache: hit_rate=" in line) == ("on" in flag)
+    kv_quant = "--kv-quant" in flag
+    tparams = T.init_params(reduced(get_config("smollm-135m")),
+                            torch.Generator().manual_seed(0))
+    jparams = jax.tree.map(lambda t: jnp.asarray(t.numpy()), tparams)
+    jcfg = jconfigs.reduced(jconfigs.get_config("smollm-135m")).replace(
+        use_pallas=False, kv_quant=kv_quant)
+    for r in out["requests"]:
+        assert out["completions"][r.uid] == jax_greedy(
+            jcfg, jparams, r.tokens, r.max_new_tokens)
 
 
 def test_serve_cli_without_a_card_refuses_to_run():

@@ -14,6 +14,7 @@ after one actor / critic step to 1e-5 of each leaf's max |param| where
 first step is about ``lr * sign(g)``, and a gradient at the noise level
 may flip sign between frameworks); greedy tokens identical.
 """
+import dataclasses
 from functools import partial
 
 import jax
@@ -468,9 +469,25 @@ def test_greedy_ppo_iteration_matches_reference(ref, kv_quant):
 def test_request_path_matches_reference(ref):
     """Ragged requests through the engine core: scored at each row's true
     length, against the reference's scoring of its own greedy tokens."""
+    _check_request_path(ref)
+
+
+@pytest.mark.parametrize("what", ["paged", "prefix_cache"])
+def test_request_path_on_the_paged_pool_matches_reference(ref, what):
+    """The paged generation engine (refused before the paged layout was
+    ported) and its prefix cache: the request path's experience equals the
+    reference's scoring of its own greedy tokens, and the iteration reports
+    the prefill hit rate."""
+    gm = _check_request_path(ref, kv_layout="paged", kv_block_size=4,
+                             prefix_cache=what == "prefix_cache")
+    assert gm["prefill_hit_rate"] == 0.0      # three distinct prompts
+
+
+def _check_request_path(ref, **paged):
     ajcfg, atcfg, cjcfg, ctcfg = _configs()
     jm = _models(ajcfg, cjcfg, seed=10)
     jppo, tppo_cfg = _ppo_pair(ref, max_new_tokens=5, temperature=0.0)
+    tppo_cfg = dataclasses.replace(tppo_cfg, **paged)
     rng = np.random.default_rng(10)
     lens, budgets = [4, 9, 6], [5, 3, 4]
     reqs = [Request(uid=i, tokens=rng.integers(0, 512, lp).astype(np.int32),
@@ -496,6 +513,7 @@ def test_request_path_matches_reference(ref):
     np.testing.assert_allclose(gm["reward_score"], float(score.mean()),
                                **TOL)
     assert gm["gen_len"] == pytest.approx(np.mean(budgets))
+    return gm
 
 
 def test_n_samples_per_prompt():
@@ -549,18 +567,11 @@ def test_state_tree_round_trip():
 # --------------------------------------------------------------------- #
 # refusals
 # --------------------------------------------------------------------- #
-@pytest.mark.parametrize("what", ["engine", "rollout_mesh", "paged",
-                                  "prefix_cache"])
+@pytest.mark.parametrize("what", ["engine", "rollout_mesh"])
 def test_trainer_refuses_what_is_not_ported(what):
     ajcfg, atcfg, cjcfg, ctcfg = _configs()
     jm = _models(ajcfg, cjcfg, seed=13)
-    kw, cfg = {}, tppo.PPOConfig()
-    if what in ("engine", "rollout_mesh"):
-        kw[what] = object()
-    elif what == "paged":
-        cfg = tppo.PPOConfig(kv_layout="paged")
-    else:
-        cfg = tppo.PPOConfig(kv_layout="paged", prefix_cache=True)
+    kw, cfg = {what: object()}, tppo.PPOConfig()
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tppo.PPOTrainer(actor_cfg=atcfg, critic_cfg=ctcfg,
                         actor_params=_tensors(jm[0]),

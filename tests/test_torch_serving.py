@@ -199,10 +199,23 @@ def test_step_event_default_tokens_are_fresh():
 def test_engine_refuses_unported_layouts(model):
     _, tcfg, _, _ = model
     with pytest.raises(NotImplementedError):
-        GenerationEngine(tcfg, max_new_tokens=4, kv_layout="paged",
-                         device="cpu")
-    with pytest.raises(NotImplementedError):
         GenerationEngine(tcfg, max_new_tokens=4, mesh=object(), device="cpu")
+
+
+def test_engine_paged_layout_matches_jax_per_request(model):
+    """``kv_layout="paged"`` (refused before the paged layout was ported):
+    continuous batching over the block pool, each request's tokens equal
+    to its own greedy decode by the reference."""
+    jcfg, tcfg, jparams, tparams = model
+    reqs = _requests(jcfg.vocab_size, [3, 7, 5, 4, 6, 3], [5, 8, 4, 6, 3, 7])
+    eng = GenerationEngine(tcfg, max_new_tokens=8, temperature=0.0, chunk=4,
+                           kv_layout="paged", block_size=4, device="cpu")
+    outs = eng.serve(tparams, reqs, _gen(9), slots=3)
+    assert eng.last_stats["num_blocks"] == 3 * 4 + 1   # S = 15 -> 16 rows
+    for c in outs:
+        r = reqs[c.uid]
+        assert c.tokens.tolist() == jax_greedy(jcfg, jparams, r.tokens,
+                                               r.max_new_tokens)
 
 
 # ------------------------------------------------------------------ #

@@ -50,6 +50,22 @@ Phases (any failure raises, so the run exits non-zero):
    the bf16 one (the bf16 iteration the reverse).  Then ``torch.profiler``
    over 8 int8 decode steps and over scoring + one actor and critic step.
 
+8. ``ssm``     — the SSM / hybrid serving slice: ``ssd_intra_fwd`` (the
+   Mamba2 SSD intra-chunk pass) against its plain version at Mamba2-370M
+   (q = 256, a ragged 137, one token, four chunks, the fixed path's b = 8)
+   and Zamba2-1.2B widths in fp32 and bf16, timed, plus an untimed case
+   whose upper triangle overflows; Mamba2-370M and Zamba2-1.2B at full
+   width and depth in fp32, teacher-forced through the kernel path and the
+   plain path (prefills of 256 and 600 tokens, then 32 decode steps; 1e-4);
+   ``launch.serve`` on both in bf16 with the serve phase's 32-request
+   workload (Mamba2 must launch RMSNorm and the SSD kernel and no attention
+   kernel, Zamba2 also the flash prefill and the dense decode kernel); 8
+   ragged greedy requests, one past the 256-token chunk, through the
+   continuous engine against each request alone (identical in fp32,
+   counted in bf16); one Mamba2 decode step at 16 slots eager and as a
+   CUDA-graph replay, and ``torch.profiler`` over a decode step and an
+   admission.
+
 The kernel phase also holds ``decode_attention_quant_fwd`` (int8 K/V with
 fp32 row scales) to its plain version at the PPO (B = 8) and serve (B = 16)
 shapes, with dequant-then-SDPA as a yardstick; the parity phase adds a
@@ -95,7 +111,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("device", "build", "kernels", "parity", "serve", "train", "rlhf")
+PHASES = ("device", "build", "kernels", "parity", "serve", "train", "rlhf",
+          "ssm")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the time bound of a kernel is
 # the larger of bytes / memory rate and operations / peak rate for the type
@@ -122,6 +139,8 @@ KERNEL_META = {
     "paged_decode_attention_quant_fwd": (
         "src/repro_torch/kernels/csrc/paged_decode_attention_quant.cu",
         "src/repro/kernels/paged_attention.py:141"),
+    "ssd_intra_fwd": ("src/repro_torch/kernels/csrc/ssd_intra.cu",
+                      "src/repro/kernels/ssd_scan.py:57"),
 }
 
 # the kernels each main path must launch
@@ -138,6 +157,15 @@ SERVE_PAGED_INT8_KERNELS = ("rmsnorm", "flash_attention_fwd",
 RLHF_PAGED_KERNELS = ("rmsnorm", "flash_attention_fwd", "flash_attention_bwd",
                       "paged_decode_attention_quant_fwd")
 DENSE_DECODE = ("decode_attention_fwd", "decode_attention_quant_fwd")
+# the SSM / hybrid serve paths: Mamba2 has no attention layer, Zamba2's six
+# attention layers run the dense prefill and decode kernels
+SSM_SERVE_KERNELS = {
+    "mamba2-370m": ("rmsnorm", "ssd_intra_fwd"),
+    "zamba2-1.2b": ("rmsnorm", "ssd_intra_fwd", "flash_attention_fwd",
+                    "decode_attention_fwd")}
+ATTENTION_KERNELS = ("flash_attention_fwd", "decode_attention_fwd",
+                     "decode_attention_quant_fwd", "paged_decode_attention_fwd",
+                     "paged_decode_attention_quant_fwd")
 
 
 def log(msg: str) -> None:
@@ -1730,9 +1758,355 @@ def _paged_ppo_iteration(state, trainer, bl, ptx) -> list:
     return failures
 
 
+# --------------------------------------------------------------------- #
+# the SSM / hybrid serving slice
+# --------------------------------------------------------------------- #
+def ssd_bound(b, nc, q, h, p, n, esize):
+    """Least time of one SSD intra-chunk pass, (ms, "bytes"|"operations"):
+    FLOP over the causal pairs P = q (q + 1) / 2 (the C.B scores once per
+    (batch, chunk), since every head shares them; Y and S_c per head) at
+    the fp32 rate, the kernel's math; bytes of each input read once and
+    each output written once."""
+    P = q * (q + 1) // 2
+    flop = b * nc * (2 * n * P + h * (2 * p * P + 2 * q * p * n))
+    nbytes = (b * nc * (2 * q * h * p * esize + q * h * 4 + 2 * q * n * esize
+                        + h * p * n * 4 + h * q * 4) + h * 4)
+    return bound(nbytes, flop, "fp32")
+
+
+def _ssd_inputs(gen, b, nc, q, h, p, n, dtype, dt_scale=1.0):
+    """X, B and C as strided slices of one (b, nc, q, h p + 2 n) tensor (the
+    model's conv-output layout), dt = softplus(N(0, 1)), A = -exp(.)."""
+    import torch
+    import torch.nn.functional as F
+    wide = (torch.randn((b, nc, q, h * p + 2 * n), generator=gen,
+                        device="cuda") * 0.5).to(dtype)
+    X = wide[..., :h * p].unflatten(-1, (h, p))
+    B, C = wide[..., h * p:h * p + n], wide[..., h * p + n:]
+    dt = F.softplus(torch.randn((b, nc, q, h), generator=gen,
+                                device="cuda")) * dt_scale
+    A = -torch.exp(torch.randn((h,), generator=gen, device="cuda") * 0.3)
+    return X, dt, A, B, C
+
+
+def _ssd_kernel_rows(state, failures):
+    """``ssd_intra_fwd`` against its plain version at the slice's shapes,
+    fp32 (TF32 off) and bf16, timed; the overflow case untimed."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_intra_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rel = lambda a, b: float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max().clamp(min=1e-30))
+    cases = (("mamba2-370m admission", 1, 1, 256, 32, 64, 128),
+             ("mamba2-370m ragged q", 1, 1, 137, 32, 64, 128),
+             ("mamba2-370m one token", 1, 1, 1, 32, 64, 128),
+             ("mamba2-370m 1024 tokens", 1, 4, 256, 32, 64, 128),
+             ("mamba2-370m fixed path", 8, 1, 256, 32, 64, 128),
+             ("zamba2-1.2b admission", 1, 1, 256, 64, 64, 64))
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        tol_y = 1e-4 if dname == "fp32" else 2e-2
+        for label, b, nc, q, h, p, n in cases:
+            X, dt, A, B, C = _ssd_inputs(gen, b, nc, q, h, p, n, dtype)
+            y, s, acs = ssd_intra_fwd(X, dt, A, B, C)
+            torch.cuda.synchronize()
+            yr, sr, _, ar = ref.ssd_intra_ref(X, dt, A, B, C)
+            ey, es, ea = rel(y, yr), rel(s, sr), rel(acs, ar)
+            ok = ey <= tol_y and es <= 1e-4 and ea <= 1e-5
+            k_ms = time_ms(lambda: ssd_intra_fwd(X, dt, A, B, C))
+            p_ms = time_ms(lambda: ref.ssd_intra_ref(X, dt, A, B, C),
+                           inner=5, repeats=5)
+            bnd = ssd_bound(b, nc, q, h, p, n, X.element_size())
+            shape = f"{label} b={b} nc={nc} q={q} h={h} p={p} n={n}"
+            log(f"[ssm] ssd_intra_fwd {shape} {dname}: err Y {ey:.3g} (tol "
+                f"{tol_y}) S_c {es:.3g} (tol 1e-4) A_cs {ea:.3g} (tol 1e-5) "
+                f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms=null "
+                f"bound_ms={bnd[0]:.4f} ({bnd[1]}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"ssd_intra_fwd {shape} {dname}: errors "
+                                f"{ey:.3g} {es:.3g} {ea:.3g}")
+            if (label, dname) == ("mamba2-370m admission", "bf16"):
+                state.setdefault("kernel_rows", {})["ssd_intra_fwd"] = {
+                    "max_abs_err": float((y.float() - yr.float()).abs()
+                                         .max()),
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+                    "bound_by": bnd[1], "library_ms": None, "shape": shape,
+                    "dtype": dname}
+    # dt |A| large: the upper triangle's exp overflows; the kernel selects
+    # it away, so the outputs stay finite and equal the plain version's
+    X, dt, A, B, C = _ssd_inputs(gen, 1, 1, 256, 32, 64, 128, torch.float32,
+                                 dt_scale=100.0)
+    y, s, acs = ssd_intra_fwd(X, dt, A, B, C)
+    torch.cuda.synchronize()
+    yr, sr, _, _ = ref.ssd_intra_ref(X, dt, A, B, C)
+    span = float((acs[..., 0] - acs[..., -1]).min())
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    ey, es = rel(y, yr), rel(s, sr)
+    log(f"[ssm] ssd_intra_fwd overflow case (min A_cs span {span:.1f} > 89: "
+        f"exp overflows above the diagonal): finite {finite}, err Y {ey:.3g}"
+        f" S_c {es:.3g} (tol 1e-4)")
+    if not (span > 89.0 and finite and ey <= 1e-4 and es <= 1e-4):
+        failures.append(f"ssd_intra_fwd overflow case: finite {finite}, "
+                        f"errors {ey:.3g} {es:.3g}")
+
+
+def _ssm_parity(failures):
+    """Mamba2-370M and Zamba2-1.2B at full width and depth in fp32, random
+    weights: teacher-forced streams (a 256- and a 600-token prefill, the
+    latter three chunks, then 32 decode steps), every prefill position's
+    logits and every step's, measured three ways:
+
+    - end to end, the kernel path against the plain path;
+    - the model's own conditioning: the plain path again with the token
+      embeddings moved by a relative 1e-7 (about one fp32 rounding).  The
+      SSD decays are exp of long cumsums, so each SSM layer multiplies a
+      relative input change 10-30 times and 48 layers turn one rounding
+      into ~1e-4 of the logits: two paths that differ by rounding alone can
+      land that far apart;
+    - a per-layer witness: in the plain run every layer also runs through
+      the kernel path on the same input and a clone of its cache, and its
+      output change (the layer's mixer plus MLP) is held to 1e-4 of the
+      plain twin's, free of the amplification by the layers before it.
+
+    Gate: the witness <= 1e-4 at every layer and step, and end to end
+    <= 1e-4, or 2x the conditioning where that is larger."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_map
+    from repro_torch.serving.generate import decode_step
+
+    n_dec = 32
+    for arch in ("mamba2-370m", "zamba2-1.2b"):
+        cfg = get_config(arch).replace(compute_dtype="float32")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = T.init_params(cfg, gen)
+        noisy = dict(params, embed=params["embed"] * (1 + 1e-7 * torch.randn(
+            params["embed"].shape, generator=gen, device="cuda")))
+        kcfg = cfg.replace(use_kernels=True)
+        pcfg = cfg.replace(use_kernels=False)
+        for Lp in (256, 600):
+            tokens = torch.randint(0, cfg.vocab_size, (1, Lp + n_dec),
+                                   generator=gen, device="cuda")
+
+            def stream(c, p):
+                cache = T.init_cache(c, 1, Lp + n_dec, device="cuda")
+                hidden, cache, _ = T.forward(c, p, tokens=tokens[:, :Lp],
+                                             mode="prefill", cache=cache)
+                steps = [T.logits_fn(c, p, hidden)[0]]
+                for t in range(n_dec):
+                    pos = torch.full((1,), Lp + t, dtype=torch.long,
+                                     device="cuda")
+                    lg, cache = decode_step(c, p, tokens[:, Lp + t], cache,
+                                            pos)
+                    steps.append(lg)
+                return torch.cat(steps).float()
+
+            worst = [0.0]
+            layer = T._layer
+
+            def witness(c, spec, lp, x, positions, mode, lc, rope,
+                        block_tables=None):
+                lck = tree_map(torch.clone, lc) if lc is not None else None
+                yk = layer(kcfg, spec, lp, x, positions, mode, lck, rope,
+                           block_tables)
+                y = layer(c, spec, lp, x, positions, mode, lc, rope,
+                          block_tables)
+                worst[0] = max(worst[0], float(
+                    (yk - y).abs().max() / (y - x).abs().max()))
+                return y
+
+            t0 = time.perf_counter()
+            kern = stream(kcfg, params)
+            torch.cuda.synchronize()
+            dt_s = time.perf_counter() - t0
+            T._layer = witness
+            try:
+                plain = stream(pcfg, params)
+            finally:
+                T._layer = layer
+            moved = stream(pcfg, noisy)
+            finite = bool(torch.isfinite(kern).all()
+                          and torch.isfinite(plain).all())
+            scale = plain.abs().max()
+            rel = float((kern - plain).abs().max() / scale)
+            cond = float((moved - plain).abs().max() / scale)
+            limit = max(1e-4, 2 * cond)
+            agree = float((kern.argmax(-1) == plain.argmax(-1)).float()
+                          .mean())
+            ok = finite and worst[0] <= 1e-4 and rel <= limit
+            log(f"[ssm] parity {arch} fp32 full width and depth, prefill "
+                f"{Lp} + {n_dec} decode steps (teacher-forced): per-layer "
+                f"witness max {worst[0]:.3g} (tol 1e-4); end to end "
+                f"max|dlogits|/max|logits| = {rel:.3g} (tol {limit:.3g}: "
+                f"1e-4 or 2x the conditioning {cond:.3g}, the plain path "
+                f"with embeddings moved by 1e-7); argmax agreement "
+                f"{agree:.3f}; finite {finite}; kernel path {dt_s:.2f}s "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"parity {arch} prefill {Lp}: witness "
+                                f"{worst[0]:.3g}, end to end {rel:.3g} (tol "
+                                f"{limit:.3g}), finite {finite}")
+            del kern, plain, moved
+        del params, noisy
+        torch.cuda.empty_cache()
+
+
+def _ssm_greedy(failures):
+    """8 ragged greedy requests (one longer than the 256-token chunk)
+    through the continuous engine against each request decoded alone on
+    the fixed path, kernels on: identical streams in fp32; in bf16 the
+    identical streams are counted (batch size changes the GEMMs' order)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import GenerationEngine, Request
+
+    lens = (300, 64, 97, 128, 180, 77, 256, 140)
+    for arch in ("mamba2-370m", "zamba2-1.2b"):
+        base = get_config(arch)
+        params = T.init_params(base, torch.Generator(
+            device="cuda").manual_seed(5))
+        rng = np.random.default_rng(7)
+        reqs = [Request(uid=i, tokens=rng.integers(0, base.vocab_size, lp)
+                        .astype(np.int32),
+                        max_new_tokens=int(rng.integers(8, 17)))
+                for i, lp in enumerate(lens)]
+        for dname in ("float32", "bfloat16"):
+            cfg = base.replace(compute_dtype=dname)
+            g = torch.Generator(device="cuda").manual_seed(0)
+            eng = GenerationEngine(cfg, max_new_tokens=16, temperature=0.0,
+                                   chunk=8)
+            t0 = time.perf_counter()
+            got = {c.uid: c.tokens.tolist()
+                   for c in eng.serve(params, reqs, g, slots=4)}
+            dt_s = time.perf_counter() - t0
+            alone = {}
+            for r in reqs:
+                out = GenerationEngine(
+                    cfg, max_new_tokens=r.max_new_tokens,
+                    temperature=0.0).generate(params, r.tokens[None], g)
+                alone[r.uid] = out["sequences"][0, len(r.tokens):].tolist()
+            same = sum(got[u] == alone[u] for u in alone)
+            log(f"[ssm] greedy {arch} {dname}: continuous engine (4 slots, "
+                f"prompts {min(lens)}..{max(lens)}) vs each request alone: "
+                f"{same} of {len(reqs)} streams identical "
+                f"({'required' if dname == 'float32' else 'counted'}); "
+                f"engine {dt_s:.2f}s")
+            if dname == "float32" and same != len(reqs):
+                failures.append(f"greedy {arch} fp32: {same} of {len(reqs)} "
+                                f"streams identical")
+        del params
+        torch.cuda.empty_cache()
+
+
+def _ssm_time(state):
+    """One Mamba2-370M decode step at 16 slots, eager (host clock) and as a
+    CUDA-graph replay (device), launches per admission and per step, and
+    ``torch.profiler`` over one decode step and one 256-token admission."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.generate import decode_step, prefill
+
+    cfg = get_config("mamba2-370m")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.cast_params(cfg, T.init_params(cfg, gen))
+    slots, Lp = 16, 256
+    toks = torch.randint(0, cfg.vocab_size, (slots, Lp), generator=gen,
+                         device="cuda")
+    cache = T.init_cache(cfg, slots, 512, device="cuda")
+    prefill(cfg, params, toks, cache)
+    row = T.init_cache(cfg, 1, 512, device="cuda")
+    admit = lambda: prefill(cfg, params, toks[:1], row)
+    pos = torch.full((slots,), Lp, dtype=torch.long, device="cuda")
+    tok = toks[:, 0]
+    step = lambda: decode_step(cfg, params, tok, cache, pos)
+    ops.reset_launch_counts()
+    admit()
+    per_admit = ops.launch_counts()
+    ops.reset_launch_counts()
+    step()
+    per_step = ops.launch_counts()
+    log(f"[ssm] mamba2-370m launches per 256-token admission: {per_admit}")
+    log(f"[ssm] mamba2-370m launches per decode step: {per_step}")
+    wall = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    eager_ms = statistics.median(wall)
+    graph_ms = time_ms(step, inner=4, repeats=5)
+    log(f"[ssm] mamba2-370m decode step, 16 slots, bf16: eager "
+        f"{eager_ms:.3f} ms (host clock), CUDA-graph replay {graph_ms:.3f} ms "
+        f"(device); the device is idle {1 - graph_ms / eager_ms:.1%} of the "
+        f"eager step")
+    state["ssm_step"] = {"eager_ms": eager_ms, "graph_ms": graph_ms}
+    for name, fn in (("decode step (16 slots)", step),
+                     ("admission (256 tokens)", admit)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        try:
+            prof = _profile_step(fn, kernels=("ssd_intra", "rmsnorm"))
+        except Exception as e:             # the profiler only, not a check
+            prof = None
+            log(f"[ssm] torch.profiler failed: {e!r}")
+        if prof is None:
+            log(f"[ssm] mamba2-370m {name}: {wall_ms:.2f} ms host clock; "
+                f"the profiler saw no device time")
+            continue
+        total_ms, buckets, top = prof
+        log(f"[ssm] mamba2-370m {name}: {wall_ms:.2f} ms host clock, "
+            f"{total_ms:.3f} ms of kernel time (torch.profiler); device idle "
+            f"~{max(0.0, 1 - total_ms / wall_ms):.1%}; by kind: " + ", ".join(
+                f"{k} {v:.3f} ms ({v / total_ms:.1%})"
+                for k, v in buckets.items()))
+        for kname, ms in top[:8]:
+            log(f"[ssm]   {ms:9.3f} ms  {kname[:100]}")
+    del params, cache, row
+    torch.cuda.empty_cache()
+
+
+def phase_ssm(state):
+    """The SSM / hybrid serving slice: the SSD kernel against its plain
+    version, full-width fp32 parity of Mamba2-370M and Zamba2-1.2B, the
+    32-request serve workload on both in bf16 (launch counts set to 0 just
+    before each run and read just after), greedy continuous vs per-request
+    streams, and where a Mamba2 decode step and admission spend their
+    time."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    failures = []
+    _ssd_kernel_rows(state, failures)
+    _ssm_parity(failures)
+    for arch, must in SSM_SERVE_KERNELS.items():
+        res = _serve_run(["--arch", arch, *SERVE_ARGV[2:]],
+                         f"ssm_serve_{arch}", must, state)
+        counts = state["launches"][f"ssm_serve_{arch}"]
+        if arch == "mamba2-370m" and any(counts[k]
+                                         for k in ATTENTION_KERNELS):
+            failures.append(f"serve {arch}: an attention kernel launched "
+                            f"{counts}")
+        state.setdefault("ssm_serve", {})[arch] = res["tok_s"]
+    _ssm_greedy(failures)
+    _ssm_time(state)
+    if failures:
+        raise AssertionError("ssm: " + "; ".join(failures))
+
+
 PHASE_FNS = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "parity": phase_parity,
-             "serve": phase_serve, "train": phase_train, "rlhf": phase_rlhf}
+             "serve": phase_serve, "train": phase_train, "rlhf": phase_rlhf,
+             "ssm": phase_ssm}
 
 
 def main() -> int:

@@ -1,16 +1,20 @@
 """Architecture registry: ``--arch <id>`` resolves here (counterpart of
 ``repro/configs/registry.py``).
 
-Only the dense configs of the ported serving path resolve: the OPT family
-and ``smollm-135m``.  Every other architecture id of the reference raises
-``NotImplementedError`` until its slice is ported.
+The ported configs resolve: the OPT family, ``smollm-135m`` and the
+SSM / hybrid pair ``mamba2-370m`` and ``zamba2-1.2b``.  Every other
+architecture id of the reference raises ``NotImplementedError`` until its
+slice is ported.
 """
 from __future__ import annotations
 
-from repro_torch.configs import opt_family, smollm_135m
+from repro_torch.configs import (mamba2_370m, opt_family, smollm_135m,
+                                  zamba2_1_2b)
 from repro_torch.models.config import ModelConfig
 
-ARCHS = {"smollm-135m": smollm_135m.CONFIG}
+ARCHS = {"smollm-135m": smollm_135m.CONFIG,
+         "mamba2-370m": mamba2_370m.CONFIG,
+         "zamba2-1.2b": zamba2_1_2b.CONFIG}
 
 # the reference's other architecture ids, not yet ported
 _NOT_PORTED = [
@@ -19,8 +23,6 @@ _NOT_PORTED = [
     "yi-9b",
     "llama3.2-3b",
     "llama4-scout-17b-a16e",
-    "mamba2-370m",
-    "zamba2-1.2b",
     "deepseek-v2-lite-16b",
     "llama-3.2-vision-11b",
 ]
@@ -43,8 +45,8 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family variant for CPU smoke tests (the reference's
-    rule, dense fields only)."""
-    if cfg.arch_type != "dense":
+    rule for the dense, SSM and hybrid fields)."""
+    if cfg.arch_type not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(f"arch_type {cfg.arch_type!r}: "
                                   "not yet ported")
     kw = dict(
@@ -58,6 +60,12 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
                                       kw["n_heads"] // 2) or 1)
         kw["head_dim"] = 32
         kw["d_ff"] = min(cfg.d_ff, 512) if cfg.d_ff else 0
+    if cfg.ssm_state:
+        kw["ssm_state"] = min(cfg.ssm_state, 32)
+        kw["ssm_headdim"] = 32
+        kw["ssm_chunk"] = 32
+    if cfg.attn_every:
+        kw["n_layers"] = cfg.attn_every  # one full hybrid unit
     if cfg.sliding_window:
         kw["sliding_window"] = min(cfg.sliding_window, 64)
     return cfg.replace(name=cfg.name + "-reduced", **kw)

@@ -13,6 +13,7 @@ and a plain PyTorch version in ``ref.py``:
 - ``paged_attention``  — the same over a shared block pool reached through
                          per-sequence block tables, bf16/fp32 or int8
                          (``paged_decode_attention{,_quant}_fwd``)
+- ``ssd_scan``         — the Mamba2 SSD intra-chunk pass (``ssd_intra_fwd``)
 
 ``ops.py`` adapts the model's layout and dispatches on the tensors' device.
 """

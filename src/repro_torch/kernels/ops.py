@@ -14,6 +14,10 @@ backward kernels recompute the probabilities from it) and
 :class:`RMSNorm` (the forward kernel with a plain PyTorch backward: the
 reference has no RMSNorm backward kernel either, XLA derives it).
 
+The SSD scan (:func:`ssd_scan`) is forward-only, as the reference's
+Pallas path is: a call that autograd would have to differentiate raises;
+the model's plain ``ssd_chunked`` is the differentiable path.
+
 Each kernel wrapper counts its launches in a plain integer
 (``<wrapper>.launches``); :func:`launch_counts` reads them and
 :func:`reset_launch_counts` sets them to 0, so a run can show that its
@@ -29,6 +33,7 @@ from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import ssd_scan as _ssd
 
 KERNELS = {
     "rmsnorm": _rms.rmsnorm_fwd,
@@ -39,6 +44,7 @@ KERNELS = {
     "paged_decode_attention_fwd": _paged.paged_decode_attention_fwd,
     "paged_decode_attention_quant_fwd":
         _paged.paged_decode_attention_quant_fwd,
+    "ssd_intra_fwd": _ssd.ssd_intra_fwd,
 }
 
 
@@ -190,3 +196,26 @@ def rmsnorm(x, w, *, eps=1e-5):
     shape = x.shape
     out = _rms.rmsnorm_fwd(x.reshape(-1, shape[-1]), w, eps=eps)
     return out.reshape(shape)
+
+
+def ssd_scan(X, dt, A, B, C, chunk, initial_state=None):
+    """Full SSD (counterpart of ``repro/kernels/ops.py::ssd_scan``): the
+    intra-chunk kernel, then the inter-chunk recurrence (a loop over the
+    ``nc`` chunks, the reference's ``lax.scan``) and the off-diagonal term
+    in torch.
+
+    X: (b, l, h, p)  dt: (b, l, h) fp32  A: (h,) fp32  B, C: (b, l, n).
+    Returns (Y (b, l, h, p) in X's dtype, final_state (b, h, p, n) fp32):
+    the contract of :func:`repro_torch.models.modules.ssd_chunked`.
+    Forward only: raises ``NotImplementedError`` under autograd."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (X, dt, A, B, C, initial_state)):
+        raise NotImplementedError(
+            "ssd_scan: the SSD intra-chunk kernel is forward-only; "
+            "differentiate the plain path (use_kernels=False)")
+    Xc, dtc, Bc, Cc = ref.ssd_chunks(X, dt, B, C, chunk)
+    Y_diag, S_c, A_cs = _ssd.ssd_intra_fwd(Xc, dtc, A, Bc, Cc)
+    Y, final = ref.ssd_inter_chunk(Y_diag, S_c, A_cs, Cc, initial_state,
+                                   X.shape[1])
+    return Y.to(X.dtype), final

@@ -159,3 +159,78 @@ def rmsnorm_ref(x, w, eps=1e-5):
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def chunk_cumsum(dA):
+    """Cumulative sum over the last axis, accumulated in fp64 and rounded
+    once to fp32: the correctly rounded cumsum, whatever order a kernel
+    sums in (``csrc/ssd_intra.cu`` rounds a fp64 scan the same way).  The
+    SSD decays are exp of differences of these sums, which reach ~100 in a
+    chunk, so an ulp here is 1e-5 of a decay; an fp32 scan in another
+    order moves a 48-layer model's logits by ~2e-4.  Differentiable."""
+    return torch.cumsum(dA.double(), -1).to(dA.dtype)
+
+
+def ssd_intra_ref(X, dt, A, B, C):
+    """Intra-chunk SSD (the oracle of ``repro/kernels/ref.py``), in fp32.
+
+    X: (b, nc, q, h, p)  dt: (b, nc, q, h) fp32  A: (h,) fp32
+    B, C: (b, nc, q, n) (ngroups = 1: shared by every head).
+    Returns (Y_diag (b,nc,q,h,p) in X's dtype, S_c (b,nc,h,p,n),
+    chunk_decay (b,nc,h), A_cs (b,nc,h,q)), the last three fp32.  The
+    decay above the diagonal is selected away, never multiplied by a 0/1
+    mask: ``exp`` of a positive segment sum may overflow there."""
+    dA = (dt * A).permute(0, 1, 3, 2)                    # (b,nc,h,q)
+    Xd = X.float() * dt[..., None]
+    A_cs = chunk_cumsum(dA)
+    q = dA.shape[-1]
+    d = A_cs[..., :, None] - A_cs[..., None, :]
+    tri = torch.ones((q, q), dtype=torch.bool, device=X.device).tril()
+    Ldec = torch.where(tri, torch.exp(d), 0.0)           # (b,nc,h,q,q)
+    scores = torch.einsum("bcqn,bckn->bcqk", C.float(), B.float())
+    Y_diag = torch.einsum("bchqk,bckhp->bcqhp", scores[:, :, None] * Ldec,
+                          Xd)
+    decay_states = torch.exp(A_cs[..., -1:] - A_cs)      # (b,nc,h,q)
+    S_c = torch.einsum("bchq,bcqn,bcqhp->bchpn", decay_states, B.float(),
+                       Xd)
+    chunk_decay = torch.exp(A_cs[..., -1])
+    return Y_diag.to(X.dtype), S_c, chunk_decay, A_cs
+
+
+def ssd_chunks(X, dt, B, C, chunk):
+    """Split the sequence into ``nc`` chunks of ``q = min(chunk, l)`` rows,
+    zero-padding the last (a padded row has dt = 0, so it adds nothing):
+    X (b,l,h,p), dt (b,l,h), B, C (b,l,n) -> (b,nc,q,...) views."""
+    b, l, h, p = X.shape
+    n = B.shape[-1]
+    q = min(chunk, l)
+    nc = -(-l // q)
+    pad = nc * q - l
+    if pad:
+        X = torch.nn.functional.pad(X, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, pad))
+    return (X.reshape(b, nc, q, h, p), dt.reshape(b, nc, q, h),
+            B.reshape(b, nc, q, n), C.reshape(b, nc, q, n))
+
+
+def ssd_inter_chunk(Y_diag, S_c, A_cs, Cc, initial_state, l):
+    """The SSD pass outside the intra-chunk kernel: the state recurrence
+    over the chunks (a loop, the reference's ``lax.scan``) and the
+    off-diagonal term.  Returns (Y (b, l, h, p) fp32, final state (b, h, p,
+    n) fp32)."""
+    b, nc, q, h, p = Y_diag.shape
+    chunk_decay = torch.exp(A_cs[..., -1])                    # (b, nc, h)
+    s = (initial_state.float() if initial_state is not None
+         else torch.zeros(S_c.shape[:1] + S_c.shape[2:], dtype=torch.float32,
+                          device=S_c.device))
+    states_in = []
+    for c in range(nc):                      # the state entering each chunk
+        states_in.append(s)
+        s = s * chunk_decay[:, c, :, None, None] + S_c[:, c]
+    states_in = torch.stack(states_in, dim=1)                 # (b,nc,h,p,n)
+    Y_off = (torch.einsum("bcqn,bchpn->bcqhp", Cc.float(), states_in)
+             * torch.exp(A_cs).permute(0, 1, 3, 2)[..., None])
+    Y = (Y_diag.float() + Y_off).reshape(b, nc * q, h, p)[:, :l]
+    return Y, s

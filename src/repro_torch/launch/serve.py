@@ -37,6 +37,12 @@ int8 kernel, which dequantizes on the score and probability tiles.
 appends per running slot); ``--prefix-cache on`` adds prefix-aware block
 reuse.  The summary line then reports the pool (and cache) statistics.
 
+``--arch mamba2-370m`` (SSM) and ``--arch zamba2-1.2b`` (hybrid) serve on
+the dense layout only: admission prefills each prompt at its exact length
+into the slot's recurrent state (and, for the hybrid's attention layers,
+its arena rows); ``--kv-layout paged`` raises ``NotImplementedError`` for
+them, as in the reference, and ``--kv-quant`` is not ported for them.
+
 Runs on CUDA; ``--device cpu`` runs on the CPU with the kernels' plain
 versions.  Weights are random, drawn from ``--seed``.  The reference's
 ``--mesh`` and ``--ckpt`` are not ported yet and are refused.
@@ -254,6 +260,8 @@ def main(argv=None) -> dict:
         ap.error(str(e))
 
     cfg = get_config(args.arch)
+    if args.kv_quant and cfg.arch_type in ("ssm", "hybrid"):
+        ap.error(f"--kv-quant with --arch {args.arch}: not yet ported")
     if args.reduced:
         cfg = reduced(cfg)
     if args.kv_quant:

@@ -1,7 +1,7 @@
-"""Model primitives of the dense decoder (counterpart of
-``repro/models/modules.py``): parameter specs, RMSNorm, RoPE, GQA attention
-(qk-norm, sliding window, ring-buffer cache) and the SwiGLU MLP, for the
-serving and the training paths.
+"""Model primitives (counterpart of ``repro/models/modules.py``): parameter
+specs, RMSNorm, RoPE, GQA attention (qk-norm, sliding window, ring-buffer
+cache) and the SwiGLU MLP, for the serving and the training paths, and the
+Mamba2 (SSD) mixer for serving.
 
 Parameters are nested dicts/tuples of tensors whose structure comes from
 ``ParamSpec`` trees, the same paths as the reference's pytrees, so weights
@@ -22,6 +22,21 @@ scale planes) and the paged layout (a shared block pool reached through
 per-sequence block tables, bf16/fp32 or int8) are ported, with the prefix
 cache's read-only history (``hk``/``hv``, dequantized from int8 blocks when
 the pool is int8).
+
+The Mamba2 mixer (:func:`ssm_apply`) carries a recurrent cache per layer:
+``conv`` (the last ``K-1`` pre-activation conv inputs, in the compute
+dtype) and ``state`` (the SSD state, **fp32** whatever the compute dtype).
+The reference keeps its state in the compute dtype, but its decode step
+multiplies it by the fp32 decay, so in bf16 the state it carries is fp32
+from the first decode step on (ROADMAP Queue 3, R9); its step-by-step
+decode runs that way, while its scanned serve chunk cannot (the scan
+carry changes type).  The port computes the step-by-step path: prefill
+stores the final state rounded through the compute dtype
+(``final.to(cdtype)``, the reference's bf16 cache value) into the fp32
+arena, and decode carries fp32.  One difference remains in bf16: the
+reference's first decode step also rounds its ``dt * x * B`` update to
+bf16 (cast to the bf16 cache's dtype), the port's never does.  Decode
+updates ``conv`` and ``state`` in place, as attention updates its arena.
 """
 from __future__ import annotations
 
@@ -33,7 +48,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ref import gather_blocks, lens_mask
+from repro_torch.kernels.ref import (chunk_cumsum, gather_blocks, lens_mask,
+                                    ssd_chunks, ssd_inter_chunk)
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
@@ -125,6 +141,12 @@ def rmsnorm(x, weight, eps: float = 1e-5, use_kernels: bool = False):
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * weight.float()).to(x.dtype)
+
+
+def rmsnorm_gated(x, z, weight, eps: float = 1e-5):
+    """Mamba2-style gated RMSNorm: norm(x * silu(z)), always plain (the
+    reference never sends it to the kernel, R3)."""
+    return rmsnorm(x * F.silu(z.float()).to(x.dtype), weight, eps)
 
 
 # ===================================================================== #
@@ -595,3 +617,144 @@ def mlp_specs(cfg: ModelConfig, d_ff=None) -> dict:
 def mlp_apply(p, x, cfg=None):
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+# ===================================================================== #
+# Mamba2 (SSD) mixer
+# ===================================================================== #
+def ssm_specs(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
+    di, nh, N, G = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_ngroups
+    conv_dim = di + 2 * G * N
+    in_dim = 2 * di + 2 * G * N + nh
+    return {
+        "w_in": ParamSpec((D, in_dim), ("embed", "mlp")),
+        "conv_w": ParamSpec((cfg.ssm_conv, conv_dim), (None, "mlp")),
+        "conv_b": ParamSpec((conv_dim,), ("mlp",), "zeros"),
+        "A_log": ParamSpec((nh,), (None,), "zeros"),
+        "D_skip": ParamSpec((nh,), (None,), "ones"),
+        "dt_bias": ParamSpec((nh,), (None,), "zeros"),
+        "out_norm": ParamSpec((di,), ("mlp",), "ones"),
+        "w_out": ParamSpec((di, D), ("mlp", "embed")),
+    }
+
+
+def segsum(x):
+    """x: (..., q) -> (..., q, q) lower-triangular segment sums, -inf above
+    the diagonal (so ``exp`` of it is exactly 0 there, with a zero
+    gradient).  The cumsum is the kernel's, rounded from fp64
+    (:func:`repro_torch.kernels.ref.chunk_cumsum`)."""
+    q = x.shape[-1]
+    cs = chunk_cumsum(x)
+    d = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    return torch.where(mask, d, -math.inf)
+
+
+def ssd_chunked(X, dt, A, B, C, chunk, initial_state=None,
+                use_kernels=False):
+    """Chunked SSD scan (Mamba2 via state-space duality).
+
+    X: (b,l,h,p)  dt: (b,l,h) fp32  A: (h,) fp32  B,C: (b,l,n)  [ngroups=1]
+    Returns (Y: (b,l,h,p), final_state: (b,h,p,n) fp32).  With
+    ``use_kernels`` the intra-chunk pass is the kernel
+    (:func:`repro_torch.kernels.ops.ssd_scan`, forward only, Y in X's
+    dtype); the plain path below is differentiable torch ops throughout
+    and, like the reference's jnp path, returns Y in fp32."""
+    if use_kernels:
+        from repro_torch.kernels import ops as kops
+        return kops.ssd_scan(X, dt, A, B, C, chunk, initial_state)
+    Xc, dtc, Bc, Cc = ssd_chunks(X, dt, B, C, chunk)
+    dA = (dtc * A).permute(0, 1, 3, 2)                  # (b,c,h,q)
+    Xd = Xc * dtc[..., None]                            # fp32: dt-discretized
+
+    A_cs = chunk_cumsum(dA)                             # (b,c,h,q)
+    Ldec = torch.exp(segsum(dA))                        # (b,c,h,q,q)
+    # the scores round to the inputs' dtype, as the reference's einsum does
+    scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc).float()
+    Y_diag = torch.einsum("bchqk,bckhp->bcqhp", scores[:, :, None] * Ldec,
+                          Xd)
+
+    # per-chunk end states
+    decay_states = torch.exp(A_cs[..., -1:] - A_cs)     # (b,c,h,q)
+    S_c = torch.einsum("bchq,bcqn,bcqhp->bchpn", decay_states, Bc.float(),
+                       Xd)
+    return ssd_inter_chunk(Y_diag, S_c, A_cs, Cc, initial_state, X.shape[1])
+
+
+def ssm_cache_shape(cfg: ModelConfig, batch: int):
+    di, nh, N, G = (cfg.d_inner, cfg.ssm_nheads, cfg.ssm_state,
+                    cfg.ssm_ngroups)
+    conv_dim = di + 2 * G * N
+    return dict(conv=(batch, cfg.ssm_conv - 1, conv_dim),
+                state=(batch, nh, cfg.ssm_headdim, N))
+
+
+def _conv_silu(win, w, b):
+    """Depthwise conv taps plus bias, then SiLU: win (..., K, cd) holds each
+    position's K inputs (history first), w (K, cd), b (cd,).  The taps sum
+    in fp32 and round once to the input dtype, like the reference's einsum;
+    prefill and decode run the same reduction."""
+    acc = (win.float() * w.float()).sum(-2)
+    return F.silu(acc.to(win.dtype) + b)
+
+
+def ssm_apply(cfg: ModelConfig, p, x, *, mode, cache=None):
+    """Mamba2 block.  'full'/'prefill': causal depthwise conv, SiLU, the
+    chunked SSD, the ``D_skip`` term and the gated norm; 'prefill' also
+    writes the last ``K-1`` pre-activation conv inputs (zero-padded for a
+    shorter prompt) and the final state into ``cache``.  'decode': the O(1)
+    step, updating ``cache['conv']`` and ``cache['state']`` in place (see
+    the module docstring for the state's fp32 arena)."""
+    B = x.shape[0]
+    di, nh, hp, N = (cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim,
+                     cfg.ssm_state)
+    G = cfg.ssm_ngroups
+    K = cfg.ssm_conv
+    conv_dim = di + 2 * G * N
+    zxbcdt = x @ p["w_in"]
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + conv_dim]
+    dt_raw = zxbcdt[..., di + conv_dim:]
+    A = -torch.exp(p["A_log"].float())
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    new_cache = None
+
+    if mode == "decode":
+        assert cache is not None
+        win = torch.cat([cache["conv"], xbc], dim=1)        # (B,K,conv_dim)
+        conv_out = _conv_silu(win, p["conv_w"], p["conv_b"])
+        xi = conv_out[..., :di].reshape(B, nh, hp)
+        Bv = conv_out[..., di:di + N]
+        Cv = conv_out[..., di + N:di + 2 * N]
+        dt1 = dt[:, 0]                                      # (B,nh)
+        dA = torch.exp(dt1 * A[None])                       # (B,nh)
+        state = cache["state"]                              # fp32 arena
+        # in place: state = state * dA + (x dt) outer B
+        state.mul_(dA[..., None, None]).addcmul_(
+            (xi * dt1[..., None])[..., None], Bv.float()[:, None, None, :])
+        y = (state @ Cv.float()[:, None, :, None])[..., 0]  # (B,nh,hp)
+        y = y + p["D_skip"][None, :, None] * xi
+        y = y.reshape(B, 1, di)
+        cache["conv"].copy_(win[:, 1:])
+        new_cache = cache
+    else:
+        L = x.shape[1]
+        xp = F.pad(xbc, (0, 0, K - 1, 0))                   # (B,L+K-1,cd)
+        win = xp.unfold(1, K, 1).transpose(-1, -2)          # (B,L,K,cd)
+        conv_out = _conv_silu(win, p["conv_w"], p["conv_b"])
+        xi = conv_out[..., :di].reshape(B, L, nh, hp)
+        Bv = conv_out[..., di:di + N]
+        Cv = conv_out[..., di + N:di + 2 * N]
+        Y, final = ssd_chunked(xi, dt, A, Bv, Cv, cfg.ssm_chunk,
+                               use_kernels=cfg.use_kernels)
+        Y = Y + p["D_skip"][None, None, :, None] * xi
+        y = Y.reshape(B, L, di)
+        if mode == "prefill":
+            assert cache is not None
+            cache["conv"].copy_(xp[:, L:])                  # last K-1 rows
+            # the reference's compute-dtype cache value, kept in fp32
+            cache["state"].copy_(final.to(cfg.cdtype))
+            new_cache = cache
+    y = rmsnorm_gated(y.to(x.dtype), z, p["out_norm"], cfg.rms_eps)
+    return (y @ p["w_out"]).to(x.dtype), new_cache

@@ -11,10 +11,12 @@ layer when ``cfg.remat`` (the reference's ``jax.checkpoint`` of the scan
 body), and :func:`lm_loss` / :func:`per_token_logprobs` never build more
 than ``cfg.logit_chunk`` positions of logits at a time.
 
-Only dense attention layers are ported: SSM, cross-attention, MoE and MLA
-segments raise ``NotImplementedError``.  The KV cache is the dense arena
-(:func:`init_cache`) or the paged block pool (:func:`init_paged_cache`,
-decode through ``block_tables``).
+Dense attention layers and, in ``ssm`` and ``hybrid`` configs, Mamba2 (SSD)
+layers are ported; cross-attention, MoE and MLA segments raise
+``NotImplementedError``.  The cache is the dense arena (:func:`init_cache`:
+K/V rows for attention layers, the recurrent ``conv`` and fp32 ``state`` for
+SSM layers) or, for attention-only models, the paged block pool
+(:func:`init_paged_cache`, decode through ``block_tables``).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import modules as M
-from repro_torch.models.config import ATTN, ModelConfig
+from repro_torch.models.config import ATTN, SSM, ModelConfig
 from repro_torch.models.modules import (ParamSpec, tree_leaves, tree_map,
                                         tree_unflatten)
 
@@ -34,7 +36,8 @@ def _check_ported(cfg: ModelConfig) -> None:
             f"{cfg.name}: only dense token-input GQA decoders are ported")
     for seg in cfg.segments():
         for ls in seg.unit_spec:
-            if ls.kind != ATTN or ls.moe:
+            ssm = ls.kind == SSM and cfg.arch_type in ("ssm", "hybrid")
+            if not (ls.kind == ATTN or ssm) or ls.moe:
                 raise NotImplementedError(
                     f"{cfg.name}: layer {ls} not yet ported")
 
@@ -44,6 +47,9 @@ def _check_ported(cfg: ModelConfig) -> None:
 # ===================================================================== #
 def _layer_specs(cfg: ModelConfig, spec) -> dict:
     D = cfg.d_model
+    if spec.kind == SSM:
+        return {"ln1": ParamSpec((D,), ("embed",), "ones"),
+                "ssm": M.ssm_specs(cfg)}
     return {"ln1": ParamSpec((D,), ("embed",), "ones"),
             "attn": M.attn_specs(cfg),
             "ln2": ParamSpec((D,), ("embed",), "ones"),
@@ -84,14 +90,17 @@ def count_params(cfg: ModelConfig) -> int:
 # Caches
 # ===================================================================== #
 def _layer_cache_shapes(cfg: ModelConfig, spec, batch: int, max_len: int):
+    if spec.kind == SSM:
+        return M.ssm_cache_shape(cfg, batch)
     win = spec.sliding_window or cfg.sliding_window
     return M.attn_cache_shape(cfg, batch, max_len, win)
 
 
 def _cache_dtype(cfg: ModelConfig, key: str) -> torch.dtype:
-    """Scale planes are fp32; K/V rows are int8 under ``cfg.kv_quant``,
-    else in the compute dtype."""
-    if key.endswith("_scale"):
+    """Scale planes and the SSM state are fp32 (the state: R9, see
+    :mod:`repro_torch.models.modules`); K/V rows are int8 under
+    ``cfg.kv_quant``, else in the compute dtype, like the SSM ``conv``."""
+    if key.endswith("_scale") or key == "state":
         return torch.float32
     if cfg.kv_quant and key in ("k", "v"):
         return torch.int8
@@ -174,8 +183,11 @@ def _unstack(tree, n: int) -> list:
 
 def _layer(cfg: ModelConfig, spec, lp, x, positions, mode, lc, rope,
            block_tables=None):
-    win = spec.sliding_window or cfg.sliding_window
     h = M.rmsnorm(x, lp["ln1"], cfg.rms_eps, cfg.use_kernels)
+    if spec.kind == SSM:
+        s, _ = M.ssm_apply(cfg, lp["ssm"], h, mode=mode, cache=lc)
+        return x + s
+    win = spec.sliding_window or cfg.sliding_window
     att, _ = M.attn_apply(cfg, lp["attn"], h, positions=positions, mode=mode,
                           cache=lc, window=win, block_tables=block_tables,
                           rope=rope)
@@ -205,7 +217,8 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
     B, L = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(L, device=x.device)[None].expand(B, L)
-    rope = M.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    rope = (M.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+            if cfg.n_heads else None)           # an SSM stack has no RoPE
     # activation checkpointing: each layer's activations are recomputed in
     # the backward instead of kept (the reference's jax.checkpoint)
     remat = cfg.remat and mode == "full" and torch.is_grad_enabled()

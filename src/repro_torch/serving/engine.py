@@ -68,6 +68,13 @@ decode writes before harvest) fall through the table's trash padding into
 block 0, which nothing reads; a finished slot with a fully allocated table
 wraps such writes into its own last block instead, which the prefix cache
 never indexes.
+
+Architectures with recurrent state (SSM / hybrid) cannot skip pad tokens
+this way: a pad token would enter the SSM state.  So for them admission
+prefills at the exact prompt length, never a bucket, and it overwrites the
+slot's whole ``conv`` and ``state`` rows, so nothing of a slot's previous
+occupant survives.  Those models run on the dense layout only, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -81,7 +88,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kernels.paged_attention import check_tables
 from repro_torch.models import transformer as T
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ATTN, ModelConfig
 from repro_torch.models.modules import tree_map
 from repro_torch.serving.block_pool import (TRASH_BLOCK, BlockAllocator,
                                             BlockTables, blocks_for)
@@ -256,9 +263,13 @@ class GenerationEngine:
         self.kv_layout = kv_layout
         self.block_size = max(1, int(block_size))
         self.prefix_cache = bool(prefix_cache)
+        # exact-length prefill for layers with recurrent state (see the
+        # module docstring); pure-attention stacks use shape buckets
+        self._exact_prefill = any(
+            ls.kind != ATTN for seg in cfg.segments() for ls in seg.unit_spec)
         if kv_layout == "paged":
-            # raises for sliding-window layers; MLA caches latents (dense
-            # geometry only)
+            # raises for SSM and sliding-window layers; MLA caches latents
+            # (dense geometry only)
             if cfg.mla or cfg.arch_type == "vlm":
                 raise NotImplementedError(
                     "paged KV cache supports plain-GQA token-input "
@@ -486,9 +497,11 @@ class _DenseBackend:
     def admit(self, slot: int, tokens: np.ndarray, Lp: int,
               max_new: int) -> None:
         c, e = self.core, self.core.engine
-        padded = _pad_bucket(tokens, min(_next_bucket(Lp), c.S))
+        padded = _pad_bucket(tokens, Lp if e._exact_prefill
+                             else min(_next_bucket(Lp), c.S))
         # the slot's arena rows (K/V and, with int8 KV, their scale
-        # planes) as a one-row cache: prefill writes in place
+        # planes; an SSM layer's whole conv and state rows) as a one-row
+        # cache: prefill writes in place
         row = tree_map(lambda a: a[:, slot:slot + 1], self.cache)
         logit = e._prefill_row(c.params, torch.as_tensor(
             padded, device=e.device), Lp, row)

@@ -10,6 +10,7 @@ and the reference's PPO modules loaded by file path
 """
 from __future__ import annotations
 
+import functools
 import importlib
 import sys
 import types
@@ -58,6 +59,18 @@ def to_np(x):
     return np.asarray(x)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_step_fns(jcfg):
+    """The jitted prefill, decode and logits functions of ``jcfg``, built
+    once per config so that repeated greedy decodes reuse their compiles."""
+    fwd_prefill = jax.jit(lambda p, t, c: JT.forward(
+        jcfg, p, tokens=t, mode="prefill", cache=c))
+    fwd_decode = jax.jit(lambda p, t, c, pos: JT.forward(
+        jcfg, p, tokens=t, mode="decode", cache=c, positions=pos))
+    logits_fn = jax.jit(lambda p, h: JT.logits_fn(jcfg, p, h))
+    return fwd_prefill, fwd_decode, logits_fn
+
+
 def jax_greedy(jcfg, jparams, prompt, max_new: int, eos_id=None):
     """Greedy decode of one prompt with the JAX model, mirroring
     ``repro/serving/generate.py`` (prefill, then one decode step per token,
@@ -65,11 +78,7 @@ def jax_greedy(jcfg, jparams, prompt, max_new: int, eos_id=None):
     the reference's int8 arena with its scale planes.  Returns the
     generated tokens."""
     Lp = len(prompt)
-    fwd_prefill = jax.jit(lambda p, t, c: JT.forward(
-        jcfg, p, tokens=t, mode="prefill", cache=c))
-    fwd_decode = jax.jit(lambda p, t, c, pos: JT.forward(
-        jcfg, p, tokens=t, mode="decode", cache=c, positions=pos))
-    logits_fn = jax.jit(lambda p, h: JT.logits_fn(jcfg, p, h))
+    fwd_prefill, fwd_decode, logits_fn = _jax_step_fns(jcfg)
     cache = JT.init_cache(jcfg, 1, Lp + max_new)
     hidden, cache, _ = fwd_prefill(jparams, jnp.asarray(prompt)[None], cache)
     logits = logits_fn(jparams, hidden[:, -1:])[0, 0]

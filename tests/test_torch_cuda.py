@@ -20,6 +20,7 @@ from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.kernels.paged_attention import (
     paged_decode_attention_fwd, paged_decode_attention_quant_fwd)
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+from repro_torch.kernels.ssd_scan import ssd_intra_fwd
 
 pytestmark = pytest.mark.cuda
 
@@ -414,3 +415,106 @@ def test_ppo_iteration_on_the_card_matches_the_cpu(cuda, kv_quant):
                     if kv_quant else
                     ("decode_attention_fwd", "decode_attention_quant_fwd"))
     assert counts[used] > 0 and counts[unused] == 0
+
+
+def _ssd_case(gen, b, nc, q, h, p, n, dtype, dt_scale=1.0, strided=False):
+    """SSD intra-chunk inputs; with ``strided`` X, B and C are slices of
+    one wider tensor, as in the model (slices of the conv output)."""
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, nc, q, h), generator=gen, device="cuda")) * dt_scale
+    A = -torch.exp(torch.randn((h,), generator=gen, device="cuda") * 0.3)
+    if strided:
+        wide = torch.randn((b, nc, q, h * p + 2 * n + 5), generator=gen,
+                           device="cuda").to(dtype) * 0.5
+        X = wide[..., 3:3 + h * p].unflatten(-1, (h, p))
+        B = wide[..., 3 + h * p:3 + h * p + n]
+        C = wide[..., 3 + h * p + n:3 + h * p + 2 * n]
+    else:
+        X = _randn(gen, (b, nc, q, h, p), dtype) * 0.5
+        B = _randn(gen, (b, nc, q, n), dtype) * 0.5
+        C = _randn(gen, (b, nc, q, n), dtype) * 0.5
+    return X, dt, A, B, C
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nc,q,h,p,n,strided", [
+    (1, 1, 256, 32, 64, 128, False),      # Mamba2-370M admission
+    (1, 1, 137, 32, 64, 128, True),       # ragged q, strided inputs
+    (1, 1, 1, 32, 64, 128, False),        # one-token prompt
+    (1, 4, 256, 32, 64, 128, True),       # several chunks
+    (1, 1, 256, 64, 64, 64, False),       # Zamba2-1.2B
+    (2, 3, 45, 3, 32, 32, True),          # reduced widths
+    (1, 2, 100, 3, 64, 32, False)])       # ragged q, narrowest n
+def test_ssd_intra_kernel_matches_plain(cuda, b, nc, q, h, p, n, strided,
+                                        dtype):
+    X, dt, A, B, C = _ssd_case(cuda, b, nc, q, h, p, n, dtype,
+                               strided=strided)
+    before = ssd_intra_fwd.launches
+    y, s, acs = ssd_intra_fwd(X, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert ssd_intra_fwd.launches == before + 1
+    yr, sr, _, ar = ref.ssd_intra_ref(X, dt, A, B, C)
+    assert y.dtype == dtype and s.dtype == acs.dtype == torch.float32
+    rel = lambda a, b: float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max().clamp(min=1e-30))
+    assert rel(y, yr) <= (1e-4 if dtype == torch.float32 else 2e-2)
+    assert rel(s, sr) <= 1e-4
+    assert rel(acs, ar) <= 1e-5
+
+
+def test_ssd_intra_kernel_selects_the_overflowing_upper_triangle(cuda):
+    """dt * |A| large: the upper triangle's exp overflows, the outputs stay
+    finite and equal the plain version's."""
+    X, dt, A, B, C = _ssd_case(cuda, 1, 1, 256, 32, 64, 128, torch.float32,
+                               dt_scale=100.0)
+    y, s, acs = ssd_intra_fwd(X, dt, A, B, C)
+    assert float((acs[..., 0] - acs[..., -1]).min()) > 89.0
+    yr, sr, _, _ = ref.ssd_intra_ref(X, dt, A, B, C)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    assert (y - yr).abs().max() <= 1e-4 * yr.abs().max()
+    assert (s - sr).abs().max() <= 1e-4 * sr.abs().max()
+
+
+def test_ssd_intra_kernel_raises_instead_of_falling_back(cuda):
+    X, dt, A, B, C = _ssd_case(cuda, 1, 1, 8, 2, 128, 32, torch.float32)
+    with pytest.raises(ValueError):                  # p not 32 or 64
+        ssd_intra_fwd(X, dt, A, B, C)
+    X, dt, A, B, C = _ssd_case(cuda, 1, 1, 8, 2, 32, 32, torch.float32)
+    with pytest.raises(TypeError):
+        ssd_intra_fwd(X, dt.bfloat16(), A, B, C)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_ssm_serving_on_the_card_matches_the_cpu(cuda, arch):
+    """Greedy continuous batching at the reduced Mamba2 / Zamba2 in fp32,
+    one prompt longer than the chunk: the card (kernels) and the CPU
+    (plain versions) emit the same tokens; the SSD kernel launched, and
+    the hybrid's attention kernels too."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_map
+    from repro_torch.serving.engine import GenerationEngine, Request
+
+    cfg = reduced(get_config(arch))
+    params = T.init_params(cfg, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(4)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, lp)
+                    .astype(np.int32), max_new_tokens=mn)
+            for i, (lp, mn) in enumerate([(5, 6), (47, 4), (1, 8), (9, 5)])]
+    outs = {}
+    ops.reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        eng = GenerationEngine(cfg, max_new_tokens=8, temperature=0.0,
+                               chunk=3, device=dev)
+        p = tree_map(lambda t: t.to(dev), params)
+        outs[dev] = {c.uid: c.tokens.tolist() for c in eng.serve(
+            p, reqs, torch.Generator(device=dev).manual_seed(0), slots=2)}
+    assert outs["cpu"] == outs["cuda"]
+    counts = ops.launch_counts()
+    must = ["rmsnorm", "ssd_intra_fwd"] + (
+        ["flash_attention_fwd", "decode_attention_fwd"]
+        if cfg.arch_type == "hybrid" else [])
+    assert all(counts[k] > 0 for k in must), counts
+    if cfg.arch_type == "ssm":
+        assert counts["flash_attention_fwd"] == counts[
+            "decode_attention_fwd"] == 0

@@ -178,12 +178,16 @@ def test_cpu_tensors_never_launch_a_kernel():
     q = torch.randn(1, 8, 2, 32, requires_grad=True)
     tops.FlashAttention.apply(q, torch.randn(1, 8, 2, 32),
                               torch.randn(1, 8, 2, 32)).sum().backward()
+    tops.ssd_scan(torch.randn(1, 9, 2, 4), torch.rand(1, 9, 2),
+                  -torch.rand(2), torch.randn(1, 9, 8), torch.randn(1, 9, 8),
+                  4)
     assert tops.launch_counts() == {"rmsnorm": 0, "flash_attention_fwd": 0,
                                     "flash_attention_bwd": 0,
                                     "decode_attention_fwd": 0,
                                     "decode_attention_quant_fwd": 0,
                                     "paged_decode_attention_fwd": 0,
-                                    "paged_decode_attention_quant_fwd": 0}
+                                    "paged_decode_attention_quant_fwd": 0,
+                                    "ssd_intra_fwd": 0}
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "group", "dtype", "device",

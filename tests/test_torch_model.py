@@ -48,7 +48,7 @@ def test_configs_match_reference(arch):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError):
-        tconfigs.get_config("mamba2-370m")
+        tconfigs.get_config("deepseek-v2-lite-16b")
 
 
 def test_params_round_trip_is_bitwise():

@@ -9,7 +9,9 @@ Phases (any failure raises, so the run exits non-zero):
 1. ``device``  — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions.
 2. ``build``   — every CUDA source of the port built with ``nvcc``, one
-   process per source, all in parallel; seconds and ``ptxas`` resource use.
+   process per source, all in parallel; seconds and ``ptxas`` registers
+   and spills per kernel.  Fails if a bf16 tensor-core flash kernel at
+   D = 64 spills.
 3. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the main paths' shapes (OPT-1.3B, OPT-350M and smollm-135m widths),
    in fp32 (TF32 off) and bf16, with kernel / plain / library device times
@@ -17,7 +19,10 @@ Phases (any failure raises, so the run exits non-zero):
    lower bound on time; the flash forward's LSE against the plain LSE, and
    the flash backward (dq, dk, dv) against its plain version at the
    training shapes (OPT-1.3B: B=8, H=32, L=512), with the backward of
-   ``F.scaled_dot_product_attention`` (fwd+bwd less fwd) as its yardstick.
+   ``F.scaled_dot_product_attention`` (fwd+bwd less fwd) as its yardstick,
+   its dK/dV and dQ kernels also timed apart, and the fp32 backward held
+   to exactly 0.  Flash rows print the achieved TFLOP/s (the bound's
+   operations over the kernel time).
 4. ``parity``  — OPT-1.3B at full width and depth in fp32, random weights:
    one teacher-forced token stream (prefill 256 + 32 decode steps) through
    the kernel path and the plain path; max |dlogits| / max |logits|.
@@ -34,7 +39,8 @@ Phases (any failure raises, so the run exits non-zero):
    the last below the first, with launch counts set to 0 just before and
    read just after (RMSNorm, flash forward and flash backward must all
    have launched); then one more step under ``torch.profiler`` for the
-   device time by kernel; (c) 5 reward-model steps at OPT-350M, full width
+   device time by kernel and the flash kernels' share of it; (c) 5
+   reward-model steps at OPT-350M, full width
    and depth, on ``DataBlender.reward_batches(8, ...)`` at seq 512.
 7. ``rlhf``    — the 3-stage pipeline (``repro_torch.core.RLHFPipeline``)
    at full width and depth: OPT-1.3B actor and reference, OPT-350M critic
@@ -244,18 +250,61 @@ def phase_device(state):
         f"count={torch.cuda.device_count()}")
 
 
+def ptxas_usage(text: str) -> list:
+    """(kernel, registers, spill stores, spill loads) for each entry
+    function in ``nvcc -Xptxas -v`` output; the kernel's name demangled by
+    ``cu++filt`` or ``c++filt`` where one is found, else as ptxas gives
+    it."""
+    import re
+    import shutil
+    filt = shutil.which("cu++filt") or shutil.which("c++filt")
+    if filt is None and Path("/usr/local/cuda/bin/cu++filt").is_file():
+        filt = "/usr/local/cuda/bin/cu++filt"
+    rows, fn, spill = [], None, (0, 0)
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1)
+            if filt is not None:
+                fn = subprocess.run([filt, fn], capture_output=True,
+                                    text=True).stdout.strip() or fn
+                fn = re.sub(r"\(anonymous namespace\)::|<unnamed>::|\(int\)",
+                            "", fn)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn is not None:
+            rows.append((fn, int(m.group(1)), *spill))
+            fn, spill = None, (0, 0)
+    return rows
+
+
 def phase_build(state):
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     report = build.build(ptxas_verbose=True)
     wall = time.perf_counter() - t0
+    # the bf16 tensor-core flash kernels at D = 64 (every main path's head
+    # width) must keep everything in registers: 1 forward, 2 backward
+    mma64 = {}
     for name, r in report.items():
         log(f"[build] {name}.cu: {r['seconds']:.1f}s")
-        for ln in r["log"].splitlines():
-            if "registers" in ln or "spill" in ln:
-                log(f"[build]   {ln.strip()}")
+        for fn, regs, st, ld in ptxas_usage(r["log"]):
+            log(f"[build]   {fn}: {regs} registers, {st} bytes spill "
+                f"stores, {ld} bytes spill loads")
+            if "mma_kernel" in fn and ("<64>" in fn or "ILi64E" in fn):
+                mma64[fn] = st + ld
     log(f"[build] {len(report)} sources, {wall:.1f}s wall (nvcc in "
         f"parallel)")
+    want = ("flash_attention" in report) + 2 * ("flash_attention_bwd"
+                                                in report)
+    if len(mma64) != want or any(mma64.values()):
+        raise AssertionError(f"build: D = 64 tensor-core kernels (want "
+                             f"{want}, none spilling): {mma64}")
 
 
 def _case_inputs(gen, shape, dtype):
@@ -290,6 +339,7 @@ def phase_kernels(state):
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_fwd
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 
@@ -307,21 +357,29 @@ def phase_kernels(state):
         "decode_attention_fwd, decode_attention_quant_fwd")
 
     def record(name, label, dname, err, limit, k_ms, p_ms, lib_ms, bnd,
-               main, abs_err=None):
+               main, abs_err=None, ops=None, extra=None):
         ok = err <= limit
         if not ok:
             failures.append(f"{name} {label} {dname}: err {err:.3g} > "
                             f"{limit}")
+        # achieved rate: the operations counted for the bound over the time
+        tflops = None if ops is None else ops / (k_ms * 1e-3) / 1e12
         log(f"[kernels] {name:<21} {label:<38} {dname} err={err:.3g} "
             f"(tol {limit}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
             f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-            f"bound_ms={bnd[0]:.4f} ({bnd[1]}) {'ok' if ok else 'FAIL'}")
+            f"bound_ms={bnd[0]:.4f} ({bnd[1]})"
+            + ("" if tflops is None else f" tflops={tflops:.2f}")
+            + "".join(f" {k}={v:.4f}" for k, v in (extra or {}).items())
+            + f" {'ok' if ok else 'FAIL'}")
         if main:
             rows[name] = {"max_abs_err": err if abs_err is None else abs_err,
                           "ms": k_ms, "plain_ms": p_ms,
                           "bound_ms": bnd[0], "bound_by": bnd[1],
                           "library_ms": lib_ms, "shape": label,
-                          "dtype": dname}
+                          "dtype": dname, **(extra or {})}
+            if tflops is not None:
+                rows[name]["tflops"] = tflops
+        return tflops
 
     # ---- rmsnorm: decode (R = slots) and prefill (R = bucket) rows ----
     for (R, D, model) in ((16, 2048, "opt-1.3b"), (512, 2048, "opt-1.3b"),
@@ -385,25 +443,31 @@ def phase_kernels(state):
                                 f"{dname}: err {lse_err:.3g}")
             pairs = causal_pairs(Lq, Lk, window)
             eb = qm.element_size()
+            ops = 4 * B * KV * G * pairs * D
             bnd = bound((2 * B * KV * G * Lq * D + 2 * B * KV * Lk * D) * eb,
-                        4 * B * KV * G * pairs * D,
-                        "bf16" if dname == "bf16" else "fp32")
+                        ops, "bf16" if dname == "bf16" else "fp32")
             lib = None
             if Lq == Lk and window is None:
                 qs, ks, vs = (t.transpose(1, 2) for t in (qm, km, vm))
                 lib = time_ms(lambda: F.scaled_dot_product_attention(
                     qs, ks, vs, is_causal=True, enable_gqa=G > 1))
-            record("flash_attention_fwd",
-                   f"{model} B={B} KV={KV} G={G} Lq={Lq} Lk={Lk}{win}", dname,
-                   err,
-                   tol[("attn", dname)],
-                   time_ms(lambda: flash_attention_fwd(
-                       q5, k4, v4, causal=True, window=window)),
-                   time_ms(lambda: ref.flash_attention_ref(
-                       q5, k4, v4, causal=True, window=window)),
-                   lib, bnd,
-                   main=(B, KV, Lq, Lk, window, dname) == (
-                       1, 32, 256, 256, None, "bf16"))
+            k_ms = time_ms(lambda: flash_attention_fwd(
+                q5, k4, v4, causal=True, window=window))
+            tflops = record(
+                "flash_attention_fwd",
+                f"{model} B={B} KV={KV} G={G} Lq={Lq} Lk={Lk}{win}", dname,
+                err, tol[("attn", dname)], k_ms,
+                time_ms(lambda: ref.flash_attention_ref(
+                    q5, k4, v4, causal=True, window=window)),
+                lib, bnd,
+                main=(B, KV, Lq, Lk, window, dname) == (
+                    1, 32, 256, 256, None, "bf16"), ops=ops)
+            if (B, dname) == (8, "bf16"):       # the training forward
+                train_fwd = {"train_ms": k_ms, "train_library_ms": lib,
+                             "train_bound_ms": bnd[0],
+                             "train_tflops": tflops}
+
+    rows["flash_attention_fwd"].update(train_fwd)
 
     # ---- flash attention backward at the training shapes (L = 512) ----
     for (B, KV, G, Lq, Lk, window, model) in (
@@ -443,14 +507,27 @@ def phase_kernels(state):
                                 f"gradients are all zero")
             log(f"[kernels] flash_attention_bwd {model} {dname}: max|ref| of "
                 f"dq/dk/dv >= {scale:.3g}, max|kernel - ref| = "
-                f"{abs_err:.3g} (an exact 0 is possible: the kernel and the "
-                f"fp32 GEMMs sum each output in the same order)")
+                f"{abs_err:.3g} " + (
+                    "(must be exactly 0: the fp32 kernels and the fp32 GEMMs "
+                    "sum each output in the same order)" if dname == "fp32"
+                    else "(P and dS are rounded to bf16 before the second "
+                    "products)"))
+            if dname == "fp32" and abs_err != 0:
+                failures.append(f"flash bwd {model} fp32: max|kernel - ref| "
+                                f"= {abs_err:.3g}, not exactly 0")
             pairs = causal_pairs(Lq, Lk, window)
             eb = qm.element_size()
+            ops = 10 * D * B * KV * G * pairs
             bnd = bound(3 * B * KV * G * Lq * D * eb + 4 * B * KV * Lk * D * eb
-                        + 2 * B * KV * G * Lq * 4,
-                        10 * D * B * KV * G * pairs,
+                        + 2 * B * KV * G * Lq * 4, ops,
                         "bf16" if dname == "bf16" else "fp32")
+            # each of the two kernels alone (launches x (time - bound) is
+            # reckoned per kernel launch)
+            dq_, dk_, dv_ = (torch.empty_like(t) for t in (q5, k4, v4))
+            parts = {f"{part}_ms": time_ms(
+                lambda part=part: fab._launch(
+                    (part,), q5, k4, v4, do5, lse, delta, dq_, dk_, dv_, True,
+                    window), inner=5, repeats=5) for part in ("dkv", "dq")}
             lib = None
             if Lq == Lk and window is None:
                 qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
@@ -474,8 +551,8 @@ def phase_kernels(state):
                    lib, bnd,
                    main=(B, KV, Lq, window, dname) == (8, 32, 512, None,
                                                        "bf16"),
-                   abs_err=abs_err)
-            del got, want, o5
+                   abs_err=abs_err, ops=ops, extra=parts)
+            del got, want, o5, dq_, dk_, dv_
 
     # ---- decode attention: 16 slots over the in-place (B, S, KV, D) arena
     for (KV, G, S, model) in ((32, 1, 512, "opt-1.3b"),
@@ -1305,8 +1382,8 @@ def _paged_serve(state):
 
 def _profile_step(step_fn, kernels=("flash_bwd", "flash_fwd", "rmsnorm")):
     """Device time of one call of ``step_fn`` by kernel, from
-    ``torch.profiler``: (total device ms, {bucket: ms}, top kernels), or
-    None when the profiler sees no device time."""
+    ``torch.profiler``: (total device ms, {bucket: ms}, [(kernel, ms)]
+    longest first), or None when the profiler sees no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1331,12 +1408,13 @@ def _profile_step(step_fn, kernels=("flash_bwd", "flash_fwd", "rmsnorm")):
             hit = ("gemm" if any(w in low for w in (
                 "gemm", "cutlass", "xmma", "nvjet", "cublas")) else "other")
         buckets[hit] += ms
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])
     return total, buckets, top
 
 
 def phase_train(state):
     import math
+    import re
 
     import numpy as np
     import torch
@@ -1447,7 +1525,12 @@ def phase_train(state):
             f"idle ~{max(0.0, 1 - total / wall):.1%} of the step")
         log("[train] kernel time by kind: " + ", ".join(
             f"{k} {v:.1f} ms ({v / total:.1%})" for k, v in buckets.items()))
-        for name, ms in top:
+        flash = buckets["flash_fwd"] + buckets["flash_bwd"]
+        log(f"[train] flash kernels: {flash:.1f} ms, {flash / total:.1%} of "
+            f"the step's kernel time: " + ", ".join(
+                f"{re.search(r'flash_\w+(<[^>]*>)?', name).group(0)} "
+                f"{ms:.2f} ms" for name, ms in top if "flash_" in name))
+        for name, ms in top[:12]:
             log(f"[train]   {ms:9.2f} ms  {name[:110]}")
         state["train"].update(profile_total_ms=total, buckets=buckets)
     del st, holder, b
@@ -2156,7 +2239,10 @@ def main() -> int:
             "bound_by": row.get("bound_by"),
             "library_ms": row.get("library_ms"),
             **{k: row[k] for k in ("yardstick_ms", "dense_kernel_ms",
-                                   "gather_sdpa_ms") if k in row},
+                                   "gather_sdpa_ms", "tflops", "dkv_ms",
+                                   "dq_ms", "train_ms", "train_library_ms",
+                                   "train_bound_ms", "train_tflops")
+               if k in row},
         })
     print(state.get("smi") or nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))

@@ -117,6 +117,26 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def strides(t: torch.Tensor, n: int) -> tuple:
+    """The first ``n`` strides of ``t`` in elements, 0 for a dimension of
+    size 1 (whose stride no index ever multiplies)."""
+    return tuple(s if d > 1 else 0 for s, d in zip(t.stride()[:n],
+                                                   t.shape[:n]))
+
+
+def check_aligned(what: str, *tensors: torch.Tensor) -> None:
+    """The bf16 tensor-core kernels copy 16-byte chunks (``cp.async``):
+    each tensor must start on a 16-byte boundary, and every stride but the
+    last (unit) one must be a multiple of 8 elements.  Raises
+    ``ValueError`` otherwise, before anything is launched."""
+    for t in tensors:
+        if t.data_ptr() % 16 or any(s % 8 for s in strides(t, t.ndim - 1)):
+            raise ValueError(
+                f"{what}: the bf16 kernel needs 16-byte aligned data and "
+                f"strides that are multiples of 8 elements, got data_ptr % "
+                f"16 = {t.data_ptr() % 16}, strides {tuple(t.stride())}")
+
+
 def dtype_code(t: torch.Tensor) -> int:
     if t.dtype not in DTYPE_CODES:
         raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")

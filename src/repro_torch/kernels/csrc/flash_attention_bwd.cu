@@ -11,26 +11,65 @@
 // kernels/ops.py passes permuted views of the model's (B, L, H, D)
 // activations and gradients); lse and delta (B, KV, G, Lq) fp32,
 // contiguous.  Outputs are written in their inputs' dtype; every sum is
-// fp32.
+// fp32.  Masking follows the reference: p is exactly 0 where the causal /
+// window mask, the ragged edge of either axis, or a row past Lq removes
+// the pair, and a row whose lse is the finite mask value (-1e30) takes
+// lse = 0.  Key tiles that every row of a dQ block masks, and query tiles
+// that attend no key of a dK/dV block, are skipped, so no block size has
+// to divide Lq or Lk.
+//
+// Two kernels per call, two launches, and no atomics: dK/dV per key tile,
+// dQ per query tile, so GQA's sum over the group stays inside one block
+// and every result is bitwise repeatable, whatever the scheduling.  The dQ
+// kernel recomputes S and dP (about 1.4x the FLOP of one kernel with
+// atomic dQ).  Chosen by dtype, both pairs hand-written: bf16 runs on the
+// tensor cores (flash_bwd_dkv_mma_kernel, flash_bwd_dq_mma_kernel), fp32
+// on the CUDA cores (flash_bwd_dkv_kernel, flash_bwd_dq_kernel, whose note
+// is below).  A call neither takes is refused, never rerouted.
+//
+// ---- bf16: flash_bwd_dkv_mma_kernel, flash_bwd_dq_mma_kernel -------------
 //
 // Bound on the H100: at the OPT-1.3B training shape (B = 8, H = KV = 32,
-// L = 512, D = 64, causal) the function moves ~118 MB in bf16 (q, dO, dQ,
-// k, v, dK, dV once each, plus lse and delta) and needs ~10 D FLOP for each
-// of the ~34 M unmasked (query, key) pairs: ~21 GFLOP, ~21 us on the
-// tensor cores, so the bytes bound it at ~35 us.  This first kernel does
-// its products on the CUDA cores in fp32 (no mma.sync / wgmma, no TMA):
-// right first, fast later.
-// What it keeps out of device memory is every (Lq, Lk) tile: the
-// probabilities are recomputed from lse, p = exp(s - lse), and live in
-// shared memory only for the tile at hand.
+// L = 512, D = 64, causal) the function moves 118 MB (q, dO, dQ, k, v, dK,
+// dV once each, plus lse and delta) and needs 10 D FLOP for each of the
+// 34 M unmasked (query, key) pairs, 21.5 GFLOP: 35 us of bytes at 3.35 TB/s
+// against 22 us of bf16 tensor-core work, so the bytes bound it.  No
+// (Lq, Lk) tile ever reaches device memory: the probabilities are
+// recomputed from lse, p = exp(s - lse), in registers.
 //
-// Design, two kernels in this source, two launches per call:
+// Design, mma.sync m16n8k16 (bf16 operands, fp32 accumulators), 4 warps,
+// rows padded by 8 bf16 so that ldmatrix is free of bank conflicts, tiles
+// streamed by 16-byte cp.async in a two-stage ring:
+//
+// * dK/dV: one block per (b, kv_head, 64-key tile), each warp owning 16
+//   keys.  K and V are staged once; the block walks the G heads and the
+//   query tiles (64 queries, 32 at D = 128) that attend its keys, with Q,
+//   dO, lse and delta streamed.  Per tile it computes S^T = K Q^T and
+//   dP^T = V dO^T (K, V as A operands, Q, dO as B), forms
+//   P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale in fp32
+//   (lse and delta per column, from shared memory), rounds both to bf16 in
+//   registers as A fragments, and accumulates dV += P^T dO and dK += dS^T Q
+//   with dO and Q through ldmatrix.trans.
+// * dQ: one block per (b, kv_head, g, 64-query tile), each warp owning 16
+//   query rows, whose Q and dO fragments stay in registers.  K and V
+//   stream in 64-key tiles (32 at D = 128); S, dP and dS are formed in
+//   registers and dQ += dS K takes K through ldmatrix.trans.
+//
+// Element masks run only on tiles that touch the diagonal, the window
+// edge, or the ragged edge of either axis.  Every operand must be 16-byte
+// aligned with row, head and batch strides that are multiples of 8
+// elements (the wrapper checks and raises).
+//
+// ---- fp32: flash_bwd_dkv_kernel, flash_bwd_dq_kernel ---------------------
+//
+// At the training shape these kernels need the same 21.5 GFLOP at the fp32
+// rate (67 TFLOP/s), which bounds them at 0.32 ms.  They do their products
+// on the CUDA cores in fp32, so the fp32 gates (1e-4) hold.
 //
 // * dK/dV: one block per (b, kv_head, BK-key tile).  K and V of the tile
 //   are staged in shared memory once; the block then walks all G query
 //   heads of the group and every BQ-query tile that attends at least one
-//   of its keys, so GQA's sum over the group stays inside the block: no
-//   atomics, and the result does not depend on scheduling.
+//   of its keys.
 // * dQ: one block per (b, kv_head, g, BQ-query tile), walking the key
 //   tiles its rows attend.
 //
@@ -39,13 +78,9 @@
 // spreads a quarter-warp's rows over all 32 banks); each thread computes an
 // 8-row slice of S = Q K^T and dP = dO V^T; p and ds = p (dp - delta) scale
 // go to shared memory; then dV += P^T dO, dK += dS^T Q (or dQ += dS K) with
-// each thread owning a register block of the output.  Masking follows the
-// reference: p is exactly 0 where the causal / window mask, the ragged
-// edge of either axis, or a row past Lq removes the pair, and a row whose
-// lse is the finite mask value (-1e30) takes lse = 0.  Key tiles that
-// every row of a dQ block masks, and query tiles that attend no key of a
-// dK/dV block, are skipped, so no block size has to divide Lq or Lk.
+// each thread owning a register block of the output.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -410,14 +445,466 @@ int launch_dq(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const Params& p, int D, bool dkv, cudaStream_t s) {
+// ---- bf16 on the tensor cores (see the note at the top) ----
+
+using bf16 = __nv_bfloat16;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct MmaBwd {
+  static constexpr int RS = D + 8;                // padded shared row (bf16)
+  // dK/dV: 64 keys per block (4 warps x 16), query tiles of QT streamed
+  static constexpr int KT = 64;
+  static constexpr int QT = D >= 128 ? 32 : 64;
+  static constexpr int dkv_smem =
+      static_cast<int>(sizeof(bf16)) * (2 * KT * RS + 4 * QT * RS) +
+      static_cast<int>(sizeof(float)) * 4 * QT;
+  // dQ: 64 query rows per block (4 warps x 16), key tiles of KB streamed
+  static constexpr int QB = 64;
+  static constexpr int KB = D >= 128 ? 32 : 64;
+  static constexpr int dq_smem =
+      static_cast<int>(sizeof(bf16)) * (2 * QB * RS + 4 * KB * RS) +
+      static_cast<int>(sizeof(float)) * 2 * QB;
+};
+
+__device__ __forceinline__ float lse_log2(float lse) {
+  return (lse <= REPRO_NEG_INF / 2 ? 0.f : lse) * kLog2e;
+}
+
+// does the (query tile q0.., key tile k0..) pair hold a masked element?
+__device__ __forceinline__ bool edge_tile(const Params& p, int q0, int qn,
+                                          int k0, int kn) {
+  const int q_offset = p.Lk - p.Lq;
+  return q0 + qn > p.Lq || k0 + kn > p.Lk ||
+         (p.causal && k0 + kn - 1 > q_offset + q0) ||
+         (p.window >= 0 && q_offset + q0 + qn - 1 - k0 >= p.window);
+}
+
+__device__ __forceinline__ bool attends(const Params& p, int qi, int kpos) {
+  const int qpos = p.Lk - p.Lq + qi;
+  return qi < p.Lq && kpos < p.Lk && (!p.causal || qpos >= kpos) &&
+         (p.window < 0 || qpos - kpos < p.window);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(
+    const Params p) {
+  using namespace repro::mma;
+  using TL = MmaBwd<D>;
+  constexpr int RS = TL::RS, KT = TL::KT, QT = TL::QT;
+  constexpr int KD = D / 16;   // k-steps over D
+  constexpr int NS = QT / 8;   // query n-tiles of S^T
+  constexpr int NO = D / 8;    // dim n-tiles of dK, dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [KT][RS]
+  bf16* v_s = k_s + KT * RS;                       // [KT][RS]
+  bf16* q_s = v_s + KT * RS;                       // [2][QT][RS]
+  bf16* do_s = q_s + 2 * QT * RS;                  // [2][QT][RS]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * QT * RS);  // [2][QT]
+  float* delta_s = lse_s + 2 * QT;                               // [2][QT]
+
+  const int k0 = blockIdx.x * KT;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int q_offset = p.Lk - p.Lq;
+  const float scale_log2 = p.scale * kLog2e;
+
+  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + kvh * p.q_sk;
+  const bf16* gb =
+      static_cast<const bf16*>(p.dout) + b * p.do_sb + kvh * p.do_sk;
+  const int64_t row0 = (static_cast<int64_t>(b) * p.KV + kvh) * p.G * p.Lq;
+
+  load_rows<KT, D, RS, kThreads>(
+      k_s, static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sk, p.k_sl,
+      k0, p.Lk);
+  load_rows<KT, D, RS, kThreads>(
+      v_s, static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sk, p.v_sl,
+      k0, p.Lk);
+
+  // query rows that attend at least one key of this tile
+  int q_lo = 0, q_hi = p.Lq;
+  if (p.causal) q_lo = max(0, k0 - q_offset);
+  if (p.window >= 0) q_hi = min(q_hi, k0 + KT - 1 + p.window - q_offset);
+  q_lo = (q_lo / QT) * QT;
+  const int nq = q_hi > q_lo ? (q_hi - q_lo + QT - 1) / QT : 0;
+  const int total = p.G * nq;  // (head, query tile) steps
+
+  // Q, dO, lse and delta of step `it` into stage `st`
+  auto issue = [&](int it, int st) {
+    const int g = it / nq, q0 = q_lo + (it % nq) * QT;
+    load_rows<QT, D, RS, kThreads>(q_s + st * QT * RS, qb + g * p.q_sg,
+                                   p.q_sl, q0, p.Lq);
+    load_rows<QT, D, RS, kThreads>(do_s + st * QT * RS, gb + g * p.do_sg,
+                                   p.do_sl, q0, p.Lq);
+    for (int i = threadIdx.x; i < QT; i += kThreads) {
+      const bool in = q0 + i < p.Lq;
+      const int64_t at = row0 + static_cast<int64_t>(g) * p.Lq +
+                         (in ? q0 + i : 0);
+      cp_async_4(smem_addr(lse_s + st * QT + i), p.lse + at, in);
+      cp_async_4(smem_addr(delta_s + st * QT + i), p.delta + at, in);
+    }
+  };
+  if (total > 0) issue(0, 0);
+  cp_async_commit();
+
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const int key_row = k0 + warp * 16 + gid;  // and key_row + 8
+
+  for (int it = 0; it < total; ++it) {
+    const int st = it & 1;
+    const int q0 = q_lo + (it % nq) * QT;
+    if (it + 1 < total) issue(it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // step `it` (and, first, K and V) landed
+    __syncthreads();
+    const bf16* qs = q_s + st * QT * RS;
+    const bf16* dos = do_s + st * QT * RS;
+    const float* lses = lse_s + st * QT;
+    const float* deltas = delta_s + st * QT;
+
+    // S^T = K Q^T: 16 keys x QT queries per warp
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ka[4];
+      ldmatrix_x4(ka, smem_addr(k_s + (warp * 16 + (lane & 15)) * RS +
+                                kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bq[4];
+        ldmatrix_x4(bq, smem_addr(qs + (np * 16 + (lane & 7) +
+                                        ((lane >> 4) << 3)) * RS +
+                                  kk * 16 + ((lane >> 3) & 1) * 8));
+        mma_bf16(s[2 * np], ka, bq[0], bq[1]);
+        mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
+      }
+    }
+
+    // P^T = exp(S^T scale - lse), 0 where masked
+    const bool edge = edge_tile(p, q0, QT, k0, KT);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * tig + (e & 1);
+        float pv = exp2_approx(fmaf(s[n][e], scale_log2,
+                                    -lse_log2(lses[col])));
+        if (edge && !attends(p, q0 + col, key_row + (e >> 1) * 8)) pv = 0.f;
+        s[n][e] = pv;
+      }
+    }
+
+    // dV += P^T dO, dO through ldmatrix.trans
+#pragma unroll
+    for (int j = 0; j < QT / 16; ++j) {
+      uint32_t pa[4];
+      pack_a(pa, s[2 * j], s[2 * j + 1]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bo[4];
+        ldmatrix_x4_trans(bo, smem_addr(dos + (j * 16 + (lane & 7) +
+                                               ((lane >> 3) & 1) * 8) * RS +
+                                        dp * 16 + (lane >> 4) * 8));
+        mma_bf16(dv[2 * dp], pa, bo[0], bo[1]);
+        mma_bf16(dv[2 * dp + 1], pa, bo[2], bo[3]);
+      }
+    }
+
+    // dP^T = V dO^T
+    float dpt[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dpt[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t va[4];
+      ldmatrix_x4(va, smem_addr(v_s + (warp * 16 + (lane & 15)) * RS +
+                                kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bo[4];
+        ldmatrix_x4(bo, smem_addr(dos + (np * 16 + (lane & 7) +
+                                         ((lane >> 4) << 3)) * RS +
+                                  kk * 16 + ((lane >> 3) & 1) * 8));
+        mma_bf16(dpt[2 * np], va, bo[0], bo[1]);
+        mma_bf16(dpt[2 * np + 1], va, bo[2], bo[3]);
+      }
+    }
+
+    // dS^T = P^T (dP^T - delta) scale
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[n][e] = s[n][e] * (dpt[n][e] - deltas[n * 8 + 2 * tig + (e & 1)]) *
+                    p.scale;
+
+    // dK += dS^T Q, Q through ldmatrix.trans
+#pragma unroll
+    for (int j = 0; j < QT / 16; ++j) {
+      uint32_t da[4];
+      pack_a(da, dpt[2 * j], dpt[2 * j + 1]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bq[4];
+        ldmatrix_x4_trans(bq, smem_addr(qs + (j * 16 + (lane & 7) +
+                                              ((lane >> 3) & 1) * 8) * RS +
+                                        dp * 16 + (lane >> 4) * 8));
+        mma_bf16(dk[2 * dp], da, bq[0], bq[1]);
+        mma_bf16(dk[2 * dp + 1], da, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  cp_async_wait<0>();  // no copy outlives the block (total = 0: K and V)
+
+  bf16* dkb = static_cast<bf16*>(p.dk) + b * p.dk_sb + kvh * p.dk_sk;
+  bf16* dvb = static_cast<bf16*>(p.dv) + b * p.dv_sb + kvh * p.dv_sk;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = key_row + r * 8;
+    if (j < p.Lk) {
+      bf16* dkr = dkb + static_cast<int64_t>(j) * p.dk_sl + 2 * tig;
+      bf16* dvr = dvb + static_cast<int64_t>(j) * p.dv_sl + 2 * tig;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        *reinterpret_cast<uint32_t*>(dkr + n * 8) =
+            pack_bf16(dk[n][2 * r], dk[n][2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dvr + n * 8) =
+            pack_bf16(dv[n][2 * r], dv[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
+    const Params p) {
+  using namespace repro::mma;
+  using TL = MmaBwd<D>;
+  constexpr int RS = TL::RS, QB = TL::QB, KB = TL::KB;
+  constexpr int KD = D / 16;   // k-steps over D
+  constexpr int NS = KB / 8;   // key n-tiles of S
+  constexpr int NO = D / 8;    // dim n-tiles of dQ
+  constexpr int KV_TILE = KB * RS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [QB][RS]
+  bf16* do_s = q_s + QB * RS;                      // [QB][RS]
+  bf16* k_s = do_s + QB * RS;                      // [2][KB][RS]
+  bf16* v_s = k_s + 2 * KV_TILE;                   // [2][KB][RS]
+  float* lse_s = reinterpret_cast<float*>(v_s + 2 * KV_TILE);  // [QB]
+  float* delta_s = lse_s + QB;                                  // [QB]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * QB;  // longest rows first
+  const int kvh = blockIdx.y / p.G, g = blockIdx.y % p.G;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int q_offset = p.Lk - p.Lq;
+  const float scale_log2 = p.scale * kLog2e;
+
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sk;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sk;
+  load_rows<QB, D, RS, kThreads>(
+      q_s, static_cast<const bf16*>(p.q) + b * p.q_sb + kvh * p.q_sk +
+               g * p.q_sg, p.q_sl, q0, p.Lq);
+  load_rows<QB, D, RS, kThreads>(
+      do_s, static_cast<const bf16*>(p.dout) + b * p.do_sb + kvh * p.do_sk +
+                g * p.do_sg, p.do_sl, q0, p.Lq);
+  const int64_t row0 =
+      ((static_cast<int64_t>(b) * p.KV + kvh) * p.G + g) * p.Lq;
+  for (int i = threadIdx.x; i < QB; i += kThreads) {
+    const bool in = q0 + i < p.Lq;
+    const int64_t at = row0 + (in ? q0 + i : 0);
+    cp_async_4(smem_addr(lse_s + i), p.lse + at, in);
+    cp_async_4(smem_addr(delta_s + i), p.delta + at, in);
+  }
+
+  // key range that at least one query row of this block attends
+  const int q_end = min(q0 + QB, p.Lq);
+  int k_hi = p.Lk;
+  if (p.causal) k_hi = min(k_hi, q_offset + q_end);
+  int k_lo = 0;
+  if (p.window >= 0) k_lo = max(0, q_offset + q0 - p.window + 1);
+  k_lo = (k_lo / KB) * KB;
+  const int n_tiles = (k_hi - k_lo + KB - 1) / KB;
+  load_rows<KB, D, RS, kThreads>(k_s, kb, p.k_sl, k_lo, p.Lk);
+  load_rows<KB, D, RS, kThreads>(v_s, vb, p.v_sl, k_lo, p.Lk);
+  cp_async_commit();
+
+  const int row_q = q0 + warp * 16 + gid;  // and row_q + 8
+  uint32_t qf[KD][4], gf[KD][4];
+  float lse2[2], dl[2];
+  float dq[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_lo + t * KB;
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {  // prefetch the next tile into the other stage
+      load_rows<KB, D, RS, kThreads>(k_s + (st ^ 1) * KV_TILE, kb, p.k_sl,
+                                     k0 + KB, p.Lk);
+      load_rows<KB, D, RS, kThreads>(v_s + (st ^ 1) * KV_TILE, vb, p.v_sl,
+                                     k0 + KB, p.Lk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and, first, Q, dO, lse, delta) landed
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        const int off = (warp * 16 + (lane & 15)) * RS + kk * 16 +
+                        (lane >> 4) * 8;
+        ldmatrix_x4(qf[kk], smem_addr(q_s + off));
+        ldmatrix_x4(gf[kk], smem_addr(do_s + off));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lse2[r] = lse_log2(lse_s[warp * 16 + gid + r * 8]);
+        dl[r] = delta_s[warp * 16 + gid + r * 8];
+      }
+    }
+    const bf16* ks = k_s + st * KV_TILE;
+    const bf16* vs = v_s + st * KV_TILE;
+
+    // S = Q K^T and dP = dO V^T: 16 rows x KB keys per warp
+    float s[NS][4], dpv[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dpv[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                        kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t bk[4], bv[4];
+        ldmatrix_x4(bk, smem_addr(ks + off));
+        ldmatrix_x4(bv, smem_addr(vs + off));
+        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(dpv[2 * np], gf[kk], bv[0], bv[1]);
+        mma_bf16(dpv[2 * np + 1], gf[kk], bv[2], bv[3]);
+      }
+    }
+
+    // dS = P (dP - delta) scale with P = exp(S scale - lse), 0 where masked
+    const bool edge = edge_tile(p, q0, QB, k0, KB);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float pv = exp2_approx(fmaf(s[n][e], scale_log2, -lse2[r]));
+        if (edge && !attends(p, row_q + r * 8, k0 + n * 8 + 2 * tig + (e & 1)))
+          pv = 0.f;
+        dpv[n][e] = pv * (dpv[n][e] - dl[r]) * p.scale;
+      }
+    }
+
+    // dQ += dS K, K through ldmatrix.trans
+#pragma unroll
+    for (int j = 0; j < KB / 16; ++j) {
+      uint32_t da[4];
+      pack_a(da, dpv[2 * j], dpv[2 * j + 1]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bk[4];
+        ldmatrix_x4_trans(bk, smem_addr(ks + (j * 16 + (lane & 7) +
+                                              ((lane >> 3) & 1) * 8) * RS +
+                                        dp * 16 + (lane >> 4) * 8));
+        mma_bf16(dq[2 * dp], da, bk[0], bk[1]);
+        mma_bf16(dq[2 * dp + 1], da, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+  bf16* dqb = static_cast<bf16*>(p.dq) + b * p.dq_sb + kvh * p.dq_sk +
+              g * p.dq_sg;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row_q + r * 8;
+    if (i < p.Lq) {
+      bf16* dqr = dqb + static_cast<int64_t>(i) * p.dq_sl + 2 * tig;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<uint32_t*>(dqr + n * 8) =
+            pack_bf16(dq[n][2 * r], dq[n][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_mma(const Params& p, bool dkv, cudaStream_t stream) {
+  using TL = MmaBwd<D>;
+  static bool configured = false;  // dynamic shared memory above 48 KB
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkv_mma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, TL::dkv_smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               TL::dq_smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  if (dkv) {
+    const dim3 grid((p.Lk + TL::KT - 1) / TL::KT, p.KV, p.B);
+    flash_bwd_dkv_mma_kernel<D><<<grid, kThreads, TL::dkv_smem, stream>>>(p);
+  } else {
+    const dim3 grid((p.Lq + TL::QB - 1) / TL::QB, p.KV * p.G, p.B);
+    flash_bwd_dq_mma_kernel<D><<<grid, kThreads, TL::dq_smem, stream>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const Params& p, int D, bool dkv, bool mma, cudaStream_t s) {
   switch (D) {
-    case 32: return dkv ? launch_dkv<T, 32>(p, s) : launch_dq<T, 32>(p, s);
-    case 64: return dkv ? launch_dkv<T, 64>(p, s) : launch_dq<T, 64>(p, s);
-    case 128: return dkv ? launch_dkv<T, 128>(p, s) : launch_dq<T, 128>(p, s);
+    case 32:
+      return mma ? launch_mma<32>(p, dkv, s)
+                 : (dkv ? launch_dkv<float, 32>(p, s)
+                        : launch_dq<float, 32>(p, s));
+    case 64:
+      return mma ? launch_mma<64>(p, dkv, s)
+                 : (dkv ? launch_dkv<float, 64>(p, s)
+                        : launch_dq<float, 64>(p, s));
+    case 128:
+      return mma ? launch_mma<128>(p, dkv, s)
+                 : (dkv ? launch_dkv<float, 128>(p, s)
+                        : launch_dq<float, 128>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// cp.async moves 16-byte chunks: every bf16 base pointer 16-byte aligned
+// and every stride but D's a multiple of 8 elements
+bool aligned(const Params& p) {
+  const int64_t st[] = {p.q_sb,  p.q_sk,  p.q_sg,  p.q_sl,  p.k_sb,  p.k_sk,
+                        p.k_sl,  p.v_sb,  p.v_sk,  p.v_sl,  p.do_sb, p.do_sk,
+                        p.do_sg, p.do_sl, p.dq_sb, p.dq_sk, p.dq_sg, p.dq_sl,
+                        p.dk_sb, p.dk_sk, p.dk_sl, p.dv_sb, p.dv_sk, p.dv_sl};
+  for (const int64_t s : st)
+    if (s % 8 != 0) return false;
+  const void* ptrs[] = {p.q, p.k, p.v, p.dout, p.dq, p.dk, p.dv};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+  return true;
 }
 
 int run(bool dkv, const void* q, const void* k, const void* v,
@@ -451,8 +938,11 @@ int run(bool dkv, const void* q, const void* k, const void* v,
   p.window = window;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kF32) return dispatch<float>(p, D, dkv, s);
-  if (dtype == repro::kBF16) return dispatch<__nv_bfloat16>(p, D, dkv, s);
+  if (dtype == repro::kF32) return dispatch(p, D, dkv, false, s);
+  if (dtype == repro::kBF16) {
+    if (!aligned(p)) return static_cast<int>(cudaErrorMisalignedAddress);
+    return dispatch(p, D, dkv, true, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

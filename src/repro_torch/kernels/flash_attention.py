@@ -14,6 +14,12 @@ Any strides with a unit stride along D: the adapter passes permuted views
 of the model's activations, so nothing is copied.  Query positions align to
 the END of the key axis: qpos = arange(Lq) + (Lk - Lq).
 
+On a CUDA tensor the dtype chooses between two hand-written kernels:
+bf16 runs on the tensor cores (``mma.sync``, tiles copied by ``cp.async``,
+so every operand must start on a 16-byte boundary and every stride but
+D's be a multiple of 8 elements; a call that is not raises ``ValueError``),
+fp32 on the CUDA cores.
+
 With ``lse`` (a contiguous ``(B, KV, G, Lq)`` fp32 tensor) the kernel also
 writes each row's log-sum-exp ``m + log(l)`` from the registers that hold
 the online softmax's running max and sum: the residual the backward kernel
@@ -71,6 +77,8 @@ def _check(q, k, v, out, window, lse=None):
         raise ValueError("flash_attention_fwd: lse must be a contiguous "
                          "(B, KV, G, Lq) float32 tensor beside q")
     build.dtype_code(q)
+    if q.dtype == torch.bfloat16:   # the tensor-core kernel's cp.async
+        build.check_aligned("flash_attention_fwd", q, k, v, out)
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=None, out=None,
@@ -95,8 +103,8 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, out=None,
     if q.numel() == 0:
         return out
     strides = (ctypes.c_int64 * 14)(
-        *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:4])
+        *build.strides(q, 4), *build.strides(k, 3), *build.strides(v, 3),
+        *build.strides(out, 4))
     code = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(), strides,
                  B, KV, G, Lq, Lk, D, int(bool(causal)),

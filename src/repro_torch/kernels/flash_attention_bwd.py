@@ -11,7 +11,9 @@ Layout contract (see ``ops.py`` for the (B, L, H, D) adapter)::
     q, do, dq: (B, KV, G, Lq, D)   k, v, dk, dv: (B, KV, Lk, D)
     lse, delta: (B, KV, G, Lq) float32, contiguous
 
-Any strides with a unit stride along D, as the forward.  Unlike the
+Any strides with a unit stride along D, as the forward, and for bf16 the
+forward's alignment (16-byte starts, strides in multiples of 8 elements):
+bf16 runs on the tensor cores, fp32 on the CUDA cores.  Unlike the
 reference, no block size has to divide Lq or Lk: the kernels mask both
 ragged edges.  Query positions align to the end of the keys
 (q_offset = Lk - Lq).
@@ -69,6 +71,8 @@ def _check(q, k, v, do, lse, delta, dq, dk, dv, window):
                              "contiguous (B, KV, G, Lq) float32 tensors "
                              "beside q")
     build.dtype_code(q)
+    if q.dtype == torch.bfloat16:   # the tensor-core kernels' cp.async
+        build.check_aligned("flash_attention_bwd", q, k, v, do, dq, dk, dv)
 
 
 def flash_attention_bwd(q, k, v, do, lse, delta, *, causal=True,
@@ -91,25 +95,33 @@ def flash_attention_bwd(q, k, v, do, lse, delta, *, causal=True,
         return dq, dk, dv
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
-    B, KV, G, Lq, D = q.shape
-    Lk = k.shape[2]
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    _launch(("dkv", "dq"), q, k, v, do, lse, delta, dq, dk, dv, causal,
+            window)
+    return dq, dk, dv
+
+
+def _launch(parts, q, k, v, do, lse, delta, dq, dk, dv, causal, window):
+    """Launch the kernels named in ``parts`` ("dkv" writes dk and dv, "dq"
+    writes dq) on checked CUDA tensors, counting each launch.  The
+    measurement script times the two apart through this."""
+    B, KV, G, Lq, D = q.shape
+    Lk = k.shape[2]
     strides = (ctypes.c_int64 * 24)(
-        *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
-        *do.stride()[:4], *dq.stride()[:4], *dk.stride()[:3],
-        *dv.stride()[:3])
+        *build.strides(q, 4), *build.strides(k, 3), *build.strides(v, 3),
+        *build.strides(do, 4), *build.strides(dq, 4), *build.strides(dk, 3),
+        *build.strides(dv, 3))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), strides, B, KV, G, Lq, Lk, D, int(bool(causal)),
             -1 if window is None else int(window), 1.0 / math.sqrt(D),
             build.dtype_code(q), build.stream_handle(q))
-    lib, (dkv_fn, dq_fn) = _fns()
-    build.check(lib, dkv_fn(*args), "flash_attention_bwd (dK/dV)")
-    flash_attention_bwd.launches += 1
-    build.check(lib, dq_fn(*args), "flash_attention_bwd (dQ)")
-    flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    lib, fns = _fns()
+    for part, fn, what in zip(("dkv", "dq"), fns, ("dK/dV", "dQ")):
+        if part in parts:
+            build.check(lib, fn(*args), f"flash_attention_bwd ({what})")
+            flash_attention_bwd.launches += 1
 
 
 flash_attention_bwd.launches = 0    # kernel launches since the last reset

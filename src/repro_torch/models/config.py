@@ -5,8 +5,10 @@ reference (dense GQA, MoE, MLA, SSM/Mamba2, hybrid, VLM cross-attn, audio
 decoder).  The decoder is a list of *segments*; each segment is a repeated
 *unit* of layers (``unit_spec``) whose parameters are stacked on a leading
 ``layers`` axis.  The port walks that axis with a Python loop where the
-reference scans it.  So far only dense attention segments run
-(:func:`repro_torch.models.transformer.forward` raises for the rest).
+reference scans it.  Dense attention segments and, in ``ssm`` and
+``hybrid`` configs, Mamba2 (SSD) segments run; cross-attention, MoE and MLA
+segments raise ``NotImplementedError`` in
+:func:`repro_torch.models.transformer.forward`.
 """
 from __future__ import annotations
 

@@ -54,10 +54,18 @@ def test_rmsnorm_kernel_matches_plain(cuda, R, D, dtype):
     assert err <= (1e-4 if dtype == torch.float32 else 1e-2)
 
 
+# the edges of the bf16 kernels' 64-row tiles (32 keys at D = 128 in the
+# backward): one short of and one past 64 and 128, a single query, G = 3
+FLASH_EDGES = [(1, 3, 63, 65, None, 64), (2, 1, 65, 129, None, 64),
+               (1, 1, 127, 129, 65, 128), (2, 1, 1, 63, None, 64),
+               (1, 3, 1, 129, None, 32), (1, 2, 129, 129, None, 64),
+               (1, 3, 64, 128, 63, 32)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("KV,G,Lq,Lk,window,D", [
     (2, 1, 37, 37, None, 64), (3, 3, 50, 50, 17, 64),
-    (2, 3, 13, 70, None, 32), (1, 2, 33, 33, None, 128)])
+    (2, 3, 13, 70, None, 32), (1, 2, 33, 33, None, 128)] + FLASH_EDGES)
 def test_flash_kernel_matches_plain(cuda, KV, G, Lq, Lk, window, D, dtype):
     q = _randn(cuda, (2, Lq, KV * G, D), dtype)
     k, v = _randn(cuda, (2, Lk, KV, D), dtype), _randn(cuda, (2, Lk, KV, D),
@@ -289,7 +297,7 @@ def test_paged_serving_on_the_card_matches_the_cpu(cuda, kv_quant):
 @pytest.mark.parametrize("KV,G,Lq,Lk,window,D", [
     (2, 1, 37, 37, None, 64), (3, 3, 50, 50, 17, 64),
     (2, 3, 13, 70, None, 32), (1, 2, 33, 33, None, 128),
-    (2, 1, 130, 130, 40, 64)])
+    (2, 1, 130, 130, 40, 64)] + FLASH_EDGES)
 def test_flash_lse_kernel_matches_plain(cuda, KV, G, Lq, Lk, window, D,
                                         dtype):
     q = _randn(cuda, (2, KV, G, Lq, D), dtype)
@@ -304,7 +312,7 @@ def test_flash_lse_kernel_matches_plain(cuda, KV, G, Lq, Lk, window, D,
 @pytest.mark.parametrize("KV,G,Lq,Lk,window,D", [
     (2, 1, 37, 37, None, 64), (3, 3, 50, 50, 17, 64),
     (2, 3, 13, 70, None, 32), (1, 2, 33, 33, None, 128),
-    (2, 1, 130, 130, 40, 64), (1, 4, 100, 300, None, 64)])
+    (2, 1, 130, 130, 40, 64), (1, 4, 100, 300, None, 64)] + FLASH_EDGES)
 def test_flash_bwd_kernel_matches_plain(cuda, KV, G, Lq, Lk, window, D,
                                         dtype):
     """Through ``ops.FlashAttention`` in the model layout (strided views,
@@ -333,6 +341,88 @@ def test_flash_bwd_kernel_matches_plain(cuda, KV, G, Lq, Lk, window, D,
                       (v.grad.transpose(1, 2), wv)):
         scale = want.float().abs().max().clamp(min=1e-6)
         assert (got.float() - want.float()).abs().max() / scale <= tol
+
+
+def _bwd_inputs(gen, B, KV, G, L, D, dtype):
+    """Model-layout q, k, v, dO passed as grouped views (as
+    ``ops.FlashAttention`` passes them), with the plain lse and delta."""
+    qm, dom = (_randn(gen, (B, L, KV * G, D), dtype) for _ in range(2))
+    km, vm = (_randn(gen, (B, L, KV, D), dtype) for _ in range(2))
+    q5, do5 = (t.unflatten(2, (KV, G)).permute(0, 2, 3, 1, 4)
+               for t in (qm, dom))
+    k4, v4 = km.transpose(1, 2), vm.transpose(1, 2)
+    o5 = ref.flash_attention_ref(q5, k4, v4)
+    lse = ref.flash_attention_lse_ref(q5, k4)
+    delta = (do5.float() * o5.float()).sum(-1).contiguous()
+    return q5, k4, v4, do5, lse, delta
+
+
+def test_flash_bwd_bf16_is_deterministic(cuda):
+    """No atomics: two bf16 backward calls give bitwise-equal dq, dk, dv
+    (G = 3 query heads summed into each dK / dV inside one block)."""
+    args = _bwd_inputs(cuda, 2, 2, 3, 129, 64, torch.bfloat16)
+    first = flash_attention_bwd(*args)
+    second = flash_attention_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_bwd_fp32_equals_plain_exactly(cuda):
+    """fp32 runs the SIMT kernels, which sum every output in the order of
+    the plain version's fp32 GEMMs: equal bit for bit at the ragged OPT-1.3B
+    shape of ``chip_smoke.py``."""
+    args = _bwd_inputs(cuda, 2, 32, 1, 300, 64, torch.float32)
+    for got, want in zip(flash_attention_bwd(*args),
+                         ref.flash_attention_bwd_ref(*args)):
+        assert torch.equal(got, want)
+
+
+def test_flash_bf16_refuses_what_its_copies_cannot_take(cuda):
+    """A bf16 view off a 16-byte boundary, or with a row stride that is not
+    a multiple of 8 elements, raises ``ValueError`` and launches nothing:
+    there is no fallback to the fp32 kernels."""
+    bf16 = torch.bfloat16
+    k = _randn(cuda, (1, 2, 64, 64), bf16)
+    lse = torch.zeros((1, 2, 1, 64), device="cuda")
+    odd_start = _randn(cuda, (1, 2, 1, 64, 65), bf16)[..., 1:]
+    odd_stride = _randn(cuda, (1, 2, 1, 64, 68), bf16)[..., :64]
+    before = ops.launch_counts()
+    for q in (odd_start, odd_stride):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_fwd(q, k, k)
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_bwd(q, k, k, q, lse, lse)
+        out = torch.empty(q.shape[:-1] + (q.shape[-1] + 1,), dtype=bf16,
+                          device="cuda")[..., 1:]
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_fwd(q.contiguous(), k, k, out=out)
+    assert ops.launch_counts() == before
+
+
+def test_flash_kernels_dispatch_by_dtype(cuda):
+    """bf16 runs only the tensor-core kernels and fp32 only the SIMT ones:
+    the kernel names ``torch.profiler`` sees for one forward and backward
+    through ``ops.FlashAttention``."""
+    from torch.profiler import ProfilerActivity, profile
+    seen = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _randn(cuda, (1, 65, 4, 64), dtype).requires_grad_()
+        k = _randn(cuda, (1, 65, 2, 64), dtype).requires_grad_()
+        v = _randn(cuda, (1, 65, 2, 64), dtype).requires_grad_()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ops.FlashAttention.apply(q, k, v, True, None).sum().backward()
+            torch.cuda.synchronize()
+        seen[dtype] = {e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and "flash_" in e.name}
+    for name in ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel",
+                 "flash_bwd_dq_mma_kernel"):
+        assert sum(name in n for n in seen[torch.bfloat16]) == 1
+    assert len(seen[torch.bfloat16]) == 3
+    for name in ("flash_fwd_kernel<float", "flash_bwd_dkv_kernel<float",
+                 "flash_bwd_dq_kernel<float"):
+        assert sum(name in n for n in seen[torch.float32]) == 1
+    assert not any("mma" in n for n in seen[torch.float32])
 
 
 def test_train_step_on_the_card_matches_the_plain_path(cuda):

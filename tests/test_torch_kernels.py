@@ -215,6 +215,42 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         decode_attention_fwd(q, k, v, valid)
 
 
+@pytest.mark.parametrize("case", ["model_layout", "size1_dims", "fp32",
+                                  "odd_start", "odd_row_stride",
+                                  "odd_head_stride"])
+def test_bf16_flash_needs_what_its_copies_take(case):
+    """The bf16 flash kernels copy 16-byte chunks: the wrappers refuse a
+    bf16 operand that does not start on a 16-byte boundary or has a stride
+    (but D's) off a multiple of 8 elements, before the device dispatch, as
+    the kernels would; strides of size-1 dimensions do not count, and fp32
+    (the CUDA-core kernels) takes any start."""
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+    dt = torch.float32 if case == "fp32" else torch.bfloat16
+    B, L, KV, G, D = 1, 9, 2, 2, 32
+    q = torch.randn(B, L, KV * G, D).to(dt).unflatten(2, (KV, G)).permute(
+        0, 2, 3, 1, 4)                               # the adapter's view
+    if case == "size1_dims":
+        q = torch.randn(KV * G * L * D).to(dt).as_strided(
+            (1, KV, G, L, D), (3, G * L * D, L * D, D, 1))
+    elif case in ("odd_start", "fp32"):
+        q = torch.randn(B, KV, G, L, D + 1).to(dt)[..., 1:]
+    elif case == "odd_row_stride":
+        q = torch.randn(B, KV, G, L, D + 4).to(dt)[..., :D]
+    elif case == "odd_head_stride":
+        q = torch.randn(B, KV, G * L * D + 4).to(dt)[..., :G * L * D]
+        q = q.unflatten(2, (G, L, D))
+    k = torch.randn(B, KV, L, D).to(dt)
+    lse = torch.zeros(B, KV, G, L)
+    if case in ("model_layout", "size1_dims", "fp32"):
+        flash_attention_fwd(q, k, k)
+        flash_attention_bwd(q, k, k, q, lse, lse)
+        return
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_fwd(q, k, k)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(q, k, k, q, lse, lse)
+
+
 def test_kernel_build_failures_raise(monkeypatch, tmp_path):
     """No nvcc, or an nvcc that fails, is an exception, never a silent
     fallback; a failed build leaves no library behind."""

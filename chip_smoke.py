@@ -10,8 +10,8 @@ Phases (any failure raises, so the run exits non-zero):
    CUDA versions.
 2. ``build``   — every CUDA source of the port built with ``nvcc``, one
    process per source, all in parallel; seconds and ``ptxas`` registers
-   and spills per kernel.  Fails if a bf16 tensor-core flash kernel at
-   D = 64 spills.
+   and spills per kernel.  Fails if a bf16 tensor-core flash
+   kernel or a bf16 decode split kernel at D = 64 spills.
 3. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the main paths' shapes (OPT-1.3B, OPT-350M and smollm-135m widths),
    in fp32 (TF32 off) and bf16, with kernel / plain / library device times
@@ -71,6 +71,21 @@ Phases (any failure raises, so the run exits non-zero):
    counted in bf16); one Mamba2 decode step at 16 slots eager and as a
    CUDA-graph replay, and ``torch.profiler`` over a decode step and an
    admission.
+9. ``profile`` — ``torch.profiler`` over the fp decode kernels, last, so
+   that no earlier timing runs after a profiler session: the CUDA kernels
+   one call of each fp decode row of phase ``kernels`` runs (the split
+   kernel, then the combine exactly when the host's plan splits the
+   rows), and the decode kernels' device time inside one CUDA-graph
+   replay of the OPT-1.3B decode step of phase ``serve``, dense and
+   paged, per call and against the bound of the step's own rows.
+
+The fp decode rows (dense and paged: one split-KV core) also print the time
+with the inputs out of the L2 (``time_ms_cold``: the call rotated over
+copies of its inputs that add up to four L2s) and the achieved GB/s, the
+bound's bytes over that cold time.  A dense row at B = 1, S = 2048 (its
+inputs from a generator of its own) is where split-KV matters most.  Each
+paged fp row also checks that the dense kernel over the gathered rows gives
+its output bit for bit.
 
 The kernel phase also holds ``decode_attention_quant_fwd`` (int8 K/V with
 fp32 row scales) to its plain version at the PPO (B = 8) and serve (B = 16)
@@ -118,7 +133,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "train", "rlhf",
-          "ssm")
+          "ssm", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the time bound of a kernel is
 # the larger of bytes / memory rate and operations / peak rate for the type
@@ -186,12 +201,9 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, *, inner: int = 20, repeats: int = 7) -> float:
-    """Median device time per call in ms.  ``inner`` back-to-back calls are
-    captured into one CUDA graph, which is replayed ``repeats`` times
-    between two CUDA events: the time is the card's, without the host's
-    per-call launch overhead (which would otherwise set the pace of these
-    microsecond kernels)."""
+def capture_graph(fn, inner: int = 1):
+    """``inner`` back-to-back calls of ``fn`` captured into one CUDA graph
+    (after three warm-up calls outside the capture)."""
     import torch
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
@@ -204,6 +216,19 @@ def time_ms(fn, *, inner: int = 20, repeats: int = 7) -> float:
     with torch.cuda.graph(graph):
         for _ in range(inner):
             fn()
+    return graph
+
+
+def time_ms(fn, *, inner: int = 20, repeats: int = 7) -> float:
+    """Median device time per call in ms.  ``inner`` back-to-back calls are
+    captured into one CUDA graph, which is replayed ``repeats`` times
+    between two CUDA events: the time is the card's, without the host's
+    per-call launch overhead (which would otherwise set the pace of these
+    microsecond kernels).  The calls reuse one set of inputs, so what fits
+    in the L2 is read from there after the first call: see
+    :func:`time_ms_cold`."""
+    import torch
+    graph = capture_graph(fn, inner)
     graph.replay()
     torch.cuda.synchronize()
     per_call = []
@@ -217,6 +242,54 @@ def time_ms(fn, *, inner: int = 20, repeats: int = 7) -> float:
         per_call.append(start.elapsed_time(end) / inner)
     del graph
     return statistics.median(per_call)
+
+
+def l2_bytes() -> int:
+    import torch
+    return getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                   50 * 2**20)
+
+
+def cold_copies(nbytes: float) -> int:
+    """Copies of a call's inputs whose ``nbytes`` each add up to four L2s
+    (at least 2, at most 128)."""
+    return max(2, min(128, -(-4 * l2_bytes() // max(int(nbytes), 1))))
+
+
+def time_ms_cold(fns, *, rounds: int = 2) -> float:
+    """:func:`time_ms` with the inputs out of the L2: ``fns`` are the same
+    call on copies of its inputs at distinct addresses (``cold_copies``),
+    which the graph runs in turn, ``rounds`` times each, so the copies run
+    since a call's last turn have evicted its bytes."""
+    import itertools
+    turn = itertools.cycle(fns)
+    return time_ms(lambda: next(turn)(), inner=rounds * len(fns))
+
+
+def cuda_kernels_of(fn, tries: int = 3) -> list:
+    """The names of the CUDA kernels one call of ``fn`` runs, in launch
+    order, from ``torch.profiler``.  Each session opens with two fill
+    kernels, left out of the result: on the H100 a session after an
+    earlier one lost the record of its first kernel.  A session with no
+    other kernel is taken again, up to ``tries`` sessions."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    marker = torch.empty(1, device="cuda")
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            marker.fill_(0)
+            marker.fill_(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e.time_range.start, e.name) for e in prof.events()
+                         if e.device_type == cuda and "Fill" not in e.name)
+        if kernels:
+            break
+    return [name for _, name in kernels]
 
 
 def causal_pairs(Lq: int, Lk: int, window) -> int:
@@ -289,8 +362,9 @@ def phase_build(state):
     report = build.build(ptxas_verbose=True)
     wall = time.perf_counter() - t0
     # the bf16 tensor-core flash kernels at D = 64 (every main path's head
-    # width) must keep everything in registers: 1 forward, 2 backward
-    mma64 = {}
+    # width) must keep everything in registers: 1 forward, 2 backward; so
+    # must the bf16 split kernels of the fp decode core at D = 64
+    mma64, split64 = {}, {}
     for name, r in report.items():
         log(f"[build] {name}.cu: {r['seconds']:.1f}s")
         for fn, regs, st, ld in ptxas_usage(r["log"]):
@@ -298,6 +372,9 @@ def phase_build(state):
                 f"stores, {ld} bytes spill loads")
             if "mma_kernel" in fn and ("<64>" in fn or "ILi64E" in fn):
                 mma64[fn] = st + ld
+            if ("split_kernel<__nv_bfloat16, 64," in fn
+                    or "split_kernelI13__nv_bfloat16Li64E" in fn):
+                split64[f"{name}: {fn}"] = st + ld
     log(f"[build] {len(report)} sources, {wall:.1f}s wall (nvcc in "
         f"parallel)")
     want = ("flash_attention" in report) + 2 * ("flash_attention_bwd"
@@ -305,6 +382,12 @@ def phase_build(state):
     if len(mma64) != want or any(mma64.values()):
         raise AssertionError(f"build: D = 64 tensor-core kernels (want "
                              f"{want}, none spilling): {mma64}")
+    # one per G bucket (1, 2, 4, 8) in each fp decode library
+    want = 4 * (("decode_attention" in report)
+                + ("paged_decode_attention" in report))
+    if len(split64) != want or any(split64.values()):
+        raise AssertionError(f"build: bf16 D = 64 decode split kernels "
+                             f"(want {want}, none spilling): {split64}")
 
 
 def _case_inputs(gen, shape, dtype):
@@ -326,16 +409,30 @@ def _decode_valid(gen, B, S, lo):
     answer is the mean of V), checked but not timed."""
     import torch
     n_valid = torch.randint(lo, S + 1, (B,), generator=gen, device="cuda")
-    n_valid[1] = S
+    n_valid[min(1, B - 1)] = S
     valid = torch.arange(S, device="cuda")[None] < n_valid[:, None]
     masked = valid.clone()
     masked[0] = False
     return valid, masked
 
 
+def _decode_extra(state, name, what, main, plan, call, copies, bnd):
+    """The fp decode kernels' row extras: the time with the inputs out of
+    the L2 (``copies``: the same call on copies of its inputs) and the
+    achieved rate, the bound's bytes over that time.  ``call`` and the
+    host's split count ``plan`` are kept for phase ``profile``, which reads
+    the CUDA kernels the call runs."""
+    state.setdefault("decode_calls", []).append((name, what, main, plan,
+                                                 call))
+    cold = time_ms_cold(copies)
+    gbs = bnd[0] * 1e-3 * HBM_BYTES_PER_S / (cold * 1e-3) / 1e9
+    return {"cold_ms": cold, "achieved_gbs": gbs}
+
+
 def phase_kernels(state):
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_fwd
     from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -369,7 +466,8 @@ def phase_kernels(state):
             f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
             f"bound_ms={bnd[0]:.4f} ({bnd[1]})"
             + ("" if tflops is None else f" tflops={tflops:.2f}")
-            + "".join(f" {k}={v:.4f}" for k, v in (extra or {}).items())
+            + "".join(f" {k}={v:.4f}" if isinstance(v, float) else
+                      f" {k}={v}" for k, v in (extra or {}).items())
             + f" {'ok' if ok else 'FAIL'}")
         if main:
             rows[name] = {"max_abs_err": err if abs_err is None else abs_err,
@@ -554,16 +652,22 @@ def phase_kernels(state):
                    abs_err=abs_err, ops=ops, extra=parts)
             del got, want, o5, dq_, dk_, dv_
 
-    # ---- decode attention: 16 slots over the in-place (B, S, KV, D) arena
-    for (KV, G, S, model) in ((32, 1, 512, "opt-1.3b"),
-                              (3, 3, 512, "smollm-135m"),
-                              (32, 1, 300, "opt-1.3b")):
-        B, D = 16, 64
+    # ---- decode attention: 16 slots over the in-place (B, S, KV, D) arena,
+    # and one sequence over a long cache (where split-KV matters most; its
+    # inputs from a generator of its own, so that the rows after it draw
+    # what they drew before it was added)
+    gen_long = torch.Generator(device="cuda").manual_seed(2048)
+    for (B, KV, G, S, model) in ((16, 32, 1, 512, "opt-1.3b"),
+                                 (16, 3, 3, 512, "smollm-135m"),
+                                 (16, 32, 1, 300, "opt-1.3b"),
+                                 (1, 32, 1, 2048, "opt-1.3b")):
+        D = 64
+        g_in = gen_long if B == 1 else gen
         for dname, dt in dtypes.items():
-            q = _case_inputs(gen, (B, KV * G, D), dt)
-            k_arena = _case_inputs(gen, (B, S, KV, D), dt)
-            v_arena = _case_inputs(gen, (B, S, KV, D), dt)
-            valid, masked = _decode_valid(gen, B, S, 1)
+            q = _case_inputs(g_in, (B, KV * G, D), dt)
+            k_arena = _case_inputs(g_in, (B, S, KV, D), dt)
+            v_arena = _case_inputs(g_in, (B, S, KV, D), dt)
+            valid, masked = _decode_valid(g_in, B, S, 1)
             q4 = q.unflatten(1, (KV, G))
             k4, v4 = k_arena.transpose(1, 2), v_arena.transpose(1, 2)
             out = decode_attention_fwd(q4, k4, v4, valid)
@@ -588,14 +692,30 @@ def phase_kernels(state):
             mask = valid[:, None, None, :]
             lib = time_ms(lambda: F.scaled_dot_product_attention(
                 qs, k4, v4, attn_mask=mask, enable_gqa=G > 1))
-            record("decode_attention_fwd",
-                   f"{model} B={B} KV={KV} G={G} S={S} ragged", dname, err,
-                   tol[("attn", dname)],
-                   time_ms(lambda: decode_attention_fwd(q4, k4, v4, valid)),
+            label = f"{model} B={B} KV={KV} G={G} S={S} ragged"
+            k_ms = time_ms(lambda: decode_attention_fwd(q4, k4, v4, valid))
+            main = (B, KV, S, dname) == (16, 32, 512, "bf16")
+            copies = [(k4.clone(), v4.clone())
+                      for _ in range(cold_copies(bnd[0] * 1e-3
+                                                 * HBM_BYTES_PER_S))]
+            extra = _decode_extra(
+                state, "decode_attention_fwd", f"{label} {dname}", main,
+                dec.split_plan(S, B * KV, sms=dec.sm_count(0),
+                               max_chunk=dec.MAX_CHUNK)[0],
+                lambda q4=q4, k4=k4, v4=v4, valid=valid:
+                decode_attention_fwd(q4, k4, v4, valid),
+                [lambda kc=kc, vc=vc: decode_attention_fwd(q4, kc, vc, valid)
+                 for kc, vc in copies], bnd)
+            extra["library_cold_ms"] = time_ms_cold(
+                [lambda kc=kc, vc=vc: F.scaled_dot_product_attention(
+                    qs, kc, vc, attn_mask=mask, enable_gqa=G > 1)
+                 for kc, vc in copies])
+            del copies
+            record("decode_attention_fwd", label, dname, err,
+                   tol[("attn", dname)], k_ms,
                    time_ms(lambda: ref.decode_attention_ref(q4, k4, v4,
                                                             valid)),
-                   lib, bnd,
-                   main=(KV, S, dname) == (32, 512, "bf16"))
+                   lib, bnd, main=main, extra=extra)
     # ---- int8 decode attention over the in-place int8 arena and its
     # scale planes: PPO generation (B = 8), serve (B = 16), smollm's G = 3
     from repro_torch.kernels.decode_attention import \
@@ -661,7 +781,7 @@ def phase_kernels(state):
                 f"call computes int8 decode)")
             if (B, KV, dname) == (8, 32, "bf16"):
                 rows["decode_attention_quant_fwd"]["yardstick_ms"] = yard
-    _paged_kernel_rows(gen, dtypes, tol, record, rows, failures)
+    _paged_kernel_rows(state, gen, dtypes, tol, record, rows, failures)
     state["kernel_rows"] = rows
     if failures:
         raise AssertionError("kernel checks failed:\n" + "\n".join(failures))
@@ -694,7 +814,7 @@ def _paged_case(gen, B, KV, G, D, bs, nb, lo, dt, quant):
     return q, k, v, scales, tables, lens.int()
 
 
-def _paged_kernel_rows(gen, dtypes, tol, record, rows, failures):
+def _paged_kernel_rows(state, gen, dtypes, tol, record, rows, failures):
     """Both paged kernels against their plain versions: the serve shape
     (OPT-1.3B, B = 16 over a 513-block pool, 1..512 rows), the PPO shape
     (B = 8, 257..512 rows) and smollm-135m's G = 3; with the port's dense
@@ -704,11 +824,13 @@ def _paged_kernel_rows(gen, dtypes, tol, record, rows, failures):
     Pallas kernel's zeros, ROADMAP R8)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (
         decode_attention_fwd, decode_attention_quant_fwd)
     from repro_torch.kernels.paged_attention import (
-        paged_decode_attention_fwd, paged_decode_attention_quant_fwd)
+        paged_decode_attention_fwd, paged_decode_attention_quant_fwd,
+        paged_split_plan)
 
     gather = ref.gather_blocks                  # (B, nb * bs, ...) rows
 
@@ -777,9 +899,23 @@ def _paged_kernel_rows(gen, dtypes, tol, record, rows, failures):
                          f"lens {lo}-{nb * bs}")
                 main = (B, KV, dname) == ((8, 32, "bf16") if quant
                                           else (16, 32, "bf16"))
+                k_ms = time_ms(kern)
+                extra = None
+                if not quant:               # the fp kernel: split-KV
+                    copies = [(k.clone(), v.clone()) for _ in range(
+                        cold_copies(bnd[0] * 1e-3 * HBM_BYTES_PER_S))]
+                    extra = _decode_extra(
+                        state, name, f"{label} {dname}", main,
+                        paged_split_plan(nb, bs, B * KV, dec.sm_count(0))[0],
+                        lambda q=q, k=k, v=v, t=tables, n=lens:
+                        paged_decode_attention_fwd(q, k, v, t, n),
+                        [lambda kc=kc, vc=vc: paged_decode_attention_fwd(
+                            q, kc, vc, tables, lens) for kc, vc in copies],
+                        bnd)
+                    del copies
                 record(name, label, dname, err, tol[("attn", dname)],
-                       time_ms(kern), time_ms(plain), None, bnd, main,
-                       abs_err=abs_err)
+                       k_ms, time_ms(plain), None, bnd, main,
+                       abs_err=abs_err, extra=extra)
                 log(f"[kernels] {name} {label} {dname}: yardsticks: the "
                     f"dense decode kernel over the rows gathered into an "
                     f"arena {dense_ms:.4f} ms, gather + SDPA {sdpa_ms:.4f} "
@@ -787,6 +923,18 @@ def _paged_kernel_rows(gen, dtypes, tol, record, rows, failures):
                 if main:
                     rows[name].update(dense_kernel_ms=dense_ms,
                                       gather_sdpa_ms=sdpa_ms)
+                if not quant:
+                    # one core, one split plan: the dense kernel over the
+                    # gathered rows gives the paged kernel's bits (what
+                    # keeps greedy streams over the arena and the pool
+                    # identical)
+                    same_bits = torch.equal(dense(), out)
+                    log(f"[kernels] {name} {label} {dname}: the dense "
+                        f"kernel over the gathered rows equals it bit for "
+                        f"bit: {same_bits}")
+                    if not same_bits:
+                        failures.append(f"{name} {label} {dname}: dense "
+                                        f"and paged kernels differ")
                 # untimed: poisoned rows are never read; lens = 0 gives 0
                 dead = torch.ones(k.shape[:2], dtype=torch.bool,
                                   device="cuda")
@@ -1080,34 +1228,72 @@ def _paged_parity(state):
         raise AssertionError("parity: paged int8 pool checks failed")
 
 
-def phase_serve(state):
+def _opt_step_case(paged: bool) -> dict:
+    """One OPT-1.3B bf16 decode step at the serve shape, random weights from
+    seed 0: 16 slots at positions 64..511 over the dense (16, 512) arena,
+    or over a 513-block pool of 16-row blocks, each table as long as its
+    position needs.  ``step`` runs it; ``decode_bytes`` is what one fp
+    decode call of it must move (q and out, the mask or the tables, the
+    valid K/V rows)."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.generate import decode_step
+    cfg = get_config("opt-1.3b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.cast_params(cfg, T.init_params(cfg, gen))
+    torch.cuda.empty_cache()
+    slots, S, bs, nb = 16, 512, 16, 32
+    eb, hd = 2, cfg.head_dim
+    qo = 2 * slots * cfg.n_heads * hd * eb
+    case = {"cfg": cfg, "params": params, "S": S}
+    if not paged:
+        cache = T.init_cache(cfg, slots, S, device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (slots, 256), generator=gen,
+                             device="cuda")
+        pos = torch.randint(64, S, (slots,), generator=gen, device="cuda")
+        tok = toks[:, 0]
+        case.update(toks=toks, step=lambda: decode_step(cfg, params, tok,
+                                                        cache, pos),
+                    decode_bytes=qo + slots * S)
+    else:
+        pool = T.init_paged_cache(cfg, slots * nb + 1, bs, device="cuda")
+        pos = torch.randint(64, nb * bs, (slots,), generator=gen,
+                            device="cuda")
+        tables = torch.zeros((slots, nb), dtype=torch.int32, device="cuda")
+        perm = torch.randperm(slots * nb, generator=gen, device="cuda") + 1
+        for b in range(slots):
+            n = int(pos[b]) // bs + 1
+            tables[b, :n] = perm[b * nb:b * nb + n].int()
+        tok = torch.randint(0, cfg.vocab_size, (slots,), generator=gen,
+                            device="cuda")
+        case.update(step=lambda: decode_step(cfg, params, tok, pool, pos,
+                                             block_tables=tables),
+                    decode_bytes=qo + 4 * slots * (nb + 1))
+    case["decode_bytes"] += 2 * int((pos + 1).sum()) * cfg.n_kv_heads * hd * eb
+    return case
+
+
+def phase_serve(state):
+    import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
-    from repro_torch.serving.generate import decode_step, prefill
+    from repro_torch.serving.generate import prefill
 
     # anatomy of one admission and one decode step at the serve shape
     # (OPT-1.3B bf16, 16 slots, S = 512): kernel launches, and the decode
     # step's time eager (host clock, synchronized) against the same step
     # replayed from a CUDA graph (device time alone; the difference is
     # the host's launch overhead)
-    cfg = get_config("opt-1.3b")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = T.cast_params(cfg, T.init_params(cfg, gen))
-    torch.cuda.empty_cache()
-    slots, S = 16, 512
-    cache = T.init_cache(cfg, slots, S, device="cuda")
-    toks = torch.randint(0, cfg.vocab_size, (slots, 256), generator=gen,
-                         device="cuda")
+    case = _opt_step_case(paged=False)
+    cfg, params, toks, S = (case[k] for k in ("cfg", "params", "toks", "S"))
     ops.reset_launch_counts()
     prefill(cfg, params, toks[:1], T.init_cache(cfg, 1, S, device="cuda"))
     per_admit = ops.launch_counts()
-    pos = torch.randint(64, S, (slots,), generator=gen, device="cuda")
-    tok = toks[:, 0]
+    step = case["step"]
     ops.reset_launch_counts()
-    decode_step(cfg, params, tok, cache, pos)
+    step()
     per_step = ops.launch_counts()
     log(f"[serve] launches per admission (prefill): {per_admit}")
     log(f"[serve] launches per decode step: {per_step}")
@@ -1115,18 +1301,18 @@ def phase_serve(state):
     for _ in range(20):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        decode_step(cfg, params, tok, cache, pos)
+        step()
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
-    graph_ms = time_ms(lambda: decode_step(cfg, params, tok, cache, pos),
-                       inner=4, repeats=5)
+    graph_ms = time_ms(step, inner=4, repeats=5)
     eager_ms = statistics.median(wall)
     log(f"[serve] opt-1.3b decode step, 16 slots, S=512: eager "
         f"{eager_ms:.3f} ms (host clock), CUDA-graph replay {graph_ms:.3f} "
         f"ms (device); the device is idle {1 - graph_ms / eager_ms:.1%} of "
         f"the eager step")
-    state["step"] = {"eager_ms": eager_ms, "graph_ms": graph_ms}
-    del params, cache
+    state["step"] = {"eager_ms": eager_ms, "graph_ms": graph_ms,
+                     "decode_calls": per_step["decode_attention_fwd"]}
+    del case, params, step
     torch.cuda.empty_cache()
 
     argv = ["--arch", "opt-1.3b", "--requests", "32", "--ragged",
@@ -1249,25 +1435,11 @@ def _paged_serve(state):
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import GenerationEngine
-    from repro_torch.serving.generate import decode_step
 
     # one decode step over a 513-block pool, 16 slots at the dense step's
     # positions, each table as long as its position needs
-    cfg = get_config("opt-1.3b")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = T.cast_params(cfg, T.init_params(cfg, gen))
-    slots, bs, nb = 16, 16, 32
-    pool = T.init_paged_cache(cfg, slots * nb + 1, bs, device="cuda")
-    pos = torch.randint(64, nb * bs, (slots,), generator=gen, device="cuda")
-    tables = torch.zeros((slots, nb), dtype=torch.int32, device="cuda")
-    perm = torch.randperm(slots * nb, generator=gen, device="cuda") + 1
-    for b in range(slots):
-        n = int(pos[b]) // bs + 1
-        tables[b, :n] = perm[b * nb:b * nb + n].int()
-    tok = torch.randint(0, cfg.vocab_size, (slots,), generator=gen,
-                        device="cuda")
-    step = lambda: decode_step(cfg, params, tok, pool, pos,
-                               block_tables=tables)
+    case = _opt_step_case(paged=True)
+    step = case["step"]
     ops.reset_launch_counts()
     step()
     per_step = ops.launch_counts()
@@ -1286,8 +1458,10 @@ def _paged_serve(state):
         f"{graph_ms:.3f} ms (device); dense step above: eager "
         f"{dense.get('eager_ms', float('nan')):.3f}, graph "
         f"{dense.get('graph_ms', float('nan')):.3f}; launches {per_step}")
-    state["step_paged"] = {"eager_ms": eager_ms, "graph_ms": graph_ms}
-    del params, pool
+    state["step_paged"] = {"eager_ms": eager_ms, "graph_ms": graph_ms,
+                           "decode_calls":
+                               per_step["paged_decode_attention_fwd"]}
+    del case, step
     torch.cuda.empty_cache()
 
     res = _serve_run(SERVE_ARGV + PAGED, "serve_paged", SERVE_PAGED_KERNELS,
@@ -1410,6 +1584,38 @@ def _profile_step(step_fn, kernels=("flash_bwd", "flash_fwd", "rmsnorm")):
         buckets[hit] += ms
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])
     return total, buckets, top
+
+
+def _decode_in_step(step_fn, n_calls: int, nbytes: float, what: str):
+    """The fp decode kernels' device time inside one decode step:
+    ``torch.profiler`` over one replay of the step's CUDA graph (or, if the
+    profiler sees no decode kernel there, over one eager step), summed over
+    the decode core's split and combine kernels; per call, and against the
+    bound of ``nbytes``, the bytes one call of the step must move."""
+    keys = ("decode::split_kernel", "decode::combine_kernel")
+    graph = capture_graph(step_fn)
+    where, res = "graph replay", _profile_step(graph.replay, kernels=keys)
+    if res is None or not sum(res[1][k] for k in keys):
+        where, res = "eager step", _profile_step(step_fn, kernels=keys)
+    del graph
+    if res is None or not sum(res[1][k] for k in keys):
+        log(f"[profile] {what}: the profiler saw no decode kernel; the "
+            f"decode time inside the step is not measured")
+        return None
+    total, buckets = res[0], res[1]
+    dec_ms = sum(buckets[k] for k in keys)
+    per_call = dec_ms / n_calls
+    bnd_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"where": where, "decode_ms": dec_ms, "per_call_ms": per_call,
+           "bound_ms": bnd_ms, "achieved_gbs": nbytes / (per_call * 1e-3)
+           / 1e9, "step_kernel_ms": total}
+    log(f"[profile] {what}: torch.profiler over one {where}: {n_calls} fp "
+        f"decode calls take {dec_ms:.4f} ms of the step's {total:.3f} ms of "
+        f"kernel time, {per_call:.4f} ms a call (split "
+        f"{buckets[keys[0]]:.4f}, combine {buckets[keys[1]]:.4f} ms in "
+        f"all); bound {bnd_ms:.4f} ms a call, achieved "
+        f"{out['achieved_gbs']:.1f} GB/s")
+    return out
 
 
 def phase_train(state):
@@ -2186,10 +2392,56 @@ def phase_ssm(state):
         raise AssertionError("ssm: " + "; ".join(failures))
 
 
+def phase_profile(state):
+    """``torch.profiler`` over the fp decode kernels, after every timed
+    phase: a profiler session leaves tracing hooks behind it, which slowed
+    the OPT-1.3B decode step's CUDA-graph replay by ~0.4 ms on the H100.
+    (a) Each fp decode row of phase ``kernels``: the CUDA kernels one call
+    runs, which must be one split kernel and then the combine exactly when
+    the host's plan splits the rows.  A session whose records hold no
+    split kernel leaves the row unmeasured (logged), not failed.
+    (b) The OPT-1.3B decode steps of phase ``serve``, dense and
+    paged: the decode kernels' device time inside one replay of the step's
+    CUDA graph, per call and against the bound of the step's own rows."""
+    import torch
+    failures = []
+    rows = state.get("kernel_rows", {})
+    for name, what, main, plan, call in state.pop("decode_calls", []):
+        kernels = cuda_kernels_of(call)
+        n_split = sum("decode::split_kernel" in n for n in kernels)
+        n_comb = sum("decode::combine_kernel" in n for n in kernels)
+        if not n_split:                 # a measurement gap, not a fault
+            log(f"[profile] {name} {what}: the profiler saw no split kernel "
+                f"({kernels}); the CUDA kernels per call are not measured")
+            continue
+        ok = (n_split == 1 and n_comb == (plan > 1)
+              and len(kernels) == 1 + n_comb)
+        log(f"[profile] {name} {what}: one call ran {len(kernels)} CUDA "
+            f"kernel(s) (the host's plan: {plan} split(s)): "
+            + "; ".join(n.split("(")[0] for n in kernels)
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{name} {what}: one call ran {kernels}")
+        if main and name in rows:
+            rows[name]["kernels_per_call"] = len(kernels)
+    for paged, key in ((False, "step"), (True, "step_paged")):
+        if key not in state:
+            continue
+        case = _opt_step_case(paged)
+        state[key]["decode_in_step"] = _decode_in_step(
+            case["step"], state[key]["decode_calls"], case["decode_bytes"],
+            f"opt-1.3b {'paged ' if paged else ''}decode step")
+        del case
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("profile checks failed:\n"
+                             + "\n".join(failures))
+
+
 PHASE_FNS = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "parity": phase_parity,
              "serve": phase_serve, "train": phase_train, "rlhf": phase_rlhf,
-             "ssm": phase_ssm}
+             "ssm": phase_ssm, "profile": phase_profile}
 
 
 def main() -> int:
@@ -2225,9 +2477,14 @@ def main() -> int:
     # launches: each main path's run (serve, train), counts set to 0 just
     # before it and read just after; the total and the split by path
     by_path = state.get("launches", {})
+    # the fp decode kernels' device time inside the OPT-1.3B decode steps
+    in_step = {"decode_attention_fwd": state.get("step", {}),
+               "paged_decode_attention_fwd": state.get("step_paged", {})}
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
-        row = state.get("kernel_rows", {}).get(name, {})
+        row = dict(state.get("kernel_rows", {}).get(name, {}))
+        if in_step.get(name, {}).get("decode_in_step"):
+            row["decode_in_step"] = in_step[name]["decode_in_step"]
         split = {path: c[name] for path, c in by_path.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -2241,7 +2498,10 @@ def main() -> int:
             **{k: row[k] for k in ("yardstick_ms", "dense_kernel_ms",
                                    "gather_sdpa_ms", "tflops", "dkv_ms",
                                    "dq_ms", "train_ms", "train_library_ms",
-                                   "train_bound_ms", "train_tflops")
+                                   "train_bound_ms", "train_tflops",
+                                   "kernels_per_call",
+                                   "cold_ms", "library_cold_ms",
+                                   "achieved_gbs", "decode_in_step")
                if k in row},
         })
     print(state.get("smi") or nvidia_smi_line())

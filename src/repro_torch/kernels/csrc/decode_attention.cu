@@ -7,230 +7,138 @@
 // Layout: q (B, KV, G, D); k/v (B, KV, S, D) taken through strides, so the
 // model's (B, S, KV, D) arena is read in place (the reference's adapter
 // transposes the whole cache on every call; this kernel never copies it);
-// valid (B, S) bool; out like q.
+// valid (B, S) bool; out like q, any strides with unit stride along D.
 //
-// Bound on the H100: bytes.  Each cached K/V byte is used for 2*G flops, far
-// below the card's ~295 flops/byte balance, so the kernel has to stream the
-// arena once at the memory rate: at OPT-1.3B with 16 slots (B = 16,
-// H = KV = 32, S = 512, D = 64, bf16) the full arena is 67 MB, ~20 us.
+// Bound on the H100: bytes, and only the valid rows' bytes count.  At
+// OPT-1.3B with 16 slots (B = 16, H = KV = 32, S = 512, D = 64, bf16) the
+// arena is 67 MB; the engine's mask is a prefix (rows < min(pos + 1, S)),
+// so a step with ragged positions needs about half of it, ~8 us at
+// 3.35 TB/s.  The first SIMT kernel streamed every row, masked or not,
+// with one lane per key row, V one row at a time and B * KV blocks.
 //
-// Design: one block of 4 warps per (b, kv_head), so all G query heads of a
-// GQA group share every K/V row the block loads.  The warps split the S axis
-// into interleaved 32-row chunks; in a chunk a lane owns one key row, reads
-// it with 16-byte vector loads and forms its G scores against the query
-// heads held in shared memory; the chunk's probabilities then reach the
-// lanes that own the output dimensions by warp shuffles, while the V rows
-// are read coalesced.  Each warp keeps its own online-softmax state
-// (m, l, acc) in fp32 registers and the 4 partial states are merged in
-// shared memory at the end.  Masked rows get the reference's finite -1e30
-// (so an all-masked row yields the mean of V, not NaN); rows past S in the
-// last chunk get -inf and never count, so S needs no particular multiple.
-//
-// Grid size: B * KV blocks.  OPT-1.3B at 16 slots gives 16 * 32 = 512
-// blocks, enough for the 132 SMs; smollm-135m at 16 slots gives only 48,
-// which leaves most SMs idle.  Splitting the S axis over blocks (split-KV
-// with a combine pass) is the later fix for that.
-#include "common.cuh"
+// Design: the shared decode core (decode_core.cuh: split-KV over
+// (splits, KV, B) blocks with a combine pass, coalesced 16-byte row loads
+// by lane groups, base-2 online softmax) over this row locator: a split
+// first copies its rows' mask bytes into shared memory and narrows its
+// range to [first valid, last valid]; inside it a row whose mask is 0 is
+// never loaded.  Skipping masked rows is exact (the reference's -1e30
+// gives them weight 0 once a row is valid); a sequence with no valid row
+// gets the mean of V over all S rows, the reference's answer, the only
+// case that reads masked rows.
+#include "decode_core.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxG = 8;  // query heads per KV head
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const uint8_t* valid;
-  void* o;
-  int64_t q_sb, q_sk, q_sg;
-  int64_t k_sb, k_sk, k_ss;
-  int64_t v_sb, v_sk, v_ss;
-  int64_t m_sb, m_ss;
-  int64_t o_sb, o_sk, o_sg;
-  int B, KV, G, S;
-  float scale;
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
-  static_assert(D % 32 == 0, "head_dim must be a multiple of 32");
-  constexpr int DPL = D / 32;                        // output dims per lane
-  constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // per 16 B load
-  __shared__ float q_s[kMaxG][D];
-  __shared__ float m_w[kWarps][kMaxG];
-  __shared__ float l_w[kWarps][kMaxG];
-  __shared__ float acc_w[kWarps][kMaxG][D];
-
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int G = p.G;
-
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + kvh * p.q_sk;
-  for (int idx = threadIdx.x; idx < G * D; idx += kThreads)
-    q_s[idx / D][idx % D] = repro::to_float(qb[(idx / D) * p.q_sg + idx % D]);
-  __syncthreads();
-
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sk;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sk;
-  const uint8_t* mb = p.valid + b * p.m_sb;
-
-  float m[kMaxG], l[kMaxG], acc[kMaxG][DPL];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = REPRO_NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int u = 0; u < DPL; ++u) acc[g][u] = 0.f;
-  }
-
-  const int nchunks = (p.S + 31) / 32;
-  for (int c = warp; c < nchunks; c += kWarps) {
-    const int srow = c * 32 + lane;
-    const bool in = srow < p.S;
-    float dot[kMaxG];
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) dot[g] = 0.f;
-    if (in) {
-      const T* kr = kb + static_cast<int64_t>(srow) * p.k_ss;
-#pragma unroll
-      for (int d0 = 0; d0 < D; d0 += VEC) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(kr + d0);
-        const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          const float kv = repro::to_float(e[j]);
-#pragma unroll
-          for (int g = 0; g < kMaxG; ++g)
-            if (g < G) dot[g] += q_s[g][d0 + j] * kv;
-        }
-      }
-    }
-    const bool ok = in && mb[static_cast<int64_t>(srow) * p.m_ss] != 0;
-
-    float pr[kMaxG];
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      pr[g] = 0.f;
-      if (g < G) {
-        const float sv =
-            !in ? -INFINITY : (ok ? dot[g] * p.scale : REPRO_NEG_INF);
-        const float m_new = fmaxf(m[g], repro::warp_max(sv));
-        const float alpha = expf(m[g] - m_new);
-        pr[g] = expf(sv - m_new);
-        l[g] = l[g] * alpha + pr[g];  // per-lane partial; summed at the end
-#pragma unroll
-        for (int u = 0; u < DPL; ++u) acc[g][u] *= alpha;
-        m[g] = m_new;
-      }
-    }
-
-    const int n_in = min(32, p.S - c * 32);
-    for (int jj = 0; jj < n_in; ++jj) {
-      const T* vr = vb + static_cast<int64_t>(c * 32 + jj) * p.v_ss;
-      float vv[DPL];
-#pragma unroll
-      for (int u = 0; u < DPL; ++u) vv[u] = repro::to_float(vr[u * 32 + lane]);
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          const float pj = __shfl_sync(0xffffffffu, pr[g], jj);
-#pragma unroll
-          for (int u = 0; u < DPL; ++u) acc[g][u] += pj * vv[u];
-        }
-      }
-    }
-  }
-
-  // merge the warps' partial softmax states
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g < G) {
-      const float lt = repro::warp_sum(l[g]);
-      if (lane == 0) {
-        m_w[warp][g] = m[g];
-        l_w[warp][g] = lt;
-      }
-#pragma unroll
-      for (int u = 0; u < DPL; ++u) acc_w[warp][g][u * 32 + lane] = acc[g][u];
-    }
-  }
-  __syncthreads();
-
-  T* ob = static_cast<T*>(p.o) + b * p.o_sb + kvh * p.o_sk;
-  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
-    const int g = idx / D, d = idx % D;
-    float M = REPRO_NEG_INF;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, m_w[w][g]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(m_w[w][g] - M);
-      L += l_w[w][g] * f;
-      A += acc_w[w][g][d] * f;
-    }
-    ob[g * p.o_sg + d] = repro::from_float<T>(A / fmaxf(L, 1e-20f));
-  }
-}
-
-template <typename T, int D>
-int launch(const Params& p, cudaStream_t stream) {
-  const dim3 grid(p.KV, p.B);
-  decode_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
+using repro::decode::kThreads;
+using repro::decode::kWarps;
 
 template <typename T>
-int dispatch_d(const Params& p, int D, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+struct DenseRows {
+  const T* k;
+  const T* v;
+  const uint8_t* valid;
+  int64_t k_sb, k_sk, k_ss, v_sb, v_sk, v_ss, m_sb, m_ss;
+  static constexpr bool kMeanIfEmpty = true;
+
+  // one mask byte per row of a split
+  __host__ __device__ static size_t smem_bytes(int chunk, const DenseRows&) {
+    return static_cast<size_t>(chunk);
   }
+
+  struct View {
+    const T* kb;
+    const T* vb;
+    int64_t k_ss, v_ss;
+    const uint8_t* msk;
+    int r0;
+    bool bad;
+    __device__ bool ok(int r) const { return msk[r - r0] != 0; }
+    __device__ const T* k(int r) const { return kb + r * k_ss; }
+    __device__ const T* v(int r) const { return vb + r * v_ss; }
+  };
+
+  __device__ const T* v_any(int b, int kvh, int r) const {
+    return v + b * v_sb + kvh * v_sk + r * v_ss;
+  }
+
+  // The split's mask bytes into shared memory, and [lo, hi) = its first
+  // and one past its last valid row (lo == hi when none is valid).
+  __device__ View prologue(int b, int kvh, int r0, int r1,
+                           unsigned char* smem, int* red, int* lo,
+                           int* hi) const {
+    const uint8_t* mb = valid + b * m_sb;
+    int first = INT_MAX, last = -1;
+    for (int i = threadIdx.x; i < r1 - r0; i += kThreads) {
+      const uint8_t x = mb[(r0 + i) * m_ss];
+      smem[i] = x;
+      if (x) {
+        first = min(first, i);
+        last = i;
+      }
+    }
+    first = __reduce_min_sync(0xffffffffu, first);
+    last = __reduce_max_sync(0xffffffffu, last);
+    if (threadIdx.x % 32 == 0) {
+      red[threadIdx.x / 32] = first;
+      red[kWarps + threadIdx.x / 32] = last;
+    }
+    __syncthreads();
+    first = INT_MAX;
+    last = -1;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      first = min(first, red[w]);
+      last = max(last, red[kWarps + w]);
+    }
+    *lo = last < 0 ? r0 : r0 + first;
+    *hi = last < 0 ? r0 : r0 + last + 1;
+    return View{k + b * k_sb + kvh * k_sk, v + b * v_sb + kvh * v_sk, k_ss,
+                v_ss, smem, r0, false};
+  }
+};
+
+template <typename T>
+DenseRows<T> rows(const void* k, const void* v, const void* valid,
+                  const int64_t* s) {
+  return DenseRows<T>{static_cast<const T*>(k),
+                      static_cast<const T*>(v),
+                      static_cast<const uint8_t*>(valid),
+                      s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10]};
 }
 
 }  // namespace
 
 // strides (elements): q (b, kv, g), k (b, kv, s), v (b, kv, s),
-// valid (b, s), o (b, kv, g) — 14 values; the D axis has unit stride.
-// K/V rows must start on 16-byte boundaries (checked by the wrapper).
-// Returns a cudaError_t code.
+// valid (b, s), o (b, kv, g) — 14 values; the D axis has unit stride and
+// K/V rows start on 16-byte boundaries (checked by the wrapper).  Rows are
+// split into `splits` ranges of `chunk` rows (a multiple of 64); with
+// splits > 1, `scratch` holds B * KV * splits partial records of
+// record_floats(G, D) fp32 each, and a combine kernel follows on the same
+// stream.  Returns a cudaError_t code.
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* valid,
-                                    void* o, const int64_t* strides, int B,
-                                    int KV, int G, int S, int D, float scale,
-                                    int dtype, void* stream) {
-  if (G < 1 || G > kMaxG) return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.valid = static_cast<const uint8_t*>(valid);
-  p.o = o;
-  p.q_sb = strides[0];
-  p.q_sk = strides[1];
-  p.q_sg = strides[2];
-  p.k_sb = strides[3];
-  p.k_sk = strides[4];
-  p.k_ss = strides[5];
-  p.v_sb = strides[6];
-  p.v_sk = strides[7];
-  p.v_ss = strides[8];
-  p.m_sb = strides[9];
-  p.m_ss = strides[10];
-  p.o_sb = strides[11];
-  p.o_sk = strides[12];
-  p.o_sg = strides[13];
-  p.B = B;
-  p.KV = KV;
-  p.G = G;
-  p.S = S;
-  p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kF32) return dispatch_d<float>(p, D, s);
-  if (dtype == repro::kBF16) return dispatch_d<__nv_bfloat16>(p, D, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+                                    void* o, void* scratch,
+                                    const int64_t* strides, int B, int KV,
+                                    int G, int S, int D, int splits,
+                                    int chunk, float scale, int dtype,
+                                    void* stream) {
+  repro::decode::Common c;
+  c.q = q;
+  c.o = o;
+  c.part = static_cast<float*>(scratch);
+  c.q_sb = strides[0];
+  c.q_sk = strides[1];
+  c.q_sg = strides[2];
+  c.o_sb = strides[11];
+  c.o_sk = strides[12];
+  c.o_sg = strides[13];
+  c.KV = KV;
+  c.G = G;
+  c.splits = splits;
+  c.chunk = chunk;
+  c.n_rows = S;
+  c.scale2 = scale * 1.4426950408889634f;
+  return repro::decode::launch(c, rows<float>(k, v, valid, strides),
+                               rows<__nv_bfloat16>(k, v, valid, strides), B,
+                               D, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -7,8 +7,12 @@ CUDA kernel beside its plain version in :mod:`repro_torch.kernels.ref`:
   replaces ``decode_attention_quant_fwd`` of the same file: int8 K/V with
   fp32 per-row scales, dequantized on the score and probability tiles.
 
-The source notes say what bounds each kernel on the H100 and how its
-design answers that.  Layout contract::
+The fp kernel here and ``paged_attention.paged_decode_attention_fwd`` run
+one decode core (``csrc/decode_core.cuh``): split-KV over ``(splits, KV,
+B)`` blocks, then a combine kernel when ``splits > 1``, with the split
+ranges chosen on the host by :func:`split_plan`.  The source notes say what
+bounds each kernel on the H100 and how its design answers that.  Layout
+contract::
 
     q: (B, KV, G, D)   k_cache, v_cache: (B, KV, S, D)   valid: (B, S) bool
     (int8 variant)     k_scale, v_scale: (B, KV, S) fp32
@@ -21,6 +25,7 @@ copies the cache.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -29,13 +34,61 @@ from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8          # query heads per KV head (csrc kMaxG)
+TILE = 64              # split ranges are multiples of this (csrc kTile)
+WAVES = 2              # blocks per SM that the split choice aims for
+MAX_SPLITS = 64        # csrc kMaxSplits
+MAX_CHUNK = 16384      # dense rows per split: their mask bytes sit in
+                       # shared memory
+
+
+def split_plan(n_rows: int, heads: int, *, align: int = TILE,
+               sms: int = 132, max_chunk: int | None = None):
+    """``(splits, chunk)`` of the fp decode kernels (``csrc/decode_core.cuh``),
+    chosen on the host from shapes alone (no device read, so a call can be
+    captured in a CUDA graph).  ``heads = B * KV`` blocks per split; each
+    split ``chunk`` rows, a multiple of ``align``; split ``s`` covers rows
+    ``[s * chunk, min((s + 1) * chunk, n_rows))``, none empty.
+
+    A split costs a second kernel, the combine (3-6 us on the H100), so
+    the rows are split only when ``heads < sms`` leaves SMs without a
+    block, and then into at least enough splits that ``heads * splits``
+    reaches ``WAVES * sms`` blocks (at most ``MAX_SPLITS``, at least one
+    ``align`` unit each), the rows spread evenly."""
+    units = max(1, -(-n_rows // align))         # align-row units
+    want = (1 if heads >= sms else
+            min(MAX_SPLITS, -(-WAVES * sms // max(heads, 1))))
+    per = max(1, units // want, -(-units // MAX_SPLITS))
+    if max_chunk is not None:
+        per = min(per, max(1, max_chunk // align))
+    chunk = per * align
+    return max(1, -(-n_rows // chunk)), chunk
+
+
+def record_floats(G: int, D: int) -> int:
+    """fp32 values of one split's partial record (csrc record_floats):
+    acc (G, D), m (G), l (G) and a state, rounded up to 4."""
+    return (G * D + 2 * G + 1 + 3) // 4 * 4
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (cached)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def scratch(B, KV, G, D, splits, device):
+    """The split partials' scratch (None for one split): one allocation."""
+    if splits == 1:
+        return None
+    return torch.empty(B * KV * splits * record_floats(G, D),
+                       dtype=torch.float32, device=device)
 
 
 def _fn():
     f = build.load("decode_attention").decode_attention_fwd
     if f.argtypes is None:
-        f.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 5 + [
+        f.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         f.restype = ctypes.c_int
     return f
@@ -92,23 +145,28 @@ def decode_attention_fwd(q, k_cache, v_cache, valid, *, out=None):
         return out.copy_(ref.decode_attention_ref(q, k_cache, v_cache, valid))
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_fwd: no kernel for {q.device}")
-    B, KV, G, D = q.shape
-    S = k_cache.shape[2]
     if q.numel() == 0:
         return out
+    B, KV, G, D = q.shape
+    S = k_cache.shape[2]
+    splits, chunk = split_plan(S, B * KV, sms=sm_count(q.device.index),
+                               max_chunk=MAX_CHUNK)
+    part = scratch(B, KV, G, D, splits, q.device)
     strides = (ctypes.c_int64 * 14)(
         *q.stride()[:3], *k_cache.stride()[:3], *v_cache.stride()[:3],
         *valid.stride(), *out.stride()[:3])
     code = _fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 valid.data_ptr(), out.data_ptr(), strides, B, KV, G, S, D,
-                 1.0 / math.sqrt(D), build.dtype_code(q),
-                 build.stream_handle(q))
+                 valid.data_ptr(), out.data_ptr(),
+                 None if part is None else part.data_ptr(), strides, B, KV,
+                 G, S, D, splits, chunk, 1.0 / math.sqrt(D),
+                 build.dtype_code(q), build.stream_handle(q))
     build.check(build.load("decode_attention"), code, "decode_attention_fwd")
     decode_attention_fwd.launches += 1
     return out
 
 
-decode_attention_fwd.launches = 0    # kernel launches since the last reset
+decode_attention_fwd.launches = 0    # calls that ran the kernels, since
+                                     # the last reset (1 or 2 CUDA kernels)
 
 
 # --------------------------------------------------------------------- #

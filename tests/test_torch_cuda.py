@@ -201,6 +201,242 @@ def test_paged_kernels_walk_the_table(cuda, KV, G, D, bs, nb, kind):
     assert torch.equal(out[0], got[0]) and torch.equal(out[2], got[2])
 
 
+# split-KV edges of the fp decode kernels: rows around the 64-row split
+# granularity and a long cache, at B * KV = 2 (the most splits)
+SPLIT_ROWS = [1, 63, 64, 65, 511, 513, 2048]
+# (nb, bs) with nb * bs in SPLIT_ROWS: odd block sizes take the kernel's
+# division path, powers of two its shift path
+SPLIT_TABLES = [(1, 1), (21, 3), (4, 16), (13, 5), (73, 7), (27, 19),
+                (128, 16)]
+
+
+def _dense_plan(S, heads):
+    from repro_torch.kernels import decode_attention as da
+    return da.split_plan(S, heads, sms=da.sm_count(0),
+                         max_chunk=da.MAX_CHUNK)
+
+
+def _paged_plan(nb, bs, heads):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.paged_attention import paged_split_plan
+    return paged_split_plan(nb, bs, heads, da.sm_count(0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("S", SPLIT_ROWS)
+def test_decode_kernel_split_edges(cuda, S, G, D, dtype):
+    """The split-KV edges of :func:`test_decode_kernel_reads_arena_in_place`
+    (the in-place arena through ``ops.decode_attention``'s ``out=`` view):
+    a mask with holes whose second split is all masked, prefixes ending one
+    row inside and one row past a split boundary, a fully masked row (the
+    mean of V over all S rows).  fp32 1e-4, bf16 2e-2; one count a call."""
+    B, KV = 2, 1
+    q = _randn(cuda, (B, KV * G, D), dtype)
+    k, v = _randn(cuda, (B, S, KV, D), dtype), _randn(cuda, (B, S, KV, D),
+                                                        dtype)
+    splits, chunk = _dense_plan(S, B * KV)
+    ar = torch.arange(S, device="cuda")
+    holes = torch.rand(S, generator=cuda, device="cuda") < 0.5
+    holes[chunk:2 * chunk] = False           # a split with no valid row
+    holes[0] = True
+    masks = [torch.stack([holes, ar < S]),
+             torch.stack([ar < min(chunk + 1, S), ar < max(chunk - 1, 1)]),
+             torch.stack([ar < 0, holes])]
+    for valid in masks:
+        before = decode_attention_fwd.launches
+        got = ops.decode_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+        assert decode_attention_fwd.launches == before + 1
+        want = ref.decode_attention_ref(
+            q.unflatten(1, (KV, G)), k.transpose(1, 2), v.transpose(1, 2),
+            valid).reshape(got.shape)
+        err = (got.float() - want.float()).abs().max()
+        assert err <= TOL[dtype], (float(err), splits, chunk)
+    mean_v = v[0].float().mean(0).repeat_interleave(G, 0)
+    assert (got[0].float() - mean_v).abs().max() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("nb,bs", SPLIT_TABLES)
+def test_paged_kernel_split_edges(cuda, nb, bs, G, D, dtype):
+    """The split-KV edges of :func:`test_paged_kernels_walk_the_table` for
+    the fp kernel, at its tolerance (fp32 1e-4, bf16 2e-2 of max |plain|):
+    shuffled full tables, lens ending one row inside and one row past a
+    split boundary, a full table and lens = 0 (zeros); rows no
+    sequence may read hold NaN and leave the output bitwise unchanged; a
+    table entry outside the pool in the last split makes that sequence's
+    output NaN and leaves the other's bitwise unchanged."""
+    B, KV = 2, 1
+    n_rows, nblocks = nb * bs, B * nb + 1
+    q = _randn(cuda, (B, KV, G, D), dtype)
+    k, v = (_randn(cuda, (nblocks, bs, KV, D), dtype) for _ in "kv")
+    tables = (torch.randperm(nblocks - 1, generator=torch.Generator()
+                             .manual_seed(nb * bs)) + 1)[:B * nb]
+    tables = tables.view(B, nb).int().cuda()
+    splits, chunk = _paged_plan(nb, bs, B * KV)
+    for lens in ([n_rows, min(chunk + 1, n_rows)],
+                 [max(min(chunk - 1, n_rows), 1), 1], [0, n_rows]):
+        lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        before = paged_decode_attention_fwd.launches
+        got = paged_decode_attention_fwd(q, k, v, tables, lens)
+        torch.cuda.synchronize()
+        assert paged_decode_attention_fwd.launches == before + 1
+        want = ref.paged_decode_attention_ref(q, k, v, tables, lens)
+        live = lens > 0                      # lens = 0: the kernel's zeros
+        err = (got[live].float() - want[live].float()).abs().max()
+        scale = want[live].float().abs().max()
+        assert err <= TOL[dtype] * scale, (float(err), float(scale), splits,
+                                           chunk)
+        assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+        dead = torch.ones(nblocks, bs, dtype=torch.bool, device="cuda")
+        for b in range(B):
+            rows = torch.arange(int(lens[b]), device="cuda")
+            dead[tables[b].long()[rows // bs], rows % bs] = False
+        kp, vp = k.clone(), v.clone()
+        kp[dead], vp[dead] = float("nan"), float("nan")
+        assert torch.equal(paged_decode_attention_fwd(q, kp, vp, tables,
+                                                      lens), got)
+    bad = tables.clone()
+    bad[1, (splits - 1) * chunk // bs] = nblocks     # lens[1] = n_rows
+    out = paged_decode_attention_fwd(q, k, v, bad, lens)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[1].float()).all()
+    assert torch.equal(out[0], got[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,KV,G,bs,nb", [(16, 32, 1, 16, 32),
+                                          (16, 3, 3, 16, 32),
+                                          (2, 1, 2, 8, 130)])
+def test_dense_and_paged_kernels_agree_bitwise(cuda, B, KV, G, bs, nb,
+                                               dtype):
+    """One core, one split plan: the dense kernel over a pool's rows
+    gathered into an arena gives the paged kernel's output bit for bit (one
+    split at the OPT-1.3B serve shape, eight at smollm-135m's, many at B *
+    KV = 2), so greedy streams over the arena and over the pool agree."""
+    S, nblocks = nb * bs, B * nb + 1
+    q = _randn(cuda, (B, KV, G, 64), dtype)
+    k, v = (_randn(cuda, (nblocks, bs, KV, 64), dtype) for _ in "kv")
+    tables = (torch.randperm(nblocks - 1, device="cuda") + 1).view(B, nb)
+    tables = tables.int()
+    lens = torch.randint(1, S + 1, (B,), generator=cuda, device="cuda")
+    lens = lens.int()
+    valid = torch.arange(S, device="cuda")[None] < lens[:, None]
+    ka, va = (ref.gather_blocks(t, tables).transpose(1, 2) for t in (k, v))
+    assert _dense_plan(S, B * KV) == _paged_plan(nb, bs, B * KV)
+    assert torch.equal(decode_attention_fwd(q, ka, va, valid),
+                       paged_decode_attention_fwd(q, k, v, tables, lens))
+
+
+def _split_cases(gen, dtype=torch.bfloat16):
+    """A dense and a paged case at B * KV = 2 over 1,000 rows (several
+    splits), as (name, zero-argument call)."""
+    B, KV, G, D, S = 2, 1, 3, 64, 1000
+    q = _randn(gen, (B, KV, G, D), dtype)
+    k, v = _randn(gen, (B, KV, S, D), dtype), _randn(gen, (B, KV, S, D),
+                                                       dtype)
+    valid = torch.arange(S, device="cuda")[None] < torch.tensor(
+        [[S], [700]], device="cuda")
+    bs, nb = 8, S // 8
+    pk, pv = (_randn(gen, (B * nb + 1, bs, KV, D), dtype) for _ in "kv")
+    tables = (torch.randperm(B * nb, device="cuda") + 1).view(B, nb).int()
+    lens = torch.tensor([S, 613], dtype=torch.int32, device="cuda")
+    return [("dense", lambda: decode_attention_fwd(q, k, v, valid)),
+            ("paged", lambda: paged_decode_attention_fwd(q, pk, pv, tables,
+                                                         lens))]
+
+
+def test_decode_kernels_are_bitwise_repeatable(cuda):
+    """No atomics: two calls of each fp decode kernel over several splits
+    give bitwise-equal outputs."""
+    for _, call in _split_cases(cuda):
+        assert torch.equal(call(), call())
+
+
+def test_decode_combine_reads_only_what_the_splits_wrote(cuda, monkeypatch):
+    """An empty split writes only its state: with the partials' scratch
+    filled with NaN before every call, each wrapper still gives its output
+    bit for bit (dense: a prefix mask with empty tail splits and a fully
+    masked sequence; paged: empty splits past lens and lens = 0)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
+    B, KV, G, D, S, bs = 3, 1, 3, 64, 1000, 8
+    q = _randn(cuda, (B, KV, G, D), torch.float32)
+    k, v = (_randn(cuda, (B, KV, S, D), torch.float32) for _ in "kv")
+    valid = torch.arange(S, device="cuda")[None] < torch.tensor(
+        [[S], [70], [0]], device="cuda")
+    pk, pv = (_randn(cuda, (B * S // bs + 1, bs, KV, D), torch.float32)
+              for _ in "kv")
+    tables = (torch.randperm(B * S // bs, device="cuda") + 1).view(B, -1)
+    tables = tables.int()
+    lens = torch.tensor([S, 70, 0], dtype=torch.int32, device="cuda")
+    calls = (lambda: decode_attention_fwd(q, k, v, valid),
+             lambda: paged_decode_attention_fwd(q, pk, pv, tables, lens))
+    want = [call() for call in calls]
+    plain = da.scratch
+
+    def poisoned(*args):
+        t = plain(*args)
+        return None if t is None else t.fill_(float("nan"))
+
+    monkeypatch.setattr(da, "scratch", poisoned)
+    monkeypatch.setattr(pa, "scratch", poisoned)
+    assert _dense_plan(S, B * KV)[0] > 1
+    for call, w in zip(calls, want):
+        assert torch.equal(call(), w)
+
+
+def test_decode_kernels_replay_from_a_cuda_graph(cuda):
+    """Each wrapper picks its splits and allocates its scratch on the host
+    without reading the device, so a call captured in a CUDA graph replays
+    to the eager output bit for bit."""
+    for _, call in _split_cases(cuda):
+        eager = call()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            call()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
+def test_decode_combine_runs_only_when_split(cuda):
+    """``torch.profiler``'s kernel names: one split kernel per call, and the
+    combine kernel only when the call splits the rows (one call at B * KV =
+    2 over 1,000 rows, one at 512 blocks over 64 rows)."""
+    from torch.profiler import ProfilerActivity, profile
+    one = (_randn(cuda, (16, 32, 1, 64), torch.bfloat16),
+           _randn(cuda, (16, 32, 64, 64), torch.bfloat16))
+    valid = torch.ones(16, 64, dtype=torch.bool, device="cuda")
+    cases = _split_cases(cuda) + [
+        ("one split", lambda: decode_attention_fwd(one[0], one[1], one[1],
+                                                   valid))]
+    assert _dense_plan(64, 16 * 32)[0] == 1
+    with profile(activities=[ProfilerActivity.CUDA]):   # CUPTI warm-up
+        torch.cuda.synchronize()
+    for name, call in cases:
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert sum("split_kernel" in n for n in names) == 1, (name, names)
+        assert sum("combine_kernel" in n for n in names) == (
+            0 if name == "one split" else 1), (name, names)
+
+
 def test_kernels_raise_instead_of_falling_back(cuda):
     q = torch.randn(1, 2, 9, 64, device="cuda")          # G = 9 > 8
     k = torch.randn(1, 2, 16, 64, device="cuda")

@@ -11,7 +11,8 @@ Phases (any failure raises, so the run exits non-zero):
 2. ``build``   — every CUDA source of the port built with ``nvcc``, one
    process per source, all in parallel; seconds and ``ptxas`` registers
    and spills per kernel.  Fails if a bf16 tensor-core flash
-   kernel or a bf16 decode split kernel at D = 64 spills.
+   kernel or a decode split or combine kernel with bf16 queries at D = 64
+   (fp and int8 rows) spills.
 3. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the main paths' shapes (OPT-1.3B, OPT-350M and smollm-135m widths),
    in fp32 (TF32 off) and bf16, with kernel / plain / library device times
@@ -71,27 +72,29 @@ Phases (any failure raises, so the run exits non-zero):
    counted in bf16); one Mamba2 decode step at 16 slots eager and as a
    CUDA-graph replay, and ``torch.profiler`` over a decode step and an
    admission.
-9. ``profile`` — ``torch.profiler`` over the fp decode kernels, last, so
+9. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
    that no earlier timing runs after a profiler session: the CUDA kernels
-   one call of each fp decode row of phase ``kernels`` runs (the split
+   one call of each decode row of phase ``kernels`` runs (the split
    kernel, then the combine exactly when the host's plan splits the
    rows), and the decode kernels' device time inside one CUDA-graph
    replay of the OPT-1.3B decode step of phase ``serve``, dense and
-   paged, per call and against the bound of the step's own rows.
+   paged, bf16 and int8 KV, per call and against the bound of the step's
+   own rows.
 
-The fp decode rows (dense and paged: one split-KV core) also print the time
-with the inputs out of the L2 (``time_ms_cold``: the call rotated over
-copies of its inputs that add up to four L2s) and the achieved GB/s, the
-bound's bytes over that cold time.  A dense row at B = 1, S = 2048 (its
-inputs from a generator of its own) is where split-KV matters most.  Each
-paged fp row also checks that the dense kernel over the gathered rows gives
-its output bit for bit.
+The decode rows (dense and paged, fp and int8: one split-KV core) also
+print the time with the inputs out of the L2 (``time_ms_cold``: the call
+rotated over copies of its inputs that add up to four L2s) and the achieved
+GB/s, the bound's bytes over that cold time.  A dense row at B = 1, S =
+2048 (its inputs from a generator of its own) is where split-KV matters
+most.  Each paged row also checks that the dense kernel of its kind over
+the gathered rows gives its output bit for bit.
 
 The kernel phase also holds ``decode_attention_quant_fwd`` (int8 K/V with
 fp32 row scales) to its plain version at the PPO (B = 8) and serve (B = 16)
 shapes, with dequant-then-SDPA as a yardstick; the parity phase adds a
 greedy int8-KV decode of OPT-1.3B cut to 4 layers (kernel vs plain path),
-and the serve phase a ``--kv-quant`` run of the same workload.
+and the serve phase a ``--kv-quant`` run of the same workload and the
+OPT-1.3B decode step on the int8 arena (eager and as a CUDA-graph replay).
 
 The paged layout (block pool, prefix cache, paged int8): the kernel phase
 holds ``paged_decode_attention_fwd`` and ``paged_decode_attention_quant_fwd``
@@ -103,7 +106,8 @@ yardsticks, and checks untimed that rows no sequence may read never change
 the output (they hold NaN) and that ``lens = 0`` gives zeros.  The parity
 phase runs OPT-1.3B (4 layers, fp32) teacher-forced through the paged
 kernel, dense kernel and paged plain paths (1e-4), and the int8 pair of
-checks on a paged int8 pool.  The serve phase times a paged decode step,
+checks on a paged int8 pool.  The serve phase times a paged decode step
+(bf16 and int8 pools),
 runs the 32-request workload with ``--kv-layout paged`` (bf16 and
 ``--kv-quant``), greedy dense vs paged (identical streams), a 201-block
 pool that preempts (identical streams), and the prefix cache on a
@@ -178,6 +182,9 @@ SERVE_PAGED_INT8_KERNELS = ("rmsnorm", "flash_attention_fwd",
 RLHF_PAGED_KERNELS = ("rmsnorm", "flash_attention_fwd", "flash_attention_bwd",
                       "paged_decode_attention_quant_fwd")
 DENSE_DECODE = ("decode_attention_fwd", "decode_attention_quant_fwd")
+# the sources built on the decode core (csrc/decode_core.cuh)
+DECODE_LIBS = ("decode_attention", "decode_attention_quant",
+               "paged_decode_attention", "paged_decode_attention_quant")
 # the SSM / hybrid serve paths: Mamba2 has no attention layer, Zamba2's six
 # attention layers run the dense prefill and decode kernels
 SSM_SERVE_KERNELS = {
@@ -324,16 +331,16 @@ def phase_device(state):
 
 
 def ptxas_usage(text: str) -> list:
-    """(kernel, registers, spill stores, spill loads) for each entry
-    function in ``nvcc -Xptxas -v`` output; the kernel's name demangled by
-    ``cu++filt`` or ``c++filt`` where one is found, else as ptxas gives
-    it."""
+    """(kernel, registers, bytes of stack frame, spill stores and spill
+    loads) for each entry function in ``nvcc -Xptxas -v`` output; the
+    kernel's name demangled by ``cu++filt`` or ``c++filt`` where one is
+    found, else as ptxas gives it."""
     import re
     import shutil
     filt = shutil.which("cu++filt") or shutil.which("c++filt")
     if filt is None and Path("/usr/local/cuda/bin/cu++filt").is_file():
         filt = "/usr/local/cuda/bin/cu++filt"
-    rows, fn, spill = [], None, (0, 0)
+    rows, fn, spill = [], None, (0, 0, 0)
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
@@ -344,15 +351,15 @@ def ptxas_usage(text: str) -> list:
                 fn = re.sub(r"\(anonymous namespace\)::|<unnamed>::|\(int\)",
                             "", fn)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      ln)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
         if m:
-            spill = (int(m.group(1)), int(m.group(2)))
+            spill = tuple(int(x) for x in m.groups())
             continue
         m = re.search(r"Used (\d+) registers", ln)
         if m and fn is not None:
             rows.append((fn, int(m.group(1)), *spill))
-            fn, spill = None, (0, 0)
+            fn, spill = None, (0, 0, 0)
     return rows
 
 
@@ -363,18 +370,20 @@ def phase_build(state):
     wall = time.perf_counter() - t0
     # the bf16 tensor-core flash kernels at D = 64 (every main path's head
     # width) must keep everything in registers: 1 forward, 2 backward; so
-    # must the bf16 split kernels of the fp decode core at D = 64
-    mma64, split64 = {}, {}
+    # must the decode core's split and combine kernels with bf16 queries
+    # at D = 64, fp and int8 rows
+    mma64, split64, comb64 = {}, {}, {}
     for name, r in report.items():
         log(f"[build] {name}.cu: {r['seconds']:.1f}s")
-        for fn, regs, st, ld in ptxas_usage(r["log"]):
-            log(f"[build]   {fn}: {regs} registers, {st} bytes spill "
-                f"stores, {ld} bytes spill loads")
+        for fn, regs, stack, st, ld in ptxas_usage(r["log"]):
+            log(f"[build]   {fn}: {regs} registers, {stack} bytes stack "
+                f"frame, {st} bytes spill stores, {ld} bytes spill loads")
             if "mma_kernel" in fn and ("<64>" in fn or "ILi64E" in fn):
                 mma64[fn] = st + ld
-            if ("split_kernel<__nv_bfloat16, 64," in fn
-                    or "split_kernelI13__nv_bfloat16Li64E" in fn):
-                split64[f"{name}: {fn}"] = st + ld
+            for kind, seen in (("split", split64), ("combine", comb64)):
+                if (f"{kind}_kernel<__nv_bfloat16, 64," in fn
+                        or f"{kind}_kernelI13__nv_bfloat16Li64E" in fn):
+                    seen[f"{name}: {fn}"] = st + ld
     log(f"[build] {len(report)} sources, {wall:.1f}s wall (nvcc in "
         f"parallel)")
     want = ("flash_attention" in report) + 2 * ("flash_attention_bwd"
@@ -382,12 +391,15 @@ def phase_build(state):
     if len(mma64) != want or any(mma64.values()):
         raise AssertionError(f"build: D = 64 tensor-core kernels (want "
                              f"{want}, none spilling): {mma64}")
-    # one per G bucket (1, 2, 4, 8) in each fp decode library
-    want = 4 * (("decode_attention" in report)
-                + ("paged_decode_attention" in report))
-    if len(split64) != want or any(split64.values()):
+    # one split kernel per G bucket (1, 2, 4, 8) and one combine in each
+    # decode library
+    libs = sum(n in report for n in DECODE_LIBS)
+    if len(split64) != 4 * libs or any(split64.values()):
         raise AssertionError(f"build: bf16 D = 64 decode split kernels "
-                             f"(want {want}, none spilling): {split64}")
+                             f"(want {4 * libs}, none spilling): {split64}")
+    if len(comb64) != libs or any(comb64.values()):
+        raise AssertionError(f"build: bf16 D = 64 decode combine kernels "
+                             f"(want {libs}, none spilling): {comb64}")
 
 
 def _case_inputs(gen, shape, dtype):
@@ -417,11 +429,11 @@ def _decode_valid(gen, B, S, lo):
 
 
 def _decode_extra(state, name, what, main, plan, call, copies, bnd):
-    """The fp decode kernels' row extras: the time with the inputs out of
-    the L2 (``copies``: the same call on copies of its inputs) and the
-    achieved rate, the bound's bytes over that time.  ``call`` and the
-    host's split count ``plan`` are kept for phase ``profile``, which reads
-    the CUDA kernels the call runs."""
+    """The decode kernels' row extras (fp and int8: one core): the time
+    with the inputs out of the L2 (``copies``: the same call on copies of
+    its inputs) and the achieved rate, the bound's bytes over that time.
+    ``call`` and the host's split count ``plan`` are kept for phase
+    ``profile``, which reads the CUDA kernels the call runs."""
     state.setdefault("decode_calls", []).append((name, what, main, plan,
                                                  call))
     cold = time_ms_cold(copies)
@@ -767,13 +779,26 @@ def phase_kernels(state):
 
             yard = time_ms(dequant_sdpa)
             label = f"{model} B={B} KV={KV} G={G} S={S} valid {lo}-{S}"
+            main = (B, KV, dname) == (8, 32, "bf16")
+            k_ms = time_ms(lambda: decode_attention_quant_fwd(
+                q4, k4, v4, ks3, vs3, valid))
+            copies = [tuple(t.clone() for t in (k4, v4, ks3, vs3))
+                      for _ in range(cold_copies(bnd[0] * 1e-3
+                                                 * HBM_BYTES_PER_S))]
+            extra = _decode_extra(
+                state, "decode_attention_quant_fwd", f"{label} {dname}", main,
+                dec.split_plan(S, B * KV, sms=dec.sm_count(0),
+                               max_chunk=dec.MAX_CHUNK)[0],
+                lambda q4=q4, kv=(k4, v4, ks3, vs3), valid=valid:
+                decode_attention_quant_fwd(q4, *kv, valid),
+                [lambda c=c: decode_attention_quant_fwd(q4, *c, valid)
+                 for c in copies], bnd)
+            del copies
             record("decode_attention_quant_fwd", label, dname, err,
-                   tol[("attn", dname)],
-                   time_ms(lambda: decode_attention_quant_fwd(
-                       q4, k4, v4, ks3, vs3, valid)),
+                   tol[("attn", dname)], k_ms,
                    time_ms(lambda: ref.decode_attention_quant_ref(
                        q4, k4, v4, ks3, vs3, valid)),
-                   None, bnd, main=(B, KV, dname) == (8, 32, "bf16"),
+                   None, bnd, main=main, extra=extra,
                    abs_err=max(_err(out, r, rel=False),
                                _err(out_m, r_m, rel=False)))
             log(f"[kernels] decode_attention_quant_fwd {label} {dname}: "
@@ -821,7 +846,9 @@ def _paged_kernel_rows(state, gen, dtypes, tol, record, rows, failures):
     decode kernel over the same rows gathered into an arena beforehand and
     gather + SDPA as yardsticks.  Then, untimed: the rows no sequence may
     read poisoned with NaN (the output must not change) and lens = 0 (the
-    Pallas kernel's zeros, ROADMAP R8)."""
+    Pallas kernel's zeros, ROADMAP R8).  Each paged row, fp and int8, also
+    checks that the dense kernel over the gathered rows gives its output
+    bit for bit (one decode core, one split plan)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dec
@@ -900,19 +927,18 @@ def _paged_kernel_rows(state, gen, dtypes, tol, record, rows, failures):
                 main = (B, KV, dname) == ((8, 32, "bf16") if quant
                                           else (16, 32, "bf16"))
                 k_ms = time_ms(kern)
-                extra = None
-                if not quant:               # the fp kernel: split-KV
-                    copies = [(k.clone(), v.clone()) for _ in range(
-                        cold_copies(bnd[0] * 1e-3 * HBM_BYTES_PER_S))]
-                    extra = _decode_extra(
-                        state, name, f"{label} {dname}", main,
-                        paged_split_plan(nb, bs, B * KV, dec.sm_count(0))[0],
-                        lambda q=q, k=k, v=v, t=tables, n=lens:
-                        paged_decode_attention_fwd(q, k, v, t, n),
-                        [lambda kc=kc, vc=vc: paged_decode_attention_fwd(
-                            q, kc, vc, tables, lens) for kc, vc in copies],
-                        bnd)
-                    del copies
+                run = (paged_decode_attention_quant_fwd if quant
+                       else paged_decode_attention_fwd)
+                copies = [tuple(t.clone() for t in (k, v, *sc)) for _ in range(
+                    cold_copies(bnd[0] * 1e-3 * HBM_BYTES_PER_S))]
+                extra = _decode_extra(
+                    state, name, f"{label} {dname}", main,
+                    paged_split_plan(nb, bs, B * KV, dec.sm_count(0))[0],
+                    lambda q=q, kv=(k, v, *sc), t=tables, n=lens, run=run:
+                    run(q, *kv, t, n),
+                    [lambda c=c: run(q, *c, tables, lens) for c in copies],
+                    bnd)
+                del copies
                 record(name, label, dname, err, tol[("attn", dname)],
                        k_ms, time_ms(plain), None, bnd, main,
                        abs_err=abs_err, extra=extra)
@@ -923,18 +949,16 @@ def _paged_kernel_rows(state, gen, dtypes, tol, record, rows, failures):
                 if main:
                     rows[name].update(dense_kernel_ms=dense_ms,
                                       gather_sdpa_ms=sdpa_ms)
-                if not quant:
-                    # one core, one split plan: the dense kernel over the
-                    # gathered rows gives the paged kernel's bits (what
-                    # keeps greedy streams over the arena and the pool
-                    # identical)
-                    same_bits = torch.equal(dense(), out)
-                    log(f"[kernels] {name} {label} {dname}: the dense "
-                        f"kernel over the gathered rows equals it bit for "
-                        f"bit: {same_bits}")
-                    if not same_bits:
-                        failures.append(f"{name} {label} {dname}: dense "
-                                        f"and paged kernels differ")
+                # one core, one split plan: the dense kernel over the
+                # gathered rows gives the paged kernel's bits (what keeps
+                # greedy streams over the arena and the pool identical)
+                same_bits = torch.equal(dense(), out)
+                log(f"[kernels] {name} {label} {dname}: the dense kernel "
+                    f"over the gathered rows equals it bit for bit: "
+                    f"{same_bits}")
+                if not same_bits:
+                    failures.append(f"{name} {label} {dname}: dense and "
+                                    f"paged kernels differ")
                 # untimed: poisoned rows are never read; lens = 0 gives 0
                 dead = torch.ones(k.shape[:2], dtype=torch.bool,
                                   device="cuda")
@@ -1228,18 +1252,19 @@ def _paged_parity(state):
         raise AssertionError("parity: paged int8 pool checks failed")
 
 
-def _opt_step_case(paged: bool) -> dict:
+def _opt_step_case(paged: bool, quant: bool = False) -> dict:
     """One OPT-1.3B bf16 decode step at the serve shape, random weights from
     seed 0: 16 slots at positions 64..511 over the dense (16, 512) arena,
     or over a 513-block pool of 16-row blocks, each table as long as its
-    position needs.  ``step`` runs it; ``decode_bytes`` is what one fp
-    decode call of it must move (q and out, the mask or the tables, the
-    valid K/V rows)."""
+    position needs; bf16 KV, or int8 KV (``quant``) with its scale planes.
+    ``step`` runs it; ``decode_bytes`` is what one decode call of it must
+    move (q and out, the mask or the tables, the valid K/V rows and, int8,
+    their two fp32 scales)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     from repro_torch.serving.generate import decode_step
-    cfg = get_config("opt-1.3b")
+    cfg = get_config("opt-1.3b").replace(kv_quant=quant)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = T.cast_params(cfg, T.init_params(cfg, gen))
     torch.cuda.empty_cache()
@@ -1270,8 +1295,51 @@ def _opt_step_case(paged: bool) -> dict:
         case.update(step=lambda: decode_step(cfg, params, tok, pool, pos,
                                              block_tables=tables),
                     decode_bytes=qo + 4 * slots * (nb + 1))
-    case["decode_bytes"] += 2 * int((pos + 1).sum()) * cfg.n_kv_heads * hd * eb
+    row_bytes = 2 * hd + 8 if quant else 2 * hd * eb
+    case["decode_bytes"] += int((pos + 1).sum()) * cfg.n_kv_heads * row_bytes
     return case
+
+
+def _step_timing(paged: bool, quant: bool, state, case=None) -> None:
+    """The OPT-1.3B decode step of :func:`_opt_step_case` (or ``case``, one
+    built already): its launches, eager (host clock, synchronized, median
+    of 20) and as a CUDA-graph replay (device time), kept in ``state``
+    under ``step[_paged][_int8]`` with its decode calls for phase
+    ``profile``."""
+    import torch
+    from repro_torch.kernels import ops
+    case = case or _opt_step_case(paged, quant)
+    step = case["step"]
+    ops.reset_launch_counts()
+    step()
+    per_step = ops.launch_counts()
+    wall = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    graph_ms = time_ms(step, inner=4, repeats=5)
+    eager_ms = statistics.median(wall)
+    what = (f"opt-1.3b {'paged ' if paged else ''}decode step, "
+            f"{'int8' if quant else 'bf16'} KV, 16 slots, "
+            + ("bs 16, 513-block pool" if paged else "S=512"))
+    log(f"[serve] {what}: eager {eager_ms:.3f} ms (host clock), CUDA-graph "
+        f"replay {graph_ms:.3f} ms (device); the device is idle "
+        f"{1 - graph_ms / eager_ms:.1%} of the eager step; launches "
+        f"{per_step}")
+    kernel = (("paged_" if paged else "") + "decode_attention"
+              + ("_quant" if quant else "") + "_fwd")
+    state[_step_key(paged, quant)] = {"eager_ms": eager_ms,
+                                      "graph_ms": graph_ms,
+                                      "decode_calls": per_step[kernel]}
+    del case, step
+    torch.cuda.empty_cache()
+
+
+def _step_key(paged: bool, quant: bool) -> str:
+    return "step" + ("_paged" if paged else "") + ("_int8" if quant else "")
 
 
 def phase_serve(state):
@@ -1290,30 +1358,11 @@ def phase_serve(state):
     cfg, params, toks, S = (case[k] for k in ("cfg", "params", "toks", "S"))
     ops.reset_launch_counts()
     prefill(cfg, params, toks[:1], T.init_cache(cfg, 1, S, device="cuda"))
-    per_admit = ops.launch_counts()
-    step = case["step"]
-    ops.reset_launch_counts()
-    step()
-    per_step = ops.launch_counts()
-    log(f"[serve] launches per admission (prefill): {per_admit}")
-    log(f"[serve] launches per decode step: {per_step}")
-    wall = []
-    for _ in range(20):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall.append((time.perf_counter() - t0) * 1e3)
-    graph_ms = time_ms(step, inner=4, repeats=5)
-    eager_ms = statistics.median(wall)
-    log(f"[serve] opt-1.3b decode step, 16 slots, S=512: eager "
-        f"{eager_ms:.3f} ms (host clock), CUDA-graph replay {graph_ms:.3f} "
-        f"ms (device); the device is idle {1 - graph_ms / eager_ms:.1%} of "
-        f"the eager step")
-    state["step"] = {"eager_ms": eager_ms, "graph_ms": graph_ms,
-                     "decode_calls": per_step["decode_attention_fwd"]}
-    del case, params, step
-    torch.cuda.empty_cache()
+    log(f"[serve] launches per admission (prefill): {ops.launch_counts()}")
+    del params
+    _step_timing(False, False, state, case)
+    del case
+    _step_timing(False, True, state)
 
     argv = ["--arch", "opt-1.3b", "--requests", "32", "--ragged",
             "--prompt-len", "256", "--max-new", "256", "--batch", "16",
@@ -1437,32 +1486,9 @@ def _paged_serve(state):
     from repro_torch.serving.engine import GenerationEngine
 
     # one decode step over a 513-block pool, 16 slots at the dense step's
-    # positions, each table as long as its position needs
-    case = _opt_step_case(paged=True)
-    step = case["step"]
-    ops.reset_launch_counts()
-    step()
-    per_step = ops.launch_counts()
-    wall = []
-    for _ in range(20):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall.append((time.perf_counter() - t0) * 1e3)
-    graph_ms = time_ms(step, inner=4, repeats=5)
-    eager_ms = statistics.median(wall)
-    dense = state.get("step", {})
-    log(f"[serve] opt-1.3b paged decode step, 16 slots, bs 16, 513-block "
-        f"pool: eager {eager_ms:.3f} ms (host clock), CUDA-graph replay "
-        f"{graph_ms:.3f} ms (device); dense step above: eager "
-        f"{dense.get('eager_ms', float('nan')):.3f}, graph "
-        f"{dense.get('graph_ms', float('nan')):.3f}; launches {per_step}")
-    state["step_paged"] = {"eager_ms": eager_ms, "graph_ms": graph_ms,
-                           "decode_calls":
-                               per_step["paged_decode_attention_fwd"]}
-    del case, step
-    torch.cuda.empty_cache()
+    # positions, each table as long as its position needs; bf16 and int8
+    _step_timing(True, False, state)
+    _step_timing(True, True, state)
 
     res = _serve_run(SERVE_ARGV + PAGED, "serve_paged", SERVE_PAGED_KERNELS,
                      state)
@@ -1587,7 +1613,7 @@ def _profile_step(step_fn, kernels=("flash_bwd", "flash_fwd", "rmsnorm")):
 
 
 def _decode_in_step(step_fn, n_calls: int, nbytes: float, what: str):
-    """The fp decode kernels' device time inside one decode step:
+    """The decode kernels' device time inside one decode step:
     ``torch.profiler`` over one replay of the step's CUDA graph (or, if the
     profiler sees no decode kernel there, over one eager step), summed over
     the decode core's split and combine kernels; per call, and against the
@@ -1609,7 +1635,7 @@ def _decode_in_step(step_fn, n_calls: int, nbytes: float, what: str):
     out = {"where": where, "decode_ms": dec_ms, "per_call_ms": per_call,
            "bound_ms": bnd_ms, "achieved_gbs": nbytes / (per_call * 1e-3)
            / 1e9, "step_kernel_ms": total}
-    log(f"[profile] {what}: torch.profiler over one {where}: {n_calls} fp "
+    log(f"[profile] {what}: torch.profiler over one {where}: {n_calls} "
         f"decode calls take {dec_ms:.4f} ms of the step's {total:.3f} ms of "
         f"kernel time, {per_call:.4f} ms a call (split "
         f"{buckets[keys[0]]:.4f}, combine {buckets[keys[1]]:.4f} ms in "
@@ -1948,7 +1974,7 @@ def phase_rlhf(state):
 
     for name, fn, kinds, wall_ms in (
             ("8 int8 decode steps", eight_steps,
-             ("decode_quant", "rmsnorm", "flash"), dec_wall),
+             ("decode::", "rmsnorm", "flash"), dec_wall),
             ("scoring + actor + critic step", score_train,
              ("flash_bwd", "flash_fwd", "rmsnorm", "decode"), None)):
         if wall_ms is None:             # unprofiled run: a fault fails
@@ -2393,16 +2419,17 @@ def phase_ssm(state):
 
 
 def phase_profile(state):
-    """``torch.profiler`` over the fp decode kernels, after every timed
+    """``torch.profiler`` over the decode kernels, after every timed
     phase: a profiler session leaves tracing hooks behind it, which slowed
     the OPT-1.3B decode step's CUDA-graph replay by ~0.4 ms on the H100.
-    (a) Each fp decode row of phase ``kernels``: the CUDA kernels one call
+    (a) Each decode row of phase ``kernels``: the CUDA kernels one call
     runs, which must be one split kernel and then the combine exactly when
     the host's plan splits the rows.  A session whose records hold no
     split kernel leaves the row unmeasured (logged), not failed.
     (b) The OPT-1.3B decode steps of phase ``serve``, dense and
-    paged: the decode kernels' device time inside one replay of the step's
-    CUDA graph, per call and against the bound of the step's own rows."""
+    paged, bf16 and int8 KV: the decode kernels' device time inside one
+    replay of the step's CUDA graph, per call and against the bound of the
+    step's own rows."""
     import torch
     failures = []
     rows = state.get("kernel_rows", {})
@@ -2424,15 +2451,19 @@ def phase_profile(state):
             failures.append(f"{name} {what}: one call ran {kernels}")
         if main and name in rows:
             rows[name]["kernels_per_call"] = len(kernels)
-    for paged, key in ((False, "step"), (True, "step_paged")):
-        if key not in state:
-            continue
-        case = _opt_step_case(paged)
-        state[key]["decode_in_step"] = _decode_in_step(
-            case["step"], state[key]["decode_calls"], case["decode_bytes"],
-            f"opt-1.3b {'paged ' if paged else ''}decode step")
-        del case
-        torch.cuda.empty_cache()
+    for paged in (False, True):
+        for quant in (False, True):
+            key = _step_key(paged, quant)
+            if key not in state:
+                continue
+            case = _opt_step_case(paged, quant)
+            state[key]["decode_in_step"] = _decode_in_step(
+                case["step"], state[key]["decode_calls"],
+                case["decode_bytes"],
+                f"opt-1.3b {'paged ' if paged else ''}decode step, "
+                f"{'int8' if quant else 'bf16'} KV")
+            del case
+            torch.cuda.empty_cache()
     if failures:
         raise AssertionError("profile checks failed:\n"
                              + "\n".join(failures))
@@ -2477,9 +2508,12 @@ def main() -> int:
     # launches: each main path's run (serve, train), counts set to 0 just
     # before it and read just after; the total and the split by path
     by_path = state.get("launches", {})
-    # the fp decode kernels' device time inside the OPT-1.3B decode steps
+    # the decode kernels' device time inside the OPT-1.3B decode steps
     in_step = {"decode_attention_fwd": state.get("step", {}),
-               "paged_decode_attention_fwd": state.get("step_paged", {})}
+               "paged_decode_attention_fwd": state.get("step_paged", {}),
+               "decode_attention_quant_fwd": state.get("step_int8", {}),
+               "paged_decode_attention_quant_fwd":
+                   state.get("step_paged_int8", {})}
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         row = dict(state.get("kernel_rows", {}).get(name, {}))

@@ -18,84 +18,19 @@
 //
 // Design: the shared decode core (decode_core.cuh: split-KV over
 // (splits, KV, B) blocks with a combine pass, coalesced 16-byte row loads
-// by lane groups, base-2 online softmax) over this row locator: a split
+// by lane groups, base-2 online softmax) over the DenseRows locator
+// (decode_rows.cuh): a split
 // first copies its rows' mask bytes into shared memory and narrows its
 // range to [first valid, last valid]; inside it a row whose mask is 0 is
 // never loaded.  Skipping masked rows is exact (the reference's -1e30
 // gives them weight 0 once a row is valid); a sequence with no valid row
 // gets the mean of V over all S rows, the reference's answer, the only
 // case that reads masked rows.
-#include "decode_core.cuh"
+#include "decode_rows.cuh"
 
 namespace {
 
-using repro::decode::kThreads;
-using repro::decode::kWarps;
-
-template <typename T>
-struct DenseRows {
-  const T* k;
-  const T* v;
-  const uint8_t* valid;
-  int64_t k_sb, k_sk, k_ss, v_sb, v_sk, v_ss, m_sb, m_ss;
-  static constexpr bool kMeanIfEmpty = true;
-
-  // one mask byte per row of a split
-  __host__ __device__ static size_t smem_bytes(int chunk, const DenseRows&) {
-    return static_cast<size_t>(chunk);
-  }
-
-  struct View {
-    const T* kb;
-    const T* vb;
-    int64_t k_ss, v_ss;
-    const uint8_t* msk;
-    int r0;
-    bool bad;
-    __device__ bool ok(int r) const { return msk[r - r0] != 0; }
-    __device__ const T* k(int r) const { return kb + r * k_ss; }
-    __device__ const T* v(int r) const { return vb + r * v_ss; }
-  };
-
-  __device__ const T* v_any(int b, int kvh, int r) const {
-    return v + b * v_sb + kvh * v_sk + r * v_ss;
-  }
-
-  // The split's mask bytes into shared memory, and [lo, hi) = its first
-  // and one past its last valid row (lo == hi when none is valid).
-  __device__ View prologue(int b, int kvh, int r0, int r1,
-                           unsigned char* smem, int* red, int* lo,
-                           int* hi) const {
-    const uint8_t* mb = valid + b * m_sb;
-    int first = INT_MAX, last = -1;
-    for (int i = threadIdx.x; i < r1 - r0; i += kThreads) {
-      const uint8_t x = mb[(r0 + i) * m_ss];
-      smem[i] = x;
-      if (x) {
-        first = min(first, i);
-        last = i;
-      }
-    }
-    first = __reduce_min_sync(0xffffffffu, first);
-    last = __reduce_max_sync(0xffffffffu, last);
-    if (threadIdx.x % 32 == 0) {
-      red[threadIdx.x / 32] = first;
-      red[kWarps + threadIdx.x / 32] = last;
-    }
-    __syncthreads();
-    first = INT_MAX;
-    last = -1;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      first = min(first, red[w]);
-      last = max(last, red[kWarps + w]);
-    }
-    *lo = last < 0 ? r0 : r0 + first;
-    *hi = last < 0 ? r0 : r0 + last + 1;
-    return View{k + b * k_sb + kvh * k_sk, v + b * v_sb + kvh * v_sk, k_ss,
-                v_ss, smem, r0, false};
-  }
-};
+using repro::decode::DenseRows;
 
 template <typename T>
 DenseRows<T> rows(const void* k, const void* v, const void* valid,

@@ -23,193 +23,84 @@
 // 8 * 32 * 512 * 136 B = 17.8 MB, ~5.3 us at 3.35 TB/s; half the bytes of
 // the bf16 arena, which is the point of int8 KV.  Mid-generation only the
 // 256 prompt rows and the tokens so far are valid, and only they count.
+// The first SIMT kernel ran B * KV blocks, one lane per key row (its D
+// bytes as uncoalesced 16-byte loads), V one row at a time per warp, and
+// loaded the mask, K and the scales of every row, masked or not.
 //
-// Design: the dense decode kernel's (csrc/decode_attention.cu), widened for
-// int8.  One block of 4 warps per (b, kv_head), so all G query heads of a
-// GQA group share every K/V row the block loads.  The warps split the S axis
-// into interleaved 32-row chunks; in a chunk a lane owns one key row, reads
-// its D int8 values as D/16 16-byte loads (four for D = 64) plus its two
-// scales, and forms its G scores against the query heads held in fp32 in
-// shared memory.  Each lane folds its row's v_scale into its probabilities;
-// they reach the lanes that own the output dimensions by warp shuffles
-// while the int8 V rows are read coalesced (32 bytes per warp load).  Each
-// warp keeps its own online-softmax state (m, l, acc) in fp32 registers and
-// the 4 partial states are merged in shared memory at the end.  Masked rows
-// get the reference's finite -1e30 (an all-masked row yields the mean of
-// the dequantized V, not NaN); rows past S in the last chunk get -inf and
-// never count.  A simple kernel: no split-KV, no tensor cores (int8 dot
-// products would need the q row quantized too, which the reference does
-// not do).
-#include "common.cuh"
+// Design: the shared decode core (decode_core.cuh: split-KV over (splits,
+// KV, B) blocks with a combine pass, coalesced 16-byte int8 row loads by
+// lane groups (8-byte at G > 2 or D = 32), each row's two scales fetched
+// once into the warp's slots of the cp.async ring, int8 -> fp32 by byte
+// permute, base-2 online softmax) over the DenseRows locator of the fp
+// kernel (decode_rows.cuh) with the scale planes added: a split copies its
+// mask bytes into shared memory and narrows its range to [first valid, last
+// valid]; a masked row, its K/V and its scales are never loaded.  A sequence
+// with no valid row gets the mean of the dequantized V over all S rows,
+// sum(v_scale * v_i8) / S: the Pallas kernel's answer under its finite
+// -1e30.  Over the same rows and split plan it gives the paged int8 kernel's
+// bits.
+#include "decode_rows.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxG = 8;  // query heads per KV head
+using repro::decode::DenseRows;
 
-struct Params {
-  const void* q;
-  const int8_t* k;
-  const int8_t* v;
+struct DenseRowsQ {
+  using Elem = int8_t;
+  static constexpr bool kScaled = true;
+  static constexpr bool kMeanIfEmpty = true;
+  DenseRows<int8_t> rows;
   const float* ks;
   const float* vs;
-  const uint8_t* valid;
-  void* o;
-  int64_t q_sb, q_sk, q_sg;
-  int64_t k_sb, k_sk, k_ss;
-  int64_t v_sb, v_sk, v_ss;
-  int64_t ks_sb, ks_sk, ks_ss;
-  int64_t vs_sb, vs_sk, vs_ss;
-  int64_t m_sb, m_ss;
-  int64_t o_sb, o_sk, o_sg;
-  int B, KV, G, S;
-  float scale;
+  int64_t ks_sb, ks_sk, ks_ss, vs_sb, vs_sk, vs_ss;
+
+  __host__ __device__ static size_t smem_bytes(int chunk,
+                                               const DenseRowsQ& p) {
+    return DenseRows<int8_t>::smem_bytes(chunk, p.rows);
+  }
+
+  struct View : DenseRows<int8_t>::View {
+    const float* ksb;
+    const float* vsb;
+    int64_t ks_ss, vs_ss;
+    __device__ const float* ks(int r) const { return ksb + r * ks_ss; }
+    __device__ const float* vs(int r) const { return vsb + r * vs_ss; }
+  };
+
+  __device__ const int8_t* v_any(int b, int kvh, int r) const {
+    return rows.v_any(b, kvh, r);
+  }
+  __device__ float vs_any(int b, int kvh, int r) const {
+    return vs[b * vs_sb + kvh * vs_sk + r * vs_ss];
+  }
+
+  __device__ View prologue(int b, int kvh, int r0, int r1,
+                           unsigned char* smem, int* red, int* lo,
+                           int* hi) const {
+    return View{rows.prologue(b, kvh, r0, r1, smem, red, lo, hi),
+                ks + b * ks_sb + kvh * ks_sk, vs + b * vs_sb + kvh * vs_sk,
+                ks_ss, vs_ss};
+  }
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    decode_quant_kernel(const Params p) {
-  static_assert(D % 32 == 0, "head_dim must be a multiple of 32");
-  constexpr int DPL = D / 32;  // output dims per lane
-  constexpr int VEC = 16;      // int8 values per 16-byte load
-  __shared__ float q_s[kMaxG][D];
-  __shared__ float m_w[kWarps][kMaxG];
-  __shared__ float l_w[kWarps][kMaxG];
-  __shared__ float acc_w[kWarps][kMaxG][D];
-
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int G = p.G;
-
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + kvh * p.q_sk;
-  for (int idx = threadIdx.x; idx < G * D; idx += kThreads)
-    q_s[idx / D][idx % D] = repro::to_float(qb[(idx / D) * p.q_sg + idx % D]);
-  __syncthreads();
-
-  const int8_t* kb = p.k + b * p.k_sb + kvh * p.k_sk;
-  const int8_t* vb = p.v + b * p.v_sb + kvh * p.v_sk;
-  const float* ksb = p.ks + b * p.ks_sb + kvh * p.ks_sk;
-  const float* vsb = p.vs + b * p.vs_sb + kvh * p.vs_sk;
-  const uint8_t* mb = p.valid + b * p.m_sb;
-
-  float m[kMaxG], l[kMaxG], acc[kMaxG][DPL];
+// Int8 -> fp32 of the decode core (VecI8<8> and VecI8<16>) against
+// static_cast<float>, 16 values a thread: out[i] and out[n + i] the
+// core's, out[2 * n + i] the cast's.
+__global__ void int8_to_float_kernel(const int8_t* x, float* out, int n) {
+  using repro::decode::VecI8;
+  const int i = 16 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (i + 16 > n) return;
+  float f8[16], f16[16];
+  VecI8<8>::cvt(*reinterpret_cast<const uint2*>(x + i),
+                *reinterpret_cast<float(*)[8]>(f8));
+  VecI8<8>::cvt(*reinterpret_cast<const uint2*>(x + i + 8),
+                *reinterpret_cast<float(*)[8]>(f8 + 8));
+  VecI8<16>::cvt(*reinterpret_cast<const uint4*>(x + i), f16);
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = REPRO_NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int u = 0; u < DPL; ++u) acc[g][u] = 0.f;
-  }
-
-  const int nchunks = (p.S + 31) / 32;
-  for (int c = warp; c < nchunks; c += kWarps) {
-    const int srow = c * 32 + lane;
-    const bool in = srow < p.S;
-    float dot[kMaxG];
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) dot[g] = 0.f;
-    float k_sc = 0.f, v_sc = 0.f;
-    if (in) {
-      const int8_t* kr = kb + static_cast<int64_t>(srow) * p.k_ss;
-#pragma unroll
-      for (int d0 = 0; d0 < D; d0 += VEC) {
-        const int4 raw = *reinterpret_cast<const int4*>(kr + d0);
-        const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          const float kv = static_cast<float>(e[j]);
-#pragma unroll
-          for (int g = 0; g < kMaxG; ++g)
-            if (g < G) dot[g] += q_s[g][d0 + j] * kv;
-        }
-      }
-      k_sc = ksb[static_cast<int64_t>(srow) * p.ks_ss];
-      v_sc = vsb[static_cast<int64_t>(srow) * p.vs_ss];
-    }
-    const bool ok = in && mb[static_cast<int64_t>(srow) * p.m_ss] != 0;
-
-    float pv[kMaxG];  // probability times the row's v_scale
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      pv[g] = 0.f;
-      if (g < G) {
-        const float sv = !in ? -INFINITY
-                             : (ok ? dot[g] * p.scale * k_sc : REPRO_NEG_INF);
-        const float m_new = fmaxf(m[g], repro::warp_max(sv));
-        const float alpha = expf(m[g] - m_new);
-        const float pr = expf(sv - m_new);
-        l[g] = l[g] * alpha + pr;  // per-lane partial; summed at the end
-#pragma unroll
-        for (int u = 0; u < DPL; ++u) acc[g][u] *= alpha;
-        m[g] = m_new;
-        pv[g] = pr * v_sc;
-      }
-    }
-
-    const int n_in = min(32, p.S - c * 32);
-    for (int jj = 0; jj < n_in; ++jj) {
-      const int8_t* vr = vb + static_cast<int64_t>(c * 32 + jj) * p.v_ss;
-      float vv[DPL];
-#pragma unroll
-      for (int u = 0; u < DPL; ++u) vv[u] = static_cast<float>(vr[u * 32 + lane]);
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          const float pj = __shfl_sync(0xffffffffu, pv[g], jj);
-#pragma unroll
-          for (int u = 0; u < DPL; ++u) acc[g][u] += pj * vv[u];
-        }
-      }
-    }
-  }
-
-  // merge the warps' partial softmax states
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g < G) {
-      const float lt = repro::warp_sum(l[g]);
-      if (lane == 0) {
-        m_w[warp][g] = m[g];
-        l_w[warp][g] = lt;
-      }
-#pragma unroll
-      for (int u = 0; u < DPL; ++u) acc_w[warp][g][u * 32 + lane] = acc[g][u];
-    }
-  }
-  __syncthreads();
-
-  T* ob = static_cast<T*>(p.o) + b * p.o_sb + kvh * p.o_sk;
-  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
-    const int g = idx / D, d = idx % D;
-    float M = REPRO_NEG_INF;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, m_w[w][g]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(m_w[w][g] - M);
-      L += l_w[w][g] * f;
-      A += acc_w[w][g][d] * f;
-    }
-    ob[g * p.o_sg + d] = repro::from_float<T>(A / fmaxf(L, 1e-20f));
-  }
-}
-
-template <typename T, int D>
-int launch(const Params& p, cudaStream_t stream) {
-  const dim3 grid(p.KV, p.B);
-  decode_quant_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_d(const Params& p, int D, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  for (int j = 0; j < 16; ++j) {
+    out[i + j] = f8[j];
+    out[n + i + j] = f16[j];
+    out[2 * n + i + j] = static_cast<float>(x[i + j]);
   }
 }
 
@@ -218,48 +109,55 @@ int dispatch_d(const Params& p, int D, cudaStream_t stream) {
 // strides (elements): q (b, kv, g), k (b, kv, s), v (b, kv, s),
 // k_scale (b, kv, s), v_scale (b, kv, s), valid (b, s), o (b, kv, g) —
 // 20 values; the D axis has unit stride.  K/V rows must start on 16-byte
-// boundaries (checked by the wrapper).  Returns a cudaError_t code.
+// boundaries (checked by the wrapper).  Rows are split into `splits`
+// ranges of `chunk` rows (a multiple of 64); with splits > 1, `scratch`
+// holds B * KV * splits partial records of record_floats(G, D) fp32 each,
+// and a combine kernel follows on the same stream.  Returns a cudaError_t
+// code.
 extern "C" int decode_attention_quant_fwd(
     const void* q, const void* k, const void* v, const void* k_scale,
-    const void* v_scale, const void* valid, void* o, const int64_t* strides,
-    int B, int KV, int G, int S, int D, float scale, int dtype,
-    void* stream) {
-  if (G < 1 || G > kMaxG) return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  p.q = q;
-  p.k = static_cast<const int8_t*>(k);
-  p.v = static_cast<const int8_t*>(v);
-  p.ks = static_cast<const float*>(k_scale);
-  p.vs = static_cast<const float*>(v_scale);
-  p.valid = static_cast<const uint8_t*>(valid);
-  p.o = o;
-  p.q_sb = strides[0];
-  p.q_sk = strides[1];
-  p.q_sg = strides[2];
-  p.k_sb = strides[3];
-  p.k_sk = strides[4];
-  p.k_ss = strides[5];
-  p.v_sb = strides[6];
-  p.v_sk = strides[7];
-  p.v_ss = strides[8];
-  p.ks_sb = strides[9];
-  p.ks_sk = strides[10];
-  p.ks_ss = strides[11];
-  p.vs_sb = strides[12];
-  p.vs_sk = strides[13];
-  p.vs_ss = strides[14];
-  p.m_sb = strides[15];
-  p.m_ss = strides[16];
-  p.o_sb = strides[17];
-  p.o_sk = strides[18];
-  p.o_sg = strides[19];
-  p.B = B;
-  p.KV = KV;
-  p.G = G;
-  p.S = S;
-  p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kF32) return dispatch_d<float>(p, D, s);
-  if (dtype == repro::kBF16) return dispatch_d<__nv_bfloat16>(p, D, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+    const void* v_scale, const void* valid, void* o, void* scratch,
+    const int64_t* strides, int B, int KV, int G, int S, int D, int splits,
+    int chunk, float scale, int dtype, void* stream) {
+  repro::decode::Common c;
+  c.q = q;
+  c.o = o;
+  c.part = static_cast<float*>(scratch);
+  c.q_sb = strides[0];
+  c.q_sk = strides[1];
+  c.q_sg = strides[2];
+  c.o_sb = strides[17];
+  c.o_sk = strides[18];
+  c.o_sg = strides[19];
+  c.KV = KV;
+  c.G = G;
+  c.splits = splits;
+  c.chunk = chunk;
+  c.n_rows = S;
+  c.scale2 = scale * 1.4426950408889634f;
+  const DenseRowsQ loc{
+      DenseRows<int8_t>{static_cast<const int8_t*>(k),
+                        static_cast<const int8_t*>(v),
+                        static_cast<const uint8_t*>(valid), strides[3],
+                        strides[4], strides[5], strides[6], strides[7],
+                        strides[8], strides[15], strides[16]},
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      strides[9], strides[10], strides[11], strides[12], strides[13],
+      strides[14]};
+  return repro::decode::launch(c, loc, loc, B, D, dtype,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// n int8 values (n a multiple of 16, x 16-byte aligned) -> out (3 * n
+// fp32): the decode core's conversion 8 and 16 values at a time, then
+// static_cast<float>.  For the card test of that conversion; returns a
+// cudaError_t code.
+extern "C" int decode_int8_to_float(const void* x, void* out, int n,
+                                    void* stream) {
+  if (n <= 0 || n % 16) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = n / 16;
+  int8_to_float_kernel<<<(threads + 127) / 128, 128, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,35 +1,48 @@
-// The decode core shared by the dense and the paged fp decode kernels
-// (decode_attention.cu, paged_decode_attention.cu): one query token per
-// sequence attends to its valid K/V rows, which a *row locator* finds.
+// The decode core shared by the dense and the paged decode kernels, fp and
+// int8 (decode_attention.cu, paged_decode_attention.cu,
+// decode_attention_quant.cu, paged_decode_attention_quant.cu): one query
+// token per sequence attends to its valid K/V rows, which a *row locator*
+// (decode_rows.cuh) finds.
 //
 // Bound on the H100: bytes.  A K/V row of one KV head is used for 2 * G
-// flops per byte (G query heads, G <= 8), against the card's ~295 flops per
-// byte, so neither tensor cores (nothing to gain below that balance) nor TMA
-// (paged rows are gathered 128-byte rows; dense rows strided by KV * D) are
-// used.  The least time is the valid rows' bytes over 3.35 TB/s, so the
-// design is about reading those bytes, and only those, at the memory rate:
+// flops per byte (G query heads, G <= 8; int8: 4 * G), against the card's
+// ~295 flops per byte, so neither tensor cores (nothing to gain below that
+// balance) nor TMA (paged rows are gathered rows; dense rows strided by
+// KV * D) are used.  The least time is the valid rows' bytes over
+// 3.35 TB/s, so the design is about reading those bytes, and only those, at
+// the memory rate:
 //
 // * Split-KV.  Grid (splits, KV, B): block (s, h, b) takes rows
 //   [s * chunk, (s + 1) * chunk) of one (b, kv head), chunk a multiple of 64
 //   (and of the block size, paged).  The wrapper picks splits on the host so
 //   that small batches still fill the card; with splits == 1 the block writes
 //   the output, else an fp32 partial (m, l, acc) that combine_kernel merges.
-// * Coalesced 16-byte loads of K and V alike.  A row is read by
-//   LPR = D * sizeof(T) / 16 lanes of a warp, each holding VEC = 16 /
-//   sizeof(T) elements of D (bf16 at D = 64: 8 lanes, one warp instruction
-//   reads 4 whole 128-byte rows).  Each lane group takes kRB = 4 rows per
-//   batch, K and V, and the batches go through a kStages = 3 ring of
-//   per-thread cp.async slots in shared memory: two batches (16 KB a warp
-//   at D = 64 bf16) are in flight while a third is consumed, without
-//   holding registers, so a few resident blocks per SM cover the ~25 KB
-//   that Little's law asks of 3.35 TB/s at ~1 us latency.  A register
-//   double buffer in the ring's place was measured once on the H100: it
-//   held over twice the registers and was no faster at any timed shape.
+// * Coalesced loads of K and V alike.  A row is read by LPR = D / VEC lanes of
+//   a warp, each holding VEC elements of D: 16 bytes of fp32 or bf16 (VEC = 4
+//   or 8; bf16 at D = 64: 8 lanes, one warp instruction reads 4 whole 128-byte
+//   rows), or of int8 (VEC = 16: at D = 64 one warp instruction reads 8 whole
+//   64-byte rows) where the GM <= 2 heads' q and acc registers allow it, else
+//   8 bytes (VEC = 8, the lane geometry and registers of bf16).  Each lane
+//   group takes kRB = 4 rows per batch, K and V, and the batches go through a
+//   kStages = 3 ring of per-thread cp.async slots in shared memory: two
+//   batches (16 KB a warp at D = 64 bf16) are in flight while a third is
+//   consumed, without holding registers, so a few resident blocks per SM cover
+//   the ~25 KB that Little's law asks of 3.35 TB/s at ~1 us latency.  A
+//   register double buffer in the ring's place was measured once on the H100:
+//   it held over twice the registers and was no faster at any timed shape.
 // * Scores: the lane's D-slice of q for the G heads is held in registers,
 //   pre-scaled by scale * log2(e); the partial dot products are reduced over
 //   the lane group with __shfl_xor_sync; the online softmax runs in base 2
 //   (ex2.approx).  Each lane group keeps its own (m, l, acc) in fp32; the
 //   groups of a warp merge by shuffles, the 4 warps in shared memory.
+// * Int8 rows (a locator with kScaled) carry two fp32 scales each, fetched
+//   under the same valid-row rule by 4-byte cp.async into the warp's scale
+//   slots of the ring stage, one lane a row of the warp's batch.  The
+//   reference's algebra, never an fp copy of K/V: the reduced score is
+//   multiplied by k_scale once per row, the probability by v_scale before it
+//   meets the int8 V row, and l sums the probability alone.  Int8 becomes
+//   fp32 by a byte permute into the mantissa of 2^23 and one subtraction
+//   (VecI8), not by I2F.
 // * Only rows that count are read.  The locator says which rows of the
 //   split are valid; an invalid row is never loaded (its slots are
 //   zero-filled without a read, its probability is 0).  The reference
@@ -41,9 +54,9 @@
 // * an empty split (no valid row) contributes nothing: its partial is
 //   marked empty and never enters a max or an exp;
 // * a sequence with no valid row at all gets the locator's answer: the mean
-//   of V over all rows (dense, the reference's answer under its finite
-//   mask; the only case that reads masked rows) or 0 (paged lens = 0, the
-//   Pallas kernel's answer);
+//   of V (int8: of the dequantized V) over all rows (dense, the reference's
+//   answer under its finite mask; the only case that reads masked rows) or
+//   0 (paged lens = 0, the Pallas kernel's answer);
 // * a locator that finds a bad row reference (paged: a table entry outside
 //   the pool) marks the split bad, and the whole output of that (b, kv
 //   head) is NaN, carried as an explicit state (fmaxf would drop a NaN);
@@ -56,6 +69,7 @@
 #pragma once
 
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -80,21 +94,103 @@ __host__ __device__ inline int record_floats(int G, int D) {
   return (G * D + 2 * G + 1 + 3) / 4 * 4;
 }
 
+// What a lane loads of one row (Raw, VEC = N elements), as floats.
+template <typename KT>
+struct Vec;
+template <>
+struct Vec<float> {
+  using Raw = uint4;
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void cvt(const uint4& r, float (&f)[4]) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  using Raw = uint4;
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void cvt(const uint4& r, float (&f)[8]) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // bf16 -> fp32 is exact: the high half
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+// N = 8 or 16 int8 values (8 or 16 bytes) as floats, exact, without I2F
+// (16 a clock per SM: at D = 64 a second bound as long as the bytes').
+// Byte b with its sign bit flipped is b + 128 in 0..255; permuted into the
+// low mantissa byte of 2^23 (0x4B000000) it reads as 2^23 + b + 128, and
+// one subtraction of 2^23 + 128 leaves b.  One LOP3 per 4 values, one PRMT
+// and one FADD each.
+template <int N_>
+struct VecI8 {
+  using Raw = typename std::conditional<N_ == 16, uint4, uint2>::type;
+  static constexpr int N = N_;
+  __device__ __forceinline__ static void cvt(const Raw& r, float (&f)[N]) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(&r);
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const uint32_t x = w[i] ^ 0x80808080u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        f[4 * i + j] = __fsub_rn(
+            __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7650u | j)),
+            8388736.f);
+    }
+  }
+};
+
+// A lane's share of a row: 16 bytes of fp32 or bf16; 16 int8 values where
+// the G heads' q and acc registers allow it (GM <= 2, D >= 64: 4 lanes a
+// row at D = 64, so a warp instruction reads 8 rows), else 8 (the lane
+// geometry and registers of bf16)
+template <typename KT, int D, int GM>
+struct LaneVec {
+  using type = Vec<KT>;
+};
+template <int D, int GM>
+struct LaneVec<int8_t, D, GM> {
+  using type = VecI8<(GM <= 2 && D >= 64) ? 16 : 8>;
+};
+
+// one lane's Raw of a row, global -> its ring slot (zero-filled, and
+// nothing read, when `ok` is false)
+template <typename Raw>
+__device__ __forceinline__ void cp_async_raw(uint32_t dst, const void* src,
+                                             bool ok) {
+  if constexpr (sizeof(Raw) == 16) mma::cp_async_16(dst, src, ok);
+  else mma::cp_async_8(dst, src, ok);
+}
+
 // where the cp.async ring starts in dynamic shared memory, after the
-// locator's data, and the bytes of both
+// locator's data, and the bytes of both: the K/V slots, then (kScaled)
+// each warp's scale slots, 2 x 32 floats a stage
 template <class Loc>
 __host__ __device__ inline size_t ring_offset(int chunk, const Loc& loc) {
   return (Loc::smem_bytes(chunk, loc) + 15) / 16 * 16;
 }
-template <class Loc>
+template <int D, int GM, class Loc>
 inline size_t dyn_smem_bytes(int chunk, const Loc& loc) {
+  using Raw = typename LaneVec<typename Loc::Elem, D, GM>::type::Raw;
   return ring_offset(chunk, loc) +
-         static_cast<size_t>(kStages) * 2 * kRB * kThreads * 16;
+         static_cast<size_t>(kStages) * 2 * kRB * kThreads * sizeof(Raw) +
+         (Loc::kScaled ? static_cast<size_t>(kStages) * kWarps * 2 * 32 *
+                             sizeof(float)
+                       : 0);
 }
 
-// A row locator (DenseRows, PagedRows) gives the kernels:
+// A row locator (decode_rows.cuh: DenseRows, PagedRows; their int8
+// extensions in the quant kernels' sources) gives the kernels:
+//   Elem                the K/V element type (float, bf16, int8)
+//   kScaled             int8 rows with two fp32 scales each
 //   kMeanIfEmpty        true: a sequence with no valid row gets the mean
-//                       of V, through v_any(b, kvh, r); false: zeros
+//                       of V, through v_any(b, kvh, r) (and vs_any, the
+//                       row's v_scale, when kScaled); false: zeros
 //   smem_bytes(chunk)   the dynamic shared memory its prologue fills
 //   prologue(...)       run by the whole block: fills that memory, sets
 //                       [lo, hi), a range of the split's rows that holds
@@ -102,7 +198,8 @@ inline size_t dyn_smem_bytes(int chunk, const Loc& loc) {
 //                       View, uniform across the block after a barrier
 //   View::bad           a row reference is invalid: the output is NaN
 //   View::ok(r)         row r in [lo, hi) is valid
-//   View::k(r), v(r)    its K and V rows, 16-byte aligned
+//   View::k(r), v(r)    its K and V rows, aligned to a lane's load
+//   View::ks(r), vs(r)  (kScaled) its k_scale and v_scale
 //
 // What both locators share: q, out, the scratch and the launch geometry.
 struct Common {
@@ -115,45 +212,25 @@ struct Common {
   float scale2;  // softmax scale * log2(e)
 };
 
-// 16 bytes of T as floats
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void cvt(const uint4& r, float (&f)[4]) {
-    f[0] = __uint_as_float(r.x);
-    f[1] = __uint_as_float(r.y);
-    f[2] = __uint_as_float(r.z);
-    f[3] = __uint_as_float(r.w);
-  }
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void cvt(const uint4& r, float (&f)[8]) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // bf16 -> fp32 is exact: the high half
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
-// Mean of V over rows [0, n) of one (b, kv head), written to all G heads:
-// the reference's answer for a sequence whose rows are all masked.  Every
-// thread of the block calls it; `red` holds kThreads floats.
+// Mean of V (int8: of v_scale * V) over rows [0, n) of one (b, kv head),
+// written to all G heads: the reference's answer for a sequence whose rows
+// are all masked.  Every thread of the block calls it; `red` holds
+// kThreads floats.
 template <typename T, int D, class Loc>
 __device__ void mean_v(const Loc& loc, int b, int kvh, int n, int G, T* ob,
                        int64_t o_sg, float* red) {
   constexpr int P = kThreads / D;  // rows summed in parallel
   const int d = threadIdx.x % D, p = threadIdx.x / D;
   float s = 0.f;
-  for (int r = p; r < n; r += P)
-    s = __fadd_rn(s, to_float(loc.v_any(b, kvh, r)[d]));
+  for (int r = p; r < n; r += P) {
+    if constexpr (Loc::kScaled)
+      s = __fadd_rn(s, __fmul_rn(static_cast<float>(loc.v_any(b, kvh, r)[d]),
+                                 loc.vs_any(b, kvh, r)));
+    else
+      s = __fadd_rn(s, to_float(loc.v_any(b, kvh, r)[d]));
+  }
   __syncthreads();
   red[threadIdx.x] = s;
   __syncthreads();
@@ -166,18 +243,22 @@ __device__ void mean_v(const Loc& loc, int b, int kvh, int n, int G, T* ob,
   }
 }
 
-// One block: one split of one (b, kv head).  GM is G rounded up to a power
-// of two (registers for GM heads; the loops stop at the runtime G).
+// One block: one split of one (b, kv head).  T is q's and the output's
+// type, Loc::Elem the rows'.  GM is G rounded up to a power of two
+// (registers for GM heads; the loops stop at the runtime G).
 template <typename T, int D, int GM, class Loc>
 __global__ void __launch_bounds__(kThreads)
     split_kernel(const Common c, const Loc loc) {
-  using V = Vec<T>;
+  using V = typename LaneVec<typename Loc::Elem, D, GM>::type;
+  using Raw = typename V::Raw;
+  constexpr bool kScaled = Loc::kScaled;
   constexpr int VEC = V::N;        // elements per lane per row
   constexpr int LPR = D / VEC;     // lanes per row
   constexpr int RPW = 32 / LPR;    // rows per warp instruction
   constexpr int RB = kRB;
   constexpr int BR = RPW * RB;     // rows per warp batch
   static_assert(LPR >= 1 && LPR <= 32 && kTile % BR == 0, "row geometry");
+  static_assert(!kScaled || BR <= 32, "a warp's scale slots: a row a lane");
 
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ float m_w[kWarps][GM], l_w[kWarps][GM];
@@ -248,7 +329,9 @@ __global__ void __launch_bounds__(kThreads)
   const int nbatch = (hi - base + BR - 1) / BR;
   auto row_of = [&](int n, int i) { return base + n * BR + i * RPW + rg; };
 
-  auto consume = [&](int n, const uint4 (&kr)[RB], const uint4 (&vr)[RB]) {
+  // ksc / vsc: the rows' scales (kScaled), else unused
+  auto consume = [&](int n, const Raw (&kr)[RB], const Raw (&vr)[RB],
+                     const float (&ksc)[RB], const float (&vsc)[RB]) {
     float s[RB][GM];
     bool ok[RB];
 #pragma unroll
@@ -272,6 +355,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int g = 0; g < GM; ++g)
           s[i][g] += __shfl_xor_sync(0xffffffffu, s[i][g], off);
+    if constexpr (kScaled) {  // k_scale on the reduced score, once a row
+#pragma unroll
+      for (int i = 0; i < RB; ++i)
+#pragma unroll
+        for (int g = 0; g < GM; ++g) s[i][g] = __fmul_rn(s[i][g], ksc[i]);
+    }
     float vf[RB][VEC];
 #pragma unroll
     for (int i = 0; i < RB; ++i) V::cvt(vr[i], vf[i]);
@@ -292,21 +381,32 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < RB; ++i) {
         const float p = ok[i] ? mma::exp2_approx(s[i][g] - mn) : 0.f;
         l[g] = __fadd_rn(l[g], p);
+        float pv = p;  // v_scale on the probability, not in l
+        if constexpr (kScaled) pv = __fmul_rn(p, vsc[i]);
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) acc[g][j] = fmaf(p, vf[i][j], acc[g][j]);
+        for (int j = 0; j < VEC; ++j)
+          acc[g][j] = fmaf(pv, vf[i][j], acc[g][j]);
       }
       m[g] = mn;
     }
   };
 
   // a kStages-deep ring of per-thread cp.async slots after the locator's
-  // shared data: [stage][2 * RB][kThreads] x 16 bytes, so a warp's
-  // 16-byte accesses hit consecutive addresses; each thread reads back
-  // only its own slots, so no barrier is needed.  An invalid row is
-  // zero-filled without a read (source size 0).
-  uint4* ring = reinterpret_cast<uint4*>(dyn + ring_offset(c.chunk, loc));
+  // shared data: [stage][2 * RB][kThreads] x sizeof(Raw), so a warp's
+  // accesses hit consecutive addresses; each thread reads back only its
+  // own slots, so no barrier is needed.  Then (kScaled) each warp's scale
+  // slots, [stage][warp][k_scale, v_scale][32] floats: lane j fetches both
+  // scales of the batch's row j (one cp.async each for the batch's BR
+  // rows, not one per lane and row), and every lane reads its rows' after
+  // a __syncwarp.  An invalid row is zero-filled without a read (source
+  // size 0).
+  Raw* ring = reinterpret_cast<Raw*>(dyn + ring_offset(c.chunk, loc));
+  float* sring = reinterpret_cast<float*>(ring + kStages * 2 * RB * kThreads);
   auto slot = [&](int st, int i) {
     return ring + (st * 2 * RB + i) * kThreads + threadIdx.x;
+  };
+  auto sslot = [&](int st, int which, int j) {
+    return sring + ((st * kWarps + warp) * 2 + which) * 32 + j;
   };
   auto issue = [&](int n, int st) {
     if (n < nbatch) {
@@ -314,10 +414,20 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < RB; ++i) {
         const int r = row_of(n, i);
         const bool ok = r < hi && view.ok(r);
-        mma::cp_async_16(mma::smem_addr(slot(st, i)),
-                         ok ? view.k(r) + sl * VEC : view.k(lo), ok);
-        mma::cp_async_16(mma::smem_addr(slot(st, RB + i)),
-                         ok ? view.v(r) + sl * VEC : view.v(lo), ok);
+        cp_async_raw<Raw>(mma::smem_addr(slot(st, i)),
+                          ok ? view.k(r) + sl * VEC : view.k(lo), ok);
+        cp_async_raw<Raw>(mma::smem_addr(slot(st, RB + i)),
+                          ok ? view.v(r) + sl * VEC : view.v(lo), ok);
+      }
+      if constexpr (kScaled) {
+        if (lane < BR) {
+          const int r = base + n * BR + lane;
+          const bool ok = r < hi && view.ok(r);
+          mma::cp_async_4(mma::smem_addr(sslot(st, 0, lane)),
+                          ok ? view.ks(r) : view.ks(lo), ok);
+          mma::cp_async_4(mma::smem_addr(sslot(st, 1, lane)),
+                          ok ? view.vs(r) : view.vs(lo), ok);
+        }
       }
     }
     mma::cp_async_commit();  // an empty group past the end keeps counts
@@ -327,13 +437,20 @@ __global__ void __launch_bounds__(kThreads)
   for (int n = warp, st = 0; n < nbatch; n += kWarps) {
     issue(n + (kStages - 1) * kWarps, (st + kStages - 1) % kStages);
     mma::cp_async_wait<kStages - 1>();
-    uint4 kr[RB], vr[RB];
+    Raw kr[RB], vr[RB];
+    float ksc[RB], vsc[RB];
+    if constexpr (kScaled) __syncwarp();  // the other lanes' scale copies
 #pragma unroll
     for (int i = 0; i < RB; ++i) {
       kr[i] = *slot(st, i);
       vr[i] = *slot(st, RB + i);
+      if constexpr (kScaled) {
+        ksc[i] = *sslot(st, 0, i * RPW + rg);
+        vsc[i] = *sslot(st, 1, i * RPW + rg);
+      }
     }
-    consume(n, kr, vr);
+    if constexpr (kScaled) __syncwarp();  // read before the next issue
+    consume(n, kr, vr, ksc, vsc);
     st = st + 1 == kStages ? 0 : st + 1;
   }
   mma::cp_async_wait<0>();
@@ -477,7 +594,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int D, int GM, class Loc>
 int launch_gm(const Common& c, const Loc& loc, int B, cudaStream_t stream) {
-  const size_t smem = dyn_smem_bytes(c.chunk, loc);
+  const size_t smem = dyn_smem_bytes<D, GM>(c.chunk, loc);
   static bool attr = false;  // above 48 KB only after opting in
   if (!attr) {
     cudaFuncSetAttribute(split_kernel<T, D, GM, Loc>,

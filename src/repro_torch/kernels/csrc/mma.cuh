@@ -79,6 +79,15 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                "l"(src), "r"(n));
 }
 
+// 8 bytes global -> shared, zero-filled when `valid` is false; both
+// addresses 8-byte aligned
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src,
+                                           bool valid) {
+  const int n = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n));
+}
+
 // 4 bytes global -> shared, zero-filled when `valid` is false
 __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
                                            bool valid) {

@@ -25,7 +25,8 @@
 //
 // Design: the shared decode core (decode_core.cuh: split-KV over
 // (splits, KV, B) blocks with a combine pass, coalesced 16-byte row loads
-// by lane groups, base-2 online softmax) over this row locator: a split
+// by lane groups, base-2 online softmax) over the PagedRows locator
+// (decode_rows.cuh): a split
 // (its rows a multiple of 64 and of bs) copies only its slice of the table,
 // the entries that hold valid rows, into shared memory, and finds a row as
 // (entry, offset) by shift and mask for a power-of-two bs (a division
@@ -35,93 +36,22 @@
 // gives the mean of V; ROADMAP R8).  A table entry outside [0, nblocks) in
 // any split is never dereferenced: the sequence's whole output is NaN (the
 // engine checks its host table before upload).
-#include "decode_core.cuh"
+#include "decode_rows.cuh"
 
 namespace {
 
-using repro::decode::kThreads;
-
-template <typename T>
-struct PagedRows {
-  const T* k;
-  const T* v;
-  const int32_t* tables;
-  const int32_t* lens;
-  int64_t k_sn, k_so, k_sk, v_sn, v_so, v_sk;
-  int nb, bs, lbs, nblocks;  // lbs = log2(bs), or -1 if bs is no power of 2
-  static constexpr bool kMeanIfEmpty = false;
-
-  // the split's table entries
-  __host__ __device__ static size_t smem_bytes(int chunk, const PagedRows& p) {
-    return static_cast<size_t>(chunk / p.bs) * sizeof(int);
-  }
-
-  struct View {
-    const T* kb;
-    const T* vb;
-    int64_t k_sn, k_so, v_sn, v_so;
-    const int* tbl;  // the split's entries, from entry e0
-    int e0, bs, lbs;
-    bool bad;
-    __device__ bool ok(int) const { return true; }  // every row < hi is valid
-    __device__ void locate(int r, int* blk, int* off) const {
-      const int e = lbs >= 0 ? r >> lbs : r / bs;
-      *off = lbs >= 0 ? r & (bs - 1) : r - e * bs;
-      *blk = tbl[e - e0];
-    }
-    __device__ const T* k(int r) const {
-      int blk, off;
-      locate(r, &blk, &off);
-      return kb + blk * k_sn + off * k_so;
-    }
-    __device__ const T* v(int r) const {
-      int blk, off;
-      locate(r, &blk, &off);
-      return vb + blk * v_sn + off * v_so;
-    }
-  };
-
-  // [lo, hi) = the split's rows below lens; its table entries that hold
-  // them into shared memory, each checked against the pool.
-  __device__ View prologue(int b, int kvh, int r0, int r1,
-                           unsigned char* smem, int*, int* lo,
-                           int* hi) const {
-    const int n_valid = max(0, min(lens[b], nb * bs));
-    *lo = r0;
-    *hi = max(r0, min(r1, n_valid));
-    const int e0 = r0 / bs, e1 = (*hi + bs - 1) / bs;
-    int* tbl = reinterpret_cast<int*>(smem);
-    const int32_t* tb = tables + static_cast<int64_t>(b) * nb;
-    int bad = 0;
-    for (int e = e0 + static_cast<int>(threadIdx.x); e < e1; e += kThreads) {
-      int x = tb[e];
-      if (x < 0 || x >= nblocks) {
-        bad = 1;
-        x = 0;
-      }
-      tbl[e - e0] = x;
-    }
-    bad = __syncthreads_or(bad);  // also the barrier for the table
-    return View{k + kvh * k_sk, v + kvh * v_sk, k_sn, k_so, v_sn, v_so, tbl,
-                e0, bs, lbs, bad != 0};
-  }
-};
+using repro::decode::PagedRows;
 
 template <typename T>
 PagedRows<T> rows(const void* k, const void* v, const void* tables,
                   const void* lens, const int64_t* s, int nb, int bs,
                   int nblocks) {
-  int lbs = -1;
-  if ((bs & (bs - 1)) == 0) {
-    lbs = 0;
-    while ((1 << lbs) < bs) ++lbs;
-  }
   return PagedRows<T>{static_cast<const T*>(k),
                       static_cast<const T*>(v),
                       static_cast<const int32_t*>(tables),
                       static_cast<const int32_t*>(lens),
                       s[3], s[4], s[5], s[6], s[7], s[8],
-                      nb, bs, lbs, nblocks};
+                      nb, bs, repro::decode::log2_or_neg(bs), nblocks};
 }
 
 }  // namespace

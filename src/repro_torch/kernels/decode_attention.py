@@ -7,9 +7,9 @@ CUDA kernel beside its plain version in :mod:`repro_torch.kernels.ref`:
   replaces ``decode_attention_quant_fwd`` of the same file: int8 K/V with
   fp32 per-row scales, dequantized on the score and probability tiles.
 
-The fp kernel here and ``paged_attention.paged_decode_attention_fwd`` run
-one decode core (``csrc/decode_core.cuh``): split-KV over ``(splits, KV,
-B)`` blocks, then a combine kernel when ``splits > 1``, with the split
+Both kernels here and both of :mod:`repro_torch.kernels.paged_attention`
+run one decode core (``csrc/decode_core.cuh``): split-KV over ``(splits,
+KV, B)`` blocks, then a combine kernel when ``splits > 1``, with the split
 ranges chosen on the host by :func:`split_plan`.  The source notes say what
 bounds each kernel on the H100 and how its design answers that.  Layout
 contract::
@@ -43,7 +43,7 @@ MAX_CHUNK = 16384      # dense rows per split: their mask bytes sit in
 
 def split_plan(n_rows: int, heads: int, *, align: int = TILE,
                sms: int = 132, max_chunk: int | None = None):
-    """``(splits, chunk)`` of the fp decode kernels (``csrc/decode_core.cuh``),
+    """``(splits, chunk)`` of the decode kernels (``csrc/decode_core.cuh``),
     chosen on the host from shapes alone (no device read, so a call can be
     captured in a CUDA graph).  ``heads = B * KV`` blocks per split; each
     split ``chunk`` rows, a multiple of ``align``; split ``s`` covers rows
@@ -175,8 +175,8 @@ decode_attention_fwd.launches = 0    # calls that ran the kernels, since
 def _fn_quant():
     f = build.load("decode_attention_quant").decode_attention_quant_fwd
     if f.argtypes is None:
-        f.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 5 + [
+        f.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         f.restype = ctypes.c_int
     return f
@@ -198,23 +198,28 @@ def decode_attention_quant_fwd(q, k_cache, v_cache, k_scale, v_scale, valid,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_quant_fwd: no kernel for "
                          f"{q.device}")
-    B, KV, G, D = q.shape
-    S = k_cache.shape[2]
     if q.numel() == 0:
         return out
+    B, KV, G, D = q.shape
+    S = k_cache.shape[2]
+    splits, chunk = split_plan(S, B * KV, sms=sm_count(q.device.index),
+                               max_chunk=MAX_CHUNK)
+    part = scratch(B, KV, G, D, splits, q.device)
     strides = (ctypes.c_int64 * 20)(
         *q.stride()[:3], *k_cache.stride()[:3], *v_cache.stride()[:3],
         *k_scale.stride(), *v_scale.stride(), *valid.stride(),
         *out.stride()[:3])
     code = _fn_quant()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                        k_scale.data_ptr(), v_scale.data_ptr(),
-                       valid.data_ptr(), out.data_ptr(), strides, B, KV, G,
-                       S, D, 1.0 / math.sqrt(D), build.dtype_code(q),
-                       build.stream_handle(q))
+                       valid.data_ptr(), out.data_ptr(),
+                       None if part is None else part.data_ptr(), strides, B,
+                       KV, G, S, D, splits, chunk, 1.0 / math.sqrt(D),
+                       build.dtype_code(q), build.stream_handle(q))
     build.check(build.load("decode_attention_quant"), code,
                 "decode_attention_quant_fwd")
     decode_attention_quant_fwd.launches += 1
     return out
 
 
-decode_attention_quant_fwd.launches = 0   # kernel launches since the reset
+decode_attention_quant_fwd.launches = 0   # calls that ran the kernels, since
+                                          # the reset (1 or 2 CUDA kernels)

@@ -8,12 +8,12 @@ each a CUDA kernel beside its plain version in :mod:`repro_torch.kernels.ref`:
   ``paged_decode_attention_quant_fwd`` of the same file: int8 pools with
   fp32 per-row scale planes reached through the same table lookup.
 
-The fp kernel runs the decode core of the dense one
+Both kernels run the decode core of the dense ones
 (``csrc/decode_core.cuh``, see :mod:`repro_torch.kernels.decode_attention`)
-with its split ranges from :func:`paged_split_plan`; over the same rows and
-split plan the two give the same bits.  The source notes say what bounds
-each kernel on the H100 and how its design answers that.  Layout
-contract::
+with their split ranges from :func:`paged_split_plan`; over the same rows
+and split plan each gives the bits of its dense counterpart.  The source
+notes say what bounds each kernel on the H100 and how its design answers
+that.  Layout contract::
 
     q: (B, KV, G, D)   k_pool, v_pool: (nblocks, bs, KV, D)
     block_tables: (B, nb) int32   lens: (B,) int32
@@ -42,7 +42,8 @@ from repro_torch.kernels.decode_attention import (HEAD_DIMS, MAX_GROUP, TILE,
                                                   scratch, sm_count,
                                                   split_plan)
 
-MAX_BLOCKS = 2048      # table entries a sequence may use (csrc kMaxBlocks)
+MAX_BLOCKS = 2048      # table entries a sequence may use (a split's
+                       # entries sit in shared memory)
 
 
 def check_tables(block_tables, nblocks: int) -> None:
@@ -111,11 +112,11 @@ def _check(what, q, k_pool, v_pool, block_tables, lens, out, scales=()):
         check_tables(block_tables, nblocks)
 
 
-def _fn(name: str, n_ptrs: int, n_ints: int = 7):
+def _fn(name: str, n_ptrs: int):
     f = getattr(build.load(name), name + "_fwd")
     if f.argtypes is None:
         f.argtypes = [ctypes.c_void_p] * n_ptrs + [
-            ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * n_ints + [
+            ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         f.restype = ctypes.c_int
     return f
@@ -154,7 +155,7 @@ def paged_decode_attention_fwd(q, k_pool, v_pool, block_tables, lens, *,
         *q.stride()[:3], *k_pool.stride()[:3], *v_pool.stride()[:3],
         *out.stride()[:3])
     name = "paged_decode_attention"
-    code = _fn(name, 7, 9)(
+    code = _fn(name, 7)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(), strides, B, KV, G,
@@ -185,23 +186,29 @@ def paged_decode_attention_quant_fwd(q, k_pool, v_pool, k_scale, v_scale,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention_quant_fwd: no kernel for "
                          f"{q.device}")
-    B, KV, G, D = q.shape
-    nblocks, bs = k_pool.shape[:2]
     if q.numel() == 0:
         return out
+    B, KV, G, D = q.shape
+    nblocks, bs = k_pool.shape[:2]
+    splits, chunk = paged_split_plan(block_tables.shape[1], bs, B * KV,
+                                     sm_count(q.device.index))
+    part = scratch(B, KV, G, D, splits, q.device)
     strides = (ctypes.c_int64 * 18)(
         *q.stride()[:3], *k_pool.stride()[:3], *v_pool.stride()[:3],
         *k_scale.stride(), *v_scale.stride(), *out.stride()[:3])
     name = "paged_decode_attention_quant"
-    code = _fn(name, 8)(
+    code = _fn(name, 9)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), strides, B, KV, G,
-        block_tables.shape[1], bs, nblocks, D, 1.0 / math.sqrt(D),
-        build.dtype_code(q), build.stream_handle(q))
+        lens.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), strides, B, KV, G,
+        block_tables.shape[1], bs, nblocks, D, splits, chunk,
+        1.0 / math.sqrt(D), build.dtype_code(q), build.stream_handle(q))
     build.check(build.load(name), code, "paged_decode_attention_quant_fwd")
     paged_decode_attention_quant_fwd.launches += 1
     return out
 
 
-paged_decode_attention_quant_fwd.launches = 0   # launches since the reset
+paged_decode_attention_quant_fwd.launches = 0   # calls that ran the kernels,
+                                                # since the reset (1 or 2
+                                                # CUDA kernels)

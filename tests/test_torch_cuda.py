@@ -201,13 +201,15 @@ def test_paged_kernels_walk_the_table(cuda, KV, G, D, bs, nb, kind):
     assert torch.equal(out[0], got[0]) and torch.equal(out[2], got[2])
 
 
-# split-KV edges of the fp decode kernels: rows around the 64-row split
+# split-KV edges of the decode kernels: rows around the 64-row split
 # granularity and a long cache, at B * KV = 2 (the most splits)
 SPLIT_ROWS = [1, 63, 64, 65, 511, 513, 2048]
 # (nb, bs) with nb * bs in SPLIT_ROWS: odd block sizes take the kernel's
 # division path, powers of two its shift path
 SPLIT_TABLES = [(1, 1), (21, 3), (4, 16), (13, 5), (73, 7), (27, 19),
                 (128, 16)]
+# the K/V rows: q's dtype, or int8 with fp32 per-row scales
+KINDS = ["fp", "int8"]
 
 
 def _dense_plan(S, heads):
@@ -222,20 +224,61 @@ def _paged_plan(nb, bs, heads):
     return paged_split_plan(nb, bs, heads, da.sm_count(0))
 
 
+def _kv(gen, shape, dtype, kind):
+    """K and V rows of ``shape`` (D last): in ``dtype`` with no scales
+    (fp), or int8 with their fp32 scales (k_scale, v_scale) of
+    ``shape[:-1]`` from the model's quantizer (int8)."""
+    from repro_torch.models.modules import _kv_quant
+    k, v = _randn(gen, shape, dtype), _randn(gen, shape, dtype)
+    if kind == "fp":
+        return k, v, ()
+    (k, ks), (v, vs) = _kv_quant(k), _kv_quant(v)
+    return k, v, (ks, vs)
+
+
+def _dense(kind):
+    """The dense wrapper of ``kind`` and its plain version, both called as
+    (q, k, v, scales, valid) over (B, KV, S, D) views."""
+    if kind == "fp":
+        return (lambda q, k, v, sc, m: decode_attention_fwd(q, k, v, m),
+                lambda q, k, v, sc, m: ref.decode_attention_ref(q, k, v, m),
+                decode_attention_fwd)
+    return (lambda q, k, v, sc, m: decode_attention_quant_fwd(q, k, v, *sc, m),
+            lambda q, k, v, sc, m: ref.decode_attention_quant_ref(
+                q, k, v, *sc, m), decode_attention_quant_fwd)
+
+
+def _paged(kind):
+    """The paged wrapper of ``kind`` and its plain version, both called as
+    (q, k_pool, v_pool, scales, tables, lens)."""
+    if kind == "fp":
+        return (lambda q, k, v, sc, t, n: paged_decode_attention_fwd(
+                    q, k, v, t, n),
+                lambda q, k, v, sc, t, n: ref.paged_decode_attention_ref(
+                    q, k, v, t, n), paged_decode_attention_fwd)
+    return (lambda q, k, v, sc, t, n: paged_decode_attention_quant_fwd(
+                q, k, v, *sc, t, n),
+            lambda q, k, v, sc, t, n: ref.paged_decode_attention_quant_ref(
+                q, k, v, *sc, t, n), paged_decode_attention_quant_fwd)
+
+
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("G", [1, 3, 8])
 @pytest.mark.parametrize("S", SPLIT_ROWS)
-def test_decode_kernel_split_edges(cuda, S, G, D, dtype):
+def test_decode_kernel_split_edges(cuda, S, G, D, dtype, kind):
     """The split-KV edges of :func:`test_decode_kernel_reads_arena_in_place`
-    (the in-place arena through ``ops.decode_attention``'s ``out=`` view):
-    a mask with holes whose second split is all masked, prefixes ending one
-    row inside and one row past a split boundary, a fully masked row (the
-    mean of V over all S rows).  fp32 1e-4, bf16 2e-2; one count a call."""
+    (the in-place (B, S, KV, D) arena, and its (B, S, KV) scale planes for
+    int8, through ``ops``): a mask with holes whose second split is all
+    masked, prefixes ending one row inside and one row past a split
+    boundary, a fully masked row (the mean of V over all S rows, int8: of
+    the dequantized V).  fp32 1e-4, bf16 2e-2 (int8: of max |plain|); one
+    count a call."""
     B, KV = 2, 1
     q = _randn(cuda, (B, KV * G, D), dtype)
-    k, v = _randn(cuda, (B, S, KV, D), dtype), _randn(cuda, (B, S, KV, D),
-                                                        dtype)
+    k, v, sc = _kv(cuda, (B, S, KV, D), dtype, kind)
+    _, plain, fn = _dense(kind)
     splits, chunk = _dense_plan(S, B * KV)
     ar = torch.arange(S, device="cuda")
     holes = torch.rand(S, generator=cuda, device="cuda") < 0.5
@@ -245,35 +288,40 @@ def test_decode_kernel_split_edges(cuda, S, G, D, dtype):
              torch.stack([ar < min(chunk + 1, S), ar < max(chunk - 1, 1)]),
              torch.stack([ar < 0, holes])]
     for valid in masks:
-        before = decode_attention_fwd.launches
-        got = ops.decode_attention(q, k, v, valid)
+        before = fn.launches
+        got = (ops.decode_attention(q, k, v, valid) if kind == "fp" else
+               ops.decode_attention_quant(q, k, v, *sc, valid))
         torch.cuda.synchronize()
-        assert decode_attention_fwd.launches == before + 1
-        want = ref.decode_attention_ref(
-            q.unflatten(1, (KV, G)), k.transpose(1, 2), v.transpose(1, 2),
-            valid).reshape(got.shape)
+        assert fn.launches == before + 1
+        want = plain(q.unflatten(1, (KV, G)), k.transpose(1, 2),
+                     v.transpose(1, 2), [t.transpose(1, 2) for t in sc],
+                     valid).reshape(got.shape)
+        scale = 1.0 if kind == "fp" else float(want.float().abs().max())
         err = (got.float() - want.float()).abs().max()
-        assert err <= TOL[dtype], (float(err), splits, chunk)
-    mean_v = v[0].float().mean(0).repeat_interleave(G, 0)
-    assert (got[0].float() - mean_v).abs().max() <= TOL[dtype]
+        assert err <= TOL[dtype] * scale, (float(err), splits, chunk)
+    vd = v[0].float() * (sc[1][0][..., None] if sc else 1)
+    mean_v = vd.mean(0).repeat_interleave(G, 0)
+    assert (got[0].float() - mean_v).abs().max() <= TOL[dtype] * scale
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("G", [1, 3, 8])
 @pytest.mark.parametrize("nb,bs", SPLIT_TABLES)
-def test_paged_kernel_split_edges(cuda, nb, bs, G, D, dtype):
-    """The split-KV edges of :func:`test_paged_kernels_walk_the_table` for
-    the fp kernel, at its tolerance (fp32 1e-4, bf16 2e-2 of max |plain|):
-    shuffled full tables, lens ending one row inside and one row past a
-    split boundary, a full table and lens = 0 (zeros); rows no
-    sequence may read hold NaN and leave the output bitwise unchanged; a
-    table entry outside the pool in the last split makes that sequence's
-    output NaN and leaves the other's bitwise unchanged."""
+def test_paged_kernel_split_edges(cuda, nb, bs, G, D, dtype, kind):
+    """The split-KV edges of :func:`test_paged_kernels_walk_the_table`, at
+    its tolerance (fp32 1e-4, bf16 2e-2 of max |plain|): shuffled full
+    tables, lens ending one row inside and one row past a split boundary,
+    a full table and lens = 0 (zeros); rows no sequence may read hold NaN
+    (fp: in K/V; int8: in K/V's scales) and leave the output bitwise
+    unchanged; a table entry outside the pool in the last split makes that
+    sequence's output NaN and leaves the other's bitwise unchanged."""
     B, KV = 2, 1
     n_rows, nblocks = nb * bs, B * nb + 1
     q = _randn(cuda, (B, KV, G, D), dtype)
-    k, v = (_randn(cuda, (nblocks, bs, KV, D), dtype) for _ in "kv")
+    k, v, sc = _kv(cuda, (nblocks, bs, KV, D), dtype, kind)
+    run, plain, fn = _paged(kind)
     tables = (torch.randperm(nblocks - 1, generator=torch.Generator()
                              .manual_seed(nb * bs)) + 1)[:B * nb]
     tables = tables.view(B, nb).int().cuda()
@@ -281,11 +329,11 @@ def test_paged_kernel_split_edges(cuda, nb, bs, G, D, dtype):
     for lens in ([n_rows, min(chunk + 1, n_rows)],
                  [max(min(chunk - 1, n_rows), 1), 1], [0, n_rows]):
         lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        before = paged_decode_attention_fwd.launches
-        got = paged_decode_attention_fwd(q, k, v, tables, lens)
+        before = fn.launches
+        got = run(q, k, v, sc, tables, lens)
         torch.cuda.synchronize()
-        assert paged_decode_attention_fwd.launches == before + 1
-        want = ref.paged_decode_attention_ref(q, k, v, tables, lens)
+        assert fn.launches == before + 1
+        want = plain(q, k, v, sc, tables, lens)
         live = lens > 0                      # lens = 0: the kernel's zeros
         err = (got[live].float() - want[live].float()).abs().max()
         scale = want[live].float().abs().max()
@@ -296,68 +344,78 @@ def test_paged_kernel_split_edges(cuda, nb, bs, G, D, dtype):
         for b in range(B):
             rows = torch.arange(int(lens[b]), device="cuda")
             dead[tables[b].long()[rows // bs], rows % bs] = False
-        kp, vp = k.clone(), v.clone()
-        kp[dead], vp[dead] = float("nan"), float("nan")
-        assert torch.equal(paged_decode_attention_fwd(q, kp, vp, tables,
-                                                      lens), got)
+        if kind == "fp":
+            kp, vp, scp = k.clone(), v.clone(), ()
+            kp[dead], vp[dead] = float("nan"), float("nan")
+        else:                                # int8 holds no NaN: the scales
+            kp, vp, scp = k, v, tuple(t.clone() for t in sc)
+            for t in scp:
+                t[dead] = float("nan")
+        assert torch.equal(run(q, kp, vp, scp, tables, lens), got)
     bad = tables.clone()
     bad[1, (splits - 1) * chunk // bs] = nblocks     # lens[1] = n_rows
-    out = paged_decode_attention_fwd(q, k, v, bad, lens)
+    out = run(q, k, v, sc, bad, lens)
     torch.cuda.synchronize()
     assert torch.isnan(out[1].float()).all()
     assert torch.equal(out[0], got[0])
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,KV,G,bs,nb", [(16, 32, 1, 16, 32),
                                           (16, 3, 3, 16, 32),
+                                          (8, 32, 1, 16, 32),
                                           (2, 1, 2, 8, 130)])
 def test_dense_and_paged_kernels_agree_bitwise(cuda, B, KV, G, bs, nb,
-                                               dtype):
-    """One core, one split plan: the dense kernel over a pool's rows
-    gathered into an arena gives the paged kernel's output bit for bit (one
-    split at the OPT-1.3B serve shape, eight at smollm-135m's, many at B *
-    KV = 2), so greedy streams over the arena and over the pool agree."""
+                                               dtype, kind):
+    """One core, one split plan: the dense kernel over a pool's rows (and
+    int8 scales) gathered into an arena gives the paged kernel's output bit
+    for bit (one split at the OPT-1.3B serve and PPO shapes, eight at
+    smollm-135m's, many at B * KV = 2), so greedy streams over the arena
+    and over the pool agree."""
     S, nblocks = nb * bs, B * nb + 1
     q = _randn(cuda, (B, KV, G, 64), dtype)
-    k, v = (_randn(cuda, (nblocks, bs, KV, 64), dtype) for _ in "kv")
+    k, v, sc = _kv(cuda, (nblocks, bs, KV, 64), dtype, kind)
     tables = (torch.randperm(nblocks - 1, device="cuda") + 1).view(B, nb)
     tables = tables.int()
     lens = torch.randint(1, S + 1, (B,), generator=cuda, device="cuda")
     lens = lens.int()
     valid = torch.arange(S, device="cuda")[None] < lens[:, None]
-    ka, va = (ref.gather_blocks(t, tables).transpose(1, 2) for t in (k, v))
+    ka, va, *sca = (ref.gather_blocks(t, tables).transpose(1, 2)
+                    for t in (k, v, *sc))
     assert _dense_plan(S, B * KV) == _paged_plan(nb, bs, B * KV)
-    assert torch.equal(decode_attention_fwd(q, ka, va, valid),
-                       paged_decode_attention_fwd(q, k, v, tables, lens))
+    assert torch.equal(_dense(kind)[0](q, ka, va, sca, valid),
+                       _paged(kind)[0](q, k, v, sc, tables, lens))
 
 
-def _split_cases(gen, dtype=torch.bfloat16):
-    """A dense and a paged case at B * KV = 2 over 1,000 rows (several
-    splits), as (name, zero-argument call)."""
+def _split_cases(gen, kind="fp", dtype=torch.bfloat16):
+    """A dense and a paged case of ``kind`` at B * KV = 2 over 1,000 rows
+    (several splits), as (name, zero-argument call)."""
     B, KV, G, D, S = 2, 1, 3, 64, 1000
     q = _randn(gen, (B, KV, G, D), dtype)
-    k, v = _randn(gen, (B, KV, S, D), dtype), _randn(gen, (B, KV, S, D),
-                                                       dtype)
+    k, v, sc = _kv(gen, (B, KV, S, D), dtype, kind)
     valid = torch.arange(S, device="cuda")[None] < torch.tensor(
         [[S], [700]], device="cuda")
     bs, nb = 8, S // 8
-    pk, pv = (_randn(gen, (B * nb + 1, bs, KV, D), dtype) for _ in "kv")
+    pk, pv, psc = _kv(gen, (B * nb + 1, bs, KV, D), dtype, kind)
     tables = (torch.randperm(B * nb, device="cuda") + 1).view(B, nb).int()
     lens = torch.tensor([S, 613], dtype=torch.int32, device="cuda")
-    return [("dense", lambda: decode_attention_fwd(q, k, v, valid)),
-            ("paged", lambda: paged_decode_attention_fwd(q, pk, pv, tables,
-                                                         lens))]
+    dense, paged = _dense(kind)[0], _paged(kind)[0]
+    return [("dense", lambda: dense(q, k, v, sc, valid)),
+            ("paged", lambda: paged(q, pk, pv, psc, tables, lens))]
 
 
-def test_decode_kernels_are_bitwise_repeatable(cuda):
-    """No atomics: two calls of each fp decode kernel over several splits
+@pytest.mark.parametrize("kind", KINDS)
+def test_decode_kernels_are_bitwise_repeatable(cuda, kind):
+    """No atomics: two calls of each decode kernel over several splits
     give bitwise-equal outputs."""
-    for _, call in _split_cases(cuda):
+    for _, call in _split_cases(cuda, kind):
         assert torch.equal(call(), call())
 
 
-def test_decode_combine_reads_only_what_the_splits_wrote(cuda, monkeypatch):
+@pytest.mark.parametrize("kind", KINDS)
+def test_decode_combine_reads_only_what_the_splits_wrote(cuda, monkeypatch,
+                                                         kind):
     """An empty split writes only its state: with the partials' scratch
     filled with NaN before every call, each wrapper still gives its output
     bit for bit (dense: a prefix mask with empty tail splits and a fully
@@ -366,16 +424,17 @@ def test_decode_combine_reads_only_what_the_splits_wrote(cuda, monkeypatch):
     from repro_torch.kernels import paged_attention as pa
     B, KV, G, D, S, bs = 3, 1, 3, 64, 1000, 8
     q = _randn(cuda, (B, KV, G, D), torch.float32)
-    k, v = (_randn(cuda, (B, KV, S, D), torch.float32) for _ in "kv")
+    k, v, sc = _kv(cuda, (B, KV, S, D), torch.float32, kind)
     valid = torch.arange(S, device="cuda")[None] < torch.tensor(
         [[S], [70], [0]], device="cuda")
-    pk, pv = (_randn(cuda, (B * S // bs + 1, bs, KV, D), torch.float32)
-              for _ in "kv")
+    pk, pv, psc = _kv(cuda, (B * S // bs + 1, bs, KV, D), torch.float32,
+                      kind)
     tables = (torch.randperm(B * S // bs, device="cuda") + 1).view(B, -1)
     tables = tables.int()
     lens = torch.tensor([S, 70, 0], dtype=torch.int32, device="cuda")
-    calls = (lambda: decode_attention_fwd(q, k, v, valid),
-             lambda: paged_decode_attention_fwd(q, pk, pv, tables, lens))
+    dense, paged = _dense(kind)[0], _paged(kind)[0]
+    calls = (lambda: dense(q, k, v, sc, valid),
+             lambda: paged(q, pk, pv, psc, tables, lens))
     want = [call() for call in calls]
     plain = da.scratch
 
@@ -390,11 +449,12 @@ def test_decode_combine_reads_only_what_the_splits_wrote(cuda, monkeypatch):
         assert torch.equal(call(), w)
 
 
-def test_decode_kernels_replay_from_a_cuda_graph(cuda):
+@pytest.mark.parametrize("kind", KINDS)
+def test_decode_kernels_replay_from_a_cuda_graph(cuda, kind):
     """Each wrapper picks its splits and allocates its scratch on the host
     without reading the device, so a call captured in a CUDA graph replays
     to the eager output bit for bit."""
-    for _, call in _split_cases(cuda):
+    for _, call in _split_cases(cuda, kind):
         eager = call()
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
@@ -409,17 +469,18 @@ def test_decode_kernels_replay_from_a_cuda_graph(cuda):
         assert torch.equal(captured, eager)
 
 
-def test_decode_combine_runs_only_when_split(cuda):
+@pytest.mark.parametrize("kind", KINDS)
+def test_decode_combine_runs_only_when_split(cuda, kind):
     """``torch.profiler``'s kernel names: one split kernel per call, and the
     combine kernel only when the call splits the rows (one call at B * KV =
     2 over 1,000 rows, one at 512 blocks over 64 rows)."""
     from torch.profiler import ProfilerActivity, profile
-    one = (_randn(cuda, (16, 32, 1, 64), torch.bfloat16),
-           _randn(cuda, (16, 32, 64, 64), torch.bfloat16))
+    q1 = _randn(cuda, (16, 32, 1, 64), torch.bfloat16)
+    k1, v1, sc1 = _kv(cuda, (16, 32, 64, 64), torch.bfloat16, kind)
     valid = torch.ones(16, 64, dtype=torch.bool, device="cuda")
-    cases = _split_cases(cuda) + [
-        ("one split", lambda: decode_attention_fwd(one[0], one[1], one[1],
-                                                   valid))]
+    dense = _dense(kind)[0]
+    cases = _split_cases(cuda, kind) + [
+        ("one split", lambda: dense(q1, k1, v1, sc1, valid))]
     assert _dense_plan(64, 16 * 32)[0] == 1
     with profile(activities=[ProfilerActivity.CUDA]):   # CUPTI warm-up
         torch.cuda.synchronize()
@@ -435,6 +496,29 @@ def test_decode_combine_runs_only_when_split(cuda):
         assert sum("split_kernel" in n for n in names) == 1, (name, names)
         assert sum("combine_kernel" in n for n in names) == (
             0 if name == "one split" else 1), (name, names)
+
+
+def test_int8_to_float_matches_static_cast(cuda):
+    """The decode core's int8 -> fp32 (a byte permute into the mantissa of
+    2^23 and one subtraction, ``VecI8`` in ``csrc/decode_core.cuh``), 8 and
+    16 values at a time, gives ``static_cast<float>``'s bits for all 256
+    values."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    x = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8).cuda()
+    out = torch.empty(3, 256, device="cuda")
+    lib = build.load("decode_attention_quant")
+    fn = lib.decode_int8_to_float
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    build.check(lib, fn(x.data_ptr(), out.data_ptr(), 256,
+                        build.stream_handle(x)), "decode_int8_to_float")
+    torch.cuda.synchronize()
+    bits = out.view(torch.int32)
+    assert torch.equal(bits[0], bits[2]) and torch.equal(bits[1], bits[2])
+    assert torch.equal(out[2], torch.arange(-128, 128, device="cuda").float())
 
 
 def test_kernels_raise_instead_of_falling_back(cuda):

@@ -11,13 +11,15 @@ Phases (any failure raises, so the run exits non-zero):
 2. ``build``   — every CUDA source of the port built with ``nvcc``, one
    process per source, all in parallel; seconds and ``ptxas`` registers
    and spills per kernel.  Fails if a bf16 tensor-core flash
-   kernel or a decode split or combine kernel with bf16 queries at D = 64
-   (fp and int8 rows) spills.
+   kernel, a decode split or combine kernel with bf16 queries at D = 64
+   (fp and int8 rows) or a bf16 tensor-core SSD kernel spills.
 3. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the main paths' shapes (OPT-1.3B, OPT-350M and smollm-135m widths),
    in fp32 (TF32 off) and bf16, with kernel / plain / library device times
    (medians of CUDA-graph replays timed with CUDA events) and each shape's
-   lower bound on time; the flash forward's LSE against the plain LSE, and
+   lower bound on time (RMSNorm also at the SFT and reward steps' 4,096
+   and 8,192 rows, with ``floor_ms``, the time of ``x.clone()`` on the
+   same bytes); the flash forward's LSE against the plain LSE, and
    the flash backward (dq, dk, dv) against its plain version at the
    training shapes (OPT-1.3B: B=8, H=32, L=512), with the backward of
    ``F.scaled_dot_product_attention`` (fwd+bwd less fwd) as its yardstick,
@@ -60,8 +62,10 @@ Phases (any failure raises, so the run exits non-zero):
 8. ``ssm``     — the SSM / hybrid serving slice: ``ssd_intra_fwd`` (the
    Mamba2 SSD intra-chunk pass) against its plain version at Mamba2-370M
    (q = 256, a ragged 137, one token, four chunks, the fixed path's b = 8)
-   and Zamba2-1.2B widths in fp32 and bf16, timed, plus an untimed case
-   whose upper triangle overflows; Mamba2-370M and Zamba2-1.2B at full
+   and Zamba2-1.2B widths in fp32 (the CUDA-core kernel) and bf16 (the
+   tensor-core kernel), timed, each beside two bounds (the fp32 rate's
+   and the tensor cores'), plus an untimed case in each dtype whose upper
+   triangle overflows; Mamba2-370M and Zamba2-1.2B at full
    width and depth in fp32, teacher-forced through the kernel path and the
    plain path (prefills of 256 and 600 tokens, then 32 decode steps; 1e-4);
    ``launch.serve`` on both in bf16 with the serve phase's 32-request
@@ -372,13 +376,15 @@ def phase_build(state):
     # width) must keep everything in registers: 1 forward, 2 backward; so
     # must the decode core's split and combine kernels with bf16 queries
     # at D = 64, fp and int8 rows
-    mma64, split64, comb64 = {}, {}, {}
+    mma64, split64, comb64, ssd_mma = {}, {}, {}, {}
     for name, r in report.items():
         log(f"[build] {name}.cu: {r['seconds']:.1f}s")
         for fn, regs, stack, st, ld in ptxas_usage(r["log"]):
             log(f"[build]   {fn}: {regs} registers, {stack} bytes stack "
                 f"frame, {st} bytes spill stores, {ld} bytes spill loads")
-            if "mma_kernel" in fn and ("<64>" in fn or "ILi64E" in fn):
+            if "ssd_intra_mma_kernel" in fn:
+                ssd_mma[fn] = st + ld
+            elif "mma_kernel" in fn and ("<64>" in fn or "ILi64E" in fn):
                 mma64[fn] = st + ld
             for kind, seen in (("split", split64), ("combine", comb64)):
                 if (f"{kind}_kernel<__nv_bfloat16, 64," in fn
@@ -400,6 +406,11 @@ def phase_build(state):
     if len(comb64) != libs or any(comb64.values()):
         raise AssertionError(f"build: bf16 D = 64 decode combine kernels "
                              f"(want {libs}, none spilling): {comb64}")
+    # the bf16 SSD kernel, one per (p, n): 2 x 3 instantiations
+    if "ssd_intra" in report and (len(ssd_mma) != 6
+                                  or any(ssd_mma.values())):
+        raise AssertionError(f"build: bf16 SSD tensor-core kernels (want 6, "
+                             f"none spilling): {ssd_mma}")
 
 
 def _case_inputs(gen, shape, dtype):
@@ -491,9 +502,14 @@ def phase_kernels(state):
                 rows[name]["tflops"] = tflops
         return tflops
 
-    # ---- rmsnorm: decode (R = slots) and prefill (R = bucket) rows ----
+    # ---- rmsnorm: decode (R = slots) and prefill (R = bucket) rows, the
+    # SFT step's (8 x 512 rows of OPT-1.3B) and the reward step's (8 pairs x
+    # 512 of OPT-350M); floor_ms: x.clone() on the same bytes, the time of
+    # a launch that reads and writes them and computes nothing
     for (R, D, model) in ((16, 2048, "opt-1.3b"), (512, 2048, "opt-1.3b"),
-                          (16, 576, "smollm-135m"), (512, 576, "smollm-135m")):
+                          (16, 576, "smollm-135m"), (512, 576, "smollm-135m"),
+                          (4096, 2048, "opt-1.3b sft"),
+                          (8192, 1024, "opt-350m reward")):
         for dname, dt in dtypes.items():
             x = _case_inputs(gen, (R, D), dt)
             w = (1.0 + 0.1 * _case_inputs(gen, (D,), torch.float32)).to(dt)
@@ -510,7 +526,8 @@ def phase_kernels(state):
                    time_ms(lambda: ref.rmsnorm_ref(x, w, 1e-5)),
                    time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)), bnd,
                    main=(R, D, dname) == (16, 2048, "bf16"),
-                   abs_err=_err(out, r, rel=False))
+                   abs_err=_err(out, r, rel=False),
+                   extra={"floor_ms": time_ms(lambda: x.clone())})
 
     # ---- flash attention: admission prefill (B = 1) and the training
     # forward (B = 8, L = 512); each also writes the LSE, held to the plain
@@ -2076,17 +2093,18 @@ def _paged_ppo_iteration(state, trainer, bl, ptx) -> list:
 # --------------------------------------------------------------------- #
 # the SSM / hybrid serving slice
 # --------------------------------------------------------------------- #
-def ssd_bound(b, nc, q, h, p, n, esize):
+def ssd_bound(b, nc, q, h, p, n, esize, kind="fp32"):
     """Least time of one SSD intra-chunk pass, (ms, "bytes"|"operations"):
     FLOP over the causal pairs P = q (q + 1) / 2 (the C.B scores once per
     (batch, chunk), since every head shares them; Y and S_c per head) at
-    the fp32 rate, the kernel's math; bytes of each input read once and
-    each output written once."""
+    the rate of ``kind`` (fp32: the CUDA cores, the fp32 kernel's math;
+    bf16: the tensor cores, where bf16 inputs can go); bytes of each input
+    read once and each output written once."""
     P = q * (q + 1) // 2
     flop = b * nc * (2 * n * P + h * (2 * p * P + 2 * q * p * n))
     nbytes = (b * nc * (2 * q * h * p * esize + q * h * 4 + 2 * q * n * esize
                         + h * p * n * 4 + h * q * 4) + h * 4)
-    return bound(nbytes, flop, "fp32")
+    return bound(nbytes, flop, kind)
 
 
 def _ssd_inputs(gen, b, nc, q, h, p, n, dtype, dt_scale=1.0):
@@ -2132,12 +2150,16 @@ def _ssd_kernel_rows(state, failures):
             k_ms = time_ms(lambda: ssd_intra_fwd(X, dt, A, B, C))
             p_ms = time_ms(lambda: ref.ssd_intra_ref(X, dt, A, B, C),
                            inner=5, repeats=5)
-            bnd = ssd_bound(b, nc, q, h, p, n, X.element_size())
+            # the fp32 kernel's bound at the fp32 rate; the bf16 kernel's
+            # at the tensor cores' (bytes), the fp32-rate one beside it
+            bnd32 = ssd_bound(b, nc, q, h, p, n, X.element_size())
+            bnd = ssd_bound(b, nc, q, h, p, n, X.element_size(), dname)
             shape = f"{label} b={b} nc={nc} q={q} h={h} p={p} n={n}"
             log(f"[ssm] ssd_intra_fwd {shape} {dname}: err Y {ey:.3g} (tol "
                 f"{tol_y}) S_c {es:.3g} (tol 1e-4) A_cs {ea:.3g} (tol 1e-5) "
                 f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms=null "
-                f"bound_ms={bnd[0]:.4f} ({bnd[1]}) {'ok' if ok else 'FAIL'}")
+                f"bound_ms={bnd[0]:.4f} ({bnd[1]}) bound_fp32_ms="
+                f"{bnd32[0]:.4f} ({bnd32[1]}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"ssd_intra_fwd {shape} {dname}: errors "
                                 f"{ey:.3g} {es:.3g} {ea:.3g}")
@@ -2146,24 +2168,26 @@ def _ssd_kernel_rows(state, failures):
                     "max_abs_err": float((y.float() - yr.float()).abs()
                                          .max()),
                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
-                    "bound_by": bnd[1], "library_ms": None, "shape": shape,
-                    "dtype": dname}
-    # dt |A| large: the upper triangle's exp overflows; the kernel selects
+                    "bound_by": bnd[1], "bound_fp32_ms": bnd32[0],
+                    "library_ms": None, "shape": shape, "dtype": dname}
+    # dt |A| large: the upper triangle's exp overflows; each kernel selects
     # it away, so the outputs stay finite and equal the plain version's
-    X, dt, A, B, C = _ssd_inputs(gen, 1, 1, 256, 32, 64, 128, torch.float32,
-                                 dt_scale=100.0)
-    y, s, acs = ssd_intra_fwd(X, dt, A, B, C)
-    torch.cuda.synchronize()
-    yr, sr, _, _ = ref.ssd_intra_ref(X, dt, A, B, C)
-    span = float((acs[..., 0] - acs[..., -1]).min())
-    finite = bool(torch.isfinite(y).all() and torch.isfinite(s).all())
-    ey, es = rel(y, yr), rel(s, sr)
-    log(f"[ssm] ssd_intra_fwd overflow case (min A_cs span {span:.1f} > 89: "
-        f"exp overflows above the diagonal): finite {finite}, err Y {ey:.3g}"
-        f" S_c {es:.3g} (tol 1e-4)")
-    if not (span > 89.0 and finite and ey <= 1e-4 and es <= 1e-4):
-        failures.append(f"ssd_intra_fwd overflow case: finite {finite}, "
-                        f"errors {ey:.3g} {es:.3g}")
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        tol_y = 1e-4 if dname == "fp32" else 2e-2
+        X, dt, A, B, C = _ssd_inputs(gen, 1, 1, 256, 32, 64, 128, dtype,
+                                     dt_scale=100.0)
+        y, s, acs = ssd_intra_fwd(X, dt, A, B, C)
+        torch.cuda.synchronize()
+        yr, sr, _, _ = ref.ssd_intra_ref(X, dt, A, B, C)
+        span = float((acs[..., 0] - acs[..., -1]).min())
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+        ey, es = rel(y, yr), rel(s, sr)
+        log(f"[ssm] ssd_intra_fwd overflow case {dname} (min A_cs span "
+            f"{span:.1f} > 89: exp overflows above the diagonal): finite "
+            f"{finite}, err Y {ey:.3g} (tol {tol_y}) S_c {es:.3g} (tol 1e-4)")
+        if not (span > 89.0 and finite and ey <= tol_y and es <= 1e-4):
+            failures.append(f"ssd_intra_fwd overflow case {dname}: finite "
+                            f"{finite}, errors {ey:.3g} {es:.3g}")
 
 
 def _ssm_parity(failures):
@@ -2533,6 +2557,7 @@ def main() -> int:
                                    "gather_sdpa_ms", "tflops", "dkv_ms",
                                    "dq_ms", "train_ms", "train_library_ms",
                                    "train_bound_ms", "train_tflops",
+                                   "floor_ms", "bound_fp32_ms",
                                    "kernels_per_call",
                                    "cold_ms", "library_cold_ms",
                                    "achieved_gbs", "decode_in_step")

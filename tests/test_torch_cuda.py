@@ -54,6 +54,33 @@ def test_rmsnorm_kernel_matches_plain(cuda, R, D, dtype):
     assert err <= (1e-4 if dtype == torch.float32 else 1e-2)
 
 
+# the rows kernel at the training shapes, the staged kernel (D = 12,288 in
+# fp32), ragged D that takes narrower loads, and x a slice at an odd
+# element offset (2-byte aligned rows in bf16), every x / w dtype pair
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,D,offset", [(4096, 2048, 0), (8192, 1024, 0),
+                                        (16, 12288, 0), (3, 12288, 1),
+                                        (16, 33, 0), (16, 1000, 0),
+                                        (33, 2048, 1), (512, 576, 3)])
+def test_rmsnorm_kernel_geometries(cuda, R, D, offset, dtype, wdt):
+    from repro_torch.kernels import rmsnorm as rms
+    wide = _randn(cuda, (R, D + 8), dtype)
+    x = wide[:, offset:offset + D]
+    w = (1.0 + 0.1 * _randn(cuda, (D,), torch.float32)).to(wdt)
+    p = rms.plan(R, D, x.element_size(), w.element_size(),
+                 x_ptr=x.data_ptr(), w_ptr=w.data_ptr(), x_stride=D + 8)
+    assert offset == 0 or p.vec < 16 // x.element_size()
+    before = rmsnorm_fwd.launches
+    got = rmsnorm_fwd(x, w)
+    torch.cuda.synchronize()
+    assert rmsnorm_fwd.launches == before + 1
+    want = ref.rmsnorm_ref(x, w)
+    err = ((got.float() - want.float()).abs()
+           / want.float().abs().clamp(min=1)).max()
+    assert err <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
 # the edges of the bf16 kernels' 64-row tiles (32 keys at D = 128 in the
 # backward): one short of and one past 64 and 128, a single query, G = 3
 FLASH_EDGES = [(1, 3, 63, 65, None, 64), (2, 1, 65, 129, None, 64),
@@ -872,6 +899,72 @@ def test_ssd_intra_kernel_matches_plain(cuda, b, nc, q, h, p, n, strided,
     assert rel(acs, ar) <= 1e-5
 
 
+def _acs_plain(dt, A):
+    return ref.chunk_cumsum((dt * A).permute(0, 1, 3, 2))
+
+
+# the bf16 tensor-core kernel at its 64-row tile edges, the fixed path's
+# b = 8, several chunks, the strided slices at an element offset of 3 (6
+# bytes: element loads), reduced widths; A_cs bitwise the plain version's
+@pytest.mark.parametrize("b,nc,q,h,p,n,strided", [
+    (1, 1, 63, 32, 64, 128, False), (1, 1, 65, 32, 64, 128, True),
+    (1, 1, 127, 32, 64, 128, False), (1, 1, 129, 64, 64, 64, False),
+    (8, 1, 256, 32, 64, 128, False), (1, 4, 256, 32, 64, 128, False),
+    (1, 2, 129, 5, 32, 128, True), (2, 1, 65, 3, 32, 32, False),
+    (1, 1, 600, 4, 64, 128, False)])
+def test_ssd_intra_bf16_kernel_tile_edges(cuda, b, nc, q, h, p, n, strided):
+    X, dt, A, B, C = _ssd_case(cuda, b, nc, q, h, p, n, torch.bfloat16,
+                               strided=strided)
+    before = ssd_intra_fwd.launches
+    y, s, acs = ssd_intra_fwd(X, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert ssd_intra_fwd.launches == before + 1
+    yr, sr, _, _ = ref.ssd_intra_ref(X, dt, A, B, C)
+    rel = lambda a, b: float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max().clamp(min=1e-30))
+    assert rel(y, yr) <= 2e-2
+    assert rel(s, sr) <= 1e-4
+    assert torch.equal(acs, _acs_plain(dt, A))
+
+
+@pytest.mark.parametrize("q,h", [(1000, 3), (2048, 1)])
+def test_ssd_intra_bf16_kernel_long_chunks(cuda, q, h):
+    """Chunks far past the model's 256 rows (the blocks stream the keys, so
+    any q is taken) and a head pair whose second head does not exist."""
+    X, dt, A, B, C = _ssd_case(cuda, 1, 1, q, h, 64, 128, torch.bfloat16)
+    y, s, acs = ssd_intra_fwd(X, dt, A, B, C)
+    torch.cuda.synchronize()
+    yr, sr, _, _ = ref.ssd_intra_ref(X, dt, A, B, C)
+    assert float((y.float() - yr.float()).abs().max()) <= 2e-2 * float(
+        yr.float().abs().max())
+    assert float((s - sr).abs().max()) <= 1e-4 * float(sr.abs().max())
+    assert torch.equal(acs, _acs_plain(dt, A))
+
+
+# fp32 outputs of the SIMT kernel at a fixed seed, as PR 15's kernel wrote
+# them (sha1 of Y, S_c, A_cs), and A_cs bitwise the plain version's
+FP32_SHA = {"y": "9c4bf9181c4c34c18b1c162dfcffc86c19abf7da",
+            "s": "96ca18f042dc31e6748a7fe3d64c98309656630d",
+            "acs": "c54a6b8dbc46b56a4c9ec452d85537afe6b5938a"}
+
+
+def test_ssd_intra_fp32_kernel_outputs_unchanged(cuda):
+    import hashlib
+    rng = np.random.default_rng(2024)
+    b, nc, q, h, p, n = 1, 2, 256, 32, 64, 128
+    mk = lambda shape, scale=0.5: torch.from_numpy(
+        (rng.standard_normal(shape) * scale).astype(np.float32)).cuda()
+    X, B, C = mk((b, nc, q, h, p)), mk((b, nc, q, n)), mk((b, nc, q, n))
+    dt = torch.nn.functional.softplus(mk((b, nc, q, h), 1.0))
+    A = -torch.exp(mk((h,), 0.3))
+    y, s, acs = ssd_intra_fwd(X, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert torch.equal(acs, _acs_plain(dt, A))
+    got = {k: hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest()
+           for k, t in (("y", y), ("s", s), ("acs", acs))}
+    assert got == FP32_SHA
+
+
 def test_ssd_intra_kernel_selects_the_overflowing_upper_triangle(cuda):
     """dt * |A| large: the upper triangle's exp overflows, the outputs stay
     finite and equal the plain version's."""
@@ -883,6 +976,21 @@ def test_ssd_intra_kernel_selects_the_overflowing_upper_triangle(cuda):
     assert torch.isfinite(y).all() and torch.isfinite(s).all()
     assert (y - yr).abs().max() <= 1e-4 * yr.abs().max()
     assert (s - sr).abs().max() <= 1e-4 * sr.abs().max()
+
+
+def test_ssd_intra_bf16_kernel_selects_the_overflowing_upper_triangle(cuda):
+    """The same in bf16, on the tensor-core kernel: finite, Y within the
+    bf16 gate, S_c within 1e-4, A_cs bitwise."""
+    X, dt, A, B, C = _ssd_case(cuda, 1, 1, 256, 32, 64, 128, torch.bfloat16,
+                               dt_scale=100.0)
+    y, s, acs = ssd_intra_fwd(X, dt, A, B, C)
+    assert float((acs[..., 0] - acs[..., -1]).min()) > 89.0
+    yr, sr, _, _ = ref.ssd_intra_ref(X, dt, A, B, C)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    assert (y.float() - yr.float()).abs().max() <= 2e-2 * yr.float().abs(
+        ).max()
+    assert (s - sr).abs().max() <= 1e-4 * sr.abs().max()
+    assert torch.equal(acs, _acs_plain(dt, A))
 
 
 def test_ssd_intra_kernel_raises_instead_of_falling_back(cuda):

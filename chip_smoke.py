@@ -76,7 +76,32 @@ Phases (any failure raises, so the run exits non-zero):
    counted in bf16); one Mamba2 decode step at 16 slots eager and as a
    CUDA-graph replay, and ``torch.profiler`` over a decode step and an
    admission.
-9. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
+9. ``ssm_train`` — the SSM / hybrid training slice: at the SFT shapes
+   (b 8, nc 2, q 256; Mamba2-370M and Zamba2-1.2B widths) the forward
+   kernel against its plain version (phase ``ssm``'s tolerances) and the
+   explicit SSD backward (``ref.ssd_intra_bwd_ref``) against autograd of
+   the plain forward (fp32 1e-4, bf16 2e-2), the forward kernel, the
+   backward and autograd of the plain version timed by CUDA-graph replay
+   beside the backward's bound, and the plain RMSNorm backward at the
+   SFT rows, timed beside its bound; Mamba2-370M and Zamba2-1.2B at full width
+   and depth in fp32, one SFT step through the kernel path and the plain
+   path: a per-layer witness (a middle SSM layer, and Zamba2's middle
+   attention layer: output and every gradient at 1e-4) and the loss and
+   grad norm end to end (1e-4 or 2x the conditioning); ``launch.train`` in
+   bf16 with remat, 10 Mamba2 and 5 Zamba2 steps of 8 x 512 (launch counts
+   set to 0 just before each run and read just after: the SSD kernel, and
+   for Zamba2 both flash kernels, must have launched, no attention kernel
+   for Mamba2), each with a ``torch.profiler`` step (the SSD forward's and
+   backward's shares, device idle); 5 Mamba2 reward steps of 8 pairs x
+   512; ``launch.train --rlhf`` at Mamba2 (2 steps, 8 x 256 prompts, 64
+   new) and Zamba2 with ``--kv-quant`` (1 step, 4 prompts, 32 new): every
+   loss finite, the frozen models' checksums unchanged by stage 3; Zamba2
+   ``--kv-quant`` on the serve workload (the int8 decode kernel, never the
+   bf16 one) and the int8 gate at full width cut to 12 layers (one cache
+   at 1e-4, free-running within a tenth of the int8 error, tokens
+   identical, the first attention layer's int8 rows at most one step
+   apart).
+10. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
    that no earlier timing runs after a profiler session: the CUDA kernels
    one call of each decode row of phase ``kernels`` runs (the split
    kernel, then the combine exactly when the host's plan splits the
@@ -141,7 +166,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "train", "rlhf",
-          "ssm", "profile")
+          "ssm", "ssm_train", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the time bound of a kernel is
 # the larger of bytes / memory rate and operations / peak rate for the type
@@ -425,6 +450,14 @@ def _err(out, ref, rel: bool) -> float:
     return float(d.max())
 
 
+def worst(errs) -> float:
+    """The largest of ``errs``, NaN if any is NaN: Python's ``max`` keeps a
+    NaN only where it comes first, and a gate ``worst(errs) <= tol`` must
+    fail on every NaN."""
+    errs = [float(e) for e in errs]
+    return float("nan") if any(e != e for e in errs) else max(errs)
+
+
 def _decode_valid(gen, B, S, lo):
     """Decode masks ``(B, S)``: ``valid``, ragged with ``lo..S`` rows per
     sequence (one full), the pattern that is timed and bounded; and
@@ -624,10 +657,10 @@ def phase_kernels(state):
             want = ref.flash_attention_bwd_ref(q5, k4, v4, do5, lse, delta,
                                                causal=True, window=window)
             torch.cuda.synchronize()
-            rel = max(float((a.float() - b.float()).abs().max()
-                            / b.float().abs().max().clamp(min=1e-12))
-                      for a, b in zip(got, want))
-            abs_err = max(_err(a, b, rel=False) for a, b in zip(got, want))
+            rel = worst(float((a.float() - b.float()).abs().max()
+                              / b.float().abs().max().clamp(min=1e-12))
+                        for a, b in zip(got, want))
+            abs_err = worst(_err(a, b, rel=False) for a, b in zip(got, want))
             scale = min(float(b.float().abs().max()) for b in want)
             if not scale > 0:
                 failures.append(f"flash bwd {model} {dname}: the plain "
@@ -704,7 +737,8 @@ def phase_kernels(state):
             out_m = decode_attention_fwd(q4, k4, v4, masked)
             r_m = ref.decode_attention_ref(q4, k4, v4, masked)
             torch.cuda.synchronize()
-            err = max(_err(out, r, rel=False), _err(out_m, r_m, rel=False))
+            err = worst((_err(out, r, rel=False),
+                         _err(out_m, r_m, rel=False)))
             mean_v = v4[0].float().mean(dim=1)            # (KV, D)
             err_mean = _err(out_m[0].float(),
                             mean_v[:, None].expand(KV, G, D), rel=False)
@@ -770,8 +804,8 @@ def phase_kernels(state):
                                                  masked)
             torch.cuda.synchronize()
             scale = float(r.float().abs().max())
-            err = max(_err(out, r, rel=False),           # of max |plain|
-                      _err(out_m, r_m, rel=False)) / scale
+            err = worst((_err(out, r, rel=False),        # of max |plain|
+                         _err(out_m, r_m, rel=False))) / scale
             mean_v = (v4[0].float() * vs3[0][..., None]).mean(dim=1)
             err_mean = _err(out_m[0].float(),
                             mean_v[:, None].expand(KV, G, D),
@@ -1004,11 +1038,53 @@ def _paged_kernel_rows(state, gen, dtypes, tol, record, rows, failures):
                 del q, k, v, sc, ka, va
 
 
+def _int8_streams(cfg, params, prompt, n_dec):
+    """The int8-KV gate's runs of ``cfg`` (an int8-KV config, fp32) on one
+    prompt (1, Lp): greedy prefill + ``n_dec`` steps through the kernel
+    path and through the plain path (each path picks its own tokens), the
+    plain path again on an fp32 cache teacher-forced on the plain path's
+    tokens (the int8 cache's own error), and the witness: every decode
+    step again from clones of the kernel path's int8 cache, on both paths,
+    so that only the decode math differs.  Returns {run: (logits, tokens,
+    cache)} and the witness's (kernel, plain) logits."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_map
+    from repro_torch.serving.generate import decode_step, prefill
+
+    Lp = prompt.shape[1]
+    runs = {}
+    for name, c, forced in (
+            ("kernel", cfg, None),
+            ("plain", cfg.replace(use_kernels=False), None),
+            ("plain-fp32-cache",
+             cfg.replace(use_kernels=False, kv_quant=False), "plain")):
+        cache = T.init_cache(c, 1, Lp + n_dec, device="cuda")
+        lg, cache = prefill(c, params, prompt, cache)
+        steps, toks = [lg], []
+        for t in range(n_dec):
+            tok = lg.argmax(-1) if forced is None else runs[forced][1][t:t + 1]
+            toks.append(tok)
+            pos = torch.full((1,), Lp + t, dtype=torch.long, device="cuda")
+            lg, cache = decode_step(c, params, tok, cache, pos)
+            steps.append(lg)
+        runs[name] = (torch.cat(steps).float(), torch.cat(toks), cache)
+    ta, kcache = runs["kernel"][1], runs["kernel"][2]
+    wit = {True: [], False: []}
+    for t in range(n_dec):
+        pos = torch.full((1,), Lp + t, dtype=torch.long, device="cuda")
+        for use_kernels in (True, False):
+            lg, _ = decode_step(cfg.replace(use_kernels=use_kernels), params,
+                                ta[t:t + 1], tree_map(torch.clone, kcache),
+                                pos)
+            wit[use_kernels].append(lg.float())
+    return runs, (torch.cat(wit[True]), torch.cat(wit[False]))
+
+
 def phase_parity(state):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
-    from repro_torch.models.modules import tree_map
     from repro_torch.serving.generate import decode_step, prefill
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1062,37 +1138,10 @@ def phase_parity(state):
     params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
     prompt = torch.randint(0, cfg.vocab_size, (1, Lp), generator=gen,
                            device="cuda")
-    runs = {}
-    for name, c, forced in (
-            ("kernel", cfg, None),
-            ("plain", cfg.replace(use_kernels=False), None),
-            ("plain-fp32-cache",
-             cfg.replace(use_kernels=False, kv_quant=False), "plain")):
-        cache = T.init_cache(c, 1, Lp + n_dec, device="cuda")
-        lg, cache = prefill(c, params, prompt, cache)
-        steps, toks = [lg], []
-        for t in range(n_dec):
-            tok = lg.argmax(-1) if forced is None else runs[forced][1][t:t + 1]
-            toks.append(tok)
-            pos = torch.full((1,), Lp + t, dtype=torch.long, device="cuda")
-            lg, cache = decode_step(c, params, tok, cache, pos)
-            steps.append(lg)
-        runs[name] = (torch.cat(steps).float(), torch.cat(toks), cache)
+    runs, (wa, wb) = _int8_streams(cfg, params, prompt, n_dec)
     (a, ta, kcache), (b, tb, pcache) = runs["kernel"], runs["plain"]
     ca, cb = kcache[0][0], pcache[0][0]
     fp = runs["plain-fp32-cache"][0]
-    # witness: each decode step again, both paths from one cache (the
-    # kernel path's own int8 rows, cloned per path and step), so only the
-    # decode math differs; held to 1e-4 relative like the fp32 parity
-    wit = {True: [], False: []}
-    for t in range(n_dec):
-        pos = torch.full((1,), Lp + t, dtype=torch.long, device="cuda")
-        for use_kernels in (True, False):
-            lg, _ = decode_step(cfg.replace(use_kernels=use_kernels), params,
-                                ta[t:t + 1], tree_map(torch.clone, kcache),
-                                pos)
-            wit[use_kernels].append(lg.float())
-    wa, wb = torch.cat(wit[True]), torch.cat(wit[False])
     rel_wit = float((wa - wb).abs().max() / wb.abs().max())
     wit_same = bool(torch.equal(wa.argmax(-1), wb.argmax(-1)))
     if ca["k"].dtype != torch.int8:
@@ -1118,7 +1167,7 @@ def phase_parity(state):
     state["parity_int8"] = {"rel": rel8, "quant_err": quant_err,
                             "n_diff": n_diff, "n_all": n_all,
                             "rel_one_cache": rel_wit}
-    del params, cache, runs, ca, cb, kcache, pcache, wit, wa, wb
+    del params, runs, ca, cb, kcache, pcache, wa, wb
     torch.cuda.empty_cache()
     if not (torch.isfinite(a).all() and wit_same and rel_wit <= 1e-4):
         raise AssertionError(f"parity: int8 KV decode from one cache: "
@@ -1696,7 +1745,7 @@ def phase_train(state):
                    time.perf_counter() - t0)
     (lk, gk, ck, tk), (lp, gp, _, tp) = res[True], res[False]
     loss_rel = abs(lk - lp) / abs(lp)
-    grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp(
+    grad_rel = worst(float((a - b).abs().max() / b.abs().max().clamp(
         min=1e-30)) for a, b in zip(gk, gp))
     log(f"[train] opt-1.3b full width, 4 of 24 layers, fp32, batch 4 x 512, "
         f"remat on: kernel path loss {lk:.6f} ({tk:.2f}s, launches {ck}), "
@@ -2242,7 +2291,7 @@ def _ssm_parity(failures):
                     steps.append(lg)
                 return torch.cat(steps).float()
 
-            worst = [0.0]
+            w_err = [0.0]
             layer = T._layer
 
             def witness(c, spec, lp, x, positions, mode, lc, rope,
@@ -2252,8 +2301,8 @@ def _ssm_parity(failures):
                            block_tables)
                 y = layer(c, spec, lp, x, positions, mode, lc, rope,
                           block_tables)
-                worst[0] = max(worst[0], float(
-                    (yk - y).abs().max() / (y - x).abs().max()))
+                w_err[0] = worst((w_err[0], float(
+                    (yk - y).abs().max() / (y - x).abs().max())))
                 return y
 
             t0 = time.perf_counter()
@@ -2274,10 +2323,10 @@ def _ssm_parity(failures):
             limit = max(1e-4, 2 * cond)
             agree = float((kern.argmax(-1) == plain.argmax(-1)).float()
                           .mean())
-            ok = finite and worst[0] <= 1e-4 and rel <= limit
+            ok = finite and w_err[0] <= 1e-4 and rel <= limit
             log(f"[ssm] parity {arch} fp32 full width and depth, prefill "
                 f"{Lp} + {n_dec} decode steps (teacher-forced): per-layer "
-                f"witness max {worst[0]:.3g} (tol 1e-4); end to end "
+                f"witness max {w_err[0]:.3g} (tol 1e-4); end to end "
                 f"max|dlogits|/max|logits| = {rel:.3g} (tol {limit:.3g}: "
                 f"1e-4 or 2x the conditioning {cond:.3g}, the plain path "
                 f"with embeddings moved by 1e-7); argmax agreement "
@@ -2285,7 +2334,7 @@ def _ssm_parity(failures):
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"parity {arch} prefill {Lp}: witness "
-                                f"{worst[0]:.3g}, end to end {rel:.3g} (tol "
+                                f"{w_err[0]:.3g}, end to end {rel:.3g} (tol "
                                 f"{limit:.3g}), finite {finite}")
             del kern, plain, moved
         del params, noisy
@@ -2442,6 +2491,663 @@ def phase_ssm(state):
         raise AssertionError("ssm: " + "; ".join(failures))
 
 
+# --------------------------------------------------------------------- #
+# the SSM / hybrid training slice
+# --------------------------------------------------------------------- #
+# the kernels each SSM training path must launch: Mamba2 has no attention
+# layer; Zamba2's six attention layers train through the flash kernels
+# and, under --kv-quant, generate through the int8 decode kernel
+SSM_TRAIN_KERNELS = {
+    "mamba2-370m": ("rmsnorm", "ssd_intra_fwd"),
+    "zamba2-1.2b": ("rmsnorm", "ssd_intra_fwd", "flash_attention_fwd",
+                    "flash_attention_bwd")}
+SSM_RLHF_KERNELS = {
+    "mamba2-370m": ("rmsnorm", "ssd_intra_fwd"),
+    "zamba2-1.2b": ("rmsnorm", "ssd_intra_fwd", "flash_attention_fwd",
+                    "flash_attention_bwd", "decode_attention_quant_fwd")}
+SSM_INT8_SERVE_KERNELS = ("rmsnorm", "ssd_intra_fwd", "flash_attention_fwd",
+                          "decode_attention_quant_fwd")
+
+
+def ssd_bwd_bound(b, nc, q, h, p, n, esize, kind="fp32"):
+    """Least time of the intra-chunk pass's backward
+    (``ref.ssd_intra_bwd_ref``), (ms, "bytes"|"operations"), counted as
+    :func:`ssd_bound` counts the forward: FLOP over the causal pairs P =
+    q (q + 1) / 2, per (batch, chunk) the scores G = C B^T and dG B, dG^T C
+    (3 x 2 n P, every head shares them), per head dW = dY Xd^T and W^T dY
+    (2 x 2 p P), B dS^T and (w Xd)^T dS (2 x 2 q p n); bytes of X, B, C,
+    dt, A_cs, dY (X's dtype), dS, dA_cs read once and dX, dB, dC, ddt
+    written once."""
+    P = q * (q + 1) // 2
+    flop = b * nc * (6 * n * P + h * (4 * p * P + 4 * q * p * n))
+    nbytes = (b * nc * (3 * q * h * p * esize + 4 * q * h * 4
+                        + 4 * q * n * esize + h * p * n * 4) + 2 * h * 4)
+    return bound(nbytes, flop, kind)
+
+
+def _ssd_bwd_rows(state, failures):
+    """The explicit SSD backward against autograd of the plain forward
+    (``ref.ssd_intra_ref``) at the SFT shapes (Mamba2-370M and Zamba2-1.2B,
+    8 x 512 tokens: b 8, nc 2, q 256), fp32 (TF32 off) and bf16 inputs;
+    the forward kernel, the explicit backward and autograd of the plain
+    forward timed by CUDA-graph replay, beside the backward's bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_intra_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(2020)
+    rel = lambda a, b: float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max().clamp(min=1e-30))
+    cases = (("mamba2-370m SFT", 8, 2, 256, 32, 64, 128),
+             ("zamba2-1.2b SFT", 8, 2, 256, 64, 64, 64))
+    rows = state.setdefault("ssd_bwd", {})
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        tol = 1e-4 if dname == "fp32" else 2e-2
+        for label, b, nc, q, h, p, n in cases:
+            X, dt, A, B, C = _ssd_inputs(gen, b, nc, q, h, p, n, dtype)
+            y, s, acs = ssd_intra_fwd(X, dt, A, B, C)
+            # the forward kernel at the shape whose time is train_ms
+            with torch.no_grad():
+                yr, sr, _, ar = ref.ssd_intra_ref(X, dt, A, B, C)
+            fwd_errs = [rel(y, yr), rel(s, sr), rel(acs, ar)]
+            fwd_ok = all(e <= t for e, t in
+                         zip(fwd_errs, (tol, 1e-4, 1e-5)))   # NaN fails
+            del yr, sr, ar
+            dY = torch.randn(y.shape, generator=gen, device="cuda").to(
+                y.dtype)
+            dS = torch.randn(s.shape, generator=gen, device="cuda")
+            dAcs = torch.randn(acs.shape, generator=gen, device="cuda")
+            got = ref.ssd_intra_bwd_ref(X, dt, A, B, C, acs, dY, dS, dAcs)
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in (X, dt, A, B, C)]
+
+            def plain_fwd_bwd():
+                yr, sr, _, ar = ref.ssd_intra_ref(*leaves)
+                return torch.autograd.grad(
+                    (yr.float() * dY.float()).sum() + (sr * dS).sum()
+                    + (ar * dAcs).sum(), leaves)
+
+            want = plain_fwd_bwd()
+            errs = [rel(g, w) for g, w in zip(got, want)]
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            ok = finite and all(e <= tol for e in errs)    # NaN fails
+            del want
+            f_ms = time_ms(lambda: ssd_intra_fwd(X, dt, A, B, C))
+            b_ms = time_ms(lambda: ref.ssd_intra_bwd_ref(
+                X, dt, A, B, C, acs, dY, dS, dAcs), inner=3, repeats=5)
+            pf_ms = time_ms(
+                lambda: ref.ssd_intra_ref(*[t.detach() for t in leaves]),
+                inner=3, repeats=5)
+            pfb_ms = time_ms(plain_fwd_bwd, inner=2, repeats=5)
+            fwd_bnd = ssd_bound(b, nc, q, h, p, n, X.element_size(), dname)
+            bnd = ssd_bwd_bound(b, nc, q, h, p, n, X.element_size(), dname)
+            bnd32 = ssd_bwd_bound(b, nc, q, h, p, n, X.element_size())
+            shape = f"{label} b={b} nc={nc} q={q} h={h} p={p} n={n}"
+            log(f"[ssm_train] ssd {shape} {dname}: forward kernel vs "
+                f"plain, err Y {fwd_errs[0]:.3g} (tol {tol}) S_c "
+                f"{fwd_errs[1]:.3g} (tol 1e-4) A_cs {fwd_errs[2]:.3g} (tol "
+                f"1e-5) {'ok' if fwd_ok else 'FAIL'}; backward, explicit vs "
+                f"autograd of the plain forward, errors dX ddt dA dB dC "
+                f"{' '.join(f'{e:.3g}' for e in errs)} (tol {tol}), finite "
+                f"{finite}; forward kernel {f_ms:.4f} ms (bound "
+                f"{fwd_bnd[0]:.4f}, {fwd_bnd[1]}); explicit backward "
+                f"{b_ms:.4f} ms; autograd of the plain version "
+                f"{pfb_ms - pf_ms:.4f} ms (fwd+bwd {pfb_ms:.4f} less fwd "
+                f"{pf_ms:.4f}); all by CUDA-graph replay; backward bound "
+                f"{bnd[0]:.4f} ms "
+                f"({bnd[1]}), at the fp32 rate {bnd32[0]:.4f} ms "
+                f"({bnd32[1]}) {'ok' if ok else 'FAIL'}")
+            rows[f"{label} {dname}"] = {
+                "fwd_errors": fwd_errs, "errors": errs, "fwd_ms": f_ms,
+                "fwd_bound_ms": fwd_bnd[0], "bwd_ms": b_ms,
+                "autograd_plain_bwd_ms": pfb_ms - pf_ms,
+                "plain_fwd_ms": pf_ms, "bwd_bound_ms": bnd[0],
+                "bwd_bound_by": bnd[1], "bwd_bound_fp32_ms": bnd32[0]}
+            if (label, dname) == ("mamba2-370m SFT", "bf16"):
+                row = state.setdefault("kernel_rows", {}).setdefault(
+                    "ssd_intra_fwd", {})
+                row.update(train_ms=f_ms, train_bound_ms=fwd_bnd[0])
+            if not fwd_ok:
+                failures.append(f"ssd_intra_fwd {shape} {dname}: errors "
+                                f"Y S_c A_cs {fwd_errs}")
+            if not ok:
+                failures.append(f"ssd backward {shape} {dname}: errors "
+                                f"{errs}, finite {finite}")
+            del X, dt, A, B, C, y, s, acs, dY, dS, dAcs, got, leaves
+            torch.cuda.empty_cache()
+
+
+def _rmsnorm_bwd_rows(state, failures):
+    """The plain RMSNorm backward (``ref.rmsnorm_bwd_ref``, fp32 math: the
+    reference has no backward kernel either) at the SFT steps' 8 x 512 =
+    4,096 rows, D 1024 (Mamba2-370M) and 2048 (Zamba2-1.2B, OPT-1.3B), in
+    bf16: against autograd of the plain forward (2e-2), timed by CUDA-graph
+    replay beside its bound (bytes of x, dy and dx, w and dw; ~10 R D FLOP
+    at the fp32 rate)."""
+    import torch
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2021)
+    rows = state.setdefault("rmsnorm_bwd", {})
+    for D in (1024, 2048):
+        R = 4096
+        x = torch.randn((R, D), generator=gen, device="cuda").bfloat16()
+        w = (1 + 0.1 * torch.randn((D,), generator=gen, device="cuda")
+             ).bfloat16()
+        dy = torch.randn((R, D), generator=gen, device="cuda").bfloat16()
+        dx, dw = ref.rmsnorm_bwd_ref(x, w, dy)
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        wx, ww = torch.autograd.grad(
+            (ref.rmsnorm_ref(xl, wl).float() * dy.float()).sum(), (xl, wl))
+        errs = [float((a.float() - b.float()).abs().max()
+                      / b.float().abs().max()) for a, b in ((dx, wx), (dw, ww))]
+        finite = bool(torch.isfinite(dx).all() and torch.isfinite(dw).all())
+        ms = time_ms(lambda: ref.rmsnorm_bwd_ref(x, w, dy), inner=10,
+                     repeats=5)
+        bnd = bound(3 * R * D * 2 + 2 * D * 2, 10 * R * D, "fp32")
+        ok = finite and all(e <= 2e-2 for e in errs)    # NaN fails
+        log(f"[ssm_train] rmsnorm backward (plain) R={R} D={D} bf16: errors "
+            f"dx dw {' '.join(f'{e:.3g}' for e in errs)} vs autograd of the "
+            f"plain forward (tol 2e-2), finite {finite}; "
+            f"{ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) "
+            f"{'ok' if ok else 'FAIL'}")
+        rows[f"R={R} D={D}"] = {"ms": ms, "bound_ms": bnd[0],
+                                "bound_by": bnd[1], "errors": errs}
+        if not ok:
+            failures.append(f"rmsnorm backward D={D}: errors {errs}, "
+                            f"finite {finite}")
+
+
+def _ssm_train_parity(failures):
+    """Kernel path against plain path on one SFT step at full width and
+    depth, fp32 (TF32 off), random weights, 2 x 512 tokens, remat on:
+
+    - a per-layer witness: the input of a middle SSM layer (and, in
+      Zamba2, of a middle attention layer) as the plain forward computes
+      it, through that layer on both paths, and the backward of a fixed
+      random projection of its output: the output change (the layer's
+      mixer) to 1e-4 of the plain twin's, the input's and every parameter's
+      gradient to 1e-4 of its max;
+    - end to end: the loss and the global grad norm, to 1e-4 or 2x the
+      model's conditioning (the plain path with the token embeddings moved
+      by a relative 1e-7), whichever is larger (R10)."""
+    import torch
+    from repro_torch import to_device
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import lm_data
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ATTN
+    from repro_torch.models.modules import tree_leaves, tree_map
+    from repro_torch.training.steps import lm_value_and_grad
+
+    for arch in ("mamba2-370m", "zamba2-1.2b"):
+        cfg = get_config(arch).replace(compute_dtype="float32")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = T.init_params(cfg, gen)
+        batch = to_device(next(lm_data(cfg, 512, 0).sft_batches(2, 1)),
+                          "cuda")
+        kcfg = cfg.replace(use_kernels=True)
+        pcfg = cfg.replace(use_kernels=False)
+
+        # the witness: record the chosen layers' inputs in a plain forward
+        kinds = ("ssm", "attn") if cfg.arch_type == "hybrid" else ("ssm",)
+        seen, picked = [0], {}
+        layer = T._layer
+
+        def spy(c, spec, lp, x, positions, mode, lc, rope,
+                block_tables=None):
+            kind = "attn" if spec.kind == ATTN else "ssm"
+            if (seen[0] >= cfg.n_layers // 2 and kind in kinds
+                    and kind not in picked):
+                picked[kind] = (seen[0], spec, lp, x.clone(), positions,
+                                rope)
+            seen[0] += 1
+            return layer(c, spec, lp, x, positions, mode, lc, rope,
+                         block_tables)
+
+        T._layer = spy
+        try:
+            with torch.no_grad():
+                T.forward(pcfg, params, tokens=batch["tokens"])
+        finally:
+            T._layer = layer
+        for kind, (idx, spec, lp, x, positions, rope) in picked.items():
+            w = torch.randn(x.shape, generator=gen, device="cuda")
+            res = {}
+            for uk, c in ((True, kcfg), (False, pcfg)):
+                lpg = tree_map(lambda t: t.detach().clone()
+                               .requires_grad_(), lp)
+                xg = x.detach().clone().requires_grad_()
+                if uk:
+                    ops.reset_launch_counts()
+                out = layer(c, spec, lpg, xg, positions, "full", None, rope)
+                (out * w).sum().backward()
+                torch.cuda.synchronize()
+                if uk:
+                    counts = ops.launch_counts()
+                # the input's grad less the residual path's (w itself)
+                res[uk] = (out.detach(), [xg.grad - w] + [
+                    t.grad for t in tree_leaves(lpg)])
+            (ok_, gk), (op_, gp) = res[True], res[False]
+            out_rel = float((ok_ - op_).abs().max() / (op_ - x).abs().max())
+            grad_errs = [float((a - b).abs().max()
+                               / b.abs().max().clamp(min=1e-30))
+                         for a, b in zip(gk, gp)]
+            # every error against its tolerance: Python's max drops a NaN
+            # that is not first
+            finite = all(bool(torch.isfinite(g).all()) for g in gk)
+            ok = (finite and out_rel <= 1e-4
+                  and all(e <= 1e-4 for e in grad_errs))
+            grad_rel = max(grad_errs)
+            used = [k for k, v in counts.items() if v]
+            log(f"[ssm_train] witness {arch} fp32 layer {idx} ({kind}), "
+                f"2 x 512 tokens: output change {out_rel:.3g}, max over "
+                f"the input (less the residual) and {len(gk) - 1} "
+                f"parameter grads of "
+                f"max|dgrad|/max|grad| {grad_rel:.3g} (tol 1e-4, each), "
+                f"kernel grads finite {finite}; kernels launched {used} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"witness {arch} layer {idx}: output "
+                                f"{out_rel:.3g}, grads {grad_errs}, finite "
+                                f"{finite}")
+            del res, gk, gp
+        del picked
+
+        def loss_gnorm(c, p):
+            (loss, _), grads = lm_value_and_grad(c, p, batch)
+            gn = torch.sqrt(sum((g.double() ** 2).sum()
+                                for g in tree_leaves(grads)))
+            return float(loss), float(gn)
+
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        lk, gk_ = loss_gnorm(kcfg, params)
+        counts = ops.launch_counts()
+        dt_s = time.perf_counter() - t0
+        lp_, gp_ = loss_gnorm(pcfg, params)
+        noisy = dict(params, embed=params["embed"] * (1 + 1e-7 * torch.randn(
+            params["embed"].shape, generator=gen, device="cuda")))
+        lm_, gm_ = loss_gnorm(pcfg, noisy)
+        del noisy
+        r_loss, r_gn = abs(lk - lp_) / abs(lp_), abs(gk_ - gp_) / gp_
+        c_loss, c_gn = abs(lm_ - lp_) / abs(lp_), abs(gm_ - gp_) / gp_
+        lim_loss, lim_gn = max(1e-4, 2 * c_loss), max(1e-4, 2 * c_gn)
+        import math
+        ok = (math.isfinite(lk) and math.isfinite(gk_) and r_loss <= lim_loss
+              and r_gn <= lim_gn)
+        log(f"[ssm_train] parity {arch} fp32 full width and depth, one SFT "
+            f"step of 2 x 512, remat on: loss kernel {lk:.7f} plain "
+            f"{lp_:.7f} (rel {r_loss:.3g}, tol {lim_loss:.3g}: 1e-4 or 2x "
+            f"the conditioning {c_loss:.3g}); grad norm kernel {gk_:.6f} "
+            f"plain {gp_:.6f} (rel {r_gn:.3g}, tol {lim_gn:.3g}, "
+            f"conditioning {c_gn:.3g}); kernel path {dt_s:.2f}s, launches "
+            f"{ {k: v for k, v in counts.items() if v} } "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"parity {arch}: loss rel {r_loss:.3g} (tol "
+                            f"{lim_loss:.3g}), grad norm rel {r_gn:.3g} (tol "
+                            f"{lim_gn:.3g})")
+        missing = [k for k in SSM_TRAIN_KERNELS[arch] if counts[k] == 0]
+        if missing:
+            failures.append(f"parity {arch}: the kernel path skipped "
+                            f"{missing}")
+        del params
+        torch.cuda.empty_cache()
+
+
+def _profile_ssm_step(step_fn):
+    """Device time of one call of ``step_fn`` from ``torch.profiler``:
+    (total kernel ms, SSD forward kernel ms, ms of the kernels the explicit
+    SSD backward launched, flash fwd + bwd ms, [(kernel, ms)] longest
+    first), or None when the profiler sees no device time.  The backward's
+    kernels are those inside the device span of a ``record_function``
+    range put around ``ref.ssd_intra_bwd_ref`` for this call only (None
+    when the trace holds no such span)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import ref
+
+    tag = "ssd_intra_bwd_ref"
+    bwd = ref.ssd_intra_bwd_ref
+
+    def marked(*a):
+        with record_function(tag):
+            return bwd(*a)
+
+    ref.ssd_intra_bwd_ref = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step_fn()
+            torch.cuda.synchronize()
+    finally:
+        ref.ssd_intra_bwd_ref = bwd
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels, spans = [], []
+    for evt in prof.events():
+        if evt.device_type != cuda:
+            continue
+        if evt.name == tag:             # the range's span on the device
+            spans.append((evt.time_range.start, evt.time_range.end))
+        elif not getattr(evt, "is_user_annotation", False):
+            kernels.append((evt.time_range.start, evt.time_range.end,
+                            evt.name))
+    total = sum(e - s for s, e, _ in kernels) / 1e3
+    if total <= 0:
+        return None
+    bwd_ms = (sum(e - s for s, e, _ in kernels
+                  if any(a <= s and e <= b for a, b in spans)) / 1e3
+              if spans else None)
+    fwd_ms = sum(e - s for s, e, n in kernels if "ssd_intra" in n) / 1e3
+    flash_ms = sum(e - s for s, e, n in kernels if "flash_" in n) / 1e3
+    per = {}
+    for s, e, n in kernels:
+        per[n] = per.get(n, 0.0) + (e - s) / 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1])
+    return total, fwd_ms, bwd_ms, flash_ms, top
+
+
+def _ssm_sft(state, failures):
+    """``launch.train`` at Mamba2-370M (10 steps) and Zamba2-1.2B (5 steps),
+    8 x 512, bf16 on fp32 masters, remat on, the counts set to 0 just
+    before each run and read just after; then one step of each under
+    ``torch.profiler``; then 5 Mamba2-370M reward steps of 8 pairs x 512."""
+    import math
+
+    import torch
+    from repro_torch import to_device
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import reward as R
+    from repro_torch.models import transformer as T
+    from repro_torch.training.steps import lm_train_step, reward_train_step
+    from repro_torch.training.train_state import TrainState
+
+    for arch, steps in (("mamba2-370m", 10), ("zamba2-1.2b", 5)):
+        argv = ["--arch", arch, "--steps", str(steps), "--batch", "8",
+                "--seq", "512"]
+        log(f"[ssm_train] python -m repro_torch.launch.train "
+            f"{' '.join(argv)}")
+        ops.reset_launch_counts()
+        out = launch_train.main(argv)
+        counts = ops.launch_counts()
+        state.setdefault("launches", {})[f"ssm_sft_{arch}"] = counts
+        losses, steady = out["loss"], out["step_ms"][1:]
+        per_step = out["launches"][-1]
+        log(f"[ssm_train] {arch} bf16 SFT losses "
+            f"{' '.join(f'{x:.4f}' for x in losses)}; step ms "
+            f"{' '.join(f'{x:.1f}' for x in out['step_ms'])}; median after "
+            f"the first {statistics.median(steady):.1f} ms, "
+            f"{out['tok_s']:.1f} tok/s, peak memory "
+            f"{out['peak_mem_bytes'] / 2**30:.2f} GiB")
+        log(f"[ssm_train] {arch} launches per step "
+            f"{ {k: v for k, v in per_step.items() if v} }; in the run "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        state.setdefault("ssm_sft", {})[arch] = {
+            "step_ms": statistics.median(steady), "tok_s": out["tok_s"],
+            "peak_gib": out["peak_mem_bytes"] / 2**30,
+            "launches_per_step": per_step}
+        if not all(math.isfinite(x) for x in losses):
+            failures.append(f"sft {arch}: losses not finite {losses}")
+        missing = [k for k in SSM_TRAIN_KERNELS[arch] if counts[k] == 0]
+        if missing:
+            failures.append(f"sft {arch}: kernels never launched {missing}")
+        if arch == "mamba2-370m" and any(counts[k]
+                                         for k in ATTENTION_KERNELS):
+            failures.append(f"sft {arch}: an attention kernel launched")
+
+        # where the time goes in one step (same shape, a fresh state)
+        cfg = get_config(arch)
+        holder = [TrainState.create(T.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(1)))]
+        b = to_device(next(launch_train.lm_data(cfg, 512, 0)
+                           .sft_batches(8, 1)), "cuda")
+
+        def one_step():
+            holder[0], m = lm_train_step(cfg, holder[0], b, 1e-5)
+            float(m["loss"])
+
+        one_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        try:
+            prof = _profile_ssm_step(one_step)
+        except Exception as e:          # measurement only, not a check
+            prof = None
+            log(f"[ssm_train] torch.profiler failed: {e!r}")
+        if prof is None:
+            log(f"[ssm_train] {arch} one SFT step {wall:.1f} ms host clock; "
+                f"the profiler saw no device time")
+        else:
+            total, fwd_ms, bwd_ms, flash_ms, top = prof
+            bwd = ("not measured (no device span in the trace)"
+                   if bwd_ms is None else
+                   f"{bwd_ms:.2f} ms ({bwd_ms / total:.1%})")
+            log(f"[ssm_train] {arch} one SFT step (8 x 512, bf16, remat): "
+                f"{wall:.1f} ms host clock, {total:.1f} ms of kernel time "
+                f"(torch.profiler), device idle "
+                f"~{max(0.0, 1 - total / wall):.1%}; ssd_intra_fwd "
+                f"{fwd_ms:.2f} ms ({fwd_ms / total:.1%}); the explicit SSD "
+                f"backward's kernels {bwd}; flash kernels {flash_ms:.2f} ms "
+                f"({flash_ms / total:.1%})")
+            for name, ms in top[:10]:
+                log(f"[ssm_train]   {ms:9.2f} ms  {name[:110]}")
+            state["ssm_sft"][arch].update(
+                wall_ms=wall, kernel_ms=total, ssd_fwd_ms=fwd_ms,
+                ssd_bwd_ms=bwd_ms, flash_ms=flash_ms)
+        del holder, b
+        torch.cuda.empty_cache()
+
+    # reward model on the Mamba2 backbone
+    cfg = get_config("mamba2-370m")
+    rstate = TrainState.create(R.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(2)))
+    rlosses, rms = [], []
+    for i, rb in enumerate(launch_train.lm_data(cfg, 512, 0)
+                           .reward_batches(8, 5)):
+        rb = to_device(rb, "cuda")
+        t0 = time.perf_counter()
+        rstate, m = reward_train_step(cfg, rstate, rb, 1e-5)
+        rlosses.append(float(m["loss"]))
+        rms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[ssm_train] mamba2-370m reward model, 8 pairs x 512 tokens, bf16: "
+        f"losses {' '.join(f'{x:.4f}' for x in rlosses)}; step ms "
+        f"{' '.join(f'{x:.1f}' for x in rms)}; median after the first "
+        f"{statistics.median(rms[1:]):.1f} ms")
+    state.setdefault("ssm_sft", {})["reward"] = {
+        "step_ms": statistics.median(rms[1:])}
+    if not all(math.isfinite(x) for x in rlosses):
+        failures.append(f"reward: losses not finite {rlosses}")
+    del rstate
+    torch.cuda.empty_cache()
+
+
+def _ssm_rlhf(state, failures):
+    """``launch.train --rlhf`` at Mamba2-370M (2 steps of each stage, 8 x
+    256 prompts, 64 new tokens) and Zamba2-1.2B with ``--kv-quant`` (1
+    step, 4 prompts, 32 new): launches, peak memory, every loss finite, and
+    the frozen reference and reward models unchanged by stage 3 (checksums
+    taken around ``RLHFPipeline.run_ppo``)."""
+    import math
+
+    import torch
+    from repro_torch.core import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    seen = {}
+    run_ppo = pipeline.RLHFPipeline.run_ppo
+
+    def checked_run_ppo(self, *a, **kw):
+        seen["before"] = {"ref": _checksum(self.e.ref_params),
+                          "reward": _checksum(self.e.reward_params)}
+        out = run_ppo(self, *a, **kw)
+        seen["after"] = {"ref": _checksum(self.trainer.ref_params),
+                         "reward": _checksum(self.trainer.reward_params)}
+        seen["rm_losses"] = list(self.log["stage2"])
+        return out
+
+    runs = (("mamba2-370m", ["--steps", "2", "--batch", "8", "--seq", "256",
+                             "--max-new", "64"]),
+            ("zamba2-1.2b", ["--kv-quant", "--steps", "1", "--batch", "4",
+                             "--seq", "256", "--max-new", "32"]))
+    pipeline.RLHFPipeline.run_ppo = checked_run_ppo
+    try:
+        for arch, extra in runs:
+            argv = ["--arch", arch, "--rlhf", *extra]
+            log(f"[ssm_train] python -m repro_torch.launch.train "
+                f"{' '.join(argv)}")
+            seen.clear()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = launch_train.main(argv)
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            state.setdefault("launches", {})[f"ssm_rlhf_{arch}"] = counts
+            iters = out["stage3"]
+            for i, m in enumerate(iters):
+                log(f"[ssm_train] {arch} PPO iteration {i}: gen "
+                    f"{m['gen_s']:.2f}s = {m['gen_tok_s']:.1f} tok/s, "
+                    f"scoring {m['score_ms']:.1f} ms, actor step "
+                    f"{m['actor_ms']:.1f} ms, critic step "
+                    f"{m['critic_ms']:.1f} ms; ratio_mean "
+                    f"{m['ratio_mean']:.6f} actor_loss {m['actor_loss']:.4f} "
+                    f"v_loss {m['v_loss']:.4f} reward {m['reward_score']:.4f}")
+            peak = out["peak_mem_bytes"] / 2**30
+            steps = out["step_ms"]
+            log(f"[ssm_train] {arch} rlhf {wall:.1f}s: stages "
+                f"{ {k: round(v, 2) for k, v in out['timings'].items()} }, "
+                f"SFT losses {out['sft_loss']}, RM losses "
+                f"{seen.get('rm_losses')}, SFT/RM step ms "
+                f"{ {k: [round(x, 1) for x in v] for k, v in steps.items()} }; "
+                f"peak memory {peak:.2f} GiB; checksums before stage 3 "
+                f"{seen.get('before')}, after {seen.get('after')}; launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            state.setdefault("ssm_rlhf", {})[arch] = {
+                "wall_s": wall, "timings": out["timings"], "peak_gib": peak,
+                "iters": iters, "step_ms": out["step_ms"]}
+            nums = (list(out["sft_loss"]) + list(seen.get("rm_losses", []))
+                    + [v for m in iters for v in m.values()
+                       if isinstance(v, float)])
+            if not nums or not all(math.isfinite(v) for v in nums):
+                failures.append(f"rlhf {arch}: a non-finite loss or metric")
+            if not seen.get("before") or seen["before"] != seen["after"]:
+                failures.append(f"rlhf {arch}: the frozen reference or "
+                                f"reward model moved: {seen}")
+            missing = [k for k in SSM_RLHF_KERNELS[arch] if counts[k] == 0]
+            if missing:
+                failures.append(f"rlhf {arch}: kernels never launched "
+                                f"{missing}")
+            if arch == "zamba2-1.2b" and counts["decode_attention_fwd"]:
+                failures.append("rlhf zamba2-1.2b --kv-quant: the bf16 "
+                                "decode kernel launched")
+            if arch == "mamba2-370m" and any(counts[k]
+                                             for k in ATTENTION_KERNELS):
+                failures.append("rlhf mamba2-370m: an attention kernel "
+                                "launched")
+            del out
+            torch.cuda.empty_cache()
+    finally:
+        pipeline.RLHFPipeline.run_ppo = run_ppo
+
+
+def _zamba2_int8(state, failures):
+    """Zamba2-1.2B with ``--kv-quant``: the 32-request serve workload in
+    bf16 (the int8 decode kernel launched, the bf16 one never); then the
+    int8 gate of phase ``parity`` at full width cut to 12 layers (two
+    hybrid units), fp32:
+    a 256-token prefill and 32 greedy steps on the int8 arena, kernel path
+    vs plain path, held from one cache at 1e-4 (the witness: each step
+    again from clones of the kernel path's cache, so only the decode math
+    differs) and, free-running, to a tenth of the int8 cache's own error
+    (the plain path on an fp32 cache, teacher-forced on the same tokens),
+    with the tokens identical."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_leaves
+
+    tag = "ssm_serve_zamba2-1.2b_int8"
+    res = _serve_run(["--arch", "zamba2-1.2b", *SERVE_ARGV[2:], "--kv-quant"],
+                     tag, SSM_INT8_SERVE_KERNELS, state)
+    if state["launches"][tag]["decode_attention_fwd"]:
+        failures.append("serve zamba2-1.2b --kv-quant: the bf16 decode "
+                        "kernel launched")
+    state.setdefault("ssm_serve", {})["zamba2-1.2b int8"] = res["tok_s"]
+
+    Lp, n_dec = 256, 32
+    cfg = get_config("zamba2-1.2b").replace(n_layers=12,
+                                            compute_dtype="float32",
+                                            kv_quant=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = T.init_params(cfg, gen)
+    prompt = torch.randint(0, cfg.vocab_size, (1, Lp), generator=gen,
+                           device="cuda")
+    runs, (wa, wb) = _int8_streams(cfg, params, prompt, n_dec)
+    (a, ta, kcache), (b, tb, pcache) = runs["kernel"], runs["plain"]
+    fp = runs["plain-fp32-cache"][0]
+    rel_wit = float((wa - wb).abs().max() / wb.abs().max())
+    wit_same = bool(torch.equal(wa.argmax(-1), wb.argmax(-1)))
+    int8 = [t for t in tree_leaves(kcache) if t.dtype == torch.int8]
+    rel8 = float((a - b).abs().max() / b.abs().max())
+    quant_err = float((b - fp).abs().max() / fp.abs().max())
+    same = bool(torch.equal(ta, tb))
+    # the first attention layer's int8 rows (unit 0 of the stacked layer)
+    ca, cb = (next(d for d in c[0] if "k" in d) for c in (kcache, pcache))
+    steps_apart = max(int((ca[n][0].int() - cb[n][0].int()).abs().max())
+                      for n in ("k", "v"))
+    ok = (bool(torch.isfinite(a).all()) and bool(int8) and wit_same
+          and rel_wit <= 1e-4 and same and rel8 <= 0.1 * quant_err
+          and steps_apart <= 1)
+    log(f"[ssm_train] zamba2-1.2b full width, 12 layers, fp32, int8 KV "
+        f"({len(int8)} int8 leaves): {n_dec} decode steps from one int8 "
+        f"cache, kernel vs plain max|dlogits|/max|logits| = {rel_wit:.3g} "
+        f"(tol 1e-4), argmax identical {wit_same}; free-running {Lp} "
+        f"prefill + {n_dec} greedy steps: kernel vs plain {rel8:.3g}, int8 "
+        f"vs fp32 cache (plain) {quant_err:.3g}, gap / int8 error "
+        f"{rel8 / max(quant_err, 1e-30):.3g} (tol 0.1), tokens identical "
+        f"{same}; the first attention layer's int8 rows at most "
+        f"{steps_apart} step apart (tol 1) {'ok' if ok else 'FAIL'}")
+    state["ssm_int8"] = {"rel_one_cache": rel_wit, "rel": rel8,
+                         "quant_err": quant_err, "tokens_same": same}
+    if not ok:
+        failures.append(f"zamba2 int8: witness {rel_wit:.3g} (argmax same "
+                        f"{wit_same}), free-running {rel8:.3g} vs int8 error "
+                        f"{quant_err:.3g}, tokens identical {same}, int8 "
+                        f"rows {steps_apart} steps apart")
+    del params, runs, kcache, pcache, ca, cb, wa, wb
+    torch.cuda.empty_cache()
+
+
+def phase_ssm_train(state):
+    """The SSM / hybrid training slice: the explicit SSD backward against
+    autograd of the plain forward at the SFT shapes, timed beside the
+    forward kernel; kernel vs plain path on one fp32 SFT step of
+    Mamba2-370M and Zamba2-1.2B (per-layer witness and end to end); the
+    bf16 SFT runs through ``launch.train`` with launches per step and a
+    ``torch.profiler`` step; Mamba2 reward steps; the 3-stage pipeline on
+    both (Zamba2 with int8 KV generation); Zamba2 ``--kv-quant`` serving
+    and its int8 gate."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    failures = []
+    _ssd_bwd_rows(state, failures)
+    _rmsnorm_bwd_rows(state, failures)
+    _ssm_train_parity(failures)
+    _ssm_sft(state, failures)
+    _ssm_rlhf(state, failures)
+    _zamba2_int8(state, failures)
+    if failures:
+        raise AssertionError("ssm_train: " + "; ".join(failures))
+
+
 def phase_profile(state):
     """``torch.profiler`` over the decode kernels, after every timed
     phase: a profiler session leaves tracing hooks behind it, which slowed
@@ -2496,7 +3202,8 @@ def phase_profile(state):
 PHASE_FNS = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "parity": phase_parity,
              "serve": phase_serve, "train": phase_train, "rlhf": phase_rlhf,
-             "ssm": phase_ssm, "profile": phase_profile}
+             "ssm": phase_ssm, "ssm_train": phase_ssm_train,
+             "profile": phase_profile}
 
 
 def main() -> int:

@@ -14,9 +14,12 @@ backward kernels recompute the probabilities from it) and
 :class:`RMSNorm` (the forward kernel with a plain PyTorch backward: the
 reference has no RMSNorm backward kernel either, XLA derives it).
 
-The SSD scan (:func:`ssd_scan`) is forward-only, as the reference's
-Pallas path is: a call that autograd would have to differentiate raises;
-the model's plain ``ssd_chunked`` is the differentiable path.
+The SSD scan (:func:`ssd_scan`) trains through a third,
+:class:`SSDIntra`: the intra-chunk kernel forward and an explicit plain
+backward (:func:`repro_torch.kernels.ref.ssd_intra_bwd_ref`, fp32; the
+reference has no SSD backward kernel: it trains SSM models on its jnp
+path).  The inter-chunk recurrence around it is torch code that autograd
+differentiates.
 
 Each kernel wrapper counts its launches in a plain integer
 (``<wrapper>.launches``); :func:`launch_counts` reads them and
@@ -198,6 +201,27 @@ def rmsnorm(x, w, *, eps=1e-5):
     return out.reshape(shape)
 
 
+class SSDIntra(torch.autograd.Function):
+    """The intra-chunk SSD pass under autograd: X (b, nc, q, h, p), dt (b,
+    nc, q, h), A (h,), B, C (b, nc, q, n) -> (Y_diag, S_c, A_cs), the
+    contract of :func:`repro_torch.kernels.ssd_scan.ssd_intra_fwd`.
+    Forward: that wrapper (the kernel on CUDA, the plain version on the
+    CPU); saved: the inputs and A_cs.  Backward:
+    :func:`repro_torch.kernels.ref.ssd_intra_bwd_ref`, which never re-runs
+    the forward.  Under remat the forward runs twice; the kernels sum in a
+    fixed order (no atomics), so both runs give the same bits."""
+
+    @staticmethod
+    def forward(ctx, X, dt, A, B, C):
+        Y_diag, S_c, A_cs = _ssd.ssd_intra_fwd(X, dt, A, B, C)
+        ctx.save_for_backward(X, dt, A, B, C, A_cs)
+        return Y_diag, S_c, A_cs
+
+    @staticmethod
+    def backward(ctx, dY, dS, dAcs):
+        return ref.ssd_intra_bwd_ref(*ctx.saved_tensors, dY, dS, dAcs)
+
+
 def ssd_scan(X, dt, A, B, C, chunk, initial_state=None):
     """Full SSD (counterpart of ``repro/kernels/ops.py::ssd_scan``): the
     intra-chunk kernel, then the inter-chunk recurrence (a loop over the
@@ -206,16 +230,15 @@ def ssd_scan(X, dt, A, B, C, chunk, initial_state=None):
 
     X: (b, l, h, p)  dt: (b, l, h) fp32  A: (h,) fp32  B, C: (b, l, n).
     Returns (Y (b, l, h, p) in X's dtype, final_state (b, h, p, n) fp32):
-    the contract of :func:`repro_torch.models.modules.ssd_chunked`.
-    Forward only: raises ``NotImplementedError`` under autograd."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (X, dt, A, B, C, initial_state)):
-        raise NotImplementedError(
-            "ssd_scan: the SSD intra-chunk kernel is forward-only; "
-            "differentiate the plain path (use_kernels=False)")
+    the contract of :func:`repro_torch.models.modules.ssd_chunked`.  The
+    intra-chunk pass goes through :class:`SSDIntra` only where autograd
+    needs its backward: the serving call stays one bare launch."""
     Xc, dtc, Bc, Cc = ref.ssd_chunks(X, dt, B, C, chunk)
-    Y_diag, S_c, A_cs = _ssd.ssd_intra_fwd(Xc, dtc, A, Bc, Cc)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (Xc, dtc, A, Bc, Cc)):
+        Y_diag, S_c, A_cs = SSDIntra.apply(Xc, dtc, A, Bc, Cc)
+    else:
+        Y_diag, S_c, A_cs = _ssd.ssd_intra_fwd(Xc, dtc, A, Bc, Cc)
     Y, final = ref.ssd_inter_chunk(Y_diag, S_c, A_cs, Cc, initial_state,
                                    X.shape[1])
     return Y.to(X.dtype), final

@@ -171,6 +171,18 @@ def chunk_cumsum(dA):
     return torch.cumsum(dA.double(), -1).to(dA.dtype)
 
 
+def _lower_decay(A_cs):
+    """(..., q) -> (..., q, q): exp(A_cs[i] - A_cs[j]) for i >= j, else 0.
+    The segment sums above the diagonal are set to -inf before the
+    ``exp``: never a 0/1 mask multiply, nor a select after the ``exp`` (a
+    positive segment sum may overflow, and inf * 0 is NaN, in a product
+    or in autograd's gradient of the select)."""
+    q = A_cs.shape[-1]
+    tri = torch.ones((q, q), dtype=torch.bool, device=A_cs.device).tril()
+    d = A_cs[..., :, None] - A_cs[..., None, :]
+    return torch.exp(torch.where(tri, d, -math.inf))
+
+
 def ssd_intra_ref(X, dt, A, B, C):
     """Intra-chunk SSD (the oracle of ``repro/kernels/ref.py``), in fp32.
 
@@ -178,15 +190,12 @@ def ssd_intra_ref(X, dt, A, B, C):
     B, C: (b, nc, q, n) (ngroups = 1: shared by every head).
     Returns (Y_diag (b,nc,q,h,p) in X's dtype, S_c (b,nc,h,p,n),
     chunk_decay (b,nc,h), A_cs (b,nc,h,q)), the last three fp32.  The
-    decay above the diagonal is selected away, never multiplied by a 0/1
-    mask: ``exp`` of a positive segment sum may overflow there."""
+    decay above the diagonal is exactly 0, with a zero gradient
+    (:func:`_lower_decay`)."""
     dA = (dt * A).permute(0, 1, 3, 2)                    # (b,nc,h,q)
     Xd = X.float() * dt[..., None]
     A_cs = chunk_cumsum(dA)
-    q = dA.shape[-1]
-    d = A_cs[..., :, None] - A_cs[..., None, :]
-    tri = torch.ones((q, q), dtype=torch.bool, device=X.device).tril()
-    Ldec = torch.where(tri, torch.exp(d), 0.0)           # (b,nc,h,q,q)
+    Ldec = _lower_decay(A_cs)                            # (b,nc,h,q,q)
     scores = torch.einsum("bcqn,bckn->bcqk", C.float(), B.float())
     Y_diag = torch.einsum("bchqk,bckhp->bcqhp", scores[:, :, None] * Ldec,
                           Xd)
@@ -195,6 +204,51 @@ def ssd_intra_ref(X, dt, A, B, C):
                        Xd)
     chunk_decay = torch.exp(A_cs[..., -1])
     return Y_diag.to(X.dtype), S_c, chunk_decay, A_cs
+
+
+def ssd_intra_bwd_ref(X, dt, A, B, C, A_cs, dY, dS, dAcs):
+    """Backward of the intra-chunk pass (:func:`ssd_intra_ref`), written
+    out in fp32 as batched products: it never re-runs the forward.
+
+    Inputs as :func:`ssd_intra_ref`'s, with the forward's ``A_cs`` and the
+    gradients of its three outputs: dY (b,nc,q,h,p), dS (b,nc,h,p,n), dAcs
+    (b,nc,h,q).  Returns (dX in X's dtype, ddt fp32, dA fp32, dB and dC in
+    B's dtype).  Per (batch, chunk, head), with Xd = X dt, G = C B^T, L[i,j]
+    = exp(A_cs[i] - A_cs[j]) for i >= j (else 0), W = G L and w =
+    exp(A_cs[q-1] - A_cs):
+
+        dW  = dY Xd^T                 dXd = W^T dY + w (B dS^T)
+        dC  = (dW L) B                dB  = (dW L)^T C + (w Xd) dS
+        dA_cs = rowsum(E) - colsum(E) + the w terms + dAcs, E = dW G L
+
+    then a reverse cumsum takes dA_cs to d(dt A); B and C are shared by
+    every head, so their gradients sum over h.  L is the forward's
+    (:func:`_lower_decay`), so an overflowing upper triangle gives no
+    NaN."""
+    Xd = X.float() * dt[..., None]                       # (b,nc,q,h,p)
+    B32, C32, dY32 = B.float(), C.float(), dY.float()
+    dS32, A_cs = dS.float(), A_cs.float()
+    L = _lower_decay(A_cs)                               # (b,nc,h,q,q)
+    G = torch.einsum("bcqn,bckn->bcqk", C32, B32)        # (b,nc,q,q)
+    w = torch.exp(A_cs[..., -1:] - A_cs)                 # (b,nc,h,q)
+    BdS = torch.einsum("bckn,bchpn->bckhp", B32, dS32)   # B dS^T per head
+    dXd = (torch.einsum("bcqk,bchqk,bcqhp->bckhp", G, L, dY32)
+           + w.permute(0, 1, 3, 2)[..., None] * BdS)
+    dWL = torch.einsum("bcqhp,bckhp->bchqk", dY32, Xd).mul_(L)   # dW * L
+    dG = dWL.sum(2)                                      # (b,nc,q,q)
+    dC = torch.einsum("bcqk,bckn->bcqn", dG, B32)
+    dB = (torch.einsum("bcqk,bcqn->bckn", dG, C32)
+          + torch.einsum("bchk,bckhp,bchpn->bckn", w, Xd, dS32))
+    E = dWL.mul_(G[:, :, None])                          # dW * G * L
+    dw_w = w * torch.einsum("bckhp,bckhp->bchk", Xd, BdS)  # dL/dw * w
+    d_acs = E.sum(-1) - E.sum(-2) - dw_w + dAcs.float()
+    d_acs[..., -1] += dw_w.sum(-1)
+    d_dA = torch.flip(torch.cumsum(torch.flip(d_acs, (-1,)), -1), (-1,))
+    d_dA = d_dA.permute(0, 1, 3, 2)                      # (b,nc,q,h)
+    ddt = d_dA * A + (dXd * X.float()).sum(-1)
+    dA = (d_dA * dt).sum((0, 1, 2))
+    dX = dXd * dt[..., None]
+    return dX.to(X.dtype), ddt, dA, dB.to(B.dtype), dC.to(C.dtype)
 
 
 def ssd_chunks(X, dt, B, C, chunk):

@@ -14,9 +14,17 @@ contract (ngroups = 1)::
        A_cs (b, nc, h, q) fp32
 
 The inputs are read through their strides (X, B and C are slices of the
-model's conv output), so nothing is copied before the launch.  Forward
-only, like the Pallas kernel: :func:`repro_torch.kernels.ops.ssd_scan`
-refuses a call that autograd would have to differentiate.
+model's conv output), so nothing is copied before the launch.  The kernel
+computes the forward only, like the Pallas kernel.  Training reaches it
+through :class:`repro_torch.kernels.ops.SSDIntra`, which
+:func:`repro_torch.kernels.ops.ssd_scan` takes where autograd needs a
+backward: its forward is this wrapper, its backward the explicit plain
+:func:`repro_torch.kernels.ref.ssd_intra_bwd_ref` (the reference has no
+backward kernel).  Remat runs each layer's forward twice, so the kernel
+must repeat its bits: neither kernel has an order-dependent sum (no
+atomics; every output element is summed by one thread or one warp's
+``mma`` chain in a fixed order, and A_cs is a fixed fp64 scan), so two
+calls on the same inputs give the same bits.
 """
 from __future__ import annotations
 

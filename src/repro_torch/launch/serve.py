@@ -41,7 +41,9 @@ reuse.  The summary line then reports the pool (and cache) statistics.
 the dense layout only: admission prefills each prompt at its exact length
 into the slot's recurrent state (and, for the hybrid's attention layers,
 its arena rows); ``--kv-layout paged`` raises ``NotImplementedError`` for
-them, as in the reference, and ``--kv-quant`` is not ported for them.
+them, as in the reference.  ``--kv-quant`` makes only the hybrid's
+attention K/V rows int8 (the reference's rule), so Zamba2 decodes through
+the int8 kernel; Mamba2 has no K/V rows and serves as without it.
 
 Runs on CUDA; ``--device cpu`` runs on the CPU with the kernels' plain
 versions.  Weights are random, drawn from ``--seed``.  The reference's
@@ -260,8 +262,6 @@ def main(argv=None) -> dict:
         ap.error(str(e))
 
     cfg = get_config(args.arch)
-    if args.kv_quant and cfg.arch_type in ("ssm", "hybrid"):
-        ap.error(f"--kv-quant with --arch {args.arch}: not yet ported")
     if args.reduced:
         cfg = reduced(cfg)
     if args.kv_quant:

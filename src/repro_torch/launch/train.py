@@ -20,11 +20,15 @@ actor's config, as in the reference.  PPO generates ``--max-new`` tokens
 per prompt at temperature 1.0; ``--kv-quant`` runs that generation on an
 int8 KV cache.
 
+The SSM and hybrid ids (``mamba2-370m``, ``zamba2-1.2b``) train too, SFT,
+reward and PPO alike: each SSD layer's forward is the intra-chunk kernel
+(twice a step with remat) and its backward the explicit plain one;
+Zamba2's attention layers train through the flash kernels, and with
+``--rlhf --kv-quant`` generate on the int8 arena.
+
 Runs on CUDA; ``--device cpu`` runs on the CPU with the kernels' plain
 versions.  The reference's LoRA, checkpointing, mesh and asynchronous
-RLHF options are not ported yet and are refused, and so are the SSM and
-hybrid architectures (``mamba2-370m``, ``zamba2-1.2b``: they serve, but
-their training is a later slice).
+RLHF options are not ported yet and are refused.
 """
 from __future__ import annotations
 
@@ -184,9 +188,6 @@ def main(argv=None) -> dict:
         ap.error(str(e))
 
     cfg = get_config(args.arch)
-    if cfg.arch_type in ("ssm", "hybrid"):
-        ap.error(f"--arch {args.arch}: not yet ported (SSM and hybrid "
-                 f"training is a later slice)")
     if args.reduced:
         cfg = reduced(cfg)
     print(f"arch={cfg.name} params={cfg.n_params() / 1e6:.1f}M "

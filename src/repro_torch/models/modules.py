@@ -658,9 +658,10 @@ def ssd_chunked(X, dt, A, B, C, chunk, initial_state=None,
     X: (b,l,h,p)  dt: (b,l,h) fp32  A: (h,) fp32  B,C: (b,l,n)  [ngroups=1]
     Returns (Y: (b,l,h,p), final_state: (b,h,p,n) fp32).  With
     ``use_kernels`` the intra-chunk pass is the kernel
-    (:func:`repro_torch.kernels.ops.ssd_scan`, forward only, Y in X's
-    dtype); the plain path below is differentiable torch ops throughout
-    and, like the reference's jnp path, returns Y in fp32."""
+    (:func:`repro_torch.kernels.ops.ssd_scan`, Y in X's dtype; under
+    autograd its backward is the explicit plain one); the plain path below
+    is differentiable torch ops throughout and, like the reference's jnp
+    path, returns Y in fp32."""
     if use_kernels:
         from repro_torch.kernels import ops as kops
         return kops.ssd_scan(X, dt, A, B, C, chunk, initial_state)

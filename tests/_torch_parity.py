@@ -5,8 +5,8 @@ reference's ``repro.serving`` does not import on Python 3.12: its
 ``StepEvent`` has a numpy dataclass default), the reference's SFT loop
 built from ``repro.training`` and ``repro.data`` (its
 ``repro.launch.train`` does not import either: it imports ``repro.core``),
-and the reference's PPO modules loaded by file path
-(:func:`reference_core`).
+the reference's PPO modules loaded by file path (:func:`reference_core`),
+and the SSM / hybrid training tests' configs and comparisons.
 """
 from __future__ import annotations
 
@@ -30,7 +30,18 @@ from repro.training.train_state import TrainState as JTrainState
 from repro_torch import configs as tconfigs
 from repro_torch.models import convert
 
+# One torch intra-op thread in every process that imports these helpers,
+# which every worker of a parallel test run does when it collects the
+# suite.  The reduced models' ops are tiny, so alone this costs nothing;
+# under ``-n 6`` each worker's default OpenMP threads spin-wait for cores
+# the other workers hold (on 8 cores, six port test files in 6 workers
+# took 1,017 s with the default threads and 191 s with one).
+torch.set_num_threads(1)
+
 ARCHS = ("opt-1.3b", "smollm-135m")
+SSM_ARCHS = ("mamba2-370m", "zamba2-1.2b")
+SSM_TRAIN_ARCHS = (*SSM_ARCHS, "hybrid-2seg")
+STEP_TOL = dict(rtol=1e-4, atol=1e-4)       # the train steps' tolerance
 
 
 def config_pair(arch: str, **kw):
@@ -166,3 +177,54 @@ def reference_core():
         sys.modules.update(saved)
     _REF_CORE = types.SimpleNamespace(**mods)
     return _REF_CORE
+
+
+# --------------------------------------------------------------------- #
+# SSM / hybrid training
+# --------------------------------------------------------------------- #
+def ssm_pair(arch: str, **kw):
+    """:func:`config_pair` of an SSM or hybrid id; ``"hybrid-2seg"`` is the
+    reduced Zamba2-1.2B cut to two segments (2 units of (2 SSD + attention),
+    then 2 SSD)."""
+    if arch == "hybrid-2seg":
+        return config_pair("zamba2-1.2b", attn_every=3, n_layers=8, **kw)
+    return config_pair(arch, **kw)
+
+
+def close_rel(got, want, rel):
+    """max |got - want| <= rel * max |want|, and ``got`` finite."""
+    got = np.asarray(to_np(got), np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    assert np.isfinite(got).all()
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    assert err <= rel * scale, (err, scale)
+
+
+def leaf_pairs(got, *want):
+    """The port tree's leaves beside the reference trees' at the same paths
+    (JAX orders dict keys, the port keeps insertion order)."""
+    from repro_torch.models.modules import tree_map
+    out = []
+    tree_map(lambda *xs: out.append(xs), got, *want)
+    assert len(out) == len(jax.tree.leaves(want[0]))
+    return out
+
+
+def assert_grads_close(got, want, rel=1e-4):
+    """Each leaf to ``rel`` of its largest |grad|."""
+    for a, b in leaf_pairs(got, want):
+        close_rel(a, b, rel)
+
+
+def assert_params_moved_alike(got, want, grads, lr):
+    """New params match at :data:`STEP_TOL` where |grad| is well above the
+    noise; elsewhere they stay within one Adam step (``lr``: its first
+    step is about ``lr * sign(g)``, and a grad near 0 may flip sign between
+    frameworks)."""
+    for a, b, g in leaf_pairs(got, want, grads):
+        a, b, g = to_np(a), np.asarray(b), np.abs(np.asarray(g))
+        big = g > 1e-3 * max(float(g.max()), 1e-12)
+        np.testing.assert_allclose(a[big], b[big], **STEP_TOL)
+        assert float(np.abs(a - b).max()) <= 2.5 * lr

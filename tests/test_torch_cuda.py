@@ -1036,3 +1036,104 @@ def test_ssm_serving_on_the_card_matches_the_cpu(cuda, arch):
     if cfg.arch_type == "ssm":
         assert counts["flash_attention_fwd"] == counts[
             "decode_attention_fwd"] == 0
+
+
+# --------------------------------------------------------------------- #
+# the SSD pass under autograd (training)
+# --------------------------------------------------------------------- #
+# the explicit backward at a tile edge (q = 137) and on strided X, B, C
+# slices at an element offset of 3, both dtypes, against autograd of the
+# plain forward (at these q the upper triangle's exp overflows)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nc,q,h,p,n,strided", [
+    (1, 1, 137, 32, 64, 128, False), (1, 2, 137, 32, 64, 128, True),
+    (2, 2, 256, 64, 64, 64, True)])
+def test_ssd_intra_backward_matches_autograd_of_plain(cuda, b, nc, q, h, p,
+                                                      n, strided, dtype):
+    X, dt, A, B, C = _ssd_case(cuda, b, nc, q, h, p, n, dtype,
+                               strided=strided)
+    y, s, acs = ssd_intra_fwd(X, dt, A, B, C)
+    dY, dS, dAcs = (torch.randn(t.shape, generator=cuda, device="cuda")
+                    for t in (y, s, acs))
+    dY = dY.to(y.dtype)
+    got = ref.ssd_intra_bwd_ref(X, dt, A, B, C, acs, dY, dS, dAcs)
+    leaves = [t.detach().clone().requires_grad_() for t in (X, dt, A, B, C)]
+    yr, sr, _, ar = ref.ssd_intra_ref(*leaves)
+    want = torch.autograd.grad((yr.float() * dY.float()).sum()
+                               + (sr * dS).sum() + (ar * dAcs).sum(), leaves)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.isfinite(g).all()
+        err = float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max().clamp(min=1e-30))
+        assert err <= (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+def test_ssd_scan_under_autograd_launches_the_kernel(cuda, monkeypatch):
+    """On CUDA tensors under autograd ``ops.ssd_scan`` launches
+    ``ssd_intra_fwd`` once per forward and never the plain forward; the
+    backward is the explicit one."""
+    calls = {"plain": 0}
+    plain = ref.ssd_intra_ref
+
+    def spy(*a):
+        calls["plain"] += 1
+        return plain(*a)
+
+    monkeypatch.setattr(ref, "ssd_intra_ref", spy)
+    X, dt, A, B, C = _ssd_case(cuda, 2, 1, 300, 32, 64, 128, torch.bfloat16)
+    X, B, C = (t.reshape(2, 300, *t.shape[3:]).requires_grad_()
+               for t in (X, B, C))
+    dt = dt.reshape(2, 300, 32).requires_grad_()
+    before = ssd_intra_fwd.launches
+    y, f = ops.ssd_scan(X, dt, A, B, C, 256)
+    (y.float().sum() + f.sum()).backward()
+    torch.cuda.synchronize()
+    assert ssd_intra_fwd.launches == before + 1
+    assert calls["plain"] == 0
+    assert all(torch.isfinite(t.grad).all() for t in (X, dt, B, C))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_kernel_is_deterministic_for_remat(cuda, dtype):
+    """Remat runs each layer's forward twice; the kernel sums in a fixed
+    order (no atomics), so two calls give the same bits."""
+    X, dt, A, B, C = _ssd_case(cuda, 8, 2, 256, 32, 64, 128, dtype,
+                               strided=True)
+    first = ssd_intra_fwd(X, dt, A, B, C)
+    for _ in range(3):
+        again = ssd_intra_fwd(X, dt, A, B, C)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_ssm_train_step_remat_on_the_card_gives_the_same_grads(cuda, arch):
+    """One LM step at the reduced model in bf16 on the kernel path: with
+    and without remat the loss and every grad are bit for bit equal (the
+    recomputed forward launches the kernels again and gives the same
+    bits), and the SSD kernel launched twice per layer with remat."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import lm_data
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.training.steps import lm_value_and_grad
+
+    cfg = reduced(get_config(arch)).replace(compute_dtype="bfloat16")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             next(lm_data(cfg, 80, 0).sft_batches(4, 1)).items()}
+    got = {}
+    for remat in (False, True):
+        ops.reset_launch_counts()
+        (loss, _), grads = lm_value_and_grad(cfg.replace(remat=remat),
+                                             params, batch)
+        got[remat] = (float(loss), tree_leaves(grads), ops.launch_counts())
+    n_ssm = sum(ls.kind != "attn" for seg in cfg.segments()
+                for ls in seg.unit_spec for _ in range(seg.n_units))
+    assert got[False][0] == got[True][0]
+    assert all(torch.equal(a, b) for a, b in zip(got[False][1],
+                                                 got[True][1]))
+    assert got[False][2]["ssd_intra_fwd"] == n_ssm
+    assert got[True][2]["ssd_intra_fwd"] == 2 * n_ssm
+    if cfg.arch_type == "hybrid":
+        assert got[True][2]["flash_attention_bwd"] > 0

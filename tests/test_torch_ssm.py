@@ -203,24 +203,59 @@ def test_plain_ssd_chunked_is_differentiable_and_matches_jax_grads():
         _close(tt.grad, g, 1e-4)
 
 
-def test_kernel_scan_refuses_autograd():
-    """Forward only, as the Pallas path: a call autograd would have to
-    differentiate raises, it never falls back to the plain path."""
+def test_kernel_scan_refuses_autograd(monkeypatch):
+    """Under autograd the kernel path does not refuse, and does not fall
+    back either: ``ops.ssd_scan`` goes through ``SSDIntra``, whose forward
+    is the kernel wrapper (on a CPU tensor its plain version, called once
+    per pass) and whose backward is the explicit ``ssd_intra_bwd_ref``,
+    which never re-runs the forward.  Its gradients, and those of a
+    kernel-path model, equal the plain path's."""
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = ref.ssd_intra_ref, ref.ssd_intra_bwd_ref
+
+    def spy_fwd(*a):
+        calls["fwd"] += 1
+        return fwd(*a)
+
+    def spy_bwd(*a):
+        calls["bwd"] += 1
+        return bwd(*a)
+
+    monkeypatch.setattr(ref, "ssd_intra_ref", spy_fwd)
+    monkeypatch.setattr(ref, "ssd_intra_bwd_ref", spy_bwd)
     g = torch.Generator().manual_seed(0)
-    X = torch.randn((1, 8, 2, 4), generator=g).requires_grad_()
+    X = torch.randn((1, 8, 2, 4), generator=g)
     dt = torch.rand((1, 8, 2), generator=g)
     A = -torch.rand((2,), generator=g) - 0.1
     B, C = torch.randn((2, 1, 8, 8), generator=g)
-    with pytest.raises(NotImplementedError):
-        ops.ssd_scan(X, dt, A, B, C, 8)
+    leaves = [t.clone().requires_grad_() for t in (X, dt, A, B, C)]
+    y, f = ops.ssd_scan(*leaves, 8)
+    (y.sum() + f.sum()).backward()
+    assert calls == {"fwd": 1, "bwd": 1}
+    plain = [t.clone().requires_grad_() for t in (X, dt, A, B, C)]
+    yp, fp = TM.ssd_chunked(*plain, 8)
+    (yp.sum() + fp.sum()).backward()
+    for a, b in zip(leaves, plain):
+        _close(a.grad, to_np(b.grad), 1e-5)
     with torch.no_grad():
         ops.ssd_scan(X, dt, A, B, C, 8)
+    assert calls == {"fwd": 2, "bwd": 1}
+
     jcfg, tcfg = config_pair("mamba2-370m", use_kernels=True)
     _, tparams = params_pair(jcfg, seed=0)
-    for leaf in TM.tree_leaves(tparams):
-        leaf.requires_grad_()
-    with pytest.raises(NotImplementedError):
-        TT.forward(tcfg, tparams, tokens=torch.zeros((1, 5), dtype=torch.long))
+    toks = torch.randint(0, jcfg.vocab_size, (1, 40), generator=g)
+    w = torch.randn((1, 40, jcfg.d_model), generator=g)
+    grads = []
+    for c in (tcfg, tcfg.replace(use_kernels=False)):
+        p = TM.tree_map(lambda t: t.clone().requires_grad_(), tparams)
+        (TT.forward(c, p, tokens=toks)[0] * w).sum().backward()
+        grads.append([t.grad for t in TM.tree_leaves(p)])
+    assert calls["bwd"] == 1 + jcfg.n_layers
+    for a, b in zip(*grads):
+        if b is None:                       # the LM head: hidden only
+            assert a is None
+        else:
+            _close(a, to_np(b), 1e-4)
 
 
 # ------------------------------------------------------------------ #
@@ -482,9 +517,24 @@ def test_paged_and_prefix_cache_are_refused(arch):
 ])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_launchers_refuse_what_is_not_ported(arch, launcher, argv, capsys):
+    """Both launchers take the SSM and hybrid ids as the reference does:
+    ``serve --kv-quant`` serves (int8 K/V rows for the hybrid's attention
+    layers) and ``train`` trains.  What is still not ported (a device
+    mesh, LoRA) is refused with "not yet ported"."""
+    base = ["--device", "cpu", "--arch", arch, "--reduced", *argv]
+    if launcher == "serve":
+        res = serve.main([*base, "--requests", "3", "--max-new", "3",
+                          "--prompt-len", "12"])
+        assert res["tokens"] == 9
+        refused = ["--mesh", "1x1"]
+    else:
+        res = train.main([*base, "--batch", "2", "--seq", "16"])
+        assert len(res["loss"]) == 1 and np.isfinite(res["loss"]).all()
+        refused = ["--lora", "8"]
     mod = serve if launcher == "serve" else train
+    capsys.readouterr()
     with pytest.raises(SystemExit) as e:
-        mod.main(["--device", "cpu", "--arch", arch, "--reduced", *argv])
+        mod.main([*base, *refused])
     assert e.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
 

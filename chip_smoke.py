@@ -101,7 +101,30 @@ Phases (any failure raises, so the run exits non-zero):
    at 1e-4, free-running within a tenth of the int8 error, tokens
    identical, the first attention layer's int8 rows at most one step
    apart).
-10. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
+10. ``ckpt`` — checkpoint/resume, LoRA and the torch example, under
+   ``build/ckpt_phase`` (deleted at the end): the free disk (60 GB
+   at least) and host RAM (2x the largest snapshot) first; two
+   uninterrupted ``launch.train`` runs of OPT-1.3B (full width and depth,
+   3 steps of 8 x 512, bf16 on fp32 masters, remat), whose state SHA-256s
+   must be equal; the same with ``--save-every 2 --ckpt-dir``, the step-3
+   checkpoint deleted, rerun with ``--resume``: its hash must be the
+   witness's (bytes, snapshot ms, write and restore s and GB/s, the step
+   that overlaps a write against one that does not); ``launch.train
+   --rlhf`` at OPT-125M (3 steps a stage, 8 x 512, 64 new) stopped at the
+   top of PPO iteration 2 after the drain and rerun on the same directory:
+   reward scores, per-iteration metrics without the wall-time keys and
+   the actor, critic and EMA hashes equal to an uninterrupted run's;
+   LoRA rank 8 at OPT-1.3B: one fp32 step at full width cut to 4 layers,
+   2 x 512, loss and adapter grads kernel path against plain path (1e-4,
+   ``worst``), then 5 bf16 steps of 8 x 512 with ``--ckpt`` (adapter
+   count, peak memory, median step beside phase ``train``'s full SFT);
+   ``launch.serve --ckpt`` of that export, greedy, whose tokens must equal
+   serving the folded params from memory; ``examples/torch_rlhf_e2e.py``
+   at its default scale with ``tests/test_system.py``'s learning checks.
+   Launch counts are set to 0 before each leg's first run and read after
+   it (SFT, PPO, LoRA, serve, example); every kernel of the leg must have
+   launched.
+11. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
    that no earlier timing runs after a profiler session: the CUDA kernels
    one call of each decode row of phase ``kernels`` runs (the split
    kernel, then the combine exactly when the host's plan splits the
@@ -136,10 +159,11 @@ the output (they hold NaN) and that ``lens = 0`` gives zeros.  The parity
 phase runs OPT-1.3B (4 layers, fp32) teacher-forced through the paged
 kernel, dense kernel and paged plain paths (1e-4), and the int8 pair of
 checks on a paged int8 pool.  The serve phase times a paged decode step
-(bf16 and int8 pools),
-runs the 32-request workload with ``--kv-layout paged`` (bf16 and
-``--kv-quant``), greedy dense vs paged (identical streams), a 201-block
-pool that preempts (identical streams), and the prefix cache on a
+(bf16 and int8 pools), runs the 32-request workload with ``--kv-layout
+paged --kv-quant``, then greedy on the dense arena and the paged bf16
+pool (identical streams; the greedy runs skip the warm-up, their shapes
+already warm), a 201-block pool that preempts (identical streams), and
+the prefix cache on a
 shared-system-prompt mix (hit rate >= 0.5; greedy streams on vs off
 identical in fp32, counted in bf16, whose suffix GEMMs round otherwise than
 the full prompt's); paged runs
@@ -166,7 +190,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "train", "rlhf",
-          "ssm", "ssm_train", "profile")
+          "ssm", "ssm_train", "ckpt", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the time bound of a kernel is
 # the larger of bytes / memory rate and operations / peak rate for the type
@@ -1491,15 +1515,16 @@ SERVE_ARGV = ["--arch", "opt-1.3b", "--requests", "32", "--ragged",
 PAGED = ["--kv-layout", "paged", "--block-size", "16"]
 
 
-def _serve_run(argv, tag, must, state):
+def _serve_run(argv, tag, must, state, warmup=True):
     """``serve.main(argv)`` with the launch counts set to 0 just before and
     read just after; fails unless every kernel of ``must`` launched and, on
-    the paged layout, neither dense decode kernel did."""
+    the paged layout, neither dense decode kernel did.  ``warmup=False``
+    where an earlier run of this process served the same shapes."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     log(f"[serve] python -m repro_torch.launch.serve {' '.join(argv)}")
     ops.reset_launch_counts()
-    res = serve.main(argv)
+    res = serve.main(argv, warmup=warmup)
     counts = ops.launch_counts()
     st = res["stats"]
     extra = ""
@@ -1556,27 +1581,27 @@ def _paged_serve(state):
     _step_timing(True, False, state)
     _step_timing(True, True, state)
 
-    res = _serve_run(SERVE_ARGV + PAGED, "serve_paged", SERVE_PAGED_KERNELS,
-                     state)
     res8 = _serve_run(SERVE_ARGV + PAGED + ["--kv-quant"],
                       "serve_paged_int8", SERVE_PAGED_INT8_KERNELS, state)
-    state["serve"].update(tok_s_paged=res["tok_s"],
-                          tok_s_paged_int8=res8["tok_s"])
 
-    # greedy: dense vs paged, then a pool that must preempt
+    # greedy: dense vs paged (the paged bf16 run of the workload), then a
+    # pool that must preempt; the runs above warmed these shapes
     greedy = SERVE_ARGV + ["--temperature", "0"]
-    d = _serve_run(greedy, "serve_greedy_dense", SERVE_KERNELS, state)
+    d = _serve_run(greedy, "serve_greedy_dense", SERVE_KERNELS, state,
+                   warmup=False)
     p = _serve_run(greedy + PAGED, "serve_greedy_paged", SERVE_PAGED_KERNELS,
-                   state)
+                   state, warmup=False)
     pre = _serve_run(greedy + PAGED + ["--num-blocks", "201"],
-                     "serve_greedy_preempt", SERVE_PAGED_KERNELS, state)
+                     "serve_greedy_preempt", SERVE_PAGED_KERNELS, state,
+                     warmup=False)
     same = d["completions"] == p["completions"]
     same_pre = pre["completions"] == p["completions"]
     n_pre = pre["stats"]["preemptions"]
     log(f"[serve] greedy streams: paged == dense {same}; a 201-block pool "
         f"preempted {n_pre} times, streams == the unconstrained paged run "
         f"{same_pre}")
-    state["serve"].update(tok_s_greedy_dense=d["tok_s"],
+    state["serve"].update(tok_s_paged_int8=res8["tok_s"],
+                          tok_s_greedy_dense=d["tok_s"],
                           tok_s_greedy_paged=p["tok_s"],
                           tok_s_greedy_preempt=pre["tok_s"],
                           preemptions=n_pre)
@@ -3148,6 +3173,345 @@ def phase_ssm_train(state):
         raise AssertionError("ssm_train: " + "; ".join(failures))
 
 
+# --------------------------------------------------------------------- #
+# ckpt: checkpoint/resume, LoRA, export -> serve, the torch example
+# --------------------------------------------------------------------- #
+CKPT_ROOT = ROOT / "build" / "ckpt_phase"       # git-ignored
+CKPT_MIN_DISK = 60e9
+# wall-time keys of a PPO iteration's metrics: excluded from bit-identity
+WALL_TIME = ("gen_tok_s", "gen_s", "score_ms", "actor_ms", "critic_ms")
+OPT13_SFT = ["--arch", "opt-1.3b", "--steps", "3", "--batch", "8",
+             "--seq", "512"]
+PPO_ARGV = ["--arch", "opt-125m", "--rlhf", "--steps", "3", "--batch", "8",
+            "--seq", "512", "--max-new", "64"]
+PPO_KERNELS = TRAIN_KERNELS + ("decode_attention_fwd",)
+
+
+class _StopAtIteration(Exception):
+    """Raised by the PPO leg's ``iter_hook``: the kill of a preemption."""
+
+
+def _free(*dicts) -> None:
+    """Drop the device tensors a launcher's summary holds."""
+    import gc
+
+    import torch
+    for d in dicts:
+        for k in ("state", "params"):
+            d.pop(k, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _launched(tag, counts, must, state, failures) -> None:
+    state.setdefault("launches", {})[tag] = counts
+    missing = [k for k in must if counts[k] == 0]
+    if missing:
+        failures.append(f"{tag}: kernels never launched: {missing}")
+
+
+def _ckpt_room() -> None:
+    """Free disk under the phase's directory and available host RAM,
+    against 60 GB and 2x the largest snapshot (the OPT-1.3B SFT state)."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    free = shutil.disk_usage(CKPT_ROOT).free
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":")
+            mem[k] = int(v.split()[0]) * 1024
+    snap = 12 * T.count_params(get_config("opt-1.3b"))
+    log(f"[ckpt] room: {free / 1e9:.1f} GB free disk under {CKPT_ROOT} "
+        f"(need {CKPT_MIN_DISK / 1e9:.0f}), host RAM "
+        f"{mem['MemAvailable'] / 1e9:.1f} GB available of "
+        f"{mem['MemTotal'] / 1e9:.1f} (need 2 x the largest snapshot, "
+        f"{2 * snap / 1e9:.1f})")
+    if free < CKPT_MIN_DISK or mem["MemAvailable"] < 2 * snap:
+        raise AssertionError(
+            f"ckpt: not enough room: disk {free / 1e9:.1f} GB (need "
+            f"{CKPT_MIN_DISK / 1e9:.0f}), RAM {mem['MemAvailable'] / 1e9:.1f}"
+            f" GB (need {2 * snap / 1e9:.1f})")
+
+
+def _ckpt_sft(state, failures) -> None:
+    """(2) the determinism witness, (3) SFT kill-and-resume, OPT-1.3B at
+    full width and depth, bf16 on fp32 masters, remat on."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    hashes = []
+    for run in range(2):
+        log(f"[ckpt] witness run {run}: python -m repro_torch.launch.train "
+            f"{' '.join(OPT13_SFT)}")
+        ops.reset_launch_counts()
+        out = launch_train.main(OPT13_SFT)
+        if run == 0:
+            _launched("ckpt_sft", ops.launch_counts(), TRAIN_KERNELS, state,
+                      failures)
+        hashes.append(out["state_sha256"])
+        log(f"[ckpt] witness run {run}: state sha256 {hashes[-1]}; step ms "
+            + " ".join(f"{x:.1f}" for x in out["step_ms"]))
+        _free(out)
+    if hashes[0] != hashes[1]:
+        failures.append(f"ckpt: two uninterrupted OPT-1.3B runs differ: "
+                        f"{hashes}")
+    d = CKPT_ROOT / "sft"
+    argv = [*OPT13_SFT, "--save-every", "2", "--ckpt-dir", str(d),
+            "--keep", "2"]
+    log(f"[ckpt] python -m repro_torch.launch.train {' '.join(argv)}")
+    first = launch_train.main(argv)
+    st, ms = first["ckpt_stats"], first["step_ms"]
+    _free(first)
+    shutil.rmtree(d / "step_00000003")         # a crash after step 2's commit
+    log(f"[ckpt] deleted step_00000003; rerun with --resume")
+    again = launch_train.main([*argv, "--resume"])
+    rs = again["restore"]
+    if again["state_sha256"] != hashes[0] or again["start"] != 2:
+        failures.append(f"ckpt: SFT resumed at {again['start']} with state "
+                        f"{again['state_sha256']}, the witness "
+                        f"{hashes[0]}")
+    st = st + again["ckpt_stats"]
+    _free(again)
+    for s in st:
+        log(f"[ckpt] save of step {s['step']}: {s['bytes'] / 1e9:.3f} GB; "
+            f"snapshot {s['snapshot_s'] * 1e3:.1f} ms (the stall); "
+            f"background write {s['write_s']:.2f} s = "
+            f"{s['bytes'] / 1e9 / s['write_s']:.3f} GB/s")
+    log(f"[ckpt] restore of step {rs['step']}: {rs['bytes'] / 1e9:.3f} GB "
+        f"in {rs['seconds']:.2f} s = {rs['bytes'] / 1e9 / rs['seconds']:.3f}"
+        f" GB/s (reads, CRCs, copy to the card)")
+    log(f"[ckpt] step ms: step 1 {ms[1]:.1f} (no write in flight), step 2 "
+        f"{ms[2]:.1f} (overlaps the step-2 write)")
+    log(f"[ckpt] SFT resume: state sha256 equal to the witness: "
+        f"{again['state_sha256'] == hashes[0]}")
+    state["ckpt"] = {"saves": st, "restore": rs, "step_ms": ms[1:3],
+                     "witness_equal": hashes[0] == hashes[1]}
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def _ppo_record(out) -> dict:
+    return {"scores": out["ppo_scores"],
+            "stage3": [{k: v for k, v in m.items() if k not in WALL_TIME}
+                       for m in out["stage3"]],
+            "sha": out["state_sha256"]}
+
+
+def _ckpt_ppo(state, failures) -> None:
+    """(4) PPO kill-and-resume at OPT-125M, full width and depth: stopped
+    at the top of iteration 2 after the drain, rerun from a fresh engine
+    on the same directory, against an uninterrupted run."""
+    import gc
+    import shutil
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    log(f"[ckpt] uninterrupted: python -m repro_torch.launch.train "
+        f"{' '.join(PPO_ARGV)}")
+    ops.reset_launch_counts()
+    ref = _ppo_record(launch_train.main(PPO_ARGV))
+    _launched("ckpt_ppo", ops.launch_counts(), PPO_KERNELS, state, failures)
+    d = CKPT_ROOT / "ppo"
+    argv = [*PPO_ARGV, "--ckpt-dir", str(d), "--keep", "1"]
+
+    def stop(pipe, i):
+        if i == 2:
+            pipe.ckpt.wait_for_save()    # the preemption's grace window
+            raise _StopAtIteration
+
+    log(f"[ckpt] killed at iteration 2: {' '.join(argv)}")
+    try:
+        launch_train.main(argv, iter_hook=stop)
+        failures.append("ckpt: the PPO run was not stopped")
+    except _StopAtIteration:
+        pass
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[ckpt] after the kill: {sorted(p.name for p in d.iterdir())}")
+    out = launch_train.main(argv)
+    got = _ppo_record(out)
+    saves = out["ckpt_stats"]
+    for k in ("scores", "stage3", "sha"):
+        same = got[k] == ref[k]
+        log(f"[ckpt] PPO resume: {k} equal to the uninterrupted run: {same}")
+        if not same:
+            failures.append(f"ckpt: PPO resume {k}: {got[k]} vs {ref[k]}")
+    for s in saves:
+        log(f"[ckpt] PPO save of step {s['step']}: {s['bytes'] / 1e9:.3f} GB,"
+            f" snapshot {s['snapshot_s'] * 1e3:.1f} ms, write "
+            f"{s['write_s']:.2f} s")
+    state.setdefault("ckpt", {})["ppo_save"] = saves[-1]
+    _free(out)
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def _ckpt_lora(state, failures):
+    """(5) LoRA at OPT-1.3B full width: the fp32 kernel-vs-plain step gate
+    (4 layers), then ``launch.train --lora 8`` in bf16 with ``--ckpt``.
+    Returns the export's path and the folded params."""
+    import math
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import lora
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.training.steps import lm_loss_fn, value_and_grad
+
+    cfg = get_config("opt-1.3b").replace(n_layers=4, compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = T.init_params(cfg, gen)
+    ad = lora.init(params, 8, gen)
+    for v in ad.values():                    # b != 0, so dA != 0
+        v["b"].normal_(0.0, 0.02, generator=gen)
+    batch = launch_train.to_device(
+        next(launch_train.lm_data(cfg, 512, 0).sft_batches(2, 1)), "cuda")
+    res = {}
+    for uk in (True, False):
+        c = cfg.replace(use_kernels=uk)
+        (loss, _), g = value_and_grad(
+            lambda a: lm_loss_fn(c, lora.merge(params, a), batch), ad)
+        res[uk] = (float(loss), tree_leaves(g))
+    (lk, gk), (lp, gp) = res[True], res[False]
+    loss_rel = abs(lk - lp) / abs(lp)
+    grad_rel = worst(float((a - b).abs().max() / b.abs().max().clamp(
+        min=1e-30)) for a, b in zip(gk, gp))
+    log(f"[ckpt] LoRA rank 8, opt-1.3b full width, 4 layers, fp32, 2 x 512: "
+        f"loss kernel {lk:.6f} plain {lp:.6f}, rel {loss_rel:.3g}; worst of "
+        f"{len(gk)} adapter grads max|dgrad|/max|grad| {grad_rel:.3g} "
+        f"(tol 1e-4)")
+    if not worst([loss_rel, grad_rel]) <= 1e-4:
+        failures.append(f"ckpt: LoRA kernel vs plain: loss {loss_rel:.3g}, "
+                        f"grads {grad_rel:.3g}")
+    del params, ad, res, gk, gp, g
+    torch.cuda.empty_cache()
+
+    path = CKPT_ROOT / "lora.npz"
+    argv = ["--arch", "opt-1.3b", "--steps", "5", "--batch", "8", "--seq",
+            "512", "--lora", "8", "--ckpt", str(path)]
+    log(f"[ckpt] python -m repro_torch.launch.train {' '.join(argv)}")
+    ops.reset_launch_counts()
+    out = launch_train.main(argv)
+    _launched("ckpt_lora", ops.launch_counts(), TRAIN_KERNELS, state,
+              failures)
+    med = statistics.median(out["step_ms"][1:])
+    peak = out["peak_mem_bytes"] / 2**30
+    full = state.get("train", {}).get("peak_gib")
+    log(f"[ckpt] LoRA: {out['adapter_params']:,} adapter params; losses "
+        + " ".join(f"{x:.4f}" for x in out["loss"])
+        + f"; median step {med:.1f} ms; peak memory {peak:.2f} GiB (full "
+        f"SFT in phase train: "
+        + (f"{full:.2f} GiB" if full else "not run in this call") + ")")
+    if not all(math.isfinite(x) for x in out["loss"]):
+        failures.append(f"ckpt: LoRA losses not finite: {out['loss']}")
+    folded = lora.fold(out["params"], out["state"].params)
+    state.setdefault("ckpt", {})["lora"] = {
+        "adapter_params": out["adapter_params"], "median_ms": med,
+        "peak_gib": peak, "export_s": out["export_s"]}
+    log(f"[ckpt] --ckpt export {path.stat().st_size / 1e9:.3f} GB in "
+        f"{out['export_s']:.2f} s")
+    _free(out)
+    return path, folded
+
+
+def _ckpt_serve(state, failures, path, folded) -> None:
+    """(6) ``launch.serve --ckpt`` of the LoRA export, greedy, against
+    serving the folded params from memory in the same process."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    argv = ["--arch", "opt-1.3b", "--requests", "8", "--ragged",
+            "--prompt-len", "64", "--max-new", "32", "--batch", "8",
+            "--temperature", "0"]
+    log(f"[ckpt] python -m repro_torch.launch.serve {' '.join(argv)} "
+        f"--ckpt {path}")
+    ops.reset_launch_counts()
+    disk = serve.main([*argv, "--ckpt", str(path)])
+    _launched("ckpt_serve", ops.launch_counts(), SERVE_KERNELS, state,
+              failures)
+    mem = serve.main(argv, params=folded, warmup=False)
+    same = disk["completions"] == mem["completions"]
+    log(f"[ckpt] served export vs folded params in memory: greedy tokens "
+        f"identical for {len(disk['requests'])} requests: {same}; load "
+        f"{disk['load_s']:.2f} s")
+    state["ckpt"]["serve_load_s"] = disk["load_s"]
+    if not same:
+        failures.append("ckpt: served export and in-memory params differ")
+    del disk, mem
+    torch.cuda.empty_cache()
+
+
+def _ckpt_example(state, failures) -> None:
+    """(7) ``examples/torch_rlhf_e2e.py`` at its default scale (25m) on
+    the card, with ``tests/test_system.py``'s learning checks."""
+    import importlib.util
+    import math
+
+    import numpy as np
+    from repro_torch.kernels import ops
+    spec = importlib.util.spec_from_file_location(
+        "torch_rlhf_e2e", ROOT / "examples" / "torch_rlhf_e2e.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    log("[ckpt] python examples/torch_rlhf_e2e.py (scale 25m)")
+    ops.reset_launch_counts()
+    out = ex.main(["--out", str(CKPT_ROOT / "rlhf")])
+    _launched("ckpt_example", ops.launch_counts(), PPO_KERNELS, state,
+              failures)
+    sft, acc, sc = out["sft_loss"], out["rm_acc"], out["ppo_scores"]
+    drop = float(np.mean(sft[:10]) - np.mean(sft[-10:]))
+    acc10 = float(np.mean(acc[-10:]))
+    log(f"[ckpt] example: SFT loss drop {drop:.3f} (need > 0.3), RM acc "
+        f"over the last 10 {acc10:.3f} (need > 0.7), {len(sc)} PPO scores "
+        f"finite: {all(math.isfinite(x) for x in sc)}; stage s "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["timings"].items()))
+    state["ckpt"]["example_s"] = dict(out["timings"])
+    if not (drop > 0.3 and acc10 > 0.7
+            and all(math.isfinite(x) for x in sc)):
+        failures.append(f"ckpt: example learning checks: drop {drop:.3f}, "
+                        f"acc {acc10:.3f}, scores {sc}")
+
+
+def phase_ckpt(state):
+    """Checkpoint/resume, LoRA and the torch example at full width: room
+    first, the determinism witness, SFT and PPO kill-and-resume, LoRA with
+    its fp32 gate, export -> serve, ``examples/torch_rlhf_e2e.py``.  Every
+    directory it writes is under ``build/ckpt_phase`` and deleted at
+    the end."""
+    import shutil
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    failures = []
+    CKPT_ROOT.mkdir(parents=True, exist_ok=True)
+    try:
+        _ckpt_room()
+        t0 = time.perf_counter()
+        _ckpt_sft(state, failures)
+        t1 = time.perf_counter()
+        _ckpt_ppo(state, failures)
+        t2 = time.perf_counter()
+        path, folded = _ckpt_lora(state, failures)
+        _ckpt_serve(state, failures, path, folded)
+        del folded
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        _ckpt_example(state, failures)
+        log(f"[ckpt] legs: SFT {t1 - t0:.1f}s, PPO {t2 - t1:.1f}s, LoRA + "
+            f"serve {t3 - t2:.1f}s, example {time.perf_counter() - t3:.1f}s")
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    if failures:
+        raise AssertionError("ckpt: " + "; ".join(failures))
+
+
 def phase_profile(state):
     """``torch.profiler`` over the decode kernels, after every timed
     phase: a profiler session leaves tracing hooks behind it, which slowed
@@ -3203,7 +3567,7 @@ PHASE_FNS = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "parity": phase_parity,
              "serve": phase_serve, "train": phase_train, "rlhf": phase_rlhf,
              "ssm": phase_ssm, "ssm_train": phase_ssm_train,
-             "profile": phase_profile}
+             "ckpt": phase_ckpt, "profile": phase_profile}
 
 
 def main() -> int:

@@ -13,10 +13,25 @@ The port's optimizer updates params in place, so the frozen snapshots the
 reference takes for free (``jax.tree.map(lambda x: x, params)`` of
 immutable arrays) are clones here: the reference policy is a copy of the
 SFT actor and the critic starts from a copy of the trained reward model,
-so neither the actor's nor the critic's updates move them.  The
-reference's Hybrid Engine and meshes (``mesh=``, ``rollout_mesh=``),
-checkpoints (``checkpointer=``) and asynchronous stage 3 (``async_cfg=``)
-are not yet ported and raise ``NotImplementedError``.
+so neither the actor's nor the critic's updates move them.
+
+With a ``checkpointer`` (a
+:class:`repro_torch.training.checkpoint.CheckpointManager`) the run is
+durable, as in the reference: the stage boundaries commit the stage-1/2
+outputs, and every ``save_every`` PPO iterations the whole stage-3 state
+(actor and critic TrainStates with their Adam moments, the EMA shadow,
+the frozen ref and reward params, the state of the stage-3
+``torch.Generator``, the data cursor and the metrics log) is copied to
+host memory and written in the background.  A rerun resumes from the
+latest valid checkpoint and continues bit for bit as an uninterrupted run
+would.  Every stage-3 draw comes from that one generator.  A reference
+checkpoint taken mid-PPO does not resume here: its PRNG carry is a JAX
+key (``uint32[2]``), which restore refuses by shape; stage-boundary
+checkpoints hold params only and cross both ways.
+
+The reference's Hybrid Engine and meshes (``mesh=``, ``rollout_mesh=``)
+and asynchronous stage 3 (``async_cfg=``) are not yet ported and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,7 +49,8 @@ from repro_torch.models import reward as R
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import tree_leaves, tree_map
-from repro_torch.training import schedules
+from repro_torch.training import checkpoint, schedules
+from repro_torch.training.optimizer import AdamState
 from repro_torch.training.steps import lm_train_step, reward_train_step
 from repro_torch.training.train_state import TrainState
 
@@ -42,6 +58,17 @@ from repro_torch.training.train_state import TrainState
 def clone_params(params):
     """A copy of ``params`` that shares no storage with them."""
     return tree_map(lambda p: p.detach().clone(), params)
+
+
+def _like_train_state(params_like):
+    """The restore target of ``TrainState.create`` over ``params_like``
+    (:class:`checkpoint.Like` leaves): fp32 moments, host step counters."""
+    fp32 = tree_map(lambda x: checkpoint.Like(x.shape, torch.float32,
+                                              x.device), params_like)
+    step = lambda: torch.zeros((), dtype=torch.int32)
+    return TrainState(params=params_like,
+                      opt=AdamState(m=fp32, v=fp32, step=step()),
+                      step=step())
 
 
 @dataclasses.dataclass
@@ -85,14 +112,13 @@ class RLHFPipeline:
     host-clock time of each (synchronized) SFT and RM step; ``timings``
     the seconds per stage; ``gen_tok_s`` the mean stage-3 generation
     throughput.  ``iter_hook(i)``, when set, is called at the top of each
-    PPO iteration."""
+    PPO iteration (the crash-injection tests die there).
+    ``checkpointer`` and ``save_every`` make the run durable (see the
+    module's docstring)."""
 
     def __init__(self, engine: RLHFEngine, blender: DataBlender,
                  stages: StageConfig, ppo: PPOConfig, checkpointer=None,
-                 async_cfg=None):
-        if checkpointer is not None:
-            raise NotImplementedError("RLHFPipeline(checkpointer=): "
-                                      "not yet ported")
+                 save_every: int = 1, async_cfg=None):
         if async_cfg is not None:
             raise NotImplementedError("RLHFPipeline(async_cfg=): "
                                       "asynchronous RLHF is not yet ported")
@@ -100,6 +126,8 @@ class RLHFPipeline:
         self.blender = blender
         self.stages = stages
         self.ppo = ppo
+        self.ckpt = checkpointer
+        self.save_every = save_every
         self.iter_hook = None
         self.log = {"stage1": [], "stage2": [], "stage3": []}
         self.step_ms = {"stage1": [], "stage2": []}
@@ -125,6 +153,11 @@ class RLHFPipeline:
         self.timings["stage1"] = time.perf_counter() - t0
         self.e.actor_params = state.params
         self.e.ref_params = clone_params(state.params)
+        if self.ckpt is not None:
+            self.ckpt.save(self.SFT_STEP,
+                           {"actor": self.e.actor_params,
+                            "ref": self.e.ref_params},
+                           self._meta("sft_done"))
         return self.log["stage1"]
 
     # ----------------------- Step 2: Reward ------------------------ #
@@ -147,30 +180,51 @@ class RLHFPipeline:
         self.e.reward_params = state.params
         self.e.critic_params = clone_params(state.params)
         self.rm_acc = accs
+        if self.ckpt is not None:
+            self.ckpt.save(self.RM_STEP,
+                           {"actor": self.e.actor_params,
+                            "ref": self.e.ref_params,
+                            "critic": self.e.critic_params,
+                            "reward": self.e.reward_params},
+                           self._meta("rm_done"))
         return accs
 
     # ------------------------ Step 3: PPO -------------------------- #
     def run_ppo(self, generator: Optional[torch.Generator] = None):
         """``ppo_steps`` iterations of generate -> score -> train.  Draws
         advance ``generator`` (default: seeded with ``seed + 3`` on the
-        engine's device).  Returns the mean reward score of each
-        iteration."""
+        engine's device).  With a checkpointer whose latest checkpoint is
+        a stage-3 one, the run resumes from it: trainer states, frozen
+        models, logs, the data cursor and ``generator``'s state.  Returns
+        the mean reward score of each iteration."""
         st, dev = self.stages, self.e.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(st.seed + 3)
+        start, restored = 0, None
+        if self.ckpt is not None:
+            latest = self.ckpt.latest_step()
+            if (latest is not None and self.ckpt.restore_metadata(
+                    latest).get("stage") == "ppo"):
+                restored = self._restore_ppo(latest, generator)
+                generator.set_state(restored["rng"])
+                start = restored["ppo_iter"]
         trainer = PPOTrainer(
             actor_cfg=self.e.actor_cfg, critic_cfg=self.e.critic_cfg,
             actor_params=self.e.actor_params,
             critic_params=self.e.critic_params,
             ref_params=self.e.ref_params,
             reward_params=self.e.reward_params, ppo=self.ppo)
+        if restored is not None:
+            trainer.load_state_tree(restored["trainer"])
         self.trainer = trainer
-        ptx_iter = (self.blender.pretrain_batches(st.ppo_batch, st.ppo_steps)
+        ptx_iter = (self.blender.pretrain_batches(st.ppo_batch, st.ppo_steps,
+                                                  skip=start)
                     if self.ppo.ptx_coef > 0 else None)
         scores = [m["reward_score"] for m in self.log["stage3"]]
         t0 = time.perf_counter()
+        elapsed = self.timings.get("stage3", 0.0) if restored else 0.0
         for i, batch in enumerate(self.blender.prompt_batches(
-                st.ppo_batch, st.ppo_steps)):
+                st.ppo_batch, st.ppo_steps, skip=start), start=start):
             if self.iter_hook is not None:
                 self.iter_hook(i)
             exp, gm = trainer.generate_experience(batch["prompts"],
@@ -180,18 +234,108 @@ class RLHFPipeline:
             tm = trainer.train_rlhf(exp, ptx)
             scores.append(gm["reward_score"])
             self.log["stage3"].append({**gm, **tm})
-        self.timings["stage3"] = time.perf_counter() - t0
+            if (self.ckpt is not None and self.save_every
+                    and ((i + 1) % self.save_every == 0
+                         or i == st.ppo_steps - 1)):
+                self.timings["stage3"] = elapsed + time.perf_counter() - t0
+                self._save_ppo(trainer, generator, i + 1)
+        self.timings["stage3"] = elapsed + time.perf_counter() - t0
         if self.log["stage3"]:
             self.gen_tok_s = float(np.mean(
                 [m["gen_tok_s"] for m in self.log["stage3"]]))
         self.e.actor_params = trainer.actor.params
+        if self.ckpt is not None:
+            self.ckpt.wait_for_save()     # durable before we return
         return scores
+
+    # -------------------- checkpoint/resume seam ------------------- #
+    # monotonic checkpoint step ids: stage boundaries, then one per
+    # completed PPO iteration (k completed -> RM_STEP + k)
+    SFT_STEP, RM_STEP = 1, 2
+
+    def _meta(self, stage: str) -> dict:
+        return {"stage": stage, "log": self.log, "rm_acc": self.rm_acc,
+                "timings": self.timings}
+
+    def _save_ppo(self, trainer, generator: torch.Generator,
+                  done: int) -> None:
+        """Commit the whole stage-3 state after ``done`` completed
+        iterations: trainer states (moments + EMA), frozen ref/reward
+        params, the generator state iteration ``done`` will draw from,
+        and (in metadata) the data cursor + metrics log."""
+        tree = {"trainer": trainer.state_tree(),
+                "ref": trainer.ref_params,
+                "reward": trainer.reward_params,
+                "rng": generator.get_state()}
+        self.ckpt.save(self.RM_STEP + done, tree,
+                       dict(self._meta("ppo"), ppo_iter=done))
+
+    def _restore_ppo(self, step: int, generator: torch.Generator) -> dict:
+        """Rebuild stage-3 state from checkpoint ``step``.  The restore
+        target is structure only (:func:`checkpoint.like`: shapes, dtypes
+        and the engine's device, no memory); the step counters come back
+        as host tensors."""
+        dev = self.e.device
+        actor = _like_train_state(checkpoint.like(self.e.actor_params, dev))
+        critic = _like_train_state(checkpoint.like(self.e.critic_params,
+                                                   dev))
+        like = {"trainer": {"actor": actor, "critic": critic,
+                            "ema": actor.opt.m if self.ppo.use_ema else None},
+                "ref": actor.params, "reward": critic.params,
+                "rng": generator.get_state()}
+        tree, meta = self.ckpt.restore(like, step=step)
+        self.e.ref_params = tree["ref"]
+        self.e.reward_params = tree["reward"]
+        self.e.actor_params = tree["trainer"]["actor"].params
+        self.e.critic_params = tree["trainer"]["critic"].params
+        self.log = meta["log"]
+        self.rm_acc = meta["rm_acc"]
+        self.timings = meta["timings"]
+        return {"trainer": tree["trainer"], "rng": tree["rng"],
+                "ppo_iter": int(meta["ppo_iter"])}
+
+    def _restore_boundary(self, step: int, meta: dict) -> None:
+        """Adopt a stage-boundary checkpoint (skip re-running the
+        completed stages)."""
+        dev = self.e.device
+        actor = checkpoint.like(self.e.actor_params, dev)
+        like = {"actor": actor, "ref": actor}
+        if meta["stage"] == "rm_done":
+            critic = checkpoint.like(self.e.critic_params, dev)
+            like["critic"] = critic
+            like["reward"] = critic
+        tree, meta = self.ckpt.restore(like, step=step)
+        self.e.actor_params = tree["actor"]
+        self.e.ref_params = tree["ref"]
+        if "critic" in tree:
+            self.e.critic_params = tree["critic"]
+            self.e.reward_params = tree["reward"]
+        self.log = meta["log"]
+        self.rm_acc = meta["rm_acc"]
+        self.timings = meta["timings"]
+
+    def maybe_restore(self):
+        """(stage, step) of the latest valid checkpoint, or None."""
+        if self.ckpt is None:
+            return None
+        step = self.ckpt.latest_step()
+        if step is None:
+            return None
+        return self.ckpt.restore_metadata(step).get("stage"), step
 
     # ----------------------------- run ----------------------------- #
     def run(self, generator: Optional[torch.Generator] = None):
-        """End-to-end 3-stage run."""
-        self.run_sft()
-        self.run_reward()
+        """End-to-end 3-stage run; with a checkpointer, a rerun after a
+        crash skips the completed stages and resumes stage 3 mid-stream
+        from the latest valid checkpoint."""
+        resume = self.maybe_restore()
+        stage = resume[0] if resume else None
+        if stage in ("sft_done", "rm_done"):
+            self._restore_boundary(resume[1], {"stage": stage})
+        if stage is None:
+            self.run_sft()
+        if stage in (None, "sft_done"):
+            self.run_reward()
         scores = self.run_ppo(generator)
         return {"sft_loss": self.log["stage1"], "rm_acc": self.rm_acc,
                 "ppo_scores": scores, "timings": self.timings}

@@ -45,9 +45,12 @@ them, as in the reference.  ``--kv-quant`` makes only the hybrid's
 attention K/V rows int8 (the reference's rule), so Zamba2 decodes through
 the int8 kernel; Mamba2 has no K/V rows and serves as without it.
 
+``--ckpt PATH`` serves the params of a ``.npz`` export (``launch.train
+--ckpt``, either package's ``checkpoint.save``) in place of random
+weights, which are otherwise drawn from ``--seed``.
+
 Runs on CUDA; ``--device cpu`` runs on the CPU with the kernels' plain
-versions.  Weights are random, drawn from ``--seed``.  The reference's
-``--mesh`` and ``--ckpt`` are not ported yet and are refused.
+versions.  The reference's ``--mesh`` is not ported yet and is refused.
 """
 from __future__ import annotations
 
@@ -66,6 +69,7 @@ from repro_torch.data import ByteTokenizer
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import (GenerationEngine, Request,
                                         SamplingParams)
+from repro_torch.training import checkpoint
 
 
 def build_requests(args, cfg, rng) -> list:
@@ -242,15 +246,19 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> dict:
+def main(argv=None, params=None, warmup: bool = True) -> dict:
     """Parse ``argv``, serve the workload, print the summary line and
-    return it as a dict (tokens, seconds, tok_s, slot_util, stats)."""
+    return it as a dict (tokens, seconds, tok_s, slot_util, stats, the
+    requests, their completions and ``load_s``, the seconds of the
+    ``--ckpt`` load).  ``params``, when given, are served in place of
+    random weights or ``--ckpt``.  ``warmup=False`` skips the warm-up run,
+    for a caller that has just served the same shapes in this process."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    for flag, refused in (("--mesh", args.mesh is not None),
-                          ("--ckpt", args.ckpt is not None)):
-        if refused:
-            ap.error(f"{flag}: not yet ported")
+    if args.mesh is not None:
+        ap.error("--mesh: not yet ported")
+    if params is not None and args.ckpt:
+        ap.error("--ckpt and params= are two sources of weights")
     if args.kv_layout == "dense" and (args.num_blocks is not None
                                       or args.watermark is not None):
         ap.error("--num-blocks/--watermark require --kv-layout paged")
@@ -266,8 +274,16 @@ def main(argv=None) -> dict:
         cfg = reduced(cfg)
     if args.kv_quant:
         cfg = cfg.replace(kv_quant=True)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = T.init_params(cfg, gen)
+    load_s = None
+    if params is None:
+        params = T.init_params(
+            cfg, torch.Generator(device=device).manual_seed(args.seed))
+        if args.ckpt:
+            t0 = time.perf_counter()
+            target, params = checkpoint.like(params), None
+            params = checkpoint.load(args.ckpt, target)
+            load_s = time.perf_counter() - t0
+            print("loaded", args.ckpt)
 
     tok = ByteTokenizer()
     engine = GenerationEngine(cfg, max_new_tokens=args.max_new,
@@ -293,9 +309,10 @@ def main(argv=None) -> dict:
     warm = reqs[:min(len(reqs), args.batch)]
     sched_kw = dict(mode=args.scheduler, slots=args.batch, max_seq_len=S,
                     num_blocks=args.num_blocks, watermark=args.watermark)
-    run_schedule(engine, params, warm,
-                 torch.Generator(device=device).manual_seed(args.seed),
-                 **sched_kw)
+    if warmup:
+        run_schedule(engine, params, warm,
+                     torch.Generator(device=device).manual_seed(args.seed),
+                     **sched_kw)
     n_tok, stats, dt, finished = run_schedule(
         engine, params, reqs,
         torch.Generator(device=device).manual_seed(args.seed + 1),
@@ -321,7 +338,7 @@ def main(argv=None) -> dict:
           f"slot utilization {util:.1%}){extra}")
     return {"tokens": n_tok, "seconds": dt, "tok_s": n_tok / dt,
             "slot_util": util, "stats": stats, "requests": reqs,
-            "completions": finished}
+            "completions": finished, "load_s": load_s}
 
 
 if __name__ == "__main__":

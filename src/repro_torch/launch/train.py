@@ -5,6 +5,9 @@ pipeline (counterpart of ``repro/launch/train.py``).
         --steps 10 --batch 8 --seq 512
     PYTHONPATH=src python -m repro_torch.launch.train --arch opt-1.3b \\
         --rlhf --steps 4 --batch 8 --seq 512 --max-new 256 [--kv-quant]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch opt-1.3b \\
+        --steps 10 --batch 8 --seq 512 [--lora 8] [--ckpt out/model.npz] \\
+        [--ckpt-dir out/ckpt --save-every 2 [--resume]]
 
 Trains on the synthetic blend of the reference: a copy task and a sort
 task, prompts of ``seq // 2`` tokens over a vocabulary of
@@ -26,13 +29,31 @@ reward and PPO alike: each SSD layer's forward is the intra-chunk kernel
 Zamba2's attention layers train through the flash kernels, and with
 ``--rlhf --kv-quant`` generate on the int8 arena.
 
+``--ckpt-dir`` with ``--save-every N`` makes the LM loop fault tolerant,
+as in the reference: every N steps (and after the last) the whole
+TrainState (params, Adam moments, step counters) is committed through
+:class:`repro_torch.training.checkpoint.CheckpointManager` as step
+``i + 1`` with metadata ``{"arch", "step": i}``; ``--resume`` restores the
+latest valid checkpoint and continues at ``step + 1`` with the LR schedule
+and the data cursor where they stopped, bit for bit as an uninterrupted
+run.  Under ``--rlhf`` the directory goes to the pipeline, which commits
+its stage boundaries and every ``--save-every`` (default 1) PPO
+iterations, and resumes by itself; ``--keep`` sets how many committed
+checkpoints stay (default 3).  ``--lora R`` trains rank-R adapters
+(:mod:`repro_torch.core.lora`) on the frozen base instead of the whole
+model; ``--ckpt`` writes the final params (the folded adapters with
+``--lora``) as one ``.npz``, which both packages' ``checkpoint.load``
+read.  :func:`main` also returns ``state_sha256``, a SHA-256 of the final
+state (params, moments and step counters), by which runs are compared.
+
 Runs on CUDA; ``--device cpu`` runs on the CPU with the kernels' plain
-versions.  The reference's LoRA, checkpointing, mesh and asynchronous
-RLHF options are not ported yet and are refused.
+versions.  The reference's mesh and asynchronous RLHF options are not
+ported yet and are refused.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import statistics
 import time
 
@@ -42,17 +63,18 @@ import numpy as np
 
 from repro_torch import resolve_device, to_device
 from repro_torch.configs import get_config, reduced
+from repro_torch.core import lora as LoRA
 from repro_torch.data import CopyTaskDataset, DataBlender, SortTaskDataset
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
-from repro_torch.training import schedules
-from repro_torch.training.steps import lm_train_step
+from repro_torch.models.modules import tree_leaves
+from repro_torch.training import checkpoint, schedules
+from repro_torch.training.steps import (lm_loss_fn, lm_train_step,
+                                        value_and_grad)
 from repro_torch.training.train_state import TrainState
 
 # the reference's options that belong to later slices: (flag, dest)
-NOT_PORTED = (("--lora", "lora"), ("--ckpt", "ckpt"),
-              ("--ckpt-dir", "ckpt_dir"), ("--save-every", "save_every"),
-              ("--resume", "resume"), ("--mesh", "mesh"),
+NOT_PORTED = (("--mesh", "mesh"),
               ("--strategy", "strategy"), ("--zero", "zero"),
               ("--async-rlhf", "async_rlhf"),
               ("--rollout-mesh", "rollout_mesh"),
@@ -75,7 +97,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--micro", type=int, default=1)
+    ap.add_argument("--lora", type=int, default=0,
+                    help="train rank-R LoRA adapters on the frozen base")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default=None,
+                    help="final .npz params export (legacy single-file)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="directory for fault-tolerant async "
+                         "checkpoints")
+    ap.add_argument("--save-every", type=int, default=0,
+                    help="checkpoint the full TrainState + data cursor "
+                         "every N steps into --ckpt-dir")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest valid checkpoint in "
+                         "--ckpt-dir (bit-identical continuation)")
+    ap.add_argument("--keep", type=int, default=3,
+                    help="committed checkpoints kept in --ckpt-dir (the "
+                         "CheckpointManager's default)")
     ap.add_argument("--rlhf", action="store_true",
                     help="run the 3-stage RLHF pipeline instead of the "
                          "LM loop (--steps/--batch size every stage)")
@@ -86,7 +124,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="int8 KV cache for PPO experience generation "
                          "(--rlhf); training forwards are untouched")
     for flag, dest in NOT_PORTED:
-        if flag in ("--resume", "--async-rlhf"):
+        if flag == "--async-rlhf":
             ap.add_argument(flag, dest=dest, action="store_true",
                             help=argparse.SUPPRESS)
         else:
@@ -104,48 +142,75 @@ def lm_data(cfg, seq: int, seed: int) -> DataBlender:
     return DataBlender(ds, seed=seed)
 
 
+def lora_train_step(cfg, params, state: TrainState, batch, lr):
+    """One LoRA step: ``state`` holds the adapters; the loss is the LM loss
+    of ``lora.merge(params, adapters)``, whose base is frozen, so only the
+    adapters get grads and Adam state."""
+    (loss, metrics), grads = value_and_grad(
+        lambda ad: lm_loss_fn(cfg, LoRA.merge(params, ad), batch),
+        state.params)
+    state, gnorm = state.apply_gradients(grads, lr=lr)
+    return state, dict(metrics, loss=loss, grad_norm=gnorm)
+
+
 def train_lm(cfg, state: TrainState, *, steps: int, batch: int, seq: int,
-             lr: float, micro: int = 1, seed: int = 0, device=None):
-    """The LM loop from ``state``: ``steps`` SFT batches of the synthetic
-    blend, the reference's schedule and step lines.  Returns ``(state,
-    summary)``: ``loss`` and ``grad_norm`` per step, ``step_ms`` per step
-    (host clock around a synchronized step), ``tok_s`` over the steps
-    after the first, and the kernel launches of each step."""
+             lr: float, micro: int = 1, seed: int = 0, device=None,
+             start: int = 0, step_fn=None, mgr=None, save_every: int = 0):
+    """The LM loop from ``state`` at step ``start``: SFT batches
+    ``start..steps-1`` of the synthetic blend with the reference's schedule
+    and step lines.  ``step_fn(state, batch, lr)`` replaces the SFT step
+    (the LoRA step); with ``mgr`` and ``save_every`` the state is saved as
+    in the reference.  Returns ``(state, summary)``: ``loss`` and
+    ``grad_norm`` per step, ``step_ms`` per step (host clock around a
+    synchronized step, the save excluded), ``tok_s`` over the steps after
+    the first, and the kernel launches of each step."""
+    if step_fn is None:
+        step_fn = lambda s, b, lr: lm_train_step(cfg, s, b, lr, micro=micro)
     bl = lm_data(cfg, seq, seed)
     lr_fn = schedules.cosine_warmup(lr, steps // 10 + 1, steps)
     losses, gnorms, step_ms, launches = [], [], [], []
     t0 = time.perf_counter()
-    for i, b in enumerate(bl.sft_batches(batch, steps)):
+    for i, b in enumerate(bl.sft_batches(batch, steps, skip=start),
+                          start=start):
         b = to_device(b, device)
         before = ops.launch_counts()
         ts = time.perf_counter()
-        state, m = lm_train_step(cfg, state, b, lr_fn(i), micro=micro)
+        state, m = step_fn(state, b, lr_fn(i))
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])  # synchronizes
         step_ms.append((time.perf_counter() - ts) * 1e3)
         after = ops.launch_counts()
         launches.append({k: after[k] - before[k] for k in after})
         losses.append(loss)
         gnorms.append(gnorm)
+        if mgr is not None and save_every and (
+                (i + 1) % save_every == 0 or i == steps - 1):
+            mgr.save(i + 1, state, metadata={"arch": cfg.name, "step": i})
         if i % max(steps // 10, 1) == 0 or i == steps - 1:
             print(f"step {i:4d}  loss={loss:.4f}  gnorm={gnorm:.3f}  "
                   f"{time.perf_counter() - t0:6.1f}s")
     steady = step_ms[1:] or step_ms
-    tok_s = batch * seq / (statistics.mean(steady) / 1e3)
+    tok_s = batch * seq / (statistics.mean(steady) / 1e3) if steady else 0.0
     return state, {"loss": losses, "grad_norm": gnorms, "step_ms": step_ms,
                    "tok_s": tok_s, "launches": launches,
                    "tokens_per_step": batch * seq}
 
 
-def run_rlhf(args, cfg, device) -> dict:
+def run_rlhf(args, cfg, device, iter_hook=None) -> dict:
     """SFT -> RM -> PPO on the synthetic blend (the reference's
-    ``run_rlhf`` without meshes, asynchronous stage 3 or checkpoints).
+    ``run_rlhf`` without meshes or asynchronous stage 3; ``--ckpt-dir``
+    makes it durable and resumable).
     Prints the reference's summary lines and returns the pipeline's logs:
     ``sft_loss``, ``rm_acc``, ``ppo_scores``, ``stage3`` (one metrics dict
-    per PPO iteration), ``step_ms``, ``timings`` and ``gen_tok_s``."""
+    per PPO iteration), ``step_ms``, ``timings``, ``gen_tok_s``, the
+    SHA-256 of the actor's, critic's and EMA's final states and the
+    checkpointer's ``ckpt_stats``.  ``iter_hook(pipeline, i)`` is called at
+    the top of each PPO iteration."""
     from repro_torch.core import (PPOConfig, RLHFEngine, RLHFPipeline,
                                   StageConfig)
     eng = RLHFEngine(cfg, cfg.replace(name=cfg.name + "-critic"),
                      torch.Generator(device=device).manual_seed(args.seed))
+    mgr = (checkpoint.CheckpointManager(args.ckpt_dir, keep=args.keep)
+           if args.ckpt_dir else None)
     pipe = RLHFPipeline(
         eng, lm_data(cfg, args.seq, args.seed),
         StageConfig(sft_steps=args.steps, sft_batch=args.batch,
@@ -153,7 +218,10 @@ def run_rlhf(args, cfg, device) -> dict:
                     ppo_steps=args.steps, ppo_batch=args.batch,
                     seed=args.seed),
         PPOConfig(max_new_tokens=args.max_new, temperature=1.0,
-                  kv_quant=args.kv_quant))
+                  kv_quant=args.kv_quant),
+        checkpointer=mgr, save_every=args.save_every or 1)
+    if iter_hook is not None:
+        pipe.iter_hook = functools.partial(iter_hook, pipe)
     out = pipe.run()
     t = out["timings"]
     print(f"sft_loss={out['sft_loss'][-1]:.4f}  "
@@ -161,16 +229,28 @@ def run_rlhf(args, cfg, device) -> dict:
           f"reward={out['ppo_scores'][-1]:.4f}")
     print("  ".join(f"{k}={v:.1f}s" for k, v in t.items())
           + f"  gen={pipe.gen_tok_s:.1f}tok/s")
+    tr = pipe.trainer
     return dict(out, stage3=pipe.log["stage3"], step_ms=pipe.step_ms,
-                gen_tok_s=pipe.gen_tok_s)
+                gen_tok_s=pipe.gen_tok_s,
+                state_sha256={k: checkpoint.tree_sha256(v) for k, v in (
+                    ("actor", tr.actor), ("critic", tr.critic),
+                    ("ema", tr.ema))},
+                ckpt_stats=mgr.stats if mgr is not None else None)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, iter_hook=None) -> dict:
     """Parse ``argv``, train, print the reference's step lines and return
     the summary of :func:`train_lm` (or of :func:`run_rlhf` under
     ``--rlhf``) with ``arch``, ``device``, ``peak_mem_bytes``
-    (``torch.cuda.max_memory_allocated``, CUDA only) and, for ``--rlhf``,
-    the kernel launches of the whole run."""
+    (``torch.cuda.max_memory_allocated``, CUDA only), ``state_sha256``
+    (:func:`checkpoint.tree_sha256` of the final TrainState; per model
+    under ``--rlhf``) and, for ``--rlhf``, the kernel launches of the whole
+    run.  The LM loop's summary also holds the final ``state``, the base
+    ``params`` (the frozen base under ``--lora``, else the state's),
+    ``start`` (the first step run), ``adapter_params`` and the
+    checkpointer's ``ckpt_stats`` and ``restore`` timings.
+    ``iter_hook(pipeline, i)``, under ``--rlhf``, is called at the top of
+    each PPO iteration."""
     ap = build_parser()
     args = ap.parse_args(argv)
     for flag, dest in NOT_PORTED:
@@ -178,6 +258,14 @@ def main(argv=None) -> dict:
             ap.error(f"{flag}: not yet ported")
     if not args.rlhf and (args.max_new is not None or args.kv_quant):
         ap.error("--max-new and --kv-quant apply to --rlhf")
+    if args.rlhf and (args.lora or args.ckpt):
+        ap.error("--lora and --ckpt apply to the LM loop, not --rlhf")
+    if (args.save_every or args.resume) and not args.ckpt_dir:
+        ap.error("--save-every and --resume need --ckpt-dir")
+    if args.lora and args.micro > 1:
+        ap.error("--micro applies to full SFT, not --lora")
+    if args.lora < 0 or args.save_every < 0 or args.keep < 1:
+        ap.error("--lora and --save-every take a count >= 0, --keep >= 1")
     if args.max_new is None:
         args.max_new = 16
     if args.micro < 1 or args.batch % args.micro:
@@ -197,25 +285,66 @@ def main(argv=None) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     if args.rlhf:
         before = ops.launch_counts()
-        summary = run_rlhf(args, cfg, device)
+        summary = run_rlhf(args, cfg, device, iter_hook)
         after = ops.launch_counts()
         return dict(summary, arch=cfg.name, device=str(device),
                     launches={k: after[k] - before[k] for k in after},
                     peak_mem_bytes=(torch.cuda.max_memory_allocated(device)
                                     if cuda else None))
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = TrainState.create(T.init_params(cfg, gen))
-    _, summary = train_lm(cfg, state, steps=args.steps, batch=args.batch,
-                          seq=args.seq, lr=args.lr, micro=args.micro,
-                          seed=args.seed, device=device)
+    params = T.init_params(cfg, gen)
+    step_fn, n_adapter = None, None
+    if args.lora:
+        adapters = LoRA.init(params, args.lora, gen)
+        state = TrainState.create(adapters)
+        n_adapter = sum(x.numel() for x in tree_leaves(adapters))
+        print(f"LoRA rank={args.lora}: training {n_adapter / 1e6:.2f}M "
+              f"adapter params")
+        step_fn = functools.partial(lora_train_step, cfg, params)
+    else:
+        state, params = TrainState.create(params), None
+
+    mgr, start = None, 0
+    if args.ckpt_dir:
+        mgr = checkpoint.CheckpointManager(args.ckpt_dir, keep=args.keep)
+        if args.resume and mgr.latest_step() is not None:
+            target = checkpoint.like(state)
+            state = None                  # free the fresh state first
+            state, meta = mgr.restore(target)
+            start = int(meta["step"]) + 1
+            print(f"resumed from step {meta['step']} "
+                  f"(checkpoint {mgr.latest_step()})")
+    state, summary = train_lm(cfg, state, steps=args.steps, batch=args.batch,
+                              seq=args.seq, lr=args.lr, micro=args.micro,
+                              seed=args.seed, device=device, start=start,
+                              step_fn=step_fn, mgr=mgr,
+                              save_every=args.save_every)
+    if mgr is not None:
+        mgr.wait_for_save()           # durable before exit
     peak = torch.cuda.max_memory_allocated(device) if cuda else None
-    steady = summary["step_ms"][1:] or summary["step_ms"]
-    print(f"trained {args.steps} steps of {args.batch}x{args.seq} tokens: "
-          f"{statistics.median(steady):.1f} ms/step (median after the "
-          f"first), {summary['tok_s']:.1f} tok/s"
-          + (f", peak memory {peak / 2**30:.2f} GiB" if cuda else ""))
+    if summary["step_ms"]:
+        steady = summary["step_ms"][1:] or summary["step_ms"]
+        print(f"trained {len(summary['step_ms'])} steps of {args.batch}x"
+              f"{args.seq} tokens: {statistics.median(steady):.1f} ms/step "
+              f"(median after the first), {summary['tok_s']:.1f} tok/s"
+              + (f", peak memory {peak / 2**30:.2f} GiB" if cuda else ""))
+    export_s = None
+    if args.ckpt:
+        t0 = time.perf_counter()
+        tree = (state.params if not args.lora
+                else LoRA.fold(params, state.params))
+        checkpoint.save(args.ckpt, tree,
+                        metadata={"arch": cfg.name, "steps": args.steps})
+        export_s = time.perf_counter() - t0
+        print("saved", args.ckpt)
     return dict(summary, arch=cfg.name, device=str(device),
-                peak_mem_bytes=peak)
+                peak_mem_bytes=peak, state=state,
+                params=params if args.lora else state.params,
+                start=start, adapter_params=n_adapter,
+                state_sha256=checkpoint.tree_sha256(state),
+                ckpt_stats=mgr.stats if mgr is not None else None,
+                restore=mgr.last_restore if mgr is not None else None,
+                export_s=export_s)
 
 
 if __name__ == "__main__":

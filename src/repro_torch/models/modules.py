@@ -88,6 +88,46 @@ def tree_unflatten(tree, leaves, is_leaf=None):
     return tree_map(lambda _: next(it), tree, is_leaf=is_leaf)
 
 
+def flatten_with_path(tree, path=()) -> list:
+    """``[(path, leaf)]`` in the order of ``jax.tree_util``'s
+    ``tree_flatten_with_path``, each path a tuple of components as the
+    reference's checkpoint keys spell them: dict keys in sorted order,
+    NamedTuple fields as ``".name"``, sequence items by index, ``None`` an
+    empty subtree.  (:func:`tree_map` keeps insertion order instead.)"""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in flatten_with_path(tree[k], path + (k,))]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [kv for f in tree._fields
+                for kv in flatten_with_path(getattr(tree, f),
+                                            path + ("." + f,))]
+    if isinstance(tree, (tuple, list)):
+        return [kv for i, t in enumerate(tree)
+                for kv in flatten_with_path(t, path + (i,))]
+    return [(path, tree)]
+
+
+def tree_unflatten_paths(tree, leaves):
+    """``tree``'s structure with ``leaves`` (in :func:`flatten_with_path`
+    order) in place of its leaves."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            new = {k: build(t[k]) for k in sorted(t)}
+            return {k: new[k] for k in t}          # keep the caller's order
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(build(getattr(t, f)) for f in t._fields))
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+    return build(tree)
+
+
 # ===================================================================== #
 # Param specs
 # ===================================================================== #

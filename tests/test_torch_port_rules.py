@@ -1,8 +1,8 @@
-"""Rules of the port: ``repro_torch`` never imports JAX or the ``repro``
-package, its serve launcher runs on the CPU when asked to (the paged
-layout and the prefix cache included, held to the reference's greedy
-decode), and without a card it refuses to run instead of falling back to
-the CPU."""
+"""Rules of the port: ``repro_torch`` and the torch examples never import
+JAX or the ``repro`` package, its serve launcher runs on the CPU when
+asked to (the paged layout and the prefix cache included, held to the
+reference's greedy decode), and without a card it refuses to run instead
+of falling back to the CPU."""
 import os
 import re
 import subprocess
@@ -38,8 +38,11 @@ def test_every_module_imports_without_jax_or_repro():
     assert len(MODULES) >= 35
 
 
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
 @pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")))
+    str(p.relative_to(ROOT)) for p in [*PKG.rglob("*.py"), *EXAMPLES]))
 def test_no_source_imports_jax_or_repro(path):
     text = (ROOT / path).read_text()
     bad = re.findall(r"^\s*(?:import jax|from jax|import repro\.|"
@@ -57,7 +60,7 @@ def test_serve_cli_runs_on_cpu():
                      r"utilization 100\.0%", res.stdout), res.stdout
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "1,1"], ["--ckpt", "x"]])
+@pytest.mark.parametrize("flag", [["--mesh", "1,1"]])
 def test_serve_cli_refuses_unported_flags(flag):
     res = _run(["-m", "repro_torch.launch.serve", "--device", "cpu",
                 "--arch", "smollm-135m", "--reduced", *flag])

@@ -607,6 +607,6 @@ def test_pipeline_refuses_what_is_not_ported():
         RLHFEngine(atcfg, ctcfg, gen, mesh=object())
     eng = RLHFEngine(atcfg, ctcfg, gen)
     bl = DataBlender([CopyTaskDataset(50, 4, 4, 64, seed=1)])
-    for kw in ({"checkpointer": object()}, {"async_cfg": object()}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            RLHFPipeline(eng, bl, StageConfig(), tppo.PPOConfig(), **kw)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        RLHFPipeline(eng, bl, StageConfig(), tppo.PPOConfig(),
+                     async_cfg=object())

@@ -520,7 +520,7 @@ def test_launchers_refuse_what_is_not_ported(arch, launcher, argv, capsys):
     """Both launchers take the SSM and hybrid ids as the reference does:
     ``serve --kv-quant`` serves (int8 K/V rows for the hybrid's attention
     layers) and ``train`` trains.  What is still not ported (a device
-    mesh, LoRA) is refused with "not yet ported"."""
+    mesh) is refused with "not yet ported"."""
     base = ["--device", "cpu", "--arch", arch, "--reduced", *argv]
     if launcher == "serve":
         res = serve.main([*base, "--requests", "3", "--max-new", "3",
@@ -530,7 +530,7 @@ def test_launchers_refuse_what_is_not_ported(arch, launcher, argv, capsys):
     else:
         res = train.main([*base, "--batch", "2", "--seq", "16"])
         assert len(res["loss"]) == 1 and np.isfinite(res["loss"]).all()
-        refused = ["--lora", "8"]
+        refused = ["--mesh", "1,1"]
     mod = serve if launcher == "serve" else train
     capsys.readouterr()
     with pytest.raises(SystemExit) as e:

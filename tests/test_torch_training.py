@@ -455,8 +455,7 @@ def test_train_main_returns_a_summary():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--lora", "8"], ["--ckpt", "x.npz"], ["--ckpt-dir", "d"],
-    ["--save-every", "2"], ["--resume"], ["--mesh", "1,1"],
+    ["--mesh", "1,1"],
     ["--strategy", "zero3"], ["--zero", "1"], ["--rlhf", "--async-rlhf"],
     ["--async-rlhf"],
     ["--rollout-mesh", "2"], ["--train-mesh", "2"], ["--queue-depth", "2"],
@@ -471,8 +470,8 @@ def test_train_cli_refuses_unported_flags(flag):
 
 def test_train_cli_refusal_names_the_flag():
     res = _run(["--device", "cpu", "--arch", "smollm-135m", "--reduced",
-                "--lora", "8"])
-    assert res.returncode != 0 and "--lora: not yet ported" in res.stderr
+                "--mesh", "1,1"])
+    assert res.returncode != 0 and "--mesh: not yet ported" in res.stderr
 
 
 def test_train_cli_without_a_card_refuses_to_run():

@@ -101,7 +101,41 @@ Phases (any failure raises, so the run exits non-zero):
    at 1e-4, free-running within a tenth of the int8 error, tokens
    identical, the first attention layer's int8 rows at most one step
    apart).
-10. ``ckpt`` — checkpoint/resume, LoRA and the torch example, under
+10. ``gqa128`` — the head-dim-128 GQA family at full size: the flash
+   forward (with the LSE) at the prefills of qwen3-8b (KV 8, G 4), yi-9b
+   (KV 4, G 8), llama3.2-3b (KV 8, G 3) and llama4-scout (KV 8, G 5) and
+   at the llama3.2-3b SFT shape (B 8, H 24, L 512), the flash backward at
+   that shape, the four decode kernels at B 16, S 512 (ragged) for the
+   three dense models' groups, RMSNorm at D = 3072, 4096 and 5120 (R = 16
+   and 4,096): fp32 (TF32 off, 1e-4) and bf16 (2e-2 of max |plain|, RMSNorm
+   1e-2 relative) against the plain versions, bf16 timed warm and cold
+   beside the bound and the library call or a yardstick; the ptxas
+   registers and spills of every D = 128 instantiation (from ``build``,
+   printed, not gated); qwen3-8b, yi-9b and llama3.2-3b at full width and
+   depth in fp32, teacher-forced (prefill 256 + 32 decode), kernel path
+   against plain path (1e-4); ``launch.serve`` of qwen3-8b on the
+   32-request workload (dense bf16), yi-9b on it on the paged bf16 pool
+   and greedy paged == dense on 8 requests, llama3.2-3b greedy on dense
+   and paged int8 KV (tok/s and peak memory; each run's launch set
+   gated); ``launch.train`` SFT at llama3.2-3b full size (5 steps of 8 x
+   512, bf16 on fp32 masters, remat; fails if it does not fit), a
+   qwen3-8b fp32 LM step at 2 layers kernel vs plain (loss 1e-5, grads
+   1e-4 of each leaf's max); ``RLHFPipeline`` with llama3.2-3b actor and
+   critic cut to 4 layers (2 SFT, 2 RM steps, 1 PPO iteration of 8 x 256
+   + 64 on int8 KV) under phase ``rlhf``'s checks.
+11. ``moe`` — the MoE layer at llama4-scout-17b-a16e, full width (107.8 B
+   parameters whole, so cut in depth): ``launch.serve`` at 12 layers
+   (``cfg=``; 28.5 B, bf16 weights only) on the 32-request workload with
+   the share of routed entries the capacity drops per decode step and per
+   admission (ROADMAP Queue 3, R13), greedy paged == dense on 8 equal
+   requests in 8 slots (every slot live; counted, not gated, on 8 ragged
+   requests in 16 slots, whose idle slots' rows differ by layout), prefix
+   cache on vs off on the shared-system-prompt mix (a share of equal
+   streams, not gated: R13); an fp32 LM step at 1 layer, 2 x 256, kernel
+   vs plain (loss and aux 1e-5, grads 1e-4); ``launch.train --lora 8``
+   at 2 layers, 3 bf16 steps of 4 x 512 (every loss and aux finite, the
+   adapters moved).
+12. ``ckpt`` — checkpoint/resume, LoRA and the torch example, under
    ``build/ckpt_phase`` (deleted at the end): the free disk (60 GB
    at least) and host RAM (2x the largest snapshot) first; two
    uninterrupted ``launch.train`` runs of OPT-1.3B (full width and depth,
@@ -124,7 +158,7 @@ Phases (any failure raises, so the run exits non-zero):
    Launch counts are set to 0 before each leg's first run and read after
    it (SFT, PPO, LoRA, serve, example); every kernel of the leg must have
    launched.
-11. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
+13. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
    that no earlier timing runs after a profiler session: the CUDA kernels
    one call of each decode row of phase ``kernels`` runs (the split
    kernel, then the combine exactly when the host's plan splits the
@@ -190,7 +224,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "train", "rlhf",
-          "ssm", "ssm_train", "ckpt", "profile")
+          "ssm", "ssm_train", "gqa128", "moe", "ckpt", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the time bound of a kernel is
 # the larger of bytes / memory rate and operations / peak rate for the type
@@ -426,11 +460,18 @@ def phase_build(state):
     # must the decode core's split and combine kernels with bf16 queries
     # at D = 64, fp and int8 rows
     mma64, split64, comb64, ssd_mma = {}, {}, {}, {}
+    # every D = 128 instantiation (flash fp32 and bf16, the decode core's
+    # split and combine kernels): registers and spills, printed and kept
+    # for phase gqa128, not gated
+    import re
+    d128 = state.setdefault("ptxas_d128", {})
     for name, r in report.items():
         log(f"[build] {name}.cu: {r['seconds']:.1f}s")
         for fn, regs, stack, st, ld in ptxas_usage(r["log"]):
             log(f"[build]   {fn}: {regs} registers, {stack} bytes stack "
                 f"frame, {st} bytes spill stores, {ld} bytes spill loads")
+            if "ssd" not in name and re.search(r"[<,] ?128\b|Li128E", fn):
+                d128[f"{name}: {fn}"] = (regs, st + ld)
             if "ssd_intra_mma_kernel" in fn:
                 ssd_mma[fn] = st + ld
             elif "mma_kernel" in fn and ("<64>" in fn or "ILi64E" in fn):
@@ -1483,7 +1524,8 @@ def phase_serve(state):
     argv8 = argv + ["--kv-quant"]
     log(f"[serve] python -m repro_torch.launch.serve {' '.join(argv8)}")
     ops.reset_launch_counts()
-    res8 = serve.main(argv8)
+    # no warm-up: its tok/s include the int8 run's first calls
+    res8 = serve.main(argv8, warmup=False)
     counts8 = ops.launch_counts()
     log(f"[serve] opt-1.3b bf16, int8 KV: {res8['tokens']} tokens in "
         f"{res8['seconds']:.3f}s = {res8['tok_s']:.1f} tok/s (bf16 KV above: "
@@ -1515,16 +1557,17 @@ SERVE_ARGV = ["--arch", "opt-1.3b", "--requests", "32", "--ragged",
 PAGED = ["--kv-layout", "paged", "--block-size", "16"]
 
 
-def _serve_run(argv, tag, must, state, warmup=True):
+def _serve_run(argv, tag, must, state, warmup=True, cfg=None):
     """``serve.main(argv)`` with the launch counts set to 0 just before and
     read just after; fails unless every kernel of ``must`` launched and, on
     the paged layout, neither dense decode kernel did.  ``warmup=False``
-    where an earlier run of this process served the same shapes."""
+    where an earlier run of this process served the same shapes; ``cfg``
+    in place of ``--arch``'s (a cut depth)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     log(f"[serve] python -m repro_torch.launch.serve {' '.join(argv)}")
     ops.reset_launch_counts()
-    res = serve.main(argv, warmup=warmup)
+    res = serve.main(argv, warmup=warmup, cfg=cfg)
     counts = ops.launch_counts()
     st = res["stats"]
     extra = ""
@@ -1582,7 +1625,8 @@ def _paged_serve(state):
     _step_timing(True, True, state)
 
     res8 = _serve_run(SERVE_ARGV + PAGED + ["--kv-quant"],
-                      "serve_paged_int8", SERVE_PAGED_INT8_KERNELS, state)
+                      "serve_paged_int8", SERVE_PAGED_INT8_KERNELS, state,
+                      warmup=False)   # its tok/s include its first calls
 
     # greedy: dense vs paged (the paged bf16 run of the workload), then a
     # pool that must preempt; the runs above warmed these shapes
@@ -2322,13 +2366,13 @@ def _ssm_parity(failures):
             def witness(c, spec, lp, x, positions, mode, lc, rope,
                         block_tables=None):
                 lck = tree_map(torch.clone, lc) if lc is not None else None
-                yk = layer(kcfg, spec, lp, x, positions, mode, lck, rope,
-                           block_tables)
-                y = layer(c, spec, lp, x, positions, mode, lc, rope,
-                          block_tables)
+                yk, _ = layer(kcfg, spec, lp, x, positions, mode, lck, rope,
+                              block_tables)
+                y, aux = layer(c, spec, lp, x, positions, mode, lc, rope,
+                               block_tables)
                 w_err[0] = worst((w_err[0], float(
                     (yk - y).abs().max() / (y - x).abs().max())))
-                return y
+                return y, aux
 
             t0 = time.perf_counter()
             kern = stream(kcfg, params)
@@ -2746,7 +2790,8 @@ def _ssm_train_parity(failures):
                 xg = x.detach().clone().requires_grad_()
                 if uk:
                     ops.reset_launch_counts()
-                out = layer(c, spec, lpg, xg, positions, "full", None, rope)
+                out, _ = layer(c, spec, lpg, xg, positions, "full", None,
+                               rope)
                 (out * w).sum().backward()
                 torch.cuda.synchronize()
                 if uk:
@@ -3099,8 +3144,11 @@ def _zamba2_int8(state, failures):
     from repro_torch.models.modules import tree_leaves
 
     tag = "ssm_serve_zamba2-1.2b_int8"
+    # no warm-up after phase ssm's bf16 run of this workload: the int8
+    # run's first calls land in its tok/s
     res = _serve_run(["--arch", "zamba2-1.2b", *SERVE_ARGV[2:], "--kv-quant"],
-                     tag, SSM_INT8_SERVE_KERNELS, state)
+                     tag, SSM_INT8_SERVE_KERNELS, state,
+                     warmup="zamba2-1.2b" not in state.get("ssm_serve", {}))
     if state["launches"][tag]["decode_attention_fwd"]:
         failures.append("serve zamba2-1.2b --kv-quant: the bf16 decode "
                         "kernel launched")
@@ -3563,10 +3611,829 @@ def phase_profile(state):
                              + "\n".join(failures))
 
 
+# --------------------------------------------------------------------- #
+# the head-dim-128 GQA family (qwen3-8b, yi-9b, llama3.2-3b)
+# --------------------------------------------------------------------- #
+GQA128_ARCHS = ("qwen3-8b", "yi-9b", "llama3.2-3b")
+
+
+def _peak_gib():
+    import torch
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _row128(state, failures, name, label, dname, err, limit, k_ms=None,
+            p_ms=None, lib_ms=None, bnd=None, cold_ms=None, extra=None):
+    """One D = 128 kernel row: logged, kept for the ``kernels`` line (under
+    the kernel's ``d128`` key) and failed when ``err`` passes ``limit``;
+    an fp32 row is checked, not timed."""
+    ok = err <= limit
+    if not ok:
+        failures.append(f"{name} {label} {dname}: err {err:.3g} > {limit}")
+    row = {"shape": label, "dtype": dname, "max_err": err, **(extra or {})}
+    timed = ""
+    if k_ms is not None:
+        row.update(ms=k_ms, cold_ms=cold_ms, plain_ms=p_ms,
+                   library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1])
+        timed = (f" kernel_ms={k_ms:.4f} cold_ms={cold_ms:.4f} "
+                 f"plain_ms={p_ms:.4f} library_ms="
+                 f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+                 f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+    state.setdefault("d128", {}).setdefault(name, []).append(row)
+    log(f"[gqa128] {name} {label} {dname} err={err:.3g} (tol {limit})"
+        + timed + "".join(f" {k}={v:.4f}" if isinstance(v, float) else
+                          f" {k}={v}" for k, v in (extra or {}).items())
+        + f" {'ok' if ok else 'FAIL'}")
+
+
+def _cold(fn_of, inputs, nbytes):
+    """:func:`time_ms_cold` of ``fn_of(*copy)`` over copies of
+    ``inputs``."""
+    copies = [tuple(t.clone() for t in inputs)
+              for _ in range(cold_copies(nbytes))]
+    ms = time_ms_cold([lambda c=c: fn_of(*c) for c in copies])
+    del copies
+    return ms
+
+
+def _gqa128_flash_rows(state, failures):
+    """The flash forward (with the LSE) at the prefills of the four GQA
+    groups (B 1, L 256; qwen3-8b's KV 8, G 4 first) and the llama3.2-3b
+    SFT shape (B 8, H 24, KV 8, L 512), the backward at that SFT shape;
+    fp32 (TF32 off, 1e-4) and bf16 (2e-2 of max |plain|) against the plain
+    versions; bf16 timed warm and cold beside the bound and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(128)
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    tol = {"fp32": 1e-4, "bf16": 2e-2}
+    D = 128
+    for (B, KV, G, L, model) in ((1, 8, 4, 256, "qwen3-8b prefill"),
+                                 (1, 4, 8, 256, "yi-9b prefill"),
+                                 (1, 8, 3, 256, "llama3.2-3b prefill"),
+                                 (1, 8, 5, 256, "llama4-scout prefill"),
+                                 (8, 8, 3, 512, "llama3.2-3b sft")):
+        label = f"{model} B={B} KV={KV} G={G} L={L}"
+        for dname, dt in dtypes.items():
+            qm = _case_inputs(gen, (B, L, KV * G, D), dt)
+            km = _case_inputs(gen, (B, L, KV, D), dt)
+            vm = _case_inputs(gen, (B, L, KV, D), dt)
+            q5 = qm.unflatten(2, (KV, G)).permute(0, 2, 3, 1, 4)
+            k4, v4 = km.transpose(1, 2), vm.transpose(1, 2)
+            lse = torch.empty((B, KV, G, L), device="cuda")
+            out = flash_attention_fwd(q5, k4, v4, causal=True, lse=lse)
+            r = ref.flash_attention_ref(q5, k4, v4, causal=True)
+            lse_ref = ref.flash_attention_lse_ref(q5, k4, causal=True)
+            torch.cuda.synchronize()
+            scale = float(r.float().abs().max()) if dname == "bf16" else 1.0
+            err = _err(out, r, rel=False) / scale
+            lse_err = _err(lse, lse_ref, rel=False)
+            if lse_err > (1e-4 if dname == "fp32" else 1e-3):
+                failures.append(f"flash LSE D=128 {label} {dname}: "
+                                f"{lse_err:.3g}")
+            if dname == "fp32":
+                _row128(state, failures, "flash_attention_fwd", label, dname,
+                        err, tol[dname], extra={"lse_err": lse_err})
+                continue
+            pairs = causal_pairs(L, L, None)
+            ops = 4 * B * KV * G * pairs * D
+            nbytes = (2 * B * KV * G * L * D + 2 * B * KV * L * D) * 2
+            call = lambda q5, k4, v4: flash_attention_fwd(q5, k4, v4,
+                                                          causal=True)
+            qs, ks, vs = (t.transpose(1, 2) for t in (qm, km, vm))
+            k_ms = time_ms(lambda: call(q5, k4, v4))
+            _row128(state, failures, "flash_attention_fwd", label, dname,
+                    err, tol[dname], k_ms,
+                    time_ms(lambda: ref.flash_attention_ref(q5, k4, v4,
+                                                            causal=True)),
+                    time_ms(lambda: F.scaled_dot_product_attention(
+                        qs, ks, vs, is_causal=True, enable_gqa=True)),
+                    bound(nbytes, ops, "bf16"),
+                    cold_ms=_cold(call, (q5, k4, v4), nbytes),
+                    extra={"lse_err": lse_err,
+                           "tflops": ops / (k_ms * 1e-3) / 1e12})
+        if B == 1:
+            continue
+        # the backward at the SFT shape
+        for dname, dt in dtypes.items():
+            qm, dom = (_case_inputs(gen, (B, L, KV * G, D), dt)
+                       for _ in range(2))
+            km = _case_inputs(gen, (B, L, KV, D), dt)
+            vm = _case_inputs(gen, (B, L, KV, D), dt)
+            q5, do5 = (t.unflatten(2, (KV, G)).permute(0, 2, 3, 1, 4)
+                       for t in (qm, dom))
+            k4, v4 = km.transpose(1, 2), vm.transpose(1, 2)
+            o5 = ref.flash_attention_ref(q5, k4, v4, causal=True)
+            lse = ref.flash_attention_lse_ref(q5, k4, causal=True)
+            delta = (do5.float() * o5.float()).sum(-1).contiguous()
+            got = flash_attention_bwd(q5, k4, v4, do5, lse, delta,
+                                      causal=True)
+            want = ref.flash_attention_bwd_ref(q5, k4, v4, do5, lse, delta,
+                                               causal=True)
+            torch.cuda.synchronize()
+            rel = worst(float((a.float() - b.float()).abs().max()
+                              / b.float().abs().max().clamp(min=1e-12))
+                        for a, b in zip(got, want))
+            del got, want
+            if dname == "fp32":
+                _row128(state, failures, "flash_attention_bwd", label, dname,
+                        rel, tol[dname])
+                continue
+            pairs = causal_pairs(L, L, None)
+            ops = 10 * D * B * KV * G * pairs
+            nbytes = (3 * B * KV * G * L * D * 2 + 4 * B * KV * L * D * 2
+                      + 2 * B * KV * G * L * 4)
+            call = lambda *a: flash_attention_bwd(*a, causal=True)
+            args = (q5, k4, v4, do5, lse, delta)
+            k_ms = time_ms(lambda: call(*args), inner=5, repeats=5)
+            qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (qm, km, vm))
+            dos = dom.transpose(1, 2)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True)
+            both = lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), dos)
+            lib = (time_ms(both, inner=5, repeats=5)
+                   - time_ms(sdpa, inner=5, repeats=5))
+            _row128(state, failures, "flash_attention_bwd", label, dname,
+                    rel, tol[dname], k_ms,
+                    time_ms(lambda: ref.flash_attention_bwd_ref(
+                        *args, causal=True), inner=3, repeats=5), lib,
+                    bound(nbytes, ops, "bf16"),
+                    cold_ms=_cold(call, args, nbytes),
+                    extra={"tflops": ops / (k_ms * 1e-3) / 1e12})
+
+
+def _gqa128_decode_rows(state, failures):
+    """The four decode kernels at D = 128, B 16, S 512 (ragged, 1..512
+    rows; the paged ones over a shuffled 513-block pool of 16-row blocks)
+    for qwen3-8b (KV 8, G 4), yi-9b (KV 4, G 8) and llama3.2-3b (KV 8,
+    G 3: the G = 4 instantiation with a quarter of its query lanes idle),
+    fp32 (1e-4) and bf16 (2e-2), both of max |plain|; bf16 timed warm and
+    cold beside the bound and SDPA (dense bf16 rows) or a yardstick
+    (dequantize or gather, then SDPA)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_fwd, decode_attention_quant_fwd)
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_fwd, paged_decode_attention_quant_fwd)
+    from repro_torch.models.modules import _kv_quant
+
+    gen = torch.Generator(device="cuda").manual_seed(129)
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    tol = {"fp32": 1e-4, "bf16": 2e-2}
+    B, S, D, bs, nb = 16, 512, 128, 16, 32
+    for (KV, G, model) in ((8, 4, "qwen3-8b"), (4, 8, "yi-9b"),
+                           (8, 3, "llama3.2-3b")):
+        gm = 1 << (G - 1).bit_length()             # the instantiation's G
+        for quant in (False, True):
+            for dname, dt in dtypes.items():
+                # the dense arena, read in place
+                q = _case_inputs(gen, (B, KV * G, D), dt)
+                kf = _case_inputs(gen, (B, S, KV, D), dt)
+                vf = _case_inputs(gen, (B, S, KV, D), dt)
+                valid, _ = _decode_valid(gen, B, S, 1)
+                q4 = q.unflatten(1, (KV, G))
+                eb = q.element_size()
+                if quant:
+                    (ka, ks), (va, vs) = _kv_quant(kf), _kv_quant(vf)
+                    args = (ka.transpose(1, 2), va.transpose(1, 2),
+                            ks.transpose(1, 2), vs.transpose(1, 2))
+                    name = "decode_attention_quant_fwd"
+                    kern = lambda *a: decode_attention_quant_fwd(q4, *a,
+                                                                 valid)
+                    plain = lambda: ref.decode_attention_quant_ref(
+                        q4, *args, valid)
+                    row_bytes = 2 * D + 8
+                else:
+                    args = (kf.transpose(1, 2), vf.transpose(1, 2))
+                    name = "decode_attention_fwd"
+                    kern = lambda *a: decode_attention_fwd(q4, *a, valid)
+                    plain = lambda: ref.decode_attention_ref(q4, *args,
+                                                             valid)
+                    row_bytes = 2 * D * eb
+                out, r = kern(*args), plain()
+                torch.cuda.synchronize()
+                err = _err(out, r, rel=False) / float(r.float().abs().max())
+                label = f"{model} B={B} KV={KV} G={G} (GM {gm}) S={S} ragged"
+                if dname == "fp32":
+                    _row128(state, failures, name, label, dname, err,
+                            tol[dname])
+                else:
+                    need = int(valid.sum())
+                    nbytes = (2 * B * KV * G * D * eb + B * S
+                              + need * KV * row_bytes)
+                    qs = q.unflatten(1, (KV * G, 1))
+                    mask = valid[:, None, None, :]
+
+                    def lib_fn():
+                        kd, vd = args[0], args[1]
+                        if quant:
+                            kd = (kd.float() * args[2][..., None]).to(dt)
+                            vd = (vd.float() * args[3][..., None]).to(dt)
+                        return F.scaled_dot_product_attention(
+                            qs, kd, vd, attn_mask=mask, enable_gqa=True)
+                    lib = time_ms(lib_fn)
+                    _row128(state, failures, name, label, dname, err,
+                            tol[dname], time_ms(lambda: kern(*args)),
+                            time_ms(plain), None if quant else lib,
+                            bound(nbytes, 4 * KV * G * D * need, "bf16"),
+                            cold_ms=_cold(kern, args, nbytes),
+                            extra={"yardstick_ms": lib} if quant else None)
+                del q, kf, vf, args
+                # the paged pool through shuffled block tables
+                name = ("paged_decode_attention_quant_fwd" if quant
+                        else "paged_decode_attention_fwd")
+                qp, kp, vp, sc, tables, lens = _paged_case(
+                    gen, B, KV, G, D, bs, nb, 1, dt, quant)
+                pargs = (kp, vp, *sc)
+                run = (paged_decode_attention_quant_fwd if quant
+                       else paged_decode_attention_fwd)
+                kern = lambda *a: run(qp, *a, tables, lens)
+                plain = ((lambda: ref.paged_decode_attention_quant_ref(
+                    qp, *pargs, tables, lens)) if quant else
+                    (lambda: ref.paged_decode_attention_ref(
+                        qp, *pargs, tables, lens)))
+                out, r = kern(*pargs), plain()
+                torch.cuda.synchronize()
+                err = _err(out, r, rel=False) / float(r.float().abs().max())
+                label = (f"{model} B={B} KV={KV} G={G} (GM {gm}) bs={bs} "
+                         f"nb={nb} lens 1-{nb * bs}")
+                if dname == "fp32":
+                    _row128(state, failures, name, label, dname, err,
+                            tol[dname])
+                    continue
+                need = int(lens.sum())
+                nbytes = (2 * B * KV * G * D * eb + 4 * B * (nb + 1)
+                          + need * KV * row_bytes)
+                valid_p = (torch.arange(nb * bs, device="cuda")[None]
+                           < lens[:, None])
+                qs = qp.flatten(1, 2)[:, :, None]
+                mask = valid_p[:, None, None, :]
+
+                def gather_sdpa():
+                    kg = ref.gather_blocks(kp, tables)
+                    vg = ref.gather_blocks(vp, tables)
+                    if quant:
+                        kg = (kg.float() * ref.gather_blocks(
+                            sc[0], tables)[..., None]).to(dt)
+                        vg = (vg.float() * ref.gather_blocks(
+                            sc[1], tables)[..., None]).to(dt)
+                    return F.scaled_dot_product_attention(
+                        qs, kg.transpose(1, 2), vg.transpose(1, 2),
+                        attn_mask=mask, enable_gqa=True)
+                _row128(state, failures, name, label, dname, err,
+                        tol[dname], time_ms(lambda: kern(*pargs)),
+                        time_ms(plain), None,
+                        bound(nbytes, 4 * KV * G * D * need, "bf16"),
+                        cold_ms=_cold(kern, pargs, nbytes),
+                        extra={"yardstick_ms": time_ms(gather_sdpa)})
+                del qp, kp, vp, sc, pargs
+        if G == 3:
+            log(f"[gqa128] {model}: G = 3 runs the decode core's G = 4 "
+                f"instantiation, a quarter of its query lanes idle")
+
+
+def _gqa128_rmsnorm_rows(state, failures):
+    """RMSNorm at the new widths (llama3.2-3b 3072, qwen3-8b and yi-9b
+    4096, llama4-scout 5120), a decode step's 16 rows and an SFT step's
+    4,096; fp32 (1e-4) and bf16 (1e-2 relative); bf16 timed warm and cold
+    beside the bound and ``F.rms_norm``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(130)
+    for D in (3072, 4096, 5120):
+        for R in (16, 4096):
+            for dname, dt in (("fp32", torch.float32),
+                              ("bf16", torch.bfloat16)):
+                x = _case_inputs(gen, (R, D), dt)
+                w = (1.0 + 0.1 * _case_inputs(gen, (D,), torch.float32)
+                     ).to(dt)
+                out = rmsnorm_fwd(x, w, eps=1e-5)
+                r = ref.rmsnorm_ref(x, w, 1e-5)
+                torch.cuda.synchronize()
+                err = _err(out, r, rel=dname == "bf16")
+                lim = 1e-4 if dname == "fp32" else 1e-2
+                if dname == "fp32":
+                    _row128(state, failures, "rmsnorm", f"R={R} D={D}",
+                            dname, err, lim)
+                    continue
+                nbytes = 2 * R * D * 2 + D * 2
+                call = lambda x, w: rmsnorm_fwd(x, w, eps=1e-5)
+                _row128(state, failures, "rmsnorm", f"R={R} D={D}", dname,
+                        err, lim, time_ms(lambda: call(x, w)),
+                        time_ms(lambda: ref.rmsnorm_ref(x, w, 1e-5)),
+                        time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)),
+                        bound(nbytes, 4 * R * D, "fp32"),
+                        cold_ms=_cold(call, (x, w), nbytes))
+
+
+def _teacher_forced(cfg, params, tokens, Lp, n_dec):
+    """Logits of a prefill of ``tokens[:, :Lp]`` and ``n_dec`` decode steps
+    fed ``tokens``' next tokens, on the kernel path and the plain path."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.generate import decode_step, prefill
+    logits = {}
+    for use_kernels in (True, False):
+        c = cfg.replace(use_kernels=use_kernels)
+        cache = T.init_cache(c, 1, Lp + n_dec, device="cuda")
+        lg, cache = prefill(c, params, tokens[:, :Lp], cache)
+        steps = [lg]
+        for t in range(n_dec):
+            pos = torch.full((1,), Lp + t, dtype=torch.long, device="cuda")
+            lg, cache = decode_step(c, params, tokens[:, Lp + t], cache, pos)
+            steps.append(lg)
+        logits[use_kernels] = torch.cat(steps).float()
+        del cache
+    return logits[True], logits[False]
+
+
+def _gqa128_parity(state, failures):
+    """Each dense model at full width and depth in fp32 (TF32 off), random
+    weights: prefill 256 + 32 decode steps teacher-forced through the
+    kernel path and the plain path, max |dlogits| / max |logits| <= 1e-4."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    Lp, n_dec = 256, 32
+    for arch in GQA128_ARCHS:
+        cfg = get_config(arch).replace(compute_dtype="float32")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(cfg, gen)
+        tokens = torch.randint(0, cfg.vocab_size, (1, Lp + n_dec),
+                               generator=gen, device="cuda")
+        a, b = _teacher_forced(cfg, params, tokens, Lp, n_dec)
+        torch.cuda.synchronize()
+        rel = float((a - b).abs().max() / b.abs().max())
+        agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        log(f"[gqa128] parity {arch} fp32 ({cfg.n_params() / 1e9:.2f} B), "
+            f"{Lp} prefill + {n_dec} decode steps (teacher-forced): "
+            f"max|dlogits|/max|logits| = {rel:.3g} (tol 1e-4), argmax "
+            f"agreement {agree:.3f}, {time.perf_counter() - t0:.1f}s, peak "
+            f"{_peak_gib():.2f} GiB")
+        state.setdefault("gqa128", {})[f"parity_{arch}"] = rel
+        if not (torch.isfinite(a).all() and rel <= 1e-4):
+            failures.append(f"parity {arch}: rel {rel:.3g}")
+        del params, a, b
+        torch.cuda.empty_cache()
+
+
+# 8 greedy requests of the serve workload's prompts, up to 64 new tokens:
+# the paged == dense checks of the new models
+GREEDY8 = ["--requests", "8", "--max-new", "64", "--temperature", "0"]
+
+
+def _serve_peak(argv, tag, must, state, warmup=True, cfg=None):
+    """:func:`_serve_run` with the run's peak memory.  The last run's
+    weights are collected first: the launcher's engine and core refer to
+    each other, so its tree lives until the cycle collector runs."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = _serve_run(argv, tag, must, state, warmup=warmup, cfg=cfg)
+    peak = _peak_gib()
+    log(f"[serve] {tag}: peak memory {peak:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    state.setdefault("serve_new", {})[tag] = {"tok_s": res["tok_s"],
+                                              "peak_gib": peak}
+    return res
+
+
+def _gqa128_serve(state, failures):
+    """``launch.serve`` at full width and depth, weights in bf16 only:
+    qwen3-8b on the 32-request workload (dense bf16 KV); yi-9b on the same
+    workload on the paged bf16 pool (no warm-up: its tok/s includes the
+    first calls at its shapes), then greedy paged == dense on 8 requests
+    of up to 64 new tokens; llama3.2-3b greedy on those 8 requests on the
+    dense and the paged int8 KV."""
+    argv = lambda arch: ["--arch", arch] + SERVE_ARGV[2:]
+    _serve_peak(argv("qwen3-8b"), "serve_qwen3_8b", SERVE_KERNELS, state)
+    _serve_peak(argv("yi-9b") + PAGED, "serve_yi_9b_paged",
+                SERVE_PAGED_KERNELS, state, warmup=False)
+    d = _serve_peak(argv("yi-9b") + GREEDY8, "serve_yi_9b_greedy_dense",
+                    SERVE_KERNELS, state, warmup=False)
+    p = _serve_peak(argv("yi-9b") + GREEDY8 + PAGED,
+                    "serve_yi_9b_greedy_paged", SERVE_PAGED_KERNELS, state,
+                    warmup=False)
+    same = d["completions"] == p["completions"]
+    log(f"[gqa128] yi-9b greedy streams (8 requests): paged == dense {same}")
+    if not same:
+        failures.append("yi-9b greedy paged != dense")
+    g = argv("llama3.2-3b") + GREEDY8 + ["--kv-quant"]
+    d = _serve_peak(g, "serve_llama3_2_3b_int8", SERVE_INT8_KERNELS, state,
+                    warmup=False)
+    p = _serve_peak(g + PAGED, "serve_llama3_2_3b_paged_int8",
+                    SERVE_PAGED_INT8_KERNELS, state, warmup=False)
+    log(f"[gqa128] llama3.2-3b int8 greedy streams (8 requests): paged == "
+        f"dense {d['completions'] == p['completions']} (reported, not "
+        f"gated)")
+
+
+def _lm_step_gate(tag, cfg, batch, failures):
+    """One fp32 (TF32 off) LM step of ``cfg`` through the kernel path and
+    the plain path on the same params: loss and aux to 1e-5 relative,
+    every grad leaf to 1e-4 of its max; the kernel path must launch the
+    three training kernels."""
+    import gc
+    import math
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.training.steps import lm_value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(3))
+    res = {}
+    for uk in (True, False):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        (loss, met), grads = lm_value_and_grad(cfg.replace(use_kernels=uk),
+                                               params, batch)
+        torch.cuda.synchronize()
+        # the kernel path's grads wait in host memory: two fp32 grad trees
+        # and the params would not fit the card at llama4-scout's width
+        leaves = [g.cpu() if uk else g for g in tree_leaves(grads)]
+        res[uk] = (float(loss), float(met["aux_loss"]), leaves,
+                   ops.launch_counts(), time.perf_counter() - t0)
+        del grads, leaves
+    (lk, ak, gk, ck, tk), (lp, ap, gp, _, tp) = res[True], res[False]
+    loss_rel = abs(lk - lp) / abs(lp)
+    aux_rel = abs(ak - ap) / abs(ap) if ap else abs(ak)
+    grad_rel = worst(float((a.cuda() - b).abs().max() / b.abs().max().clamp(
+        min=1e-30)) for a, b in zip(gk, gp))
+    B, L = batch["tokens"].shape
+    log(f"[{tag}] {cfg.name} fp32 LM step ({cfg.n_layers} layers, "
+        f"{cfg.n_params() / 1e9:.2f} B, batch {B} x {L}), kernel vs plain: "
+        f"loss {lk:.6f} vs {lp:.6f} ({tk:.1f}s / {tp:.1f}s), |dloss|/|loss|"
+        f" = {loss_rel:.3g} (tol 1e-5), aux {ak:.6g} vs {ap:.6g} (rel "
+        f"{aux_rel:.3g}, tol 1e-5), max over {len(gk)} grad leaves of "
+        f"max|dgrad|/max|grad| = {grad_rel:.3g} (tol 1e-4); launches {ck}; "
+        f"peak {_peak_gib():.2f} GiB")
+    if not (math.isfinite(lk) and loss_rel <= 1e-5 and aux_rel <= 1e-5
+            and grad_rel <= 1e-4):
+        failures.append(f"{tag} LM step kernel vs plain: loss {loss_rel:.3g}"
+                        f" aux {aux_rel:.3g} grads {grad_rel:.3g}")
+    missing = [k for k in TRAIN_KERNELS if ck[k] == 0]
+    if missing:
+        failures.append(f"{tag} LM step: kernels never launched {missing}")
+    del params, res, gk, gp
+    torch.cuda.empty_cache()
+
+
+def _sft_run(tag, argv, state, failures, falling=True, cfg=None):
+    """``launch.train.main(argv)`` with the launch counts set to 0 just
+    before and read just after: every loss (and aux) finite, the last loss
+    below the first (unless ``falling`` is off), the training kernels
+    launched.  ``cfg`` in place of ``--arch``'s (a cut depth).  A run that
+    does not fit the card raises: the phase fails."""
+    import gc
+    import math
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    log(f"[{tag}] python -m repro_torch.launch.train {' '.join(argv)}"
+        f"{'' if cfg is None else f' (n_layers {cfg.n_layers})'}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    out = launch_train.main(argv, cfg=cfg)
+    counts = ops.launch_counts()
+    state.setdefault("launches", {})[tag] = counts
+    losses, auxes = out["loss"], out["aux_loss"]
+    steady = out["step_ms"][1:] or out["step_ms"]
+    summary = {"argv": " ".join(argv), "loss": losses, "aux": auxes,
+               "step_ms": statistics.median(steady), "tok_s": out["tok_s"],
+               "peak_gib": out["peak_mem_bytes"] / 2**30,
+               "adapter_params": out["adapter_params"]}
+    log(f"[{tag}] losses {' '.join(f'{x:.4f}' for x in losses)}; aux "
+        f"{' '.join(f'{x:.4g}' for x in auxes)}; step ms "
+        f"{' '.join(f'{x:.1f}' for x in out['step_ms'])}, median after the "
+        f"first {summary['step_ms']:.1f} ms, {out['tok_s']:.1f} tok/s, peak "
+        f"{summary['peak_gib']:.2f} GiB; launches per step "
+        f"{out['launches'][-1]}")
+    if not (all(math.isfinite(x) for x in losses + auxes)
+            and (losses[-1] < losses[0] or not falling)):
+        failures.append(f"{tag}: losses {losses}, aux {auxes}")
+    missing = [k for k in TRAIN_KERNELS if counts[k] == 0]
+    if missing:
+        failures.append(f"{tag}: kernels never launched {missing}")
+    state[tag] = summary
+    return out
+
+
+def _gqa128_train(state, failures):
+    """``launch.train`` SFT at llama3.2-3b, full size (5 steps of 8 x 512,
+    bf16 on fp32 masters, remat; the phase fails if 80 GB do not hold it),
+    and the qwen3-8b fp32 LM step at full width cut to 2 layers, kernel vs
+    plain (the qk-norm's grads through the flash backward)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+
+    argv = ["--arch", "llama3.2-3b", "--steps", "5", "--batch", "8",
+            "--seq", "512"]
+    out = _sft_run("train_llama3_2_3b", argv, state, failures)
+    del out
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-8b").replace(n_layers=2, compute_dtype="float32")
+    batch = launch_train.to_device(
+        next(launch_train.lm_data(cfg, 512, 0).sft_batches(2, 1)), "cuda")
+    _lm_step_gate("gqa128", cfg, batch, failures)
+
+
+def _gqa128_rlhf(state, failures):
+    """``RLHFPipeline`` with llama3.2-3b actor and critic at full width cut
+    to 4 layers: 2 SFT and 2 RM steps, 1 PPO iteration of 8 x 256 prompts
+    + 64 new on int8 KV; phase ``rlhf``'s checks."""
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import (PPOConfig, RLHFEngine, RLHFPipeline,
+                                  StageConfig)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import lm_data
+
+    actor = get_config("llama3.2-3b").replace(n_layers=4)
+    bl = lm_data(actor, 512, 0)
+    stages = StageConfig(sft_steps=2, sft_batch=8, rm_steps=2, rm_batch=8,
+                         ppo_steps=1, ppo_batch=8)
+    ppo = PPOConfig(max_new_tokens=64, temperature=1.0, ptx_coef=0.05,
+                    use_ema=True, kv_quant=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = RLHFEngine(actor, actor,
+                     torch.Generator(device="cuda").manual_seed(0))
+    pipe = RLHFPipeline(eng, bl, stages, ppo)
+    ops.reset_launch_counts()
+    pipe.run_sft()
+    pipe.run_reward()
+    frozen = {"ref": _checksum(eng.ref_params),
+              "reward": _checksum(eng.reward_params)}
+    pipe.run_ppo()
+    total = ops.launch_counts()
+    state.setdefault("launches", {})["rlhf_llama3_2_3b"] = total
+    trainer = pipe.trainer
+    m = pipe.log["stage3"][0]
+    after = {"ref": _checksum(trainer.ref_params),
+             "reward": _checksum(trainer.reward_params)}
+    nums = ([v for v in m.values() if isinstance(v, float)]
+            + list(pipe.log["stage1"]) + list(pipe.log["stage2"]))
+    log(f"[gqa128] rlhf llama3.2-3b cut to 4 layers "
+        f"({actor.n_params() / 1e9:.2f} B, actor and critic): SFT losses "
+        f"{pipe.log['stage1']}, RM losses {pipe.log['stage2']}, PPO gen "
+        f"{m['gen_s']:.2f}s = {m['gen_tok_s']:.1f} tok/s, ratio_mean "
+        f"{m['ratio_mean']:.6f}, approx_kl {m['approx_kl']:.3g}, reward "
+        f"{m['reward_score']:.4f}, actor_loss {m['actor_loss']:.4f}, v_loss "
+        f"{m['v_loss']:.4f}; {time.perf_counter() - t0:.1f}s, peak "
+        f"{_peak_gib():.2f} GiB; launches {total}; frozen checksums "
+        f"{frozen} -> {after}")
+    state.setdefault("gqa128", {})["rlhf"] = {
+        k: v for k, v in m.items() if isinstance(v, (int, float))}
+    if not all(math.isfinite(v) for v in nums):
+        failures.append("rlhf llama3.2-3b: non-finite metric")
+    if abs(m["ratio_mean"] - 1.0) > 1e-3:
+        failures.append(f"rlhf llama3.2-3b: ratio_mean {m['ratio_mean']}")
+    if after != frozen:
+        failures.append("rlhf llama3.2-3b: a frozen model moved")
+    if total["decode_attention_fwd"] or any(
+            total[k] == 0 for k in RLHF_KERNELS):
+        failures.append(f"rlhf llama3.2-3b: launches {total}")
+    del trainer, pipe, eng
+    torch.cuda.empty_cache()
+
+
+def phase_gqa128(state):
+    """The head-dim-128 GQA family on the card: the D = 128 kernel rows,
+    fp32 parity of the three dense models at full size, their serve runs,
+    the llama3.2-3b SFT, the qwen3-8b fp32 step gate and the llama3.2-3b
+    RLHF pipeline."""
+    import gc
+
+    import torch
+    failures = []
+    gc.collect()              # what earlier phases left in cycles
+    torch.cuda.empty_cache()
+    ptx = state.get("ptxas_d128", {})
+    spills = {fn: v for fn, v in ptx.items() if v[1]}
+    log(f"[gqa128] ptxas at D = 128 (phase build): {len(ptx)} "
+        f"instantiations, spilling: {spills or 'none'}")
+    for part in (_gqa128_flash_rows, _gqa128_decode_rows,
+                 _gqa128_rmsnorm_rows, _gqa128_parity, _gqa128_serve,
+                 _gqa128_train, _gqa128_rlhf):
+        t0 = time.perf_counter()
+        part(state, failures)
+        gc.collect()          # engines and cores refer to each other
+        torch.cuda.empty_cache()
+        log(f"[gqa128] {part.__name__}: {time.perf_counter() - t0:.1f}s")
+    if failures:
+        raise AssertionError("gqa128 checks failed:\n"
+                             + "\n".join(failures))
+
+
+# --------------------------------------------------------------------- #
+# the MoE layer at llama4-scout-17b-a16e
+# --------------------------------------------------------------------- #
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_SERVE_LAYERS = 12        # 28.5 B parameters, 57 GB in bf16
+
+
+class _DropMeter:
+    """Wraps ``modules.moe_route`` (the dispatch rule ``moe_apply`` calls)
+    to count the routed entries each call keeps and drops, by the call's
+    row count; a call is one layer of one forward."""
+
+    def __init__(self):
+        from repro_torch.models import modules as M
+        self.M, self.real, self.calls = M, M.moe_route, []
+
+    def __enter__(self):
+        def route(cfg, probs):
+            out = self.real(cfg, probs)
+            pos, cap = out[2], out[3]
+            self.calls.append((probs.shape[0], pos, cap))
+            return out
+        self.M.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.M.moe_route = self.real
+
+    def shares(self, decode_rows):
+        """(dropped share over decode calls (``decode_rows`` rows), over
+        admissions (every other call), calls of each, (rows, cap) seen)."""
+        dec, adm, caps = [0, 0, 0], [0, 0, 0], set()
+        for T_, pos, cap in self.calls:
+            acc = dec if T_ == decode_rows else adm
+            acc[0] += int((pos >= cap).sum())
+            acc[1] += pos.numel()
+            acc[2] += 1
+            caps.add((T_, cap))
+        share = lambda a: a[0] / a[1] if a[1] else float("nan")
+        return share(dec), share(adm), dec[2], adm[2], sorted(caps)
+
+
+def _moe_serve(state, failures):
+    """llama4-scout at full width cut to 12 layers, bf16 weights only:
+    the 32-request workload dense bf16 with the routing's drop share per
+    decode step and per admission (R13), greedy paged == dense on 8 equal
+    requests filling 8 slots (and counted on 8 ragged ones in 16 slots),
+    and prefix cache on vs off on the shared-system-prompt mix (16
+    requests; a share of equal streams, not gated: R13)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import GenerationEngine
+
+    cut = get_config(MOE_ARCH).replace(n_layers=MOE_SERVE_LAYERS)
+    argv = ["--arch", MOE_ARCH] + SERVE_ARGV[2:]
+    with _DropMeter() as meter:
+        res = _serve_peak(argv, "serve_llama4_scout", SERVE_KERNELS, state,
+                          cfg=cut)
+    # the warm-up's calls and the measured run's
+    dec, adm, n_dec, n_adm, caps = meter.shares(16)
+    log(f"[moe] routed entries dropped (R13; cap = ceil(T K / E 1.25)): "
+        f"{dec:.4f} of each decode step's ({n_dec} layer calls of 16 rows) "
+        f"and {adm:.4f} of each admission's ({n_adm} layer calls); (rows, "
+        f"cap) seen {caps[:8]}{' ...' if len(caps) > 8 else ''}")
+    state.setdefault("moe", {}).update(
+        drop_decode=dec, drop_admission=adm, tok_s=res["tok_s"])
+    # paged == dense where every slot is live at every step: 8 requests of
+    # 256 + 64 tokens in 8 slots, admitted together, finishing together.
+    # An idle or finished slot decodes rows that differ by layout (its own
+    # arena rows against the trash block), and they share the capacity
+    # with the live rows (R13): with ragged requests in 16 slots the
+    # streams are counted, not gated
+    full = ["--arch", MOE_ARCH, "--requests", "8", "--prompt-len", "256",
+            "--max-new", "64", "--batch", "8", "--chunk", "8",
+            "--temperature", "0"]
+    d = _serve_peak(full, "serve_llama4_greedy_dense", SERVE_KERNELS, state,
+                    warmup=False, cfg=cut)
+    p = _serve_peak(full + PAGED, "serve_llama4_greedy_paged",
+                    SERVE_PAGED_KERNELS, state, warmup=False, cfg=cut)
+    same = d["completions"] == p["completions"]
+    d = _serve_peak(argv + GREEDY8, "serve_llama4_ragged_dense",
+                    SERVE_KERNELS, state, warmup=False, cfg=cut)
+    p = _serve_peak(argv + GREEDY8 + PAGED, "serve_llama4_ragged_paged",
+                    SERVE_PAGED_KERNELS, state, warmup=False, cfg=cut)
+    n_same = sum(d["completions"][u] == p["completions"][u]
+                 for u in d["completions"])
+    log(f"[moe] greedy streams, 8 slots all live: paged == dense {same}; "
+        f"8 ragged requests in 16 slots (idle slots' rows differ by "
+        f"layout, R13): {n_same} of 8 equal (reported, not gated)")
+    state["moe"]["ragged_paged_equal"] = n_same
+    if not same:
+        failures.append("llama4-scout greedy paged != dense, every slot "
+                        "live")
+
+    gc.collect()                     # the launcher's last tree (a cycle)
+    torch.cuda.empty_cache()
+    cfg = cut
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           cfg.cdtype)
+    reqs = _shared_prompt_requests(cfg.vocab_size)[:16]
+    S = max(len(r.tokens) + r.max_new_tokens for r in reqs)
+    outs = {}
+    for pc in (False, True):
+        eng = GenerationEngine(cfg, max_new_tokens=128, temperature=0.0,
+                               chunk=8, kv_layout="paged", block_size=16,
+                               prefix_cache=pc, device="cuda")
+        n_tok, st, dt, fin = serve.run_schedule(
+            eng, params, reqs, torch.Generator(device="cuda").manual_seed(1),
+            mode="continuous", slots=16, max_seq_len=S)
+        outs[pc] = fin
+        log(f"[moe] shared-system-prompt mix, 16 requests, prefix cache "
+            f"{'on' if pc else 'off'}: {n_tok} tokens in {dt:.2f}s = "
+            f"{n_tok / dt:.1f} tok/s, prefill_hit_rate "
+            f"{st['prefill_hit_rate']:.3f}")
+    same = sum(outs[True][u] == outs[False][u] for u in outs[False])
+    log(f"[moe] prefix cache on vs off: {same} of {len(outs[False])} greedy "
+        f"streams equal (R13: a cached prefill routes fewer rows, so the "
+        f"capacity differs; reported, not gated)")
+    state["moe"]["prefix_equal"] = same
+    del params
+    torch.cuda.empty_cache()
+
+
+def _moe_train(state, failures):
+    """The fp32 LM step at full width, 1 layer, 2 x 256, kernel vs plain
+    (loss, aux and grads), and ``launch.train --lora 8`` in bf16 at 2
+    layers, 3 steps of 4 x 512 (full SFT at even one layer needs ~68 GB of
+    fp32 state): every loss and aux finite, the adapters moved."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+
+    cfg = get_config(MOE_ARCH).replace(n_layers=1, compute_dtype="float32")
+    batch = launch_train.to_device(
+        next(launch_train.lm_data(cfg, 256, 0).sft_batches(2, 1)), "cuda")
+    _lm_step_gate("moe", cfg, batch, failures)
+    torch.cuda.reset_peak_memory_stats()
+    out = _sft_run("train_llama4_lora", [
+        "--arch", MOE_ARCH, "--lora", "8", "--steps", "3", "--batch", "4",
+        "--seq", "512"], state, failures, falling=False,
+        cfg=get_config(MOE_ARCH).replace(n_layers=2))
+    # every b starts at zero
+    moved = all(bool(ad["b"].any()) for ad in out["state"].params.values())
+    log(f"[moe] LoRA rank 8: {out['adapter_params']} adapter params (the "
+        f"4-D expert stacks get none), the b matrices moved from zero: "
+        f"{moved}")
+    if not moved:
+        failures.append("llama4-scout LoRA: the adapters did not move")
+    del out
+    torch.cuda.empty_cache()
+
+
+def phase_moe(state):
+    """The MoE layer at llama4-scout-17b-a16e, full width and cut depth:
+    serving at 12 layers, the fp32 step gate at 1 layer and LoRA at 2."""
+    import gc
+
+    import torch
+    failures = []
+    for part in (_moe_serve, _moe_train):
+        t0 = time.perf_counter()
+        part(state, failures)
+        gc.collect()          # engines and cores refer to each other
+        torch.cuda.empty_cache()
+        log(f"[moe] {part.__name__}: {time.perf_counter() - t0:.1f}s")
+    if failures:
+        raise AssertionError("moe checks failed:\n" + "\n".join(failures))
+
+
 PHASE_FNS = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "parity": phase_parity,
              "serve": phase_serve, "train": phase_train, "rlhf": phase_rlhf,
              "ssm": phase_ssm, "ssm_train": phase_ssm_train,
+             "gqa128": phase_gqa128, "moe": phase_moe,
              "ckpt": phase_ckpt, "profile": phase_profile}
 
 
@@ -3633,6 +4500,9 @@ def main() -> int:
                                    "cold_ms", "library_cold_ms",
                                    "achieved_gbs", "decode_in_step")
                if k in row},
+            # the head-dim-128 rows of phase gqa128
+            **({"d128": state["d128"][name]} if name in state.get("d128", {})
+               else {}),
         })
     print(state.get("smi") or nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))

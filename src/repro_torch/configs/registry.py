@@ -1,28 +1,30 @@
 """Architecture registry: ``--arch <id>`` resolves here (counterpart of
 ``repro/configs/registry.py``).
 
-The ported configs resolve: the OPT family, ``smollm-135m`` and the
-SSM / hybrid pair ``mamba2-370m`` and ``zamba2-1.2b``.  Every other
-architecture id of the reference raises ``NotImplementedError`` until its
-slice is ported.
+The ported configs resolve: the OPT family, the dense GQA decoders
+``smollm-135m``, ``llama3.2-3b``, ``qwen3-8b`` and ``yi-9b``, the MoE
+decoder ``llama4-scout-17b-a16e`` and the SSM / hybrid pair
+``mamba2-370m`` and ``zamba2-1.2b``.  Every other architecture id of the
+reference raises ``NotImplementedError`` until its slice is ported.
 """
 from __future__ import annotations
 
-from repro_torch.configs import (mamba2_370m, opt_family, smollm_135m,
-                                  zamba2_1_2b)
+from repro_torch.configs import (llama3_2_3b, llama4_scout_17b_a16e,
+                                  mamba2_370m, opt_family, qwen3_8b,
+                                  smollm_135m, yi_9b, zamba2_1_2b)
 from repro_torch.models.config import ModelConfig
 
-ARCHS = {"smollm-135m": smollm_135m.CONFIG,
+ARCHS = {"qwen3-8b": qwen3_8b.CONFIG,
+         "yi-9b": yi_9b.CONFIG,
+         "llama3.2-3b": llama3_2_3b.CONFIG,
+         "llama4-scout-17b-a16e": llama4_scout_17b_a16e.CONFIG,
          "mamba2-370m": mamba2_370m.CONFIG,
-         "zamba2-1.2b": zamba2_1_2b.CONFIG}
+         "zamba2-1.2b": zamba2_1_2b.CONFIG,
+         "smollm-135m": smollm_135m.CONFIG}
 
 # the reference's other architecture ids, not yet ported
 _NOT_PORTED = [
-    "qwen3-8b",
     "musicgen-medium",
-    "yi-9b",
-    "llama3.2-3b",
-    "llama4-scout-17b-a16e",
     "deepseek-v2-lite-16b",
     "llama-3.2-vision-11b",
 ]
@@ -45,9 +47,11 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family variant for CPU smoke tests (the reference's
-    rule for the dense, SSM and hybrid fields)."""
-    if cfg.arch_type not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(f"arch_type {cfg.arch_type!r}: "
+    rule for the dense, MoE, SSM and hybrid fields; MLA and cross-attention
+    are not ported)."""
+    if (cfg.arch_type not in ("dense", "moe", "ssm", "hybrid") or cfg.mla
+            or cfg.cross_attn_every):
+        raise NotImplementedError(f"{cfg.name} ({cfg.arch_type}): "
                                   "not yet ported")
     kw = dict(
         n_layers=2, d_model=min(cfg.d_model, 256),
@@ -60,6 +64,11 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
                                       kw["n_heads"] // 2) or 1)
         kw["head_dim"] = 32
         kw["d_ff"] = min(cfg.d_ff, 512) if cfg.d_ff else 0
+    if cfg.moe:
+        kw["n_experts"] = min(cfg.n_experts, 4)
+        kw["top_k"] = min(cfg.top_k, 2)
+        kw["moe_d_ff"] = min(cfg.moe_d_ff, 128)
+        kw["capacity_factor"] = 2.0
     if cfg.ssm_state:
         kw["ssm_state"] = min(cfg.ssm_state, 32)
         kw["ssm_headdim"] = 32

@@ -45,6 +45,9 @@ them, as in the reference.  ``--kv-quant`` makes only the hybrid's
 attention K/V rows int8 (the reference's rule), so Zamba2 decodes through
 the int8 kernel; Mamba2 has no K/V rows and serves as without it.
 
+The launcher's own weights are held in the compute dtype only, drawn in
+fp32 and rounded leaf by leaf.
+
 ``--ckpt PATH`` serves the params of a ``.npz`` export (``launch.train
 --ckpt``, either package's ``checkpoint.save``) in place of random
 weights, which are otherwise drawn from ``--seed``.
@@ -67,6 +70,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import ByteTokenizer
 from repro_torch.models import transformer as T
+from repro_torch.models.modules import ParamSpec, tree_map
 from repro_torch.serving.engine import (GenerationEngine, Request,
                                         SamplingParams)
 from repro_torch.training import checkpoint
@@ -246,13 +250,15 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None, params=None, warmup: bool = True) -> dict:
+def main(argv=None, params=None, warmup: bool = True, cfg=None) -> dict:
     """Parse ``argv``, serve the workload, print the summary line and
     return it as a dict (tokens, seconds, tok_s, slot_util, stats, the
     requests, their completions and ``load_s``, the seconds of the
     ``--ckpt`` load).  ``params``, when given, are served in place of
     random weights or ``--ckpt``.  ``warmup=False`` skips the warm-up run,
-    for a caller that has just served the same shapes in this process."""
+    for a caller that has just served the same shapes in this process.
+    ``cfg``, when given, is served in place of ``--arch``'s config (e.g.
+    cut in depth, for a model one card cannot hold whole)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.mesh is not None:
@@ -269,21 +275,29 @@ def main(argv=None, params=None, warmup: bool = True) -> dict:
     except RuntimeError as e:
         ap.error(str(e))
 
-    cfg = get_config(args.arch)
+    if cfg is None:
+        cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     if args.kv_quant:
         cfg = cfg.replace(kv_quant=True)
     load_s = None
-    if params is None:
+    # the launcher's own weights are held in the compute dtype only: the
+    # engine would cast an fp32 tree and serve that copy, and the fp32 tree
+    # beside it would cost 4 more bytes a parameter
+    if params is None and args.ckpt:
+        t0 = time.perf_counter()
+        target = tree_map(
+            lambda sp: checkpoint.Like(tuple(sp.shape), cfg.pdtype,
+                                       torch.device(device)),
+            T.param_specs(cfg), is_leaf=lambda x: isinstance(x, ParamSpec))
+        params = T.cast_params(cfg, checkpoint.load(args.ckpt, target))
+        load_s = time.perf_counter() - t0
+        print("loaded", args.ckpt)
+    elif params is None:
         params = T.init_params(
-            cfg, torch.Generator(device=device).manual_seed(args.seed))
-        if args.ckpt:
-            t0 = time.perf_counter()
-            target, params = checkpoint.like(params), None
-            params = checkpoint.load(args.ckpt, target)
-            load_s = time.perf_counter() - t0
-            print("loaded", args.ckpt)
+            cfg, torch.Generator(device=device).manual_seed(args.seed),
+            cfg.cdtype)
 
     tok = ByteTokenizer()
     engine = GenerationEngine(cfg, max_new_tokens=args.max_new,

@@ -29,6 +29,9 @@ reward and PPO alike: each SSD layer's forward is the intra-chunk kernel
 Zamba2's attention layers train through the flash kernels, and with
 ``--rlhf --kv-quant`` generate on the int8 arena.
 
+The MoE id (``llama4-scout-17b-a16e``) adds its routers' aux loss to the
+LM loss, as the reference does.
+
 ``--ckpt-dir`` with ``--save-every N`` makes the LM loop fault tolerant,
 as in the reference: every N steps (and after the last) the whole
 TrainState (params, Adam moments, step counters) is committed through
@@ -161,14 +164,15 @@ def train_lm(cfg, state: TrainState, *, steps: int, batch: int, seq: int,
     and step lines.  ``step_fn(state, batch, lr)`` replaces the SFT step
     (the LoRA step); with ``mgr`` and ``save_every`` the state is saved as
     in the reference.  Returns ``(state, summary)``: ``loss`` and
-    ``grad_norm`` per step, ``step_ms`` per step (host clock around a
+    ``grad_norm`` per step (``loss`` includes the MoE aux loss, also given
+    alone as ``aux_loss``), ``step_ms`` per step (host clock around a
     synchronized step, the save excluded), ``tok_s`` over the steps after
     the first, and the kernel launches of each step."""
     if step_fn is None:
         step_fn = lambda s, b, lr: lm_train_step(cfg, s, b, lr, micro=micro)
     bl = lm_data(cfg, seq, seed)
     lr_fn = schedules.cosine_warmup(lr, steps // 10 + 1, steps)
-    losses, gnorms, step_ms, launches = [], [], [], []
+    losses, gnorms, auxes, step_ms, launches = [], [], [], [], []
     t0 = time.perf_counter()
     for i, b in enumerate(bl.sft_batches(batch, steps, skip=start),
                           start=start):
@@ -182,6 +186,7 @@ def train_lm(cfg, state: TrainState, *, steps: int, batch: int, seq: int,
         launches.append({k: after[k] - before[k] for k in after})
         losses.append(loss)
         gnorms.append(gnorm)
+        auxes.append(float(m["aux_loss"]))
         if mgr is not None and save_every and (
                 (i + 1) % save_every == 0 or i == steps - 1):
             mgr.save(i + 1, state, metadata={"arch": cfg.name, "step": i})
@@ -190,7 +195,8 @@ def train_lm(cfg, state: TrainState, *, steps: int, batch: int, seq: int,
                   f"{time.perf_counter() - t0:6.1f}s")
     steady = step_ms[1:] or step_ms
     tok_s = batch * seq / (statistics.mean(steady) / 1e3) if steady else 0.0
-    return state, {"loss": losses, "grad_norm": gnorms, "step_ms": step_ms,
+    return state, {"loss": losses, "grad_norm": gnorms, "aux_loss": auxes,
+                   "step_ms": step_ms,
                    "tok_s": tok_s, "launches": launches,
                    "tokens_per_step": batch * seq}
 
@@ -238,7 +244,7 @@ def run_rlhf(args, cfg, device, iter_hook=None) -> dict:
                 ckpt_stats=mgr.stats if mgr is not None else None)
 
 
-def main(argv=None, iter_hook=None) -> dict:
+def main(argv=None, iter_hook=None, cfg=None) -> dict:
     """Parse ``argv``, train, print the reference's step lines and return
     the summary of :func:`train_lm` (or of :func:`run_rlhf` under
     ``--rlhf``) with ``arch``, ``device``, ``peak_mem_bytes``
@@ -250,7 +256,9 @@ def main(argv=None, iter_hook=None) -> dict:
     ``start`` (the first step run), ``adapter_params`` and the
     checkpointer's ``ckpt_stats`` and ``restore`` timings.
     ``iter_hook(pipeline, i)``, under ``--rlhf``, is called at the top of
-    each PPO iteration."""
+    each PPO iteration.  ``cfg``, when given, is trained in place of
+    ``--arch``'s config (e.g. cut in depth, for a model whose state one
+    card cannot hold whole)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     for flag, dest in NOT_PORTED:
@@ -275,7 +283,8 @@ def main(argv=None, iter_hook=None) -> dict:
     except RuntimeError as e:
         ap.error(str(e))
 
-    cfg = get_config(args.arch)
+    if cfg is None:
+        cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     print(f"arch={cfg.name} params={cfg.n_params() / 1e6:.1f}M "

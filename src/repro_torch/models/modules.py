@@ -1,7 +1,7 @@
 """Model primitives (counterpart of ``repro/models/modules.py``): parameter
 specs, RMSNorm, RoPE, GQA attention (qk-norm, sliding window, ring-buffer
-cache) and the SwiGLU MLP, for the serving and the training paths, and the
-Mamba2 (SSD) mixer for serving.
+cache), the SwiGLU MLP and the MoE layer (capacity dispatch by row index),
+for the serving and the training paths, and the Mamba2 (SSD) mixer.
 
 Parameters are nested dicts/tuples of tensors whose structure comes from
 ``ParamSpec`` trees, the same paths as the reference's pytrees, so weights
@@ -143,10 +143,20 @@ def _is_spec(x) -> bool:
     return isinstance(x, ParamSpec)
 
 
+# a normal leaf of more elements is drawn in slices of its leading axis
+# (4 GiB of fp32 each at most), so that a bf16 leaf never needs its whole
+# fp32 draw at once; every leaf below it is one draw, as it always was
+MAX_DRAW = 2 ** 30
+
+
 def materialize(spec: ParamSpec, generator: torch.Generator,
                 dtype: torch.dtype) -> torch.Tensor:
     """One parameter on ``generator``'s device: zeros, ones, or normal with
-    std ``scale / sqrt(fan_in)`` (fan_in excludes a leading layers axis)."""
+    std ``scale / sqrt(fan_in)`` (fan_in excludes a leading layers axis),
+    drawn in fp32 and rounded to ``dtype`` (so a bf16 draw is the fp32
+    draw's rounding, bit for bit).  A normal leaf of more than
+    :data:`MAX_DRAW` elements is drawn slice by slice along its leading
+    axis into the ``dtype`` result."""
     dev = generator.device
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=dev)
@@ -156,9 +166,20 @@ def materialize(spec: ParamSpec, generator: torch.Generator,
     shp = spec.shape[start:]
     fan_in = shp[0] if len(shp) == 1 else int(np.prod(shp[:-1]))
     std = spec.scale / np.sqrt(max(fan_in, 1))
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                    device=dev)
-    return (x * std).to(dtype)
+    n = int(np.prod(spec.shape))
+    if n <= MAX_DRAW:
+        x = torch.randn(spec.shape, generator=generator,
+                        dtype=torch.float32, device=dev)
+        return (x * std).to(dtype)
+    out = torch.empty(spec.shape, dtype=dtype, device=dev)
+    rows = max(1, MAX_DRAW // (n // spec.shape[0]))
+    for r0 in range(0, spec.shape[0], rows):
+        r1 = min(r0 + rows, spec.shape[0])
+        x = torch.randn((r1 - r0,) + tuple(spec.shape[1:]),
+                        generator=generator, dtype=torch.float32, device=dev)
+        out[r0:r1] = (x * std).to(dtype)
+        del x
+    return out
 
 
 def init_tree(specs, generator: torch.Generator, dtype: torch.dtype):
@@ -657,6 +678,84 @@ def mlp_specs(cfg: ModelConfig, d_ff=None) -> dict:
 def mlp_apply(p, x, cfg=None):
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+# ===================================================================== #
+# MoE (capacity-based dispatch by row index)
+# ===================================================================== #
+def moe_specs(cfg: ModelConfig) -> dict:
+    D, E, Fd = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    s = {
+        "router": ParamSpec((D, E), ("embed", None)),
+        "w_gate": ParamSpec((E, D, Fd), ("experts", "embed", "mlp")),
+        "w_up": ParamSpec((E, D, Fd), ("experts", "embed", "mlp")),
+        "w_down": ParamSpec((E, Fd, D), ("experts", "mlp", "embed")),
+    }
+    if cfg.n_shared_experts:
+        s["shared"] = mlp_specs(cfg, d_ff=cfg.n_shared_experts * cfg.moe_d_ff)
+    return s
+
+
+def moe_route(cfg: ModelConfig, probs):
+    """The dispatch rule of :func:`moe_apply` for router probabilities
+    ``probs`` (T, E) fp32: ``(gates (T, K) fp32 renormalized, expert (T, K),
+    pos (T*K,), cap)``.  Top-K keeps the reference's tie order, the lower
+    expert index first (``jax.lax.top_k``; ``torch.topk`` promises no order,
+    ROADMAP Queue 3, R14): the first K of a stable descending sort.  ``pos``
+    is each (token, k) entry's place in its expert's queue, token-major and
+    k-minor, so the capacity ``cap = ceil(T K / E * capacity_factor)``
+    keeps the earliest rows of the call; an entry with ``pos >= cap`` is
+    dropped (R13: the rows of one call share the capacity)."""
+    T, E = probs.shape
+    K = cfg.top_k
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, expert = vals[:, :K], idx[:, :K]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    cap = int(np.ceil(T * K / E * cfg.capacity_factor))
+    flat = F.one_hot(expert.reshape(T * K), E)                 # (T*K, E)
+    pos = (torch.cumsum(flat, dim=0) * flat).sum(-1) - 1
+    return gates, expert, pos, cap
+
+
+def moe_apply(cfg: ModelConfig, p, x):
+    """x: (B, L, D) -> (out, aux_loss), the reference's arithmetic in its
+    order: router logits in the compute dtype, then fp32 and softmax;
+    :func:`moe_route`; each kept entry's row gathered into an (E, cap, D)
+    buffer by index (empty places read a zero row), the experts as one
+    batched product, the outputs gathered back by index and weighted by
+    the gates cast to ``x.dtype`` (a dropped entry contributes zero); the
+    shared expert through :func:`mlp_apply`.  The aux loss is the
+    switch-style load balance plus the router z-loss."""
+    B, L, D = x.shape
+    T = B * L
+    E, K = cfg.n_experts, cfg.top_k
+    xf = x.reshape(T, D)
+    logits = (xf @ p["router"]).float()                        # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, expert, pos, cap = moe_route(cfg, probs)
+    e_flat = expert.reshape(T * K)
+    keep = pos < cap
+    slot = torch.where(keep, e_flat * cap + pos,
+                       torch.full_like(pos, E * cap))           # drop -> E*cap
+    # the row each (expert, place) reads: token T (a zero row) where empty
+    inv = torch.full((E * cap + 1,), T, dtype=torch.long, device=x.device)
+    inv[slot] = torch.arange(T * K, device=x.device) // K
+    xf_ext = torch.cat([xf, xf.new_zeros((1, D))], dim=0)
+    ein = xf_ext.index_select(0, inv[:E * cap]).reshape(E, cap, D)
+    h = F.silu(torch.bmm(ein, p["w_gate"])) * torch.bmm(ein, p["w_up"])
+    eout = torch.bmm(h, p["w_down"]).reshape(E * cap, D)
+    eout_ext = torch.cat([eout, eout.new_zeros((1, D))], dim=0)
+    gathered = eout_ext.index_select(0, slot)                  # (T*K, D)
+    w = (gates.reshape(T * K).to(x.dtype) * keep.to(x.dtype))[:, None]
+    out = (gathered * w).reshape(T, K, D).sum(1)
+    if cfg.n_shared_experts:
+        out = out + mlp_apply(p["shared"], xf, cfg)
+    frac = F.one_hot(expert, E).sum(1).float().mean(0)         # (E,)
+    imp = probs.mean(0)
+    aux = (cfg.router_aux_coef * E * torch.sum(frac * imp) / K
+           + cfg.router_z_coef
+           * torch.mean(torch.logsumexp(logits, dim=-1) ** 2))
+    return out.reshape(B, L, D), aux
 
 
 # ===================================================================== #

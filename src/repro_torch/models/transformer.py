@@ -11,8 +11,10 @@ layer when ``cfg.remat`` (the reference's ``jax.checkpoint`` of the scan
 body), and :func:`lm_loss` / :func:`per_token_logprobs` never build more
 than ``cfg.logit_chunk`` positions of logits at a time.
 
-Dense attention layers and, in ``ssm`` and ``hybrid`` configs, Mamba2 (SSD)
-layers are ported; cross-attention, MoE and MLA segments raise
+Dense attention layers, their MoE form (``cfg.moe``: :func:`M.moe_apply` in
+place of the MLP, whose aux losses :func:`forward` sums in fp32 in layer
+order) and, in ``ssm`` and ``hybrid`` configs, Mamba2 (SSD) layers are
+ported; cross-attention and MLA segments and embedding inputs raise
 ``NotImplementedError``.  The cache is the dense arena (:func:`init_cache`:
 K/V rows for attention layers, the recurrent ``conv`` and fp32 ``state`` for
 SSM layers) or, for attention-only models, the paged block pool
@@ -31,13 +33,14 @@ from repro_torch.models.modules import (ParamSpec, tree_leaves, tree_map,
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.mla or cfg.moe or not cfg.embed_inputs:
+    if cfg.mla or not cfg.embed_inputs:
         raise NotImplementedError(
-            f"{cfg.name}: only dense token-input GQA decoders are ported")
+            f"{cfg.name}: only token-input GQA decoders (dense or MoE) and "
+            "SSM / hybrid stacks are ported")
     for seg in cfg.segments():
         for ls in seg.unit_spec:
             ssm = ls.kind == SSM and cfg.arch_type in ("ssm", "hybrid")
-            if not (ls.kind == ATTN or ssm) or ls.moe:
+            if not (ls.kind == ATTN or ssm):
                 raise NotImplementedError(
                     f"{cfg.name}: layer {ls} not yet ported")
 
@@ -53,7 +56,7 @@ def _layer_specs(cfg: ModelConfig, spec) -> dict:
     return {"ln1": ParamSpec((D,), ("embed",), "ones"),
             "attn": M.attn_specs(cfg),
             "ln2": ParamSpec((D,), ("embed",), "ones"),
-            "mlp": M.mlp_specs(cfg)}
+            "mlp": M.moe_specs(cfg) if spec.moe else M.mlp_specs(cfg)}
 
 
 def _stack(specs, n: int):
@@ -76,9 +79,13 @@ def param_specs(cfg: ModelConfig) -> dict:
     return out
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
-    """Parameters in ``cfg.param_dtype`` on ``generator``'s device."""
-    return M.init_tree(param_specs(cfg), generator, cfg.pdtype)
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype: torch.dtype = None) -> dict:
+    """Parameters in ``dtype`` (default ``cfg.param_dtype``) on
+    ``generator``'s device.  Every leaf is drawn in fp32 and rounded, so a
+    bf16 tree is the fp32 tree's rounding, bit for bit, without the fp32
+    tree ever existing whole."""
+    return M.init_tree(param_specs(cfg), generator, dtype or cfg.pdtype)
 
 
 def count_params(cfg: ModelConfig) -> int:
@@ -183,17 +190,21 @@ def _unstack(tree, n: int) -> list:
 
 def _layer(cfg: ModelConfig, spec, lp, x, positions, mode, lc, rope,
            block_tables=None):
+    """One layer: ``(x, aux)``, ``aux`` the MoE layer's aux loss or None."""
     h = M.rmsnorm(x, lp["ln1"], cfg.rms_eps, cfg.use_kernels)
     if spec.kind == SSM:
         s, _ = M.ssm_apply(cfg, lp["ssm"], h, mode=mode, cache=lc)
-        return x + s
+        return x + s, None
     win = spec.sliding_window or cfg.sliding_window
     att, _ = M.attn_apply(cfg, lp["attn"], h, positions=positions, mode=mode,
                           cache=lc, window=win, block_tables=block_tables,
                           rope=rope)
     x = x + att
     h2 = M.rmsnorm(x, lp["ln2"], cfg.rms_eps, cfg.use_kernels)
-    return x + M.mlp_apply(lp["mlp"], h2, cfg)
+    if spec.moe:
+        m, aux = M.moe_apply(cfg, lp["mlp"], h2)
+        return x + m, aux
+    return x + M.mlp_apply(lp["mlp"], h2, cfg), None
 
 
 def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
@@ -222,6 +233,9 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
     # activation checkpointing: each layer's activations are recomputed in
     # the backward instead of kept (the reference's jax.checkpoint)
     remat = cfg.remat and mode == "full" and torch.is_grad_enabled()
+    # the MoE layers' aux losses, summed in fp32 in layer order (the
+    # reference's scan carry)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, seg in enumerate(cfg.segments()):
         layer_params = _unstack(params["segments"][si], seg.n_units)
         layer_caches = (_unstack(cache[si], seg.n_units)
@@ -230,13 +244,15 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
             for i, spec in enumerate(seg.unit_spec):
                 lc = uc[i] if uc is not None else None
                 if remat:
-                    x = checkpoint(_layer, cfg, spec, up[i], x, positions,
-                                   mode, lc, rope, use_reentrant=False)
+                    x, a = checkpoint(_layer, cfg, spec, up[i], x,
+                                      positions, mode, lc, rope,
+                                      use_reentrant=False)
                 else:
-                    x = _layer(cfg, spec, up[i], x, positions, mode, lc,
-                               rope, block_tables)
+                    x, a = _layer(cfg, spec, up[i], x, positions, mode, lc,
+                                  rope, block_tables)
+                if a is not None:
+                    aux = aux + a
     x = M.rmsnorm(x, params["final_norm"], cfg.rms_eps, cfg.use_kernels)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, cache, aux
 
 

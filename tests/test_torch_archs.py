@@ -1,0 +1,155 @@
+"""The head-dim-128 GQA family and the MoE decoder in the port, held to the
+reference at reduced size on carried-across weights: ``qwen3-8b`` (qk-norm),
+``yi-9b``, ``llama3.2-3b`` and ``llama4-scout-17b-a16e`` (MoE, one shared
+expert).  Configs field by field, full and reduced; the forward's hidden
+states and aux loss (fp32, 1e-5); one ``lm_train_step`` (loss, aux, grads
+at 1e-4 of each leaf's max, params moved alike); prefill plus 4 decode
+steps.  The engine's streams are in ``test_torch_archs_serving.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import (STEP_TOL, assert_grads_close,
+                           assert_params_moved_alike, config_pair,
+                           params_pair, state_pair, to_np)
+from repro import configs as jconfigs
+from repro.data import CopyTaskDataset, DataBlender, SortTaskDataset
+from repro.models import transformer as JT
+from repro.training import steps as jsteps
+from repro_torch import configs as tconfigs
+from repro_torch.launch import train as tlaunch
+from repro_torch.models import transformer as TT
+from repro_torch.serving.generate import decode_step, prefill
+from repro_torch.training import steps as tsteps
+
+NEW = ("qwen3-8b", "yi-9b", "llama3.2-3b", "llama4-scout-17b-a16e")
+FIELDS = ("name", "arch_type", "n_layers", "d_model", "n_heads",
+          "n_kv_heads", "head_dim", "d_ff", "vocab_size", "qk_norm",
+          "rope_theta", "sliding_window", "moe", "n_experts",
+          "n_shared_experts", "top_k", "moe_d_ff", "capacity_factor",
+          "router_aux_coef", "router_z_coef", "tie_embeddings", "rms_eps",
+          "param_dtype", "compute_dtype", "remat", "logit_chunk", "mla",
+          "kv_quant")
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_configs_match_reference(arch):
+    j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    for cj, ct in ((j, t), (jconfigs.reduced(j), tconfigs.reduced(t))):
+        for f in FIELDS:
+            assert getattr(cj, f) == getattr(ct, f), f
+        assert cj.n_params() == ct.n_params()
+        assert [(s.n_units, [(ls.kind, ls.moe) for ls in s.unit_spec])
+                for s in cj.segments()] == [
+            (s.n_units, [(ls.kind, ls.moe) for ls in s.unit_spec])
+            for s in ct.segments()]
+    assert t.head_dim == 128
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "musicgen-medium",
+                                  "llama-3.2-vision-11b"])
+def test_other_ids_are_not_yet_ported(arch):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tconfigs.get_config(arch)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(arch_type="moe", moe=True, mla=True, kv_lora_rank=512),
+    dict(arch_type="vlm", cross_attn_every=4, encoder_dim=64)],
+    ids=["mla", "cross-attention"])
+def test_reduced_refuses_mla_and_cross_attention(kw):
+    cfg = tconfigs.get_config("llama3.2-3b").replace(**kw)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tconfigs.reduced(cfg)
+
+
+def _tokens(vocab, shape, seed):
+    return np.random.default_rng(seed).integers(0, vocab, shape)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["plain", "kernels"])
+@pytest.mark.parametrize("arch", NEW)
+def test_forward_hidden_and_aux_match_reference(arch, use_kernels):
+    jcfg, tcfg = config_pair(arch, use_kernels=use_kernels)
+    jparams, tparams = params_pair(jcfg.replace(use_pallas=False), seed=1)
+    toks = _tokens(jcfg.vocab_size, (2, 12), 2)
+    jh, _, jaux = JT.forward(jcfg.replace(use_pallas=False), jparams,
+                             tokens=jnp.asarray(toks, jnp.int32), mode="full")
+    th, _, taux = TT.forward(tcfg, tparams, tokens=torch.from_numpy(toks),
+                             mode="full")
+    np.testing.assert_allclose(to_np(th), np.asarray(jh), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5,
+                               atol=1e-7)
+    assert taux.dtype == torch.float32
+    assert (float(taux) > 0) == tcfg.moe
+
+
+def _sft_batch(jcfg, seed, B=4, half=8):
+    ds = [CopyTaskDataset(100, half, half, min(jcfg.vocab_size, 256),
+                          seed=1),
+          SortTaskDataset(100, half, half, min(jcfg.vocab_size, 256),
+                          seed=2)]
+    return next(DataBlender(ds, seed=seed).sft_batches(B, 1))
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_lm_train_step_matches_reference(arch):
+    jcfg, tcfg = config_pair(arch, use_kernels=True)
+    jcfg = jcfg.replace(use_pallas=False)          # the reference's jnp path
+    tcfg = tcfg.replace(remat=True)                # checkpointed (x, aux)
+    jparams, _ = params_pair(jcfg, seed=3)
+    jstate, tstate = state_pair(jparams)
+    batch = _sft_batch(jcfg, seed=4)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = tlaunch.to_device(batch, "cpu")
+    lr = 1e-3
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
+        lambda p: jsteps.lm_loss_fn(jcfg, p, jb), has_aux=True))(jparams)
+    (tl, tm), tg = tsteps.lm_value_and_grad(tcfg, tstate.params, tb)
+    np.testing.assert_allclose(float(tl), float(jl), **STEP_TOL)
+    np.testing.assert_allclose(float(tm["aux_loss"]), float(jm["aux_loss"]),
+                               rtol=1e-5, atol=1e-7)
+    assert_grads_close(tg, jg)
+    jstate2, _ = jax.jit(lambda s, b: jsteps.lm_train_step(
+        jcfg, s, b, lr))(jstate, jb)
+    tstate2, _ = tsteps.lm_train_step(tcfg, tstate, tb, lr)
+    assert_params_moved_alike(tstate2.params, jstate2.params, jg, lr)
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_prefill_then_decode_matches_reference(arch):
+    """Prefill 7 tokens of 2 rows, then 4 decode steps: the logits of every
+    step against the reference's prefill and decode over the same rows."""
+    jcfg, tcfg = config_pair(arch, use_kernels=True)
+    jcfg = jcfg.replace(use_pallas=False)
+    jparams, tparams = params_pair(jcfg, seed=5)
+    B, Lp, n = 2, 7, 4
+    toks = _tokens(jcfg.vocab_size, (B, Lp + n), 6)
+    params = TT.cast_params(tcfg, tparams)
+    cache = TT.init_cache(tcfg, B, Lp + n)
+    tt = torch.from_numpy(toks)
+    logits, cache = prefill(tcfg, params, tt[:, :Lp], cache)
+    got = [logits]
+    jcache = JT.init_cache(jcfg, B, Lp + n)
+    jh, jcache, _ = JT.forward(jcfg, jparams,
+                               tokens=jnp.asarray(toks[:, :Lp], jnp.int32),
+                               mode="prefill", cache=jcache)
+    want = [JT.logits_fn(jcfg, jparams, jh[:, -1:])[:, 0]]
+    for t in range(n):
+        logits, cache = decode_step(tcfg, params, tt[:, Lp + t], cache,
+                                    torch.full((B,), Lp + t))
+        got.append(logits)
+        jh, jcache, _ = JT.forward(
+            jcfg, jparams, tokens=jnp.asarray(toks[:, Lp + t:Lp + t + 1],
+                                              jnp.int32),
+            mode="decode", cache=jcache,
+            positions=jnp.full((B, 1), Lp + t, jnp.int32))
+        want.append(JT.logits_fn(jcfg, jparams, jh)[:, 0])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(to_np(g), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)

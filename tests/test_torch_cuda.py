@@ -1137,3 +1137,141 @@ def test_ssm_train_step_remat_on_the_card_gives_the_same_grads(cuda, arch):
     assert got[True][2]["ssd_intra_fwd"] == 2 * n_ssm
     if cfg.arch_type == "hybrid":
         assert got[True][2]["flash_attention_bwd"] > 0
+
+
+# ------------------------------------------------------------------ #
+# head_dim 128 at the GQA groups of llama3.2-3b (G 3), qwen3-8b (G 4),
+# llama4-scout (G 5) and yi-9b (G 8); RMSNorm at their widths
+# ------------------------------------------------------------------ #
+GQA128 = [(8, 3), (8, 4), (8, 5), (4, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G", GQA128)
+def test_flash_forward_and_backward_at_head_dim_128(cuda, KV, G, dtype):
+    """``ops.FlashAttention`` forward and backward at D = 128 over 200
+    rows (a partial tile) in the model layout, against the plain versions
+    (relative to max |plain|)."""
+    B, L, D = 2, 200, 128
+    q = _randn(cuda, (B, L, KV * G, D), dtype).requires_grad_()
+    k = _randn(cuda, (B, L, KV, D), dtype).requires_grad_()
+    v = _randn(cuda, (B, L, KV, D), dtype).requires_grad_()
+    dout = _randn(cuda, (B, L, KV * G, D), dtype)
+    out = ops.FlashAttention.apply(q, k, v, True, None)
+    out.backward(dout)
+    q5 = q.detach().unflatten(2, (KV, G)).permute(0, 2, 3, 1, 4)
+    k4, v4 = k.detach().transpose(1, 2), v.detach().transpose(1, 2)
+    o5 = ref.flash_attention_ref(q5, k4, v4)
+    do5 = dout.unflatten(2, (KV, G)).permute(0, 2, 3, 1, 4)
+    lse = ref.flash_attention_lse_ref(q5, k4)
+    delta = (do5.float() * o5.float()).sum(-1)
+    wq, wk, wv = ref.flash_attention_bwd_ref(q5, k4, v4, do5, lse, delta)
+    got_o = out.detach().unflatten(2, (KV, G)).permute(0, 2, 3, 1, 4)
+    for got, want in ((got_o, o5),
+                      (q.grad.unflatten(2, (KV, G)).permute(0, 2, 3, 1, 4),
+                       wq), (k.grad.transpose(1, 2), wk),
+                      (v.grad.transpose(1, 2), wv)):
+        scale = want.float().abs().max().clamp(min=1e-6)
+        assert (got.float() - want.float()).abs().max() / scale \
+            <= TOL[dtype]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G", GQA128)
+def test_decode_kernels_at_head_dim_128(cuda, KV, G, dtype, kind):
+    """The dense and paged decode kernels (fp or int8 rows) at D = 128
+    against their plain versions over 16 ragged slots, and dense == paged
+    bit for bit over the same rows."""
+    from repro_torch.models.modules import _kv_quant
+    B, D, bs, nb = 16, 128, 16, 20
+    S = nb * bs
+    q = _randn(cuda, (B, KV, G, D), dtype)
+    lens = torch.randint(1, S + 1, (B,), generator=cuda, device="cuda")
+    lens[1] = S
+    valid = torch.arange(S, device="cuda")[None] < lens[:, None]
+    kv = [_randn(cuda, (B, S, KV, D), torch.float32) for _ in "kv"]
+    if kind == "int8":
+        (k, ks), (v, vs) = _kv_quant(kv[0]), _kv_quant(kv[1])
+        dense = decode_attention_quant_fwd(
+            q, k.transpose(1, 2), v.transpose(1, 2), ks.transpose(1, 2),
+            vs.transpose(1, 2), valid)
+        want = ref.decode_attention_quant_ref(
+            q, k.transpose(1, 2), v.transpose(1, 2), ks.transpose(1, 2),
+            vs.transpose(1, 2), valid)
+    else:
+        k, v = kv[0].to(dtype), kv[1].to(dtype)
+        dense = decode_attention_fwd(q, k.transpose(1, 2), v.transpose(1, 2),
+                                     valid)
+        want = ref.decode_attention_ref(q, k.transpose(1, 2),
+                                        v.transpose(1, 2), valid)
+    scale = want.float().abs().max()
+    assert (dense.float() - want.float()).abs().max() <= TOL[dtype] * scale
+    # the same rows as a pool: slot b's blocks b * nb + 1 .. (b + 1) * nb
+    pool = lambda t: torch.cat([t[:1, :bs] * 0, t.reshape(
+        (B * nb, bs) + t.shape[2:])])
+    tables = (torch.arange(B * nb, device="cuda", dtype=torch.int32)
+              .reshape(B, nb) + 1)
+    lens32 = lens.to(torch.int32)
+    if kind == "int8":
+        paged = paged_decode_attention_quant_fwd(
+            q, pool(k), pool(v), pool(ks), pool(vs), tables, lens32)
+    else:
+        paged = paged_decode_attention_fwd(q, pool(k), pool(v), tables,
+                                           lens32)
+    assert torch.equal(paged, dense)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [16, 4096])
+@pytest.mark.parametrize("D", [3072, 4096, 5120])
+def test_rmsnorm_kernel_at_the_new_widths(cuda, D, R, dtype):
+    x = _randn(cuda, (R, D), dtype)
+    w = (1.0 + 0.1 * _randn(cuda, (D,), torch.float32)).to(dtype)
+    got = rmsnorm_fwd(x, w)
+    want = ref.rmsnorm_ref(x, w)
+    err = ((got.float() - want.float()).abs()
+           / want.float().abs().clamp(min=1)).max()
+    assert err <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "llama4-scout-17b-a16e"])
+def test_head_dim_128_models_on_the_card_match_the_cpu(cuda, arch):
+    """The reduced config at head_dim 128 in fp32: one LM step (loss, aux
+    and grads) and greedy serving on the card (kernels) against the CPU
+    (plain versions); the MoE layer's routing included."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import lm_data, to_device
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_leaves, tree_map
+    from repro_torch.serving.engine import GenerationEngine, Request
+    from repro_torch.training.steps import lm_value_and_grad
+
+    cfg = reduced(get_config(arch)).replace(head_dim=128, remat=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(5))
+    batch = next(lm_data(cfg, 40, 0).sft_batches(4, 1))
+    rng = np.random.default_rng(6)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, lp)
+                    .astype(np.int32), max_new_tokens=mn)
+            for i, (lp, mn) in enumerate([(8, 6), (16, 4)])]
+    runs, streams = {}, {}
+    ops.reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        (loss, met), grads = lm_value_and_grad(cfg, p, to_device(batch, dev))
+        runs[dev] = (float(loss), float(met["aux_loss"]),
+                     [g.cpu() for g in tree_leaves(grads)])
+        eng = GenerationEngine(cfg, max_new_tokens=6, temperature=0.0,
+                               chunk=3, device=dev)
+        streams[dev] = {c.uid: c.tokens.tolist() for c in eng.serve(
+            p, reqs, torch.Generator(device=dev).manual_seed(0), slots=1)}
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("rmsnorm", "flash_attention_fwd",
+                                       "flash_attention_bwd",
+                                       "decode_attention_fwd"))
+    assert streams["cpu"] == streams["cuda"]
+    (lc, ac, gc), (lg, ag, gg) = runs["cpu"], runs["cuda"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    assert abs(ag - ac) <= 1e-5 * max(abs(ac), 1e-6)
+    for a, b in zip(gg, gc):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max().clamp(min=1e-9)

@@ -33,7 +33,9 @@ Phases (any failure raises, so the run exits non-zero):
    ragged requests (prompts up to 256, up to 256 new tokens), 16 slots,
    chunk 8, continuous batching, default sampling.  Launch counts are set
    to 0 just before and read just after; every kernel must have launched.
-   Then a short greedy run at smollm-135m full width.
+   The workload's repeats (here, in phases ``ssm``, ``ssm_train``,
+   ``gqa128`` and ``moe``) generate up to 64 new tokens a request
+   (``REPEAT_NEW``).  Then a short greedy run at smollm-135m full width.
 6. ``train``   — (a) OPT-1.3B at full width, cut to 4 layers, fp32 (TF32
    off): one LM step's loss and grads through the kernels against the
    plain path (loss to 1e-5 relative, every grad leaf to 1e-4 of its
@@ -49,7 +51,7 @@ Phases (any failure raises, so the run exits non-zero):
    at full width and depth: OPT-1.3B actor and reference, OPT-350M critic
    and reward model, bf16 compute on fp32 masters, the copy + sort blend
    at 256 prompt + 256 response tokens, batch 8.  4 SFT steps, 4 RM steps,
-   3 PPO iterations generating 256 tokens on an int8 KV cache (ptx 0.05,
+   2 PPO iterations generating 256 tokens on an int8 KV cache (ptx 0.05,
    EMA on), then 1 iteration with a bf16 KV cache on the same trainer.
    Per iteration: generation s and tok/s, scoring ms, actor and critic
    step ms, ratio_mean, approx_kl, reward score, peak memory and launches
@@ -58,8 +60,26 @@ Phases (any failure raises, so the run exits non-zero):
    3, and the int8 iterations launched the int8 decode kernel and never
    the bf16 one (the bf16 iteration the reverse).  Then ``torch.profiler``
    over 8 int8 decode steps and over scoring + one actor and critic step.
+8. ``hybrid``  — the Hybrid Engine on a one-rank NCCL group (a
+   ``FileStore`` in a temporary directory; no gloo fallback) and
+   ``mesh_from_spec("1,1")``: ``to_inference`` / ``to_train`` on OPT-1.3B's
+   fp32 params at full size (bitwise roundtrip, 0 bytes gathered and
+   freed, seconds > 0; the analytic reshard and naive-gather bytes at dp
+   2, 4 and 8 printed as bytes, not times); OPT-1.3B SFT (8 x 512, bf16 on
+   fp32 masters), 3 steps of ``make_sharded_lm_step(cfg, mesh, "zero3",
+   zero=1)`` against 3 of ``lm_train_step`` from the same state (losses,
+   grad norms and params bit for bit; median step ms and peak GiB of
+   both); PPO with ``engine=HybridEngine`` against ``engine=None``
+   (OPT-1.3B actor, OPT-350M critic, 8 x 256 prompts, 256 greedy new
+   tokens; one iteration on the dense bf16 arena, one on the request path
+   with int8 KV on the paged pool): identical tokens, actor and critic
+   params bit for bit, ``reshard_bytes`` 0 and ``reshard_s`` > 0, the
+   launches of RMSNorm, both flash kernels, the dense decode and the
+   paged int8 decode; then ``torchrun --nproc-per-node 1 -m
+   repro_torch.launch.train --arch opt-125m --mesh 1,1 --strategy zero3
+   --zero 1`` (5 steps of 8 x 512): exit 0 and a falling loss.
 
-8. ``ssm``     — the SSM / hybrid serving slice: ``ssd_intra_fwd`` (the
+9. ``ssm``     — the SSM / hybrid serving slice: ``ssd_intra_fwd`` (the
    Mamba2 SSD intra-chunk pass) against its plain version at Mamba2-370M
    (q = 256, a ragged 137, one token, four chunks, the fixed path's b = 8)
    and Zamba2-1.2B widths in fp32 (the CUDA-core kernel) and bf16 (the
@@ -69,14 +89,15 @@ Phases (any failure raises, so the run exits non-zero):
    width and depth in fp32, teacher-forced through the kernel path and the
    plain path (prefills of 256 and 600 tokens, then 32 decode steps; 1e-4);
    ``launch.serve`` on both in bf16 with the serve phase's 32-request
-   workload (Mamba2 must launch RMSNorm and the SSD kernel and no attention
-   kernel, Zamba2 also the flash prefill and the dense decode kernel); 8
+   workload at 64 new tokens (Mamba2 must launch RMSNorm and the SSD
+   kernel and no attention kernel, Zamba2 also the flash prefill and the
+   dense decode kernel); 8
    ragged greedy requests, one past the 256-token chunk, through the
    continuous engine against each request alone (identical in fp32,
    counted in bf16); one Mamba2 decode step at 16 slots eager and as a
    CUDA-graph replay, and ``torch.profiler`` over a decode step and an
    admission.
-9. ``ssm_train`` — the SSM / hybrid training slice: at the SFT shapes
+10. ``ssm_train`` — the SSM / hybrid training slice: at the SFT shapes
    (b 8, nc 2, q 256; Mamba2-370M and Zamba2-1.2B widths) the forward
    kernel against its plain version (phase ``ssm``'s tolerances) and the
    explicit SSD backward (``ref.ssd_intra_bwd_ref``) against autograd of
@@ -101,7 +122,7 @@ Phases (any failure raises, so the run exits non-zero):
    at 1e-4, free-running within a tenth of the int8 error, tokens
    identical, the first attention layer's int8 rows at most one step
    apart).
-10. ``gqa128`` — the head-dim-128 GQA family at full size: the flash
+11. ``gqa128`` — the head-dim-128 GQA family at full size: the flash
    forward (with the LSE) at the prefills of qwen3-8b (KV 8, G 4), yi-9b
    (KV 4, G 8), llama3.2-3b (KV 8, G 3) and llama4-scout (KV 8, G 5) and
    at the llama3.2-3b SFT shape (B 8, H 24, L 512), the flash backward at
@@ -114,8 +135,8 @@ Phases (any failure raises, so the run exits non-zero):
    printed, not gated); qwen3-8b, yi-9b and llama3.2-3b at full width and
    depth in fp32, teacher-forced (prefill 256 + 32 decode), kernel path
    against plain path (1e-4); ``launch.serve`` of qwen3-8b on the
-   32-request workload (dense bf16), yi-9b on it on the paged bf16 pool
-   and greedy paged == dense on 8 requests, llama3.2-3b greedy on dense
+   32-request workload at 64 new tokens (dense bf16), yi-9b on it on the
+   paged bf16 pool and greedy paged == dense on 8 requests, llama3.2-3b greedy on dense
    and paged int8 KV (tok/s and peak memory; each run's launch set
    gated); ``launch.train`` SFT at llama3.2-3b full size (5 steps of 8 x
    512, bf16 on fp32 masters, remat; fails if it does not fit), a
@@ -123,9 +144,10 @@ Phases (any failure raises, so the run exits non-zero):
    1e-4 of each leaf's max); ``RLHFPipeline`` with llama3.2-3b actor and
    critic cut to 4 layers (2 SFT, 2 RM steps, 1 PPO iteration of 8 x 256
    + 64 on int8 KV) under phase ``rlhf``'s checks.
-11. ``moe`` — the MoE layer at llama4-scout-17b-a16e, full width (107.8 B
+12. ``moe`` — the MoE layer at llama4-scout-17b-a16e, full width (107.8 B
    parameters whole, so cut in depth): ``launch.serve`` at 12 layers
-   (``cfg=``; 28.5 B, bf16 weights only) on the 32-request workload with
+   (``cfg=``; 28.5 B, bf16 weights only) on the 32-request workload (64
+   new tokens) with
    the share of routed entries the capacity drops per decode step and per
    admission (ROADMAP Queue 3, R13), greedy paged == dense on 8 equal
    requests in 8 slots (every slot live; counted, not gated, on 8 ragged
@@ -135,14 +157,14 @@ Phases (any failure raises, so the run exits non-zero):
    vs plain (loss and aux 1e-5, grads 1e-4); ``launch.train --lora 8``
    at 2 layers, 3 bf16 steps of 4 x 512 (every loss and aux finite, the
    adapters moved).
-12. ``ckpt`` — checkpoint/resume, LoRA and the torch example, under
+13. ``ckpt`` — checkpoint/resume, LoRA and the torch example, under
    ``build/ckpt_phase`` (deleted at the end): the free disk (60 GB
    at least) and host RAM (2x the largest snapshot) first; two
-   uninterrupted ``launch.train`` runs of OPT-1.3B (full width and depth,
-   3 steps of 8 x 512, bf16 on fp32 masters, remat), whose state SHA-256s
-   must be equal; the same with ``--save-every 2 --ckpt-dir``, the step-3
-   checkpoint deleted, rerun with ``--resume``: its hash must be the
-   witness's (bytes, snapshot ms, write and restore s and GB/s, the step
+   uninterrupted ``launch.train`` runs of OPT-1.3B (full width cut to 8
+   layers, 3 steps of 8 x 512, bf16 on fp32 masters, remat), the second
+   with ``--save-every 2 --ckpt-dir``, whose state SHA-256s must be equal;
+   the step-3 checkpoint deleted, rerun with ``--resume``: its hash must
+   be the witness's (bytes, snapshot ms, write and restore s and GB/s, the step
    that overlaps a write against one that does not); ``launch.train
    --rlhf`` at OPT-125M (3 steps a stage, 8 x 512, 64 new) stopped at the
    top of PPO iteration 2 after the drain and rerun on the same directory:
@@ -158,7 +180,7 @@ Phases (any failure raises, so the run exits non-zero):
    Launch counts are set to 0 before each leg's first run and read after
    it (SFT, PPO, LoRA, serve, example); every kernel of the leg must have
    launched.
-13. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
+14. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
    that no earlier timing runs after a profiler session: the CUDA kernels
    one call of each decode row of phase ``kernels`` runs (the split
    kernel, then the combine exactly when the host's plan splits the
@@ -196,14 +218,15 @@ checks on a paged int8 pool.  The serve phase times a paged decode step
 (bf16 and int8 pools), runs the 32-request workload with ``--kv-layout
 paged --kv-quant``, then greedy on the dense arena and the paged bf16
 pool (identical streams; the greedy runs skip the warm-up, their shapes
-already warm), a 201-block pool that preempts (identical streams), and
+already warm, and generate 64 tokens a request), a 121-block pool that
+preempts (identical streams), and
 the prefix cache on a
 shared-system-prompt mix (hit rate >= 0.5; greedy streams on vs off
 identical in fp32, counted in bf16, whose suffix GEMMs round otherwise than
 the full prompt's); paged runs
 must launch a paged kernel and never a dense decode kernel.  The rlhf phase
 ends with one PPO iteration on the request path: 8 prompts x 4 samples of
-256 tokens on the paged int8 pool with the prefix cache.
+64 tokens on the paged int8 pool with the prefix cache.
 
 The last lines are the card's ``name, power.limit``, one JSON object with a
 row per kernel, and ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -224,7 +247,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "train", "rlhf",
-          "ssm", "ssm_train", "gqa128", "moe", "ckpt", "profile")
+          "hybrid", "ssm", "ssm_train", "gqa128", "moe", "ckpt", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the time bound of a kernel is
 # the larger of bytes / memory rate and operations / peak rate for the type
@@ -283,8 +306,12 @@ ATTENTION_KERNELS = ("flash_attention_fwd", "decode_attention_fwd",
                      "paged_decode_attention_quant_fwd")
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` after the seconds since the script started."""
+    print(f"{time.perf_counter() - T_START:7.1f}s {msg}", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -1495,9 +1522,7 @@ def phase_serve(state):
     del case
     _step_timing(False, True, state)
 
-    argv = ["--arch", "opt-1.3b", "--requests", "32", "--ragged",
-            "--prompt-len", "256", "--max-new", "256", "--batch", "16",
-            "--chunk", "8"]
+    argv = SERVE_ARGV
     log(f"[serve] python -m repro_torch.launch.serve {' '.join(argv)}")
     ops.reset_launch_counts()
     res = serve.main(argv)
@@ -1520,8 +1545,8 @@ def phase_serve(state):
             raise AssertionError(f"serve: request {r.uid} token out of range")
     state.setdefault("launches", {})["serve"] = counts
 
-    # the same workload on the int8 arena
-    argv8 = argv + ["--kv-quant"]
+    # the workload's repeat on the int8 arena
+    argv8 = workload(max_new=REPEAT_NEW) + ["--kv-quant"]
     log(f"[serve] python -m repro_torch.launch.serve {' '.join(argv8)}")
     ops.reset_launch_counts()
     # no warm-up: its tok/s include the int8 run's first calls
@@ -1534,7 +1559,7 @@ def phase_serve(state):
     missing = [k for k in SERVE_INT8_KERNELS if counts8[k] == 0]
     if missing or counts8["decode_attention_fwd"]:
         raise AssertionError(f"serve --kv-quant: launches {counts8}")
-    if res8["tokens"] != res["tokens"]:
+    if res8["tokens"] != sum(r.max_new_tokens for r in res8["requests"]):
         raise AssertionError("serve --kv-quant: the run lost tokens")
     state["launches"]["serve_int8"] = counts8
     state["serve"] = {"tok_s": res["tok_s"], "tok_s_int8": res8["tok_s"]}
@@ -1551,9 +1576,18 @@ def phase_serve(state):
     _paged_serve(state)
 
 
-SERVE_ARGV = ["--arch", "opt-1.3b", "--requests", "32", "--ragged",
-              "--prompt-len", "256", "--max-new", "256", "--batch", "16",
-              "--chunk", "8"]
+def workload(arch: str = "opt-1.3b", max_new: int = 256) -> list:
+    """The serve workload's arguments: 32 ragged requests (prompts up to
+    256 tokens, up to ``max_new`` new), 16 slots, chunk 8."""
+    return ["--arch", arch, "--requests", "32", "--ragged", "--prompt-len",
+            "256", "--max-new", str(max_new), "--batch", "16", "--chunk", "8"]
+
+
+SERVE_ARGV = workload()
+# the workload's repeats (other KV layouts, dtypes and models) generate up
+# to 64 new tokens a request, a quarter of phase serve's bf16 run, to keep
+# the whole script inside its time limit; their gates are the same
+REPEAT_NEW = 64
 PAGED = ["--kv-layout", "paged", "--block-size", "16"]
 
 
@@ -1624,24 +1658,29 @@ def _paged_serve(state):
     _step_timing(True, False, state)
     _step_timing(True, True, state)
 
-    res8 = _serve_run(SERVE_ARGV + PAGED + ["--kv-quant"],
+    res8 = _serve_run(workload(max_new=REPEAT_NEW) + PAGED + ["--kv-quant"],
                       "serve_paged_int8", SERVE_PAGED_INT8_KERNELS, state,
                       warmup=False)   # its tok/s include its first calls
 
     # greedy: dense vs paged (the paged bf16 run of the workload), then a
-    # pool that must preempt; the runs above warmed these shapes
-    greedy = SERVE_ARGV + ["--temperature", "0"]
+    # pool that must preempt; the runs above warmed these shapes.  The 32
+    # ragged prompts of the workload with 64 new tokens each (not 256: the
+    # streams' identity is gated on every token either way), so the
+    # preempting pool is 121 blocks
+    greedy = ["--arch", "opt-1.3b", "--requests", "32", "--ragged",
+              "--prompt-len", "256", "--max-new", "64", "--batch", "16",
+              "--chunk", "8", "--temperature", "0"]
     d = _serve_run(greedy, "serve_greedy_dense", SERVE_KERNELS, state,
                    warmup=False)
     p = _serve_run(greedy + PAGED, "serve_greedy_paged", SERVE_PAGED_KERNELS,
                    state, warmup=False)
-    pre = _serve_run(greedy + PAGED + ["--num-blocks", "201"],
+    pre = _serve_run(greedy + PAGED + ["--num-blocks", "121"],
                      "serve_greedy_preempt", SERVE_PAGED_KERNELS, state,
                      warmup=False)
     same = d["completions"] == p["completions"]
     same_pre = pre["completions"] == p["completions"]
     n_pre = pre["stats"]["preemptions"]
-    log(f"[serve] greedy streams: paged == dense {same}; a 201-block pool "
+    log(f"[serve] greedy streams: paged == dense {same}; a 121-block pool "
         f"preempted {n_pre} times, streams == the unconstrained paged run "
         f"{same_pre}")
     state["serve"].update(tok_s_paged_int8=res8["tok_s"],
@@ -1674,8 +1713,9 @@ def _paged_serve(state):
                                    chunk=8, kv_layout="paged", block_size=16,
                                    prefix_cache=pc, device="cuda")
             kw = dict(mode="continuous", slots=16, max_seq_len=S)
-            serve.run_schedule(eng, params, reqs[:16], torch.Generator(
-                device="cuda").manual_seed(0), **kw)        # warm-up
+            if dname == "bfloat16":     # warm-up: bf16 tok/s are the reading
+                serve.run_schedule(eng, params, reqs[:16], torch.Generator(
+                    device="cuda").manual_seed(0), **kw)
             ops.reset_launch_counts()
             n_tok, st, dt, fin = serve.run_schedule(
                 eng, params, reqs,
@@ -1974,7 +2014,7 @@ def phase_rlhf(state):
     actor, critic = get_config("opt-1.3b"), get_config("opt-350m")
     bl = lm_data(actor, 512, 0)
     stages = StageConfig(sft_steps=4, sft_batch=8, rm_steps=4, rm_batch=8,
-                         ppo_steps=3, ppo_batch=8)
+                         ppo_steps=2, ppo_batch=8)
     ppo = PPOConfig(max_new_tokens=256, temperature=1.0, ptx_coef=0.05,
                     use_ema=True, kv_quant=True)
     torch.cuda.reset_peak_memory_stats()
@@ -2070,7 +2110,8 @@ def phase_rlhf(state):
     missing = [k for k in RLHF_KERNELS if total[k] == 0]
     if missing:
         failures.append(f"kernels never launched: {missing}")
-    log(f"[rlhf] pipeline {wall:.1f}s; stage 3 (3 int8 iterations) "
+    log(f"[rlhf] pipeline {wall:.1f}s; stage 3 ({stages.ppo_steps} int8 "
+        f"iterations) "
         f"{pipe.timings['stage3']:.1f}s, gen {pipe.gen_tok_s:.1f} tok/s "
         f"mean; peak memory over the phase "
         f"{max(peaks) / 2**30:.2f} GiB; launches {total}")
@@ -2144,7 +2185,7 @@ def phase_rlhf(state):
 
 def _paged_ppo_iteration(state, trainer, bl, ptx) -> list:
     """One more PPO iteration on the same trainer, on the request path
-    with the reference's best-of-n recipe: 8 prompts x 4 samples of 256
+    with the reference's best-of-n recipe: 8 prompts x 4 samples of 64
     new tokens, generated on the paged int8 pool with the prefix cache.
     Returns the failed gates: every metric finite, the paged int8 kernel
     launched and neither dense decode kernel, the hit rate reported."""
@@ -2158,7 +2199,8 @@ def _paged_ppo_iteration(state, trainer, bl, ptx) -> list:
 
     ppo = dataclasses.replace(trainer.ppo, kv_layout="paged",
                               kv_block_size=16, kv_quant=True,
-                              prefix_cache=True, n_samples_per_prompt=4)
+                              prefix_cache=True, n_samples_per_prompt=4,
+                              max_new_tokens=64)
     trainer.ppo = ppo
     trainer.gen_engine = GenerationEngine(
         trainer.actor_cfg.replace(kv_quant=True),
@@ -2206,6 +2248,294 @@ def _paged_ppo_iteration(state, trainer, bl, ptx) -> list:
     if "prefill_hit_rate" not in m:
         failures.append("paged iteration: no prefill_hit_rate")
     return failures
+
+
+# --------------------------------------------------------------------- #
+# the Hybrid Engine and the data-parallel mesh, at 1 x 1 over NCCL
+# --------------------------------------------------------------------- #
+HYBRID_PPO_KERNELS = ("rmsnorm", "flash_attention_fwd", "flash_attention_bwd",
+                      "decode_attention_fwd",
+                      "paged_decode_attention_quant_fwd")
+
+
+def _hybrid_reshard(state, failures, mesh):
+    """``to_inference`` and ``to_train`` on OPT-1.3B's fp32 params at full
+    size in the training layout: the roundtrip bitwise, 0 bytes gathered
+    and freed at one rank, measured seconds > 0; the analytic bytes of
+    larger meshes printed beside them."""
+    from types import SimpleNamespace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.hybrid_engine import HybridEngine
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.sharding import runtime
+
+    cfg = get_config("opt-1.3b")
+    he = HybridEngine(cfg, mesh)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    p_train = runtime.place_tree(params, he.train_shardings)
+    stats = []
+    for _ in range(2):                  # the first call, then a warm one
+        p_inf = he.to_inference(p_train)
+        stats.append(dict(he.last_reshard_stats))
+        p_back = he.to_train(p_inf)
+        stats.append(dict(he.last_reshard_stats))
+    exact = all(torch.equal(runtime.full(b), p) and torch.equal(
+        runtime.full(i), p) for b, i, p in zip(
+            tree_leaves(p_back), tree_leaves(p_inf), tree_leaves(params)))
+    for s in stats:
+        log(f"[hybrid] {s['direction']} (first_call {s['first_call']}): "
+            f"{s['seconds'] * 1e3:.3f} ms, in {s['in_bytes']} B, out "
+            f"{s['out_bytes']} B, gathered {s['gathered_bytes']} B, freed "
+            f"{s['freed_bytes']} B")
+    log(f"[hybrid] roundtrip bitwise: {exact}")
+    analytic = {}
+    for dp in (2, 4, 8):
+        fake = SimpleNamespace(shape={"data": dp, "model": 1},
+                               axis_names=("data", "model"))
+        h = HybridEngine(cfg, fake)
+        analytic[dp] = {"reshard_bytes_per_phase": h.reshard_bytes_per_phase(),
+                        "naive_gather_bytes_256":
+                            h.naive_generation_gather_bytes(256)}
+        log(f"[hybrid] analytic bytes, not times: OPT-1.3B at dp {dp}: "
+            f"reshard_bytes_per_phase {analytic[dp]['reshard_bytes_per_phase']}"
+            f", naive_generation_gather_bytes(256) "
+            f"{analytic[dp]['naive_gather_bytes_256']}")
+    state["hybrid"] = {"reshard": stats, "analytic": analytic,
+                       "param_bytes": he.param_bytes()}
+    if not exact:
+        failures.append("reshard roundtrip is not bitwise")
+    if any(s["gathered_bytes"] or s["freed_bytes"] or not s["seconds"] > 0
+           for s in stats):
+        failures.append(f"reshard stats at one rank: {stats}")
+
+
+def _hybrid_sft(state, failures, mesh):
+    """OPT-1.3B SFT, 8 x 512, bf16 on fp32 masters: 3 steps of
+    ``make_sharded_lm_step(cfg, mesh, "zero3", zero=1)`` against 3 steps of
+    ``lm_train_step`` from the same state.  At one rank every sum is the
+    plain step's, so the losses, grad norms and final params are gated
+    bit for bit; median step ms and peak GiB of both paths recorded."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.sharding import runtime
+    from repro_torch.training.steps import make_sharded_lm_step
+    from repro_torch.training.train_state import TrainState
+
+    cfg = get_config("opt-1.3b")
+    kw = dict(steps=3, batch=8, seq=512, lr=3e-4, seed=0, device="cuda")
+    out = {}
+    for path in ("plain", "mesh"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = T.init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(0))
+        if path == "plain":
+            st, step_fn = TrainState.create(params), None
+        else:
+            step, sh, shard_batch = make_sharded_lm_step(cfg, mesh, "zero3",
+                                                         zero=1)
+            st = TrainState.create(params, shardings=sh)
+            step_fn = lambda s, b, lr: step(s, shard_batch(b), lr)
+        del params
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        st, summ = launch_train.train_lm(cfg, st, step_fn=step_fn, **kw)
+        counts = ops.launch_counts()
+        _launched(f"hybrid_sft_{path}", counts, TRAIN_KERNELS, state,
+                  failures)
+        steady = summ["step_ms"][1:]
+        out[path] = {"loss": summ["loss"], "grad_norm": summ["grad_norm"],
+                     "step_ms": summ["step_ms"],
+                     "median_step_ms": statistics.median(steady),
+                     "peak_gib": _peak_gib()}
+        log(f"[hybrid] SFT {path}: losses {summ['loss']}, grad norms "
+            f"{summ['grad_norm']}, step ms "
+            f"{' '.join(f'{x:.1f}' for x in summ['step_ms'])} (median after "
+            f"the first {out[path]['median_step_ms']:.1f}), peak "
+            f"{out[path]['peak_gib']:.2f} GiB")
+        if path == "plain":
+            keep = [p.clone() for p in tree_leaves(st.params)]
+        else:
+            same = all(torch.equal(runtime.full(p), q)
+                       for p, q in zip(tree_leaves(st.params), keep))
+        del st
+    del keep
+    ok = (out["plain"]["loss"] == out["mesh"]["loss"]
+          and out["plain"]["grad_norm"] == out["mesh"]["grad_norm"] and same)
+    log(f"[hybrid] SFT mesh path at world 1 == plain path bit for bit "
+        f"(losses, grad norms, params): {ok}")
+    state["hybrid"]["sft"] = out
+    if not ok:
+        failures.append(f"sharded SFT at one rank differs: {out}, params "
+                        f"equal {same}")
+
+
+def _hybrid_ppo(state, failures, mesh):
+    """PPO through ``HybridEngine`` at 1 x 1 against ``engine=None``:
+    OPT-1.3B actor and reference, OPT-350M critic and reward at full size,
+    8 x 256 prompts, 256 new greedy tokens; one iteration on the dense
+    bf16 arena, one on the request path with int8 KV on the paged pool.
+    Tokens identical, actor and critic params equal bit for bit, the
+    reshard measured (0 bytes, seconds > 0), kernels 1-4 and the paged
+    int8 decode launched."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.hybrid_engine import HybridEngine
+    from repro_torch.core.pipeline import clone_params
+    from repro_torch.core.ppo import PPOConfig, PPOTrainer
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import lm_data
+    from repro_torch.models import reward as R
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.serving.engine import GenerationEngine, Request
+
+    actor_cfg, critic_cfg = get_config("opt-1.3b"), get_config("opt-350m")
+    bl = lm_data(actor_cfg, 512, 0)
+    batches = [b["prompts"] for b in bl.prompt_batches(8, 2)]
+    ppo = PPOConfig(max_new_tokens=256, temperature=0.0, use_ema=True)
+    paged = dataclasses.replace(ppo, kv_quant=True, kv_layout="paged",
+                                kv_block_size=16)
+    runs = {}
+    for which in ("none", "engine"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        g = lambda s: torch.Generator(device="cuda").manual_seed(s)
+        actor = T.init_params(actor_cfg, g(0))
+        trainer = PPOTrainer(
+            actor_cfg=actor_cfg, critic_cfg=critic_cfg, actor_params=actor,
+            critic_params=R.init_params(critic_cfg, g(1)),
+            ref_params=clone_params(actor),
+            reward_params=R.init_params(critic_cfg, g(2)), ppo=ppo,
+            engine=HybridEngine(actor_cfg, mesh) if which == "engine"
+            else None)
+        del actor
+        ops.reset_launch_counts()
+        iters = []
+        for i, (cfg_i, prompts) in enumerate(((ppo, batches[0]),
+                                              (paged, batches[1]))):
+            if i == 1:                     # the paged int8 request path
+                trainer.ppo = cfg_i
+                trainer.gen_engine = (
+                    trainer.engine.generation_engine if trainer.engine
+                    else GenerationEngine)(
+                    cfg=actor_cfg.replace(kv_quant=True),
+                    max_new_tokens=cfg_i.max_new_tokens, temperature=0.0,
+                    chunk=cfg_i.decode_chunk, kv_layout="paged",
+                    block_size=16, device="cuda")
+                prompts = [Request(uid=j, tokens=np.asarray(p, np.int32),
+                                   max_new_tokens=cfg_i.max_new_tokens)
+                           for j, p in enumerate(np.asarray(prompts))]
+            exp, gm = trainer.generate_experience(prompts, g(7))
+            tm = trainer.train_rlhf(exp)
+            iters.append({"seqs": exp.sequences.cpu(), **gm, **tm})
+        counts = ops.launch_counts()
+        _launched(f"hybrid_ppo_{which}", counts, HYBRID_PPO_KERNELS, state,
+                  failures)
+        runs[which] = {"iters": iters, "counts": counts,
+                       "actor": [p.cpu() for p in tree_leaves(
+                           trainer.actor.params)],
+                       "critic": [p.cpu() for p in tree_leaves(
+                           trainer.critic.params)]}
+        for i, m in enumerate(iters):
+            log(f"[hybrid] PPO {which} iteration {i} "
+                f"({'dense bf16' if i == 0 else 'paged int8'} KV): gen "
+                f"{m['gen_s']:.2f}s ({m['gen_tok_s']:.1f} tok/s), scoring "
+                f"{m['score_ms']:.1f} ms, actor {m['actor_ms']:.1f} ms, "
+                f"critic {m['critic_ms']:.1f} ms, reward_score "
+                f"{m['reward_score']:.4f}"
+                + (f", reshard {m['reshard_bytes']:.0f} B in "
+                   f"{m['reshard_s'] * 1e3:.3f} ms" if "reshard_s" in m
+                   else ""))
+        log(f"[hybrid] PPO {which} launches: {counts}")
+        del trainer, exp
+    a, b = runs["none"], runs["engine"]
+    tokens = all(torch.equal(x["seqs"], y["seqs"])
+                 for x, y in zip(a["iters"], b["iters"]))
+    diffs = {k: max(float((x - y).abs().max()) for x, y in zip(a[k], b[k]))
+             for k in ("actor", "critic")}
+    log(f"[hybrid] engine vs none: tokens identical {tokens}; max |param "
+        f"diff| {diffs}")
+    keys = ("gen_s", "score_ms", "actor_ms", "critic_ms", "reward_score",
+            "reshard_bytes", "reshard_s")
+    state["hybrid"]["ppo"] = {w: [{k: m[k] for k in keys if k in m}
+                                  for m in runs[w]["iters"]]
+                              for w in runs}
+    if not tokens or any(diffs.values()):
+        failures.append(f"PPO with the engine differs: tokens {tokens}, "
+                        f"param diffs {diffs}")
+    for m in b["iters"]:
+        if m["reshard_bytes"] != 0 or not m["reshard_s"] > 0:
+            failures.append(f"reshard metrics {m['reshard_bytes']}, "
+                            f"{m['reshard_s']}")
+
+
+def _hybrid_torchrun(state, failures):
+    """The launcher under ``torchrun`` on a 1 x 1 mesh: exits 0, the loss
+    falls."""
+    import os
+    import re
+
+    import torch
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+           "--arch", "opt-125m", "--mesh", "1,1", "--strategy", "zero3",
+           "--zero", "1", "--steps", "5", "--batch", "8", "--seq", "512"]
+    log(f"[hybrid] {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         cwd=ROOT, env=dict(os.environ,
+                                            PYTHONPATH=str(ROOT / "src")))
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in re.findall(r"^step +\d+ +loss=([\d.]+)",
+                                           res.stdout, flags=re.M)]
+    log(f"[hybrid] torchrun exit {res.returncode} in {wall:.1f}s; losses "
+        f"{losses}; " + " | ".join(res.stdout.strip().splitlines()[-2:]))
+    state["hybrid"]["torchrun"] = {"rc": res.returncode, "losses": losses,
+                                   "seconds": wall}
+    if res.returncode != 0 or len(losses) < 2 or not losses[-1] < losses[0]:
+        failures.append(f"torchrun launcher: rc {res.returncode}, losses "
+                        f"{losses}: {res.stderr[-2000:]}")
+
+
+def phase_hybrid(state):
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, mesh_from_spec
+
+    tmp = tempfile.mkdtemp(prefix="hybrid_pg_")
+    init_distributed("cuda", init_method=f"file://{tmp}/store", rank=0,
+                     world_size=1)
+    failures = []
+    try:
+        mesh = mesh_from_spec("1,1")
+        log(f"[hybrid] one-rank NCCL group ({dist.get_backend()}), mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        _hybrid_reshard(state, failures, mesh)
+        _hybrid_sft(state, failures, mesh)
+        _hybrid_ppo(state, failures, mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    _hybrid_torchrun(state, failures)
+    if failures:
+        raise AssertionError("hybrid: " + "; ".join(failures))
 
 
 # --------------------------------------------------------------------- #
@@ -2546,7 +2876,7 @@ def phase_ssm(state):
     _ssd_kernel_rows(state, failures)
     _ssm_parity(failures)
     for arch, must in SSM_SERVE_KERNELS.items():
-        res = _serve_run(["--arch", arch, *SERVE_ARGV[2:]],
+        res = _serve_run(workload(arch, REPEAT_NEW),
                          f"ssm_serve_{arch}", must, state)
         counts = state["launches"][f"ssm_serve_{arch}"]
         if arch == "mamba2-370m" and any(counts[k]
@@ -3146,7 +3476,7 @@ def _zamba2_int8(state, failures):
     tag = "ssm_serve_zamba2-1.2b_int8"
     # no warm-up after phase ssm's bf16 run of this workload: the int8
     # run's first calls land in its tok/s
-    res = _serve_run(["--arch", "zamba2-1.2b", *SERVE_ARGV[2:], "--kv-quant"],
+    res = _serve_run(workload("zamba2-1.2b", REPEAT_NEW) + ["--kv-quant"],
                      tag, SSM_INT8_SERVE_KERNELS, state,
                      warmup="zamba2-1.2b" not in state.get("ssm_serve", {}))
     if state["launches"][tag]["decode_attention_fwd"]:
@@ -3230,6 +3560,10 @@ CKPT_MIN_DISK = 60e9
 WALL_TIME = ("gen_tok_s", "gen_s", "score_ms", "actor_ms", "critic_ms")
 OPT13_SFT = ["--arch", "opt-1.3b", "--steps", "3", "--batch", "8",
              "--seq", "512"]
+# the SFT kill-and-resume leg's depth: OPT-1.3B at full width, 8 of its 24
+# layers (a 6 GB state where the whole is 16.8 GB: the leg writes three
+# and reads one, and the disk's rate sets its time)
+CKPT_SFT_LAYERS = 8
 PPO_ARGV = ["--arch", "opt-125m", "--rlhf", "--steps", "3", "--batch", "8",
             "--seq", "512", "--max-new", "64"]
 PPO_KERNELS = TRAIN_KERNELS + ("decode_attention_fwd",)
@@ -3258,11 +3592,15 @@ def _launched(tag, counts, must, state, failures) -> None:
         failures.append(f"{tag}: kernels never launched: {missing}")
 
 
+def _ckpt_sft_cfg():
+    from repro_torch.configs import get_config
+    return get_config("opt-1.3b").replace(n_layers=CKPT_SFT_LAYERS)
+
+
 def _ckpt_room() -> None:
     """Free disk under the phase's directory and available host RAM,
-    against 60 GB and 2x the largest snapshot (the OPT-1.3B SFT state)."""
+    against 60 GB and 2x the largest snapshot (the SFT leg's state)."""
     import shutil
-    from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     free = shutil.disk_usage(CKPT_ROOT).free
     mem = {}
@@ -3270,7 +3608,7 @@ def _ckpt_room() -> None:
         for line in f:
             k, v = line.split(":")
             mem[k] = int(v.split()[0]) * 1024
-    snap = 12 * T.count_params(get_config("opt-1.3b"))
+    snap = 12 * T.count_params(_ckpt_sft_cfg())
     log(f"[ckpt] room: {free / 1e9:.1f} GB free disk under {CKPT_ROOT} "
         f"(need {CKPT_MIN_DISK / 1e9:.0f}), host RAM "
         f"{mem['MemAvailable'] / 1e9:.1f} GB available of "
@@ -3285,37 +3623,40 @@ def _ckpt_room() -> None:
 
 def _ckpt_sft(state, failures) -> None:
     """(2) the determinism witness, (3) SFT kill-and-resume, OPT-1.3B at
-    full width and depth, bf16 on fp32 masters, remat on."""
+    full width cut to ``CKPT_SFT_LAYERS`` layers, bf16 on fp32 masters,
+    remat on.  Two uninterrupted runs, the second with saves, must give one
+    state hash, and the resumed run the same."""
     import shutil
 
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
-    hashes = []
-    for run in range(2):
-        log(f"[ckpt] witness run {run}: python -m repro_torch.launch.train "
-            f"{' '.join(OPT13_SFT)}")
-        ops.reset_launch_counts()
-        out = launch_train.main(OPT13_SFT)
-        if run == 0:
-            _launched("ckpt_sft", ops.launch_counts(), TRAIN_KERNELS, state,
-                      failures)
-        hashes.append(out["state_sha256"])
-        log(f"[ckpt] witness run {run}: state sha256 {hashes[-1]}; step ms "
-            + " ".join(f"{x:.1f}" for x in out["step_ms"]))
-        _free(out)
-    if hashes[0] != hashes[1]:
-        failures.append(f"ckpt: two uninterrupted OPT-1.3B runs differ: "
-                        f"{hashes}")
+    cfg = _ckpt_sft_cfg()
+    log(f"[ckpt] witness: python -m repro_torch.launch.train "
+        f"{' '.join(OPT13_SFT)} (n_layers {CKPT_SFT_LAYERS})")
+    ops.reset_launch_counts()
+    out = launch_train.main(OPT13_SFT, cfg=cfg)
+    _launched("ckpt_sft", ops.launch_counts(), TRAIN_KERNELS, state,
+              failures)
+    witness = out["state_sha256"]
+    log(f"[ckpt] witness: state sha256 {witness}; step ms "
+        + " ".join(f"{x:.1f}" for x in out["step_ms"]))
+    _free(out)
     d = CKPT_ROOT / "sft"
     argv = [*OPT13_SFT, "--save-every", "2", "--ckpt-dir", str(d),
             "--keep", "2"]
-    log(f"[ckpt] python -m repro_torch.launch.train {' '.join(argv)}")
-    first = launch_train.main(argv)
+    log(f"[ckpt] python -m repro_torch.launch.train {' '.join(argv)} "
+        f"(n_layers {CKPT_SFT_LAYERS})")
+    first = launch_train.main(argv, cfg=cfg)
     st, ms = first["ckpt_stats"], first["step_ms"]
+    hashes = [witness, first["state_sha256"]]
+    log(f"[ckpt] run with saves: state sha256 {hashes[1]}")
+    if hashes[0] != hashes[1]:
+        failures.append(f"ckpt: two uninterrupted OPT-1.3B runs differ: "
+                        f"{hashes}")
     _free(first)
     shutil.rmtree(d / "step_00000003")         # a crash after step 2's commit
     log(f"[ckpt] deleted step_00000003; rerun with --resume")
-    again = launch_train.main([*argv, "--resume"])
+    again = launch_train.main([*argv, "--resume"], cfg=cfg)
     rs = again["restore"]
     if again["state_sha256"] != hashes[0] or again["start"] != 2:
         failures.append(f"ckpt: SFT resumed at {again['start']} with state "
@@ -4023,7 +4364,7 @@ def _gqa128_serve(state, failures):
     first calls at its shapes), then greedy paged == dense on 8 requests
     of up to 64 new tokens; llama3.2-3b greedy on those 8 requests on the
     dense and the paged int8 KV."""
-    argv = lambda arch: ["--arch", arch] + SERVE_ARGV[2:]
+    argv = lambda arch: workload(arch, REPEAT_NEW)
     _serve_peak(argv("qwen3-8b"), "serve_qwen3_8b", SERVE_KERNELS, state)
     _serve_peak(argv("yi-9b") + PAGED, "serve_yi_9b_paged",
                 SERVE_PAGED_KERNELS, state, warmup=False)
@@ -4314,7 +4655,7 @@ def _moe_serve(state, failures):
     from repro_torch.serving.engine import GenerationEngine
 
     cut = get_config(MOE_ARCH).replace(n_layers=MOE_SERVE_LAYERS)
-    argv = ["--arch", MOE_ARCH] + SERVE_ARGV[2:]
+    argv = workload(MOE_ARCH, REPEAT_NEW)
     with _DropMeter() as meter:
         res = _serve_peak(argv, "serve_llama4_scout", SERVE_KERNELS, state,
                           cfg=cut)
@@ -4432,7 +4773,8 @@ def phase_moe(state):
 PHASE_FNS = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "parity": phase_parity,
              "serve": phase_serve, "train": phase_train, "rlhf": phase_rlhf,
-             "ssm": phase_ssm, "ssm_train": phase_ssm_train,
+             "hybrid": phase_hybrid, "ssm": phase_ssm,
+             "ssm_train": phase_ssm_train,
              "gqa128": phase_gqa128, "moe": phase_moe,
              "ckpt": phase_ckpt, "profile": phase_profile}
 

@@ -1,11 +1,13 @@
 """The paper's primary contribution as composable PyTorch: the 3-stage
 RLHF pipeline (PPO with EMA collection and mixture training, checkpoint
-and resume) and LoRA on one device (counterpart of ``repro/core``).  The
-Hybrid Engine and asynchronous RLHF are not yet ported."""
+and resume), LoRA, and the Hybrid Engine on data-parallel meshes
+(counterpart of ``repro/core``).  Asynchronous RLHF is not yet ported."""
 from repro_torch.core import ema, experience, lora
+from repro_torch.core.hybrid_engine import HybridEngine
 from repro_torch.core.pipeline import RLHFEngine, RLHFPipeline, StageConfig
 from repro_torch.core.ppo import PPOConfig, PPOTrainer
 from repro_torch.core.replay import RolloutBatch
 
-__all__ = ["ema", "experience", "lora", "RLHFEngine", "RLHFPipeline",
-           "StageConfig", "PPOConfig", "PPOTrainer", "RolloutBatch"]
+__all__ = ["ema", "experience", "lora", "HybridEngine", "RLHFEngine",
+           "RLHFPipeline", "StageConfig", "PPOConfig", "PPOTrainer",
+           "RolloutBatch"]

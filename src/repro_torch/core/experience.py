@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.sharding import runtime
+
 
 class Experience(NamedTuple):
     sequences: torch.Tensor     # (B, T) int  prompt + response
@@ -41,9 +43,11 @@ def kl_rewards(logprobs, ref_logprobs, mask, score, *, kl_coef=0.1,
     return r.index_put((rows, last_idx), bonus.to(r.dtype), accumulate=True)
 
 
-def gae(rewards, values, mask, *, gamma=1.0, lam=0.95):
+def gae(rewards, values, mask, *, gamma=1.0, lam=0.95, group=None):
     """Generalized advantage estimation, right to left, masked; returns
-    (advantages normalized over the response tokens, returns)."""
+    (advantages normalized over the response tokens, returns).  With a data
+    ``group`` the rows are this rank's part of a batch sharded over it, and
+    the normalization's count, mean and variance are the global batch's."""
     B, T = rewards.shape
     adv_next = torch.zeros(B, dtype=rewards.dtype, device=rewards.device)
     v_next = torch.zeros_like(adv_next)
@@ -59,8 +63,11 @@ def gae(rewards, values, mask, *, gamma=1.0, lam=0.95):
     advantages = torch.stack(advs, dim=1) * mask
     returns = advantages + values * mask
     # normalize advantages over response tokens (standard PPO practice)
-    n = torch.clamp(mask.sum(), min=1.0)
-    mean = (advantages * mask).sum() / n
-    var = ((advantages - mean) ** 2 * mask).sum() / n
+    gsum = (lambda *xs: runtime.all_sum(list(xs), group)) if group \
+        is not None else (lambda *xs: list(xs))
+    tot, cnt = gsum((advantages * mask).sum(), mask.sum())
+    n = torch.clamp(cnt, min=1.0)
+    mean = tot / n
+    var = gsum(((advantages - mean) ** 2 * mask).sum())[0] / n
     advantages = (advantages - mean) * torch.rsqrt(var + 1e-8) * mask
     return advantages, returns

@@ -29,9 +29,14 @@ checkpoint taken mid-PPO does not resume here: its PRNG carry is a JAX
 key (``uint32[2]``), which restore refuses by shape; stage-boundary
 checkpoints hold params only and cross both ways.
 
-The reference's Hybrid Engine and meshes (``mesh=``, ``rollout_mesh=``)
-and asynchronous stage 3 (``async_cfg=``) are not yet ported and raise
-``NotImplementedError``.
+``RLHFEngine(mesh=)`` builds the Hybrid Engine over a data-parallel mesh
+(``train_strategy`` params, ZeRO-1 moments), and stage 3 trains through
+it: one reshard per generation phase, the actor and critic in the training
+layout (see :mod:`repro_torch.core.ppo`).  Stages 1 and 2 run on every rank
+of the mesh alike, as the reference runs them outside the mesh.  The
+disaggregated rollout mesh (``rollout_mesh=``), asynchronous stage 3
+(``async_cfg=``) and a checkpointer on a mesh (sharded save and restore)
+are not yet ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch import to_device
+from repro_torch.core.hybrid_engine import HybridEngine
 from repro_torch.core.ppo import PPOConfig, PPOTrainer
 from repro_torch.data.blending import DataBlender
 from repro_torch.models import reward as R
@@ -85,21 +91,30 @@ class StageConfig:
 
 
 class RLHFEngine:
-    """Owns the actor/ref/critic/reward params.  The actor and the critic
-    are drawn one after the other from ``generator`` (the reference splits
-    one key in two; weights that must match the reference are carried
-    across with ``models/convert.py``) on ``generator``'s device."""
+    """Owns the actor/ref/critic/reward params and, with ``mesh``, the
+    Hybrid Engine.  The actor and the critic are drawn one after the other
+    from ``generator`` (the reference splits one key in two; weights that
+    must match the reference are carried across with
+    ``models/convert.py``) on ``generator``'s device; on a mesh every rank
+    draws the same weights from the same seed."""
 
     def __init__(self, actor_cfg: ModelConfig, critic_cfg: ModelConfig,
-                 generator: torch.Generator, mesh=None, rollout_mesh=None):
-        if mesh is not None or rollout_mesh is not None:
-            raise NotImplementedError("RLHFEngine(mesh=/rollout_mesh=): "
-                                      "not yet ported")
+                 generator: torch.Generator, mesh=None,
+                 train_strategy: str = "zero3", rollout_mesh=None,
+                 zero: int = 1):
+        if rollout_mesh is not None:
+            raise NotImplementedError("RLHFEngine(rollout_mesh=) "
+                                      "(disaggregated meshes): not yet "
+                                      "ported")
         self.actor_cfg, self.critic_cfg = actor_cfg, critic_cfg
         self.actor_params = T.init_params(actor_cfg, generator)
         self.critic_params = R.init_params(critic_cfg, generator)
         self.ref_params = None       # cloned from the SFT actor
         self.reward_params = None    # the trained RM (critic gets a clone)
+        self.hybrid = (HybridEngine(actor_cfg, mesh,
+                                    train_strategy=train_strategy, zero=zero)
+                       if mesh is not None else None)
+        self.rollout_mesh = None
 
     @property
     def device(self) -> torch.device:
@@ -122,6 +137,10 @@ class RLHFPipeline:
         if async_cfg is not None:
             raise NotImplementedError("RLHFPipeline(async_cfg=): "
                                       "asynchronous RLHF is not yet ported")
+        if checkpointer is not None and engine.hybrid is not None:
+            raise NotImplementedError("RLHFPipeline(checkpointer=) on a mesh "
+                                      "(sharded save and restore): not yet "
+                                      "ported")
         self.e = engine
         self.blender = blender
         self.stages = stages
@@ -213,7 +232,8 @@ class RLHFPipeline:
             actor_params=self.e.actor_params,
             critic_params=self.e.critic_params,
             ref_params=self.e.ref_params,
-            reward_params=self.e.reward_params, ppo=self.ppo)
+            reward_params=self.e.reward_params, ppo=self.ppo,
+            engine=self.e.hybrid)
         if restored is not None:
             trainer.load_state_tree(restored["trainer"])
         self.trainer = trainer

@@ -24,8 +24,21 @@ optimizer updates the actor's and critic's params in place: the trainer
 owns the params it is given (``TrainState.create`` keeps them), and the
 frozen reference and reward params must not share storage with them
 (:class:`~repro_torch.core.pipeline.RLHFPipeline` clones both; the trainer
-refuses aliases).  The reference's Hybrid Engine (``engine=``) and rollout
-mesh belong to later slices and raise ``NotImplementedError``.
+refuses aliases).
+
+With ``engine=`` (a :class:`~repro_torch.core.hybrid_engine.HybridEngine`)
+each rollout enters the inference layout through one
+``engine.to_inference`` and the metrics carry its measured ``reshard_bytes``
+and ``reshard_s``.  On a mesh of more than one rank (``data`` axis only)
+the actor and critic states live in the training layout (ZeRO-sharded
+``DTensor``s), the frozen models in the ``tp`` layout, the engine decodes
+each rank's rows, and scoring and both steps run on the rank's rows with
+every batch-wide mean (advantage whitening, the losses and their metrics,
+``reward_score``) taken over the global batch: the single-device result,
+up to the order of the sums.  The experience is then a tree of
+``DTensor``s sharded over ``data``.  At one rank the trainer runs as with
+``engine=None``.  The rollout mesh (disaggregated generation) is not yet
+ported.
 """
 from __future__ import annotations
 
@@ -44,7 +57,9 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import tree_leaves
 from repro_torch.serving.engine import GenerationEngine
-from repro_torch.training.steps import lm_loss_fn, value_and_grad
+from repro_torch.sharding import runtime
+from repro_torch.sharding import strategy as S
+from repro_torch.training.steps import lm_loss_fn, mesh_value_and_grad
 from repro_torch.training.train_state import TrainState
 
 
@@ -93,8 +108,23 @@ def actor_logprobs(cfg: ModelConfig, params, sequences):
                                 sequences[:, 1:])
 
 
+def _count(mask, group):
+    """The mask's sum over the global batch (this batch's without a data
+    group), at least 1."""
+    n = mask.sum()
+    if group is not None:
+        n = runtime.all_sum([n], group)[0]
+    return torch.clamp(n, min=1.0)
+
+
 def actor_loss_fn(cfg: ModelConfig, ppo: PPOConfig, params, exp: X.Experience,
-                  ptx_batch=None):
+                  ptx_batch=None, group=None, ptx_group=None):
+    """The actor loss and metrics.  With a data ``group`` the experience is
+    this rank's rows of a batch sharded over it, and the loss and metrics
+    are this rank's parts of the global batch's (they sum over the group
+    to them); ``ptx_group`` is the mixture batch's group (``None``:
+    replicated, whose term every rank then carries a ``1 / dp`` share
+    of)."""
     logp = actor_logprobs(cfg, params, exp.sequences)
     ratio = torch.exp(logp - exp.logprobs)
     if ppo.is_clip is not None:
@@ -102,25 +132,32 @@ def actor_loss_fn(cfg: ModelConfig, ppo: PPOConfig, params, exp: X.Experience,
     a = exp.advantages
     l1 = -a * ratio
     l2 = -a * torch.clamp(ratio, 1 - ppo.clip_eps, 1 + ppo.clip_eps)
-    n = torch.clamp(exp.mask.sum(), min=1.0)
+    n = _count(exp.mask, group)
     pg_loss = (torch.maximum(l1, l2) * exp.mask).sum() / n
     loss = pg_loss
     metrics = {"pg_loss": pg_loss,
                "ratio_mean": (ratio * exp.mask).sum() / n,
                "approx_kl": ((exp.logprobs - logp) * exp.mask).sum() / n}
     if ptx_batch is not None and ppo.ptx_coef > 0:
-        ptx, _ = lm_loss_fn(cfg, params, ptx_batch)
+        if group is None:
+            ptx, _ = lm_loss_fn(cfg, params, ptx_batch)
+        else:
+            ptx, _ = lm_loss_fn(cfg, params, ptx_batch, count=_count(
+                ptx_batch["mask"].float(), ptx_group))
+            if ptx_group is None:
+                ptx = ptx / group.size()
         loss = loss + ppo.ptx_coef * ptx
         metrics["ptx_loss"] = ptx
     return loss, metrics
 
 
 def critic_loss_fn(cfg: ModelConfig, ppo: PPOConfig, params,
-                   exp: X.Experience):
+                   exp: X.Experience, group=None):
+    """The critic loss and metrics (``group``: as :func:`actor_loss_fn`)."""
     v = R.values(cfg, params, exp.sequences)[:, :-1]
     v_clip = exp.values + torch.clamp(v - exp.values, -ppo.value_clip,
                                       ppo.value_clip)
-    n = torch.clamp(exp.mask.sum(), min=1.0)
+    n = _count(exp.mask, group)
     l = torch.maximum((v - exp.returns) ** 2, (v_clip - exp.returns) ** 2)
     loss = 0.5 * (l * exp.mask).sum() / n
     return loss, {"v_loss": loss,
@@ -129,19 +166,29 @@ def critic_loss_fn(cfg: ModelConfig, ppo: PPOConfig, params,
 
 def actor_step(cfg: ModelConfig, ppo: PPOConfig, state: TrainState,
                exp: X.Experience, ptx_batch=None):
-    """One actor update; the params and moments change in place."""
-    (loss, metrics), grads = value_and_grad(
-        lambda p: actor_loss_fn(cfg, ppo, p, exp, ptx_batch), state.params)
-    state, gnorm = state.apply_gradients(grads, lr=ppo.lr_actor)
+    """One actor update; the params and moments change in place.  A state
+    in a mesh layout takes an experience (and mixture batch) from
+    ``shard_batch``."""
+    ptx_group = (runtime.batch_local(ptx_batch)[1]
+                 if ptx_batch is not None else None)
+    (loss, metrics), grads, group = mesh_value_and_grad(
+        cfg, "actor_step",
+        lambda p, b, g: actor_loss_fn(cfg, ppo, p, b[0], b[1], group=g,
+                                      ptx_group=ptx_group),
+        state, (exp, ptx_batch))
+    state, gnorm = state.apply_gradients(grads, lr=ppo.lr_actor,
+                                         group=group)
     return state, dict(metrics, actor_loss=loss, actor_gnorm=gnorm)
 
 
 def critic_step(cfg: ModelConfig, ppo: PPOConfig, state: TrainState,
                 exp: X.Experience):
     """One critic update; the params and moments change in place."""
-    (loss, metrics), grads = value_and_grad(
-        lambda p: critic_loss_fn(cfg, ppo, p, exp), state.params)
-    state, gnorm = state.apply_gradients(grads, lr=ppo.lr_critic)
+    (loss, metrics), grads, group = mesh_value_and_grad(
+        cfg, "critic_step",
+        lambda p, b, g: critic_loss_fn(cfg, ppo, p, b, group=g), state, exp)
+    state, gnorm = state.apply_gradients(grads, lr=ppo.lr_critic,
+                                         group=group)
     return state, dict(metrics, critic_gnorm=gnorm)
 
 
@@ -149,12 +196,14 @@ def critic_step(cfg: ModelConfig, ppo: PPOConfig, state: TrainState,
 def make_experience(actor_cfg: ModelConfig, critic_cfg: ModelConfig,
                     ppo: PPOConfig, actor_params, ref_params, critic_params,
                     reward_params, sequences, response_mask,
-                    attn_mask=None):
+                    attn_mask=None, group=None):
     """Score a generated batch: logprobs, ref logprobs, values, rewards,
     GAE.  Returns ``(Experience, score)``.  ``attn_mask`` marks the real
     (prompt + generated) tokens of each row so the reward model scores the
     last real token; ``None`` means the batch has no padding tail (the
-    fixed-shape path)."""
+    fixed-shape path).  With a data ``group`` the rows are this rank's
+    part of a batch sharded over it (the advantages are whitened over the
+    global batch)."""
     logp = actor_logprobs(actor_cfg, actor_params, sequences)
     ref_logp = actor_logprobs(actor_cfg, ref_params, sequences)
     values = R.values(critic_cfg, critic_params, sequences)[:, :-1]
@@ -166,7 +215,8 @@ def make_experience(actor_cfg: ModelConfig, critic_cfg: ModelConfig,
     rewards = X.kl_rewards(logp, ref_logp, mask, score,
                            kl_coef=ppo.kl_coef,
                            clip_reward=ppo.clip_reward)
-    adv, ret = X.gae(rewards, values, mask, gamma=ppo.gamma, lam=ppo.lam)
+    adv, ret = X.gae(rewards, values, mask, gamma=ppo.gamma, lam=ppo.lam,
+                     group=group)
     return X.Experience(sequences=sequences, logprobs=logp,
                         ref_logprobs=ref_logp, values=values,
                         rewards=rewards, advantages=adv, returns=ret,
@@ -200,21 +250,22 @@ def _shares_storage(a, b) -> bool:
 # Trainer
 # ===================================================================== #
 class PPOTrainer:
-    """Single-device PPO over four models.  ``actor_params`` and
-    ``critic_params`` become the trainer's train states and are updated in
-    place; ``ref_params`` and ``reward_params`` stay frozen and must not
-    share storage with them.  Generation and training run on the device
-    of ``actor_params``."""
+    """PPO over four models.  ``actor_params`` and ``critic_params`` become
+    the trainer's train states and are updated in place; ``ref_params``
+    and ``reward_params`` stay frozen and must not share storage with
+    them.  Generation and training run on the device of ``actor_params``.
+    ``engine`` (a :class:`~repro_torch.core.hybrid_engine.HybridEngine`)
+    adds the phase reshard and, on a mesh of more than one rank, the
+    data-parallel layouts (see the module's docstring)."""
 
     def __init__(self, *, actor_cfg: ModelConfig, critic_cfg: ModelConfig,
                  actor_params, critic_params, ref_params, reward_params,
                  ppo: PPOConfig, engine=None, rollout_mesh=None):
-        if engine is not None:
-            raise NotImplementedError("PPOTrainer(engine=HybridEngine): "
-                                      "not yet ported")
         if rollout_mesh is not None:
             raise NotImplementedError("PPOTrainer(rollout_mesh=): "
                                       "not yet ported")
+        if engine is not None:
+            runtime.check_compute_mesh(engine.mesh, "PPOTrainer(engine=)")
         if _shares_storage(actor_params, ref_params):
             raise ValueError("ref_params share storage with actor_params: "
                              "the actor's in-place updates would move the "
@@ -224,23 +275,56 @@ class PPOTrainer:
                              "critic_params: the critic's in-place updates "
                              "would move the reward model; pass a clone")
         self.actor_cfg, self.critic_cfg, self.ppo = actor_cfg, critic_cfg, ppo
-        self.actor = TrainState.create(actor_params)
-        self.critic = TrainState.create(critic_params)
-        self.ref_params = ref_params
-        self.reward_params = reward_params
         self.device = tree_leaves(actor_params)[0].device
+        self.engine = engine
+        self.mesh = engine.mesh if engine is not None else None
+        self._multi = (self.mesh is not None
+                       and runtime.mesh_size(self.mesh) > 1)
+        if self._multi:
+            # training layout: `train_strategy` params, ZeRO-`zero` fp32
+            # moments born sharded; the frozen scoring models in the `tp`
+            # layout (only ever read); the critic / reward trees resolve
+            # from reward.param_specs (value head)
+            crit_specs = R.param_specs(critic_cfg)
+            self.actor = TrainState.create(
+                actor_params, shardings=engine.train_state_shardings(
+                    actor_cfg))
+            self.critic = TrainState.create(
+                critic_params, shardings=engine.train_state_shardings(
+                    critic_cfg, specs=crit_specs))
+            self.ref_params = runtime.place_tree(
+                ref_params, S.param_shardings(actor_cfg, self.mesh, "tp"))
+            self.reward_params = runtime.place_tree(
+                reward_params, S.shardings_for_tree(crit_specs, self.mesh,
+                                                    "tp"))
+        else:
+            self.actor = TrainState.create(actor_params)
+            self.critic = TrainState.create(critic_params)
+            self.ref_params = ref_params
+            self.reward_params = reward_params
         self.ema = EMA.init(self.actor.params) if ppo.use_ema else None
         # int8-KV experience generation: only the engine's view of the
         # model flips (cache dtypes + scale planes); the actor params it
         # consumes and every training-side forward are unchanged
         gen_cfg = (actor_cfg.replace(kv_quant=True) if ppo.kv_quant
                    else actor_cfg)
-        self.gen_engine = GenerationEngine(
-            gen_cfg, max_new_tokens=ppo.max_new_tokens,
-            temperature=ppo.temperature, top_k=ppo.top_k, top_p=ppo.top_p,
-            eos_id=ppo.eos_id, chunk=ppo.decode_chunk,
-            kv_layout=ppo.kv_layout, block_size=ppo.kv_block_size,
-            prefix_cache=ppo.prefix_cache, device=self.device)
+        gen_opts = dict(
+            max_new_tokens=ppo.max_new_tokens, temperature=ppo.temperature,
+            top_k=ppo.top_k, top_p=ppo.top_p, eos_id=ppo.eos_id,
+            chunk=ppo.decode_chunk, kv_layout=ppo.kv_layout,
+            block_size=ppo.kv_block_size, prefix_cache=ppo.prefix_cache,
+            device=self.device)
+        self.gen_engine = (engine.generation_engine(cfg=gen_cfg, **gen_opts)
+                           if engine is not None
+                           else GenerationEngine(gen_cfg, **gen_opts))
+
+    def _shard_batch(self, tree):
+        """A batch tree committed to the data axis (replicated when it does
+        not divide it) on a mesh of more than one rank; the tree itself
+        otherwise."""
+        if not self._multi or tree is None:
+            return tree
+        return S.shard_batch(tree, self.mesh)
 
     # -------------------------------------------------------------- #
     def generate_experience(self, prompts, generator: torch.Generator):
@@ -267,10 +351,15 @@ class PPOTrainer:
         prompts = prompts.to(device=self.device, dtype=torch.long)
         if self.ppo.n_samples_per_prompt > 1:
             # best-of-n: tile each prompt row n times (rows sample
-            # independently, so stochastic copies diverge)
+            # independently, so stochastic copies diverge); the tiled
+            # batch is what a mesh splits
             prompts = prompts.repeat_interleave(
                 self.ppo.n_samples_per_prompt, dim=0)
-        out = self.gen_engine.generate(self.actor.params, prompts, generator)
+        params = self.actor.params
+        if self.engine is not None:        # one reshard per phase
+            params = self.engine.to_inference(params)
+        out = self.gen_engine.generate(params, prompts, generator)
+        del params
         _sync(self.device)
         gen_s = time.perf_counter() - t0
         n_gen = float(out["response_mask"].sum())
@@ -278,6 +367,7 @@ class PPOTrainer:
               "gen_tok_s": n_gen / max(gen_s, 1e-9), "gen_s": gen_s,
               "decode_steps": float(
                   self.gen_engine.last_stats["decode_steps"])}
+        self._add_reshard_metrics(gm)
         return RolloutBatch(sequences=out["sequences"],
                             response_mask=out["response_mask"],
                             attn_mask=None), gm
@@ -292,13 +382,28 @@ class PPOTrainer:
         mask = torch.as_tensor(rollout.response_mask, device=dev)
         attn = (None if rollout.attn_mask is None
                 else torch.as_tensor(rollout.attn_mask, device=dev).float())
+        if not self._multi:
+            exp, score = make_experience(
+                self.actor_cfg, self.critic_cfg, self.ppo, self.actor.params,
+                self.ref_params, self.critic.params, self.reward_params,
+                seqs, mask, attn)
+            sm = {"reward_score": float(score.mean())}   # synchronizes
+            sm["score_ms"] = (time.perf_counter() - t0) * 1e3
+            return exp, sm
+        # this rank's rows, scored with gathered weights
+        batch = self._shard_batch((seqs, mask, attn))
+        (lseqs, lmask, lattn), group = runtime.batch_local(batch)
+        full = runtime.full_tree
         exp, score = make_experience(
-            self.actor_cfg, self.critic_cfg, self.ppo, self.actor.params,
-            self.ref_params, self.critic.params, self.reward_params, seqs,
-            mask, attn)
-        sm = {"reward_score": float(score.mean())}       # synchronizes
+            self.actor_cfg, self.critic_cfg, self.ppo,
+            full(self.actor.params), full(self.ref_params),
+            full(self.critic.params), full(self.reward_params), lseqs,
+            lmask, lattn, group=group)
+        total = (runtime.all_sum([score.sum()], group)[0] if group
+                 is not None else score.sum())
+        sm = {"reward_score": float(total) / seqs.shape[0]}
         sm["score_ms"] = (time.perf_counter() - t0) * 1e3
-        return exp, sm
+        return X.Experience(*runtime.wrap_rows(tuple(exp), batch[0])), sm
 
     def _expand_samples(self, requests):
         """Best-of-n expansion: each request ``n_samples_per_prompt`` times
@@ -325,9 +430,12 @@ class PPOTrainer:
         t0 = time.perf_counter()
         eng = self.gen_engine
         requests = self._expand_samples(requests)
+        params = self.actor.params
+        if self.engine is not None:        # one reshard per phase
+            params = self.engine.to_inference(params)
         outs = {c.uid: c for c in eng.serve(
-            self.actor.params, requests, generator,
-            slots=min(slots, len(requests)))}
+            params, requests, generator, slots=min(slots, len(requests)))}
+        del params
         gen_s = time.perf_counter() - t0
         W = max(len(r.tokens) + eng.resolve(r)[3] for r in requests)
         B = len(requests)
@@ -353,7 +461,17 @@ class PPOTrainer:
         if "prefill_hit_rate" in eng.last_stats:     # paged engine
             gm["prefill_hit_rate"] = float(
                 eng.last_stats["prefill_hit_rate"])
+        self._add_reshard_metrics(gm)
         return exp, gm
+
+    def _add_reshard_metrics(self, gm: dict) -> None:
+        """The measured Hybrid-Engine phase transition (bytes gathered over
+        the mesh, seconds between two device synchronizations)."""
+        if self.engine is None:
+            return
+        rs = self.engine.last_reshard_stats
+        gm["reshard_bytes"] = float(rs.get("gathered_bytes", 0))
+        gm["reshard_s"] = float(rs.get("seconds", 0.0))
 
     # ---------------------- state tree ---------------------------- #
     def state_tree(self):
@@ -362,11 +480,21 @@ class PPOTrainer:
         return {"actor": self.actor, "critic": self.critic, "ema": self.ema}
 
     def state_shardings(self):
-        """Layouts matching :meth:`state_tree`: ``None`` on one device."""
-        return None
+        """Layouts matching :meth:`state_tree`: the training layout on a
+        mesh of more than one rank, ``None`` otherwise."""
+        if not self._multi:
+            return None
+        a_sh = self.engine.train_state_shardings(self.actor_cfg)
+        c_sh = self.engine.train_state_shardings(
+            self.critic_cfg, specs=R.param_specs(self.critic_cfg))
+        return {"actor": a_sh, "critic": c_sh,
+                "ema": a_sh.params if self.ema is not None else None}
 
     def load_state_tree(self, tree):
         """Adopt a state tree (as :meth:`state_tree` returns it)."""
+        if self._multi:
+            raise NotImplementedError("PPOTrainer.load_state_tree on a mesh "
+                                      "(sharded restore): not yet ported")
         self.actor = tree["actor"]
         self.critic = tree["critic"]
         self.ema = tree["ema"]
@@ -376,6 +504,11 @@ class PPOTrainer:
         ``ptx_coef > 0``), one critic step, then the EMA.  Returns the
         metrics as floats, with each step's time (``actor_ms``,
         ``critic_ms``, host clock around a synchronized step)."""
+        if self._multi:
+            if not runtime.is_dtensor(exp.sequences):
+                exp = self._shard_batch(exp)
+            if runtime.batch_local(exp)[1] is not None:
+                ptx_batch = self._shard_batch(ptx_batch)
         t0 = time.perf_counter()
         self.actor, am = actor_step(self.actor_cfg, self.ppo, self.actor,
                                     exp, ptx_batch)

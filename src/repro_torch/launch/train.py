@@ -49,14 +49,31 @@ model; ``--ckpt`` writes the final params (the folded adapters with
 read.  :func:`main` also returns ``state_sha256``, a SHA-256 of the final
 state (params, moments and step counters), by which runs are compared.
 
+``--mesh dp,tp`` trains on a data-parallel mesh, one process per device
+under ``torchrun`` (NCCL on CUDA, gloo with ``--device cpu``)::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch opt-125m --mesh 2,1 --strategy zero3 --zero 1 --steps 5
+
+The batch shards over ``data``, the params follow ``--strategy``
+(``zero3``: ``embed`` dims over ``data``; ``ddp``/``zero1``/``tp``
+replicated at ``model`` = 1) and ``--zero 1`` shards the Adam moments over
+``data``; the state is committed to that layout at creation.  Under
+``--rlhf`` the mesh goes to the Hybrid Engine (stage 3).  Rank 0 prints.
+``tp`` > 1 (tensor-parallel compute), ``--mesh`` with ``--ckpt-dir`` /
+``--resume`` (sharded checkpoints) and the asynchronous RLHF options are
+not ported yet and are refused; ``--mesh`` with ``--lora`` is refused as
+in the reference.
+
 Runs on CUDA; ``--device cpu`` runs on the CPU with the kernels' plain
-versions.  The reference's mesh and asynchronous RLHF options are not
-ported yet and are refused.
+versions.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import io
 import statistics
 import time
 
@@ -69,17 +86,18 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core import lora as LoRA
 from repro_torch.data import CopyTaskDataset, DataBlender, SortTaskDataset
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import init_distributed, mesh_from_spec
 from repro_torch.models import transformer as T
 from repro_torch.models.modules import tree_leaves
+from repro_torch.sharding import runtime
 from repro_torch.training import checkpoint, schedules
 from repro_torch.training.steps import (lm_loss_fn, lm_train_step,
+                                        make_sharded_lm_step,
                                         value_and_grad)
 from repro_torch.training.train_state import TrainState
 
 # the reference's options that belong to later slices: (flag, dest)
-NOT_PORTED = (("--mesh", "mesh"),
-              ("--strategy", "strategy"), ("--zero", "zero"),
-              ("--async-rlhf", "async_rlhf"),
+NOT_PORTED = (("--async-rlhf", "async_rlhf"),
               ("--rollout-mesh", "rollout_mesh"),
               ("--train-mesh", "train_mesh"),
               ("--queue-depth", "queue_depth"),
@@ -117,6 +135,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--keep", type=int, default=3,
                     help="committed checkpoints kept in --ckpt-dir (the "
                          "CheckpointManager's default)")
+    ap.add_argument("--mesh", default=None,
+                    help="dp,tp: train on a data-parallel mesh, one "
+                         "process per device under torchrun (tp must be "
+                         "1)")
+    ap.add_argument("--strategy", default="zero3",
+                    choices=["ddp", "zero1", "zero3", "tp"],
+                    help="param sharding strategy on the mesh")
+    ap.add_argument("--zero", type=int, default=1, choices=[0, 1],
+                    help="ZeRO stage for the Adam moments on the mesh: "
+                         "1 shards them over the data axis")
     ap.add_argument("--rlhf", action="store_true",
                     help="run the 3-stage RLHF pipeline instead of the "
                          "LM loop (--steps/--batch size every stage)")
@@ -201,7 +229,7 @@ def train_lm(cfg, state: TrainState, *, steps: int, batch: int, seq: int,
                    "tokens_per_step": batch * seq}
 
 
-def run_rlhf(args, cfg, device, iter_hook=None) -> dict:
+def run_rlhf(args, cfg, device, iter_hook=None, mesh=None) -> dict:
     """SFT -> RM -> PPO on the synthetic blend (the reference's
     ``run_rlhf`` without meshes or asynchronous stage 3; ``--ckpt-dir``
     makes it durable and resumable).
@@ -214,7 +242,9 @@ def run_rlhf(args, cfg, device, iter_hook=None) -> dict:
     from repro_torch.core import (PPOConfig, RLHFEngine, RLHFPipeline,
                                   StageConfig)
     eng = RLHFEngine(cfg, cfg.replace(name=cfg.name + "-critic"),
-                     torch.Generator(device=device).manual_seed(args.seed))
+                     torch.Generator(device=device).manual_seed(args.seed),
+                     mesh=mesh, train_strategy=args.strategy,
+                     zero=args.zero)
     mgr = (checkpoint.CheckpointManager(args.ckpt_dir, keep=args.keep)
            if args.ckpt_dir else None)
     pipe = RLHFPipeline(
@@ -238,9 +268,10 @@ def run_rlhf(args, cfg, device, iter_hook=None) -> dict:
     tr = pipe.trainer
     return dict(out, stage3=pipe.log["stage3"], step_ms=pipe.step_ms,
                 gen_tok_s=pipe.gen_tok_s,
-                state_sha256={k: checkpoint.tree_sha256(v) for k, v in (
-                    ("actor", tr.actor), ("critic", tr.critic),
-                    ("ema", tr.ema))},
+                state_sha256={k: checkpoint.tree_sha256(
+                    runtime.full_tree(v)) for k, v in (
+                        ("actor", tr.actor), ("critic", tr.critic),
+                        ("ema", tr.ema))},
                 ckpt_stats=mgr.stats if mgr is not None else None)
 
 
@@ -261,6 +292,34 @@ def main(argv=None, iter_hook=None, cfg=None) -> dict:
     card cannot hold whole)."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.mesh is None:
+        return _main(ap, args, iter_hook, cfg)
+    if args.lora:
+        ap.error("--mesh with --lora is not supported")
+    if args.ckpt_dir or args.resume:
+        raise NotImplementedError("--mesh with --ckpt-dir / --resume "
+                                  "(sharded checkpoints): not yet ported")
+    import torch.distributed as dist
+    if args.device == "cuda" and not torch.cuda.is_available():
+        ap.error("CUDA is not available; pass --device cpu to run on the "
+                 "CPU with the kernels' plain versions")
+    owned = not dist.is_initialized()
+    device = init_distributed(args.device)
+    try:
+        mesh = mesh_from_spec(args.mesh)
+        runtime.check_compute_mesh(mesh, "--mesh")
+        quiet = dist.get_rank() != 0
+        with contextlib.redirect_stdout(io.StringIO()) if quiet \
+                else contextlib.nullcontext():
+            print(f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+                  f"strategy={args.strategy} zero={args.zero}")
+            return _main(ap, args, iter_hook, cfg, mesh=mesh, device=device)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _main(ap, args, iter_hook, cfg, mesh=None, device=None) -> dict:
     for flag, dest in NOT_PORTED:
         if getattr(args, dest) not in (None, False):
             ap.error(f"{flag}: not yet ported")
@@ -278,10 +337,11 @@ def main(argv=None, iter_hook=None, cfg=None) -> dict:
         args.max_new = 16
     if args.micro < 1 or args.batch % args.micro:
         ap.error("--batch must be a multiple of --micro")
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        ap.error(str(e))
+    if device is None:
+        try:
+            device = resolve_device(args.device)
+        except RuntimeError as e:
+            ap.error(str(e))
 
     if cfg is None:
         cfg = get_config(args.arch)
@@ -294,7 +354,7 @@ def main(argv=None, iter_hook=None, cfg=None) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     if args.rlhf:
         before = ops.launch_counts()
-        summary = run_rlhf(args, cfg, device, iter_hook)
+        summary = run_rlhf(args, cfg, device, iter_hook, mesh=mesh)
         after = ops.launch_counts()
         return dict(summary, arch=cfg.name, device=str(device),
                     launches={k: after[k] - before[k] for k in after},
@@ -310,6 +370,11 @@ def main(argv=None, iter_hook=None, cfg=None) -> dict:
         print(f"LoRA rank={args.lora}: training {n_adapter / 1e6:.2f}M "
               f"adapter params")
         step_fn = functools.partial(lora_train_step, cfg, params)
+    elif mesh is not None:
+        step, shardings, shard_batch = make_sharded_lm_step(
+            cfg, mesh, args.strategy, zero=args.zero, micro=args.micro)
+        state, params = TrainState.create(params, shardings=shardings), None
+        step_fn = lambda s, b, lr: step(s, shard_batch(b), lr)
     else:
         state, params = TrainState.create(params), None
 
@@ -340,20 +405,27 @@ def main(argv=None, iter_hook=None, cfg=None) -> dict:
     export_s = None
     if args.ckpt:
         t0 = time.perf_counter()
-        tree = (state.params if not args.lora
+        tree = (runtime.full_tree(state.params) if not args.lora
                 else LoRA.fold(params, state.params))
-        checkpoint.save(args.ckpt, tree,
-                        metadata={"arch": cfg.name, "steps": args.steps})
+        if _rank() == 0:
+            checkpoint.save(args.ckpt, tree,
+                            metadata={"arch": cfg.name, "steps": args.steps})
         export_s = time.perf_counter() - t0
         print("saved", args.ckpt)
     return dict(summary, arch=cfg.name, device=str(device),
                 peak_mem_bytes=peak, state=state,
                 params=params if args.lora else state.params,
                 start=start, adapter_params=n_adapter,
-                state_sha256=checkpoint.tree_sha256(state),
+                state_sha256=checkpoint.tree_sha256(
+                    runtime.full_tree(state)),
                 ckpt_stats=mgr.stats if mgr is not None else None,
                 restore=mgr.last_restore if mgr is not None else None,
                 export_s=export_s)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 if __name__ == "__main__":

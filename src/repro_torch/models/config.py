@@ -94,6 +94,13 @@ class ModelConfig:
     encoder_len: int = 0               # number of patch/frame tokens
     embed_inputs: bool = True          # False -> inputs are embeddings
 
+    # --- distribution ---
+    # the reference's activation-sharding fields, kept for parity of the
+    # config's fields only: the port never reads them (compute runs on each
+    # rank's local rows with gathered weights).
+    batch_axes: Tuple[str, ...] = ()
+    tp_axis: str = ""
+
     # --- numerics / misc ---
     kv_quant: bool = False             # int8 KV cache + fp32 row scales
     tie_embeddings: bool = False

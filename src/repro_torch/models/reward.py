@@ -45,10 +45,16 @@ def end_scores(cfg: ModelConfig, params, tokens, attn_mask):
 
 
 def pairwise_loss(cfg: ModelConfig, params, chosen, rejected, chosen_mask,
-                  rejected_mask):
-    """DeepSpeed-Chat reward loss: -log sigmoid(r_chosen - r_rejected)."""
+                  rejected_mask, group=None):
+    """DeepSpeed-Chat reward loss: -log sigmoid(r_chosen - r_rejected).
+    With a data ``group`` the pairs are this rank's rows of a batch sharded
+    over it: the loss and accuracy are this rank's parts of the global
+    batch's means (they sum over the group to them)."""
     rc = end_scores(cfg, params, chosen, chosen_mask)
     rr = end_scores(cfg, params, rejected, rejected_mask)
-    loss = -F.logsigmoid(rc - rr).mean()
-    acc = (rc > rr).float().mean()
-    return loss, acc
+    if group is None:
+        loss = -F.logsigmoid(rc - rr).mean()
+        acc = (rc > rr).float().mean()
+        return loss, acc
+    n = rc.shape[0] * group.size()
+    return -F.logsigmoid(rc - rr).sum() / n, (rc > rr).float().sum() / n

@@ -278,10 +278,12 @@ def _nll_chunk(h, head, labels, mask):
     return ((lse - gold) * mask).sum(), mask.sum()
 
 
-def lm_loss(cfg: ModelConfig, params, hidden, labels, mask):
+def lm_loss(cfg: ModelConfig, params, hidden, labels, mask, count=None):
     """Chunked cross-entropy over ``cfg.logit_chunk`` positions at a time;
     each chunk is checkpointed, so its (B, chunk, V) fp32 logits are
-    recomputed in the backward and never kept (vocabs reach 202k)."""
+    recomputed in the backward and never kept (vocabs reach 202k).
+    ``count``, when given, divides the masked sum in place of the mask's
+    own sum (a data-parallel rank divides by the global batch's)."""
     head = lm_head(cfg, params)
     labels = labels.long()
     mask = mask.float()
@@ -293,7 +295,7 @@ def lm_loss(cfg: ModelConfig, params, hidden, labels, mask):
         nll, m = (checkpoint(_nll_chunk, *args, use_reentrant=False)
                   if remat else _nll_chunk(*args))
         tot, cnt = tot + nll, cnt + m
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot / torch.clamp(cnt if count is None else count, min=1.0)
 
 
 def per_token_logprobs(cfg: ModelConfig, params, hidden, labels):

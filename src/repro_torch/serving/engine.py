@@ -53,8 +53,19 @@ backends behind the same scheduling loop, in the compute dtype or, with
 
 Where the reference donates the cache to each jitted call and rebinds the
 result, the port updates it in place: decode writes one row per slot per
-step (into the arena row, or into the block its table names).  Meshes are
-not ported yet and raise ``NotImplementedError``.
+step (into the arena row, or into the block its table names).
+
+On a data-parallel mesh (``mesh=``, a ``("data", "model")`` ``DeviceMesh``
+whose ``model`` axis is 1; the Hybrid Engine hands it over when the mesh
+has more than one rank) every rank holds the full weights (params in any
+layout are gathered first).  :meth:`GenerationEngine.generate` decodes the
+rank's rows of the batch, drawing the noise the whole batch would, and
+returns the global batch's ``sequences`` and ``response_mask`` on every
+rank; :meth:`GenerationEngine.serve` serves the rank's share of the
+requests on its own KV pool and returns every rank's completions.  A batch
+or a request list that does not divide the ``data`` axis is decoded whole
+on every rank.  The stepwise :meth:`GenerationEngine.core` on a mesh of
+more than one rank is not yet ported.
 
 Ragged prefill correctness: prompts are right-padded to a shape bucket and
 prefilled with causal attention, so real tokens never attend padding.  The
@@ -95,6 +106,7 @@ from repro_torch.serving.block_pool import (TRASH_BLOCK, BlockAllocator,
 from repro_torch.serving.generate import (decode_scan_step, decode_step,
                                           prefill)
 from repro_torch.serving.sampling import sample_rows
+from repro_torch.sharding import runtime
 
 
 class _Unset:
@@ -257,8 +269,6 @@ class GenerationEngine:
             raise ValueError(f"kv_layout={kv_layout!r}")
         if prefix_cache and kv_layout != "paged":
             raise ValueError("prefix_cache requires kv_layout='paged'")
-        if mesh is not None:
-            raise NotImplementedError("device meshes: not yet ported")
         T.cache_struct(cfg, 1, 1)            # raises for unported archs
         self.kv_layout = kv_layout
         self.block_size = max(1, int(block_size))
@@ -276,6 +286,7 @@ class GenerationEngine:
                     "decoder LMs (no MLA / VLM)")
             T.paged_cache_struct(cfg, 2, self.block_size)
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
@@ -292,11 +303,37 @@ class GenerationEngine:
         """Same ``sequences`` / ``response_mask`` contract and tokens as
         :func:`repro_torch.serving.generate.generate`, but decode stops once
         every sequence has emitted EOS.  ``self.last_stats`` records how
-        many decode steps actually ran.  Draws advance ``generator``."""
-        cfg = self.cfg
+        many decode steps actually ran (on a mesh, the most any rank ran).
+        Draws advance ``generator``."""
+        params = runtime.full_tree(params)
         if not isinstance(tokens, torch.Tensor):
             tokens = torch.as_tensor(np.asarray(tokens))
         tokens = tokens.to(device=self.device, dtype=torch.long)
+        if self.mesh is None:
+            return self._generate(params, tokens, generator)
+        runtime.check_compute_mesh(self.mesh, "GenerationEngine.generate")
+        B = tokens.shape[0]
+        rows = runtime.rows_of(B, self.mesh)
+        if rows is None:            # every rank decodes the whole batch
+            return self._generate(params, tokens, generator)
+        r0, r1 = rows
+        out = self._generate(params, tokens[r0:r1], generator,
+                             noise_rows=(r0, B))
+        group = runtime.data_group(self.mesh)
+        seqs = runtime.gather_rows(out["sequences"], group)
+        mask = runtime.gather_rows(
+            out["response_mask"].to(torch.uint8), group).bool()
+        steps = int(runtime.all_max(self.last_stats["decode_steps"], group))
+        self.last_stats = {"decode_steps": steps,
+                           "scheduled_tokens": B * steps,
+                           "generated_tokens": int(mask.sum())}
+        return {"sequences": seqs, "response_mask": mask}
+
+    def _generate(self, params, tokens, generator: torch.Generator,
+                  noise_rows=None):
+        """:meth:`generate` on one device (``noise_rows``: see
+        :func:`~repro_torch.serving.sampling.sample`)."""
+        cfg = self.cfg
         B, Lp = tokens.shape
         max_new = self.max_new_tokens
         if max_new == 0:
@@ -310,7 +347,7 @@ class GenerationEngine:
         logits, cache = prefill(cfg, params, tokens, cache)
         step = decode_scan_step(cfg, params, temperature=self.temperature,
                                 top_k=self.top_k, top_p=self.top_p,
-                                eos_id=self.eos_id)
+                                eos_id=self.eos_id, noise_rows=noise_rows)
         carry = (logits, cache, generator,
                  torch.full((B,), Lp, dtype=torch.long, device=self.device),
                  torch.zeros((B,), dtype=torch.bool, device=self.device))
@@ -418,7 +455,17 @@ class GenerationEngine:
              max_seq_len: int, num_blocks: Optional[int] = None,
              watermark: Optional[int] = None) -> "EngineCore":
         """Build a stepwise :class:`EngineCore` bound to ``params``."""
-        return EngineCore(self, params, generator, slots=slots,
+        if self.mesh is not None and runtime.mesh_size(self.mesh) > 1:
+            raise NotImplementedError("GenerationEngine.core() on a mesh of "
+                                      "more than one rank: not yet ported")
+        return self._core(params, generator, slots=slots,
+                          max_seq_len=max_seq_len, num_blocks=num_blocks,
+                          watermark=watermark)
+
+    def _core(self, params, generator, *, slots, max_seq_len, num_blocks,
+              watermark) -> "EngineCore":
+        return EngineCore(self, runtime.full_tree(params), generator,
+                          slots=slots,
                           max_seq_len=max_seq_len, num_blocks=num_blocks,
                           watermark=watermark)
 
@@ -441,13 +488,36 @@ class GenerationEngine:
         if self.kv_layout != "paged" and (num_blocks is not None
                                           or watermark is not None):
             raise ValueError("num_blocks/watermark require kv_layout='paged'")
+        requests = list(requests)
+        rows = None
+        if self.mesh is not None:
+            runtime.check_compute_mesh(self.mesh, "GenerationEngine.serve")
+            rows = runtime.rows_of(len(requests), self.mesh)
+        if rows is None:
+            return self._serve(params, requests, generator, slots=slots,
+                               max_seq_len=max_seq_len,
+                               num_blocks=num_blocks, watermark=watermark)
+        # this rank's share of the queue on its own pool, then every
+        # rank's completions (in rank order)
+        group = runtime.data_group(self.mesh)
+        mine = self._serve(params, requests[rows[0]:rows[1]], generator,
+                           slots=slots, max_seq_len=max_seq_len,
+                           num_blocks=num_blocks, watermark=watermark)
+        import torch.distributed as dist
+        got = [None] * group.size()
+        dist.all_gather_object(got, (mine, self.last_stats), group=group)
+        self.last_stats = _merge_stats([st for _, st in got])
+        return [c for part, _ in got for c in part]
+
+    def _serve(self, params, requests, generator, *, slots, max_seq_len,
+               num_blocks, watermark) -> List[Completion]:
         need = max((len(r.tokens) + self.resolve(r)[3] for r in requests),
                    default=1)
         S = max_seq_len or need
         if need > S:
             raise ValueError(f"max_seq_len={S} < longest request ({need})")
-        core = self.core(params, generator, slots=slots, max_seq_len=S,
-                         num_blocks=num_blocks, watermark=watermark)
+        core = self._core(params, generator, slots=slots, max_seq_len=S,
+                          num_blocks=num_blocks, watermark=watermark)
         prompts: Dict[int, np.ndarray] = {}
         for r in requests:
             core.add_request(r)
@@ -468,6 +538,27 @@ class GenerationEngine:
                         finish_reason=ev.finish_reason))
         self.last_stats = core.stats()
         return out
+
+
+# the scheduler counters that add up over the ranks of a mesh
+_SUMMED = ("requests", "admitted", "scheduled_tokens", "generated_tokens",
+           "preemptions", "cached_prefill_tokens", "computed_prefill_tokens")
+
+
+def _merge_stats(parts: List[dict]) -> dict:
+    """The ranks' ``last_stats`` as one: counters summed, ``decode_steps``
+    the most any rank ran, the prefix hit rate over the summed tokens;
+    other entries are rank 0's."""
+    out = dict(parts[0])
+    for k in _SUMMED:
+        if k in out:
+            out[k] = sum(p[k] for p in parts)
+    out["decode_steps"] = max(p["decode_steps"] for p in parts)
+    if "prefill_hit_rate" in out:
+        tot = out["cached_prefill_tokens"] + out["computed_prefill_tokens"]
+        out["prefill_hit_rate"] = (out["cached_prefill_tokens"] / tot
+                                   if tot else 0.0)
+    return out
 
 
 # ===================================================================== #

@@ -46,7 +46,8 @@ def decode_step(cfg: ModelConfig, params, token, cache, position, *,
 
 
 def decode_scan_step(cfg: ModelConfig, params, *, temperature: float,
-                     top_k: int, eos_id: Optional[int], top_p: float = 1.0):
+                     top_k: int, eos_id: Optional[int], top_p: float = 1.0,
+                     noise_rows=None):
     """The per-step body shared by :func:`generate` and the chunked engine
     decode.
 
@@ -54,12 +55,13 @@ def decode_scan_step(cfg: ModelConfig, params, *, temperature: float,
     is ``(tok, was_done)`` where ``was_done`` is the *pre-step* done flag:
     the step that emits the first EOS still records ``was_done=False``
     (the EOS token itself counts as generated), every later step forces
-    ``eos_id`` out of the sampler with ``was_done=True``.
+    ``eos_id`` out of the sampler with ``was_done=True``.  ``noise_rows``
+    goes to :func:`~repro_torch.serving.sampling.sample`.
     """
     def step(carry):
         logits, cache, gen, pos, done = carry
         tok = sample(logits, gen, temperature=temperature, top_k=top_k,
-                     top_p=top_p)
+                     top_p=top_p, noise_rows=noise_rows)
         if eos_id is not None:
             tok = torch.where(done, eos_id, tok)
         logits, cache = decode_step(cfg, params, tok, cache, pos)

@@ -45,10 +45,12 @@ def _gumbel(shape, generator, device):
 
 
 def sample(logits, generator: torch.Generator, *, temperature: float = 1.0,
-           top_k: int = 0, top_p: float = 1.0):
+           top_k: int = 0, top_p: float = 1.0, noise_rows=None):
     """logits: (B, V) -> (B,) int64.  Static (whole-batch) parameters;
     ``temperature <= 0`` is greedy, ``top_k == 0`` / ``top_p == 1.0``
-    disable the respective filter."""
+    disable the respective filter.  ``noise_rows = (r0, n)`` draws the
+    noise of an ``n``-row batch and keeps rows ``r0 .. r0 + B`` (a
+    data-parallel rank's rows draw what the whole batch would)."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
     logits = logits / temperature
@@ -57,8 +59,13 @@ def sample(logits, generator: torch.Generator, *, temperature: float = 1.0,
         logits = torch.where(logits < kth, NEG_INF, logits)
     if top_p < 1.0:
         logits = _top_p_mask(logits, top_p)
-    return torch.argmax(logits + _gumbel(logits.shape, generator,
-                                         logits.device), dim=-1)
+    if noise_rows is None:
+        noise = _gumbel(logits.shape, generator, logits.device)
+    else:
+        r0, n = noise_rows
+        noise = _gumbel((n,) + tuple(logits.shape[1:]), generator,
+                        logits.device)[r0:r0 + logits.shape[0]]
+    return torch.argmax(logits + noise, dim=-1)
 
 
 def filter_rows(logits, *, temperature, top_k, top_p):

@@ -1,0 +1,275 @@
+"""Sharding strategies: logical param axes -> mesh axes (counterpart of
+``repro/sharding/strategy.py``).
+
+The paper's parallelism vocabulary:
+
+- ``ddp``   — pure data parallelism: params replicated, grads all-reduced.
+- ``zero1`` — params replicated, *optimizer state* sharded over data
+              (ZeRO stage 1).
+- ``zero3`` — params + optimizer state sharded over the data axis on the
+              ``embed`` dimension, composed with tensor parallelism over
+              ``model`` (ZeRO stage 3 + TP).  The training layout.
+- ``tp``    — tensor parallelism only, params replicated across data: the
+              Hybrid Engine's *generation* layout.
+
+Resolution is shape-aware, as in the reference: an axis is sharded only if
+its size divides the mesh-axis product and the mesh axis is not already
+used by that tensor; otherwise it degrades to replication.
+
+A pspec is a tuple with one entry per dim: ``None``, a mesh-axis name, or
+a tuple of names (the reference's ``PartitionSpec`` as a plain tuple).  A
+mesh is anything with ``.shape`` (a dict of axis sizes, in order) and
+``.axis_names``, or a ``torch.distributed.device_mesh.DeviceMesh`` with
+``mesh_dim_names``.  :func:`placements` turns a pspec into the
+``DTensor`` placements of a ``DeviceMesh``; :class:`Sharding` (a mesh and
+its placements) is the counterpart of ``NamedSharding``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.modules import ParamSpec, tree_leaves, tree_map
+
+STRATEGIES = ("ddp", "zero1", "zero3", "tp")
+
+# logical axes that carry tensor-parallel shards
+_TP_AXES = ("heads", "kv_heads", "mlp", "experts", "vocab")
+
+
+def mesh_axes(mesh) -> dict:
+    """``{axis name: size}`` of ``mesh``, in the mesh's order."""
+    if isinstance(mesh.shape, dict):
+        return dict(mesh.shape)
+    names = getattr(mesh, "mesh_dim_names", None) or mesh.axis_names
+    return dict(zip(names, tuple(mesh.shape)))
+
+
+def data_axes(mesh):
+    return tuple(a for a in ("pod", "data") if a in mesh_axes(mesh))
+
+
+def rules_for(strategy: str, mesh) -> dict:
+    """logical axis -> mesh axis (or tuple) for parameter tensors."""
+    dp = data_axes(mesh)
+    tp = {a: "model" for a in _TP_AXES}
+    if strategy in ("ddp", "zero1"):
+        return {}
+    if strategy == "tp":
+        # inference layout: TP over `model`, plus expert parallelism over
+        # `data`
+        return {**tp, "experts": "data"}
+    if strategy == "zero3":
+        return {**tp, "embed": dp}
+    raise ValueError(strategy)
+
+
+def opt_rules_for(strategy: str, mesh) -> dict:
+    """Optimizer-state sharding; ZeRO-1 shards state even when params are
+    replicated."""
+    if strategy in ("zero1", "zero3"):
+        return rules_for("zero3", mesh)
+    if strategy == "tp":
+        return rules_for("tp", mesh)
+    return {}
+
+
+def zero1_opt_rules(strategy: str, mesh) -> dict:
+    """ZeRO-1 composed with any *param* strategy: the moments take the
+    param layout plus their ``embed`` dimension over the data axes."""
+    dp = data_axes(mesh)
+    rules = dict(rules_for(strategy, mesh))
+    if dp:
+        rules.setdefault("embed", dp[0] if len(dp) == 1 else dp)
+    return rules
+
+
+def _mesh_size(mesh, axes) -> int:
+    shape = mesh_axes(mesh)
+    return math.prod(shape[a] for a in axes) if axes else 1
+
+
+def spec_to_pspec(spec: ParamSpec, rules: dict, mesh) -> tuple:
+    used = set()
+    entries = []
+    for dim, ax in zip(spec.shape, spec.axes):
+        cand = rules.get(ax)
+        if cand is None or ax is None or ax == "layers":
+            entries.append(None)
+            continue
+        cand_t = (cand,) if isinstance(cand, str) else tuple(cand)
+        cand_t = tuple(a for a in cand_t if a not in used)
+        if cand_t and dim % _mesh_size(mesh, cand_t) == 0:
+            entries.append(cand_t[0] if len(cand_t) == 1 else cand_t)
+            used.update(cand_t)
+        else:
+            entries.append(None)
+    return tuple(entries)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def _resolve(specs, rules: dict, mesh):
+    return tree_map(lambda s: spec_to_pspec(s, rules, mesh), specs,
+                    is_leaf=_is_spec)
+
+
+def param_pspecs(cfg: ModelConfig, mesh, strategy: str):
+    return _resolve(T.param_specs(cfg), rules_for(strategy, mesh), mesh)
+
+
+def pspecs_for_tree(specs, mesh, strategy: str, *, opt=False):
+    rules = (opt_rules_for if opt else rules_for)(strategy, mesh)
+    return _resolve(specs, rules, mesh)
+
+
+def train_state_pspecs(cfg: ModelConfig, mesh, strategy: str, *,
+                       zero: int = 0, specs=None):
+    """Pspecs of a :class:`~repro_torch.training.train_state.TrainState`
+    (params, Adam moments, step counters) under ``strategy`` params.
+    ``zero=1`` shards the fp32 moments over the data axes as well; the
+    ``zero1`` / ``zero3`` strategies always do.  ``specs`` overrides the
+    param-spec tree (``reward.param_specs`` for the critic)."""
+    from repro_torch.training.optimizer import AdamState
+    from repro_torch.training.train_state import TrainState
+    specs = T.param_specs(cfg) if specs is None else specs
+    if strategy in ("zero1", "zero3"):
+        zero = 1
+    prules = rules_for(strategy, mesh)
+    orules = zero1_opt_rules(strategy, mesh) if zero else prules
+    opt_ps = _resolve(specs, orules, mesh)
+    return TrainState(params=_resolve(specs, prules, mesh),
+                      opt=AdamState(m=opt_ps, v=opt_ps, step=()), step=())
+
+
+def batch_pspec(mesh, batch: int, ndim: int = 2) -> tuple:
+    """Shard the leading (batch) axis over the data axes if divisible."""
+    dp = data_axes(mesh)
+    if dp and batch % _mesh_size(mesh, dp) == 0:
+        lead = dp[0] if len(dp) == 1 else dp
+    elif "data" in dp and batch % mesh_axes(mesh)["data"] == 0:
+        lead = "data"
+    else:
+        lead = None
+    return (lead,) + (None,) * (ndim - 1)
+
+
+def cache_pspecs(cache_struct_tree, mesh, batch: int):
+    """Pspecs of the KV / SSM cache tree (leading axis = stacked units;
+    leaves as :func:`repro_torch.models.transformer.cache_struct` gives
+    them, ``(shape, dtype)``).  Batch shards over data; the KV length axis
+    over ``model``; SSM states shard heads over ``model``."""
+    dp = data_axes(mesh)
+    model = mesh_axes(mesh)["model"]
+    bshard = (dp[0] if len(dp) == 1 else dp) if (
+        dp and batch % _mesh_size(mesh, dp) == 0) else None
+
+    def leaf(key, shape):
+        if key in ("k_scale", "v_scale"):          # (u, B, S, KV)
+            s_ok = shape[2] % model == 0
+            return (None, bshard, "model" if s_ok else None, None)
+        if key in ("k", "v", "ckv", "krope"):
+            s_ok = shape[2] % model == 0
+            return (None, bshard, "model" if s_ok else None) + (
+                (None,) * (len(shape) - 3))
+        if key == "conv":
+            c_ok = shape[3] % model == 0
+            return (None, bshard, None, "model" if c_ok else None)
+        if key == "state":
+            h_ok = shape[2] % model == 0
+            return (None, bshard, "model" if h_ok else None, None, None)
+        if key in ("xk", "xv"):
+            return (None, bshard, None, None, None)
+        raise KeyError(key)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: leaf(k, v[0]) for k, v in t.items()}
+        return type(t)(walk(x) for x in t)
+    return walk(cache_struct_tree)
+
+
+# ===================================================================== #
+# placements on a DeviceMesh
+# ===================================================================== #
+def placements(pspec: tuple, mesh) -> tuple:
+    """The ``DTensor`` placements of ``pspec`` on ``mesh``: ``Shard(d)`` on
+    the mesh dim named in entry ``d``, ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for ax in mesh_axes(mesh):
+        dims = [d for d, e in enumerate(pspec)
+                if e == ax or (isinstance(e, tuple) and ax in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A mesh and the placements of one tensor on it (the counterpart of
+    ``NamedSharding``); ``spec`` is the pspec they came from."""
+    mesh: Any
+    placements: tuple
+    spec: tuple
+
+
+def is_pspec(x) -> bool:
+    """Whether ``x`` is a pspec (a leaf of a pspec tree), not a tuple of
+    subtrees."""
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        e is None or isinstance(e, str) or (
+            isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x)
+
+
+def shardings_of(pspec_tree, mesh):
+    """A tree of :class:`Sharding` for a tree of pspecs."""
+    return tree_map(lambda ps: Sharding(mesh, placements(ps, mesh), ps),
+                    pspec_tree, is_leaf=is_pspec)
+
+
+def param_shardings(cfg: ModelConfig, mesh, strategy: str):
+    return shardings_of(param_pspecs(cfg, mesh, strategy), mesh)
+
+
+def shardings_for_tree(specs, mesh, strategy: str, *, opt=False):
+    """Shardings for any ParamSpec tree (reward / critic models)."""
+    return shardings_of(pspecs_for_tree(specs, mesh, strategy, opt=opt),
+                        mesh)
+
+
+def train_state_shardings(cfg: ModelConfig, mesh, strategy: str, *,
+                          zero: int = 0, specs=None):
+    return shardings_of(train_state_pspecs(cfg, mesh, strategy, zero=zero,
+                                           specs=specs), mesh)
+
+
+def cross_mesh_put(tree, shardings):
+    """Placement onto another device set (the disaggregated weight push):
+    belongs to the disaggregated meshes, not yet ported."""
+    if shardings is None:
+        return tree
+    raise NotImplementedError("cross_mesh_put (disaggregated meshes): "
+                              "not yet ported")
+
+
+def shard_batch(tree, mesh):
+    """Commit a batch tree's leading dim to the data axes (replicated when
+    the batch does not divide them): each leaf becomes a ``DTensor`` whose
+    local tensor is this rank's rows, sliced locally (every rank holds the
+    whole batch; nothing is communicated).  The one copy of the placement
+    rule: the PPO trainer and the sharded LM step both call it."""
+    from repro_torch.sharding import runtime
+    leaves = [x for x in tree_leaves(tree) if x is not None]
+    if not leaves:
+        return tree
+    lead = batch_pspec(mesh, int(leaves[0].shape[0]), 1)[0]
+    return tree_map(
+        lambda x: None if x is None else runtime.place(
+            x, mesh, placements((lead,) + (None,) * (x.dim() - 1), mesh)),
+        tree)

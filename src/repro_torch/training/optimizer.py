@@ -12,6 +12,12 @@ params and moments into the tensors it is given (and scales ``grads`` in
 place): on the card that saves three model-sized copies per step.  The
 step counters are 0-d int32 tensors on the host, so the bias corrections
 never wait on the device.
+
+On a mesh (:func:`init_sharded`, :func:`update_sharded`) the params and
+moments are ``DTensor``s and AdamW runs on each rank's local shards: the
+grads are reduced (or sliced) into the moments' layout, the global grad
+norm counts every distinct element once, and a param replicated over data
+under sharded moments (ZeRO-1) is updated on its shard and all-gathered.
 """
 from __future__ import annotations
 
@@ -45,19 +51,7 @@ def update(params, grads, state: AdamState, *, lr, b1=0.9, b2=0.95,
     ps, gs, ms, vs = (tree_leaves(params), like(grads), like(state.m),
                       like(state.v))
     gs = [g if g.dtype == torch.float32 else g.float() for g in gs]
-    if grad_clip is not None:
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in gs))
-        scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
-                            max=1.0)
-        torch._foreach_mul_(gs, scale)
-    else:
-        gnorm = torch.zeros((), device=ps[0].device if ps else None)
-
-    # fp32 on the host, as the reference computes them (exact fp32 values)
-    stepf = step.float()
-    bc1 = float(1 - b1 ** stepf)
-    bc2 = float(1 - b2 ** stepf)
-    lr = float(lr)
+    gnorm = _clip_(gs, grad_clip, ps)
 
     masks = (like(trainable_mask) if trainable_mask is not None
              else [True] * len(ps))
@@ -66,15 +60,111 @@ def update(params, grads, state: AdamState, *, lr, b1=0.9, b2=0.95,
     partial = [i for i in sel if isinstance(masks[i], torch.Tensor)]
     old = {i: (ps[i].clone(), ms[i].clone(), vs[i].clone()) for i in partial}
 
+    _step_(ps, gs, ms, vs, sel, step, lr=lr, b1=b1, b2=b2, eps=eps,
+           weight_decay=weight_decay)
+    for i in partial:                               # elementwise masks
+        keep = ~masks[i].to(torch.bool)
+        for new, prev in zip((ps[i], ms[i], vs[i]), old[i]):
+            new.copy_(torch.where(keep, prev, new))
+    return params, AdamState(m=state.m, v=state.v, step=step), gnorm
+
+
+def _clip_(gs, grad_clip, ps, sq=None):
+    """The global fp32 grad norm (from the per-leaf squared sums ``sq``
+    when given) and the clip, in place on ``gs``."""
+    if grad_clip is None:
+        return torch.zeros((), device=ps[0].device if ps else None)
+    if sq is None:
+        sq = (torch.sum(torch.square(g)) for g in gs)
+    gnorm = torch.sqrt(sum(sq))
+    scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+    torch._foreach_mul_(gs, scale)
+    return gnorm
+
+
+def _step_(ps, gs, ms, vs, sel, step, *, lr, b1, b2, eps, weight_decay):
+    """AdamW on the leaves ``sel``, a group of leaves at a time."""
+    # fp32 on the host, as the reference computes them (exact fp32 values)
+    stepf = step.float()
+    bc1 = float(1 - b1 ** stepf)
+    bc2 = float(1 - b2 ** stepf)
+    lr = float(lr)
     for group in _groups([ps[i] for i in sel]):
         idx = [sel[j] for j in group]
         _adamw_(*([t[i] for i in idx] for t in (ps, gs, ms, vs)), b1=b1,
                 b2=b2, bc1=bc1, bc2=bc2, eps=eps, lr=lr,
                 weight_decay=weight_decay)
-    for i in partial:                               # elementwise masks
-        keep = ~masks[i].to(torch.bool)
-        for new, prev in zip((ps[i], ms[i], vs[i]), old[i]):
-            new.copy_(torch.where(keep, prev, new))
+
+
+def init_sharded(params, shardings) -> AdamState:
+    """Zero fp32 moments made directly as local shards: ``shardings`` is
+    the moments' part of a train state's shardings (an ``AdamState`` of
+    :class:`~repro_torch.sharding.strategy.Sharding` trees shaped like
+    ``params``)."""
+    from repro_torch.sharding import runtime
+    z = lambda tree: tree_map(
+        lambda s, p: runtime.zeros_like_global(p, torch.float32, s), tree,
+        params, is_leaf=runtime.is_sharding)
+    return AdamState(m=z(shardings.m), v=z(shardings.v),
+                     step=torch.zeros((), dtype=torch.int32))
+
+
+def update_sharded(params, grads, state: AdamState, *, lr, b1=0.9, b2=0.95,
+                   eps=1e-8, weight_decay=0.0,
+                   grad_clip: Optional[float] = 1.0, group=None):
+    """One AdamW step on a mesh.  ``params`` and the moments are
+    ``DTensor`` trees; ``grads`` are full-shape tensors that are partial
+    sums over the data ``group`` (``None``: every rank holds the same
+    grads, which are then neither summed nor divided), or ``DTensor``s in
+    any layout.  Each leaf's grad is reduce-scattered (or sliced) into its
+    moments' layout; the squared norms of data-sharded leaves are summed
+    over the data axis and every replicated leaf enters the norm once.
+    Returns ``(params, AdamState, gnorm)``, updated in place."""
+    from repro_torch.sharding import runtime
+    step = state.step + 1
+    like = lambda tree: tree_leaves(tree_map(lambda _, x: x, params, tree))
+    P, G, M, V = (tree_leaves(params), like(grads), like(state.m),
+                  like(state.v))
+    ps, gs, ms, vs, gather, sharded = [], [], [], [], [], []
+    for p, g, m, v in zip(P, G, M, V):
+        mesh, mpl = m.device_mesh, tuple(m.placements)
+        if runtime.is_dtensor(g):
+            gr = runtime.local(runtime.redistribute(g, mpl))
+        else:
+            g = g if g.dtype == torch.float32 else g.float()
+            gr = (runtime.reduce_partial(g, mesh, mpl) if group is not None
+                  else runtime.chunk(g, mesh, mpl))
+        if tuple(p.placements) == mpl or (runtime.replicated(p)
+                                          and runtime.replicated(m)):
+            pr, gat = runtime.local(p), False
+        elif runtime.replicated(p):
+            # ZeRO-1: the moments' shard of a replicated param (a view)
+            pr, gat = runtime.chunk(runtime.local(p), mesh, mpl), True
+        else:
+            raise ValueError(f"param layout {p.placements} under moments "
+                             f"{mpl}: not a ZeRO layout")
+        ps.append(pr)
+        gs.append(gr if gr.dtype == torch.float32 else gr.float())
+        ms.append(runtime.local(m))
+        vs.append(runtime.local(v))
+        gather.append(gat)
+        sharded.append(not runtime.replicated(m))
+    sq = None
+    if grad_clip is not None:
+        sq = [torch.sum(torch.square(g)) for g in gs]
+        idx = [i for i, s in enumerate(sharded) if s]
+        if idx:
+            summed = runtime.all_sum([sq[i] for i in idx],
+                                     runtime.data_group(M[idx[0]].device_mesh))
+            for i, t in zip(idx, summed):
+                sq[i] = t
+    gnorm = _clip_(gs, grad_clip, ps, sq)
+    _step_(ps, gs, ms, vs, list(range(len(ps))), step, lr=lr, b1=b1, b2=b2,
+           eps=eps, weight_decay=weight_decay)
+    for p, m, pr, gat in zip(P, M, ps, gather):
+        if gat:                       # all-gather the updated shards
+            runtime.local(p).copy_(runtime.local(runtime.redistribute(
+                runtime.wrap(pr.contiguous(), m), p.placements)))
     return params, AdamState(m=state.m, v=state.v, step=step), gnorm
 
 

@@ -1,6 +1,7 @@
 """TrainState: params + AdamW state + step counter (counterpart of
-``repro/training/train_state.py``).  Sharded creation belongs to the
-multi-device slice and is not ported yet."""
+``repro/training/train_state.py``).  On a mesh the params and the fp32
+moments are trees of ``DTensor``s in the training layout; the step
+counters stay host tensors."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple
@@ -17,18 +18,39 @@ class TrainState(NamedTuple):
 
     @classmethod
     def create(cls, params, shardings=None) -> "TrainState":
-        if shardings is not None:
-            raise NotImplementedError(
-                "TrainState.create(shardings=...): not yet ported")
-        return cls(params=params, opt=opt.init(params),
+        """``shardings`` (a TrainState-shaped tree of
+        :class:`~repro_torch.sharding.strategy.Sharding`, e.g. from
+        :func:`repro_torch.sharding.strategy.train_state_shardings`)
+        commits the fresh state to a mesh layout: each rank keeps its piece
+        of the params (which every rank holds whole), and the fp32 Adam
+        moments are *born* as local shards, so ZeRO'd optimizer state never
+        exists unsharded on any rank."""
+        if shardings is None:
+            return cls(params=params, opt=opt.init(params),
+                       step=torch.zeros((), dtype=torch.int32))
+        from repro_torch.sharding import runtime
+        placed = runtime.place_tree(params, shardings.params)
+        return cls(params=placed, opt=opt.init_sharded(placed, shardings.opt),
                    step=torch.zeros((), dtype=torch.int32))
 
     def apply_gradients(self, grads, *, lr, weight_decay=0.0,
-                        grad_clip=1.0, trainable_mask=None):
+                        grad_clip=1.0, trainable_mask=None, group=None):
         """Returns ``(TrainState, gnorm)``.  The params and moments are
-        updated in place (see :func:`repro_torch.training.optimizer.update`)."""
-        p, o, gnorm = opt.update(self.params, grads, self.opt, lr=lr,
-                                 weight_decay=weight_decay,
-                                 grad_clip=grad_clip,
-                                 trainable_mask=trainable_mask)
+        updated in place (see :func:`repro_torch.training.optimizer.update`).
+        In a mesh layout the grads are full-shape partial sums over the
+        data ``group`` (``None``: the same on every rank), see
+        :func:`repro_torch.training.optimizer.update_sharded`."""
+        from repro_torch.sharding import runtime
+        if any(runtime.is_dtensor(p) for p in opt.tree_leaves(self.params)):
+            if trainable_mask is not None:
+                raise NotImplementedError(
+                    "trainable_mask on a mesh: not yet ported")
+            p, o, gnorm = opt.update_sharded(
+                self.params, grads, self.opt, lr=lr,
+                weight_decay=weight_decay, grad_clip=grad_clip, group=group)
+        else:
+            p, o, gnorm = opt.update(self.params, grads, self.opt, lr=lr,
+                                     weight_decay=weight_decay,
+                                     grad_clip=grad_clip,
+                                     trainable_mask=trainable_mask)
         return TrainState(params=p, opt=o, step=self.step + 1), gnorm

@@ -1,0 +1,166 @@
+"""The reference's data-parallel runs, on simulated host devices, for
+``tests/test_torch_multidevice.py``::
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
+        python tests/_jax_mesh_reference.py IN.pkl OUT.pkl DP
+
+``IN`` holds numpy trees made from the port's seeds (``_torch_mesh_driver``'s
+weights, prompts and reward batches).  The reference runs, on a ``DP x 1``
+mesh, what ``tests/_torch_mesh_driver.py`` runs on ``DP`` gloo ranks:
+
+- ``PPOTrainer(engine=HybridEngine)`` with ``zero3`` and with ``tp`` +
+  ZeRO-1 (greedy experience, two ``train_rlhf`` steps), and a batch of 6
+  (one step);
+- the engine under the mesh: ``generate`` and the dense, paged int8 and
+  tight paged int8 request paths;
+- two jitted ``reward_train_step`` calls on the ``zero3`` + ZeRO-1 state
+  and the sharded batch, with each step's grads.
+
+``OUT`` gets the results as numpy, params as trees (the reference's
+structure, which ``repro_torch.models.convert`` reads).
+
+``repro.serving.engine`` does not import on Python 3.12 (ROADMAP Queue 3,
+R1: a dataclass field with an ``np.ndarray`` default).  This process loads
+that one module through a loader that gives the field the same default
+object by ``default_factory``; the file is read as it is, and nothing
+else changes.
+"""
+from __future__ import annotations
+
+import importlib.abc
+import importlib.machinery
+import importlib.util
+import pickle
+import sys
+from pathlib import Path
+
+_ENGINE = (Path(__file__).resolve().parents[1] / "src" / "repro" / "serving"
+           / "engine.py")
+_R1 = "new_tokens: np.ndarray = _NO_TOKENS"
+_R1_FIX = ("new_tokens: np.ndarray = dataclasses.field("
+           "default_factory=lambda: _NO_TOKENS)")
+
+
+class _R1Loader(importlib.machinery.SourceFileLoader):
+    def get_code(self, fullname):
+        src = Path(self.path).read_text()
+        assert src.count(_R1) == 1, "R1's line moved"
+        return compile(src.replace(_R1, _R1_FIX), self.path, "exec")
+
+
+class _R1Finder(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name != "repro.serving.engine":
+            return None
+        return importlib.util.spec_from_file_location(
+            name, _ENGINE, loader=_R1Loader(name, str(_ENGINE)))
+
+
+sys.meta_path.insert(0, _R1Finder())
+
+import jax  # noqa: E402
+import jax.numpy as jnp
+import numpy as np
+
+from repro import configs as jconfigs
+from repro.core.hybrid_engine import HybridEngine
+from repro.core.ppo import PPOConfig, PPOTrainer
+from repro.launch.mesh import make_mesh
+from repro.models.config import ModelConfig
+from repro.models import reward as R
+from repro.serving.engine import Request
+from repro.sharding import strategy as S
+from repro.training.steps import reward_loss_fn, reward_train_step
+from repro.training.train_state import TrainState
+
+ACTOR = ModelConfig(name="a", arch_type="dense", n_layers=2, d_model=64,
+                    n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=64,
+                    compute_dtype="float32", remat=False)
+CRITIC = ACTOR.replace(name="c")
+KEY = jax.random.PRNGKey(7)          # greedy: the stream draws nothing
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _jnp(tree):
+    return jax.tree.map(lambda a: jnp.array(a, copy=True), tree)
+
+
+def ppo_run(inp, he, prompts, steps):
+    actor, ref, critic, reward = (_jnp(inp[k]) for k in
+                                  ("actor", "ref", "critic", "reward"))
+    tr = PPOTrainer(actor_cfg=ACTOR, critic_cfg=CRITIC, actor_params=actor,
+                    critic_params=critic, ref_params=ref,
+                    reward_params=reward, ppo=PPOConfig(**inp["ppo_kw"]),
+                    engine=he)
+    exp, metrics = tr.generate_experience(jnp.asarray(prompts), KEY)
+    out = {"exp": {k: np.asarray(v) for k, v in exp._asdict().items()},
+           "metrics": dict(metrics), "steps": []}
+    for _ in range(steps):
+        out["steps"].append(tr.train_rlhf(exp))
+    out.update(actor=_np(tr.actor.params), critic=_np(tr.critic.params),
+               ema=_np(tr.ema))
+    return out
+
+
+def engine_run(inp, he):
+    params = _jnp(inp["engine_params"])
+    p_infer = he.to_inference(jax.device_put(params, he.train_shardings))
+    kw = inp["ppo_kw"]
+    e = he.generation_engine(**kw)
+    o = e.generate(p_infer, jnp.asarray(inp["prompts"]), KEY)
+    out = {"generate": {k: np.asarray(v) for k, v in o.items()},
+           "generate_steps": e.last_stats["decode_steps"]}
+    reqs = [Request(uid=i, tokens=p, max_new_tokens=kw["max_new_tokens"])
+            for i, p in enumerate(inp["prompts"])]
+    qcfg = ACTOR.replace(kv_quant=True)
+    paged = dict(kv_layout="paged", block_size=4)
+    for name, cfg, ekw, skw in (
+            ("dense", ACTOR, {}, dict(slots=2)),
+            ("paged_int8", qcfg, paged, dict(slots=2)),
+            ("paged_int8_tight", qcfg, dict(paged, chunk=2),
+             dict(slots=2, max_seq_len=16, num_blocks=7, watermark=0))):
+        eng = he.generation_engine(cfg=cfg, **{**kw, **ekw})
+        out[name] = {c.uid: (np.asarray(c.tokens), c.finish_reason)
+                     for c in eng.serve(p_infer, reqs, KEY, **skw)}
+    return out
+
+
+def reward_run(inp, mesh):
+    cfg = jconfigs.reduced(jconfigs.get_config("smollm-135m")).replace(
+        use_pallas=False)
+    state = TrainState.create(_jnp(inp["rm_params"]),
+                              shardings=S.train_state_shardings(
+                                  cfg, mesh, "zero3", zero=1,
+                                  specs=R.param_specs(cfg)))
+    step = jax.jit(lambda s, b: reward_train_step(cfg, s, b, inp["rm_lr"]))
+    grad = jax.jit(jax.grad(lambda p, b: reward_loss_fn(cfg, p, b)[0]))
+    metrics, grads = [], []
+    for b in inp["rm_batches"]:
+        b = S.shard_batch({k: jnp.asarray(v) for k, v in b.items()}, mesh)
+        grads.append(_np(grad(state.params, b)))
+        state, m = step(state, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "params": _np(state.params), "grads": grads}
+
+
+def main(src: str, dst: str, dp: int) -> None:
+    with open(src, "rb") as f:
+        inp = pickle.load(f)
+    mesh = make_mesh(dp, 1)
+    out = {"ppo": {}}
+    for strategy in ("zero3", "tp"):
+        he = HybridEngine(ACTOR, mesh, train_strategy=strategy, zero=1)
+        out["ppo"][strategy] = ppo_run(inp, he, inp["prompts"], 2)
+    out["ppo"]["batch6"] = ppo_run(inp, HybridEngine(ACTOR, mesh),
+                                   inp["prompts6"], 1)
+    out["engine"] = engine_run(inp, HybridEngine(ACTOR, mesh))
+    out["reward"] = reward_run(inp, mesh)
+    with open(dst, "wb") as f:
+        pickle.dump(out, f)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2], int(sys.argv[3]))

@@ -15,6 +15,7 @@ first step is about ``lr * sign(g)``, and a gradient at the noise level
 may flip sign between frameworks); greedy tokens identical.
 """
 import dataclasses
+import types
 from functools import partial
 
 import jax
@@ -567,11 +568,21 @@ def test_state_tree_round_trip():
 # --------------------------------------------------------------------- #
 # refusals
 # --------------------------------------------------------------------- #
+class _TPMesh:
+    """A mesh shape with a model axis: tensor-parallel compute."""
+    shape = {"data": 1, "model": 2}
+    axis_names = ("data", "model")
+
+
 @pytest.mark.parametrize("what", ["engine", "rollout_mesh"])
 def test_trainer_refuses_what_is_not_ported(what):
+    """The rollout mesh (disaggregated generation) and an engine whose
+    mesh has a model axis (tensor-parallel compute) are not yet ported."""
     ajcfg, atcfg, cjcfg, ctcfg = _configs()
     jm = _models(ajcfg, cjcfg, seed=13)
-    kw, cfg = {what: object()}, tppo.PPOConfig()
+    arg = (types.SimpleNamespace(mesh=_TPMesh()) if what == "engine"
+           else object())
+    kw, cfg = {what: arg}, tppo.PPOConfig()
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tppo.PPOTrainer(actor_cfg=atcfg, critic_cfg=ctcfg,
                         actor_params=_tensors(jm[0]),
@@ -604,7 +615,7 @@ def test_pipeline_refuses_what_is_not_ported():
     _, atcfg, _, ctcfg = _configs()
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        RLHFEngine(atcfg, ctcfg, gen, mesh=object())
+        RLHFEngine(atcfg, ctcfg, gen, rollout_mesh=object())
     eng = RLHFEngine(atcfg, ctcfg, gen)
     bl = DataBlender([CopyTaskDataset(50, 4, 4, 64, seed=1)])
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -196,10 +196,25 @@ def test_step_event_default_tokens_are_fresh():
     assert a.new_tokens.size == 0 and a.new_tokens is not b.new_tokens
 
 
+class _Mesh:
+    def __init__(self, data, model):
+        self.shape = {"data": data, "model": model}
+        self.axis_names = ("data", "model")
+
+
 def test_engine_refuses_unported_layouts(model):
+    """On a mesh, tensor-parallel decode (a model axis) and the stepwise
+    core over more than one rank are not yet ported."""
     _, tcfg, _, _ = model
-    with pytest.raises(NotImplementedError):
-        GenerationEngine(tcfg, max_new_tokens=4, mesh=object(), device="cpu")
+    eng = GenerationEngine(tcfg, max_new_tokens=4, mesh=_Mesh(1, 2),
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        eng.generate({}, torch.zeros((1, 4), dtype=torch.long),
+                     torch.Generator())
+    eng = GenerationEngine(tcfg, max_new_tokens=4, mesh=_Mesh(2, 1),
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        eng.core({}, torch.Generator(), max_seq_len=8)
 
 
 def test_engine_paged_layout_matches_jax_per_request(model):

@@ -398,13 +398,21 @@ def test_remat_gives_the_same_grads():
 
 
 def test_sharded_pieces_are_not_ported():
+    """What of the sharded training path is still not ported: compute on
+    a mesh with a model axis (tensor parallelism) and the disaggregated
+    meshes; the gather / grad pspecs need a state in a mesh layout."""
+    from types import SimpleNamespace
+    from repro_torch.launch import mesh as tmesh
     _, tcfg = config_pair("opt-1.3b")
+    tp_mesh = SimpleNamespace(shape={"data": 1, "model": 2},
+                              axis_names=("data", "model"))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tsteps.make_sharded_lm_step(tcfg, None, "zero3")
+        tsteps.make_sharded_lm_step(tcfg, tp_mesh, "zero3")
+    state = TrainState.create({"w": torch.zeros(2)})
+    with pytest.raises(ValueError, match="mesh layout"):
+        tsteps.lm_train_step(tcfg, state, {}, 1e-3, gather_pspecs={})
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tsteps.lm_train_step(tcfg, None, {}, 1e-3, gather_pspecs={})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TrainState.create({}, shardings=object())
+        tmesh.make_disaggregated_meshes(rollout=1, train=1)
 
 
 @pytest.mark.parametrize("use_kernels", [False, True],
@@ -455,8 +463,8 @@ def test_train_main_returns_a_summary():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "1,1"],
-    ["--strategy", "zero3"], ["--zero", "1"], ["--rlhf", "--async-rlhf"],
+    ["--mesh", "1,1", "--lora", "4"],
+    ["--strategy", "fsdp"], ["--zero", "2"], ["--rlhf", "--async-rlhf"],
     ["--async-rlhf"],
     ["--rollout-mesh", "2"], ["--train-mesh", "2"], ["--queue-depth", "2"],
     ["--publish-every", "1"], ["--max-lag", "1"], ["--is-ratio-abort", "2"],
@@ -470,8 +478,9 @@ def test_train_cli_refuses_unported_flags(flag):
 
 def test_train_cli_refusal_names_the_flag():
     res = _run(["--device", "cpu", "--arch", "smollm-135m", "--reduced",
-                "--mesh", "1,1"])
-    assert res.returncode != 0 and "--mesh: not yet ported" in res.stderr
+                "--async-rlhf"])
+    assert res.returncode != 0 and "--async-rlhf: not yet ported" in \
+        res.stderr
 
 
 def test_train_cli_without_a_card_refuses_to_run():

@@ -11,8 +11,9 @@ Phases (any failure raises, so the run exits non-zero):
 2. ``build``   — every CUDA source of the port built with ``nvcc``, one
    process per source, all in parallel; seconds and ``ptxas`` registers
    and spills per kernel.  Fails if a bf16 tensor-core flash
-   kernel, a decode split or combine kernel with bf16 queries at D = 64
-   (fp and int8 rows) or a bf16 tensor-core SSD kernel spills.
+   kernel at D = 64 or D = 192, a decode split or combine kernel with bf16
+   queries at D = 64 (fp and int8 rows) or a bf16 tensor-core SSD kernel
+   spills.
 3. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the main paths' shapes (OPT-1.3B, OPT-350M and smollm-135m widths),
    in fp32 (TF32 off) and bf16, with kernel / plain / library device times
@@ -58,8 +59,7 @@ Phases (any failure raises, so the run exits non-zero):
    per kernel.  Fails unless every number is finite, the first ratio_mean
    is 1 to 1e-3, the reference and reward checksums are unchanged by stage
    3, and the int8 iterations launched the int8 decode kernel and never
-   the bf16 one (the bf16 iteration the reverse).  Then ``torch.profiler``
-   over 8 int8 decode steps and over scoring + one actor and critic step.
+   the bf16 one (the bf16 iteration the reverse).
 8. ``hybrid``  — the Hybrid Engine on a one-rank NCCL group (a
    ``FileStore`` in a temporary directory; no gloo fallback) and
    ``mesh_from_spec("1,1")``: ``to_inference`` / ``to_train`` on OPT-1.3B's
@@ -70,7 +70,7 @@ Phases (any failure raises, so the run exits non-zero):
    zero=1)`` against 3 of ``lm_train_step`` from the same state (losses,
    grad norms and params bit for bit; median step ms and peak GiB of
    both); PPO with ``engine=HybridEngine`` against ``engine=None``
-   (OPT-1.3B actor, OPT-350M critic, 8 x 256 prompts, 256 greedy new
+   (OPT-1.3B actor, OPT-350M critic, 8 x 256 prompts, 64 greedy new
    tokens; one iteration on the dense bf16 arena, one on the request path
    with int8 KV on the paged pool): identical tokens, actor and critic
    params bit for bit, ``reshard_bytes`` 0 and ``reshard_s`` > 0, the
@@ -93,10 +93,9 @@ Phases (any failure raises, so the run exits non-zero):
    kernel and no attention kernel, Zamba2 also the flash prefill and the
    dense decode kernel); 8
    ragged greedy requests, one past the 256-token chunk, through the
-   continuous engine against each request alone (identical in fp32,
-   counted in bf16); one Mamba2 decode step at 16 slots eager and as a
-   CUDA-graph replay, and ``torch.profiler`` over a decode step and an
-   admission.
+   continuous engine against each request alone (identical, in fp32);
+   one Mamba2 decode step at 16 slots eager and as a
+   CUDA-graph replay.
 10. ``ssm_train`` — the SSM / hybrid training slice: at the SFT shapes
    (b 8, nc 2, q 256; Mamba2-370M and Zamba2-1.2B widths) the forward
    kernel against its plain version (phase ``ssm``'s tolerances) and the
@@ -112,11 +111,10 @@ Phases (any failure raises, so the run exits non-zero):
    bf16 with remat, 10 Mamba2 and 5 Zamba2 steps of 8 x 512 (launch counts
    set to 0 just before each run and read just after: the SSD kernel, and
    for Zamba2 both flash kernels, must have launched, no attention kernel
-   for Mamba2), each with a ``torch.profiler`` step (the SSD forward's and
-   backward's shares, device idle); 5 Mamba2 reward steps of 8 pairs x
-   512; ``launch.train --rlhf`` at Mamba2 (2 steps, 8 x 256 prompts, 64
-   new) and Zamba2 with ``--kv-quant`` (1 step, 4 prompts, 32 new): every
-   loss finite, the frozen models' checksums unchanged by stage 3; Zamba2
+   for Mamba2); 5 Mamba2 reward steps of 8 pairs x 512; ``launch.train
+   --rlhf`` at Mamba2 (2 steps, 8 x 256 prompts, 64 new) and Zamba2
+   with ``--kv-quant`` (1 step, 4 prompts, 32 new): every loss finite,
+   the frozen models' checksums unchanged by stage 3; Zamba2
    ``--kv-quant`` on the serve workload (the int8 decode kernel, never the
    bf16 one) and the int8 gate at full width cut to 12 layers (one cache
    at 1e-4, free-running within a tenth of the int8 error, tokens
@@ -135,10 +133,9 @@ Phases (any failure raises, so the run exits non-zero):
    printed, not gated); qwen3-8b, yi-9b and llama3.2-3b at full width and
    depth in fp32, teacher-forced (prefill 256 + 32 decode), kernel path
    against plain path (1e-4); ``launch.serve`` of qwen3-8b on the
-   32-request workload at 64 new tokens (dense bf16), yi-9b on it on the
-   paged bf16 pool and greedy paged == dense on 8 requests, llama3.2-3b greedy on dense
-   and paged int8 KV (tok/s and peak memory; each run's launch set
-   gated); ``launch.train`` SFT at llama3.2-3b full size (5 steps of 8 x
+   32-request workload at 64 new tokens (dense bf16), yi-9b greedy paged
+   == dense on 8 requests, llama3.2-3b greedy on dense and paged int8 KV
+   (tok/s and peak memory; each run's launch set gated); ``launch.train`` SFT at llama3.2-3b full size (5 steps of 8 x
    512, bf16 on fp32 masters, remat; fails if it does not fit), a
    qwen3-8b fp32 LM step at 2 layers kernel vs plain (loss 1e-5, grads
    1e-4 of each leaf's max); ``RLHFPipeline`` with llama3.2-3b actor and
@@ -157,7 +154,40 @@ Phases (any failure raises, so the run exits non-zero):
    vs plain (loss and aux 1e-5, grads 1e-4); ``launch.train --lora 8``
    at 2 layers, 3 bf16 steps of 4 x 512 (every loss and aux finite, the
    adapters moved).
-13. ``ckpt`` — checkpoint/resume, LoRA and the torch example, under
+13. ``mla`` — MLA at deepseek-v2-lite-16b (16.2 B parameters, every layer
+   MoE): the flash forward and backward at head dim 192 (H = KV = 16, V
+   zero-padded from 128) at the prefill (B 1, L 256) and the SFT shape
+   (B 8, L 512, with the LSE), fp32 and bf16 against the plain versions,
+   bf16 timed warm and cold beside the bound, the plain time and SDPA;
+   the bf16 D = 192 kernels' ptxas (phase ``build`` fails on a spill);
+   fp32 greedy at full width and the deepest cut whose weights fit (all
+   27 layers on an 80 GB card), kernel path against plain path, each
+   free-running: the per-layer witness (every MLA attention through both
+   paths on the same input and cache, 1e-4) and the logits gap over the
+   shared steps (1e-4 or 2x the conditioning); ``launch.serve`` at full
+   size on the 32-request workload at 64 new tokens, 16 slots, the dense
+   latent arena, no warm-up (tok/s, peak memory, the MoE drop share per
+   decode step and admission; RMSNorm and the flash forward launched, no
+   decode kernel: the absorbed decode is plain products); ``launch.train``
+   SFT at full width cut to 4 layers, 5 steps of 8 x 512 (bf16 on fp32
+   masters): the D = 192 backward inside a step.
+14. ``xattn`` — cross-attention and embedding inputs: the flash kernels
+   over llama-3.2-vision's 1,601 encoder keys (D 128, H 32 / KV 8,
+   non-causal; Lq 1 and 64 at B 4, and the SFT shape B 8, Lq 512 with the
+   backward), checked and timed as in phase ``mla``;
+   llama-3.2-vision-11b at full size (40 layers) in fp32 with its gates
+   drawn from U(0.5, 1): ``GenerationEngine.generate`` with
+   ``encoder_embeds`` (B 4, 1,601 x 1,280, 64-token prompts, 64 new,
+   greedy; RMSNorm, the flash forward and the dense decode kernel
+   launched), then the free-running gate of phase ``mla`` with a
+   per-layer witness over every layer; its SFT at full width cut to the
+   units that fit (3 steps of 8 x 512 with encoder embeddings);
+   musicgen-medium at full size (48 layers, no embedding table): fp32
+   teacher-forced prefill of 256 frame embeddings + 32 decode steps,
+   kernel path against plain path (1e-4), and 5 SFT steps of 8 x 512 on
+   frame embeddings (bf16 on fp32 masters; every loss finite, the training
+   kernels launched).
+15. ``ckpt`` — checkpoint/resume, LoRA and the torch example, under
    ``build/ckpt_phase`` (deleted at the end): the free disk (60 GB
    at least) and host RAM (2x the largest snapshot) first; two
    uninterrupted ``launch.train`` runs of OPT-1.3B (full width cut to 8
@@ -180,7 +210,7 @@ Phases (any failure raises, so the run exits non-zero):
    Launch counts are set to 0 before each leg's first run and read after
    it (SFT, PPO, LoRA, serve, example); every kernel of the leg must have
    launched.
-14. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
+16. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
    that no earlier timing runs after a profiler session: the CUDA kernels
    one call of each decode row of phase ``kernels`` runs (the split
    kernel, then the combine exactly when the host's plan splits the
@@ -247,7 +277,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "train", "rlhf",
-          "hybrid", "ssm", "ssm_train", "gqa128", "moe", "ckpt", "profile")
+          "hybrid", "ssm", "ssm_train", "gqa128", "moe", "mla", "xattn",
+          "ckpt", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the time bound of a kernel is
 # the larger of bytes / memory rate and operations / peak rate for the type
@@ -487,6 +518,9 @@ def phase_build(state):
     # must the decode core's split and combine kernels with bf16 queries
     # at D = 64, fp and int8 rows
     mma64, split64, comb64, ssd_mma = {}, {}, {}, {}
+    # the bf16 tensor-core flash kernels at D = 192 (MLA, phase mla): the
+    # forward, the dV-only and dK-only dK/dV kernels and dQ, none spilling
+    mma192 = state.setdefault("ptxas_d192", {})
     # every D = 128 instantiation (flash fp32 and bf16, the decode core's
     # split and combine kernels): registers and spills, printed and kept
     # for phase gqa128, not gated
@@ -501,8 +535,10 @@ def phase_build(state):
                 d128[f"{name}: {fn}"] = (regs, st + ld)
             if "ssd_intra_mma_kernel" in fn:
                 ssd_mma[fn] = st + ld
-            elif "mma_kernel" in fn and ("<64>" in fn or "ILi64E" in fn):
+            elif "mma_kernel" in fn and re.search(r"<64[,>]|ILi64E", fn):
                 mma64[fn] = st + ld
+            elif "mma_kernel" in fn and re.search(r"<192[,>]|ILi192E", fn):
+                mma192[fn] = (regs, st + ld)
             for kind, seen in (("split", split64), ("combine", comb64)):
                 if (f"{kind}_kernel<__nv_bfloat16, 64," in fn
                         or f"{kind}_kernelI13__nv_bfloat16Li64E" in fn):
@@ -514,6 +550,11 @@ def phase_build(state):
     if len(mma64) != want or any(mma64.values()):
         raise AssertionError(f"build: D = 64 tensor-core kernels (want "
                              f"{want}, none spilling): {mma64}")
+    want = ("flash_attention" in report) + 3 * ("flash_attention_bwd"
+                                                in report)
+    if len(mma192) != want or any(v[1] for v in mma192.values()):
+        raise AssertionError(f"build: D = 192 tensor-core kernels (want "
+                             f"{want}, none spilling): {mma192}")
     # one split kernel per G bucket (1, 2, 4, 8) and one combine in each
     # decode library
     libs = sum(n in report for n in DECODE_LIBS)
@@ -1584,9 +1625,10 @@ def workload(arch: str = "opt-1.3b", max_new: int = 256) -> list:
 
 
 SERVE_ARGV = workload()
-# the workload's repeats (other KV layouts, dtypes and models) generate up
-# to 64 new tokens a request, a quarter of phase serve's bf16 run, to keep
-# the whole script inside its time limit; their gates are the same
+# the workload's repeats (other KV layouts, dtypes and models) and phase
+# hybrid's PPO generate up to 64 new tokens a request, a quarter of phase
+# serve's bf16 run, to keep the whole script inside its time limit; their
+# gates are the same
 REPEAT_NEW = 64
 PAGED = ["--kv-layout", "paged", "--block-size", "16"]
 
@@ -2118,64 +2160,6 @@ def phase_rlhf(state):
     state["rlhf"] = {"iters": iters, "timings": dict(pipe.timings),
                      "step_ms": pipe.step_ms}
 
-    # where the time goes: device time by kernel over 8 decode steps of
-    # the int8 generation, and over scoring + actor + critic step
-    from repro_torch.serving.generate import decode_step, prefill
-    from repro_torch.models import transformer as T
-    gen_cfg = actor.replace(kv_quant=True)
-    params = T.cast_params(gen_cfg, trainer.actor.params)
-    toks = torch.as_tensor(batch["prompts"], device="cuda").long()
-    cache = T.init_cache(gen_cfg, 8, 512, device="cuda")
-    lg, cache = prefill(gen_cfg, params, toks, cache)
-    tok = lg.argmax(-1)
-    pos = torch.full((8,), 256, dtype=torch.long, device="cuda")
-
-    def eight_steps():
-        for t in range(8):
-            decode_step(gen_cfg, params, tok, cache, pos + t)
-
-    eight_steps()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    eight_steps()
-    torch.cuda.synchronize()
-    dec_wall = (time.perf_counter() - t1) * 1e3
-    from repro_torch.core import RolloutBatch
-    resp = torch.cat([torch.zeros_like(exp.mask[:, :1], dtype=torch.bool),
-                      exp.mask > 0], dim=1)
-    rollout = RolloutBatch(sequences=exp.sequences, response_mask=resp)
-
-    def score_train():
-        trainer.train_rlhf(trainer.score_rollout(rollout)[0], ptx)
-
-    for name, fn, kinds, wall_ms in (
-            ("8 int8 decode steps", eight_steps,
-             ("decode::", "rmsnorm", "flash"), dec_wall),
-            ("scoring + actor + critic step", score_train,
-             ("flash_bwd", "flash_fwd", "rmsnorm", "decode"), None)):
-        if wall_ms is None:             # unprofiled run: a fault fails
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t1) * 1e3
-        try:
-            prof = _profile_step(fn, kernels=kinds)
-        except Exception as e:          # the profiler only, not a check
-            prof = None
-            log(f"[rlhf] torch.profiler failed: {e!r}")
-        if prof is None:
-            continue
-        total_ms, buckets, top = prof
-        log(f"[rlhf] {name}: {wall_ms:.1f} ms host clock, {total_ms:.1f} ms "
-            f"of kernel time (torch.profiler); device idle "
-            f"~{max(0.0, 1 - total_ms / wall_ms):.1%}; by kind: " + ", ".join(
-                f"{k} {v:.2f} ms ({v / total_ms:.1%})"
-                for k, v in buckets.items()))
-        for kname, ms in top[:6]:
-            log(f"[rlhf]   {ms:9.3f} ms  {kname[:100]}")
-    del params, cache
-    torch.cuda.empty_cache()
     failures += _paged_ppo_iteration(state, trainer, bl, ptx)
     del trainer, pipe, eng, exp
     torch.cuda.empty_cache()
@@ -2382,8 +2366,10 @@ def _hybrid_sft(state, failures, mesh):
 def _hybrid_ppo(state, failures, mesh):
     """PPO through ``HybridEngine`` at 1 x 1 against ``engine=None``:
     OPT-1.3B actor and reference, OPT-350M critic and reward at full size,
-    8 x 256 prompts, 256 new greedy tokens; one iteration on the dense
-    bf16 arena, one on the request path with int8 KV on the paged pool.
+    8 x 256 prompts, ``REPEAT_NEW`` new greedy tokens (64: it was 256
+    before phases ``mla`` and ``xattn`` came in); one iteration on the
+    dense bf16 arena, one on the request path with int8 KV on the paged
+    pool.
     Tokens identical, actor and critic params equal bit for bit, the
     reshard measured (0 bytes, seconds > 0), kernels 1-4 and the paged
     int8 decode launched."""
@@ -2406,7 +2392,7 @@ def _hybrid_ppo(state, failures, mesh):
     actor_cfg, critic_cfg = get_config("opt-1.3b"), get_config("opt-350m")
     bl = lm_data(actor_cfg, 512, 0)
     batches = [b["prompts"] for b in bl.prompt_batches(8, 2)]
-    ppo = PPOConfig(max_new_tokens=256, temperature=0.0, use_ema=True)
+    ppo = PPOConfig(max_new_tokens=REPEAT_NEW, temperature=0.0, use_ema=True)
     paged = dataclasses.replace(ppo, kv_quant=True, kv_layout="paged",
                                 kv_block_size=16)
     runs = {}
@@ -2694,12 +2680,12 @@ def _ssm_parity(failures):
             layer = T._layer
 
             def witness(c, spec, lp, x, positions, mode, lc, rope,
-                        block_tables=None):
+                        block_tables=None, **kw):
                 lck = tree_map(torch.clone, lc) if lc is not None else None
                 yk, _ = layer(kcfg, spec, lp, x, positions, mode, lck, rope,
-                              block_tables)
+                              block_tables, **kw)
                 y, aux = layer(c, spec, lp, x, positions, mode, lc, rope,
-                               block_tables)
+                               block_tables, **kw)
                 w_err[0] = worst((w_err[0], float(
                     (yk - y).abs().max() / (y - x).abs().max())))
                 return y, aux
@@ -2743,8 +2729,9 @@ def _ssm_parity(failures):
 def _ssm_greedy(failures):
     """8 ragged greedy requests (one longer than the 256-token chunk)
     through the continuous engine against each request decoded alone on
-    the fixed path, kernels on: identical streams in fp32; in bf16 the
-    identical streams are counted (batch size changes the GEMMs' order)."""
+    the fixed path, kernels on, fp32: identical streams.  (The bf16 runs,
+    counted and not gated, went to make room for phases ``mla`` and
+    ``xattn``.)"""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2761,7 +2748,7 @@ def _ssm_greedy(failures):
                         .astype(np.int32),
                         max_new_tokens=int(rng.integers(8, 17)))
                 for i, lp in enumerate(lens)]
-        for dname in ("float32", "bfloat16"):
+        for dname in ("float32",):
             cfg = base.replace(compute_dtype=dname)
             g = torch.Generator(device="cuda").manual_seed(0)
             eng = GenerationEngine(cfg, max_new_tokens=16, temperature=0.0,
@@ -2779,10 +2766,9 @@ def _ssm_greedy(failures):
             same = sum(got[u] == alone[u] for u in alone)
             log(f"[ssm] greedy {arch} {dname}: continuous engine (4 slots, "
                 f"prompts {min(lens)}..{max(lens)}) vs each request alone: "
-                f"{same} of {len(reqs)} streams identical "
-                f"({'required' if dname == 'float32' else 'counted'}); "
+                f"{same} of {len(reqs)} streams identical (required); "
                 f"engine {dt_s:.2f}s")
-            if dname == "float32" and same != len(reqs):
+            if same != len(reqs):
                 failures.append(f"greedy {arch} fp32: {same} of {len(reqs)} "
                                 f"streams identical")
         del params
@@ -2791,8 +2777,7 @@ def _ssm_greedy(failures):
 
 def _ssm_time(state):
     """One Mamba2-370M decode step at 16 slots, eager (host clock) and as a
-    CUDA-graph replay (device), launches per admission and per step, and
-    ``torch.profiler`` over one decode step and one 256-token admission."""
+    CUDA-graph replay (device), and launches per admission and per step."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -2834,30 +2819,6 @@ def _ssm_time(state):
         f"(device); the device is idle {1 - graph_ms / eager_ms:.1%} of the "
         f"eager step")
     state["ssm_step"] = {"eager_ms": eager_ms, "graph_ms": graph_ms}
-    for name, fn in (("decode step (16 slots)", step),
-                     ("admission (256 tokens)", admit)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        try:
-            prof = _profile_step(fn, kernels=("ssd_intra", "rmsnorm"))
-        except Exception as e:             # the profiler only, not a check
-            prof = None
-            log(f"[ssm] torch.profiler failed: {e!r}")
-        if prof is None:
-            log(f"[ssm] mamba2-370m {name}: {wall_ms:.2f} ms host clock; "
-                f"the profiler saw no device time")
-            continue
-        total_ms, buckets, top = prof
-        log(f"[ssm] mamba2-370m {name}: {wall_ms:.2f} ms host clock, "
-            f"{total_ms:.3f} ms of kernel time (torch.profiler); device idle "
-            f"~{max(0.0, 1 - total_ms / wall_ms):.1%}; by kind: " + ", ".join(
-                f"{k} {v:.3f} ms ({v / total_ms:.1%})"
-                for k, v in buckets.items()))
-        for kname, ms in top[:8]:
-            log(f"[ssm]   {ms:9.3f} ms  {kname[:100]}")
     del params, cache, row
     torch.cuda.empty_cache()
 
@@ -3095,7 +3056,7 @@ def _ssm_train_parity(failures):
         layer = T._layer
 
         def spy(c, spec, lp, x, positions, mode, lc, rope,
-                block_tables=None):
+                block_tables=None, **kw):
             kind = "attn" if spec.kind == ATTN else "ssm"
             if (seen[0] >= cfg.n_layers // 2 and kind in kinds
                     and kind not in picked):
@@ -3103,7 +3064,7 @@ def _ssm_train_parity(failures):
                                 rope)
             seen[0] += 1
             return layer(c, spec, lp, x, positions, mode, lc, rope,
-                         block_tables)
+                         block_tables, **kw)
 
         T._layer = spy
         try:
@@ -3197,63 +3158,11 @@ def _ssm_train_parity(failures):
         torch.cuda.empty_cache()
 
 
-def _profile_ssm_step(step_fn):
-    """Device time of one call of ``step_fn`` from ``torch.profiler``:
-    (total kernel ms, SSD forward kernel ms, ms of the kernels the explicit
-    SSD backward launched, flash fwd + bwd ms, [(kernel, ms)] longest
-    first), or None when the profiler sees no device time.  The backward's
-    kernels are those inside the device span of a ``record_function``
-    range put around ``ref.ssd_intra_bwd_ref`` for this call only (None
-    when the trace holds no such span)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.kernels import ref
-
-    tag = "ssd_intra_bwd_ref"
-    bwd = ref.ssd_intra_bwd_ref
-
-    def marked(*a):
-        with record_function(tag):
-            return bwd(*a)
-
-    ref.ssd_intra_bwd_ref = marked
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            step_fn()
-            torch.cuda.synchronize()
-    finally:
-        ref.ssd_intra_bwd_ref = bwd
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels, spans = [], []
-    for evt in prof.events():
-        if evt.device_type != cuda:
-            continue
-        if evt.name == tag:             # the range's span on the device
-            spans.append((evt.time_range.start, evt.time_range.end))
-        elif not getattr(evt, "is_user_annotation", False):
-            kernels.append((evt.time_range.start, evt.time_range.end,
-                            evt.name))
-    total = sum(e - s for s, e, _ in kernels) / 1e3
-    if total <= 0:
-        return None
-    bwd_ms = (sum(e - s for s, e, _ in kernels
-                  if any(a <= s and e <= b for a, b in spans)) / 1e3
-              if spans else None)
-    fwd_ms = sum(e - s for s, e, n in kernels if "ssd_intra" in n) / 1e3
-    flash_ms = sum(e - s for s, e, n in kernels if "flash_" in n) / 1e3
-    per = {}
-    for s, e, n in kernels:
-        per[n] = per.get(n, 0.0) + (e - s) / 1e3
-    top = sorted(per.items(), key=lambda kv: -kv[1])
-    return total, fwd_ms, bwd_ms, flash_ms, top
-
-
 def _ssm_sft(state, failures):
     """``launch.train`` at Mamba2-370M (10 steps) and Zamba2-1.2B (5 steps),
     8 x 512, bf16 on fp32 masters, remat on, the counts set to 0 just
-    before each run and read just after; then one step of each under
-    ``torch.profiler``; then 5 Mamba2-370M reward steps of 8 pairs x 512."""
+    before each run and read just after; then 5 Mamba2-370M reward steps of
+    8 pairs x 512."""
     import math
 
     import torch
@@ -3262,8 +3171,7 @@ def _ssm_sft(state, failures):
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
     from repro_torch.models import reward as R
-    from repro_torch.models import transformer as T
-    from repro_torch.training.steps import lm_train_step, reward_train_step
+    from repro_torch.training.steps import reward_train_step
     from repro_torch.training.train_state import TrainState
 
     for arch, steps in (("mamba2-370m", 10), ("zamba2-1.2b", 5)):
@@ -3299,50 +3207,7 @@ def _ssm_sft(state, failures):
                                          for k in ATTENTION_KERNELS):
             failures.append(f"sft {arch}: an attention kernel launched")
 
-        # where the time goes in one step (same shape, a fresh state)
-        cfg = get_config(arch)
-        holder = [TrainState.create(T.init_params(
-            cfg, torch.Generator(device="cuda").manual_seed(1)))]
-        b = to_device(next(launch_train.lm_data(cfg, 512, 0)
-                           .sft_batches(8, 1)), "cuda")
 
-        def one_step():
-            holder[0], m = lm_train_step(cfg, holder[0], b, 1e-5)
-            float(m["loss"])
-
-        one_step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        one_step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        try:
-            prof = _profile_ssm_step(one_step)
-        except Exception as e:          # measurement only, not a check
-            prof = None
-            log(f"[ssm_train] torch.profiler failed: {e!r}")
-        if prof is None:
-            log(f"[ssm_train] {arch} one SFT step {wall:.1f} ms host clock; "
-                f"the profiler saw no device time")
-        else:
-            total, fwd_ms, bwd_ms, flash_ms, top = prof
-            bwd = ("not measured (no device span in the trace)"
-                   if bwd_ms is None else
-                   f"{bwd_ms:.2f} ms ({bwd_ms / total:.1%})")
-            log(f"[ssm_train] {arch} one SFT step (8 x 512, bf16, remat): "
-                f"{wall:.1f} ms host clock, {total:.1f} ms of kernel time "
-                f"(torch.profiler), device idle "
-                f"~{max(0.0, 1 - total / wall):.1%}; ssd_intra_fwd "
-                f"{fwd_ms:.2f} ms ({fwd_ms / total:.1%}); the explicit SSD "
-                f"backward's kernels {bwd}; flash kernels {flash_ms:.2f} ms "
-                f"({flash_ms / total:.1%})")
-            for name, ms in top[:10]:
-                log(f"[ssm_train]   {ms:9.2f} ms  {name[:110]}")
-            state["ssm_sft"][arch].update(
-                wall_ms=wall, kernel_ms=total, ssd_fwd_ms=fwd_ms,
-                ssd_bwd_ms=bwd_ms, flash_ms=flash_ms)
-        del holder, b
-        torch.cuda.empty_cache()
 
     # reward model on the Mamba2 backbone
     cfg = get_config("mamba2-370m")
@@ -3533,8 +3398,8 @@ def phase_ssm_train(state):
     autograd of the plain forward at the SFT shapes, timed beside the
     forward kernel; kernel vs plain path on one fp32 SFT step of
     Mamba2-370M and Zamba2-1.2B (per-layer witness and end to end); the
-    bf16 SFT runs through ``launch.train`` with launches per step and a
-    ``torch.profiler`` step; Mamba2 reward steps; the 3-stage pipeline on
+    bf16 SFT runs through ``launch.train`` with launches per step; Mamba2
+    reward steps; the 3-stage pipeline on
     both (Zamba2 with int8 KV generation); Zamba2 ``--kv-quant`` serving
     and its int8 gate."""
     import torch
@@ -3964,10 +3829,12 @@ def _peak_gib():
 
 
 def _row128(state, failures, name, label, dname, err, limit, k_ms=None,
-            p_ms=None, lib_ms=None, bnd=None, cold_ms=None, extra=None):
-    """One D = 128 kernel row: logged, kept for the ``kernels`` line (under
-    the kernel's ``d128`` key) and failed when ``err`` passes ``limit``;
-    an fp32 row is checked, not timed."""
+            p_ms=None, lib_ms=None, bnd=None, cold_ms=None, extra=None,
+            key="d128", tag="gqa128"):
+    """One kernel row of a later slice (D = 128 by default): logged, kept
+    for the ``kernels`` line (under the kernel's ``key``: ``d128``,
+    ``d192``, ``cross``) and failed when ``err`` passes ``limit``; an fp32
+    row is checked, not timed."""
     ok = err <= limit
     if not ok:
         failures.append(f"{name} {label} {dname}: err {err:.3g} > {limit}")
@@ -3980,8 +3847,8 @@ def _row128(state, failures, name, label, dname, err, limit, k_ms=None,
                  f"plain_ms={p_ms:.4f} library_ms="
                  f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
                  f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
-    state.setdefault("d128", {}).setdefault(name, []).append(row)
-    log(f"[gqa128] {name} {label} {dname} err={err:.3g} (tol {limit})"
+    state.setdefault(key, {}).setdefault(name, []).append(row)
+    log(f"[{tag}] {name} {label} {dname} err={err:.3g} (tol {limit})"
         + timed + "".join(f" {k}={v:.4f}" if isinstance(v, float) else
                           f" {k}={v}" for k, v in (extra or {}).items())
         + f" {'ok' if ok else 'FAIL'}")
@@ -4359,15 +4226,13 @@ def _serve_peak(argv, tag, must, state, warmup=True, cfg=None):
 
 def _gqa128_serve(state, failures):
     """``launch.serve`` at full width and depth, weights in bf16 only:
-    qwen3-8b on the 32-request workload (dense bf16 KV); yi-9b on the same
-    workload on the paged bf16 pool (no warm-up: its tok/s includes the
-    first calls at its shapes), then greedy paged == dense on 8 requests
-    of up to 64 new tokens; llama3.2-3b greedy on those 8 requests on the
-    dense and the paged int8 KV."""
+    qwen3-8b on the 32-request workload (dense bf16 KV); yi-9b greedy
+    paged == dense on 8 requests of up to 64 new tokens (its run of the
+    whole workload on the paged pool, whose gates these two runs hold too,
+    went to make room for phases ``mla`` and ``xattn``); llama3.2-3b
+    greedy on those 8 requests on the dense and the paged int8 KV."""
     argv = lambda arch: workload(arch, REPEAT_NEW)
     _serve_peak(argv("qwen3-8b"), "serve_qwen3_8b", SERVE_KERNELS, state)
-    _serve_peak(argv("yi-9b") + PAGED, "serve_yi_9b_paged",
-                SERVE_PAGED_KERNELS, state, warmup=False)
     d = _serve_peak(argv("yi-9b") + GREEDY8, "serve_yi_9b_greedy_dense",
                     SERVE_KERNELS, state, warmup=False)
     p = _serve_peak(argv("yi-9b") + GREEDY8 + PAGED,
@@ -4770,12 +4635,575 @@ def phase_moe(state):
         raise AssertionError("moe checks failed:\n" + "\n".join(failures))
 
 
+# --------------------------------------------------------------------- #
+# MLA, cross-attention and embedding inputs: deepseek-v2-lite-16b,
+# llama-3.2-vision-11b and musicgen-medium
+# --------------------------------------------------------------------- #
+MLA_ARCH = "deepseek-v2-lite-16b"
+VLM_ARCH = "llama-3.2-vision-11b"
+AUDIO_ARCH = "musicgen-medium"
+# MLA decodes in the absorbed form (plain products, no decode kernel):
+# its serve run launches RMSNorm and the flash forward only
+MLA_SERVE_KERNELS = ("rmsnorm", "flash_attention_fwd")
+# the SFT leg's depth: fp32 masters, AdamW moments, grads and the bf16 copy
+# (18 bytes a parameter) of 4 of deepseek's 27 layers (585 M parameters
+# each) and the embedding and head take ~50 GB
+MLA_TRAIN_LAYERS = 4
+# the VLM's self-attention decode runs the dense decode kernel; its cross-
+# attention runs the flash forward at every step (one query over 1,601 keys)
+VLM_GEN_KERNELS = ("rmsnorm", "flash_attention_fwd", "decode_attention_fwd")
+
+
+def _flash_rows(state, failures, key, tag, D, cases, seed, pad_v=None):
+    """Flash kernel rows at head dim ``D``: per case ``(label, B, KV, G, Lq,
+    Lk, causal, bwd)`` the forward with the LSE (and, with ``bwd``, the
+    backward from the plain LSE) in fp32 (TF32 off, 1e-4; LSE 1e-4) and
+    bf16 (2e-2 of max |plain|; LSE 1e-3) against the plain versions; bf16
+    timed warm and cold beside the bound, the plain time and SDPA (the
+    backward's: SDPA forward + backward less its forward).  ``pad_v``
+    zeroes V's dims past it, as MLA pads V to the query/key width."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    tol = {"fp32": 1e-4, "bf16": 2e-2}
+    row = lambda *a, **kw: _row128(state, failures, *a, key=key, tag=tag,
+                                   **kw)
+    for (model, B, KV, G, Lq, Lk, causal, with_bwd) in cases:
+        label = (f"{model} B={B} KV={KV} G={G} Lq={Lq} Lk={Lk} D={D}"
+                 f"{'' if causal else ' non-causal'}")
+        pairs = causal_pairs(Lq, Lk, None) if causal else Lq * Lk
+        H = KV * G
+        for dname, dt in dtypes.items():
+            qm = _case_inputs(gen, (B, Lq, H, D), dt)
+            km = _case_inputs(gen, (B, Lk, KV, D), dt)
+            vm = _case_inputs(gen, (B, Lk, KV, D), dt)
+            if pad_v is not None:
+                vm[..., pad_v:] = 0
+            q5 = qm.unflatten(2, (KV, G)).permute(0, 2, 3, 1, 4)
+            k4, v4 = km.transpose(1, 2), vm.transpose(1, 2)
+            lse = torch.empty((B, KV, G, Lq), device="cuda")
+            out = flash_attention_fwd(q5, k4, v4, causal=causal, lse=lse)
+            r = ref.flash_attention_ref(q5, k4, v4, causal=causal)
+            lse_ref = ref.flash_attention_lse_ref(q5, k4, causal=causal)
+            torch.cuda.synchronize()
+            scale = float(r.float().abs().max()) if dname == "bf16" else 1.0
+            err = _err(out, r, rel=False) / scale
+            lse_err = _err(lse, lse_ref, rel=False)
+            if lse_err > (1e-4 if dname == "fp32" else 1e-3):
+                failures.append(f"flash LSE {label} {dname}: {lse_err:.3g}")
+            if dname == "fp32":
+                row("flash_attention_fwd", label, dname, err, tol[dname],
+                    extra={"lse_err": lse_err})
+            else:
+                ops_ = 4 * B * H * pairs * D
+                nbytes = (2 * B * H * Lq * D + 2 * B * KV * Lk * D) * 2
+                call = lambda q5, k4, v4: flash_attention_fwd(
+                    q5, k4, v4, causal=causal)
+                qs, ks, vs = (t.transpose(1, 2) for t in (qm, km, vm))
+                k_ms = time_ms(lambda: call(q5, k4, v4))
+                row("flash_attention_fwd", label, dname, err, tol[dname],
+                    k_ms, time_ms(lambda: ref.flash_attention_ref(
+                        q5, k4, v4, causal=causal), inner=3, repeats=5),
+                    time_ms(lambda: F.scaled_dot_product_attention(
+                        qs, ks, vs, is_causal=causal, enable_gqa=G > 1)),
+                    bound(nbytes, ops_, "bf16"),
+                    cold_ms=_cold(call, (q5, k4, v4), nbytes),
+                    extra={"lse_err": lse_err,
+                           "tflops": ops_ / (k_ms * 1e-3) / 1e12})
+            if not with_bwd:
+                continue
+            dom = _case_inputs(gen, (B, Lq, H, D), dt)
+            do5 = dom.unflatten(2, (KV, G)).permute(0, 2, 3, 1, 4)
+            delta = (do5.float() * r.float()).sum(-1).contiguous()
+            args = (q5, k4, v4, do5, lse_ref, delta)
+            got = flash_attention_bwd(*args, causal=causal)
+            want = ref.flash_attention_bwd_ref(*args, causal=causal)
+            torch.cuda.synchronize()
+            rel = worst(float((a.float() - b.float()).abs().max()
+                              / b.float().abs().max().clamp(min=1e-12))
+                        for a, b in zip(got, want))
+            del got, want
+            if dname == "fp32":
+                row("flash_attention_bwd", label, dname, rel, tol[dname])
+                continue
+            ops_ = 10 * D * B * H * pairs
+            nbytes = (3 * B * H * Lq * D * 2 + 4 * B * KV * Lk * D * 2
+                      + 2 * B * H * Lq * 4)
+            call = lambda *a: flash_attention_bwd(*a, causal=causal)
+            k_ms = time_ms(lambda: call(*args), inner=5, repeats=5)
+            qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (qm, km, vm))
+            dos = dom.transpose(1, 2)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=causal, enable_gqa=G > 1)
+            both = lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), dos)
+            lib = (time_ms(both, inner=5, repeats=5)
+                   - time_ms(sdpa, inner=5, repeats=5))
+            row("flash_attention_bwd", label, dname, rel, tol[dname], k_ms,
+                time_ms(lambda: ref.flash_attention_bwd_ref(
+                    *args, causal=causal), inner=2, repeats=3), lib,
+                bound(nbytes, ops_, "bf16"),
+                cold_ms=_cold(call, args, nbytes),
+                extra={"tflops": ops_ / (k_ms * 1e-3) / 1e12})
+        del qm, km, vm
+        torch.cuda.empty_cache()
+
+
+def _greedy_stream(cfg, params, tokens, n_new, encoder_embeds=None):
+    """Greedy free-running decode of ``tokens`` (B, Lp) through
+    ``serving.generate``'s prefill and decode steps: (tokens (B, n_new),
+    logits (n_new, B, V) fp32; step i's logits predict token i)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.generate import decode_step, prefill
+    B, Lp = tokens.shape
+    cache = T.init_cache(cfg, B, Lp + n_new, device="cuda")
+    lg, cache = prefill(cfg, params, tokens, cache,
+                        encoder_embeds=encoder_embeds)
+    toks, lgs = [], [lg.float()]
+    for t in range(n_new):
+        tok = lg.argmax(-1)
+        toks.append(tok)
+        if t + 1 == n_new:
+            break
+        pos = torch.full((B,), Lp + t, dtype=torch.long, device="cuda")
+        lg, cache = decode_step(cfg, params, tok, cache, pos)
+        lgs.append(lg.float())
+    del cache
+    return torch.stack(toks, 1), torch.stack(lgs)
+
+
+def _free_running_gate(tag, what, kern, plain, moved, w_err, failures):
+    """The full-depth gate of a greedy stream, kernel path against plain
+    path, each free-running on its own tokens: the per-layer witness
+    ``w_err`` <= 1e-4; the logits gap over the steps whose inputs are still
+    the same (up to and including the first step where a row's tokens
+    part) <= 1e-4, or 2x the model's conditioning (the plain path with its
+    inputs moved by a relative 1e-7, over its own shared steps) where that
+    is larger.  Returns the gap."""
+    import torch
+
+    def gap(a, b):
+        (ta, la), (tb, lb) = a, b
+        diff = (ta != tb).any(0).nonzero()
+        last = int(diff[0]) if len(diff) else ta.shape[1] - 1
+        n_same = int((ta == tb).all(0).long().cumprod(0).sum())
+        rel = float((la[:last + 1] - lb[:last + 1]).abs().max()
+                    / lb[:last + 1].abs().max())
+        return rel, n_same
+    finite = bool(torch.isfinite(kern[1]).all()
+                  and torch.isfinite(plain[1]).all())
+    rel, n_same = gap(kern, plain)
+    cond, _ = gap(moved, plain)
+    limit = max(1e-4, 2 * cond)
+    ok = finite and w_err <= 1e-4 and rel <= limit
+    n = kern[0].shape[1]
+    log(f"[{tag}] {what}: per-layer witness max {w_err:.3g} (tol 1e-4); "
+        f"free-running greedy streams equal for {n_same} of {n} steps in "
+        f"every row; logits gap over the shared steps {rel:.3g} (tol "
+        f"{limit:.3g}: 1e-4 or 2x the conditioning {cond:.3g}, the plain "
+        f"path with its inputs moved by 1e-7); finite {finite} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{tag} {what}: witness {w_err:.3g}, gap {rel:.3g} "
+                        f"(tol {limit:.3g}), finite {finite}")
+    return {"witness": w_err, "gap": rel, "cond": cond, "same_steps": n_same}
+
+
+def _mla_parity(state, failures):
+    """deepseek-v2-lite-16b in fp32 (TF32 off) at full width and the
+    deepest cut whose weights fit the card beside 10 GiB of room (the whole
+    is ~65 GB): one greedy row, a 256-token prompt and 32 new tokens,
+    kernel path and plain path each free-running; the per-layer witness is
+    each MLA layer's attention run through the kernel path on the plain
+    run's input and a clone of its cache (the MoE block after it is the
+    same code on both paths, and a routing near-tie would only measure
+    the router)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import modules as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    full = get_config(MLA_ARCH).replace(compute_dtype="float32")
+    layer = full.replace(n_layers=2).n_params() - full.replace(
+        n_layers=1).n_params()
+    fixed = full.replace(n_layers=1).n_params() - layer
+    free = torch.cuda.mem_get_info()[0]
+    depth = int(min(full.n_layers,
+                    (free - 10 * 2**30 - 4 * fixed) // (4 * layer)))
+    cfg = full.replace(n_layers=depth)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen)
+    Lp, n_new = 256, 32
+    tokens = torch.randint(0, cfg.vocab_size, (1, Lp), generator=gen,
+                           device="cuda")
+    kcfg, pcfg = cfg.replace(use_kernels=True), cfg.replace(use_kernels=False)
+    kern = _greedy_stream(kcfg, params, tokens, n_new)
+    w_err, real = [0.0], M.mla_apply
+
+    def witness(c, p, x, *, cache=None, **kw):
+        ck = tree_map(torch.clone, cache) if cache is not None else None
+        yk, _ = real(kcfg, p, x, cache=ck, **kw)
+        y, nc = real(c, p, x, cache=cache, **kw)
+        w_err[0] = worst((w_err[0], float((yk - y).abs().max()
+                                          / y.abs().max())))
+        return y, nc
+    M.mla_apply = witness
+    try:
+        plain = _greedy_stream(pcfg, params, tokens, n_new)
+    finally:
+        M.mla_apply = real
+    params["embed"].mul_(1 + 1e-7 * torch.randn(
+        params["embed"].shape, generator=gen, device="cuda"))
+    moved = _greedy_stream(pcfg, params, tokens, n_new)
+    what = (f"fp32 greedy at full width, {depth} of {full.n_layers} layers "
+            f"({cfg.n_params() / 1e9:.2f} B), prompt {Lp} + {n_new} new")
+    res = _free_running_gate("mla", what, kern, plain, moved, w_err[0],
+                             failures)
+    log(f"[mla] parity run {time.perf_counter() - t0:.1f}s, peak "
+        f"{_peak_gib():.2f} GiB")
+    state.setdefault("mla", {}).update(parity_depth=depth, **res)
+    del params, kern, plain, moved
+
+
+def _mla_serve(state, failures):
+    """``launch.serve`` at full width and depth (27 layers, bf16 weights
+    only) on the 32-request workload at ``REPEAT_NEW`` new tokens, 16
+    slots, dense latent arena, without a warm-up (its tok/s includes the
+    first calls at its shapes): tok/s, peak memory, the MoE routing's drop
+    share per decode step and per admission (R13); the flash forward at
+    D = 192 and RMSNorm must launch, no decode kernel (the absorbed decode
+    is plain products)."""
+    with _DropMeter() as meter:
+        res = _serve_peak(workload(MLA_ARCH, REPEAT_NEW), "serve_deepseek",
+                          MLA_SERVE_KERNELS, state, warmup=False)
+    counts = state["launches"]["serve_deepseek"]
+    dec, adm, n_dec, n_adm, _ = meter.shares(16)
+    log(f"[mla] routed entries dropped (R13): {dec:.4f} of each decode "
+        f"step's ({n_dec} layer calls of 16 rows), {adm:.4f} of each "
+        f"admission's ({n_adm} layer calls)")
+    state.setdefault("mla", {}).update(tok_s=res["tok_s"], drop_decode=dec,
+                                       drop_admission=adm)
+    if any(counts[k] for k in ATTENTION_KERNELS
+           if k != "flash_attention_fwd"):
+        failures.append(f"serve deepseek: a decode kernel launched {counts}")
+
+
+def _mla_train(state, failures):
+    """``launch.train`` SFT at full width cut to ``MLA_TRAIN_LAYERS``
+    layers, 5 steps of 8 x 512 (bf16 on fp32 masters, AdamW, remat): the
+    D = 192 flash backward inside a step."""
+    from repro_torch.configs import get_config
+    cut = get_config(MLA_ARCH).replace(n_layers=MLA_TRAIN_LAYERS)
+    log(f"[mla] SFT depth {MLA_TRAIN_LAYERS} of 27 layers "
+        f"({cut.n_params() / 1e9:.2f} B parameters)")
+    out = _sft_run("train_deepseek", ["--arch", MLA_ARCH, "--steps", "5",
+                                      "--batch", "8", "--seq", "512"],
+                   state, failures, cfg=cut)
+    _free(out)
+
+
+def _mla_rows(state, failures):
+    """The flash kernels at MLA's head dim 192 (H = KV = 16, V padded from
+    128): prefill B 1, L 256; SFT B 8, L 512 with the LSE, and the
+    backward there."""
+    _flash_rows(state, failures, "d192", "mla", 192,
+                (("deepseek prefill", 1, 16, 1, 256, 256, True, False),
+                 ("deepseek sft", 8, 16, 1, 512, 512, True, True)),
+                seed=192, pad_v=128)
+
+
+def phase_mla(state):
+    """MLA at deepseek-v2-lite-16b: the D = 192 kernel rows, the fp32
+    free-running gate, the serve workload at full size and the SFT leg."""
+    import gc
+
+    import torch
+    failures = []
+    ptx = state.get("ptxas_d192", {})
+    log(f"[mla] ptxas of the bf16 flash kernels at D = 192 (phase build): "
+        + "; ".join(f"{fn}: {r} registers, {sp} bytes spilled"
+                    for fn, (r, sp) in ptx.items()))
+    for part in (_mla_rows, _mla_parity, _mla_serve, _mla_train):
+        t0 = time.perf_counter()
+        part(state, failures)
+        gc.collect()          # engines and cores refer to each other
+        torch.cuda.empty_cache()
+        log(f"[mla] {part.__name__}: {time.perf_counter() - t0:.1f}s")
+    if failures:
+        raise AssertionError("mla checks failed:\n" + "\n".join(failures))
+
+
+def _set_gates(params, gen):
+    """Every cross-attention gate drawn from U(0.5, 1): at their init of 0,
+    tanh(gate) would take cross-attention out of the model's outputs."""
+    for seg in params["segments"]:
+        for lp in seg:
+            if "xattn" in lp:
+                lp["xattn"]["gate"].uniform_(0.5, 1.0, generator=gen)
+
+
+def _xattn_rows(state, failures):
+    """The flash kernels over llama-3.2-vision's 1,601 encoder keys (D 128,
+    H 32 / KV 8, non-causal): decode (Lq 1) and a 64-token prompt at B 4,
+    and the SFT shape B 8, Lq 512 with the backward."""
+    _flash_rows(state, failures, "cross", "xattn", 128,
+                (("vision decode", 4, 8, 4, 1, 1601, False, False),
+                 ("vision prompt", 4, 8, 4, 64, 1601, False, False),
+                 ("vision sft", 8, 8, 4, 512, 1601, False, True)),
+                seed=1601)
+
+
+def _vlm_generate(state, failures):
+    """llama-3.2-vision-11b at full width and depth (40 layers) in fp32
+    (TF32 off), gates drawn from U(0.5, 1): ``GenerationEngine.generate``
+    with ``encoder_embeds`` (B 4, 1,601 x 1,280, 64-token prompts, 64 new,
+    greedy) on the kernel path, its launches (RMSNorm, the flash forward
+    for prompts and for every cross-attention step, the dense decode
+    kernel), then the free-running gate: kernel and plain path through
+    prefill and decode steps, with the per-layer witness (each layer
+    through the kernel path on the plain run's input and a clone of its
+    cache) and the conditioning (the token embeddings moved by 1e-7)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_map
+    from repro_torch.serving.engine import GenerationEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(VLM_ARCH).replace(compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen)
+    _set_gates(params, gen)
+    B, Lp, n_new = 4, 64, 64
+    tokens = torch.randint(0, cfg.vocab_size, (B, Lp), generator=gen,
+                           device="cuda")
+    enc = torch.randn((B, cfg.encoder_len, cfg.encoder_dim), generator=gen,
+                      device="cuda")
+    kcfg, pcfg = cfg.replace(use_kernels=True), cfg.replace(use_kernels=False)
+    eng = GenerationEngine(kcfg, max_new_tokens=n_new, temperature=0.0)
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    out = eng.generate(params, tokens, torch.Generator(device="cuda"),
+                       encoder_embeds=enc)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    state.setdefault("launches", {})["generate_vision"] = counts
+    missing = [k for k in VLM_GEN_KERNELS if counts[k] == 0]
+    if missing:
+        failures.append(f"vision generate: kernels never launched {missing}")
+    log(f"[xattn] GenerationEngine.generate {VLM_ARCH} fp32 "
+        f"({cfg.n_params() / 1e9:.2f} B), B {B}, encoder {cfg.encoder_len} x "
+        f"{cfg.encoder_dim}, prompt {Lp} + {n_new} new: {gen_s:.2f}s = "
+        f"{B * n_new / gen_s:.1f} tok/s; launches {counts}")
+    kern = _greedy_stream(kcfg, params, tokens, n_new, enc)
+    if not torch.equal(out["sequences"][:, Lp:], kern[0]):
+        failures.append("vision: the engine's tokens differ from prefill + "
+                        "decode steps on the same path")
+    w_err, layer = [0.0], T._layer
+
+    def witness(c, spec, lp, x, positions, mode, lc, rope,
+                block_tables=None, **kw):
+        lck = tree_map(torch.clone, lc) if lc is not None else None
+        yk, _ = layer(kcfg, spec, lp, x, positions, mode, lck, rope,
+                      block_tables, **kw)
+        y, aux = layer(c, spec, lp, x, positions, mode, lc, rope,
+                       block_tables, **kw)
+        w_err[0] = worst((w_err[0], float((yk - y).abs().max()
+                                          / (y - x).abs().max())))
+        return y, aux
+    T._layer = witness
+    try:
+        plain = _greedy_stream(pcfg, params, tokens, n_new, enc)
+    finally:
+        T._layer = layer
+    params["embed"].mul_(1 + 1e-7 * torch.randn(
+        params["embed"].shape, generator=gen, device="cuda"))
+    moved = _greedy_stream(pcfg, params, tokens, n_new, enc)
+    res = _free_running_gate(
+        "xattn", f"{VLM_ARCH} fp32 greedy, full width and depth, B {B}",
+        kern, plain, moved, w_err[0], failures)
+    log(f"[xattn] vision generate and gate {time.perf_counter() - t0:.1f}s, "
+        f"peak {_peak_gib():.2f} GiB")
+    state.setdefault("xattn", {}).update(vision_gen_tok_s=B * n_new / gen_s,
+                                         **{f"vision_{k}": v
+                                            for k, v in res.items()})
+    del params, kern, plain, moved, out
+
+
+def _embed_sft(tag, cfg, steps, batch_fn, state, failures):
+    """``steps`` SFT steps (``training.steps.lm_train_step``, bf16 on fp32
+    masters, AdamW, remat) of ``cfg`` on ``batch_fn(i)``: every loss
+    finite, the training kernels launched (counts set to 0 just before,
+    read just after)."""
+    import math
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.training.steps import lm_train_step
+    from repro_torch.training.train_state import TrainState
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = T.init_params(cfg, gen)
+    _set_gates(params, gen)
+    st = TrainState.create(params)
+    del params
+    losses, ms = [], []
+    ops.reset_launch_counts()
+    for i in range(steps):
+        b = batch_fn(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = lm_train_step(cfg, st, b, 1e-4)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launch_counts()
+    state.setdefault("launches", {})[tag] = counts
+    B, L = b["labels"].shape
+    med = statistics.median(ms[1:] or ms)
+    log(f"[xattn] {tag}: {cfg.name} ({cfg.n_layers} layers, "
+        f"{cfg.n_params() / 1e9:.2f} B), {steps} steps of {B} x {L}: losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; step ms "
+        f"{' '.join(f'{x:.1f}' for x in ms)} (median after the first "
+        f"{med:.1f}, {B * L / med * 1e3:.1f} tok/s); peak {_peak_gib():.2f} "
+        f"GiB; launches {counts}")
+    state.setdefault("xattn", {})[tag] = {"loss": losses, "step_ms": med,
+                                          "peak_gib": _peak_gib()}
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"{tag}: losses {losses}")
+    missing = [k for k in TRAIN_KERNELS if counts[k] == 0]
+    if missing:
+        failures.append(f"{tag}: kernels never launched {missing}")
+    del st
+
+
+def _vlm_train(state, failures):
+    """llama-3.2-vision SFT at full width cut to the units (of 4 self- and
+    1 cross-attention layer) whose train state (18 bytes a parameter) fits
+    in 60% of the card: 3 steps of 8 x 512 tokens of the SFT blend, each row
+    with 1,601 x 1,280 encoder embeddings."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import lm_data, to_device
+
+    full = get_config(VLM_ARCH)
+    k = full.cross_attn_every
+    unit = (full.replace(n_layers=2 * k).n_params()
+            - full.replace(n_layers=k).n_params())
+    fixed = full.replace(n_layers=k).n_params() - unit
+    budget = 0.6 * torch.cuda.get_device_properties(0).total_memory
+    units = max(1, int((budget - 18 * fixed) // (18 * unit)))
+    cfg = full.replace(n_layers=k * units)
+    data = lm_data(cfg, 512, 0).sft_batches(8, 3)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def batch(i):
+        b = to_device(next(data), "cuda")
+        b["encoder_embeds"] = torch.randn(
+            (8, cfg.encoder_len, cfg.encoder_dim), generator=gen,
+            device="cuda")
+        return b
+    _embed_sft("train_vision", cfg, 3, batch, state, failures)
+
+
+def _audio(state, failures):
+    """musicgen-medium at full size (48 layers, no embedding table): fp32
+    (TF32 off) teacher-forced prefill of 256 frame embeddings and 32 decode
+    steps each fed the next frame, kernel path against plain path (1e-4 of
+    max |logits|); then 5 SFT steps of 8 x 512 on frames (the SFT blend's
+    tokens through a fixed random table: the EnCodec front end stubbed)
+    predicting the blend's labels."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import lm_data, to_device
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.generate import decode_step, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(AUDIO_ARCH).replace(compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(cfg, gen)
+    Lp, n_dec = 256, 32
+    frames = torch.randn((1, Lp + n_dec, cfg.d_model), generator=gen,
+                         device="cuda")
+    logits = {}
+    for uk in (True, False):
+        c = cfg.replace(use_kernels=uk)
+        cache = T.init_cache(c, 1, Lp + n_dec, device="cuda")
+        lg, cache = prefill(c, params, None, cache, embeds=frames[:, :Lp])
+        steps = [lg]
+        for t in range(n_dec):
+            pos = torch.full((1,), Lp + t, dtype=torch.long, device="cuda")
+            lg, cache = decode_step(c, params, None, cache, pos,
+                                    embeds=frames[:, Lp + t:Lp + t + 1])
+            steps.append(lg)
+        logits[uk] = torch.cat(steps).float()
+        del cache
+    a, b = logits[True], logits[False]
+    rel = float((a - b).abs().max() / b.abs().max())
+    log(f"[xattn] parity {AUDIO_ARCH} fp32 ({cfg.n_params() / 1e9:.2f} B), "
+        f"{Lp} frames prefill + {n_dec} decode steps on frame embeddings "
+        f"(teacher-forced): max|dlogits|/max|logits| = {rel:.3g} (tol 1e-4)")
+    state.setdefault("xattn", {})["audio_parity"] = rel
+    if not (torch.isfinite(a).all() and rel <= 1e-4):
+        failures.append(f"parity {AUDIO_ARCH}: rel {rel:.3g}")
+    del params, logits, a, b
+    torch.cuda.empty_cache()
+
+    cfg = get_config(AUDIO_ARCH)
+    table = torch.randn((256, cfg.d_model), generator=gen, device="cuda")
+    data = lm_data(cfg, 512, 0).sft_batches(8, 5)
+
+    def batch(i):
+        b = to_device(next(data), "cuda")
+        return {"embeds": table[b.pop("tokens").long()], **b}
+    _embed_sft("train_musicgen", cfg, 5, batch, state, failures)
+
+
+def phase_xattn(state):
+    """Cross-attention at llama-3.2-vision-11b and embedding inputs at
+    musicgen-medium: the flash rows over 1,601 encoder keys, the VLM's
+    generate and free-running gate at full size, its SFT leg, and the audio
+    decoder's parity and SFT at full size."""
+    import gc
+
+    import torch
+    failures = []
+    for part in (_xattn_rows, _vlm_generate, _vlm_train, _audio):
+        t0 = time.perf_counter()
+        part(state, failures)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[xattn] {part.__name__}: {time.perf_counter() - t0:.1f}s")
+    if failures:
+        raise AssertionError("xattn checks failed:\n" + "\n".join(failures))
+
+
 PHASE_FNS = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "parity": phase_parity,
              "serve": phase_serve, "train": phase_train, "rlhf": phase_rlhf,
              "hybrid": phase_hybrid, "ssm": phase_ssm,
              "ssm_train": phase_ssm_train,
              "gqa128": phase_gqa128, "moe": phase_moe,
+             "mla": phase_mla, "xattn": phase_xattn,
              "ckpt": phase_ckpt, "profile": phase_profile}
 
 
@@ -4842,9 +5270,10 @@ def main() -> int:
                                    "cold_ms", "library_cold_ms",
                                    "achieved_gbs", "decode_in_step")
                if k in row},
-            # the head-dim-128 rows of phase gqa128
-            **({"d128": state["d128"][name]} if name in state.get("d128", {})
-               else {}),
+            # the head-dim-128 rows of phase gqa128, the head-dim-192 rows
+            # of phase mla and the cross-attention rows of phase xattn
+            **{key: state[key][name] for key in ("d128", "d192", "cross")
+               if name in state.get(key, {})},
         })
     print(state.get("smi") or nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))

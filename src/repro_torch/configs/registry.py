@@ -1,33 +1,36 @@
 """Architecture registry: ``--arch <id>`` resolves here (counterpart of
 ``repro/configs/registry.py``).
 
-The ported configs resolve: the OPT family, the dense GQA decoders
-``smollm-135m``, ``llama3.2-3b``, ``qwen3-8b`` and ``yi-9b``, the MoE
-decoder ``llama4-scout-17b-a16e`` and the SSM / hybrid pair
-``mamba2-370m`` and ``zamba2-1.2b``.  Every other architecture id of the
-reference raises ``NotImplementedError`` until its slice is ported.
+Every architecture id of the reference resolves: the OPT family, the
+dense GQA decoders ``smollm-135m``, ``llama3.2-3b``, ``qwen3-8b`` and
+``yi-9b``, the MoE decoders ``llama4-scout-17b-a16e`` and
+``deepseek-v2-lite-16b`` (MLA), the SSM / hybrid pair ``mamba2-370m`` and
+``zamba2-1.2b``, the cross-attention VLM ``llama-3.2-vision-11b`` and the
+embedding-input audio decoder ``musicgen-medium``.
 """
 from __future__ import annotations
 
-from repro_torch.configs import (llama3_2_3b, llama4_scout_17b_a16e,
-                                  mamba2_370m, opt_family, qwen3_8b,
+from repro_torch.configs import (deepseek_v2_lite_16b, llama3_2_3b,
+                                  llama4_scout_17b_a16e,
+                                  llama_3_2_vision_11b, mamba2_370m,
+                                  musicgen_medium, opt_family, qwen3_8b,
                                   smollm_135m, yi_9b, zamba2_1_2b)
 from repro_torch.models.config import ModelConfig
 
+# in the reference's order
 ARCHS = {"qwen3-8b": qwen3_8b.CONFIG,
+         "musicgen-medium": musicgen_medium.CONFIG,
          "yi-9b": yi_9b.CONFIG,
          "llama3.2-3b": llama3_2_3b.CONFIG,
          "llama4-scout-17b-a16e": llama4_scout_17b_a16e.CONFIG,
          "mamba2-370m": mamba2_370m.CONFIG,
          "zamba2-1.2b": zamba2_1_2b.CONFIG,
-         "smollm-135m": smollm_135m.CONFIG}
+         "deepseek-v2-lite-16b": deepseek_v2_lite_16b.CONFIG,
+         "smollm-135m": smollm_135m.CONFIG,
+         "llama-3.2-vision-11b": llama_3_2_vision_11b.CONFIG}
 
-# the reference's other architecture ids, not yet ported
-_NOT_PORTED = [
-    "musicgen-medium",
-    "deepseek-v2-lite-16b",
-    "llama-3.2-vision-11b",
-]
+# the reference's architecture ids still to port: none
+_NOT_PORTED: list = []
 
 
 def list_archs():
@@ -46,13 +49,9 @@ def get_config(arch_id: str) -> ModelConfig:
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """Reduced same-family variant for CPU smoke tests (the reference's
-    rule for the dense, MoE, SSM and hybrid fields; MLA and cross-attention
-    are not ported)."""
-    if (cfg.arch_type not in ("dense", "moe", "ssm", "hybrid") or cfg.mla
-            or cfg.cross_attn_every):
-        raise NotImplementedError(f"{cfg.name} ({cfg.arch_type}): "
-                                  "not yet ported")
+    """Reduced same-family variant for CPU smoke tests (≤2 layers, d_model
+    ≤ 256, ≤4 experts; one cross-attention unit with a short encoder): the
+    reference's rule, field for field."""
     kw = dict(
         n_layers=2, d_model=min(cfg.d_model, 256),
         vocab_size=min(cfg.vocab_size, 512),
@@ -69,12 +68,21 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw["top_k"] = min(cfg.top_k, 2)
         kw["moe_d_ff"] = min(cfg.moe_d_ff, 128)
         kw["capacity_factor"] = 2.0
+    if cfg.mla:
+        kw["kv_lora_rank"] = 64
+        kw["qk_nope_head_dim"] = 32
+        kw["qk_rope_head_dim"] = 16
+        kw["v_head_dim"] = 32
     if cfg.ssm_state:
         kw["ssm_state"] = min(cfg.ssm_state, 32)
         kw["ssm_headdim"] = 32
         kw["ssm_chunk"] = 32
     if cfg.attn_every:
         kw["n_layers"] = cfg.attn_every  # one full hybrid unit
+    if cfg.cross_attn_every:
+        kw["n_layers"] = cfg.cross_attn_every
+        kw["encoder_dim"] = min(cfg.encoder_dim, 128)
+        kw["encoder_len"] = min(cfg.encoder_len, 16)
     if cfg.sliding_window:
         kw["sliding_window"] = min(cfg.sliding_window, 64)
     return cfg.replace(name=cfg.name + "-reduced", **kw)

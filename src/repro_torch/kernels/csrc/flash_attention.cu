@@ -48,6 +48,15 @@
 // must be 16-byte aligned with row, head and batch strides that are
 // multiples of 8 elements (the wrapper checks and raises).
 //
+// Head dim 192 (MLA's 128 + 64 query/key dims, V zero-padded to 192 by the
+// caller): a warp's O accumulator is 16 x 192 fp32, 96 registers a thread
+// against 64 at D = 128.  So at D = 192 the kernel streams 32-key tiles (S
+// is 16 registers, not 32) and reloads the Q fragments from the staged Q
+// tile at each key tile instead of holding 48 more registers for the whole
+// walk; shared memory is 2 (64 + 4 x 32) x 200 bf16 = 76.8 KB, two blocks
+// an SM.  Non-causal calls may have Lq > Lk (cross-attention over encoder
+// keys: the query offset is then negative, and nothing reads it).
+//
 // ---- fp32: flash_fwd_kernel ----------------------------------------------
 //
 // At the admission shape (B = 1, H = KV = 32, D = 64, Lq = Lk = 256,
@@ -261,8 +270,15 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct MmaTile {
+  // keys per streamed tile: 32 at D = 192, where a warp's O accumulator
+  // alone is 96 registers a thread and the S tile must stay small
+  static constexpr int BK = D > 128 ? 32 : kMmaBK;
+  // Q fragments held in registers for the whole key walk up to D = 128; at
+  // D = 192 they would add 48 registers a thread to O's 96, so each tile
+  // reloads them from the staged Q tile (ldmatrix, no global traffic)
+  static constexpr bool kQRegs = D <= 128;
   static constexpr int RS = D + 8;           // padded shared row (bf16)
-  static constexpr int KV_TILE = kMmaBK * RS;  // one K or V stage
+  static constexpr int KV_TILE = BK * RS;    // one K or V stage
   static constexpr int smem_bytes =
       static_cast<int>(sizeof(bf16)) * (kMmaBQ * RS + 4 * KV_TILE);
 };
@@ -272,13 +288,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(
     const Params p) {
   using namespace repro::mma;
   constexpr int RS = MmaTile<D>::RS, KV_TILE = MmaTile<D>::KV_TILE;
+  constexpr int BK = MmaTile<D>::BK;
+  constexpr bool kQRegs = MmaTile<D>::kQRegs;
   constexpr int KD = D / 16;       // k-steps over D
-  constexpr int NS = kMmaBK / 8;   // key n-tiles of S
+  constexpr int NS = BK / 8;       // key n-tiles of S
   constexpr int NO = D / 8;        // dim n-tiles of O
+  constexpr int KDR = kQRegs ? KD : 1;  // Q fragments kept in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kMmaBQ][RS]
-  bf16* k_s = q_s + kMmaBQ * RS;                   // [2][kMmaBK][RS]
-  bf16* v_s = k_s + 2 * KV_TILE;                   // [2][kMmaBK][RS]
+  bf16* k_s = q_s + kMmaBQ * RS;                   // [2][BK][RS]
+  bf16* v_s = k_s + 2 * KV_TILE;                   // [2][BK][RS]
 
   // the last query tiles attend the most keys under a causal mask: they
   // are scheduled first, so the short ones fill the tail of the grid
@@ -303,17 +322,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(
   if (p.causal) k_hi = min(k_hi, q_offset + q_end);
   int k_lo = 0;
   if (p.window >= 0) k_lo = max(0, q_offset + q0 - p.window + 1);
-  k_lo = (k_lo / kMmaBK) * kMmaBK;
-  const int n_tiles = (k_hi - k_lo + kMmaBK - 1) / kMmaBK;
+  k_lo = (k_lo / BK) * BK;
+  const int n_tiles = (k_hi - k_lo + BK - 1) / BK;
 
   load_rows<kMmaBQ, D, RS, kThreads>(q_s, qb, p.q_sl, q0, p.Lq);
-  load_rows<kMmaBK, D, RS, kThreads>(k_s, kb, p.k_sl, k_lo, p.Lk);
-  load_rows<kMmaBK, D, RS, kThreads>(v_s, vb, p.v_sl, k_lo, p.Lk);
+  load_rows<BK, D, RS, kThreads>(k_s, kb, p.k_sl, k_lo, p.Lk);
+  load_rows<BK, D, RS, kThreads>(v_s, vb, p.v_sl, k_lo, p.Lk);
   cp_async_commit();
 
   // this thread's two rows: r = 0 -> gid, r = 1 -> gid + 8 of the warp's 16
   const int row_q = q0 + warp * 16 + gid;
-  uint32_t qf[KD][4];
+  uint32_t qf[KDR][4];
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -322,20 +341,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(
   float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l[2] = {0.f, 0.f};
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = k_lo + t * kMmaBK;
+    const int k0 = k_lo + t * BK;
     const int st = t & 1;
     if (t + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      load_rows<kMmaBK, D, RS, kThreads>(k_s + (st ^ 1) * KV_TILE, kb,
-                                         p.k_sl, k0 + kMmaBK, p.Lk);
-      load_rows<kMmaBK, D, RS, kThreads>(v_s + (st ^ 1) * KV_TILE, vb,
-                                         p.v_sl, k0 + kMmaBK, p.Lk);
+      load_rows<BK, D, RS, kThreads>(k_s + (st ^ 1) * KV_TILE, kb,
+                                         p.k_sl, k0 + BK, p.Lk);
+      load_rows<BK, D, RS, kThreads>(v_s + (st ^ 1) * KV_TILE, vb,
+                                         p.v_sl, k0 + BK, p.Lk);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and, at t = 0, the Q tile) landed
     __syncthreads();
-    if (t == 0) {
+    if (kQRegs && t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
+      for (int kk = 0; kk < KDR; ++kk)
         ldmatrix_x4(qf[kk], smem_addr(q_s + (warp * 16 + (lane & 15)) * RS +
                                       kk * 16 + (lane >> 4) * 8));
     }
@@ -349,21 +368,29 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(qa, smem_addr(q_s + (warp * 16 + (lane & 15)) * RS +
+                                  kk * 16 + (lane >> 4) * 8));
+      }
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t bk[4];
         ldmatrix_x4(bk, smem_addr(ks + (np * 16 + (lane & 7) +
                                         ((lane >> 4) << 3)) * RS +
                                   kk * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
       }
     }
 
     // mask (only where the tile touches an edge) and online softmax, base 2
     const bool edge =
-        k0 + kMmaBK > p.Lk ||
-        (p.causal && k0 + kMmaBK - 1 > q_offset + q0) ||
+        k0 + BK > p.Lk ||
+        (p.causal && k0 + BK - 1 > q_offset + q0) ||
         (p.window >= 0 && q_offset + q0 + kMmaBQ - 1 - k0 >= p.window);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -414,7 +441,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(
     // O += P V: P from the S fragments, V through ldmatrix.trans
     const bf16* vs = v_s + st * KV_TILE;
 #pragma unroll
-    for (int j = 0; j < kMmaBK / 16; ++j) {
+    for (int j = 0; j < BK / 16; ++j) {
       uint32_t pa[4];
       pack_a(pa, s[2 * j], s[2 * j + 1]);
 #pragma unroll
@@ -490,6 +517,8 @@ int dispatch_d(const Params& p, int D, bool mma, cudaStream_t stream) {
     case 64: return mma ? launch_mma<64>(p, stream) : launch<float, 64>(p, stream);
     case 128:
       return mma ? launch_mma<128>(p, stream) : launch<float, 128>(p, stream);
+    case 192:
+      return mma ? launch_mma<192>(p, stream) : launch<float, 192>(p, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

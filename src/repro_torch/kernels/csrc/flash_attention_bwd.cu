@@ -56,9 +56,18 @@
 //   registers and dQ += dS K takes K through ldmatrix.trans.
 //
 // Element masks run only on tiles that touch the diagonal, the window
-// edge, or the ragged edge of either axis.  Every operand must be 16-byte
-// aligned with row, head and batch strides that are multiples of 8
-// elements (the wrapper checks and raises).
+// edge, or the ragged edge of either axis.
+//
+// Head dim 192 (MLA): dK and dV for 16 keys a warp would be 2 x 96 fp32
+// registers a thread, and the dQ kernel's Q and dO fragments 96 more
+// beside dQ's 96.  So at D = 192 the dK/dV entry point launches two
+// kernels over the same grid, one accumulating dV (it needs S and P only)
+// and one dK (S, P, dP and dS): S is computed twice, dP once.  The dQ
+// kernel reloads the Q and dO fragments from its staged tiles at every
+// key tile.  Non-causal calls may have Lq > Lk (encoder keys).
+//
+// Every operand must be 16-byte aligned with row, head and batch strides
+// that are multiples of 8 elements (the wrapper checks and raises).
 //
 // ---- fp32: flash_bwd_dkv_kernel, flash_bwd_dq_kernel ---------------------
 //
@@ -462,6 +471,13 @@ struct MmaBwd {
   // dQ: 64 query rows per block (4 warps x 16), key tiles of KB streamed
   static constexpr int QB = 64;
   static constexpr int KB = D >= 128 ? 32 : 64;
+  // dQ keeps its Q and dO fragments in registers up to D = 128; at D = 192
+  // they would add 96 registers a thread to dQ's 96, so each key tile
+  // reloads them from the staged tiles
+  static constexpr bool kQRegs = D <= 128;
+  // dK and dV together are 2 x 96 registers a thread at D = 192: there
+  // two kernels split them (one writes dV, the other dK)
+  static constexpr bool kSplitDkv = D > 128;
   static constexpr int dq_smem =
       static_cast<int>(sizeof(bf16)) * (2 * QB * RS + 4 * KB * RS) +
       static_cast<int>(sizeof(float)) * 2 * QB;
@@ -486,7 +502,10 @@ __device__ __forceinline__ bool attends(const Params& p, int qi, int kpos) {
          (p.window < 0 || qpos - kpos < p.window);
 }
 
-template <int D>
+// ROLE: kBoth writes dK and dV; kOnlyDv / kOnlyDk one of them (D = 192)
+enum DkvRole { kBoth = 0, kOnlyDv = 1, kOnlyDk = 2 };
+
+template <int D, int ROLE>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(
     const Params p) {
   using namespace repro::mma;
@@ -495,6 +514,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(
   constexpr int KD = D / 16;   // k-steps over D
   constexpr int NS = QT / 8;   // query n-tiles of S^T
   constexpr int NO = D / 8;    // dim n-tiles of dK, dV
+  constexpr bool kDv = ROLE != kOnlyDk, kDk = ROLE != kOnlyDv;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [KT][RS]
   bf16* v_s = k_s + KT * RS;                       // [KT][RS]
@@ -548,11 +568,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(
   if (total > 0) issue(0, 0);
   cp_async_commit();
 
-  float dk[NO][4], dv[NO][4];
+  float dk[kDk ? NO : 1][4], dv[kDv ? NO : 1][4];
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
+  for (int n = 0; n < (kDk ? NO : 1); ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < (kDv ? NO : 1); ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[n][e] = 0.f;
   const int key_row = k0 + warp * 16 + gid;  // and key_row + 8
 
   for (int it = 0; it < total; ++it) {
@@ -604,64 +628,68 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(
     }
 
     // dV += P^T dO, dO through ldmatrix.trans
+    if constexpr (kDv) {
 #pragma unroll
-    for (int j = 0; j < QT / 16; ++j) {
-      uint32_t pa[4];
-      pack_a(pa, s[2 * j], s[2 * j + 1]);
+      for (int j = 0; j < QT / 16; ++j) {
+        uint32_t pa[4];
+        pack_a(pa, s[2 * j], s[2 * j + 1]);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bo[4];
-        ldmatrix_x4_trans(bo, smem_addr(dos + (j * 16 + (lane & 7) +
-                                               ((lane >> 3) & 1) * 8) * RS +
-                                        dp * 16 + (lane >> 4) * 8));
-        mma_bf16(dv[2 * dp], pa, bo[0], bo[1]);
-        mma_bf16(dv[2 * dp + 1], pa, bo[2], bo[3]);
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bo[4];
+          ldmatrix_x4_trans(bo, smem_addr(dos + (j * 16 + (lane & 7) +
+                                                 ((lane >> 3) & 1) * 8) * RS +
+                                          dp * 16 + (lane >> 4) * 8));
+          mma_bf16(dv[2 * dp], pa, bo[0], bo[1]);
+          mma_bf16(dv[2 * dp + 1], pa, bo[2], bo[3]);
+        }
       }
     }
-
-    // dP^T = V dO^T
-    float dpt[NS][4];
+    if constexpr (kDk) {
+      // dP^T = V dO^T
+      float dpt[NS][4];
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dpt[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) dpt[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t va[4];
-      ldmatrix_x4(va, smem_addr(v_s + (warp * 16 + (lane & 15)) * RS +
-                                kk * 16 + (lane >> 4) * 8));
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t va[4];
+        ldmatrix_x4(va, smem_addr(v_s + (warp * 16 + (lane & 15)) * RS +
+                                  kk * 16 + (lane >> 4) * 8));
 #pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t bo[4];
-        ldmatrix_x4(bo, smem_addr(dos + (np * 16 + (lane & 7) +
-                                         ((lane >> 4) << 3)) * RS +
-                                  kk * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(dpt[2 * np], va, bo[0], bo[1]);
-        mma_bf16(dpt[2 * np + 1], va, bo[2], bo[3]);
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t bo[4];
+          ldmatrix_x4(bo, smem_addr(dos + (np * 16 + (lane & 7) +
+                                           ((lane >> 4) << 3)) * RS +
+                                    kk * 16 + ((lane >> 3) & 1) * 8));
+          mma_bf16(dpt[2 * np], va, bo[0], bo[1]);
+          mma_bf16(dpt[2 * np + 1], va, bo[2], bo[3]);
+        }
       }
-    }
 
-    // dS^T = P^T (dP^T - delta) scale
+      // dS^T = P^T (dP^T - delta) scale
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dpt[n][e] = s[n][e] * (dpt[n][e] - deltas[n * 8 + 2 * tig + (e & 1)]) *
-                    p.scale;
+        for (int e = 0; e < 4; ++e)
+          dpt[n][e] = s[n][e] *
+                      (dpt[n][e] - deltas[n * 8 + 2 * tig + (e & 1)]) *
+                      p.scale;
 
-    // dK += dS^T Q, Q through ldmatrix.trans
+      // dK += dS^T Q, Q through ldmatrix.trans
 #pragma unroll
-    for (int j = 0; j < QT / 16; ++j) {
-      uint32_t da[4];
-      pack_a(da, dpt[2 * j], dpt[2 * j + 1]);
+      for (int j = 0; j < QT / 16; ++j) {
+        uint32_t da[4];
+        pack_a(da, dpt[2 * j], dpt[2 * j + 1]);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bq[4];
-        ldmatrix_x4_trans(bq, smem_addr(qs + (j * 16 + (lane & 7) +
-                                              ((lane >> 3) & 1) * 8) * RS +
-                                        dp * 16 + (lane >> 4) * 8));
-        mma_bf16(dk[2 * dp], da, bq[0], bq[1]);
-        mma_bf16(dk[2 * dp + 1], da, bq[2], bq[3]);
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bq[4];
+          ldmatrix_x4_trans(bq, smem_addr(qs + (j * 16 + (lane & 7) +
+                                                ((lane >> 3) & 1) * 8) * RS +
+                                          dp * 16 + (lane >> 4) * 8));
+          mma_bf16(dk[2 * dp], da, bq[0], bq[1]);
+          mma_bf16(dk[2 * dp + 1], da, bq[2], bq[3]);
+        }
       }
     }
     __syncthreads();  // this stage is consumed before it is refilled
@@ -678,10 +706,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(
       bf16* dvr = dvb + static_cast<int64_t>(j) * p.dv_sl + 2 * tig;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-        *reinterpret_cast<uint32_t*>(dkr + n * 8) =
-            pack_bf16(dk[n][2 * r], dk[n][2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dvr + n * 8) =
-            pack_bf16(dv[n][2 * r], dv[n][2 * r + 1]);
+        if constexpr (kDk)
+          *reinterpret_cast<uint32_t*>(dkr + n * 8) =
+              pack_bf16(dk[n][2 * r], dk[n][2 * r + 1]);
+        if constexpr (kDv)
+          *reinterpret_cast<uint32_t*>(dvr + n * 8) =
+              pack_bf16(dv[n][2 * r], dv[n][2 * r + 1]);
       }
     }
   }
@@ -696,6 +726,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
   constexpr int KD = D / 16;   // k-steps over D
   constexpr int NS = KB / 8;   // key n-tiles of S
   constexpr int NO = D / 8;    // dim n-tiles of dQ
+  constexpr bool kQRegs = TL::kQRegs;
+  constexpr int KDR = kQRegs ? KD : 1;  // Q / dO fragments in registers
   constexpr int KV_TILE = KB * RS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [QB][RS]
@@ -743,7 +775,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
   cp_async_commit();
 
   const int row_q = q0 + warp * 16 + gid;  // and row_q + 8
-  uint32_t qf[KD][4], gf[KD][4];
+  uint32_t qf[KDR][4], gf[KDR][4];
   float lse2[2], dl[2];
   float dq[NO][4];
 #pragma unroll
@@ -764,12 +796,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
     cp_async_wait<1>();  // this tile (and, first, Q, dO, lse, delta) landed
     __syncthreads();
     if (t == 0) {
+      if constexpr (kQRegs) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const int off = (warp * 16 + (lane & 15)) * RS + kk * 16 +
-                        (lane >> 4) * 8;
-        ldmatrix_x4(qf[kk], smem_addr(q_s + off));
-        ldmatrix_x4(gf[kk], smem_addr(do_s + off));
+        for (int kk = 0; kk < KDR; ++kk) {
+          const int off = (warp * 16 + (lane & 15)) * RS + kk * 16 +
+                          (lane >> 4) * 8;
+          ldmatrix_x4(qf[kk], smem_addr(q_s + off));
+          ldmatrix_x4(gf[kk], smem_addr(do_s + off));
+        }
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -788,6 +822,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
       for (int e = 0; e < 4; ++e) s[n][e] = dpv[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], ga[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e], ga[e] = gf[kk][e];
+      } else {
+        const int off = (warp * 16 + (lane & 15)) * RS + kk * 16 +
+                        (lane >> 4) * 8;
+        ldmatrix_x4(qa, smem_addr(q_s + off));
+        ldmatrix_x4(ga, smem_addr(do_s + off));
+      }
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * RS +
@@ -795,10 +839,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
         uint32_t bk[4], bv[4];
         ldmatrix_x4(bk, smem_addr(ks + off));
         ldmatrix_x4(bv, smem_addr(vs + off));
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-        mma_bf16(dpv[2 * np], gf[kk], bv[0], bv[1]);
-        mma_bf16(dpv[2 * np + 1], gf[kk], bv[2], bv[3]);
+        mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+        mma_bf16(dpv[2 * np], ga, bv[0], bv[1]);
+        mma_bf16(dpv[2 * np + 1], ga, bv[2], bv[3]);
       }
     }
 
@@ -854,19 +898,39 @@ int launch_mma(const Params& p, bool dkv, cudaStream_t stream) {
   using TL = MmaBwd<D>;
   static bool configured = false;  // dynamic shared memory above 48 KB
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkv_mma_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, TL::dkv_smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               TL::dq_smem);
+    cudaError_t e = cudaSuccess;
+    auto attr = [&](const void* fn, int bytes) {
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    };
+    if constexpr (TL::kSplitDkv) {
+      attr(reinterpret_cast<const void*>(flash_bwd_dkv_mma_kernel<D, kOnlyDv>),
+           TL::dkv_smem);
+      attr(reinterpret_cast<const void*>(flash_bwd_dkv_mma_kernel<D, kOnlyDk>),
+           TL::dkv_smem);
+    } else {
+      attr(reinterpret_cast<const void*>(flash_bwd_dkv_mma_kernel<D, kBoth>),
+           TL::dkv_smem);
+    }
+    attr(reinterpret_cast<const void*>(flash_bwd_dq_mma_kernel<D>),
+         TL::dq_smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   if (dkv) {
     const dim3 grid((p.Lk + TL::KT - 1) / TL::KT, p.KV, p.B);
-    flash_bwd_dkv_mma_kernel<D><<<grid, kThreads, TL::dkv_smem, stream>>>(p);
+    if constexpr (TL::kSplitDkv) {  // two kernels: dV, then dK
+      flash_bwd_dkv_mma_kernel<D, kOnlyDv>
+          <<<grid, kThreads, TL::dkv_smem, stream>>>(p);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return static_cast<int>(e);
+      flash_bwd_dkv_mma_kernel<D, kOnlyDk>
+          <<<grid, kThreads, TL::dkv_smem, stream>>>(p);
+    } else {
+      flash_bwd_dkv_mma_kernel<D, kBoth>
+          <<<grid, kThreads, TL::dkv_smem, stream>>>(p);
+    }
   } else {
     const dim3 grid((p.Lq + TL::QB - 1) / TL::QB, p.KV * p.G, p.B);
     flash_bwd_dq_mma_kernel<D><<<grid, kThreads, TL::dq_smem, stream>>>(p);
@@ -888,6 +952,10 @@ int dispatch(const Params& p, int D, bool dkv, bool mma, cudaStream_t s) {
       return mma ? launch_mma<128>(p, dkv, s)
                  : (dkv ? launch_dkv<float, 128>(p, s)
                         : launch_dq<float, 128>(p, s));
+    case 192:
+      return mma ? launch_mma<192>(p, dkv, s)
+                 : (dkv ? launch_dkv<float, 192>(p, s)
+                        : launch_dq<float, 192>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

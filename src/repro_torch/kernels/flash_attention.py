@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 192)
 
 
 def _fn():
@@ -48,7 +48,7 @@ def _fn():
     return f
 
 
-def _check(q, k, v, out, window, lse=None):
+def _check(q, k, v, out, causal, window, lse=None):
     if q.ndim != 5 or k.ndim != 4:
         raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
@@ -60,8 +60,8 @@ def _check(q, k, v, out, window, lse=None):
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention_fwd: head_dim {D} not in "
                          f"{HEAD_DIMS}")
-    if Lq > Lk:
-        raise ValueError(f"flash_attention_fwd: Lq={Lq} > Lk={Lk}")
+    if causal and Lq > Lk:          # a query would precede every key
+        raise ValueError(f"flash_attention_fwd: causal with Lq={Lq} > Lk={Lk}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention_fwd: window={window}")
     for t in (q, k, v, out):
@@ -89,7 +89,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, out=None,
     and the rows' log-sum-exp into ``lse`` when given."""
     if out is None:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _check(q, k, v, out, window, lse)
+    _check(q, k, v, out, causal, window, lse)
     if q.device.type == "cpu":
         if lse is not None:
             lse.copy_(ref.flash_attention_lse_ref(q, k, causal=causal,

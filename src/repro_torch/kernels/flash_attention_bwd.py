@@ -41,7 +41,7 @@ def _fns():
     return lib, fns
 
 
-def _check(q, k, v, do, lse, delta, dq, dk, dv, window):
+def _check(q, k, v, do, lse, delta, dq, dk, dv, causal, window):
     if q.ndim != 5 or k.ndim != 4:
         raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
@@ -54,8 +54,8 @@ def _check(q, k, v, do, lse, delta, dq, dk, dv, window):
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head_dim {D} not in "
                          f"{HEAD_DIMS}")
-    if Lq > Lk:
-        raise ValueError(f"flash_attention_bwd: Lq={Lq} > Lk={Lk}")
+    if causal and Lq > Lk:          # a query would precede every key
+        raise ValueError(f"flash_attention_bwd: causal with Lq={Lq} > Lk={Lk}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention_bwd: window={window}")
     for t in (q, k, v, do, dq, dk, dv):
@@ -87,7 +87,7 @@ def flash_attention_bwd(q, k, v, do, lse, delta, *, causal=True,
         if dk is None else dk
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device) \
         if dv is None else dv
-    _check(q, k, v, do, lse, delta, dq, dk, dv, window)
+    _check(q, k, v, do, lse, delta, dq, dk, dv, causal, window)
     if q.device.type == "cpu":
         for out, r in zip((dq, dk, dv), ref.flash_attention_bwd_ref(
                 q, k, v, do, lse, delta, causal=causal, window=window)):

@@ -45,6 +45,18 @@ them, as in the reference.  ``--kv-quant`` makes only the hybrid's
 attention K/V rows int8 (the reference's rule), so Zamba2 decodes through
 the int8 kernel; Mamba2 has no K/V rows and serves as without it.
 
+``--arch deepseek-v2-lite-16b`` (MLA + MoE) serves on the dense layout: its
+arena holds the latents ``ckv`` and ``krope``, the prompt's attention runs
+the flash kernel at head dim 192 and decode the absorbed form (plain
+products); ``--kv-layout paged`` raises ``NotImplementedError``, and
+``--kv-quant`` leaves the latents in the compute dtype, as in the
+reference.  ``--arch llama-3.2-vision-11b`` and ``--arch musicgen-medium``
+take encoder or frame embeddings, which a request does not carry: the
+request core refuses them with the reference's ``NotImplementedError``
+(the VLM generates through ``GenerationEngine.generate(...,
+encoder_embeds=)``, the audio decoder through ``serving.generate``'s
+``prefill`` / ``decode_step`` with ``embeds``).
+
 The launcher's own weights are held in the compute dtype only, drawn in
 fp32 and rounded leaf by leaf.
 

@@ -29,8 +29,14 @@ reward and PPO alike: each SSD layer's forward is the intra-chunk kernel
 Zamba2's attention layers train through the flash kernels, and with
 ``--rlhf --kv-quant`` generate on the int8 arena.
 
-The MoE id (``llama4-scout-17b-a16e``) adds its routers' aux loss to the
-LM loss, as the reference does.
+The MoE ids (``llama4-scout-17b-a16e``, and ``deepseek-v2-lite-16b``,
+whose MLA attention trains through the flash kernels at head dim 192) add
+their routers' aux loss to the LM loss, as the reference does.  The VLM
+and audio ids (``llama-3.2-vision-11b``, ``musicgen-medium``) take
+encoder or frame embeddings, which the launcher's token batches do not
+hold: they are refused (the reference's launcher fails on them in the
+forward), and train through :func:`repro_torch.training.steps.lm_train_step`
+with ``encoder_embeds`` / ``embeds`` in the batch.
 
 ``--ckpt-dir`` with ``--save-every N`` makes the LM loop fault tolerant,
 as in the reference: every N steps (and after the last) the whole
@@ -347,6 +353,14 @@ def _main(ap, args, iter_hook, cfg, mesh=None, device=None) -> dict:
         cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if cfg.arch_type == "vlm" or not cfg.embed_inputs:
+        # the reference's launcher feeds these models the same token batches
+        # and fails in the forward; the port says why before it starts
+        ap.error(f"{cfg.name}: the launcher's data are token batches, and "
+                 f"this model takes "
+                 f"{'encoder_embeds' if cfg.embed_inputs else 'embeds'}; "
+                 f"train it through training.steps.lm_train_step with a "
+                 f"batch that holds them")
     print(f"arch={cfg.name} params={cfg.n_params() / 1e6:.1f}M "
           f"device={device}")
     cuda = device.type == "cuda"

@@ -5,10 +5,10 @@ reference (dense GQA, MoE, MLA, SSM/Mamba2, hybrid, VLM cross-attn, audio
 decoder).  The decoder is a list of *segments*; each segment is a repeated
 *unit* of layers (``unit_spec``) whose parameters are stacked on a leading
 ``layers`` axis.  The port walks that axis with a Python loop where the
-reference scans it.  Dense attention segments and, in ``ssm`` and
-``hybrid`` configs, Mamba2 (SSD) segments run; cross-attention, MoE and MLA
-segments raise ``NotImplementedError`` in
-:func:`repro_torch.models.transformer.forward`.
+reference scans it.  Every layout of the reference runs: dense GQA, MoE
+and MLA attention segments, Mamba2 (SSD) segments in ``ssm`` and
+``hybrid`` configs, cross-attention units in ``vlm`` configs, and
+embedding inputs (``embed_inputs=False``, the ``audio`` decoder).
 """
 from __future__ import annotations
 
@@ -174,3 +174,20 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One of the assigned benchmark input shapes."""
+    name: str
+    seq_len: int
+    global_batch: int
+    phase: str                  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

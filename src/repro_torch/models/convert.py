@@ -4,7 +4,10 @@ The port keeps the reference's parameter tree (same dict/tuple paths, the
 stacked ``layers`` axis) and its weight orientation (``x @ W`` with ``W`` of
 shape ``(D_in, D_out)``), so a tree of numpy arrays taken from the JAX
 package (``jax.tree.map(np.asarray, params)``) maps leaf for leaf onto
-tensors and back, bit for bit.  A whole train state (params, both Adam
+tensors and back, bit for bit, whatever leaves the config gives it (an MLA
+layer's latent projections, a VLM's ``projector`` and cross-attention
+blocks, or no ``embed`` at all for an embedding-input model).  A whole
+train state (params, both Adam
 moments and the step counters) crosses the same way, so both packages can
 start training from one state.
 """

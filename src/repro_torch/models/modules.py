@@ -1,7 +1,8 @@
 """Model primitives (counterpart of ``repro/models/modules.py``): parameter
 specs, RMSNorm, RoPE, GQA attention (qk-norm, sliding window, ring-buffer
-cache), the SwiGLU MLP and the MoE layer (capacity dispatch by row index),
-for the serving and the training paths, and the Mamba2 (SSD) mixer.
+cache), MLA (latent cache, absorbed decode), cross-attention over encoder
+embeddings, the SwiGLU MLP and the MoE layer (capacity dispatch by row
+index), for the serving and the training paths, and the Mamba2 (SSD) mixer.
 
 Parameters are nested dicts/tuples of tensors whose structure comes from
 ``ParamSpec`` trees, the same paths as the reference's pytrees, so weights
@@ -48,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS
 from repro_torch.kernels.ref import (chunk_cumsum, gather_blocks, lens_mask,
                                     ssd_chunks, ssd_inter_chunk)
 from repro_torch.models.config import ModelConfig
@@ -660,6 +662,181 @@ def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
                                                  dims=1))
             new_cache = {name: cache[name] for name in rows}
     out = o.reshape(B, -1, H * hd) @ p["wo"]
+    return out, new_cache
+
+
+def _attend(cfg: ModelConfig, q, k, v, *, mode, causal, window=None):
+    """Prefill / training attention of the MLA and cross-attention layers:
+    q (B, Lq, H, D), k, v (B, Lk, KV, D).  With ``cfg.use_kernels`` the
+    flash kernels (``ops.FlashAttention`` under ``full``, which trains
+    through the backward kernels), else the plain :func:`flash_attention`;
+    the reference calls its jnp ``_flash`` here in both cases (R2).  A
+    head dim the kernels are not built for (a reduced MLA config's 48)
+    runs the plain flash on the CPU; a CUDA tensor goes to the kernels,
+    which refuse it."""
+    if cfg.use_kernels and (q.is_cuda or q.shape[-1] in FLASH_HEAD_DIMS):
+        from repro_torch.kernels import ops as kops
+        if mode == "full":
+            return kops.FlashAttention.apply(q, k, v, causal, window)
+        return kops.flash_attention(q, k, v, causal=causal, window=window)
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+# ===================================================================== #
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ===================================================================== #
+def mla_specs(cfg: ModelConfig) -> dict:
+    D, H = cfg.d_model, cfg.n_heads
+    r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
+                     cfg.qk_rope_head_dim, cfg.v_head_dim)
+    return {
+        "wq": ParamSpec((D, H * (dn + dr)), ("embed", "heads")),
+        "w_dkv": ParamSpec((D, r + dr), ("embed", None)),
+        "kv_norm": ParamSpec((r,), (None,), "ones"),
+        "w_uk": ParamSpec((r, H * dn), (None, "heads")),
+        "w_uv": ParamSpec((r, H * dv), (None, "heads")),
+        "wo": ParamSpec((H * dv, D), ("heads", "embed")),
+    }
+
+
+def mla_cache_shape(cfg: ModelConfig, batch: int, max_len: int):
+    """The latent cache: ``ckv`` (batch, S, r), the normed compressed KV,
+    and ``krope`` (batch, S, dr), the shared rotated key part; both in the
+    compute dtype, ``kv_quant`` or not (it quantizes ``k``/``v`` only)."""
+    return dict(ckv=(batch, max_len, cfg.kv_lora_rank),
+                krope=(batch, max_len, cfg.qk_rope_head_dim))
+
+
+def _mla_qkv(cfg, p, x, positions, rope=None):
+    """(q_nope (B,L,H,dn), q_rope (B,L,H,dr), ckv (B,L,r), krope (B,L,dr));
+    ``kv_norm`` runs plain, as in the reference (R3).  ``rope`` is
+    :func:`rope_cos_sin` of ``positions`` over ``dr``."""
+    B, L, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    rope = rope or rope_cos_sin(positions, dr, cfg.rope_theta)
+    q = (x @ p["wq"]).reshape(B, L, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta, rope)
+    dkv = x @ p["w_dkv"]                                    # (B,L,r+dr)
+    ckv = rmsnorm(dkv[..., :r], p["kv_norm"], cfg.rms_eps)
+    krope = apply_rope(dkv[..., r:], positions, cfg.rope_theta, rope)
+    return q_nope, q_rope, ckv, krope
+
+
+def mla_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
+              window=None, block_tables=None, rope=None):
+    """MLA.  'full' / 'prefill': the latents expand to K (nope part from
+    ``w_uk``, the rotated ``krope`` shared by every head) and V (``w_uv``),
+    V is zero-padded from ``dv`` to the query/key width ``dn + dr`` so
+    attention sees one head dim, and the output is sliced back to ``dv``
+    (the reference's layout; under ``cfg.use_kernels`` the flash kernels at
+    that head dim); 'prefill' also writes the latents into ``cache`` in
+    place.  'decode': the *absorbed* form, plain tensor products with fp32
+    accumulation as in the reference: ``w_uk`` folded into the query, the
+    scores taken against the cached ``ckv`` and ``krope`` (written in place
+    at ``pos % S``), ``w_uv`` applied to the attended latents; per token
+    O(S (r + dr)) instead of O(S H (dn + dr)).  The absorbed scores round
+    otherwise than the expanded ones (ROADMAP Queue 3, R16)."""
+    if block_tables is not None:
+        raise NotImplementedError("paged KV: GQA only (MLA caches latents)")
+    B = x.shape[0]
+    H = cfg.n_heads
+    r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
+                     cfg.qk_rope_head_dim, cfg.v_head_dim)
+    q_nope, q_rope, ckv, krope = _mla_qkv(cfg, p, x, positions, rope)
+    scale = 1.0 / math.sqrt(dn + dr)
+    new_cache = None
+
+    if mode == "decode":
+        assert cache is not None
+        S = cache["ckv"].shape[1]
+        pos = positions[:, 0]
+        rows = torch.arange(B, device=x.device)
+        cache["ckv"][rows, pos % S] = ckv[:, 0]         # in place
+        cache["krope"][rows, pos % S] = krope[:, 0]
+        ckv_c, krope_c = cache["ckv"], cache["krope"]
+        valid = (torch.arange(S, device=x.device)[None]
+                 < torch.clamp(pos + 1, max=S)[:, None])
+        # absorbed scores: W_UK folded into the query, in the compute dtype
+        w_uk = p["w_uk"].reshape(r, H, dn)
+        q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)   # (B,H,r)
+        s = (torch.einsum("bhr,bsr->bhs", q_eff.float(), ckv_c.float())
+             + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                            krope_c.float())) * scale
+        s = torch.where(valid[:, None], s, NEG_INF)
+        pr = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhs,bsr->bhr", pr.to(ckv_c.dtype).float(),
+                           ckv_c.float())                         # (B,H,r)
+        w_uv = p["w_uv"].reshape(r, H, dv)
+        o = torch.einsum("bhr,rhd->bhd", ctx.to(x.dtype), w_uv)[:, None]
+        new_cache = cache
+    else:
+        L = x.shape[1]
+        k_nope = (ckv @ p["w_uk"]).reshape(B, L, H, dn)
+        vfull = (ckv @ p["w_uv"]).reshape(B, L, H, dv)
+        k = torch.cat([k_nope, krope[:, :, None].expand(B, L, H, dr)], -1)
+        q = torch.cat([q_nope, q_rope], -1)
+        # V padded to the qk head dim: the kernels see one head dim
+        vpad = F.pad(vfull, (0, dn + dr - dv)) if dn + dr != dv else vfull
+        o = _attend(cfg, q, k, vpad, mode=mode, causal=True,
+                    window=window)[..., :dv]
+        if mode == "prefill":
+            assert cache is not None
+            cache["ckv"][:, :L] = ckv
+            cache["krope"][:, :L] = krope
+            new_cache = cache
+    out = o.reshape(B, -1, H * dv) @ p["wo"]
+    return out, new_cache
+
+
+# ===================================================================== #
+# Cross-attention (VLM / audio encoder embeddings; K/V cached once)
+# ===================================================================== #
+def cross_attn_specs(cfg: ModelConfig) -> dict:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": ParamSpec((D, H * hd), ("embed", "heads")),
+        "wk": ParamSpec((D, KV * hd), ("embed", "kv_heads")),
+        "wv": ParamSpec((D, KV * hd), ("embed", "kv_heads")),
+        "wo": ParamSpec((H * hd, D), ("heads", "embed")),
+        "gate": ParamSpec((1,), (None,), "zeros"),   # llama3.2-v tanh gate
+    }
+
+
+def cross_attn_apply(cfg: ModelConfig, p, x, enc, *, mode="full",
+                     cache=None):
+    """x: (B, L, D) queries; enc: (B, Le, D) projected encoder states.
+    'full' / 'prefill': K/V from ``enc``; 'prefill' writes them into the
+    ``xk``/``xv`` arena (``(B, encoder_len, KV, hd)``, in place, so ``Le``
+    must be the config's ``encoder_len``).  'decode': K/V from the cache,
+    never recomputed in the decode loop.  Attention is non-causal over all
+    ``Le`` keys (the flash kernels under ``cfg.use_kernels``), the output
+    gated by ``tanh(gate)``."""
+    B, L, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, L, H, hd)
+    if mode == "decode":
+        assert cache is not None
+        k, v = cache["xk"], cache["xv"]
+        new_cache = cache
+    else:
+        k = (enc @ p["wk"]).reshape(B, -1, KV, hd)
+        v = (enc @ p["wv"]).reshape(B, -1, KV, hd)
+        if cache is not None:
+            if cache["xk"].shape != k.shape:
+                raise ValueError(
+                    f"cross-attention cache holds {tuple(cache['xk'].shape)}"
+                    f", the encoder gives {tuple(k.shape)} (encoder_len "
+                    f"{cfg.encoder_len})")
+            cache["xk"].copy_(k)
+            cache["xv"].copy_(v)
+            new_cache = cache
+        else:
+            new_cache = dict(xk=k, xv=v)
+    o = _attend(cfg, q, k, v, mode=mode, causal=False)
+    out = o.reshape(B, L, H * hd) @ p["wo"]
+    out = torch.tanh(p["gate"].float()).to(out.dtype) * out
     return out, new_cache
 
 

@@ -27,10 +27,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     return init_tree(param_specs(cfg), generator, cfg.pdtype)
 
 
-def values(cfg: ModelConfig, params, tokens, *, embeds=None):
+def values(cfg: ModelConfig, params, tokens, *, embeds=None,
+           encoder_embeds=None):
     """Per-token scalar values: (B, L) fp32."""
     hidden, _, _ = T.forward(cfg, params, tokens=tokens, embeds=embeds,
-                             mode="full")
+                             encoder_embeds=encoder_embeds, mode="full")
     head = params["v_head"]
     # the reference's promotion: a bf16 hidden times the fp32 head is fp32
     dt = torch.promote_types(hidden.dtype, head.dtype)

@@ -11,13 +11,18 @@ layer when ``cfg.remat`` (the reference's ``jax.checkpoint`` of the scan
 body), and :func:`lm_loss` / :func:`per_token_logprobs` never build more
 than ``cfg.logit_chunk`` positions of logits at a time.
 
-Dense attention layers, their MoE form (``cfg.moe``: :func:`M.moe_apply` in
-place of the MLP, whose aux losses :func:`forward` sums in fp32 in layer
-order) and, in ``ssm`` and ``hybrid`` configs, Mamba2 (SSD) layers are
-ported; cross-attention and MLA segments and embedding inputs raise
-``NotImplementedError``.  The cache is the dense arena (:func:`init_cache`:
-K/V rows for attention layers, the recurrent ``conv`` and fp32 ``state`` for
-SSM layers) or, for attention-only models, the paged block pool
+Every layer kind of the reference is ported: GQA attention layers, their
+MoE form (``cfg.moe``: :func:`M.moe_apply` in place of the MLP, whose aux
+losses :func:`forward` sums in fp32 in layer order), MLA attention
+(``cfg.mla``: :func:`M.mla_apply`), cross-attention layers of ``vlm``
+configs (:func:`M.cross_attn_apply` over ``encoder_embeds`` projected by
+``projector``) and, in ``ssm`` and ``hybrid`` configs, Mamba2 (SSD) layers.
+With ``embed_inputs=False`` (the ``audio`` decoder) the model has no
+``embed`` table and :func:`forward` takes ``embeds``.  The cache is the
+dense arena (:func:`init_cache`: K/V rows for attention layers, the latents
+``ckv``/``krope`` for MLA layers, the encoder's ``xk``/``xv`` for
+cross-attention layers, the recurrent ``conv`` and fp32 ``state`` for SSM
+layers) or, for plain-GQA attention-only models, the paged block pool
 (:func:`init_paged_cache`, decode through ``block_tables``).
 """
 from __future__ import annotations
@@ -27,22 +32,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import modules as M
-from repro_torch.models.config import ATTN, SSM, ModelConfig
+from repro_torch.models.config import ATTN, CROSS, SSM, ModelConfig
 from repro_torch.models.modules import (ParamSpec, tree_leaves, tree_map,
                                         tree_unflatten)
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.mla or not cfg.embed_inputs:
-        raise NotImplementedError(
-            f"{cfg.name}: only token-input GQA decoders (dense or MoE) and "
-            "SSM / hybrid stacks are ported")
-    for seg in cfg.segments():
-        for ls in seg.unit_spec:
-            ssm = ls.kind == SSM and cfg.arch_type in ("ssm", "hybrid")
-            if not (ls.kind == ATTN or ssm):
-                raise NotImplementedError(
-                    f"{cfg.name}: layer {ls} not yet ported")
 
 
 # ===================================================================== #
@@ -50,13 +42,19 @@ def _check_ported(cfg: ModelConfig) -> None:
 # ===================================================================== #
 def _layer_specs(cfg: ModelConfig, spec) -> dict:
     D = cfg.d_model
+    out = {"ln1": ParamSpec((D,), ("embed",), "ones")}
     if spec.kind == SSM:
-        return {"ln1": ParamSpec((D,), ("embed",), "ones"),
-                "ssm": M.ssm_specs(cfg)}
-    return {"ln1": ParamSpec((D,), ("embed",), "ones"),
-            "attn": M.attn_specs(cfg),
-            "ln2": ParamSpec((D,), ("embed",), "ones"),
-            "mlp": M.moe_specs(cfg) if spec.moe else M.mlp_specs(cfg)}
+        out["ssm"] = M.ssm_specs(cfg)
+        return out
+    if spec.kind == ATTN:
+        out["attn"] = M.mla_specs(cfg) if cfg.mla else M.attn_specs(cfg)
+    elif spec.kind == CROSS:
+        out["xattn"] = M.cross_attn_specs(cfg)
+    else:
+        raise ValueError(spec.kind)
+    out["ln2"] = ParamSpec((D,), ("embed",), "ones")
+    out["mlp"] = M.moe_specs(cfg) if spec.moe else M.mlp_specs(cfg)
+    return out
 
 
 def _stack(specs, n: int):
@@ -66,9 +64,12 @@ def _stack(specs, n: int):
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    _check_ported(cfg)
     D, V = cfg.d_model, cfg.vocab_size
-    out = {"embed": ParamSpec((V, D), ("vocab", "embed"))}
+    out = {}
+    if cfg.embed_inputs:
+        out["embed"] = ParamSpec((V, D), ("vocab", "embed"))
+    if cfg.arch_type == "vlm":
+        out["projector"] = ParamSpec((cfg.encoder_dim, D), (None, "embed"))
     out["segments"] = tuple(
         _stack(tuple(_layer_specs(cfg, ls) for ls in seg.unit_spec),
                seg.n_units)
@@ -99,6 +100,12 @@ def count_params(cfg: ModelConfig) -> int:
 def _layer_cache_shapes(cfg: ModelConfig, spec, batch: int, max_len: int):
     if spec.kind == SSM:
         return M.ssm_cache_shape(cfg, batch)
+    if spec.kind == CROSS:
+        kv, hd = cfg.n_kv_heads, cfg.head_dim
+        return dict(xk=(batch, cfg.encoder_len, kv, hd),
+                    xv=(batch, cfg.encoder_len, kv, hd))
+    if cfg.mla:
+        return M.mla_cache_shape(cfg, batch, max_len)
     win = spec.sliding_window or cfg.sliding_window
     return M.attn_cache_shape(cfg, batch, max_len, win)
 
@@ -106,7 +113,9 @@ def _layer_cache_shapes(cfg: ModelConfig, spec, batch: int, max_len: int):
 def _cache_dtype(cfg: ModelConfig, key: str) -> torch.dtype:
     """Scale planes and the SSM state are fp32 (the state: R9, see
     :mod:`repro_torch.models.modules`); K/V rows are int8 under
-    ``cfg.kv_quant``, else in the compute dtype, like the SSM ``conv``."""
+    ``cfg.kv_quant``, else in the compute dtype, like the SSM ``conv``,
+    MLA's latents ``ckv``/``krope`` and the encoder's ``xk``/``xv``, which
+    ``kv_quant`` leaves as they are (the reference's rule, R15)."""
     if key.endswith("_scale") or key == "state":
         return torch.float32
     if cfg.kv_quant and key in ("k", "v"):
@@ -117,7 +126,6 @@ def _cache_dtype(cfg: ModelConfig, key: str) -> torch.dtype:
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int):
     """``(shape, dtype)`` leaves of the cache tree: per segment, a tuple of
     per-unit-layer dicts whose leaves stack ``n_units`` layers."""
-    _check_ported(cfg)
     return tuple(
         tuple({k: ((seg.n_units,) + shp, _cache_dtype(cfg, k))
                for k, shp in _layer_cache_shapes(cfg, ls, batch,
@@ -147,7 +155,6 @@ def paged_cache_struct(cfg: ModelConfig, num_blocks: int, block_size: int):
     Full-context attention layers only; with ``cfg.kv_quant`` the pools are
     int8 with fp32 ``k_scale``/``v_scale`` planes ``(num_blocks, bs,
     KV)``."""
-    _check_ported(cfg)
     segs = []
     for seg in cfg.segments():
         unit = []
@@ -189,16 +196,26 @@ def _unstack(tree, n: int) -> list:
 
 
 def _layer(cfg: ModelConfig, spec, lp, x, positions, mode, lc, rope,
-           block_tables=None):
-    """One layer: ``(x, aux)``, ``aux`` the MoE layer's aux loss or None."""
+           block_tables=None, *, enc=None):
+    """One layer: ``(x, aux)``, ``aux`` the MoE layer's aux loss or None.
+    ``enc`` is the projected encoder states a cross-attention layer
+    attends (None elsewhere)."""
     h = M.rmsnorm(x, lp["ln1"], cfg.rms_eps, cfg.use_kernels)
     if spec.kind == SSM:
         s, _ = M.ssm_apply(cfg, lp["ssm"], h, mode=mode, cache=lc)
         return x + s, None
-    win = spec.sliding_window or cfg.sliding_window
-    att, _ = M.attn_apply(cfg, lp["attn"], h, positions=positions, mode=mode,
-                          cache=lc, window=win, block_tables=block_tables,
-                          rope=rope)
+    if spec.kind == CROSS:
+        if enc is None and mode != "decode":
+            raise ValueError(f"{cfg.name}: a cross-attention layer needs "
+                             "encoder_embeds")
+        att, _ = M.cross_attn_apply(cfg, lp["xattn"], h, enc, mode=mode,
+                                    cache=lc)
+    else:
+        win = spec.sliding_window or cfg.sliding_window
+        fn = M.mla_apply if cfg.mla else M.attn_apply
+        att, _ = fn(cfg, lp["attn"], h, positions=positions, mode=mode,
+                    cache=lc, window=win, block_tables=block_tables,
+                    rope=rope)
     x = x + att
     h2 = M.rmsnorm(x, lp["ln2"], cfg.rms_eps, cfg.use_kernels)
     if spec.moe:
@@ -208,28 +225,41 @@ def _layer(cfg: ModelConfig, spec, lp, x, positions, mode, lc, rope,
 
 
 def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
-            mode: str = "full", cache=None, positions=None,
-            block_tables=None):
+            encoder_embeds=None, mode: str = "full", cache=None,
+            positions=None, block_tables=None):
     """Returns (hidden (B,L,D), cache, aux_loss).
 
     mode='full'    — training / scoring, no cache.
     mode='prefill' — like full but also fills ``cache``.
     mode='decode'  — single token step; ``positions`` is (B,1) absolute.
 
+    The input is ``tokens`` (B, L) when ``cfg.embed_inputs``, else
+    ``embeds`` (B, L, D).  A ``vlm`` config's cross-attention layers attend
+    ``encoder_embeds`` (B, Le, encoder_dim) @ ``projector`` in 'full' and
+    'prefill'; in 'decode' they read the K/V their prefill cached, and
+    ``encoder_embeds`` may be left out (the reference projects it anyway and
+    never reads the result).
+
     ``block_tables`` ((B, nb) int32) switches decode to the paged layout:
     ``cache`` is then the pool tree of :func:`init_paged_cache`.
 
     ``cache`` is updated in place and returned (the reference returns a new
     tree built from its donated input)."""
-    _check_ported(cfg)
     params = cast_params(cfg, params)
-    x = params["embed"][tokens] if tokens is not None else embeds
+    x = params["embed"][tokens] if cfg.embed_inputs else embeds
     x = x.to(cfg.cdtype)
     B, L = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(L, device=x.device)[None].expand(B, L)
-    rope = (M.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-            if cfg.n_heads else None)           # an SSM stack has no RoPE
+    # RoPE's cos / sin, shared by every layer (MLA rotates its dr dims only;
+    # an SSM stack has no RoPE)
+    rope = (M.rope_cos_sin(positions, cfg.qk_rope_head_dim if cfg.mla
+                           else cfg.head_dim, cfg.rope_theta)
+            if cfg.n_heads else None)
+    enc = None
+    if (cfg.arch_type == "vlm" and encoder_embeds is not None
+            and mode != "decode"):
+        enc = encoder_embeds.to(cfg.cdtype) @ params["projector"]
     # activation checkpointing: each layer's activations are recomputed in
     # the backward instead of kept (the reference's jax.checkpoint)
     remat = cfg.remat and mode == "full" and torch.is_grad_enabled()
@@ -245,11 +275,11 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
                 lc = uc[i] if uc is not None else None
                 if remat:
                     x, a = checkpoint(_layer, cfg, spec, up[i], x,
-                                      positions, mode, lc, rope,
+                                      positions, mode, lc, rope, enc=enc,
                                       use_reentrant=False)
                 else:
                     x, a = _layer(cfg, spec, up[i], x, positions, mode, lc,
-                                  rope, block_tables)
+                                  rope, block_tables, enc=enc)
                 if a is not None:
                     aux = aux + a
     x = M.rmsnorm(x, params["final_norm"], cfg.rms_eps, cfg.use_kernels)

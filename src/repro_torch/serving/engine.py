@@ -80,6 +80,13 @@ block 0, which nothing reads; a finished slot with a fully allocated table
 wraps such writes into its own last block instead, which the prefix cache
 never indexes.
 
+An MLA model's arena holds its latents (``ckv``, ``krope``) per slot, in
+the dense layout only.  A ``vlm`` model generates through
+:meth:`GenerationEngine.generate` with ``encoder_embeds``, its
+cross-attention K/V cached once at prefill.  As in the reference, the paged
+layout refuses MLA and VLM models, and :class:`EngineCore` refuses VLM and
+embedding-input (audio) models.
+
 Architectures with recurrent state (SSM / hybrid) cannot skip pad tokens
 this way: a pad token would enter the SSM state.  So for them admission
 prefills at the exact prompt length, never a bucket, and it overwrites the
@@ -299,26 +306,32 @@ class GenerationEngine:
     # ================================================================ #
     # fixed-batch path with early exit (PPO experience generation)
     # ================================================================ #
-    def generate(self, params, tokens, generator: torch.Generator):
+    def generate(self, params, tokens, generator: torch.Generator, *,
+                 encoder_embeds=None):
         """Same ``sequences`` / ``response_mask`` contract and tokens as
         :func:`repro_torch.serving.generate.generate`, but decode stops once
         every sequence has emitted EOS.  ``self.last_stats`` records how
         many decode steps actually ran (on a mesh, the most any rank ran).
-        Draws advance ``generator``."""
+        Draws advance ``generator``.  A ``vlm`` model takes
+        ``encoder_embeds`` (B, Le, encoder_dim): the prefill caches each
+        cross-attention layer's K/V once, and decode reads them there."""
         params = runtime.full_tree(params)
         if not isinstance(tokens, torch.Tensor):
             tokens = torch.as_tensor(np.asarray(tokens))
         tokens = tokens.to(device=self.device, dtype=torch.long)
+        if encoder_embeds is not None:
+            encoder_embeds = torch.as_tensor(encoder_embeds).to(self.device)
         if self.mesh is None:
-            return self._generate(params, tokens, generator)
+            return self._generate(params, tokens, generator, encoder_embeds)
         runtime.check_compute_mesh(self.mesh, "GenerationEngine.generate")
         B = tokens.shape[0]
         rows = runtime.rows_of(B, self.mesh)
         if rows is None:            # every rank decodes the whole batch
-            return self._generate(params, tokens, generator)
+            return self._generate(params, tokens, generator, encoder_embeds)
         r0, r1 = rows
         out = self._generate(params, tokens[r0:r1], generator,
-                             noise_rows=(r0, B))
+                             None if encoder_embeds is None
+                             else encoder_embeds[r0:r1], noise_rows=(r0, B))
         group = runtime.data_group(self.mesh)
         seqs = runtime.gather_rows(out["sequences"], group)
         mask = runtime.gather_rows(
@@ -330,7 +343,7 @@ class GenerationEngine:
         return {"sequences": seqs, "response_mask": mask}
 
     def _generate(self, params, tokens, generator: torch.Generator,
-                  noise_rows=None):
+                  encoder_embeds=None, noise_rows=None):
         """:meth:`generate` on one device (``noise_rows``: see
         :func:`~repro_torch.serving.sampling.sample`)."""
         cfg = self.cfg
@@ -344,7 +357,8 @@ class GenerationEngine:
                                                  device=self.device)}
         params = T.cast_params(cfg, params)
         cache = T.init_cache(cfg, B, Lp + max_new, device=self.device)
-        logits, cache = prefill(cfg, params, tokens, cache)
+        logits, cache = prefill(cfg, params, tokens, cache,
+                                encoder_embeds=encoder_embeds)
         step = decode_scan_step(cfg, params, temperature=self.temperature,
                                 top_k=self.top_k, top_p=self.top_p,
                                 eos_id=self.eos_id, noise_rows=noise_rows)
@@ -829,6 +843,9 @@ class EngineCore:
                  max_seq_len: int, num_blocks: Optional[int] = None,
                  watermark: Optional[int] = None):
         cfg = engine.cfg
+        if cfg.arch_type == "vlm" or not cfg.embed_inputs:
+            raise NotImplementedError(
+                "continuous batching supports token-input decoder LMs")
         if engine.kv_layout != "paged" and (num_blocks is not None
                                             or watermark is not None):
             raise ValueError("num_blocks/watermark require kv_layout='paged'")

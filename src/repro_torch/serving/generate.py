@@ -22,25 +22,34 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serving.sampling import sample
 
 
-def prefill(cfg: ModelConfig, params, tokens, cache):
-    """Run the prompt through the model, filling ``cache`` in place.
+def prefill(cfg: ModelConfig, params, tokens, cache, *, embeds=None,
+            encoder_embeds=None):
+    """Run the prompt through the model, filling ``cache`` in place (the
+    cross-attention layers' ``xk``/``xv`` from ``encoder_embeds`` too).
+    ``embeds`` (B, L, D) is the prompt of an embedding-input model.
     Returns (last-position logits (B, V), cache)."""
-    hidden, cache, _ = T.forward(cfg, params, tokens=tokens, mode="prefill",
-                                 cache=cache)
+    hidden, cache, _ = T.forward(cfg, params, tokens=tokens, embeds=embeds,
+                                 encoder_embeds=encoder_embeds,
+                                 mode="prefill", cache=cache)
     logits = T.logits_fn(cfg, params, hidden[:, -1:])[:, 0]
     return logits, cache
 
 
 def decode_step(cfg: ModelConfig, params, token, cache, position, *,
-                block_tables=None):
-    """One decode step.  token: (B,) int; position: (B,) absolute.
-    Returns (logits (B, V), cache), the cache updated in place.  With
-    ``block_tables`` set, ``cache`` is the paged block pool (see
+                embeds=None, encoder_embeds=None, block_tables=None):
+    """One decode step.  token: (B,) int; position: (B,) absolute; an
+    embedding-input model takes ``embeds`` (B, 1, D) in place of
+    ``token``.  Cross-attention layers read the K/V their prefill cached,
+    so ``encoder_embeds`` is accepted and not needed.  Returns (logits (B,
+    V), cache), the cache updated in place.  With ``block_tables`` set,
+    ``cache`` is the paged block pool (see
     :func:`repro_torch.models.transformer.init_paged_cache`)."""
-    hidden, cache, _ = T.forward(cfg, params, tokens=token[:, None],
-                                 mode="decode", cache=cache,
+    kw = ({"tokens": token[:, None]} if cfg.embed_inputs
+          else {"embeds": embeds})
+    hidden, cache, _ = T.forward(cfg, params, mode="decode", cache=cache,
                                  positions=position[:, None],
-                                 block_tables=block_tables)
+                                 encoder_embeds=encoder_embeds,
+                                 block_tables=block_tables, **kw)
     logits = T.logits_fn(cfg, params, hidden)[:, 0]
     return logits, cache
 
@@ -73,8 +82,10 @@ def decode_scan_step(cfg: ModelConfig, params, *, temperature: float,
 def generate(cfg: ModelConfig, params, tokens, generator: torch.Generator,
              *, max_new_tokens: int, temperature: float = 1.0,
              top_k: int = 0, top_p: float = 1.0,
-             eos_id: Optional[int] = None):
-    """tokens: (B, Lp) fixed-length prompts on the params' device.
+             eos_id: Optional[int] = None, encoder_embeds=None):
+    """tokens: (B, Lp) fixed-length prompts on the params' device;
+    ``encoder_embeds`` (B, Le, encoder_dim) for a ``vlm`` model, whose
+    cross-attention K/V the prefill caches once.
 
     Returns a dict with ``sequences`` (B, Lp + max_new), ``response_mask``
     (B, Lp + max_new) bool — True exactly on generated tokens up to and
@@ -83,7 +94,8 @@ def generate(cfg: ModelConfig, params, tokens, generator: torch.Generator,
     B, Lp = tokens.shape
     params = T.cast_params(cfg, params)
     cache = T.init_cache(cfg, B, Lp + max_new_tokens, device=tokens.device)
-    logits, cache = prefill(cfg, params, tokens, cache)
+    logits, cache = prefill(cfg, params, tokens, cache,
+                            encoder_embeds=encoder_embeds)
     step = decode_scan_step(cfg, params, temperature=temperature,
                             top_k=top_k, top_p=top_p, eos_id=eos_id)
     carry = (logits, cache, generator,

@@ -48,11 +48,13 @@ def value_and_grad(loss_fn, params):
 def lm_loss_fn(cfg: ModelConfig, params, batch, count=None):
     """LM loss (+ the MoE aux loss).  ``count``, when given, is the
     token count the masked sum is divided by (the global batch's on a
-    mesh) in place of this batch's own."""
-    if batch.get("encoder_embeds") is not None:
-        raise NotImplementedError("encoder_embeds (VLM): not yet ported")
+    mesh) in place of this batch's own.  The batch holds ``tokens``, or
+    ``embeds`` for an embedding-input model, and ``encoder_embeds`` for a
+    ``vlm`` one."""
     hidden, _, aux = T.forward(cfg, params, tokens=batch.get("tokens"),
-                               embeds=batch.get("embeds"), mode="full")
+                               embeds=batch.get("embeds"),
+                               encoder_embeds=batch.get("encoder_embeds"),
+                               mode="full")
     loss = T.lm_loss(cfg, params, hidden, batch["labels"], batch["mask"],
                      count=count)
     return loss + aux, {"lm_loss": loss, "aux_loss": aux}

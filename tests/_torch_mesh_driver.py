@@ -223,6 +223,64 @@ def case_lm(dp: int) -> dict:
     return out
 
 
+# the embedding-input and cross-attention configs: their SFT batches carry
+# frame embeddings (the audio decoder) or encoder embeddings (the VLM)
+EMBED_ARCHS = ("musicgen-medium", "llama-3.2-vision-11b")
+
+
+def embed_batches(cfg, n: int) -> list:
+    """``n`` SFT batches of 8 rows of 16 tokens of the blend, the same on
+    every rank: the tokens through a fixed table for the audio decoder,
+    and encoder embeddings beside them for the VLM."""
+    g = _gen(9)
+    table = torch.randn((256, cfg.d_model), generator=g)
+    out = []
+    for b in tlaunch.lm_data(cfg, 16, 0).sft_batches(8, n):
+        b = {k: torch.as_tensor(v) for k, v in b.items()}
+        if not cfg.embed_inputs:
+            b["embeds"] = table[b.pop("tokens").long()]
+        if cfg.arch_type == "vlm":
+            b["encoder_embeds"] = torch.randn(
+                (8, cfg.encoder_len, cfg.encoder_dim), generator=g)
+        out.append(b)
+    return out
+
+
+def embed_params(cfg):
+    """Params from a fixed seed, cross-attention gates at 0.7 (at their init
+    of 0 the encoder would reach no output)."""
+    params = T.init_params(cfg, _gen(5))
+    for seg in params["segments"]:
+        for lp in seg:
+            if "xattn" in lp:
+                lp["xattn"]["gate"].fill_(0.7)
+    return params
+
+
+def embed_run(cfg, state, step, steps: int = 2) -> dict:
+    """``steps`` LM steps of ``step`` on :func:`embed_batches`."""
+    losses = []
+    for b in embed_batches(cfg, steps):
+        state, m = step(state, b, 3e-3)
+        losses.append(float(m["loss"]))
+    return {"loss": losses, "params": _tree_np(state.params)}
+
+
+def case_embeds(dp: int) -> dict:
+    """make_sharded_lm_step (zero3 + ZeRO-1) on batches of frame or encoder
+    embeddings, sharded over ``data``."""
+    mesh = make_mesh(dp, 1)
+    out = {}
+    for arch in EMBED_ARCHS:
+        cfg = lm_config(arch)
+        step, sh, shard_batch = make_sharded_lm_step(cfg, mesh, "zero3",
+                                                     zero=1)
+        state = TrainState.create(embed_params(cfg), shardings=sh)
+        out[arch] = embed_run(cfg, state,
+                              lambda s, b, lr: step(s, shard_batch(b), lr))
+    return out
+
+
 def reward_run(mesh=None, steps: int = 2) -> dict:
     """``reward_train_step`` at the reduced smollm-135m on 8 pairs of the
     synthetic blend (``zero3`` + ZeRO-1 on ``mesh``; plain without), at
@@ -281,7 +339,8 @@ def case_refusals(world: int) -> dict:
 
 
 CASES = {"reshard": case_reshard, "ppo": case_ppo, "engine": case_engine,
-         "lm": case_lm, "reward": case_reward, "refusals": case_refusals}
+         "lm": case_lm, "embeds": case_embeds, "reward": case_reward,
+         "refusals": case_refusals}
 
 
 def main() -> int:

@@ -74,24 +74,30 @@ def to_np(x):
 def _jax_step_fns(jcfg):
     """The jitted prefill, decode and logits functions of ``jcfg``, built
     once per config so that repeated greedy decodes reuse their compiles."""
-    fwd_prefill = jax.jit(lambda p, t, c: JT.forward(
-        jcfg, p, tokens=t, mode="prefill", cache=c))
+    fwd_prefill = jax.jit(lambda p, t, c, e: JT.forward(
+        jcfg, p, tokens=t, encoder_embeds=e, mode="prefill", cache=c))
     fwd_decode = jax.jit(lambda p, t, c, pos: JT.forward(
         jcfg, p, tokens=t, mode="decode", cache=c, positions=pos))
     logits_fn = jax.jit(lambda p, h: JT.logits_fn(jcfg, p, h))
     return fwd_prefill, fwd_decode, logits_fn
 
 
-def jax_greedy(jcfg, jparams, prompt, max_new: int, eos_id=None):
+def jax_greedy(jcfg, jparams, prompt, max_new: int, eos_id=None,
+               encoder_embeds=None):
     """Greedy decode of one prompt with the JAX model, mirroring
     ``repro/serving/generate.py`` (prefill, then one decode step per token,
     EOS forced after the first EOS).  With ``jcfg.kv_quant`` the cache is
-    the reference's int8 arena with its scale planes.  Returns the
+    the reference's int8 arena with its scale planes.  A ``vlm`` model
+    takes the prompt's ``encoder_embeds`` (Le, encoder_dim), which the
+    prefill caches as each cross-attention layer's K/V.  Returns the
     generated tokens."""
     Lp = len(prompt)
     fwd_prefill, fwd_decode, logits_fn = _jax_step_fns(jcfg)
     cache = JT.init_cache(jcfg, 1, Lp + max_new)
-    hidden, cache, _ = fwd_prefill(jparams, jnp.asarray(prompt)[None], cache)
+    enc = (None if encoder_embeds is None
+           else jnp.asarray(encoder_embeds)[None])
+    hidden, cache, _ = fwd_prefill(jparams, jnp.asarray(prompt)[None], cache,
+                                   enc)
     logits = logits_fn(jparams, hidden[:, -1:])[0, 0]
     toks, done = [], False
     for t in range(max_new):

@@ -52,8 +52,16 @@ def test_configs_match_reference(arch):
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "musicgen-medium",
                                   "llama-3.2-vision-11b"])
 def test_other_ids_are_not_yet_ported(arch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tconfigs.get_config(arch)
+    """The three ids this family's slice left unported (MLA, cross-attention,
+    embedding inputs) have been ported since: each resolves to the
+    reference's config, and no id is left in ``_NOT_PORTED``."""
+    from repro_torch.configs import registry
+    assert registry._NOT_PORTED == []
+    j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    for f in FIELDS + ("kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+                       "v_head_dim", "cross_attn_every", "encoder_dim",
+                       "encoder_len", "embed_inputs"):
+        assert getattr(j, f) == getattr(t, f), f
 
 
 @pytest.mark.parametrize("kw", [
@@ -61,9 +69,16 @@ def test_other_ids_are_not_yet_ported(arch):
     dict(arch_type="vlm", cross_attn_every=4, encoder_dim=64)],
     ids=["mla", "cross-attention"])
 def test_reduced_refuses_mla_and_cross_attention(kw):
+    """``reduced()`` once refused MLA and cross-attention; it now cuts their
+    fields by the reference's rule (the MLA ranks; one cross-attention unit
+    with a short encoder)."""
     cfg = tconfigs.get_config("llama3.2-3b").replace(**kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tconfigs.reduced(cfg)
+    jcfg = jconfigs.get_config("llama3.2-3b").replace(**kw)
+    got, want = tconfigs.reduced(cfg), jconfigs.reduced(jcfg)
+    for f in FIELDS + ("kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+                       "v_head_dim", "cross_attn_every", "encoder_dim",
+                       "encoder_len"):
+        assert getattr(got, f) == getattr(want, f), f
 
 
 def _tokens(vocab, shape, seed):

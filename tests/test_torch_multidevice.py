@@ -26,7 +26,10 @@ leaf's max; everywhere within one Adam step, ``2.5 * lr``).
 - A batch of 6 at dp 4 (replicated: it does not divide).
 - ``make_sharded_lm_step`` at micro 2 through the launcher's loop, against
   ``lm_train_step`` and the reference's ``jax_lm_loop``; ``ddp``; zero3
-  with the gather / grad pspecs; a reduced ``mamba2-370m`` step.
+  with the gather / grad pspecs; a reduced ``mamba2-370m`` step; the
+  reduced ``musicgen-medium`` (frame embeddings) and
+  ``llama-3.2-vision-11b`` (encoder embeddings) steps against
+  ``lm_train_step`` on one rank.
 - The reward step (pairwise loss and accuracy over the global batch).
 - The train state's local shard shapes against the pspecs.
 - The refusals: model > 1 compute, ``core()`` on a mesh, ``rollout_mesh``,
@@ -57,6 +60,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.modules import tree_leaves
 from repro_torch.serving.engine import GenerationEngine, Request
 from repro_torch.sharding import strategy as S
+from repro_torch.training.steps import lm_train_step
 from repro_torch.training.train_state import TrainState
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -143,7 +147,8 @@ def runs(reference_procs, tmp_path_factory):
     out = {}
     for dp in DPS:
         d = tmp_path_factory.mktemp(f"dp{dp}")
-        cases = "ppo,engine,lm,reward" + (",refusals" if dp == 4 else "")
+        cases = ("ppo,engine,lm,embeds,reward"
+                 + (",refusals" if dp == 4 else ""))
         res = _torchrun(dp, str(ROOT / "tests" / "_torch_mesh_driver.py"),
                         "--out", str(d), "--cases", cases)
         assert res.returncode == 0, res.stderr[-4000:]
@@ -278,6 +283,20 @@ def test_sharded_lm_step_matches_lm_train_step(runs, lm_single, dp, case):
     np.testing.assert_allclose(got["grad_norm"], want["grad_norm"], **TOL)
     for name in ("params", "m", "v"):
         _close(got[name], want[name], f"dp={dp} {key} {name}")
+
+
+@pytest.mark.parametrize("arch", D.EMBED_ARCHS)
+@pytest.mark.parametrize("dp", DPS, ids=[f"dp{d}" for d in DPS])
+def test_sharded_lm_step_takes_embedding_inputs(runs, dp, arch):
+    """The audio decoder's frame embeddings and the VLM's encoder
+    embeddings shard with their rows: two zero3 + ZeRO-1 steps on the mesh
+    equal two ``lm_train_step`` on one rank (losses, params)."""
+    cfg = D.lm_config(arch)
+    want = D.embed_run(cfg, TrainState.create(D.embed_params(cfg)),
+                       lambda s, b, lr: lm_train_step(cfg, s, b, lr))
+    got = runs[dp]["embeds"][arch]
+    np.testing.assert_allclose(got["loss"], want["loss"], **TOL)
+    _close(got["params"], want["params"], f"dp={dp} {arch} params")
 
 
 def test_sharded_lm_step_matches_the_reference_loop(runs):

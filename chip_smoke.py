@@ -31,12 +31,12 @@ Phases (any failure raises, so the run exits non-zero):
    one teacher-forced token stream (prefill 256 + 32 decode steps) through
    the kernel path and the plain path; max |dlogits| / max |logits|.
 5. ``serve``   — ``repro_torch.launch.serve`` at OPT-1.3B in bf16: 32
-   ragged requests (prompts up to 256, up to 256 new tokens), 16 slots,
-   chunk 8, continuous batching, default sampling.  Launch counts are set
-   to 0 just before and read just after; every kernel must have launched.
-   The workload's repeats (here, in phases ``ssm``, ``ssm_train``,
-   ``gqa128`` and ``moe``) generate up to 64 new tokens a request
-   (``REPEAT_NEW``).  Then a short greedy run at smollm-135m full width.
+   ragged requests (prompts up to 256, up to 64 new tokens:
+   ``REPEAT_NEW``), 16 slots, chunk 8, continuous batching, default
+   sampling.  Launch counts are set to 0 just before and read just after;
+   every kernel must have launched.  The workload's repeats (here, in
+   phases ``ssm``, ``ssm_train``, ``gqa128`` and ``moe``) generate as
+   many.  Then a short greedy run at smollm-135m full width.
 6. ``train``   — (a) OPT-1.3B at full width, cut to 4 layers, fp32 (TF32
    off): one LM step's loss and grads through the kernels against the
    plain path (loss to 1e-5 relative, every grad leaf to 1e-4 of its
@@ -44,9 +44,7 @@ Phases (any failure raises, so the run exits non-zero):
    and depth, bf16: 10 SFT steps of 8 x 512 tokens, every loss finite and
    the last below the first, with launch counts set to 0 just before and
    read just after (RMSNorm, flash forward and flash backward must all
-   have launched); then one more step under ``torch.profiler`` for the
-   device time by kernel and the flash kernels' share of it; (c) 5
-   reward-model steps at OPT-350M, full width
+   have launched); (c) 5 reward-model steps at OPT-350M, full width
    and depth, on ``DataBlender.reward_batches(8, ...)`` at seq 512.
 7. ``rlhf``    — the 3-stage pipeline (``repro_torch.core.RLHFPipeline``)
    at full width and depth: OPT-1.3B actor and reference, OPT-350M critic
@@ -60,7 +58,24 @@ Phases (any failure raises, so the run exits non-zero):
    is 1 to 1e-3, the reference and reward checksums are unchanged by stage
    3, and the int8 iterations launched the int8 decode kernel and never
    the bf16 one (the bf16 iteration the reverse).
-8. ``hybrid``  — the Hybrid Engine on a one-rank NCCL group (a
+8. ``async``   — asynchronous stage 3 at the RLHF cell's full width and
+   depth (phase ``rlhf``'s models and recipe, random weights, the
+   reference and reward model copies of the start): 3 PPO iterations at
+   64 new tokens (temperature 1.0), synchronous and under
+   ``AsyncConfig.lockstep()`` from one state and one generator seed:
+   sequences, metrics without the wall-time keys and the final actor,
+   critic and EMA params bit for bit, and each consumed item's generator
+   state equal to the synchronous loop's after that iteration; 4
+   iterations under ``AsyncConfig(publish_every=2, max_lag=1)`` at 256
+   new tokens: ``policy_lag`` exactly 0, 1, 0, 1, ``is_ratio_mean`` and
+   ``is_ratio_max`` exactly 1.0 at lag 0 and finite and positive at lag
+   1, ``produced`` 4, ``puts == gets + dropped + depth``, RMSNorm, both
+   flash kernels and the dense decode kernel launched (per iteration:
+   wall, gen, scoring, actor and critic times and the queue's waits; the
+   publish seconds, retained bytes and peak memory); ``launch.train
+   --rlhf --async-rlhf --max-lag 1`` at OPT-125M (2 steps a stage): its
+   ``async`` summary, ``produced`` equal to the PPO steps.
+9. ``hybrid``  — the Hybrid Engine on a one-rank NCCL group (a
    ``FileStore`` in a temporary directory; no gloo fallback) and
    ``mesh_from_spec("1,1")``: ``to_inference`` / ``to_train`` on OPT-1.3B's
    fp32 params at full size (bitwise roundtrip, 0 bytes gathered and
@@ -79,7 +94,7 @@ Phases (any failure raises, so the run exits non-zero):
    repro_torch.launch.train --arch opt-125m --mesh 1,1 --strategy zero3
    --zero 1`` (5 steps of 8 x 512): exit 0 and a falling loss.
 
-9. ``ssm``     — the SSM / hybrid serving slice: ``ssd_intra_fwd`` (the
+10. ``ssm``     — the SSM / hybrid serving slice: ``ssd_intra_fwd`` (the
    Mamba2 SSD intra-chunk pass) against its plain version at Mamba2-370M
    (q = 256, a ragged 137, one token, four chunks, the fixed path's b = 8)
    and Zamba2-1.2B widths in fp32 (the CUDA-core kernel) and bf16 (the
@@ -96,7 +111,7 @@ Phases (any failure raises, so the run exits non-zero):
    continuous engine against each request alone (identical, in fp32);
    one Mamba2 decode step at 16 slots eager and as a
    CUDA-graph replay.
-10. ``ssm_train`` — the SSM / hybrid training slice: at the SFT shapes
+11. ``ssm_train`` — the SSM / hybrid training slice: at the SFT shapes
    (b 8, nc 2, q 256; Mamba2-370M and Zamba2-1.2B widths) the forward
    kernel against its plain version (phase ``ssm``'s tolerances) and the
    explicit SSD backward (``ref.ssd_intra_bwd_ref``) against autograd of
@@ -120,7 +135,7 @@ Phases (any failure raises, so the run exits non-zero):
    at 1e-4, free-running within a tenth of the int8 error, tokens
    identical, the first attention layer's int8 rows at most one step
    apart).
-11. ``gqa128`` — the head-dim-128 GQA family at full size: the flash
+12. ``gqa128`` — the head-dim-128 GQA family at full size: the flash
    forward (with the LSE) at the prefills of qwen3-8b (KV 8, G 4), yi-9b
    (KV 4, G 8), llama3.2-3b (KV 8, G 3) and llama4-scout (KV 8, G 5) and
    at the llama3.2-3b SFT shape (B 8, H 24, L 512), the flash backward at
@@ -141,7 +156,7 @@ Phases (any failure raises, so the run exits non-zero):
    1e-4 of each leaf's max); ``RLHFPipeline`` with llama3.2-3b actor and
    critic cut to 4 layers (2 SFT, 2 RM steps, 1 PPO iteration of 8 x 256
    + 64 on int8 KV) under phase ``rlhf``'s checks.
-12. ``moe`` — the MoE layer at llama4-scout-17b-a16e, full width (107.8 B
+13. ``moe`` — the MoE layer at llama4-scout-17b-a16e, full width (107.8 B
    parameters whole, so cut in depth): ``launch.serve`` at 12 layers
    (``cfg=``; 28.5 B, bf16 weights only) on the 32-request workload (64
    new tokens) with
@@ -154,7 +169,7 @@ Phases (any failure raises, so the run exits non-zero):
    vs plain (loss and aux 1e-5, grads 1e-4); ``launch.train --lora 8``
    at 2 layers, 3 bf16 steps of 4 x 512 (every loss and aux finite, the
    adapters moved).
-13. ``mla`` — MLA at deepseek-v2-lite-16b (16.2 B parameters, every layer
+14. ``mla`` — MLA at deepseek-v2-lite-16b (16.2 B parameters, every layer
    MoE): the flash forward and backward at head dim 192 (H = KV = 16, V
    zero-padded from 128) at the prefill (B 1, L 256) and the SFT shape
    (B 8, L 512, with the LSE), fp32 and bf16 against the plain versions,
@@ -171,7 +186,7 @@ Phases (any failure raises, so the run exits non-zero):
    decode kernel: the absorbed decode is plain products); ``launch.train``
    SFT at full width cut to 4 layers, 5 steps of 8 x 512 (bf16 on fp32
    masters): the D = 192 backward inside a step.
-14. ``xattn`` — cross-attention and embedding inputs: the flash kernels
+15. ``xattn`` — cross-attention and embedding inputs: the flash kernels
    over llama-3.2-vision's 1,601 encoder keys (D 128, H 32 / KV 8,
    non-causal; Lq 1 and 64 at B 4, and the SFT shape B 8, Lq 512 with the
    backward), checked and timed as in phase ``mla``;
@@ -187,7 +202,7 @@ Phases (any failure raises, so the run exits non-zero):
    kernel path against plain path (1e-4), and 5 SFT steps of 8 x 512 on
    frame embeddings (bf16 on fp32 masters; every loss finite, the training
    kernels launched).
-15. ``ckpt`` — checkpoint/resume, LoRA and the torch example, under
+16. ``ckpt`` — checkpoint/resume, LoRA and the torch example, under
    ``build/ckpt_phase`` (deleted at the end): the free disk (60 GB
    at least) and host RAM (2x the largest snapshot) first; two
    uninterrupted ``launch.train`` runs of OPT-1.3B (full width cut to 8
@@ -196,10 +211,12 @@ Phases (any failure raises, so the run exits non-zero):
    the step-3 checkpoint deleted, rerun with ``--resume``: its hash must
    be the witness's (bytes, snapshot ms, write and restore s and GB/s, the step
    that overlaps a write against one that does not); ``launch.train
-   --rlhf`` at OPT-125M (3 steps a stage, 8 x 512, 64 new) stopped at the
-   top of PPO iteration 2 after the drain and rerun on the same directory:
-   reward scores, per-iteration metrics without the wall-time keys and
-   the actor, critic and EMA hashes equal to an uninterrupted run's;
+   --rlhf`` at OPT-125M (3 steps a stage, 8 x 512, 64 new) with
+   ``--save-every 2``, its last checkpoint deleted (a crash after
+   iteration 1's commit) and rerun on the same directory: the rerun
+   resumes at iteration 2, and its reward scores, per-iteration metrics
+   without the wall-time keys and the actor, critic and EMA hashes equal
+   the first run's;
    LoRA rank 8 at OPT-1.3B: one fp32 step at full width cut to 4 layers,
    2 x 512, loss and adapter grads kernel path against plain path (1e-4,
    ``worst``), then 5 bf16 steps of 8 x 512 with ``--ckpt`` (adapter
@@ -210,7 +227,7 @@ Phases (any failure raises, so the run exits non-zero):
    Launch counts are set to 0 before each leg's first run and read after
    it (SFT, PPO, LoRA, serve, example); every kernel of the leg must have
    launched.
-16. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
+17. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
    that no earlier timing runs after a profiler session: the CUDA kernels
    one call of each decode row of phase ``kernels`` runs (the split
    kernel, then the combine exactly when the host's plan splits the
@@ -277,8 +294,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "train", "rlhf",
-          "hybrid", "ssm", "ssm_train", "gqa128", "moe", "mla", "xattn",
-          "ckpt", "profile")
+          "async", "hybrid", "ssm", "ssm_train", "gqa128", "moe", "mla",
+          "xattn", "ckpt", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the time bound of a kernel is
 # the larger of bytes / memory rate and operations / peak rate for the type
@@ -1624,12 +1641,13 @@ def workload(arch: str = "opt-1.3b", max_new: int = 256) -> list:
             "256", "--max-new", str(max_new), "--batch", "16", "--chunk", "8"]
 
 
-SERVE_ARGV = workload()
-# the workload's repeats (other KV layouts, dtypes and models) and phase
-# hybrid's PPO generate up to 64 new tokens a request, a quarter of phase
-# serve's bf16 run, to keep the whole script inside its time limit; their
-# gates are the same
+# every run of the serve workload (phase serve's bf16 run, and its repeats
+# on other KV layouts, dtypes and models) and phase hybrid's PPO generate
+# up to 64 new tokens a request, to keep the whole script inside its time
+# limit; their gates are the same.  The paper's 256 new tokens on OPT-1.3B
+# are generated by phase rlhf's PPO iterations and phase async's stale leg
 REPEAT_NEW = 64
+SERVE_ARGV = workload(max_new=REPEAT_NEW)
 PAGED = ["--kv-layout", "paged", "--block-size", "16"]
 
 
@@ -1863,7 +1881,6 @@ def _decode_in_step(step_fn, n_calls: int, nbytes: float, what: str):
 
 def phase_train(state):
     import math
-    import re
 
     import numpy as np
     import torch
@@ -1872,8 +1889,8 @@ def phase_train(state):
     from repro_torch.launch import train as launch_train
     from repro_torch.models import reward as R
     from repro_torch.models import transformer as T
-    from repro_torch.models.modules import tree_leaves, tree_map
-    from repro_torch.training.steps import (lm_train_step, lm_value_and_grad,
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.training.steps import (lm_value_and_grad,
                                             reward_train_step)
     from repro_torch.training.train_state import TrainState
 
@@ -1940,51 +1957,6 @@ def phase_train(state):
     if missing:
         raise AssertionError(f"train: kernels never launched: {missing}")
 
-    # where the time goes in one SFT step (same shape, a fresh state)
-    cfg = get_config("opt-1.3b")
-    st = TrainState.create(T.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(1)))
-    b = launch_train.to_device(
-        next(launch_train.lm_data(cfg, 512, 0).sft_batches(8, 1)), "cuda")
-    holder = [st]
-
-    def one_step():
-        holder[0], m = lm_train_step(cfg, holder[0], b, 1e-5)
-        float(m["loss"])
-
-    for _ in range(2):
-        one_step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    one_step()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    try:
-        prof = _profile_step(one_step)
-    except Exception as e:             # measurement only, not a check
-        prof = None
-        log(f"[train] torch.profiler failed: {e!r}")
-    if prof is None:
-        log(f"[train] one SFT step {wall:.1f} ms (host clock); the profiler "
-            f"saw no device time")
-    else:
-        total, buckets, top = prof
-        log(f"[train] one SFT step (8 x 512, bf16): {wall:.1f} ms host "
-            f"clock, {total:.1f} ms of kernel time (torch.profiler); device "
-            f"idle ~{max(0.0, 1 - total / wall):.1%} of the step")
-        log("[train] kernel time by kind: " + ", ".join(
-            f"{k} {v:.1f} ms ({v / total:.1%})" for k, v in buckets.items()))
-        flash = buckets["flash_fwd"] + buckets["flash_bwd"]
-        log(f"[train] flash kernels: {flash:.1f} ms, {flash / total:.1%} of "
-            f"the step's kernel time: " + ", ".join(
-                f"{re.search(r'flash_\w+(<[^>]*>)?', name).group(0)} "
-                f"{ms:.2f} ms" for name, ms in top if "flash_" in name))
-        for name, ms in top[:12]:
-            log(f"[train]   {ms:9.2f} ms  {name[:110]}")
-        state["train"].update(profile_total_ms=total, buckets=buckets)
-    del st, holder, b
-    torch.cuda.empty_cache()
-
     # (c) reward-model training: OPT-350M, full width and depth, bf16
     cfg = get_config("opt-350m")
     rstate = TrainState.create(R.init_params(
@@ -2004,28 +1976,7 @@ def phase_train(state):
     log(f"[train] opt-350m reward model, 8 pairs x 512 tokens: median step "
         f"{statistics.median(rms[1:]):.1f} ms, mean rm_acc "
         f"{np.mean(accs):.3f}")
-    rholder = [rstate]
-
-    def one_reward_step():
-        rholder[0], m = reward_train_step(cfg, rholder[0], rb, 1e-5)
-        float(m["loss"])
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    one_reward_step()
-    wall = (time.perf_counter() - t0) * 1e3
-    try:
-        prof = _profile_step(one_reward_step)
-    except Exception as e:             # measurement only, not a check
-        prof = None
-        log(f"[train] torch.profiler failed: {e!r}")
-    if prof is not None:
-        total, buckets, _ = prof
-        log(f"[train] one reward step: {wall:.1f} ms host clock, "
-            f"{total:.1f} ms of kernel time (torch.profiler); device idle "
-            f"~{max(0.0, 1 - total / wall):.1%} of the step; "
-            + ", ".join(f"{k} {v:.1f} ms" for k, v in buckets.items()))
-    del rstate, rholder
+    del rstate
     torch.cuda.empty_cache()
     if not all(math.isfinite(x) for x in rlosses):
         raise AssertionError(f"train: reward losses not finite: {rlosses}")
@@ -2232,6 +2183,253 @@ def _paged_ppo_iteration(state, trainer, bl, ptx) -> list:
     if "prefill_hit_rate" not in m:
         failures.append("paged iteration: no prefill_hit_rate")
     return failures
+
+
+# --------------------------------------------------------------------- #
+# asynchronous stage 3: the replay queue, the publisher, the producer
+# --------------------------------------------------------------------- #
+ASYNC_KERNELS = ("rmsnorm", "flash_attention_fwd", "flash_attention_bwd",
+                 "decode_attention_fwd")
+# wall-time and async-only keys: left out of the lockstep == sync gate
+ASYNC_WALL = ("gen_tok_s", "gen_s", "score_ms", "actor_ms", "critic_ms",
+              "publish_s", "publish_bytes", "queue_depth", "policy_lag",
+              "is_ratio_mean", "is_ratio_max", "lockstep_fallback")
+ASYNC_LAUNCHER = ["--arch", "opt-125m", "--rlhf", "--async-rlhf", "--max-lag",
+                  "1", "--steps", "2", "--batch", "8", "--seq", "256",
+                  "--max-new", "32"]
+
+
+def _async_leg(tag, eng, start, bl, stages, ppo, async_cfg):
+    """One stage-3 run of ``stages.ppo_steps`` iterations from ``start``
+    (the actor's and critic's params, owned by the run) with the generator
+    seeded 3, synchronous (``async_cfg`` None) or asynchronous.  Returns
+    what the gates read: per iteration the metrics, the sequences scored,
+    the generator state after it (the sync loop's, or the one the consumed
+    item carried) and the wall time (top of one iteration to the next);
+    the queue's cumulative waits at each get; the launches, the peak and
+    ``memory_allocated`` before and after; and the final actor, critic and
+    EMA params (``final``: the trainer's own trees, on the card)."""
+    import torch
+    from repro_torch.core import RLHFPipeline
+    from repro_torch.core import ppo as tppo
+    from repro_torch.core import replay
+    from repro_torch.kernels import ops
+
+    eng.actor_params, eng.critic_params = start
+    del start
+    pipe = RLHFPipeline(eng, bl, stages, ppo, async_cfg=async_cfg)
+    generator = torch.Generator(device="cuda").manual_seed(3)
+    seqs, states, waits, tops = [], [], [], []
+    score, get = tppo.PPOTrainer.score_rollout, replay.ReplayQueue.get
+
+    def recording_score(self, rollout, **kw):
+        seqs.append(torch.as_tensor(rollout.sequences).cpu())
+        return score(self, rollout, **kw)
+
+    def recording_get(self, timeout=None):
+        item = get(self, timeout)
+        states.append(item.generator_state.clone())
+        s = self.stats()
+        waits.append((s["put_wait_s"], s["get_wait_s"]))
+        return item
+
+    def iter_hook(i):
+        if async_cfg is None and i > 0:
+            states.append(generator.get_state())
+        tops.append(time.perf_counter())
+
+    pipe.iter_hook = iter_hook
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tppo.PPOTrainer.score_rollout = recording_score
+    replay.ReplayQueue.get = recording_get
+    ops.reset_launch_counts()
+    try:
+        pipe.run_ppo(generator)
+    finally:
+        tppo.PPOTrainer.score_rollout = score
+        replay.ReplayQueue.get = get
+    torch.cuda.synchronize()
+    tops.append(time.perf_counter())
+    counts = ops.launch_counts()
+    if async_cfg is None:
+        states.append(generator.get_state())
+    tr = pipe.trainer
+    out = {"log": pipe.log["stage3"], "seqs": seqs, "states": states,
+           "waits": waits, "async": pipe.async_stats, "launches": counts,
+           "wall_s": [b - a for a, b in zip(tops, tops[1:])],
+           "stage3_s": pipe.timings["stage3"],
+           "peak": torch.cuda.max_memory_allocated(), "before": before,
+           "after": torch.cuda.memory_allocated(),
+           "final": {"actor": tr.actor.params, "critic": tr.critic.params,
+                     "ema": tr.ema}}
+    for i, m in enumerate(out["log"]):
+        lag = (f"; policy_lag {m['policy_lag']:.0f} is_ratio_mean "
+               f"{m['is_ratio_mean']:.6f} is_ratio_max "
+               f"{m['is_ratio_max']:.6f} publish_s {m['publish_s']:.4f}"
+               if "policy_lag" in m else "")
+        qw = (f"; queue waits so far put {waits[i][0]:.3f}s get "
+              f"{waits[i][1]:.3f}s" if i < len(waits) else "")
+        log(f"[async] {tag} iteration {i}: wall {out['wall_s'][i]:.2f}s, gen "
+            f"{m['gen_s']:.2f}s = {m['gen_tok_s']:.1f} tok/s, scoring "
+            f"{m['score_ms']:.1f} ms, actor {m['actor_ms']:.1f} ms, critic "
+            f"{m['critic_ms']:.1f} ms; reward_score {m['reward_score']:.4f}"
+            f"{lag}{qw}")
+    log(f"[async] {tag}: stage 3 {out['stage3_s']:.2f}s; peak "
+        f"{out['peak'] / 2**30:.2f} GiB; memory_allocated before "
+        f"{before / 2**30:.2f} GiB, after {out['after'] / 2**30:.2f} GiB; "
+        f"launches {counts}")
+    if pipe.async_stats:
+        a = pipe.async_stats
+        log(f"[async] {tag}: produced {a['produced']}, queue {a['queue']}, "
+            f"publisher {a['publisher']}, retained "
+            f"{a['retained_bytes'] / 1e9:.3f} GB, fallbacks "
+            f"{a['lockstep_fallbacks']}")
+    eng.actor_params = eng.critic_params = None
+    del pipe, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_async(state):
+    """Asynchronous stage 3 at the RLHF cell's full width and depth
+    (OPT-1.3B actor and reference, OPT-350M critic and reward model, bf16
+    on fp32 masters, 8 x 256 prompt tokens, ptx 0.05, EMA on; random
+    weights, the reference and reward model copies of the start): (1) 3
+    iterations at 64 new tokens (temperature 1.0) synchronous and under
+    ``AsyncConfig.lockstep()`` from one state and one generator seed:
+    sequences, metrics without the wall-time keys, the final actor, critic
+    and EMA params bit for bit, and each consumed item's generator state
+    equal to the synchronous loop's after that iteration; (2) 4 iterations
+    under ``AsyncConfig(publish_every=2, max_lag=1)`` at 256 new tokens,
+    from where the synchronous leg ended:
+    ``policy_lag`` exactly 0, 1, 0, 1, ``is_ratio_*`` exactly 1.0 at lag 0
+    and finite and positive at lag 1, ``produced == 4``, ``puts == gets +
+    dropped + depth``, RMSNorm, both flash kernels and the dense decode
+    kernel launched; (3) ``launch.train --rlhf --async-rlhf --max-lag 1``
+    at OPT-125M (2 steps a stage): its ``async`` summary, ``produced``
+    equal to the PPO steps."""
+    import dataclasses
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import AsyncConfig, PPOConfig, RLHFEngine, StageConfig
+    from repro_torch.core.pipeline import clone_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.train import lm_data
+    from repro_torch.models.modules import tree_leaves
+
+    failures = []
+    actor, critic = get_config("opt-1.3b"), get_config("opt-350m")
+    bl = lm_data(actor, 512, 0)
+    eng = RLHFEngine(actor, critic,
+                     torch.Generator(device="cuda").manual_seed(0))
+    start = (eng.actor_params, eng.critic_params)
+    eng.ref_params = clone_params(eng.actor_params)
+    eng.reward_params = clone_params(eng.critic_params)
+    ppo = PPOConfig(max_new_tokens=REPEAT_NEW, temperature=1.0,
+                    ptx_coef=0.05, use_ema=True)
+    stages = StageConfig(ppo_steps=3, ppo_batch=8)
+    log(f"[async] actor {actor.name}, critic/reward {critic.name}, bf16 on "
+        f"fp32 masters, 8 x 256 prompts; (1) {stages.ppo_steps} iterations "
+        f"at {ppo.max_new_tokens} new tokens, sync then lockstep")
+
+    # (1) lockstep == sync, bit for bit: sync on a copy of the start,
+    # lockstep on the start itself; the final params compared on the card
+    legs = {"sync": _async_leg(
+        "sync", eng, tuple(clone_params(t) for t in start), bl, stages, ppo,
+        None)}
+    legs["lockstep"] = _async_leg("lockstep", eng, start, bl, stages, ppo,
+                                  AsyncConfig.lockstep())
+    del start
+    s, a = legs["sync"], legs["lockstep"]
+    strip = lambda m: {k: v for k, v in m.items() if k not in ASYNC_WALL}
+    same = {
+        "sequences": len(s["seqs"]) == len(a["seqs"]) == stages.ppo_steps
+        and all(torch.equal(x, y) for x, y in zip(s["seqs"], a["seqs"])),
+        "metrics": [strip(m) for m in s["log"]]
+        == [strip(m) for m in a["log"]],
+        "generator_states": len(a["states"]) == len(s["states"])
+        and all(torch.equal(x, y) for x, y in zip(s["states"], a["states"])),
+        **{k: all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(s["final"][k]), tree_leaves(a["final"][k])))
+           for k in ("actor", "critic", "ema")}}
+    log(f"[async] lockstep == sync: {same}")
+    for i, (ms, ma) in enumerate(zip(s["log"], a["log"])):
+        diff = {k: (ms.get(k), ma.get(k)) for k in set(strip(ms))
+                | set(strip(ma)) if ms.get(k) != ma.get(k)}
+        if diff:
+            log(f"[async]   iteration {i} differs: {diff}")
+    if not all(same.values()):
+        failures.append(f"lockstep != sync: {same}")
+    if any(m["policy_lag"] != 0.0 or m["is_ratio_max"] != 1.0
+           for m in a["log"]) or a["async"]["produced"] != stages.ppo_steps:
+        failures.append("lockstep: not on policy, or not every batch")
+    state.setdefault("launches", {})["async_lockstep"] = a["launches"]
+    # (2) one step stale at the paper's 256 new tokens, from where the
+    # synchronous leg ended
+    start = (s["final"]["actor"], s["final"]["critic"])
+    del legs, s, a
+    torch.cuda.empty_cache()
+    stale_ppo = dataclasses.replace(ppo, max_new_tokens=256)
+    stale_cfg = AsyncConfig(publish_every=2, max_lag=1)
+    st = _async_leg("stale", eng, start, bl,
+                    dataclasses.replace(stages, ppo_steps=4), stale_ppo,
+                    stale_cfg)
+    del start
+    st.pop("final")
+    lags = [m["policy_lag"] for m in st["log"]]
+    q = st["async"]["queue"]
+    ratios_ok = all(
+        (m["is_ratio_mean"] == m["is_ratio_max"] == 1.0) if lag == 0 else
+        all(math.isfinite(m[k]) and m[k] > 0
+            for k in ("is_ratio_mean", "is_ratio_max"))
+        for lag, m in zip(lags, st["log"]))
+    if lags != [0.0, 1.0, 0.0, 1.0]:
+        failures.append(f"stale: policy_lag {lags}, wanted 0, 1, 0, 1")
+    if not ratios_ok:
+        failures.append("stale: is_ratio_* not 1.0 at lag 0 or not finite "
+                        "and positive at lag 1")
+    if st["async"]["produced"] != 4:
+        failures.append(f"stale: produced {st['async']['produced']}")
+    if q["puts"] != q["gets"] + q["dropped"] + q["depth"]:
+        failures.append(f"stale: queue {q}")
+    nums = [v for m in st["log"] for v in m.values() if isinstance(v, float)]
+    if not all(math.isfinite(v) for v in nums):
+        failures.append("stale: non-finite metric")
+    _launched("async_stale", st["launches"], ASYNC_KERNELS, state, failures)
+    state["async"] = {
+        "lockstep_equal": same, "stale_lags": lags,
+        "stale_wall_s": st["wall_s"], "stale_stage3_s": st["stage3_s"],
+        "stale_peak_gib": st["peak"] / 2**30,
+        "retained_gb": st["async"]["retained_bytes"] / 1e9,
+        "queue": q, "publisher": st["async"]["publisher"]}
+    del st
+    eng = None
+    torch.cuda.empty_cache()
+
+    # (3) the launcher
+    log(f"[async] python -m repro_torch.launch.train "
+        f"{' '.join(ASYNC_LAUNCHER)}")
+    ops.reset_launch_counts()
+    out = launch_train.main(ASYNC_LAUNCHER)
+    counts = ops.launch_counts()
+    summ = out.get("async")
+    keys = ("produced", "max_depth", "dropped", "fallbacks", "publishes")
+    log(f"[async] launcher: ppo_scores {out['ppo_scores']}, async "
+        f"{ {k: summ.get(k) for k in keys} if summ else None}; launches "
+        f"{counts}")
+    if (summ is None or not all(k in summ for k in keys)
+            or not out["ppo_scores"]
+            or summ["produced"] != len(out["ppo_scores"])):
+        failures.append(f"launcher: async summary {summ}")
+    _launched("async_launcher", counts, ASYNC_KERNELS, state, failures)
+    _free(out)
+    if failures:
+        raise AssertionError("async: " + "; ".join(failures))
 
 
 # --------------------------------------------------------------------- #
@@ -3434,10 +3632,6 @@ PPO_ARGV = ["--arch", "opt-125m", "--rlhf", "--steps", "3", "--batch", "8",
 PPO_KERNELS = TRAIN_KERNELS + ("decode_attention_fwd",)
 
 
-class _StopAtIteration(Exception):
-    """Raised by the PPO leg's ``iter_hook``: the kill of a preemption."""
-
-
 def _free(*dicts) -> None:
     """Drop the device tensors a launcher's summary holds."""
     import gc
@@ -3554,40 +3748,36 @@ def _ppo_record(out) -> dict:
 
 
 def _ckpt_ppo(state, failures) -> None:
-    """(4) PPO kill-and-resume at OPT-125M, full width and depth: stopped
-    at the top of iteration 2 after the drain, rerun from a fresh engine
-    on the same directory, against an uninterrupted run."""
-    import gc
+    """(4) PPO resume at OPT-125M, full width and depth: an uninterrupted
+    run that checkpoints its stage boundaries, iteration 1 and the last
+    (``--save-every 2 --keep 2``), its last checkpoint deleted (a crash
+    after iteration 1's commit, the SFT leg's technique), then a rerun
+    from a fresh engine on the same directory, which resumes at iteration
+    2 and must end as the uninterrupted run did."""
     import shutil
 
-    import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
-    log(f"[ckpt] uninterrupted: python -m repro_torch.launch.train "
-        f"{' '.join(PPO_ARGV)}")
-    ops.reset_launch_counts()
-    ref = _ppo_record(launch_train.main(PPO_ARGV))
-    _launched("ckpt_ppo", ops.launch_counts(), PPO_KERNELS, state, failures)
     d = CKPT_ROOT / "ppo"
-    argv = [*PPO_ARGV, "--ckpt-dir", str(d), "--keep", "1"]
-
-    def stop(pipe, i):
-        if i == 2:
-            pipe.ckpt.wait_for_save()    # the preemption's grace window
-            raise _StopAtIteration
-
-    log(f"[ckpt] killed at iteration 2: {' '.join(argv)}")
-    try:
-        launch_train.main(argv, iter_hook=stop)
-        failures.append("ckpt: the PPO run was not stopped")
-    except _StopAtIteration:
-        pass
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"[ckpt] after the kill: {sorted(p.name for p in d.iterdir())}")
+    argv = [*PPO_ARGV, "--ckpt-dir", str(d), "--save-every", "2", "--keep",
+            "2"]
+    log(f"[ckpt] uninterrupted: python -m repro_torch.launch.train "
+        f"{' '.join(argv)}")
+    ops.reset_launch_counts()
+    first = launch_train.main(argv)
+    ref = _ppo_record(first)
+    saves = first["ckpt_stats"]
+    _launched("ckpt_ppo", ops.launch_counts(), PPO_KERNELS, state, failures)
+    _free(first)
+    last = sorted(p.name for p in d.iterdir() if p.name.startswith("step_"))
+    shutil.rmtree(d / last[-1])        # a crash after iteration 1's commit
+    log(f"[ckpt] deleted {last[-1]}; rerun on {sorted(last[:-1])}")
     out = launch_train.main(argv)
     got = _ppo_record(out)
-    saves = out["ckpt_stats"]
+    resumed = len(out["ckpt_stats"]) == 1    # only the last iteration ran
+    log(f"[ckpt] PPO resume: ran {len(out['ckpt_stats'])} iteration(s)")
+    if not resumed:
+        failures.append(f"ckpt: the PPO rerun saved {out['ckpt_stats']}")
     for k in ("scores", "stage3", "sha"):
         same = got[k] == ref[k]
         log(f"[ckpt] PPO resume: {k} equal to the uninterrupted run: {same}")
@@ -5200,7 +5390,7 @@ def phase_xattn(state):
 PHASE_FNS = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "parity": phase_parity,
              "serve": phase_serve, "train": phase_train, "rlhf": phase_rlhf,
-             "hybrid": phase_hybrid, "ssm": phase_ssm,
+             "async": phase_async, "hybrid": phase_hybrid, "ssm": phase_ssm,
              "ssm_train": phase_ssm_train,
              "gqa128": phase_gqa128, "moe": phase_moe,
              "mla": phase_mla, "xattn": phase_xattn,

@@ -44,4 +44,17 @@ def to_device(batch: dict, device) -> dict:
     return out
 
 
-__all__ = ["resolve_device", "to_device"]
+def stream_event(device: torch.device):
+    """A CUDA event recorded on the calling thread's current stream of
+    ``device`` (``None`` on the CPU, whose work is done on return).  Its
+    ``synchronize()`` waits for the work enqueued so far on that stream
+    only: with asynchronous RLHF's producer and consumer on two threads, a
+    device-wide synchronize would wait for both."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+__all__ = ["resolve_device", "stream_event", "to_device"]

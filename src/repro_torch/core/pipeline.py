@@ -1,5 +1,5 @@
 """The three-stage RLHF pipeline (InstructGPT / DeepSpeed-Chat Fig. 1;
-counterpart of ``repro/core/pipeline.py``, single device, synchronous):
+counterpart of ``repro/core/pipeline.py``):
 
   Step 1  SFT          — supervised finetuning on prompt+chosen
   Step 2  RM           — pairwise reward-model finetuning
@@ -33,10 +33,21 @@ checkpoints hold params only and cross both ways.
 (``train_strategy`` params, ZeRO-1 moments), and stage 3 trains through
 it: one reshard per generation phase, the actor and critic in the training
 layout (see :mod:`repro_torch.core.ppo`).  Stages 1 and 2 run on every rank
-of the mesh alike, as the reference runs them outside the mesh.  The
-disaggregated rollout mesh (``rollout_mesh=``), asynchronous stage 3
-(``async_cfg=``) and a checkpointer on a mesh (sharded save and restore)
-are not yet ported and raise ``NotImplementedError``.
+of the mesh alike, as the reference runs them outside the mesh.
+
+``async_cfg`` (an :class:`~repro_torch.core.replay.AsyncConfig`) runs
+stage 3 asynchronously, on one device or the 1 x 1 mesh: a producer thread
+generates batch N+1 while this thread scores and trains batch N
+(:meth:`RLHFPipeline._run_ppo_async`).  ``AsyncConfig.lockstep()`` gives
+the synchronous run bit for bit, checkpoints included: a checkpoint saves
+the generator state carried by the item just consumed, never the live
+state, which the producer may already be advancing.
+
+The disaggregated rollout mesh (``rollout_mesh=``), asynchronous stage 3
+on a mesh of more than one rank (two threads issuing collectives on one
+process group would have to keep the same order on every rank) and a
+checkpointer on a mesh (sharded save and restore) are not yet ported and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,11 +61,15 @@ import torch
 from repro_torch import to_device
 from repro_torch.core.hybrid_engine import HybridEngine
 from repro_torch.core.ppo import PPOConfig, PPOTrainer
+from repro_torch.core.replay import (AsyncConfig, ExperienceProducer,
+                                     ReplayClosed, ReplayQueue,
+                                     WeightPublisher)
 from repro_torch.data.blending import DataBlender
 from repro_torch.models import reward as R
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import tree_leaves, tree_map
+from repro_torch.sharding import runtime
 from repro_torch.training import checkpoint, schedules
 from repro_torch.training.optimizer import AdamState
 from repro_torch.training.steps import lm_train_step, reward_train_step
@@ -122,21 +137,28 @@ class RLHFEngine:
 
 
 class RLHFPipeline:
-    """The synchronous 3-stage run.  ``log`` holds the stage-1 losses, the
-    stage-2 losses and one metrics dict per PPO iteration; ``step_ms`` the
+    """The 3-stage run.  ``log`` holds the stage-1 losses, the stage-2
+    losses and one metrics dict per PPO iteration; ``step_ms`` the
     host-clock time of each (synchronized) SFT and RM step; ``timings``
     the seconds per stage; ``gen_tok_s`` the mean stage-3 generation
     throughput.  ``iter_hook(i)``, when set, is called at the top of each
     PPO iteration (the crash-injection tests die there).
-    ``checkpointer`` and ``save_every`` make the run durable (see the
-    module's docstring)."""
+    ``checkpointer`` and ``save_every`` make the run durable, ``async_cfg``
+    overlaps stage 3 (see the module's docstring); then
+    ``rollout_hook(i)``, when set, is called on the producer thread before
+    batch ``i`` (the soak tests slow it there), and ``async_stats`` holds
+    the queue's, the publisher's and the producer's telemetry after the
+    run."""
 
     def __init__(self, engine: RLHFEngine, blender: DataBlender,
                  stages: StageConfig, ppo: PPOConfig, checkpointer=None,
-                 save_every: int = 1, async_cfg=None):
-        if async_cfg is not None:
-            raise NotImplementedError("RLHFPipeline(async_cfg=): "
-                                      "asynchronous RLHF is not yet ported")
+                 save_every: int = 1,
+                 async_cfg: Optional[AsyncConfig] = None):
+        if (async_cfg is not None and engine.hybrid is not None
+                and runtime.mesh_size(engine.hybrid.mesh) > 1):
+            raise NotImplementedError("RLHFPipeline(async_cfg=) on a mesh "
+                                      "of more than one rank: not yet "
+                                      "ported")
         if checkpointer is not None and engine.hybrid is not None:
             raise NotImplementedError("RLHFPipeline(checkpointer=) on a mesh "
                                       "(sharded save and restore): not yet "
@@ -147,7 +169,10 @@ class RLHFPipeline:
         self.ppo = ppo
         self.ckpt = checkpointer
         self.save_every = save_every
+        self.async_cfg = async_cfg
         self.iter_hook = None
+        self.rollout_hook = None
+        self.async_stats = {}      # queue/publisher/producer telemetry
         self.log = {"stage1": [], "stage2": [], "stage3": []}
         self.step_ms = {"stage1": [], "stage2": []}
         self.rm_acc = []
@@ -214,8 +239,10 @@ class RLHFPipeline:
         advance ``generator`` (default: seeded with ``seed + 3`` on the
         engine's device).  With a checkpointer whose latest checkpoint is
         a stage-3 one, the run resumes from it: trainer states, frozen
-        models, logs, the data cursor and ``generator``'s state.  Returns
-        the mean reward score of each iteration."""
+        models, logs, the data cursor and ``generator``'s state.  With
+        ``async_cfg`` the iterations overlap (:meth:`_run_ppo_async`), and
+        the producer thread draws from ``generator``.  Returns the mean
+        reward score of each iteration."""
         st, dev = self.stages, self.e.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(st.seed + 3)
@@ -243,22 +270,25 @@ class RLHFPipeline:
         scores = [m["reward_score"] for m in self.log["stage3"]]
         t0 = time.perf_counter()
         elapsed = self.timings.get("stage3", 0.0) if restored else 0.0
-        for i, batch in enumerate(self.blender.prompt_batches(
-                st.ppo_batch, st.ppo_steps, skip=start), start=start):
-            if self.iter_hook is not None:
-                self.iter_hook(i)
-            exp, gm = trainer.generate_experience(batch["prompts"],
-                                                  generator)
-            ptx = (to_device(next(ptx_iter), dev) if ptx_iter is not None
-                   else None)
-            tm = trainer.train_rlhf(exp, ptx)
-            scores.append(gm["reward_score"])
-            self.log["stage3"].append({**gm, **tm})
-            if (self.ckpt is not None and self.save_every
-                    and ((i + 1) % self.save_every == 0
-                         or i == st.ppo_steps - 1)):
-                self.timings["stage3"] = elapsed + time.perf_counter() - t0
-                self._save_ppo(trainer, generator, i + 1)
+        if self.async_cfg is not None:
+            self._run_ppo_async(trainer, generator, start, scores, ptx_iter,
+                                t0, elapsed)
+        else:
+            for i, batch in enumerate(self.blender.prompt_batches(
+                    st.ppo_batch, st.ppo_steps, skip=start), start=start):
+                if self.iter_hook is not None:
+                    self.iter_hook(i)
+                exp, gm = trainer.generate_experience(batch["prompts"],
+                                                      generator)
+                ptx = (to_device(next(ptx_iter), dev)
+                       if ptx_iter is not None else None)
+                tm = trainer.train_rlhf(exp, ptx)
+                scores.append(gm["reward_score"])
+                self.log["stage3"].append({**gm, **tm})
+                if self._save_due(i):
+                    self.timings["stage3"] = (elapsed
+                                              + time.perf_counter() - t0)
+                    self._save_ppo(trainer, generator.get_state(), i + 1)
         self.timings["stage3"] = elapsed + time.perf_counter() - t0
         if self.log["stage3"]:
             self.gen_tok_s = float(np.mean(
@@ -268,25 +298,133 @@ class RLHFPipeline:
             self.ckpt.wait_for_save()     # durable before we return
         return scores
 
+    # ------------------- Step 3, asynchronous --------------------- #
+    def _run_ppo_async(self, trainer, generator, start, scores, ptx_iter,
+                       t0, elapsed):
+        """Overlapped stage 3: a producer thread generates batch N+1 while
+        this (consumer) thread scores and trains batch N.
+
+        Staleness protocol (the reference's): the consumer's policy
+        ``version`` counts completed PPO steps; after every
+        ``publish_every``-th step the actor's params are published (a
+        clone, retained per version).  The producer may generate batch
+        ``i`` only under a published version ``>= i - max_lag``, each
+        rollout is scored with its own tagged behavior policy (exact
+        importance ratios), and consuming with ``lag > 0`` emits the guard
+        metrics; ``is_ratio_max`` above ``is_ratio_abort`` drops the run
+        to on-policy lockstep.
+
+        With ``max_lag=0`` (lockstep) the gate admits exactly the data,
+        params and generator draws of the synchronous loop, so the run is
+        bit-identical to it, checkpoints included: the producer owns
+        ``generator``, and a checkpoint saves the state its item carried
+        (the producer may already be drawing the next batch).
+
+        A producer failure raises ``RuntimeError("rollout producer
+        failed")`` from the producer's exception, also when this thread
+        was waiting on the queue the producer cancelled (the reference
+        raises the queue's ``ReplayClosed`` then, ROADMAP Queue 3, R17)."""
+        st, acfg, dev = self.stages, self.async_cfg, self.e.device
+        publisher = WeightPublisher(shardings=trainer.publish_shardings(),
+                                    keep=acfg.max_lag + 2,
+                                    async_push=acfg.async_publish)
+        publisher.publish(trainer.actor.params, start)
+        queue = ReplayQueue(acfg.queue_depth)
+        producer = ExperienceProducer(
+            trainer=trainer, generator=generator, start=start,
+            steps=st.ppo_steps,
+            batches=self.blender.prompt_batches(st.ppo_batch,
+                                                st.ppo_steps, skip=start),
+            queue=queue, publisher=publisher, cfg=acfg,
+            rollout_hook=self.rollout_hook)
+        producer.start()
+        version, fallbacks = start, 0
+        try:
+            for i in range(start, st.ppo_steps):
+                if self.iter_hook is not None:
+                    self.iter_hook(i)
+                item = queue.get(timeout=acfg.get_timeout_s)
+                lag = version - item.rollout.version
+                exp, sm = trainer.score_rollout(
+                    item.rollout,
+                    behavior_params=publisher.train_params(
+                        item.rollout.version),
+                    policy_lag=lag)
+                gm = {**item.gen_metrics, **sm,
+                      "queue_depth": float(len(queue))}
+                ps = publisher.last_publish_stats
+                if ps:
+                    gm["publish_s"] = float(ps["seconds"])
+                    gm["publish_bytes"] = float(ps["bytes"])
+                ptx = (to_device(next(ptx_iter), dev)
+                       if ptx_iter is not None else None)
+                tm = trainer.train_rlhf(exp, ptx)
+                del exp
+                version += 1
+                tripped = (acfg.is_ratio_abort is not None and lag > 0
+                           and sm["is_ratio_max"] > acfg.is_ratio_abort)
+                if tripped:
+                    # staleness guard: fall back to on-policy lockstep for
+                    # the rest of the run.  Flip the producer's gate BEFORE
+                    # publishing this version, or the producer could admit
+                    # one more stale batch between the publish and the flip
+                    producer.force_lockstep()
+                    fallbacks += 1
+                    gm["lockstep_fallback"] = 1.0
+                if (tripped or version % acfg.publish_every == 0
+                        or producer.lockstep_active):
+                    publisher.publish(trainer.actor.params, version)
+                scores.append(gm["reward_score"])
+                self.log["stage3"].append({**gm, **tm})
+                if self._save_due(i):
+                    self.timings["stage3"] = (elapsed
+                                              + time.perf_counter() - t0)
+                    self._save_ppo(trainer, item.generator_state, i + 1)
+        except ReplayClosed:
+            # the producer cancelled the queue under this thread's get:
+            # its own error is raised below, with this as its context
+            if producer.error is None:
+                raise
+        finally:
+            producer.stop()
+            publisher.close()      # wakes a version-gated producer
+            queue.cancel()         # wakes a blocked put
+            producer.join(timeout=60.0)
+            self.async_stats = {
+                "queue": queue.stats(), "publisher": publisher.stats(),
+                "produced": producer.produced,
+                "lockstep_fallbacks": fallbacks,
+                "retained_bytes": publisher.retained_bytes(),
+            }
+        if producer.error is not None:
+            raise RuntimeError("rollout producer failed") \
+                from producer.error
+
     # -------------------- checkpoint/resume seam ------------------- #
     # monotonic checkpoint step ids: stage boundaries, then one per
     # completed PPO iteration (k completed -> RM_STEP + k)
     SFT_STEP, RM_STEP = 1, 2
 
+    def _save_due(self, i: int) -> bool:
+        """Whether PPO iteration ``i`` ends with a checkpoint."""
+        return bool(self.ckpt is not None and self.save_every
+                    and ((i + 1) % self.save_every == 0
+                         or i == self.stages.ppo_steps - 1))
+
     def _meta(self, stage: str) -> dict:
         return {"stage": stage, "log": self.log, "rm_acc": self.rm_acc,
                 "timings": self.timings}
 
-    def _save_ppo(self, trainer, generator: torch.Generator,
+    def _save_ppo(self, trainer, rng_state: torch.Tensor,
                   done: int) -> None:
         """Commit the whole stage-3 state after ``done`` completed
         iterations: trainer states (moments + EMA), frozen ref/reward
-        params, the generator state iteration ``done`` will draw from,
-        and (in metadata) the data cursor + metrics log."""
+        params, ``rng_state`` (the generator state iteration ``done`` will
+        draw from), and (in metadata) the data cursor + metrics log."""
         tree = {"trainer": trainer.state_tree(),
                 "ref": trainer.ref_params,
                 "reward": trainer.reward_params,
-                "rng": generator.get_state()}
+                "rng": rng_state}
         self.ckpt.save(self.RM_STEP + done, tree,
                        dict(self._meta("ppo"), ppo_iter=done))
 

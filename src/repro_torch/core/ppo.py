@@ -39,6 +39,14 @@ up to the order of the sums.  The experience is then a tree of
 ``DTensor``s sharded over ``data``.  At one rank the trainer runs as with
 ``engine=None``.  The rollout mesh (disaggregated generation) is not yet
 ported.
+
+The asynchronous seam (:mod:`repro_torch.core.replay`, one device and the
+1 x 1 mesh): :meth:`PPOTrainer.generate_rollout` takes ``gen_params``
+already published (no ``to_inference``, no reshard metrics) and tags the
+rollout with their ``version``; :meth:`PPOTrainer.score_rollout` scores
+with the behavior policy's retained params and reports ``policy_lag``,
+``is_ratio_mean`` and ``is_ratio_max`` (the guard forward runs only when
+the lag is above 0).
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import stream_event
 from repro_torch.core import ema as EMA
 from repro_torch.core import experience as X
 from repro_torch.core.replay import RolloutBatch
@@ -235,11 +244,6 @@ def staleness_guard_stats(cfg: ModelConfig, params, sequences,
             "is_ratio_max": torch.max(torch.where(mask > 0, ratio, 1.0))}
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _shares_storage(a, b) -> bool:
     ptrs = {t.untyped_storage().data_ptr() for t in tree_leaves(a)}
     return any(t.untyped_storage().data_ptr() in ptrs
@@ -341,10 +345,16 @@ class PPOTrainer:
         return exp, {**gm, **sm}
 
     # ---------------- rollout / scoring split ---------------------- #
-    def generate_rollout(self, prompts, generator: torch.Generator):
-        """Generation phase only: decode a fixed-shape prompt batch with the
-        actor's current params into a
-        :class:`~repro_torch.core.replay.RolloutBatch`."""
+    def generate_rollout(self, prompts, generator: torch.Generator, *,
+                         gen_params=None, version: int = 0):
+        """Generation phase only: decode a fixed-shape prompt batch into a
+        version-tagged :class:`~repro_torch.core.replay.RolloutBatch`.
+        ``gen_params`` are params already published for generation (the
+        asynchronous :class:`~repro_torch.core.replay.WeightPublisher`'s);
+        with ``None`` the actor's current params go through the engine's
+        ``to_inference`` (one reshard per phase) and the metrics carry its
+        ``reshard_bytes`` and ``reshard_s``.  ``gen_s`` waits for the
+        calling thread's stream only."""
         t0 = time.perf_counter()
         if not isinstance(prompts, torch.Tensor):
             prompts = torch.as_tensor(np.asarray(prompts))
@@ -355,41 +365,65 @@ class PPOTrainer:
             # batch is what a mesh splits
             prompts = prompts.repeat_interleave(
                 self.ppo.n_samples_per_prompt, dim=0)
-        params = self.actor.params
-        if self.engine is not None:        # one reshard per phase
-            params = self.engine.to_inference(params)
+        params = gen_params
+        if params is None:
+            params = self.actor.params
+            if self.engine is not None:    # one reshard per phase
+                params = self.engine.to_inference(params)
         out = self.gen_engine.generate(params, prompts, generator)
         del params
-        _sync(self.device)
+        done = stream_event(self.device)
+        if done is not None:
+            done.synchronize()
         gen_s = time.perf_counter() - t0
         n_gen = float(out["response_mask"].sum())
         gm = {"gen_len": float(out["response_mask"].sum(1).float().mean()),
               "gen_tok_s": n_gen / max(gen_s, 1e-9), "gen_s": gen_s,
               "decode_steps": float(
                   self.gen_engine.last_stats["decode_steps"])}
-        self._add_reshard_metrics(gm)
+        if gen_params is None:
+            self._add_reshard_metrics(gm)
         return RolloutBatch(sequences=out["sequences"],
                             response_mask=out["response_mask"],
-                            attn_mask=None), gm
+                            attn_mask=None, version=version), gm
 
-    def score_rollout(self, rollout: RolloutBatch):
-        """Scoring phase with the current actor (the on-policy case):
-        behavior logprobs, ref logprobs, values, reward, KL-shaped
-        rewards, GAE."""
+    def score_rollout(self, rollout: RolloutBatch, *, behavior_params=None,
+                      policy_lag: Optional[int] = None):
+        """Scoring phase: behavior logprobs, ref logprobs, values, reward,
+        KL-shaped rewards, GAE.
+
+        ``behavior_params`` is the policy that sampled the rollout (the
+        publisher's retained params for its version tag); ``None`` is the
+        current actor, the on-policy case.  Scoring with the behavior
+        weights makes ``exp.logprobs`` the exact sampling-time logprobs, so
+        the PPO importance ratio is exact.  ``policy_lag`` (consumer version
+        minus rollout version), when given, adds ``policy_lag``,
+        ``is_ratio_mean`` and ``is_ratio_max`` to the metrics: 1.0 at lag 0
+        (on-policy by construction), and from one more forward of the
+        current actor (:func:`staleness_guard_stats`) above it."""
         t0 = time.perf_counter()
         dev = self.device
+        behavior = (behavior_params if behavior_params is not None
+                    else self.actor.params)
         seqs = torch.as_tensor(rollout.sequences, device=dev).long()
         mask = torch.as_tensor(rollout.response_mask, device=dev)
         attn = (None if rollout.attn_mask is None
                 else torch.as_tensor(rollout.attn_mask, device=dev).float())
         if not self._multi:
             exp, score = make_experience(
-                self.actor_cfg, self.critic_cfg, self.ppo, self.actor.params,
+                self.actor_cfg, self.critic_cfg, self.ppo, behavior,
                 self.ref_params, self.critic.params, self.reward_params,
                 seqs, mask, attn)
             sm = {"reward_score": float(score.mean())}   # synchronizes
+            if policy_lag is not None:
+                sm.update(self._guard(exp, policy_lag))
             sm["score_ms"] = (time.perf_counter() - t0) * 1e3
             return exp, sm
+        if behavior_params is not None or policy_lag is not None:
+            raise NotImplementedError(
+                "PPOTrainer.score_rollout(behavior_params=, policy_lag=) on "
+                "a mesh of more than one rank (asynchronous RLHF there): "
+                "not yet ported")
         # this rank's rows, scored with gathered weights
         batch = self._shard_batch((seqs, mask, attn))
         (lseqs, lmask, lattn), group = runtime.batch_local(batch)
@@ -404,6 +438,32 @@ class PPOTrainer:
         sm = {"reward_score": float(total) / seqs.shape[0]}
         sm["score_ms"] = (time.perf_counter() - t0) * 1e3
         return X.Experience(*runtime.wrap_rows(tuple(exp), batch[0])), sm
+
+    def _guard(self, exp: X.Experience, policy_lag: int) -> dict:
+        """The staleness-guard metrics of a rollout scored at
+        ``policy_lag``."""
+        sm = {"policy_lag": float(policy_lag)}
+        if policy_lag > 0:
+            g = staleness_guard_stats(self.actor_cfg, self.actor.params,
+                                      exp.sequences, exp.logprobs, exp.mask)
+            sm["is_ratio_mean"] = float(g["is_ratio_mean"])
+            sm["is_ratio_max"] = float(g["is_ratio_max"])
+        else:
+            sm["is_ratio_mean"] = 1.0
+            sm["is_ratio_max"] = 1.0
+        return sm
+
+    def publish_shardings(self):
+        """Target layout for asynchronous weight publication: ``None`` (the
+        single-device mode: the publisher clones the params in place) on
+        one device and at 1 x 1.  On a mesh of more than one rank the
+        reference publishes to the engine's inference layout; that is not
+        yet ported."""
+        if self._multi:
+            raise NotImplementedError("PPOTrainer.publish_shardings on a "
+                                      "mesh of more than one rank: not yet "
+                                      "ported")
+        return None
 
     def _expand_samples(self, requests):
         """Best-of-n expansion: each request ``n_samples_per_prompt`` times

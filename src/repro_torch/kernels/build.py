@@ -14,7 +14,10 @@ library, all at once, and waits for them; :func:`load` builds on first use.
 Any failure raises.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-:func:`check` turns a non-zero code into an exception.
+:func:`check` turns a non-zero code into an exception, and each wrapper
+then counts the launch with :func:`count_launch`.  Both :func:`load` and
+the counts take a lock: asynchronous RLHF launches kernels from two
+threads (the producer's decode and the consumer's training).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -40,6 +44,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _libs: dict = {}
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -92,13 +98,27 @@ def build(names=SOURCES, *, ptxas_verbose: bool = False) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    if name not in _libs:
-        build((name,))
-        lib = ctypes.CDLL(str(lib_path(name)))
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
-    return _libs[name]
+    with _load_lock:
+        if name not in _libs:
+            build((name,))
+            lib = ctypes.CDLL(str(lib_path(name)))
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return _libs[name]
+
+
+def count_launch(fn) -> None:
+    """Add one to the wrapper ``fn``'s launch count (``fn.launches``),
+    under a lock, so that no increment is lost between threads."""
+    with _count_lock:
+        fn.launches += 1
+
+
+def set_launch_count(fn, n: int = 0) -> None:
+    """Set ``fn.launches`` to ``n`` under the same lock."""
+    with _count_lock:
+        fn.launches = n
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -161,7 +161,7 @@ def decode_attention_fwd(q, k_cache, v_cache, valid, *, out=None):
                  G, S, D, splits, chunk, 1.0 / math.sqrt(D),
                  build.dtype_code(q), build.stream_handle(q))
     build.check(build.load("decode_attention"), code, "decode_attention_fwd")
-    decode_attention_fwd.launches += 1
+    build.count_launch(decode_attention_fwd)
     return out
 
 
@@ -217,7 +217,7 @@ def decode_attention_quant_fwd(q, k_cache, v_cache, k_scale, v_scale, valid,
                        build.dtype_code(q), build.stream_handle(q))
     build.check(build.load("decode_attention_quant"), code,
                 "decode_attention_quant_fwd")
-    decode_attention_quant_fwd.launches += 1
+    build.count_launch(decode_attention_quant_fwd)
     return out
 
 

@@ -112,7 +112,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, out=None,
                  1.0 / math.sqrt(D), build.dtype_code(q),
                  build.stream_handle(q))
     build.check(build.load("flash_attention"), code, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+    build.count_launch(flash_attention_fwd)
     return out
 
 

@@ -121,7 +121,7 @@ def _launch(parts, q, k, v, do, lse, delta, dq, dk, dv, causal, window):
     for part, fn, what in zip(("dkv", "dq"), fns, ("dK/dV", "dQ")):
         if part in parts:
             build.check(lib, fn(*args), f"flash_attention_bwd ({what})")
-            flash_attention_bwd.launches += 1
+            build.count_launch(flash_attention_bwd)
 
 
 flash_attention_bwd.launches = 0    # kernel launches since the last reset

@@ -21,15 +21,18 @@ reference has no SSD backward kernel: it trains SSM models on its jnp
 path).  The inter-chunk recurrence around it is torch code that autograd
 differentiates.
 
-Each kernel wrapper counts its launches in a plain integer
-(``<wrapper>.launches``); :func:`launch_counts` reads them and
-:func:`reset_launch_counts` sets them to 0, so a run can show that its
-main path went through the kernels.
+Each kernel wrapper counts its launches in an integer
+(``<wrapper>.launches``, added to under a lock by
+:func:`~repro_torch.kernels.build.count_launch`, so that two threads lose
+none); :func:`launch_counts` reads them and :func:`reset_launch_counts`
+sets them to 0, so a run can show that its main path went through the
+kernels.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
@@ -57,7 +60,7 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
-        fn.launches = 0
+        build.set_launch_count(fn, 0)
 
 
 def _grouped(x, KV):

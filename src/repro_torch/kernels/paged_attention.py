@@ -162,7 +162,7 @@ def paged_decode_attention_fwd(q, k_pool, v_pool, block_tables, lens, *,
         block_tables.shape[1], bs, nblocks, D, splits, chunk,
         1.0 / math.sqrt(D), build.dtype_code(q), build.stream_handle(q))
     build.check(build.load(name), code, "paged_decode_attention_fwd")
-    paged_decode_attention_fwd.launches += 1
+    build.count_launch(paged_decode_attention_fwd)
     return out
 
 
@@ -205,7 +205,7 @@ def paged_decode_attention_quant_fwd(q, k_pool, v_pool, k_scale, v_scale,
         block_tables.shape[1], bs, nblocks, D, splits, chunk,
         1.0 / math.sqrt(D), build.dtype_code(q), build.stream_handle(q))
     build.check(build.load(name), code, "paged_decode_attention_quant_fwd")
-    paged_decode_attention_quant_fwd.launches += 1
+    build.count_launch(paged_decode_attention_quant_fwd)
     return out
 
 

@@ -123,7 +123,7 @@ def rmsnorm_fwd(x2d, w, *, eps=1e-5, out=None):
                  p.vec, p.tpr, p.rows_per_block, p.staged_bytes,
                  build.stream_handle(x2d))
     build.check(build.load("rmsnorm"), code, "rmsnorm_fwd")
-    rmsnorm_fwd.launches += 1
+    build.count_launch(rmsnorm_fwd)
     return out
 
 

@@ -145,7 +145,7 @@ def ssd_intra_fwd(X, dt, A, B, C):
                  strides, b, nc, q, h, p, n, build.dtype_code(X),
                  pl.n_slices, int(aligned16(X, B, C)), build.stream_handle(X))
     build.check(build.load("ssd_intra"), code, "ssd_intra_fwd")
-    ssd_intra_fwd.launches += 1
+    build.count_launch(ssd_intra_fwd)
     return y, s_c, a_cs
 
 

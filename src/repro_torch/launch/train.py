@@ -21,7 +21,15 @@ reference's ``step i loss= gnorm=`` lines; :func:`main` returns a summary
 ``--steps`` steps of ``--batch``; the critic and reward model share the
 actor's config, as in the reference.  PPO generates ``--max-new`` tokens
 per prompt at temperature 1.0; ``--kv-quant`` runs that generation on an
-int8 KV cache.
+int8 KV cache.  ``--async-rlhf`` overlaps stage 3's generation and
+training through the replay queue (:mod:`repro_torch.core.replay`; one
+device or ``--mesh 1,1``), with the reference's ``--queue-depth``,
+``--publish-every``, ``--max-lag`` (0 = lockstep, bit-identical to the
+synchronous run) and ``--is-ratio-abort``, and prints the reference's
+``async: produced= ...`` line::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch opt-1.3b \
+        --rlhf --async-rlhf --max-lag 1 --steps 4 --batch 8 --seq 512
 
 The SSM and hybrid ids (``mamba2-370m``, ``zamba2-1.2b``) train too, SFT,
 reward and PPO alike: each SSD layer's forward is the intra-chunk kernel
@@ -67,9 +75,10 @@ replicated at ``model`` = 1) and ``--zero 1`` shards the Adam moments over
 ``data``; the state is committed to that layout at creation.  Under
 ``--rlhf`` the mesh goes to the Hybrid Engine (stage 3).  Rank 0 prints.
 ``tp`` > 1 (tensor-parallel compute), ``--mesh`` with ``--ckpt-dir`` /
-``--resume`` (sharded checkpoints) and the asynchronous RLHF options are
-not ported yet and are refused; ``--mesh`` with ``--lora`` is refused as
-in the reference.
+``--resume`` (sharded checkpoints), ``--async-rlhf`` on a mesh of more
+than one rank and the disaggregated meshes (``--rollout-mesh``,
+``--train-mesh``) are not ported yet and are refused; ``--mesh`` with
+``--lora`` is refused as in the reference.
 
 Runs on CUDA; ``--device cpu`` runs on the CPU with the kernels' plain
 versions.
@@ -80,6 +89,7 @@ import argparse
 import contextlib
 import functools
 import io
+import math
 import statistics
 import time
 
@@ -103,13 +113,13 @@ from repro_torch.training.steps import (lm_loss_fn, lm_train_step,
 from repro_torch.training.train_state import TrainState
 
 # the reference's options that belong to later slices: (flag, dest)
-NOT_PORTED = (("--async-rlhf", "async_rlhf"),
-              ("--rollout-mesh", "rollout_mesh"),
-              ("--train-mesh", "train_mesh"),
-              ("--queue-depth", "queue_depth"),
-              ("--publish-every", "publish_every"),
-              ("--max-lag", "max_lag"),
-              ("--is-ratio-abort", "is_ratio_abort"))
+NOT_PORTED = (("--rollout-mesh", "rollout_mesh"),
+              ("--train-mesh", "train_mesh"))
+# the asynchronous stage 3's knobs: (flag, dest, the reference's default)
+ASYNC_KNOBS = (("--queue-depth", "queue_depth", 2),
+               ("--publish-every", "publish_every", 1),
+               ("--max-lag", "max_lag", 1),
+               ("--is-ratio-abort", "is_ratio_abort", None))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -160,13 +170,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache for PPO experience generation "
                          "(--rlhf); training forwards are untouched")
+    ap.add_argument("--async-rlhf", action="store_true",
+                    help="overlap stage-3 generation and training via "
+                         "the replay queue (--rlhf; one device or --mesh "
+                         "1,1)")
+    ap.add_argument("--queue-depth", type=int, default=None,
+                    help="replay queue capacity (backpressure bound; "
+                         "default 2)")
+    ap.add_argument("--publish-every", type=int, default=None,
+                    help="publish actor weights every N PPO steps "
+                         "(default 1)")
+    ap.add_argument("--max-lag", type=int, default=None,
+                    help="max behavior-policy staleness in PPO steps "
+                         "(0 = lockstep, bit-identical to sync; default 1)")
+    ap.add_argument("--is-ratio-abort", type=float, default=None,
+                    help="importance-ratio ceiling: a stale batch whose "
+                         "max ratio exceeds it drops the run to lockstep")
     for flag, dest in NOT_PORTED:
-        if flag == "--async-rlhf":
-            ap.add_argument(flag, dest=dest, action="store_true",
-                            help=argparse.SUPPRESS)
-        else:
-            ap.add_argument(flag, dest=dest, default=None,
-                            help=argparse.SUPPRESS)
+        ap.add_argument(flag, dest=dest, default=None,
+                        help=argparse.SUPPRESS)
     return ap
 
 
@@ -237,16 +259,26 @@ def train_lm(cfg, state: TrainState, *, steps: int, batch: int, seq: int,
 
 def run_rlhf(args, cfg, device, iter_hook=None, mesh=None) -> dict:
     """SFT -> RM -> PPO on the synthetic blend (the reference's
-    ``run_rlhf`` without meshes or asynchronous stage 3; ``--ckpt-dir``
-    makes it durable and resumable).
+    ``run_rlhf`` without the disaggregated meshes; ``--ckpt-dir`` makes it
+    durable and resumable, ``--async-rlhf`` overlaps stage 3).
     Prints the reference's summary lines and returns the pipeline's logs:
     ``sft_loss``, ``rm_acc``, ``ppo_scores``, ``stage3`` (one metrics dict
     per PPO iteration), ``step_ms``, ``timings``, ``gen_tok_s``, the
-    SHA-256 of the actor's, critic's and EMA's final states and the
-    checkpointer's ``ckpt_stats``.  ``iter_hook(pipeline, i)`` is called at
-    the top of each PPO iteration."""
-    from repro_torch.core import (PPOConfig, RLHFEngine, RLHFPipeline,
-                                  StageConfig)
+    SHA-256 of the actor's, critic's and EMA's final states, the
+    checkpointer's ``ckpt_stats`` and, with ``--async-rlhf``, ``async``:
+    the reference's summary keys (``produced``, ``max_depth``,
+    ``dropped``, ``fallbacks``, ``publishes``) beside the queue's, the
+    publisher's and the producer's whole telemetry.  ``iter_hook(pipeline,
+    i)`` is called at the top of each PPO iteration."""
+    from repro_torch.core import (AsyncConfig, PPOConfig, RLHFEngine,
+                                  RLHFPipeline, StageConfig)
+    async_cfg = None
+    if args.async_rlhf:
+        async_cfg = AsyncConfig(queue_depth=args.queue_depth,
+                                publish_every=args.publish_every,
+                                max_lag=args.max_lag,
+                                is_ratio_abort=args.is_ratio_abort)
+        print(f"async stage 3: {async_cfg}")
     eng = RLHFEngine(cfg, cfg.replace(name=cfg.name + "-critic"),
                      torch.Generator(device=device).manual_seed(args.seed),
                      mesh=mesh, train_strategy=args.strategy,
@@ -261,7 +293,8 @@ def run_rlhf(args, cfg, device, iter_hook=None, mesh=None) -> dict:
                     seed=args.seed),
         PPOConfig(max_new_tokens=args.max_new, temperature=1.0,
                   kv_quant=args.kv_quant),
-        checkpointer=mgr, save_every=args.save_every or 1)
+        checkpointer=mgr, save_every=args.save_every or 1,
+        async_cfg=async_cfg)
     if iter_hook is not None:
         pipe.iter_hook = functools.partial(iter_hook, pipe)
     out = pipe.run()
@@ -271,8 +304,21 @@ def run_rlhf(args, cfg, device, iter_hook=None, mesh=None) -> dict:
           f"reward={out['ppo_scores'][-1]:.4f}")
     print("  ".join(f"{k}={v:.1f}s" for k, v in t.items())
           + f"  gen={pipe.gen_tok_s:.1f}tok/s")
+    summary_async = None
+    if pipe.async_stats:
+        a = pipe.async_stats
+        summary_async = dict(a, max_depth=a["queue"]["max_depth"],
+                             dropped=a["queue"]["dropped"],
+                             fallbacks=a["lockstep_fallbacks"],
+                             publishes=a["publisher"]["publishes"])
+        print(f"async: produced={a['produced']} "
+              f"max_depth={summary_async['max_depth']} "
+              f"dropped={summary_async['dropped']} "
+              f"fallbacks={summary_async['fallbacks']} "
+              f"publishes={summary_async['publishes']}")
     tr = pipe.trainer
     return dict(out, stage3=pipe.log["stage3"], step_ms=pipe.step_ms,
+                **{"async": summary_async},
                 gen_tok_s=pipe.gen_tok_s,
                 state_sha256={k: checkpoint.tree_sha256(
                     runtime.full_tree(v)) for k, v in (
@@ -300,6 +346,10 @@ def main(argv=None, iter_hook=None, cfg=None) -> dict:
     args = ap.parse_args(argv)
     if args.mesh is None:
         return _main(ap, args, iter_hook, cfg)
+    if args.async_rlhf and math.prod(
+            int(x) for x in args.mesh.split(",")) > 1:
+        ap.error("--async-rlhf on a mesh of more than one rank: not yet "
+                 "ported")
     if args.lora:
         ap.error("--mesh with --lora is not supported")
     if args.ckpt_dir or args.resume:
@@ -327,10 +377,16 @@ def main(argv=None, iter_hook=None, cfg=None) -> dict:
 
 def _main(ap, args, iter_hook, cfg, mesh=None, device=None) -> dict:
     for flag, dest in NOT_PORTED:
-        if getattr(args, dest) not in (None, False):
+        if getattr(args, dest) is not None:
             ap.error(f"{flag}: not yet ported")
-    if not args.rlhf and (args.max_new is not None or args.kv_quant):
-        ap.error("--max-new and --kv-quant apply to --rlhf")
+    if not args.rlhf and (args.max_new is not None or args.kv_quant
+                          or args.async_rlhf):
+        ap.error("--max-new, --kv-quant and --async-rlhf apply to --rlhf")
+    for flag, dest, default in ASYNC_KNOBS:
+        if getattr(args, dest) is not None and not args.async_rlhf:
+            ap.error(f"{flag} applies to --rlhf --async-rlhf")
+        if dest != "is_ratio_abort" and getattr(args, dest) is None:
+            setattr(args, dest, default)
     if args.rlhf and (args.lora or args.ckpt):
         ap.error("--lora and --ckpt apply to the LM loop, not --rlhf")
     if (args.save_every or args.resume) and not args.ckpt_dir:

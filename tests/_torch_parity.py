@@ -5,8 +5,9 @@ reference's ``repro.serving`` does not import on Python 3.12: its
 ``StepEvent`` has a numpy dataclass default), the reference's SFT loop
 built from ``repro.training`` and ``repro.data`` (its
 ``repro.launch.train`` does not import either: it imports ``repro.core``),
-the reference's PPO modules loaded by file path (:func:`reference_core`),
-and the SSM / hybrid training tests' configs and comparisons.
+the reference's PPO modules and its replay module loaded by file path
+(:func:`reference_core`, :func:`reference_replay`), and the SSM / hybrid
+training tests' configs and comparisons.
 """
 from __future__ import annotations
 
@@ -183,6 +184,42 @@ def reference_core():
         sys.modules.update(saved)
     _REF_CORE = types.SimpleNamespace(**mods)
     return _REF_CORE
+
+
+_REF_REPLAY = None
+
+
+def reference_replay():
+    """The reference's ``repro/core/replay.py``, loaded by file path as
+    :func:`reference_core` loads its modules, with ``hybrid_engine.py``
+    beside it: ``WeightPublisher._push`` imports
+    ``repro.core.hybrid_engine._tree_device_bytes`` at every publish.
+    ``sys.modules`` is restored afterwards; a test that publishes puts
+    ``modules`` (the bare ``repro.core`` package and its
+    ``hybrid_engine``) back for its duration (``monkeypatch.setitem``).
+    Returns a namespace with ``replay`` and ``modules``."""
+    global _REF_REPLAY
+    if _REF_REPLAY is not None:
+        return _REF_REPLAY
+    for name in ("jax.sharding", "repro.models.transformer",
+                 "repro.sharding.strategy"):
+        importlib.import_module(name)
+    saved = dict(sys.modules)
+    core_dir = Path(__file__).resolve().parents[1] / "src" / "repro" / "core"
+    try:
+        core = types.ModuleType("repro.core")
+        core.__path__ = [str(core_dir)]
+        sys.modules["repro.core"] = core
+        mods = {n: importlib.import_module(f"repro.core.{n}")
+                for n in ("replay", "hybrid_engine")}
+    finally:
+        sys.modules.clear()
+        sys.modules.update(saved)
+    _REF_REPLAY = types.SimpleNamespace(
+        replay=mods["replay"],
+        modules={"repro.core": core,
+                 "repro.core.hybrid_engine": mods["hybrid_engine"]})
+    return _REF_REPLAY
 
 
 # --------------------------------------------------------------------- #

@@ -34,6 +34,7 @@ from repro_torch.core import experience as TX
 from repro_torch.core import ppo as tppo
 from repro_torch.core.pipeline import (RLHFEngine, RLHFPipeline, StageConfig,
                                        clone_params)
+from repro_torch.core.replay import AsyncConfig
 from repro_torch.data import CopyTaskDataset, DataBlender
 from repro_torch.models import convert
 from repro_torch.models.modules import tree_map
@@ -618,6 +619,13 @@ def test_pipeline_refuses_what_is_not_ported():
         RLHFEngine(atcfg, ctcfg, gen, rollout_mesh=object())
     eng = RLHFEngine(atcfg, ctcfg, gen)
     bl = DataBlender([CopyTaskDataset(50, 4, 4, 64, seed=1)])
+    # asynchronous stage 3 runs on one device and at 1 x 1; on a mesh of
+    # more than one rank it is refused (a stand-in engine whose Hybrid
+    # Engine spans 2 ranks: the check reads the mesh's shape only)
+    RLHFPipeline(eng, bl, StageConfig(), tppo.PPOConfig(),
+                 async_cfg=AsyncConfig.lockstep())
+    two = types.SimpleNamespace(hybrid=types.SimpleNamespace(
+        mesh=types.SimpleNamespace(shape={"data": 2, "model": 1})))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        RLHFPipeline(eng, bl, StageConfig(), tppo.PPOConfig(),
-                     async_cfg=object())
+        RLHFPipeline(two, bl, StageConfig(), tppo.PPOConfig(),
+                     async_cfg=AsyncConfig.lockstep())

@@ -520,8 +520,8 @@ def test_launchers_refuse_what_is_not_ported(arch, launcher, argv, capsys):
     """Both launchers take the SSM and hybrid ids as the reference does:
     ``serve --kv-quant`` serves (int8 K/V rows for the hybrid's attention
     layers) and ``train`` trains.  What is still not ported (``serve``'s
-    device mesh, ``train``'s asynchronous RLHF) is refused with "not yet
-    ported"."""
+    device mesh, ``train``'s disaggregated rollout mesh) is refused with
+    "not yet ported"."""
     base = ["--device", "cpu", "--arch", arch, "--reduced", *argv]
     if launcher == "serve":
         res = serve.main([*base, "--requests", "3", "--max-new", "3",
@@ -531,7 +531,7 @@ def test_launchers_refuse_what_is_not_ported(arch, launcher, argv, capsys):
     else:
         res = train.main([*base, "--batch", "2", "--seq", "16"])
         assert len(res["loss"]) == 1 and np.isfinite(res["loss"]).all()
-        refused = ["--async-rlhf"]
+        refused = ["--rollout-mesh", "2"]
     mod = serve if launcher == "serve" else train
     capsys.readouterr()
     with pytest.raises(SystemExit) as e:

@@ -464,12 +464,17 @@ def test_train_main_returns_a_summary():
 
 @pytest.mark.parametrize("flag", [
     ["--mesh", "1,1", "--lora", "4"],
-    ["--strategy", "fsdp"], ["--zero", "2"], ["--rlhf", "--async-rlhf"],
+    ["--strategy", "fsdp"], ["--zero", "2"],
+    ["--rlhf", "--async-rlhf", "--mesh", "2,1"],
     ["--async-rlhf"],
     ["--rollout-mesh", "2"], ["--train-mesh", "2"], ["--queue-depth", "2"],
     ["--publish-every", "1"], ["--max-lag", "1"], ["--is-ratio-abort", "2"],
     ["--max-new", "8"], ["--kv-quant"]])
 def test_train_cli_refuses_unported_flags(flag):
+    """What is not ported (the disaggregated meshes, asynchronous RLHF on a
+    mesh of more than one rank), and the RLHF options without ``--rlhf``
+    (the asynchronous knobs also without ``--async-rlhf``), exit with an
+    error before anything runs."""
     with pytest.raises(SystemExit) as e:
         tlaunch.main(["--device", "cpu", "--arch", "smollm-135m",
                       "--reduced", *flag])
@@ -478,8 +483,8 @@ def test_train_cli_refuses_unported_flags(flag):
 
 def test_train_cli_refusal_names_the_flag():
     res = _run(["--device", "cpu", "--arch", "smollm-135m", "--reduced",
-                "--async-rlhf"])
-    assert res.returncode != 0 and "--async-rlhf: not yet ported" in \
+                "--rollout-mesh", "2"])
+    assert res.returncode != 0 and "--rollout-mesh: not yet ported" in \
         res.stderr
 
 

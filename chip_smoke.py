@@ -51,7 +51,8 @@ Phases (any failure raises, so the run exits non-zero):
    and reward model, bf16 compute on fp32 masters, the copy + sort blend
    at 256 prompt + 256 response tokens, batch 8.  4 SFT steps, 4 RM steps,
    2 PPO iterations generating 256 tokens on an int8 KV cache (ptx 0.05,
-   EMA on), then 1 iteration with a bf16 KV cache on the same trainer.
+   EMA on), then 1 iteration with a bf16 KV cache on the same trainer, at
+   64 new tokens (``REPEAT_NEW``; phase ``async`` decodes 256 on it).
    Per iteration: generation s and tok/s, scoring ms, actor and critic
    step ms, ratio_mean, approx_kl, reward score, peak memory and launches
    per kernel.  Fails unless every number is finite, the first ratio_mean
@@ -90,9 +91,17 @@ Phases (any failure raises, so the run exits non-zero):
    with int8 KV on the paged pool): identical tokens, actor and critic
    params bit for bit, ``reshard_bytes`` 0 and ``reshard_s`` > 0, the
    launches of RMSNorm, both flash kernels, the dense decode and the
-   paged int8 decode; then ``torchrun --nproc-per-node 1 -m
-   repro_torch.launch.train --arch opt-125m --mesh 1,1 --strategy zero3
-   --zero 1`` (5 steps of 8 x 512): exit 0 and a falling loss.
+   paged int8 decode; PPO's scoring (``make_experience``) and one actor
+   and critic step on the mesh path (compute views, the tensor-parallel
+   context of a one-rank model group, ``zero3`` + ZeRO-1 states) against
+   the plain path at OPT-1.3B / OPT-350M: bit for bit; then ``torchrun
+   --nproc-per-node 1 -m repro_torch.launch.train --arch opt-125m --mesh
+   1,1 --strategy zero3 --zero 1`` and ``--strategy tp`` (5 steps of 8 x
+   512 each): exit 0, a falling loss, the two runs' losses equal to 1e-4;
+   last, kernel rows 2-7 at the head counts one rank of a 2- and 4-way
+   ``model`` axis launches (OPT-1.3B 16 and 8 heads at D 64, qwen3-8b 16
+   / 4 and 8 / 2 at D 128) against their plain versions at phase
+   ``gqa128``'s tolerances, timed (``tp`` in the ``kernels`` line).
 
 10. ``ssm``     — the SSM / hybrid serving slice: ``ssd_intra_fwd`` (the
    Mamba2 SSD intra-chunk pass) against its plain version at Mamba2-370M
@@ -2051,9 +2060,10 @@ def phase_rlhf(state):
     trainer = pipe.trainer
     iters = [dict(m, kv="int8") for m in pipe.log["stage3"]]
 
-    # one more iteration on the same trainer with a bf16 KV cache
+    # one more iteration on the same trainer with a bf16 KV cache, at
+    # REPEAT_NEW new tokens (phase async's stale leg decodes 256 on it)
     trainer.gen_engine = GenerationEngine(
-        actor, max_new_tokens=ppo.max_new_tokens,
+        actor, max_new_tokens=REPEAT_NEW,
         temperature=ppo.temperature, chunk=ppo.decode_chunk, device="cuda")
     batch = next(bl.prompt_batches(8, 4, skip=3))
     ptx = to_device(next(bl.pretrain_batches(8, 4, skip=3)), "cuda")
@@ -2667,33 +2677,171 @@ def _hybrid_ppo(state, failures, mesh):
                             f"{m['reshard_s']}")
 
 
+def _hybrid_ppo_steps(state, failures, mesh):
+    """PPO's scoring and steps on the mesh path at 1 x 1 against the plain
+    path, at full width: OPT-1.3B actor and reference, OPT-350M critic and
+    reward model, 8 rows of 256 + 64 random tokens (the last 64 a
+    response), bf16 on fp32 masters.  ``make_experience`` on the compute
+    views (the tensor-parallel context of a one-rank model group) and one
+    ``actor_step`` / ``critic_step`` on train states in the ``zero3`` +
+    ZeRO-1 layout: the experience, the metrics and the updated params
+    equal the plain path's bit for bit.  (The trainer itself takes the
+    plain path at one rank.)"""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import ppo as P
+    from repro_torch.core.hybrid_engine import HybridEngine
+    from repro_torch.models import reward as R
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.sharding import runtime
+    from repro_torch.sharding import strategy as S
+    from repro_torch.training.steps import mesh_view
+    from repro_torch.training.train_state import TrainState
+
+    actor_cfg, critic_cfg = get_config("opt-1.3b"), get_config("opt-350m")
+    ppo = P.PPOConfig(use_ema=False)
+    g = lambda s: torch.Generator(device="cuda").manual_seed(s)
+    seqs = torch.randint(0, actor_cfg.vocab_size, (8, 320), generator=g(3),
+                         device="cuda")
+    resp = torch.zeros((8, 320), dtype=torch.bool, device="cuda")
+    resp[:, 256:] = True
+    he = HybridEngine(actor_cfg, mesh)
+    out = {}
+    for path in ("plain", "mesh"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        models = [T.init_params(actor_cfg, g(0)), T.init_params(actor_cfg,
+                                                                g(0)),
+                  R.init_params(critic_cfg, g(1)),
+                  R.init_params(critic_cfg, g(2))]
+        if path == "plain":
+            states = [TrainState.create(models[0]),
+                      TrainState.create(models[2])]
+            frozen, tps = [models[1], models[3]], (None,) * 4
+            views = [states[0].params, frozen[0], states[1].params,
+                     frozen[1]]
+            batch, group = (seqs, resp), None
+        else:
+            crit = R.param_specs(critic_cfg)
+            states = [TrainState.create(models[0],
+                                        shardings=he.train_state_shardings()),
+                      TrainState.create(models[2],
+                                        shardings=he.train_state_shardings(
+                                            critic_cfg, specs=crit))]
+            frozen = [runtime.place_tree(models[1], S.param_shardings(
+                          actor_cfg, mesh, "tp")),
+                      runtime.place_tree(models[3], S.shardings_for_tree(
+                          crit, mesh, "tp"))]
+            batch = S.shard_batch((seqs, resp), mesh)
+            (ls, lr_), group = runtime.batch_local(batch)
+            vt = [mesh_view(c, p, group)[::2] for c, p in (
+                (actor_cfg, states[0].params), (actor_cfg, frozen[0]),
+                (critic_cfg, states[1].params), (critic_cfg, frozen[1]))]
+            views, tps = [v for v, _ in vt], tuple(t for _, t in vt)
+            batch = (ls, lr_)
+        del models
+        exp, score = P.make_experience(actor_cfg, critic_cfg, ppo, *views,
+                                       *batch, group=group, tps=tps)
+        del views
+        if path == "mesh":
+            exp = P.X.Experience(*S.shard_batch(tuple(exp), mesh))
+        t0 = time.perf_counter()
+        states[0], am = P.actor_step(actor_cfg, ppo, states[0], exp)
+        states[1], cm = P.critic_step(critic_cfg, ppo, states[1], exp)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[path] = {
+            "exp": [runtime.full(t).cpu() for t in exp] + [score.cpu()],
+            "metrics": {k: float(v) for k, v in {**am, **cm}.items()},
+            "params": [runtime.full(p).cpu() for st in states
+                       for p in tree_leaves(st.params)],
+            "steps_ms": ms}
+        log(f"[hybrid] PPO scoring and steps, {path} path: actor + critic "
+            f"step {ms:.1f} ms, metrics {out[path]['metrics']}")
+        del states, frozen, exp
+    a, b = out["plain"], out["mesh"]
+    same = (a["metrics"] == b["metrics"]
+            and all(torch.equal(x, y) for x, y in zip(a["exp"], b["exp"]))
+            and all(torch.equal(x, y)
+                    for x, y in zip(a["params"], b["params"])))
+    log(f"[hybrid] PPO scoring and steps on the mesh path at 1 x 1 == plain "
+        f"path bit for bit (experience, metrics, params): {same}")
+    state["hybrid"]["ppo_steps"] = {p: {"metrics": out[p]["metrics"],
+                                        "steps_ms": out[p]["steps_ms"]}
+                                    for p in out}
+    if not same:
+        failures.append("PPO scoring and steps on the mesh path at one rank "
+                        "differ from the plain path")
+
+
+# the per-rank head counts of the kernels on a 2- and 4-way model axis
+TP_FLASH64 = (("OPT-1.3B rank of tp 2 sft", 8, 16, 1, 512, 512, True, True),
+              ("OPT-1.3B rank of tp 4 sft", 8, 8, 1, 512, 512, True, True))
+TP_FLASH128 = (("qwen3-8b rank of tp 2 prefill", 1, 4, 4, 256, 256, True,
+                False),
+               ("qwen3-8b rank of tp 4 sft", 4, 2, 4, 512, 512, True, True))
+TP_DECODE64 = ((16, 1, "OPT-1.3B rank of tp 2"), (8, 1, "OPT-1.3B rank of "
+                                                        "tp 4"))
+TP_DECODE128 = ((4, 4, "qwen3-8b rank of tp 2"), (2, 4, "qwen3-8b rank of "
+                                                        "tp 4"))
+
+
+def _tp_kernel_rows(state, failures):
+    """Kernel rows 2-7 at the head counts one rank of a 2- and a 4-way
+    ``model`` axis launches them at (OPT-1.3B: 16 and 8 of its 32 heads at
+    D 64; qwen3-8b: 16 / 4 and 8 / 2 of its 32 / 8 at D 128), against
+    their plain versions at the script's tolerances, timed as phase
+    ``gqa128``'s rows are (under ``tp`` in the ``kernels`` line)."""
+    _flash_rows(state, failures, "tp", "hybrid", 64, TP_FLASH64, seed=261)
+    _flash_rows(state, failures, "tp", "hybrid", 128, TP_FLASH128, seed=262)
+    _decode_rows(state, failures, 64, TP_DECODE64, key="tp", tag="hybrid",
+                 seed=263)
+    _decode_rows(state, failures, 128, TP_DECODE128, key="tp", tag="hybrid",
+                 seed=264)
+
+
 def _hybrid_torchrun(state, failures):
-    """The launcher under ``torchrun`` on a 1 x 1 mesh: exits 0, the loss
-    falls."""
+    """The launcher under ``torchrun`` on a 1 x 1 mesh, in the ``zero3``
+    and the ``tp`` layouts (the tensor-parallel path on a one-rank model
+    group): each exits 0 with a falling loss, and their losses agree."""
     import os
     import re
 
     import torch
     torch.cuda.empty_cache()
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
-           "--arch", "opt-125m", "--mesh", "1,1", "--strategy", "zero3",
-           "--zero", "1", "--steps", "5", "--batch", "8", "--seq", "512"]
-    log(f"[hybrid] {' '.join(cmd[1:])}")
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
-                         cwd=ROOT, env=dict(os.environ,
-                                            PYTHONPATH=str(ROOT / "src")))
-    wall = time.perf_counter() - t0
-    losses = [float(x) for x in re.findall(r"^step +\d+ +loss=([\d.]+)",
-                                           res.stdout, flags=re.M)]
-    log(f"[hybrid] torchrun exit {res.returncode} in {wall:.1f}s; losses "
-        f"{losses}; " + " | ".join(res.stdout.strip().splitlines()[-2:]))
-    state["hybrid"]["torchrun"] = {"rc": res.returncode, "losses": losses,
-                                   "seconds": wall}
-    if res.returncode != 0 or len(losses) < 2 or not losses[-1] < losses[0]:
-        failures.append(f"torchrun launcher: rc {res.returncode}, losses "
-                        f"{losses}: {res.stderr[-2000:]}")
+    runs = {}
+    for strategy in ("zero3", "tp"):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+               "--arch", "opt-125m", "--mesh", "1,1", "--strategy",
+               strategy, "--zero", "1", "--steps", "5", "--batch", "8",
+               "--seq", "512"]
+        log(f"[hybrid] {' '.join(cmd[1:])}")
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=300, cwd=ROOT, env=dict(
+                                 os.environ, PYTHONPATH=str(ROOT / "src")))
+        wall = time.perf_counter() - t0
+        losses = [float(x) for x in re.findall(
+            r"^step +\d+ +loss=([\d.]+)", res.stdout, flags=re.M)]
+        log(f"[hybrid] torchrun --strategy {strategy} exit {res.returncode} "
+            f"in {wall:.1f}s; losses {losses}; "
+            + " | ".join(res.stdout.strip().splitlines()[-2:]))
+        runs[strategy] = {"rc": res.returncode, "losses": losses,
+                          "seconds": wall}
+        if (res.returncode != 0 or len(losses) < 2
+                or not losses[-1] < losses[0]):
+            failures.append(f"torchrun launcher --strategy {strategy}: rc "
+                            f"{res.returncode}, losses {losses}: "
+                            f"{res.stderr[-2000:]}")
+    state["hybrid"]["torchrun"] = runs
+    a, b = runs["zero3"]["losses"], runs["tp"]["losses"]
+    if len(a) != len(b) or any(abs(x - y) > 1e-4 * abs(x)
+                               for x, y in zip(a, b)):
+        failures.append(f"torchrun losses zero3 {a} and tp {b} differ")
 
 
 def phase_hybrid(state):
@@ -2714,10 +2862,12 @@ def phase_hybrid(state):
         _hybrid_reshard(state, failures, mesh)
         _hybrid_sft(state, failures, mesh)
         _hybrid_ppo(state, failures, mesh)
+        _hybrid_ppo_steps(state, failures, mesh)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     _hybrid_torchrun(state, failures)
+    _tp_kernel_rows(state, failures)
     if failures:
         raise AssertionError("hybrid: " + "; ".join(failures))
 
@@ -4166,13 +4316,22 @@ def _gqa128_flash_rows(state, failures):
 
 
 def _gqa128_decode_rows(state, failures):
-    """The four decode kernels at D = 128, B 16, S 512 (ragged, 1..512
-    rows; the paged ones over a shuffled 513-block pool of 16-row blocks)
-    for qwen3-8b (KV 8, G 4), yi-9b (KV 4, G 8) and llama3.2-3b (KV 8,
-    G 3: the G = 4 instantiation with a quarter of its query lanes idle),
-    fp32 (1e-4) and bf16 (2e-2), both of max |plain|; bf16 timed warm and
-    cold beside the bound and SDPA (dense bf16 rows) or a yardstick
-    (dequantize or gather, then SDPA)."""
+    """The four decode kernels at D = 128 (:func:`_decode_rows`) for
+    qwen3-8b (KV 8, G 4), yi-9b (KV 4, G 8) and llama3.2-3b (KV 8, G 3:
+    the G = 4 instantiation with a quarter of its query lanes idle)."""
+    _decode_rows(state, failures, 128, ((8, 4, "qwen3-8b"),
+                                        (4, 8, "yi-9b"),
+                                        (8, 3, "llama3.2-3b")),
+                 key="d128", tag="gqa128", seed=129)
+
+
+def _decode_rows(state, failures, D, cases, key, tag, seed):
+    """The four decode kernels at head dim ``D``, B 16, S 512 (ragged,
+    1..512 rows; the paged ones over a shuffled 513-block pool of 16-row
+    blocks) for each ``(KV, G, model)`` of ``cases``, fp32 (1e-4) and bf16
+    (2e-2), both of max |plain|; bf16 timed warm and cold beside the bound
+    and SDPA (dense bf16 rows) or a yardstick (dequantize or gather, then
+    SDPA).  Rows go to ``state[key]``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -4182,12 +4341,13 @@ def _gqa128_decode_rows(state, failures):
         paged_decode_attention_fwd, paged_decode_attention_quant_fwd)
     from repro_torch.models.modules import _kv_quant
 
-    gen = torch.Generator(device="cuda").manual_seed(129)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
     tol = {"fp32": 1e-4, "bf16": 2e-2}
-    B, S, D, bs, nb = 16, 512, 128, 16, 32
-    for (KV, G, model) in ((8, 4, "qwen3-8b"), (4, 8, "yi-9b"),
-                           (8, 3, "llama3.2-3b")):
+    B, S, bs, nb = 16, 512, 16, 32
+    row = lambda *a, **kw: _row128(state, failures, *a, key=key, tag=tag,
+                                   **kw)
+    for (KV, G, model) in cases:
         gm = 1 << (G - 1).bit_length()             # the instantiation's G
         for quant in (False, True):
             for dname, dt in dtypes.items():
@@ -4220,8 +4380,8 @@ def _gqa128_decode_rows(state, failures):
                 err = _err(out, r, rel=False) / float(r.float().abs().max())
                 label = f"{model} B={B} KV={KV} G={G} (GM {gm}) S={S} ragged"
                 if dname == "fp32":
-                    _row128(state, failures, name, label, dname, err,
-                            tol[dname])
+                    row(name, label, dname, err,
+                        tol[dname])
                 else:
                     need = int(valid.sum())
                     nbytes = (2 * B * KV * G * D * eb + B * S
@@ -4237,12 +4397,12 @@ def _gqa128_decode_rows(state, failures):
                         return F.scaled_dot_product_attention(
                             qs, kd, vd, attn_mask=mask, enable_gqa=True)
                     lib = time_ms(lib_fn)
-                    _row128(state, failures, name, label, dname, err,
-                            tol[dname], time_ms(lambda: kern(*args)),
-                            time_ms(plain), None if quant else lib,
-                            bound(nbytes, 4 * KV * G * D * need, "bf16"),
-                            cold_ms=_cold(kern, args, nbytes),
-                            extra={"yardstick_ms": lib} if quant else None)
+                    row(name, label, dname, err,
+                        tol[dname], time_ms(lambda: kern(*args)),
+                        time_ms(plain), None if quant else lib,
+                        bound(nbytes, 4 * KV * G * D * need, "bf16"),
+                        cold_ms=_cold(kern, args, nbytes),
+                        extra={"yardstick_ms": lib} if quant else None)
                 del q, kf, vf, args
                 # the paged pool through shuffled block tables
                 name = ("paged_decode_attention_quant_fwd" if quant
@@ -4263,8 +4423,8 @@ def _gqa128_decode_rows(state, failures):
                 label = (f"{model} B={B} KV={KV} G={G} (GM {gm}) bs={bs} "
                          f"nb={nb} lens 1-{nb * bs}")
                 if dname == "fp32":
-                    _row128(state, failures, name, label, dname, err,
-                            tol[dname])
+                    row(name, label, dname, err,
+                        tol[dname])
                     continue
                 need = int(lens.sum())
                 nbytes = (2 * B * KV * G * D * eb + 4 * B * (nb + 1)
@@ -4285,15 +4445,15 @@ def _gqa128_decode_rows(state, failures):
                     return F.scaled_dot_product_attention(
                         qs, kg.transpose(1, 2), vg.transpose(1, 2),
                         attn_mask=mask, enable_gqa=True)
-                _row128(state, failures, name, label, dname, err,
-                        tol[dname], time_ms(lambda: kern(*pargs)),
-                        time_ms(plain), None,
-                        bound(nbytes, 4 * KV * G * D * need, "bf16"),
-                        cold_ms=_cold(kern, pargs, nbytes),
-                        extra={"yardstick_ms": time_ms(gather_sdpa)})
+                row(name, label, dname, err,
+                    tol[dname], time_ms(lambda: kern(*pargs)),
+                    time_ms(plain), None,
+                    bound(nbytes, 4 * KV * G * D * need, "bf16"),
+                    cold_ms=_cold(kern, pargs, nbytes),
+                    extra={"yardstick_ms": time_ms(gather_sdpa)})
                 del qp, kp, vp, sc, pargs
         if G == 3:
-            log(f"[gqa128] {model}: G = 3 runs the decode core's G = 4 "
+            log(f"[{tag}] {model}: G = 3 runs the decode core's G = 4 "
                 f"instantiation, a quarter of its query lanes idle")
 
 
@@ -5461,8 +5621,10 @@ def main() -> int:
                                    "achieved_gbs", "decode_in_step")
                if k in row},
             # the head-dim-128 rows of phase gqa128, the head-dim-192 rows
-            # of phase mla and the cross-attention rows of phase xattn
-            **{key: state[key][name] for key in ("d128", "d192", "cross")
+            # of phase mla, the cross-attention rows of phase xattn and
+            # the per-rank tensor-parallel rows of phase hybrid
+            **{key: state[key][name] for key in ("d128", "d192", "cross",
+                                                 "tp")
                if name in state.get(key, {})},
         })
     print(state.get("smi") or nvidia_smi_line())

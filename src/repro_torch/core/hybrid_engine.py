@@ -161,8 +161,9 @@ class HybridEngine:
         actor (``cfg`` overrides its config, e.g. ``kv_quant``; it must
         describe the same parameters).  The engine expects the params of
         :meth:`to_inference`: one reshard per phase, then the decode loop.
-        On a mesh of more than one rank the engine is handed the mesh and
-        decodes this rank's rows of each batch."""
+        On a mesh of more than one rank the engine is handed the mesh: it
+        decodes the data rank's rows of each batch, tensor-parallel over
+        ``model``."""
         from repro_torch.serving.engine import GenerationEngine
         mesh = self.mesh if self.n_ranks > 1 else None
         return GenerationEngine(cfg if cfg is not None else self.cfg,

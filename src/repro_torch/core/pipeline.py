@@ -29,10 +29,10 @@ checkpoint taken mid-PPO does not resume here: its PRNG carry is a JAX
 key (``uint32[2]``), which restore refuses by shape; stage-boundary
 checkpoints hold params only and cross both ways.
 
-``RLHFEngine(mesh=)`` builds the Hybrid Engine over a data-parallel mesh
+``RLHFEngine(mesh=)`` builds the Hybrid Engine over a ``dp x tp`` mesh
 (``train_strategy`` params, ZeRO-1 moments), and stage 3 trains through
 it: one reshard per generation phase, the actor and critic in the training
-layout (see :mod:`repro_torch.core.ppo`).  Stages 1 and 2 run on every rank
+layout, tensor-parallel over ``model`` (see :mod:`repro_torch.core.ppo`).  Stages 1 and 2 run on every rank
 of the mesh alike, as the reference runs them outside the mesh.
 
 ``async_cfg`` (an :class:`~repro_torch.core.replay.AsyncConfig`) runs

@@ -29,13 +29,15 @@ refuses aliases).
 With ``engine=`` (a :class:`~repro_torch.core.hybrid_engine.HybridEngine`)
 each rollout enters the inference layout through one
 ``engine.to_inference`` and the metrics carry its measured ``reshard_bytes``
-and ``reshard_s``.  On a mesh of more than one rank (``data`` axis only)
-the actor and critic states live in the training layout (ZeRO-sharded
-``DTensor``s), the frozen models in the ``tp`` layout, the engine decodes
-each rank's rows, and scoring and both steps run on the rank's rows with
-every batch-wide mean (advantage whitening, the losses and their metrics,
-``reward_score``) taken over the global batch: the single-device result,
-up to the order of the sums.  The experience is then a tree of
+and ``reshard_s``.  On a mesh of more than one rank (``dp x tp``) the actor
+and critic states live in the training layout (ZeRO-sharded, and cut over
+``model``, ``DTensor``s), the frozen models in the ``tp`` layout, the
+engine decodes each data rank's rows tensor-parallel, and scoring and
+both steps run tensor-parallel on the compute views
+(:func:`repro_torch.training.steps.mesh_view`) over the data rank's rows,
+with every batch-wide mean (advantage whitening, the losses and their
+metrics, ``reward_score``) taken over the global batch: the single-device
+result, up to the order of the sums.  The experience is then a tree of
 ``DTensor``s sharded over ``data``.  At one rank the trainer runs as with
 ``engine=None``.  The rollout mesh (disaggregated generation) is not yet
 ported.
@@ -68,7 +70,8 @@ from repro_torch.models.modules import tree_leaves
 from repro_torch.serving.engine import GenerationEngine
 from repro_torch.sharding import runtime
 from repro_torch.sharding import strategy as S
-from repro_torch.training.steps import lm_loss_fn, mesh_value_and_grad
+from repro_torch.training.steps import (lm_loss_fn, mesh_value_and_grad,
+                                        mesh_view)
 from repro_torch.training.train_state import TrainState
 
 
@@ -111,10 +114,11 @@ class PPOConfig:
 # ===================================================================== #
 # Loss / step functions
 # ===================================================================== #
-def actor_logprobs(cfg: ModelConfig, params, sequences):
-    hidden, _, _ = T.forward(cfg, params, tokens=sequences, mode="full")
+def actor_logprobs(cfg: ModelConfig, params, sequences, tp=None):
+    hidden, _, _ = T.forward(cfg, params, tokens=sequences, mode="full",
+                             tp=tp)
     return T.per_token_logprobs(cfg, params, hidden[:, :-1],
-                                sequences[:, 1:])
+                                sequences[:, 1:], tp)
 
 
 def _count(mask, group):
@@ -127,14 +131,15 @@ def _count(mask, group):
 
 
 def actor_loss_fn(cfg: ModelConfig, ppo: PPOConfig, params, exp: X.Experience,
-                  ptx_batch=None, group=None, ptx_group=None):
+                  ptx_batch=None, group=None, ptx_group=None, tp=None):
     """The actor loss and metrics.  With a data ``group`` the experience is
     this rank's rows of a batch sharded over it, and the loss and metrics
     are this rank's parts of the global batch's (they sum over the group
     to them); ``ptx_group`` is the mixture batch's group (``None``:
     replicated, whose term every rank then carries a ``1 / dp`` share
-    of)."""
-    logp = actor_logprobs(cfg, params, exp.sequences)
+    of).  ``tp``: the tensor-parallel context of a compute view
+    ``params``."""
+    logp = actor_logprobs(cfg, params, exp.sequences, tp)
     ratio = torch.exp(logp - exp.logprobs)
     if ppo.is_clip is not None:
         ratio = torch.clamp(ratio, 1.0 / ppo.is_clip, ppo.is_clip)
@@ -148,11 +153,12 @@ def actor_loss_fn(cfg: ModelConfig, ppo: PPOConfig, params, exp: X.Experience,
                "ratio_mean": (ratio * exp.mask).sum() / n,
                "approx_kl": ((exp.logprobs - logp) * exp.mask).sum() / n}
     if ptx_batch is not None and ppo.ptx_coef > 0:
+        ptx_tp = None if tp is None else tp.with_rows(ptx_group)
         if group is None:
-            ptx, _ = lm_loss_fn(cfg, params, ptx_batch)
+            ptx, _ = lm_loss_fn(cfg, params, ptx_batch, tp=ptx_tp)
         else:
             ptx, _ = lm_loss_fn(cfg, params, ptx_batch, count=_count(
-                ptx_batch["mask"].float(), ptx_group))
+                ptx_batch["mask"].float(), ptx_group), tp=ptx_tp)
             if ptx_group is None:
                 ptx = ptx / group.size()
         loss = loss + ppo.ptx_coef * ptx
@@ -161,9 +167,10 @@ def actor_loss_fn(cfg: ModelConfig, ppo: PPOConfig, params, exp: X.Experience,
 
 
 def critic_loss_fn(cfg: ModelConfig, ppo: PPOConfig, params,
-                   exp: X.Experience, group=None):
-    """The critic loss and metrics (``group``: as :func:`actor_loss_fn`)."""
-    v = R.values(cfg, params, exp.sequences)[:, :-1]
+                   exp: X.Experience, group=None, tp=None):
+    """The critic loss and metrics (``group``, ``tp``: as
+    :func:`actor_loss_fn`)."""
+    v = R.values(cfg, params, exp.sequences, tp=tp)[:, :-1]
     v_clip = exp.values + torch.clamp(v - exp.values, -ppo.value_clip,
                                       ppo.value_clip)
     n = _count(exp.mask, group)
@@ -180,24 +187,23 @@ def actor_step(cfg: ModelConfig, ppo: PPOConfig, state: TrainState,
     ``shard_batch``."""
     ptx_group = (runtime.batch_local(ptx_batch)[1]
                  if ptx_batch is not None else None)
-    (loss, metrics), grads, group = mesh_value_and_grad(
+    (loss, metrics), grads = mesh_value_and_grad(
         cfg, "actor_step",
-        lambda p, b, g: actor_loss_fn(cfg, ppo, p, b[0], b[1], group=g,
-                                      ptx_group=ptx_group),
+        lambda p, b, g, tp: actor_loss_fn(cfg, ppo, p, b[0], b[1], group=g,
+                                          ptx_group=ptx_group, tp=tp),
         state, (exp, ptx_batch))
-    state, gnorm = state.apply_gradients(grads, lr=ppo.lr_actor,
-                                         group=group)
+    state, gnorm = state.apply_gradients(grads, lr=ppo.lr_actor)
     return state, dict(metrics, actor_loss=loss, actor_gnorm=gnorm)
 
 
 def critic_step(cfg: ModelConfig, ppo: PPOConfig, state: TrainState,
                 exp: X.Experience):
     """One critic update; the params and moments change in place."""
-    (loss, metrics), grads, group = mesh_value_and_grad(
+    (loss, metrics), grads = mesh_value_and_grad(
         cfg, "critic_step",
-        lambda p, b, g: critic_loss_fn(cfg, ppo, p, b, group=g), state, exp)
-    state, gnorm = state.apply_gradients(grads, lr=ppo.lr_critic,
-                                         group=group)
+        lambda p, b, g, tp: critic_loss_fn(cfg, ppo, p, b, group=g, tp=tp),
+        state, exp)
+    state, gnorm = state.apply_gradients(grads, lr=ppo.lr_critic)
     return state, dict(metrics, critic_gnorm=gnorm)
 
 
@@ -205,21 +211,24 @@ def critic_step(cfg: ModelConfig, ppo: PPOConfig, state: TrainState,
 def make_experience(actor_cfg: ModelConfig, critic_cfg: ModelConfig,
                     ppo: PPOConfig, actor_params, ref_params, critic_params,
                     reward_params, sequences, response_mask,
-                    attn_mask=None, group=None):
+                    attn_mask=None, group=None, tps=(None,) * 4):
     """Score a generated batch: logprobs, ref logprobs, values, rewards,
     GAE.  Returns ``(Experience, score)``.  ``attn_mask`` marks the real
     (prompt + generated) tokens of each row so the reward model scores the
     last real token; ``None`` means the batch has no padding tail (the
     fixed-shape path).  With a data ``group`` the rows are this rank's
     part of a batch sharded over it (the advantages are whitened over the
-    global batch)."""
-    logp = actor_logprobs(actor_cfg, actor_params, sequences)
-    ref_logp = actor_logprobs(actor_cfg, ref_params, sequences)
-    values = R.values(critic_cfg, critic_params, sequences)[:, :-1]
+    global batch).  ``tps``: the tensor-parallel contexts of the actor,
+    ref, critic and reward params when they are compute views."""
+    tp_a, tp_ref, tp_c, tp_rm = tps
+    logp = actor_logprobs(actor_cfg, actor_params, sequences, tp_a)
+    ref_logp = actor_logprobs(actor_cfg, ref_params, sequences, tp_ref)
+    values = R.values(critic_cfg, critic_params, sequences, tp=tp_c)[:, :-1]
     if attn_mask is None:
         attn_mask = torch.ones(sequences.shape, dtype=torch.float32,
                                device=sequences.device)
-    score = R.end_scores(critic_cfg, reward_params, sequences, attn_mask)
+    score = R.end_scores(critic_cfg, reward_params, sequences, attn_mask,
+                         tp_rm)
     mask = response_mask[:, 1:].float()
     rewards = X.kl_rewards(logp, ref_logp, mask, score,
                            kl_coef=ppo.kl_coef,
@@ -269,7 +278,9 @@ class PPOTrainer:
             raise NotImplementedError("PPOTrainer(rollout_mesh=): "
                                       "not yet ported")
         if engine is not None:
-            runtime.check_compute_mesh(engine.mesh, "PPOTrainer(engine=)")
+            for c in (actor_cfg, critic_cfg):
+                runtime.check_compute_mesh(engine.mesh, "PPOTrainer(engine=)",
+                                           c)
         if _shares_storage(actor_params, ref_params):
             raise ValueError("ref_params share storage with actor_params: "
                              "the actor's in-place updates would move the "
@@ -424,15 +435,18 @@ class PPOTrainer:
                 "PPOTrainer.score_rollout(behavior_params=, policy_lag=) on "
                 "a mesh of more than one rank (asynchronous RLHF there): "
                 "not yet ported")
-        # this rank's rows, scored with gathered weights
+        # this rank's rows, scored tensor-parallel on the compute views
         batch = self._shard_batch((seqs, mask, attn))
         (lseqs, lmask, lattn), group = runtime.batch_local(batch)
-        full = runtime.full_tree
+        views = [mesh_view(c, p, group)[::2] for c, p in (
+            (self.actor_cfg, self.actor.params),
+            (self.actor_cfg, self.ref_params),
+            (self.critic_cfg, self.critic.params),
+            (self.critic_cfg, self.reward_params))]
         exp, score = make_experience(
             self.actor_cfg, self.critic_cfg, self.ppo,
-            full(self.actor.params), full(self.ref_params),
-            full(self.critic.params), full(self.reward_params), lseqs,
-            lmask, lattn, group=group)
+            *(v for v, _ in views), lseqs, lmask, lattn, group=group,
+            tps=tuple(tp for _, tp in views))
         total = (runtime.all_sum([score.sum()], group)[0] if group
                  is not None else score.sum())
         sm = {"reward_score": float(total) / seqs.shape[0]}

@@ -63,22 +63,24 @@ model; ``--ckpt`` writes the final params (the folded adapters with
 read.  :func:`main` also returns ``state_sha256``, a SHA-256 of the final
 state (params, moments and step counters), by which runs are compared.
 
-``--mesh dp,tp`` trains on a data-parallel mesh, one process per device
+``--mesh dp,tp`` trains on a ``dp x tp`` mesh, one process per device
 under ``torchrun`` (NCCL on CUDA, gloo with ``--device cpu``)::
 
-    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
-        --arch opt-125m --mesh 2,1 --strategy zero3 --zero 1 --steps 5
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch opt-125m --mesh 2,2 --strategy zero3 --zero 1 --steps 5
 
 The batch shards over ``data``, the params follow ``--strategy``
-(``zero3``: ``embed`` dims over ``data``; ``ddp``/``zero1``/``tp``
-replicated at ``model`` = 1) and ``--zero 1`` shards the Adam moments over
-``data``; the state is committed to that layout at creation.  Under
-``--rlhf`` the mesh goes to the Hybrid Engine (stage 3).  Rank 0 prints.
-``tp`` > 1 (tensor-parallel compute), ``--mesh`` with ``--ckpt-dir`` /
-``--resume`` (sharded checkpoints), ``--async-rlhf`` on a mesh of more
-than one rank and the disaggregated meshes (``--rollout-mesh``,
-``--train-mesh``) are not ported yet and are refused; ``--mesh`` with
-``--lora`` is refused as in the reference.
+(``zero3``: ``embed`` dims over ``data``, heads, MLP width, vocabulary and
+experts over ``model``; ``tp``: those over ``model`` only;
+``ddp``/``zero1``: replicated) and ``--zero 1`` shards the Adam moments
+over ``data``; the state is committed to that layout at creation, and the
+compute over ``model`` is tensor-parallel.  Under ``--rlhf`` the mesh goes
+to the Hybrid Engine (stage 3).  Rank 0 prints.  MLA, cross-attention and
+SSM layers on ``tp`` > 1, ``--mesh`` with ``--ckpt-dir`` / ``--resume``
+(sharded checkpoints), ``--async-rlhf`` on a mesh of more than one rank
+and the disaggregated meshes (``--rollout-mesh``, ``--train-mesh``) are
+not ported yet and are refused; ``--mesh`` with ``--lora`` is refused as
+in the reference.
 
 Runs on CUDA; ``--device cpu`` runs on the CPU with the kernels' plain
 versions.
@@ -152,9 +154,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="committed checkpoints kept in --ckpt-dir (the "
                          "CheckpointManager's default)")
     ap.add_argument("--mesh", default=None,
-                    help="dp,tp: train on a data-parallel mesh, one "
-                         "process per device under torchrun (tp must be "
-                         "1)")
+                    help="dp,tp: train on a dp x tp mesh, one process "
+                         "per device under torchrun")
     ap.add_argument("--strategy", default="zero3",
                     choices=["ddp", "zero1", "zero3", "tp"],
                     help="param sharding strategy on the mesh")
@@ -363,7 +364,6 @@ def main(argv=None, iter_hook=None, cfg=None) -> dict:
     device = init_distributed(args.device)
     try:
         mesh = mesh_from_spec(args.mesh)
-        runtime.check_compute_mesh(mesh, "--mesh")
         quiet = dist.get_rank() != 0
         with contextlib.redirect_stdout(io.StringIO()) if quiet \
                 else contextlib.nullcontext():

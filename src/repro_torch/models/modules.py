@@ -57,6 +57,23 @@ from repro_torch.models.config import ModelConfig
 NEG_INF = -1e30
 
 
+# the tensor-parallel collectives live in ``repro_torch.sharding.runtime``,
+# which imports this module: reached at call time
+def copy_to_model(x, tp):
+    from repro_torch.sharding.runtime import copy_to_model as f
+    return f(x, tp)
+
+
+def reduce_from_model(x, tp):
+    from repro_torch.sharding.runtime import reduce_from_model as f
+    return f(x, tp)
+
+
+def gather_data_rows(x, tp):
+    from repro_torch.sharding.runtime import gather_data_rows as f
+    return f(x, tp)
+
+
 # ===================================================================== #
 # Trees (nested dicts / tuples / lists with tensor or ParamSpec leaves)
 # ===================================================================== #
@@ -525,7 +542,7 @@ def decode_attention_paged_quant(q, k_pool, v_pool, k_scale, v_scale,
 
 
 def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
-               window=None, block_tables=None, rope=None):
+               window=None, block_tables=None, rope=None, tp=None):
     """mode: 'full' (train / full prefill) | 'prefill' (also fills cache) |
     'decode' (x is (B,1,D), cache holds history).
 
@@ -540,15 +557,35 @@ def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
     layer's view of the shared block pool (:func:`paged_attn_cache_shape`)
     and each row's K/V is written and read through its table.  ``rope`` is
     :func:`rope_cos_sin` of ``positions`` when the caller shares it across
-    layers."""
+    layers.
+
+    Under tensor parallelism (``tp``, a
+    :class:`~repro_torch.sharding.runtime.TP` context, and ``p`` a rank's
+    compute view) the weights hold the rank's heads: ``wq`` its ``H / tp``
+    q heads, ``wk``/``wv`` the kv heads they read (``KV / tp``, or the one
+    of ``tp > KV``), ``wo`` their rows.  The body runs on those heads as
+    on a model of that many heads (the kernels, the cache and its rows
+    unchanged, the cache holding the rank's kv heads), and ``wo``'s
+    partial sums are all-reduced over ``model``."""
     B = x.shape[0]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    # the heads this rank computes: all of them, or its share under
+    # tensor parallelism (the layout gives the widths)
+    H, KV = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+    split = H != cfg.n_heads
+    if split:
+        x = copy_to_model(x, tp)
     q = (x @ p["wq"]).reshape(B, -1, H, hd)
     k = (x @ p["wk"]).reshape(B, -1, KV, hd)
     v = (x @ p["wv"]).reshape(B, -1, KV, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.rms_eps)
+        # replicated weights read by the rank's heads only: their grads
+        # are summed over model
+        qn, kn = p["q_norm"], p["k_norm"]
+        if split:
+            qn, kn = copy_to_model(qn, tp), copy_to_model(kn, tp)
+        q = rmsnorm(q, qn, cfg.rms_eps)
+        k = rmsnorm(k, kn, cfg.rms_eps)
     rope = rope or rope_cos_sin(positions, hd, cfg.rope_theta)
     q = apply_rope(q, positions, cfg.rope_theta, rope)
     k = apply_rope(k, positions, cfg.rope_theta, rope)
@@ -662,6 +699,8 @@ def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
                                                  dims=1))
             new_cache = {name: cache[name] for name in rows}
     out = o.reshape(B, -1, H * hd) @ p["wo"]
+    if split:                                   # wo is row-parallel
+        out = reduce_from_model(out, tp)
     return out, new_cache
 
 
@@ -852,9 +891,17 @@ def mlp_specs(cfg: ModelConfig, d_ff=None) -> dict:
     }
 
 
-def mlp_apply(p, x, cfg=None):
+def mlp_apply(p, x, cfg=None, tp=None, d_ff=None):
+    """SwiGLU.  Under tensor parallelism (``p`` a rank's compute view whose
+    ``w_gate``/``w_up`` columns and ``w_down`` rows are a slice of the
+    hidden width ``d_ff``, default ``cfg.d_ff``) the partial outputs are
+    all-reduced over ``model``."""
+    split = tp is not None and p["w_gate"].shape[-1] != (d_ff or cfg.d_ff)
+    if split:
+        x = copy_to_model(x, tp)
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    out = h @ p["w_down"]
+    return reduce_from_model(out, tp) if split else out
 
 
 # ===================================================================== #
@@ -894,7 +941,7 @@ def moe_route(cfg: ModelConfig, probs):
     return gates, expert, pos, cap
 
 
-def moe_apply(cfg: ModelConfig, p, x):
+def moe_apply(cfg: ModelConfig, p, x, tp=None):
     """x: (B, L, D) -> (out, aux_loss), the reference's arithmetic in its
     order: router logits in the compute dtype, then fp32 and softmax;
     :func:`moe_route`; each kept entry's row gathered into an (E, cap, D)
@@ -902,36 +949,66 @@ def moe_apply(cfg: ModelConfig, p, x):
     batched product, the outputs gathered back by index and weighted by
     the gates cast to ``x.dtype`` (a dropped entry contributes zero); the
     shared expert through :func:`mlp_apply`.  The aux loss is the
-    switch-style load balance plus the router z-loss."""
+    switch-style load balance plus the router z-loss.
+
+    Under tensor parallelism (``p`` a rank's compute view) the expert
+    stacks hold the rank's experts ``(E / tp, D, F)`` or its slice of
+    every expert's width ``(E, D, F / tp)``, as the layout cut them.  Every
+    rank routes the same rows the same way (the router is replicated),
+    runs its own experts or width on them, and one all-reduce over
+    ``model`` sums the outputs; the shared expert is a tensor-parallel
+    MLP.  With ``tp.rows`` (a data group: the batch is sharded over it)
+    the rows of every rank of that group are gathered first, so that the
+    capacity counts the global batch's rows as the reference's does (R13);
+    the rank keeps its own rows' outputs, and the aux loss, computed on
+    the global rows by each rank of the group, enters each rank's loss
+    divided by the group's size (the ranks' losses sum to the global
+    one)."""
     B, L, D = x.shape
-    T = B * L
     E, K = cfg.n_experts, cfg.top_k
-    xf = x.reshape(T, D)
+    xf = gather_data_rows(x.reshape(B * L, D), tp)
+    T = xf.shape[0]
     logits = (xf @ p["router"]).float()                        # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gates, expert, pos, cap = moe_route(cfg, probs)
     e_flat = expert.reshape(T * K)
     keep = pos < cap
-    slot = torch.where(keep, e_flat * cap + pos,
-                       torch.full_like(pos, E * cap))           # drop -> E*cap
+    # this rank's experts [e0, e0 + El) (all of them without a cut)
+    El = p["w_gate"].shape[0]
+    split = tp is not None and (El != E or p["w_gate"].shape[-1]
+                                != cfg.moe_d_ff)
+    e0 = tp.rank * El if El != E else 0
+    mine = keep & (e_flat >= e0) & (e_flat < e0 + El)
+    slot = torch.where(mine, (e_flat - e0) * cap + pos,
+                       torch.full_like(pos, El * cap))          # drop -> end
+    xe = copy_to_model(xf, tp) if split else xf
     # the row each (expert, place) reads: token T (a zero row) where empty
-    inv = torch.full((E * cap + 1,), T, dtype=torch.long, device=x.device)
+    inv = torch.full((El * cap + 1,), T, dtype=torch.long, device=x.device)
     inv[slot] = torch.arange(T * K, device=x.device) // K
-    xf_ext = torch.cat([xf, xf.new_zeros((1, D))], dim=0)
-    ein = xf_ext.index_select(0, inv[:E * cap]).reshape(E, cap, D)
+    xf_ext = torch.cat([xe, xe.new_zeros((1, D))], dim=0)
+    ein = xf_ext.index_select(0, inv[:El * cap]).reshape(El, cap, D)
     h = F.silu(torch.bmm(ein, p["w_gate"])) * torch.bmm(ein, p["w_up"])
-    eout = torch.bmm(h, p["w_down"]).reshape(E * cap, D)
+    eout = torch.bmm(h, p["w_down"]).reshape(El * cap, D)
     eout_ext = torch.cat([eout, eout.new_zeros((1, D))], dim=0)
     gathered = eout_ext.index_select(0, slot)                  # (T*K, D)
-    w = (gates.reshape(T * K).to(x.dtype) * keep.to(x.dtype))[:, None]
+    w = (gates.reshape(T * K).to(x.dtype) * mine.to(x.dtype))[:, None]
+    if split:               # the gates' grads: summed over the ranks
+        w = copy_to_model(w, tp)
     out = (gathered * w).reshape(T, K, D).sum(1)
+    if split:
+        out = reduce_from_model(out, tp)
     if cfg.n_shared_experts:
-        out = out + mlp_apply(p["shared"], xf, cfg)
+        out = out + mlp_apply(p["shared"], xf, cfg, tp,
+                              d_ff=cfg.n_shared_experts * cfg.moe_d_ff)
     frac = F.one_hot(expert, E).sum(1).float().mean(0)         # (E,)
     imp = probs.mean(0)
     aux = (cfg.router_aux_coef * E * torch.sum(frac * imp) / K
            + cfg.router_z_coef
            * torch.mean(torch.logsumexp(logits, dim=-1) ** 2))
+    if T != B * L:                          # the data group's rows
+        r0 = tp.rows.rank() * B * L
+        out = out[r0:r0 + B * L]
+        aux = aux / tp.rows.size()
     return out.reshape(B, L, D), aux
 
 

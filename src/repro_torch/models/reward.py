@@ -28,31 +28,34 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 
 def values(cfg: ModelConfig, params, tokens, *, embeds=None,
-           encoder_embeds=None):
-    """Per-token scalar values: (B, L) fp32."""
+           encoder_embeds=None, tp=None):
+    """Per-token scalar values: (B, L) fp32.  With ``tp`` the trunk is
+    tensor-parallel (``params`` a rank's compute view) and ``v_head``,
+    replicated, reads the hidden states every rank holds."""
     hidden, _, _ = T.forward(cfg, params, tokens=tokens, embeds=embeds,
-                             encoder_embeds=encoder_embeds, mode="full")
+                             encoder_embeds=encoder_embeds, mode="full",
+                             tp=tp)
     head = params["v_head"]
     # the reference's promotion: a bf16 hidden times the fp32 head is fp32
     dt = torch.promote_types(hidden.dtype, head.dtype)
     return (hidden.to(dt) @ head.to(dt)).float()[..., 0]
 
 
-def end_scores(cfg: ModelConfig, params, tokens, attn_mask):
+def end_scores(cfg: ModelConfig, params, tokens, attn_mask, tp=None):
     """Score at the last non-pad token of each sequence: (B,)."""
-    v = values(cfg, params, tokens)
+    v = values(cfg, params, tokens, tp=tp)
     last = torch.clamp(attn_mask.sum(-1) - 1, min=0).long()
     return torch.gather(v, 1, last[:, None])[:, 0]
 
 
 def pairwise_loss(cfg: ModelConfig, params, chosen, rejected, chosen_mask,
-                  rejected_mask, group=None):
+                  rejected_mask, group=None, tp=None):
     """DeepSpeed-Chat reward loss: -log sigmoid(r_chosen - r_rejected).
     With a data ``group`` the pairs are this rank's rows of a batch sharded
     over it: the loss and accuracy are this rank's parts of the global
     batch's means (they sum over the group to them)."""
-    rc = end_scores(cfg, params, chosen, chosen_mask)
-    rr = end_scores(cfg, params, rejected, rejected_mask)
+    rc = end_scores(cfg, params, chosen, chosen_mask, tp)
+    rr = end_scores(cfg, params, rejected, rejected_mask, tp)
     if group is None:
         loss = -F.logsigmoid(rc - rr).mean()
         acc = (rc > rr).float().mean()

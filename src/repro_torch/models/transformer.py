@@ -196,10 +196,16 @@ def _unstack(tree, n: int) -> list:
 
 
 def _layer(cfg: ModelConfig, spec, lp, x, positions, mode, lc, rope,
-           block_tables=None, *, enc=None):
+           block_tables=None, *, enc=None, tp=None):
     """One layer: ``(x, aux)``, ``aux`` the MoE layer's aux loss or None.
     ``enc`` is the projected encoder states a cross-attention layer
-    attends (None elsewhere)."""
+    attends (None elsewhere); ``tp`` the tensor-parallel context."""
+    if tp is not None and tp.size > 1 and (spec.kind != ATTN or cfg.mla):
+        what = ("SSM (Mamba2)" if spec.kind == SSM else "cross-attention"
+                if spec.kind == CROSS else "MLA attention")
+        raise NotImplementedError(f"{what} layers on model > 1 "
+                                  "(tensor-parallel compute): not yet "
+                                  "ported")
     h = M.rmsnorm(x, lp["ln1"], cfg.rms_eps, cfg.use_kernels)
     if spec.kind == SSM:
         s, _ = M.ssm_apply(cfg, lp["ssm"], h, mode=mode, cache=lc)
@@ -212,21 +218,22 @@ def _layer(cfg: ModelConfig, spec, lp, x, positions, mode, lc, rope,
                                     cache=lc)
     else:
         win = spec.sliding_window or cfg.sliding_window
+        kw = {} if cfg.mla else {"tp": tp}
         fn = M.mla_apply if cfg.mla else M.attn_apply
         att, _ = fn(cfg, lp["attn"], h, positions=positions, mode=mode,
                     cache=lc, window=win, block_tables=block_tables,
-                    rope=rope)
+                    rope=rope, **kw)
     x = x + att
     h2 = M.rmsnorm(x, lp["ln2"], cfg.rms_eps, cfg.use_kernels)
     if spec.moe:
-        m, aux = M.moe_apply(cfg, lp["mlp"], h2)
+        m, aux = M.moe_apply(cfg, lp["mlp"], h2, tp)
         return x + m, aux
-    return x + M.mlp_apply(lp["mlp"], h2, cfg), None
+    return x + M.mlp_apply(lp["mlp"], h2, cfg, tp), None
 
 
 def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
             encoder_embeds=None, mode: str = "full", cache=None,
-            positions=None, block_tables=None):
+            positions=None, block_tables=None, tp=None):
     """Returns (hidden (B,L,D), cache, aux_loss).
 
     mode='full'    — training / scoring, no cache.
@@ -244,9 +251,19 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
     ``cache`` is then the pool tree of :func:`init_paged_cache`.
 
     ``cache`` is updated in place and returned (the reference returns a new
-    tree built from its donated input)."""
+    tree built from its donated input).
+
+    ``tp`` (a :class:`~repro_torch.sharding.runtime.TP` context) runs the
+    tensor-parallel forward on ``params``, a rank's compute view
+    (:func:`repro_torch.sharding.runtime.compute_view`): attention, the
+    MLP and the MoE layer on the rank's heads, width or experts, the
+    embedding vocab-parallel when ``embed`` holds the rank's rows of the
+    vocabulary; the hidden states are the same on every rank of the model
+    group.  The cache then holds the rank's kv heads
+    (:func:`local_cfg`)."""
     params = cast_params(cfg, params)
-    x = params["embed"][tokens] if cfg.embed_inputs else embeds
+    x = (embed_lookup(cfg, params["embed"], tokens, tp)
+         if cfg.embed_inputs else embeds)
     x = x.to(cfg.cdtype)
     B, L = x.shape[0], x.shape[1]
     if positions is None:
@@ -276,14 +293,45 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
                 if remat:
                     x, a = checkpoint(_layer, cfg, spec, up[i], x,
                                       positions, mode, lc, rope, enc=enc,
-                                      use_reentrant=False)
+                                      tp=tp, use_reentrant=False)
                 else:
                     x, a = _layer(cfg, spec, up[i], x, positions, mode, lc,
-                                  rope, block_tables, enc=enc)
+                                  rope, block_tables, enc=enc, tp=tp)
                 if a is not None:
                     aux = aux + a
     x = M.rmsnorm(x, params["final_norm"], cfg.rms_eps, cfg.use_kernels)
     return x, cache, aux
+
+
+def local_cfg(cfg: ModelConfig, params) -> ModelConfig:
+    """``cfg`` with the head counts of ``params``' first attention layer
+    (a rank's compute view holds its share of the heads): the config the
+    rank's KV cache is built for.  ``cfg`` itself when they are whole."""
+    for seg in params.get("segments", ()):
+        for lp in seg:
+            a = lp.get("attn")
+            if a is not None and "wk" in a:
+                hd = cfg.head_dim
+                H, KV = a["wq"].shape[-1] // hd, a["wk"].shape[-1] // hd
+                if (H, KV) == (cfg.n_heads, cfg.n_kv_heads):
+                    return cfg
+                return cfg.replace(n_heads=H, n_kv_heads=KV)
+    return cfg
+
+
+def embed_lookup(cfg: ModelConfig, embed, tokens, tp=None):
+    """``embed[tokens]``; with ``embed`` a rank's rows of the vocabulary
+    (vocab-parallel), each rank looks up the tokens it holds, zeros
+    elsewhere, and the rows are summed over ``model`` (exact: one rank
+    holds each token)."""
+    n = embed.shape[0]
+    if n == cfg.vocab_size:
+        return embed[tokens]
+    from repro_torch.sharding.runtime import reduce_from_model
+    idx = tokens - tp.rank * n
+    ok = (idx >= 0) & (idx < n)
+    x = embed[torch.clamp(idx, 0, n - 1)] * ok[..., None].to(embed.dtype)
+    return reduce_from_model(x, tp)
 
 
 def lm_head(cfg: ModelConfig, params):
@@ -291,8 +339,21 @@ def lm_head(cfg: ModelConfig, params):
     return head.to(cfg.cdtype)
 
 
-def logits_fn(cfg: ModelConfig, params, hidden):
-    return (hidden @ lm_head(cfg, params)).float()
+def _vocab_split(cfg: ModelConfig, head, tp) -> bool:
+    """Whether ``head`` holds a rank's columns of the vocabulary."""
+    return tp is not None and head.shape[-1] != cfg.vocab_size
+
+
+def logits_fn(cfg: ModelConfig, params, hidden, tp=None):
+    """fp32 logits over the whole vocabulary; a vocab-parallel head's
+    slices are all-gathered over ``model``, so every rank samples from the
+    same logits."""
+    head = lm_head(cfg, params)
+    if not _vocab_split(cfg, head, tp):
+        return (hidden @ head).float()
+    from repro_torch.sharding import runtime
+    logits = (runtime.copy_to_model(hidden, tp) @ head).float()
+    return runtime.gather_last(logits, tp)
 
 
 def _chunks(L: int, chunk: int):
@@ -300,43 +361,71 @@ def _chunks(L: int, chunk: int):
     return [(c0, min(c0 + chunk, L)) for c0 in range(0, L, chunk)]
 
 
-def _nll_chunk(h, head, labels, mask):
+def _lse_gold(h, head, labels, tp=None):
+    """The log-sum-exp of one chunk's fp32 logits and the labels' logits.
+    Vocab-parallel (``tp``, ``head`` a rank's columns): the max of the
+    rank's logits is all-reduced with MAX (no grad), their exp-sums
+    summed over ``model``, and the rank that holds a label gives its
+    logit, summed over ``model``.  ``tp`` is ``None`` for a whole
+    head."""
+    if tp is None:
+        logits = (h @ head).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return lse, gold
+    from repro_torch.sharding import runtime
+    n = head.shape[-1]
+    logits = (runtime.copy_to_model(h, tp) @ head).float()
+    mx = runtime.max_over_model(logits.detach().amax(-1), tp)
+    se = runtime.reduce_from_model(
+        torch.exp(logits - mx[..., None]).sum(-1), tp)
+    lse = torch.log(se) + mx
+    idx = labels - tp.rank * n
+    ok = (idx >= 0) & (idx < n)
+    g = torch.gather(logits, -1, torch.clamp(idx, 0, n - 1)[..., None])
+    gold = runtime.reduce_from_model(g[..., 0] * ok.float(), tp)
+    return lse, gold
+
+
+def _nll_chunk(h, head, labels, mask, tp=None):
     """Summed masked NLL of one chunk of positions, and the mask's sum."""
-    logits = (h @ head).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    lse, gold = _lse_gold(h, head, labels, tp)
     return ((lse - gold) * mask).sum(), mask.sum()
 
 
-def lm_loss(cfg: ModelConfig, params, hidden, labels, mask, count=None):
+def lm_loss(cfg: ModelConfig, params, hidden, labels, mask, count=None,
+            tp=None):
     """Chunked cross-entropy over ``cfg.logit_chunk`` positions at a time;
     each chunk is checkpointed, so its (B, chunk, V) fp32 logits are
     recomputed in the backward and never kept (vocabs reach 202k).
     ``count``, when given, divides the masked sum in place of the mask's
-    own sum (a data-parallel rank divides by the global batch's)."""
+    own sum (a data-parallel rank divides by the global batch's).  With
+    ``tp`` and a vocab-parallel head each rank holds ``(B, chunk, V /
+    tp)`` of the logits (:func:`_lse_gold`)."""
     head = lm_head(cfg, params)
+    tp = tp if _vocab_split(cfg, head, tp) else None
     labels = labels.long()
     mask = mask.float()
     remat = torch.is_grad_enabled()
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0, c1 in _chunks(hidden.shape[1], cfg.logit_chunk):
-        args = (hidden[:, c0:c1], head, labels[:, c0:c1], mask[:, c0:c1])
+        args = (hidden[:, c0:c1], head, labels[:, c0:c1], mask[:, c0:c1],
+                tp)
         nll, m = (checkpoint(_nll_chunk, *args, use_reentrant=False)
                   if remat else _nll_chunk(*args))
         tot, cnt = tot + nll, cnt + m
     return tot / torch.clamp(cnt if count is None else count, min=1.0)
 
 
-def per_token_logprobs(cfg: ModelConfig, params, hidden, labels):
+def per_token_logprobs(cfg: ModelConfig, params, hidden, labels, tp=None):
     """log p(labels | context) per position (B, L) fp32, chunked like
-    :func:`lm_loss`."""
+    :func:`lm_loss` (vocab-parallel likewise)."""
     head = lm_head(cfg, params)
+    tp = tp if _vocab_split(cfg, head, tp) else None
     labels = labels.long()
     out = []
     for c0, c1 in _chunks(hidden.shape[1], cfg.logit_chunk):
-        logits = (hidden[:, c0:c1] @ head).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, c0:c1, None])[..., 0]
+        lse, gold = _lse_gold(hidden[:, c0:c1], head, labels[:, c0:c1], tp)
         out.append(gold - lse)
     return torch.cat(out, dim=1)

@@ -55,17 +55,23 @@ Where the reference donates the cache to each jitted call and rebinds the
 result, the port updates it in place: decode writes one row per slot per
 step (into the arena row, or into the block its table names).
 
-On a data-parallel mesh (``mesh=``, a ``("data", "model")`` ``DeviceMesh``
-whose ``model`` axis is 1; the Hybrid Engine hands it over when the mesh
-has more than one rank) every rank holds the full weights (params in any
-layout are gathered first).  :meth:`GenerationEngine.generate` decodes the
-rank's rows of the batch, drawing the noise the whole batch would, and
-returns the global batch's ``sequences`` and ``response_mask`` on every
-rank; :meth:`GenerationEngine.serve` serves the rank's share of the
-requests on its own KV pool and returns every rank's completions.  A batch
-or a request list that does not divide the ``data`` axis is decoded whole
-on every rank.  The stepwise :meth:`GenerationEngine.core` on a mesh of
-more than one rank is not yet ported.
+On a mesh (``mesh=``, a ``("data", "model")`` ``DeviceMesh``; the Hybrid
+Engine hands it over when the mesh has more than one rank) each rank
+computes on the params' compute view
+(:func:`repro_torch.sharding.runtime.compute_view`: gathered over
+``data``, its heads, MLP width, vocabulary rows or experts over ``model``)
+and its KV arena or pool holds its own kv heads.  Every rank of a model
+group samples from the same logits, all-gathered over ``model``, with the
+same generator, so it makes the same host decisions (admission,
+preemption, EOS, block tables).  :meth:`GenerationEngine.generate` decodes
+the data rank's rows of the batch, drawing the noise the whole batch
+would, and returns the global batch's ``sequences`` and ``response_mask``
+on every rank; :meth:`GenerationEngine.serve` serves the data rank's
+share of the requests on its own KV pool and returns every rank's
+completions.  A batch or a request list that does not divide the
+``data`` axis is decoded whole on every data rank.  The stepwise
+:meth:`GenerationEngine.core` on a mesh of more than one rank is not yet
+ported.
 
 Ragged prefill correctness: prompts are right-padded to a shape bucket and
 prefilled with causal attention, so real tokens never attend padding.  The
@@ -315,7 +321,7 @@ class GenerationEngine:
         Draws advance ``generator``.  A ``vlm`` model takes
         ``encoder_embeds`` (B, Le, encoder_dim): the prefill caches each
         cross-attention layer's K/V once, and decode reads them there."""
-        params = runtime.full_tree(params)
+        params, tp = self._view(params)
         if not isinstance(tokens, torch.Tensor):
             tokens = torch.as_tensor(np.asarray(tokens))
         tokens = tokens.to(device=self.device, dtype=torch.long)
@@ -323,15 +329,16 @@ class GenerationEngine:
             encoder_embeds = torch.as_tensor(encoder_embeds).to(self.device)
         if self.mesh is None:
             return self._generate(params, tokens, generator, encoder_embeds)
-        runtime.check_compute_mesh(self.mesh, "GenerationEngine.generate")
         B = tokens.shape[0]
-        rows = runtime.rows_of(B, self.mesh)
+        rows = self._rows(B)
         if rows is None:            # every rank decodes the whole batch
-            return self._generate(params, tokens, generator, encoder_embeds)
+            return self._generate(params, tokens, generator, encoder_embeds,
+                                  tp=tp)
         r0, r1 = rows
         out = self._generate(params, tokens[r0:r1], generator,
                              None if encoder_embeds is None
-                             else encoder_embeds[r0:r1], noise_rows=(r0, B))
+                             else encoder_embeds[r0:r1], noise_rows=(r0, B),
+                             tp=tp)
         group = runtime.data_group(self.mesh)
         seqs = runtime.gather_rows(out["sequences"], group)
         mask = runtime.gather_rows(
@@ -342,10 +349,35 @@ class GenerationEngine:
                            "generated_tokens": int(mask.sum())}
         return {"sequences": seqs, "response_mask": mask}
 
+    def _rows(self, n: int):
+        """This data rank's ``(start, stop)`` of ``n`` rows on the mesh
+        (``None``: every rank takes every row).  An MoE model's decode
+        would route the rank's rows apart from the global batch's, which
+        the reference routes in one call (R13): refused."""
+        rows = runtime.rows_of(n, self.mesh)
+        if (rows is not None and self.cfg.moe
+                and rows[1] - rows[0] != n):
+            raise NotImplementedError(
+                "MoE generation over a batch sharded on data (global "
+                "routing in the decode loop): not yet ported")
+        return rows
+
+    def _view(self, params):
+        """``(the params this rank computes on, the tensor-parallel
+        context)``: the whole params without a mesh, else their compute
+        view (after :func:`~repro_torch.sharding.runtime.
+        check_compute_mesh`)."""
+        if self.mesh is None:
+            return runtime.full_tree(params), None
+        runtime.check_compute_mesh(self.mesh, "GenerationEngine", self.cfg)
+        view, _, tp = runtime.mesh_view(self.cfg, params, self.mesh)
+        return view, tp
+
     def _generate(self, params, tokens, generator: torch.Generator,
-                  encoder_embeds=None, noise_rows=None):
+                  encoder_embeds=None, noise_rows=None, tp=None):
         """:meth:`generate` on one device (``noise_rows``: see
-        :func:`~repro_torch.serving.sampling.sample`)."""
+        :func:`~repro_torch.serving.sampling.sample`; ``tp``: the
+        tensor-parallel context of a compute view ``params``)."""
         cfg = self.cfg
         B, Lp = tokens.shape
         max_new = self.max_new_tokens
@@ -356,12 +388,14 @@ class GenerationEngine:
                     "response_mask": torch.zeros((B, Lp), dtype=torch.bool,
                                                  device=self.device)}
         params = T.cast_params(cfg, params)
-        cache = T.init_cache(cfg, B, Lp + max_new, device=self.device)
+        cache = T.init_cache(T.local_cfg(cfg, params), B, Lp + max_new,
+                             device=self.device)
         logits, cache = prefill(cfg, params, tokens, cache,
-                                encoder_embeds=encoder_embeds)
+                                encoder_embeds=encoder_embeds, tp=tp)
         step = decode_scan_step(cfg, params, temperature=self.temperature,
                                 top_k=self.top_k, top_p=self.top_p,
-                                eos_id=self.eos_id, noise_rows=noise_rows)
+                                eos_id=self.eos_id, noise_rows=noise_rows,
+                                tp=tp)
         carry = (logits, cache, generator,
                  torch.full((B,), Lp, dtype=torch.long, device=self.device),
                  torch.zeros((B,), dtype=torch.bool, device=self.device))
@@ -405,7 +439,8 @@ class GenerationEngine:
     # ================================================================ #
     # admission and the serve chunk
     # ================================================================ #
-    def _prefill_row(self, params, tokens, length, row, positions=None):
+    def _prefill_row(self, params, tokens, length, row, positions=None,
+                     tp=None):
         """Prefill one padded prompt into the single-row cache ``row`` (in
         place); returns the logits of the TRUE last prompt token
         (``length`` is the unpadded prompt length).  A prefix-cache
@@ -413,9 +448,9 @@ class GenerationEngine:
         carries the prefix history."""
         cfg = self.cfg
         hidden, _, _ = T.forward(cfg, params, tokens=tokens, mode="prefill",
-                                 cache=row, positions=positions)
+                                 cache=row, positions=positions, tp=tp)
         h_last = hidden[0, length - 1]
-        return T.logits_fn(cfg, params, h_last[None, None])[0, 0]
+        return T.logits_fn(cfg, params, h_last[None, None], tp)[0, 0]
 
     def _serve_chunk(self, core: "EngineCore", cache, block_tables=None):
         """``chunk`` decode steps over the whole slot batch with per-slot
@@ -437,7 +472,8 @@ class GenerationEngine:
                               row_generators=core.slot_generators)
             tok = torch.where(done, pad_tok, tok)
             logits, cache = decode_step(cfg, params, tok, cache, pos,
-                                        block_tables=block_tables)
+                                        block_tables=block_tables,
+                                        tp=core.tp)
             toks.append(tok)
             was.append(done)
             done = done | (pos + 1 >= limit) | ((eos >= 0) & (tok == eos))
@@ -472,16 +508,9 @@ class GenerationEngine:
         if self.mesh is not None and runtime.mesh_size(self.mesh) > 1:
             raise NotImplementedError("GenerationEngine.core() on a mesh of "
                                       "more than one rank: not yet ported")
-        return self._core(params, generator, slots=slots,
-                          max_seq_len=max_seq_len, num_blocks=num_blocks,
-                          watermark=watermark)
-
-    def _core(self, params, generator, *, slots, max_seq_len, num_blocks,
-              watermark) -> "EngineCore":
         return EngineCore(self, runtime.full_tree(params), generator,
-                          slots=slots,
-                          max_seq_len=max_seq_len, num_blocks=num_blocks,
-                          watermark=watermark)
+                          slots=slots, max_seq_len=max_seq_len,
+                          num_blocks=num_blocks, watermark=watermark)
 
     def serve(self, params, requests: Sequence[Request],
               generator: torch.Generator, *, slots: int = 8,
@@ -503,20 +532,17 @@ class GenerationEngine:
                                           or watermark is not None):
             raise ValueError("num_blocks/watermark require kv_layout='paged'")
         requests = list(requests)
-        rows = None
-        if self.mesh is not None:
-            runtime.check_compute_mesh(self.mesh, "GenerationEngine.serve")
-            rows = runtime.rows_of(len(requests), self.mesh)
+        params, tp = self._view(params)
+        rows = None if self.mesh is None else self._rows(len(requests))
+        kw = dict(slots=slots, max_seq_len=max_seq_len,
+                  num_blocks=num_blocks, watermark=watermark, tp=tp)
         if rows is None:
-            return self._serve(params, requests, generator, slots=slots,
-                               max_seq_len=max_seq_len,
-                               num_blocks=num_blocks, watermark=watermark)
-        # this rank's share of the queue on its own pool, then every
-        # rank's completions (in rank order)
+            return self._serve(params, requests, generator, **kw)
+        # this data rank's share of the queue on its own pool, then every
+        # data rank's completions (in rank order)
         group = runtime.data_group(self.mesh)
         mine = self._serve(params, requests[rows[0]:rows[1]], generator,
-                           slots=slots, max_seq_len=max_seq_len,
-                           num_blocks=num_blocks, watermark=watermark)
+                           **kw)
         import torch.distributed as dist
         got = [None] * group.size()
         dist.all_gather_object(got, (mine, self.last_stats), group=group)
@@ -524,14 +550,15 @@ class GenerationEngine:
         return [c for part, _ in got for c in part]
 
     def _serve(self, params, requests, generator, *, slots, max_seq_len,
-               num_blocks, watermark) -> List[Completion]:
+               num_blocks, watermark, tp=None) -> List[Completion]:
         need = max((len(r.tokens) + self.resolve(r)[3] for r in requests),
                    default=1)
         S = max_seq_len or need
         if need > S:
             raise ValueError(f"max_seq_len={S} < longest request ({need})")
-        core = self._core(params, generator, slots=slots, max_seq_len=S,
-                          num_blocks=num_blocks, watermark=watermark)
+        core = EngineCore(self, params, generator, slots=slots,
+                          max_seq_len=S, num_blocks=num_blocks,
+                          watermark=watermark, tp=tp)
         prompts: Dict[int, np.ndarray] = {}
         for r in requests:
             core.add_request(r)
@@ -587,7 +614,7 @@ class _DenseBackend:
 
     def __init__(self, core: "EngineCore"):
         self.core = core
-        self.cache = T.init_cache(core.cfg, core.slots, core.S,
+        self.cache = T.init_cache(core.cache_cfg, core.slots, core.S,
                                   device=core.engine.device)
 
     def check(self, uid: int, Lp: int, max_new: int) -> None:
@@ -609,7 +636,7 @@ class _DenseBackend:
         # cache: prefill writes in place
         row = tree_map(lambda a: a[:, slot:slot + 1], self.cache)
         logit = e._prefill_row(c.params, torch.as_tensor(
-            padded, device=e.device), Lp, row)
+            padded, device=e.device), Lp, row, tp=c.tp)
         c.slot_reset(slot, logit, Lp, max_new)
 
     def prepare_chunk(self, events: List[StepEvent]) -> None:
@@ -662,7 +689,7 @@ class _PagedBackend:
         # admission reserve: ``watermark`` blocks, or one chunk of decode
         # appends per *running* slot
         self.chunk_blocks = blocks_for(e.chunk, bs)
-        self.pool = T.init_paged_cache(core.cfg, num_blocks, bs,
+        self.pool = T.init_paged_cache(core.cache_cfg, num_blocks, bs,
                                        device=e.device)
         # host mirror of pos/limit: admission sets them and every chunk
         # advances every slot by exactly ``chunk`` steps, so a top-up never
@@ -714,7 +741,7 @@ class _PagedBackend:
         Lb = padded.shape[1]
         blk_ids = np.full((-(-Lb // bs),), TRASH_BLOCK, np.int64)
         blk_ids[:len(own)] = own
-        row = T.init_cache(c.cfg, 1, Lb, device=dev)
+        row = T.init_cache(c.cache_cfg, 1, Lb, device=dev)
         positions = None
         if shared:
             # the suffix attends [prefix; suffix] with rectangular causal
@@ -724,7 +751,7 @@ class _PagedBackend:
                 np.asarray(shared, np.int64), device=dev))
             positions = P0 + torch.arange(Lb, device=dev)[None]
         logit = e._prefill_row(c.params, torch.as_tensor(padded, device=dev),
-                               Ls, row, positions)
+                               Ls, row, positions, tp=c.tp)
         _scatter_row_blocks(self.pool, row,
                             torch.as_tensor(blk_ids, device=dev), bs)
         c.slot_reset(slot, logit, Lp, max_new)
@@ -841,7 +868,7 @@ class EngineCore:
     def __init__(self, engine: GenerationEngine, params,
                  generator: torch.Generator, *, slots: int = 8,
                  max_seq_len: int, num_blocks: Optional[int] = None,
-                 watermark: Optional[int] = None):
+                 watermark: Optional[int] = None, tp=None):
         cfg = engine.cfg
         if cfg.arch_type == "vlm" or not cfg.embed_inputs:
             raise NotImplementedError(
@@ -856,6 +883,10 @@ class EngineCore:
         self.engine = engine
         self.cfg = cfg
         self.params = T.cast_params(cfg, params)
+        # the tensor-parallel context of a compute view ``params``, and the
+        # config of the rank's KV (its own kv heads)
+        self.tp = tp
+        self.cache_cfg = T.local_cfg(cfg, params)
         self.slots = int(slots)
         S = int(max_seq_len)
         if engine.kv_layout == "paged":        # a whole number of blocks

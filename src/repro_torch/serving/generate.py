@@ -23,20 +23,23 @@ from repro_torch.serving.sampling import sample
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *, embeds=None,
-            encoder_embeds=None):
+            encoder_embeds=None, tp=None):
     """Run the prompt through the model, filling ``cache`` in place (the
     cross-attention layers' ``xk``/``xv`` from ``encoder_embeds`` too).
     ``embeds`` (B, L, D) is the prompt of an embedding-input model.
-    Returns (last-position logits (B, V), cache)."""
+    ``tp``: the tensor-parallel context of a compute view ``params`` (the
+    logits are gathered whole on every rank).  Returns (last-position
+    logits (B, V), cache)."""
     hidden, cache, _ = T.forward(cfg, params, tokens=tokens, embeds=embeds,
                                  encoder_embeds=encoder_embeds,
-                                 mode="prefill", cache=cache)
-    logits = T.logits_fn(cfg, params, hidden[:, -1:])[:, 0]
+                                 mode="prefill", cache=cache, tp=tp)
+    logits = T.logits_fn(cfg, params, hidden[:, -1:], tp)[:, 0]
     return logits, cache
 
 
 def decode_step(cfg: ModelConfig, params, token, cache, position, *,
-                embeds=None, encoder_embeds=None, block_tables=None):
+                embeds=None, encoder_embeds=None, block_tables=None,
+                tp=None):
     """One decode step.  token: (B,) int; position: (B,) absolute; an
     embedding-input model takes ``embeds`` (B, 1, D) in place of
     ``token``.  Cross-attention layers read the K/V their prefill cached,
@@ -49,14 +52,14 @@ def decode_step(cfg: ModelConfig, params, token, cache, position, *,
     hidden, cache, _ = T.forward(cfg, params, mode="decode", cache=cache,
                                  positions=position[:, None],
                                  encoder_embeds=encoder_embeds,
-                                 block_tables=block_tables, **kw)
-    logits = T.logits_fn(cfg, params, hidden)[:, 0]
+                                 block_tables=block_tables, tp=tp, **kw)
+    logits = T.logits_fn(cfg, params, hidden, tp)[:, 0]
     return logits, cache
 
 
 def decode_scan_step(cfg: ModelConfig, params, *, temperature: float,
                      top_k: int, eos_id: Optional[int], top_p: float = 1.0,
-                     noise_rows=None):
+                     noise_rows=None, tp=None):
     """The per-step body shared by :func:`generate` and the chunked engine
     decode.
 
@@ -65,7 +68,8 @@ def decode_scan_step(cfg: ModelConfig, params, *, temperature: float,
     the step that emits the first EOS still records ``was_done=False``
     (the EOS token itself counts as generated), every later step forces
     ``eos_id`` out of the sampler with ``was_done=True``.  ``noise_rows``
-    goes to :func:`~repro_torch.serving.sampling.sample`.
+    goes to :func:`~repro_torch.serving.sampling.sample`; ``tp`` to
+    :func:`decode_step`.
     """
     def step(carry):
         logits, cache, gen, pos, done = carry
@@ -73,7 +77,7 @@ def decode_scan_step(cfg: ModelConfig, params, *, temperature: float,
                      top_p=top_p, noise_rows=noise_rows)
         if eos_id is not None:
             tok = torch.where(done, eos_id, tok)
-        logits, cache = decode_step(cfg, params, tok, cache, pos)
+        logits, cache = decode_step(cfg, params, tok, cache, pos, tp=tp)
         new_done = done | (tok == eos_id) if eos_id is not None else done
         return (logits, cache, gen, pos + 1, new_done), (tok, done)
     return step

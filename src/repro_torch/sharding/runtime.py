@@ -8,14 +8,27 @@ Compute runs on plain tensors: :func:`full` gathers a leaf (one all-gather
 over the dims that shard it, nothing for a replicated leaf), and the
 model code and the CUDA kernels run on the result unchanged.
 
-Only the ``data`` axis carries compute in this port; a mesh whose
-``model`` axis is larger than 1 holds layouts and reshards them, and
-:func:`check_compute_mesh` refuses compute on it.
+Over ``model`` the compute is tensor-parallel (Megatron's split): each
+rank computes on its own heads, MLP width, vocabulary rows or experts.
+:func:`compute_view` gives a tree's leaves as the ranks compute on them:
+gathered over ``data`` (ZeRO-3's rule, a gather at use), and over
+``model`` the rank's slice, the local shard itself where the pspec cuts
+exactly that slice and a local slice of the gathered leaf where it does
+not (kv heads cut into half heads at ``tp > KV``).  :func:`to_layout`
+takes the grads of that view back into ``DTensor``\\ s that the
+optimizer reduces into its layout.  The model code takes a :class:`TP`
+context (the model group, the rank in it and its size) and makes its
+collectives through three autograd functions (:func:`copy_to_model`,
+:func:`reduce_from_model`, :func:`gather_last`); on a one-rank model
+group each is the identity, so the 1 x 1 mesh computes the plain path's
+arithmetic.  :func:`check_compute_mesh` refuses what ``model > 1`` does
+not compute yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -45,13 +58,273 @@ def mesh_size(mesh) -> int:
     return math.prod(mesh_axes(mesh).values())
 
 
-def check_compute_mesh(mesh, what: str) -> None:
-    """Compute runs on the ``data`` axis only: refuse a ``model`` axis
-    larger than 1."""
-    if mesh is not None and mesh_axes(mesh).get("model", 1) > 1:
+def check_compute_mesh(mesh, what: str, cfg=None) -> None:
+    """Refuse what a ``model`` axis larger than 1 does not compute yet:
+    MLA, cross-attention and SSM layers, and head counts whose split over
+    ``model`` is not whole heads on every rank (``n_heads % tp``, and
+    neither ``n_kv_heads % tp`` nor ``tp % n_kv_heads``)."""
+    tp = 1 if mesh is None else mesh_axes(mesh).get("model", 1)
+    if tp == 1 or cfg is None:
+        return
+    from repro_torch.models.config import CROSS, SSM
+    kinds = {ls.kind for seg in cfg.segments() for ls in seg.unit_spec}
+    for bad, name in ((cfg.mla, "MLA attention"),
+                      (CROSS in kinds, "cross-attention layers"),
+                      (SSM in kinds, "SSM (Mamba2) layers")):
+        if bad:
+            raise NotImplementedError(
+                f"{what}: {name} on a mesh with model > 1 "
+                "(tensor-parallel compute): not yet ported")
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if H % tp or (KV % tp and tp % KV):
         raise NotImplementedError(
-            f"{what} on a mesh with model > 1 (tensor-parallel compute): "
+            f"{what}: {H} heads / {KV} kv heads over model = {tp}: "
             "not yet ported")
+
+
+# ===================================================================== #
+# tensor parallelism over ``model``
+# ===================================================================== #
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """The tensor-parallel context the model code takes: the ``model``
+    process group, this rank's index in it and its size; ``rows`` is the
+    data group whose rows an MoE layer routes together (``None``: the
+    rows of the call)."""
+    group: Any
+    rank: int
+    size: int
+    rows: Any = None
+
+    def with_rows(self, rows) -> "TP":
+        return dataclasses.replace(self, rows=rows)
+
+
+def tp_context(mesh, rows=None) -> Optional[TP]:
+    """The :class:`TP` context of ``mesh``'s ``model`` axis (``None``
+    without a mesh)."""
+    if mesh is None:
+        return None
+    i = mesh.mesh_dim_names.index("model")
+    return TP(mesh.get_group("model"), mesh.get_coordinate()[i],
+              mesh.size(i), rows)
+
+
+def _split(tp) -> bool:
+    return tp is not None and tp.size > 1
+
+
+def _all_reduce(x, group):
+    import torch.distributed as dist
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Into the model region: identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Out of the model region: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherLast(torch.autograd.Function):
+    """The ranks' last-dim slices concatenated in rank order; backward
+    keeps this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, size):
+        import torch.distributed as dist
+        ctx.rank, ctx.n = rank, x.shape[-1]
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.rank * ctx.n
+        return g[..., lo:lo + ctx.n], None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """The data group's rows concatenated in rank order; backward sums
+    the grads over the group and keeps this rank's rows (each rank
+    computes on every row, so a row's grad is the sum of the ranks')."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, size):
+        ctx.group, ctx.rank, ctx.n = group, rank, x.shape[0]
+        return gather_rows(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _all_reduce(g, ctx.group)
+        lo = ctx.rank * ctx.n
+        return g[lo:lo + ctx.n], None, None, None
+
+
+def copy_to_model(x, tp):
+    """``x`` entering a model-parallel region (grads summed over
+    ``model`` in the backward); ``x`` itself on a one-rank group."""
+    return _CopyToModel.apply(x, tp.group) if _split(tp) else x
+
+
+def reduce_from_model(x, tp):
+    """The sum over ``model`` of the ranks' partial ``x``."""
+    return _ReduceFromModel.apply(x, tp.group) if _split(tp) else x
+
+
+def gather_last(x, tp):
+    """The ranks' slices of the last dim, concatenated."""
+    return (_GatherLast.apply(x, tp.group, tp.rank, tp.size)
+            if _split(tp) else x)
+
+
+def max_over_model(x, tp):
+    """The elementwise max over ``model`` (no grad)."""
+    if not _split(tp):
+        return x
+    import torch.distributed as dist
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=tp.group)
+    return out
+
+
+def gather_data_rows(x, tp):
+    """The rows of every rank of ``tp.rows`` (the data group), in rank
+    order, with the backward of :class:`_GatherRows`; ``x`` itself without
+    one."""
+    g = None if tp is None else tp.rows
+    if g is None or g.size() == 1:
+        return x
+    return _GatherRows.apply(x, g, g.rank(), g.size())
+
+
+# ===================================================================== #
+# the compute view of a tree over ``model``
+# ===================================================================== #
+def _model_dim(x) -> Optional[int]:
+    """The tensor dim ``x`` shards over ``model`` (None: replicated)."""
+    if not is_dtensor(x):
+        return None
+    names = x.device_mesh.mesh_dim_names
+    pl = x.placements[names.index("model")]
+    return pl.dim if pl.is_shard() and x.device_mesh.size(
+        names.index("model")) > 1 else None
+
+
+def leaf_views(cfg, params, specs, tp):
+    """A :class:`~repro_torch.sharding.strategy.View` for each leaf of
+    ``params`` (a tree of ``DTensor``\\ s laid out by the pspecs of
+    ``specs``) at ``tp``: :func:`repro_torch.sharding.strategy.
+    compute_slices` of the dims the leaves shard over ``model``."""
+    from repro_torch.sharding import strategy as S
+    dims = tree_map(_model_dim, params)
+    return S.compute_slices(specs, dims, cfg, 1 if tp is None else tp.size,
+                            0 if tp is None else tp.rank)
+
+
+def _gather_data(x):
+    """``x`` gathered over every mesh dim but ``model`` (the model shard
+    stays): a plain tensor."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    names = x.device_mesh.mesh_dim_names
+    pls = tuple(pl if n == "model" else Replicate()
+                for n, pl in zip(names, x.placements))
+    if pls == tuple(x.placements):
+        return local(x)
+    return local(redistribute(x, pls))
+
+
+def mesh_view(cfg, params, mesh, rows=None):
+    """``(view, views, tp)`` of the LM's or the reward model's params (the
+    latter hold ``v_head``) on ``mesh``: the plain tensors this rank
+    computes on (:func:`compute_view`), their
+    :class:`~repro_torch.sharding.strategy.View`\\ s (what :func:`to_layout`
+    takes the grads back through) and the :class:`TP` context, whose
+    ``rows`` is the data group the batch is sharded over (an MoE layer
+    routes its rows together)."""
+    from repro_torch.models import reward as R
+    from repro_torch.models import transformer as T
+    specs = (R.param_specs(cfg) if "v_head" in params
+             else T.param_specs(cfg))
+    tp = tp_context(mesh, rows=rows)
+    views = leaf_views(cfg, params, specs, tp)
+    return compute_view(params, views), views, tp
+
+
+def _view_leaf(x, v):
+    from repro_torch.sharding.strategy import ALIGNED, SLICED
+    if v.kind == ALIGNED:
+        return _gather_data(x)
+    t = full(x)
+    if v.kind == SLICED:
+        n = t.shape[v.dim] // v.parts
+        t = t.narrow(v.dim, v.index * n, n).contiguous()
+    return t
+
+
+def _is_view(x) -> bool:
+    from repro_torch.sharding.strategy import View
+    return isinstance(x, View)
+
+
+def compute_view(params, views):
+    """The plain tensors each rank computes on (see :func:`leaf_views`)."""
+    return tree_map(lambda v, p: _view_leaf(p, v), views, params,
+                    is_leaf=_is_view)
+
+
+def to_layout(grads, params, views, group):
+    """Grads of the compute view as ``DTensor``\\ s laid out over the params'
+    mesh: partial over ``data`` when the batch is sharded over ``group``
+    (replicated with ``group=None``), and over ``model`` the shard
+    (aligned), a partial full-shape leaf (sliced: zeros outside the
+    slice) or the whole leaf (full)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.sharding.strategy import ALIGNED, SLICED
+
+    def one(v, g, p):
+        if not is_dtensor(p):
+            return g
+        mesh = p.device_mesh
+        pls = []
+        for n in mesh.mesh_dim_names:
+            if n != "model":
+                pls.append(Partial() if group is not None else Replicate())
+            elif v.kind == ALIGNED:
+                pls.append(Shard(v.dim))
+            elif v.kind == SLICED:
+                pls.append(Partial())
+            else:
+                pls.append(Replicate())
+        if v.kind == SLICED:
+            z = g.new_zeros(p.shape)
+            n = p.shape[v.dim] // v.parts
+            z.narrow(v.dim, v.index * n, n).copy_(g)
+            g = z
+        return from_local(g.contiguous(), mesh, pls, p.shape)
+    return tree_map(one, views, grads, params, is_leaf=_is_view)
 
 
 def data_group(mesh):
@@ -107,18 +380,6 @@ def zeros_like_global(p, dtype, sharding):
                   sharding.placements).shape
     loc = torch.zeros(shape, dtype=dtype, device=local(p).device)
     return from_local(loc, sharding.mesh, sharding.placements, p.shape)
-
-
-def reduce_partial(g, mesh, placements):
-    """This rank's piece, under ``placements``, of the sum over the data
-    axis of the full-shape partial tensors ``g`` (a reduce-scatter, or an
-    all-reduce where ``placements`` replicate)."""
-    from torch.distributed.tensor import Partial, Replicate
-    src = tuple(Partial() if n == "data" else Replicate()
-                for n in mesh.mesh_dim_names)
-    with torch.no_grad():
-        dt = _from_local(g, mesh, src, g.shape, g.stride())
-        return _wait(dt.redistribute(mesh, tuple(placements)).to_local())
 
 
 def place_tree(tree, shardings):
@@ -204,14 +465,16 @@ def batch_local(tree):
     """``(local tree, group)`` of a tree made by
     :func:`repro_torch.sharding.strategy.shard_batch`: the rank's rows as
     plain tensors, and the data group they are sharded over (``None`` when
-    the batch is replicated or holds plain tensors)."""
+    the batch is replicated, holds plain tensors or the group is one
+    rank)."""
     leaves = [t for t in tree_leaves(tree) if t is not None]
     group = None
     if leaves and is_dtensor(leaves[0]):
         x = leaves[0]
         names = x.device_mesh.mesh_dim_names
         for i, pl in enumerate(x.placements):
-            if pl.is_shard(0) and names[i] == "data":
+            if (pl.is_shard(0) and names[i] == "data"
+                    and x.device_mesh.size(i) > 1):
                 group = data_group(x.device_mesh)
     return tree_map(lambda t: None if t is None else local(t), tree), group
 

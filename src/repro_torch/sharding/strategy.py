@@ -159,6 +159,81 @@ def batch_pspec(mesh, batch: int, ndim: int = 2) -> tuple:
     return (lead,) + (None,) * (ndim - 1)
 
 
+# ===================================================================== #
+# the compute slices of tensor parallelism
+# ===================================================================== #
+# how a leaf's compute view relates to its layout over ``model``
+FULL = "full"          # the whole leaf (replicated over model)
+ALIGNED = "aligned"    # the local model shard itself
+SLICED = "sliced"      # a local slice of the leaf gathered over model
+
+
+@dataclasses.dataclass(frozen=True)
+class View:
+    """The piece of a leaf one rank of a ``tp``-way model group computes
+    on: the whole leaf (``FULL``), or ``chunk(parts, dim)[index]`` of it,
+    which is the rank's shard itself (``ALIGNED``) or a slice of the leaf
+    gathered over ``model`` (``SLICED``)."""
+    kind: str
+    dim: int = 0
+    parts: int = 1
+    index: int = 0
+
+
+def compute_slice(axes: tuple, model_dim, *, heads_cut: bool,
+                  n_kv_heads: int, tp: int, rank: int) -> View:
+    """The :class:`View` of a leaf of logical ``axes`` whose pspec puts
+    dim ``model_dim`` (``None``: none) on a ``tp``-way ``model`` axis.  A
+    cut dim is computed on as cut (heads, kv heads, MLP width, vocabulary
+    or experts: whole heads, since ``n_heads % tp == 0`` where heads are
+    cut), except the kv heads at ``tp % n_kv_heads == 0``: the pspec cuts
+    ``n_kv_heads * head_dim`` into half heads there, and the rank takes
+    the one kv head its q heads read (head ``h`` reads ``h // G``: kv
+    head ``rank // (tp / n_kv_heads)``).  Kv heads that the pspec leaves
+    whole under cut q heads (``heads_cut``) are sliced the same way."""
+    KV = n_kv_heads
+
+    def kv_view(dim):
+        if KV % tp == 0:
+            return View(SLICED, dim, tp, rank)
+        return View(SLICED, dim, KV, rank // (tp // KV))
+    if model_dim is None:
+        if heads_cut and "kv_heads" in axes:
+            return kv_view(axes.index("kv_heads"))
+        return View(FULL)
+    if axes[model_dim] == "kv_heads" and KV % tp:
+        return kv_view(model_dim)
+    return View(ALIGNED, model_dim, tp, rank)
+
+
+def model_dim(pspec: tuple):
+    """The dim a pspec puts on ``model`` (``None``: none)."""
+    return next((d for d, e in enumerate(pspec)
+                 if e == "model" or (isinstance(e, tuple) and "model" in e)),
+                None)
+
+
+def compute_slices(specs, dims, cfg: ModelConfig, tp: int, rank: int):
+    """A tree of :class:`View`: each leaf of the ParamSpec tree ``specs``
+    at the dim ``dims`` (a matching tree) puts on a ``tp``-way ``model``
+    axis, for ``rank``.  With ``tp == 1`` every leaf is ``FULL``."""
+    flat_s = tree_leaves(specs, is_leaf=_is_spec)
+    flat_d = tree_leaves(tree_map(lambda s, d: d, specs, dims,
+                                  is_leaf=_is_spec), is_leaf=_is_dim)
+    if tp == 1:
+        flat_d = [None] * len(flat_s)
+    heads_cut = any(d is not None and s.axes[d] == "heads"
+                    for s, d in zip(flat_s, flat_d))
+    it = iter(flat_d)
+    return tree_map(lambda s: compute_slice(
+        s.axes, next(it), heads_cut=heads_cut, n_kv_heads=cfg.n_kv_heads,
+        tp=tp, rank=rank), specs, is_leaf=_is_spec)
+
+
+def _is_dim(x) -> bool:
+    return x is None or isinstance(x, int)
+
+
 def cache_pspecs(cache_struct_tree, mesh, batch: int):
     """Pspecs of the KV / SSM cache tree (leading axis = stacked units;
     leaves as :func:`repro_torch.models.transformer.cache_struct` gives

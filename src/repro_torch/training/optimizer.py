@@ -16,8 +16,10 @@ never wait on the device.
 On a mesh (:func:`init_sharded`, :func:`update_sharded`) the params and
 moments are ``DTensor``s and AdamW runs on each rank's local shards: the
 grads are reduced (or sliced) into the moments' layout, the global grad
-norm counts every distinct element once, and a param replicated over data
-under sharded moments (ZeRO-1) is updated on its shard and all-gathered.
+norm counts every distinct element once (the squares of a leaf sharded
+over ``data`` and ``model`` summed over both, a replicated leaf's taken
+once), and a param replicated over data under sharded moments (ZeRO-1) is
+updated on its shard and all-gathered.
 """
 from __future__ import annotations
 
@@ -55,18 +57,23 @@ def update(params, grads, state: AdamState, *, lr, b1=0.9, b2=0.95,
 
     masks = (like(trainable_mask) if trainable_mask is not None
              else [True] * len(ps))
+    _masked_step_(ps, gs, ms, vs, masks, step, lr=lr, b1=b1, b2=b2,
+                  eps=eps, weight_decay=weight_decay)
+    return params, AdamState(m=state.m, v=state.v, step=step), gnorm
+
+
+def _masked_step_(ps, gs, ms, vs, masks, step, **kw):
+    """AdamW on the leaves whose mask is not ``False``; a tensor mask
+    keeps its ``False`` elements' params and moments as they were."""
     sel = [i for i, t in enumerate(masks)
            if not (isinstance(t, bool) and not t)]          # leaves to touch
     partial = [i for i in sel if isinstance(masks[i], torch.Tensor)]
     old = {i: (ps[i].clone(), ms[i].clone(), vs[i].clone()) for i in partial}
-
-    _step_(ps, gs, ms, vs, sel, step, lr=lr, b1=b1, b2=b2, eps=eps,
-           weight_decay=weight_decay)
+    _step_(ps, gs, ms, vs, sel, step, **kw)
     for i in partial:                               # elementwise masks
         keep = ~masks[i].to(torch.bool)
         for new, prev in zip((ps[i], ms[i], vs[i]), old[i]):
             new.copy_(torch.where(keep, prev, new))
-    return params, AdamState(m=state.m, v=state.v, step=step), gnorm
 
 
 def _clip_(gs, grad_clip, ps, sq=None):
@@ -109,58 +116,71 @@ def init_sharded(params, shardings) -> AdamState:
                      step=torch.zeros((), dtype=torch.int32))
 
 
+def _moment_view(p, m):
+    """``(this rank's piece of param p in the layout of its moments m,
+    whether it is a proper part of p's local shard)``: p's local shard,
+    cut further on the mesh dims where m shards and p replicates
+    (ZeRO-1: the moments' shard of a replicated param, a view)."""
+    from repro_torch.sharding import runtime
+    mesh, loc = m.device_mesh, runtime.local(p)
+    out, coord = loc, mesh.get_coordinate()
+    for i, (pp, mp) in enumerate(zip(p.placements, m.placements)):
+        if pp == mp or mesh.size(i) == 1:
+            continue
+        if not (pp.is_replicate() and mp.is_shard()):
+            raise ValueError(f"param layout {p.placements} under moments "
+                             f"{m.placements}: not a ZeRO layout")
+        out = out.chunk(mesh.size(i), dim=mp.dim)[coord[i]]
+    return out, out.numel() != loc.numel()
+
+
 def update_sharded(params, grads, state: AdamState, *, lr, b1=0.9, b2=0.95,
                    eps=1e-8, weight_decay=0.0,
-                   grad_clip: Optional[float] = 1.0, group=None):
-    """One AdamW step on a mesh.  ``params`` and the moments are
-    ``DTensor`` trees; ``grads`` are full-shape tensors that are partial
-    sums over the data ``group`` (``None``: every rank holds the same
-    grads, which are then neither summed nor divided), or ``DTensor``s in
-    any layout.  Each leaf's grad is reduce-scattered (or sliced) into its
-    moments' layout; the squared norms of data-sharded leaves are summed
-    over the data axis and every replicated leaf enters the norm once.
-    Returns ``(params, AdamState, gnorm)``, updated in place."""
+                   grad_clip: Optional[float] = 1.0, trainable_mask=None):
+    """One AdamW step on a mesh.  ``params``, the moments and ``grads``
+    are ``DTensor`` trees, the grads in any layout (e.g.
+    :func:`repro_torch.sharding.runtime.to_layout`'s, partial over
+    ``data``).  Each leaf's grad is reduced (or sliced) into its moments'
+    layout; a leaf's squared norm is summed over the mesh dims its
+    moments shard, so every element enters the norm once.
+    ``trainable_mask`` (full-shape bools or bool tensors) is cut to the
+    moments' layout and applied as :func:`update` applies it.  Returns
+    ``(params, AdamState, gnorm)``, updated in place."""
     from repro_torch.sharding import runtime
     step = state.step + 1
     like = lambda tree: tree_leaves(tree_map(lambda _, x: x, params, tree))
     P, G, M, V = (tree_leaves(params), like(grads), like(state.m),
                   like(state.v))
+    masks = (like(trainable_mask) if trainable_mask is not None
+             else [True] * len(P))
     ps, gs, ms, vs, gather, sharded = [], [], [], [], [], []
-    for p, g, m, v in zip(P, G, M, V):
+    for i, (p, g, m, v) in enumerate(zip(P, G, M, V)):
         mesh, mpl = m.device_mesh, tuple(m.placements)
-        if runtime.is_dtensor(g):
-            gr = runtime.local(runtime.redistribute(g, mpl))
-        else:
-            g = g if g.dtype == torch.float32 else g.float()
-            gr = (runtime.reduce_partial(g, mesh, mpl) if group is not None
-                  else runtime.chunk(g, mesh, mpl))
-        if tuple(p.placements) == mpl or (runtime.replicated(p)
-                                          and runtime.replicated(m)):
-            pr, gat = runtime.local(p), False
-        elif runtime.replicated(p):
-            # ZeRO-1: the moments' shard of a replicated param (a view)
-            pr, gat = runtime.chunk(runtime.local(p), mesh, mpl), True
-        else:
-            raise ValueError(f"param layout {p.placements} under moments "
-                             f"{mpl}: not a ZeRO layout")
+        gr = runtime.local(runtime.redistribute(g, mpl))
+        pr, gat = _moment_view(p, m)
+        if isinstance(masks[i], torch.Tensor):
+            masks[i] = runtime.chunk(masks[i].to(pr.device), mesh, mpl)
         ps.append(pr)
         gs.append(gr if gr.dtype == torch.float32 else gr.float())
         ms.append(runtime.local(m))
         vs.append(runtime.local(v))
         gather.append(gat)
-        sharded.append(not runtime.replicated(m))
+        sharded.append([n for j, n in enumerate(mesh.mesh_dim_names)
+                        if mpl[j].is_shard() and mesh.size(j) > 1])
     sq = None
     if grad_clip is not None:
         sq = [torch.sum(torch.square(g)) for g in gs]
-        idx = [i for i, s in enumerate(sharded) if s]
-        if idx:
-            summed = runtime.all_sum([sq[i] for i in idx],
-                                     runtime.data_group(M[idx[0]].device_mesh))
-            for i, t in zip(idx, summed):
-                sq[i] = t
+        for name in ("data", "model"):
+            idx = [i for i, s in enumerate(sharded) if name in s]
+            if idx:
+                summed = runtime.all_sum(
+                    [sq[i] for i in idx],
+                    M[idx[0]].device_mesh.get_group(name))
+                for i, t in zip(idx, summed):
+                    sq[i] = t
     gnorm = _clip_(gs, grad_clip, ps, sq)
-    _step_(ps, gs, ms, vs, list(range(len(ps))), step, lr=lr, b1=b1, b2=b2,
-           eps=eps, weight_decay=weight_decay)
+    _masked_step_(ps, gs, ms, vs, masks, step, lr=lr, b1=b1, b2=b2,
+                  eps=eps, weight_decay=weight_decay)
     for p, m, pr, gat in zip(P, M, ps, gather):
         if gat:                       # all-gather the updated shards
             runtime.local(p).copy_(runtime.local(runtime.redistribute(

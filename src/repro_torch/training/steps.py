@@ -5,14 +5,17 @@ Where the reference takes ``jax.value_and_grad`` of a pure loss, the port
 runs the loss on detached leaves that require grad and collects the
 gradients with ``torch.autograd.grad`` (:func:`value_and_grad`).
 
-On a data-parallel mesh (a state from ``TrainState.create(params,
-shardings=...)``, a batch from ``shard_batch``; see
-:func:`make_sharded_lm_step`) a step gathers the params once, computes the
-loss of the rank's rows with every batch-wide count taken over the data
-group, so that the ranks' losses sum to the global batch's, and hands the
-partial grads to the optimizer, which reduce-scatters them into the ZeRO
-layout (or all-reduces them for replicated moments).  The result is the
-single-device result of the global batch, up to the order of the sums.
+On a mesh (a state from ``TrainState.create(params, shardings=...)``, a
+batch from ``shard_batch``; see :func:`make_sharded_lm_step`) a step takes
+the params' compute view once (gathered over ``data``, the rank's heads,
+width, vocabulary or experts over ``model``:
+:func:`repro_torch.sharding.runtime.compute_view`), computes the
+tensor-parallel loss of the rank's rows with every batch-wide count taken
+over the data group, so that the ranks' losses sum to the global batch's,
+and hands the grads, laid out over the mesh
+(:func:`repro_torch.sharding.runtime.to_layout`), to the optimizer, which
+reduces them into the ZeRO layout.  The result is the single-device result
+of the global batch, up to the order of the sums.
 """
 from __future__ import annotations
 
@@ -45,23 +48,24 @@ def value_and_grad(loss_fn, params):
     return (loss.detach(), metrics), tree_unflatten(params, grads)
 
 
-def lm_loss_fn(cfg: ModelConfig, params, batch, count=None):
+def lm_loss_fn(cfg: ModelConfig, params, batch, count=None, tp=None):
     """LM loss (+ the MoE aux loss).  ``count``, when given, is the
     token count the masked sum is divided by (the global batch's on a
     mesh) in place of this batch's own.  The batch holds ``tokens``, or
     ``embeds`` for an embedding-input model, and ``encoder_embeds`` for a
-    ``vlm`` one."""
+    ``vlm`` one.  ``tp``: the tensor-parallel context of a compute
+    view."""
     hidden, _, aux = T.forward(cfg, params, tokens=batch.get("tokens"),
                                embeds=batch.get("embeds"),
                                encoder_embeds=batch.get("encoder_embeds"),
-                               mode="full")
+                               mode="full", tp=tp)
     loss = T.lm_loss(cfg, params, hidden, batch["labels"], batch["mask"],
-                     count=count)
+                     count=count, tp=tp)
     return loss + aux, {"lm_loss": loss, "aux_loss": aux}
 
 
 def lm_value_and_grad(cfg: ModelConfig, params, batch, micro: int = 1,
-                      group=None):
+                      group=None, tp=None):
     """Loss, metrics and grads of :func:`lm_loss_fn`.  With ``micro > 1``
     the batch is cut into ``micro`` slices of contiguous rows whose grads
     are accumulated in fp32 and averaged (gradient accumulation: the
@@ -73,7 +77,8 @@ def lm_value_and_grad(cfg: ModelConfig, params, batch, micro: int = 1,
     ``[i*B/micro, (i+1)*B/micro)``.  The rank computes its own rows of
     each slice (none, for a slice other ranks hold), divided by the
     slice's global token count; the loss and metrics are the global
-    batch's, the grads this rank's partial sums."""
+    batch's, the grads this rank's partial sums.  ``tp``: the
+    tensor-parallel context of a compute view ``params``."""
     batch = {k: v for k, v in batch.items() if v is not None}
     n_loc = next(iter(batch.values())).shape[0]
     row0, n = _rows(n_loc, group)
@@ -96,7 +101,7 @@ def lm_value_and_grad(cfg: ModelConfig, params, batch, micro: int = 1,
             continue
         sub = {k: v[lo:hi] for k, v in batch.items()}
         (l, met), g = value_and_grad(
-            lambda p: lm_loss_fn(cfg, p, sub, count=cnt), params)
+            lambda p: lm_loss_fn(cfg, p, sub, count=cnt, tp=tp), params)
         if micro > 1:
             g = tree_map(lambda x: x.float(), g)
             if gacc is None:
@@ -126,37 +131,43 @@ def lm_train_step(cfg: ModelConfig, state: TrainState, batch, lr,
     """One LM step: grads (accumulated over ``micro`` slices), then AdamW.
     Returns ``(state, metrics)`` with ``loss`` and ``grad_norm``.
 
-    A state in a mesh layout takes the data-parallel step: the params are
-    gathered once, the rank's rows computed (:func:`lm_value_and_grad`
-    with the batch's data group) and the partial grads handed to the
-    optimizer.  There ``gather_pspecs`` (the reference's phase-amortized
-    gather) casts the params to the compute dtype before the one gather
-    of the step when ``micro > 1``, so the gather moves compute-dtype
-    bytes and the accumulated grads come back through that cast, as in
-    the reference; ``grad_pspecs`` is the layout the accumulated grads
-    are reduced into before the update."""
+    A state in a mesh layout takes the mesh step: the params' compute
+    view is taken once (:func:`mesh_view`), the rank's rows computed
+    (:func:`lm_value_and_grad` with the batch's data group and the
+    tensor-parallel context) and the grads, laid out over the mesh,
+    handed to the optimizer.  There ``gather_pspecs`` (the reference's
+    phase-amortized gather) casts the params to the compute dtype before
+    the one gather of the step when ``micro > 1``, so the gather moves
+    compute-dtype bytes and the accumulated grads come back through that
+    cast, as in the reference; ``grad_pspecs`` is the layout the
+    accumulated grads are reduced into before the update."""
     on_mesh = in_mesh_layout(state)
     if not on_mesh and (gather_pspecs is not None
                         or grad_pspecs is not None):
         raise ValueError("gather_pspecs / grad_pspecs need a state in a "
                          "mesh layout (TrainState.create(shardings=))")
     local, group = runtime.batch_local(batch)
-    if on_mesh:
-        check_mesh_compute(cfg, state, group, "lm_train_step")
     cast = gather_pspecs is not None and micro > 1
-    params = tree_map(
-        lambda p: runtime.full(_cast_local(cfg, p) if cast else p),
-        state.params)
+    src = (tree_map(lambda p: _cast_local(cfg, p), state.params) if cast
+           else state.params)
+    tp = views = None
+    if on_mesh:
+        check_mesh_compute(cfg, state, group, "lm_train_step", micro)
+        params, views, tp = mesh_view(cfg, src, group)
+    else:
+        params = src
     (loss, metrics), grads = lm_value_and_grad(cfg, params, local, micro,
-                                               group)
+                                               group, tp)
     if cast:             # back through the compute-dtype cast
         grads = tree_map(lambda g, p: g.to(cfg.cdtype).to(p.dtype),
                          grads, state.params)
+    if on_mesh:
+        grads = runtime.to_layout(grads, state.params, views, group)
     if grad_pspecs is not None:
-        grads = _reduce_into(grads, grad_pspecs, _state_mesh(state), group)
+        grads = _reduce_into(grads, grad_pspecs, _tree_mesh(state.params))
     state, gnorm = state.apply_gradients(
         grads, lr=lr, weight_decay=weight_decay,
-        trainable_mask=trainable_mask, group=group)
+        trainable_mask=trainable_mask)
     return state, dict(metrics, loss=loss, grad_norm=gnorm)
 
 
@@ -164,18 +175,25 @@ def in_mesh_layout(state) -> bool:
     return any(runtime.is_dtensor(p) for p in tree_leaves(state.params))
 
 
-def _state_mesh(state):
-    return next(p.device_mesh for p in tree_leaves(state.params)
+def check_mesh_compute(cfg: ModelConfig, state, group, what: str,
+                       micro: int = 1) -> None:
+    runtime.check_compute_mesh(_tree_mesh(state.params), what, cfg)
+    if cfg.moe and group is not None and micro > 1:
+        # an MoE layer gathers the data group's rows of each call (R13);
+        # a micro slice that some ranks hold no rows of has no call there
+        raise NotImplementedError(f"{what}: MoE over a sharded batch with "
+                                  "micro > 1: not yet ported")
+
+
+def _tree_mesh(tree):
+    return next(p.device_mesh for p in tree_leaves(tree)
                 if runtime.is_dtensor(p))
 
 
-def check_mesh_compute(cfg: ModelConfig, state, group, what: str) -> None:
-    runtime.check_compute_mesh(_state_mesh(state), what)
-    if cfg.moe and group is not None and group.size() > 1:
-        # capacity couples the rows of a call (ROADMAP R13): the rows of
-        # one rank route apart from the global batch's
-        raise NotImplementedError(f"{what}: MoE over a sharded batch "
-                                  "(expert parallelism) is not yet ported")
+def mesh_view(cfg: ModelConfig, params, group=None):
+    """:func:`repro_torch.sharding.runtime.mesh_view` of a tree in a mesh
+    layout, on its own mesh, with the batch's data ``group``."""
+    return runtime.mesh_view(cfg, params, _tree_mesh(params), group)
 
 
 def _rows(local_n: int, group):
@@ -185,17 +203,12 @@ def _rows(local_n: int, group):
     return group.rank() * local_n, group.size() * local_n
 
 
-def _reduce_into(grads, pspecs, mesh, group):
-    """Partial grads reduced (or, for a replicated batch, sliced) into the
-    layout of ``pspecs``, as ``DTensor``s."""
+def _reduce_into(grads, pspecs, mesh):
+    """Grads laid out over the mesh (:func:`runtime.to_layout`) reduced
+    into the layout of ``pspecs``."""
     from repro_torch.sharding import strategy as S
-
-    def one(g, ps):
-        pl = S.placements(ps, mesh)
-        loc = (runtime.reduce_partial(g, mesh, pl) if group is not None
-               else runtime.chunk(g, mesh, pl))
-        return runtime.from_local(loc, mesh, pl, g.shape)
-    return tree_map(one, grads, pspecs)
+    return tree_map(lambda g, ps: runtime.redistribute(
+        g, S.placements(ps, mesh)), grads, pspecs)
 
 
 def _cast_local(cfg: ModelConfig, p):
@@ -210,28 +223,34 @@ def _cast_local(cfg: ModelConfig, p):
 
 def mesh_value_and_grad(cfg: ModelConfig, what: str, loss_fn, state,
                         batch):
-    """``loss_fn(params, local_batch, group) -> (loss, metrics)``.  On a
-    state in a mesh layout: the params gathered, the loss of this rank's
-    rows (each a partial sum of the global loss), the loss and metrics
-    summed over the data group.  On a plain state it is
-    :func:`value_and_grad` of ``loss_fn(params, batch, None)``.  Returns
-    ``((loss, metrics), grads, group)``, the grads this rank's partial
-    sums."""
+    """``loss_fn(params, local_batch, group, tp) -> (loss, metrics)``.  On
+    a state in a mesh layout: the params' compute view (:func:`mesh_view`),
+    the loss of this rank's rows (each a partial sum of the global loss)
+    computed tensor-parallel, the loss and metrics summed over the data
+    group, the grads laid out over the mesh.  On a plain state it is
+    :func:`value_and_grad` of ``loss_fn(params, batch, None, None)``.
+    Returns ``((loss, metrics), grads)``."""
     local, group = runtime.batch_local(batch)
-    if in_mesh_layout(state):
+    on_mesh = in_mesh_layout(state)
+    tp = None
+    if on_mesh:
         check_mesh_compute(cfg, state, group, what)
-    params = runtime.full_tree(state.params)
+        params, views, tp = mesh_view(cfg, state.params, group)
+    else:
+        params = state.params
     (loss, metrics), grads = value_and_grad(
-        lambda p: loss_fn(p, local, group), params)
+        lambda p: loss_fn(p, local, group, tp), params)
+    if on_mesh:
+        grads = runtime.to_layout(grads, state.params, views, group)
     keys = list(metrics)
     vals = runtime.all_sum([loss] + [metrics[k] for k in keys], group)
-    return (vals[0], dict(zip(keys, vals[1:]))), grads, group
+    return (vals[0], dict(zip(keys, vals[1:]))), grads
 
 
 def make_sharded_lm_step(cfg: ModelConfig, mesh, strategy: str, *,
                          zero: int = 1, micro: int = 1,
                          weight_decay: float = 0.0):
-    """The LM step on a DP mesh.  Returns ``(step, state_shardings,
+    """The LM step on a ``dp x tp`` mesh.  Returns ``(step, state_shardings,
     shard_batch)`` as the reference does:
 
     - ``step(state, batch, lr)`` — :func:`lm_train_step` on a state in the
@@ -242,7 +261,7 @@ def make_sharded_lm_step(cfg: ModelConfig, mesh, strategy: str, *,
     - ``shard_batch(batch)`` — commits a batch's leading dim to the data
       axis (replicated when indivisible)."""
     from repro_torch.sharding import strategy as S
-    runtime.check_compute_mesh(mesh, "make_sharded_lm_step")
+    runtime.check_compute_mesh(mesh, "make_sharded_lm_step", cfg)
     st_sh = S.train_state_shardings(cfg, mesh, strategy, zero=zero)
 
     def step(state, batch, lr):
@@ -255,19 +274,19 @@ def make_sharded_lm_step(cfg: ModelConfig, mesh, strategy: str, *,
     return step, st_sh, shard_batch
 
 
-def reward_loss_fn(cfg: ModelConfig, params, batch, group=None):
+def reward_loss_fn(cfg: ModelConfig, params, batch, group=None, tp=None):
     loss, acc = R.pairwise_loss(cfg, params, batch["chosen"],
                                 batch["rejected"], batch["chosen_mask"],
-                                batch["rejected_mask"], group=group)
+                                batch["rejected_mask"], group=group, tp=tp)
     return loss, {"rm_loss": loss, "rm_acc": acc}
 
 
 def reward_train_step(cfg: ModelConfig, state: TrainState, batch, lr,
                       weight_decay=0.0):
-    (loss, metrics), grads, group = mesh_value_and_grad(
+    (loss, metrics), grads = mesh_value_and_grad(
         cfg, "reward_train_step",
-        lambda p, b, g: reward_loss_fn(cfg, p, b, g), state, batch)
+        lambda p, b, g, tp: reward_loss_fn(cfg, p, b, g, tp), state,
+        batch)
     state, gnorm = state.apply_gradients(grads, lr=lr,
-                                         weight_decay=weight_decay,
-                                         group=group)
+                                         weight_decay=weight_decay)
     return state, dict(metrics, loss=loss, grad_norm=gnorm)

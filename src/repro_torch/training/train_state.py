@@ -34,20 +34,18 @@ class TrainState(NamedTuple):
                    step=torch.zeros((), dtype=torch.int32))
 
     def apply_gradients(self, grads, *, lr, weight_decay=0.0,
-                        grad_clip=1.0, trainable_mask=None, group=None):
+                        grad_clip=1.0, trainable_mask=None):
         """Returns ``(TrainState, gnorm)``.  The params and moments are
         updated in place (see :func:`repro_torch.training.optimizer.update`).
-        In a mesh layout the grads are full-shape partial sums over the
-        data ``group`` (``None``: the same on every rank), see
+        In a mesh layout the grads are ``DTensor``\\ s laid out over the mesh
+        (:func:`repro_torch.sharding.runtime.to_layout`), see
         :func:`repro_torch.training.optimizer.update_sharded`."""
         from repro_torch.sharding import runtime
         if any(runtime.is_dtensor(p) for p in opt.tree_leaves(self.params)):
-            if trainable_mask is not None:
-                raise NotImplementedError(
-                    "trainable_mask on a mesh: not yet ported")
             p, o, gnorm = opt.update_sharded(
                 self.params, grads, self.opt, lr=lr,
-                weight_decay=weight_decay, grad_clip=grad_clip, group=group)
+                weight_decay=weight_decay, grad_clip=grad_clip,
+                trainable_mask=trainable_mask)
         else:
             p, o, gnorm = opt.update(self.params, grads, self.opt, lr=lr,
                                      weight_decay=weight_decay,

@@ -1,12 +1,14 @@
-"""The reference's data-parallel runs, on simulated host devices, for
-``tests/test_torch_multidevice.py``::
+"""The reference's data- and tensor-parallel runs, on simulated host
+devices, for ``tests/test_torch_multidevice.py`` and
+``tests/test_torch_tensor_parallel.py``::
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
-        python tests/_jax_mesh_reference.py IN.pkl OUT.pkl DP
+        python tests/_jax_mesh_reference.py IN.pkl OUT.pkl DP [TP]
 
 ``IN`` holds numpy trees made from the port's seeds (``_torch_mesh_driver``'s
-weights, prompts and reward batches).  The reference runs, on a ``DP x 1``
-mesh, what ``tests/_torch_mesh_driver.py`` runs on ``DP`` gloo ranks:
+weights, prompts and reward and LM batches).  The reference runs, on a
+``DP x TP`` mesh (``TP`` 1 by default), what
+``tests/_torch_mesh_driver.py`` runs on ``DP * TP`` gloo ranks:
 
 - ``PPOTrainer(engine=HybridEngine)`` with ``zero3`` and with ``tp`` +
   ZeRO-1 (greedy experience, two ``train_rlhf`` steps), and a batch of 6
@@ -14,7 +16,10 @@ mesh, what ``tests/_torch_mesh_driver.py`` runs on ``DP`` gloo ranks:
 - the engine under the mesh: ``generate`` and the dense, paged int8 and
   tight paged int8 request paths;
 - two jitted ``reward_train_step`` calls on the ``zero3`` + ZeRO-1 state
-  and the sharded batch, with each step's grads.
+  and the sharded batch, with each step's grads;
+- with ``TP``: two steps of ``make_sharded_lm_step(..., "zero3")`` on each
+  reduced config the inputs name (``lm``), with each step's grads, and no
+  batch of 6.
 
 ``OUT`` gets the results as numpy, params as trees (the reference's
 structure, which ``repro_torch.models.convert`` reads).
@@ -70,7 +75,8 @@ from repro.models.config import ModelConfig
 from repro.models import reward as R
 from repro.serving.engine import Request
 from repro.sharding import strategy as S
-from repro.training.steps import reward_loss_fn, reward_train_step
+from repro.training.steps import (lm_loss_fn, make_sharded_lm_step,
+                                  reward_loss_fn, reward_train_step)
 from repro.training.train_state import TrainState
 
 ACTOR = ModelConfig(name="a", arch_type="dense", n_layers=2, d_model=64,
@@ -146,21 +152,48 @@ def reward_run(inp, mesh):
     return {"metrics": metrics, "params": _np(state.params), "grads": grads}
 
 
-def main(src: str, dst: str, dp: int) -> None:
+def lm_run(inp, mesh):
+    """Two zero3 + ZeRO-1 steps of each reduced config in ``inp["lm"]``
+    (name -> arch, params, batches), with each step's grads."""
+    out = {}
+    for name, (arch, params, batches) in inp["lm"].items():
+        cfg = jconfigs.reduced(jconfigs.get_config(arch)).replace(
+            use_pallas=False)
+        step, sh, shard_batch = make_sharded_lm_step(cfg, mesh, "zero3",
+                                                     zero=1)
+        state = TrainState.create(_jnp(params), shardings=sh)
+        grad = jax.jit(jax.grad(lambda p, b: lm_loss_fn(cfg, p, b)[0]))
+        losses, gnorms, grads = [], [], []
+        with mesh:
+            for b in batches:
+                b = shard_batch({k: jnp.asarray(v) for k, v in b.items()})
+                grads.append(_np(grad(state.params, b)))
+                state, m = step(state, b, inp["lm_lr"])
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+        out[name] = {"loss": losses, "grad_norm": gnorms,
+                     "params": _np(state.params), "grads": grads}
+    return out
+
+
+def main(src: str, dst: str, dp: int, tp: int = 1) -> None:
     with open(src, "rb") as f:
         inp = pickle.load(f)
-    mesh = make_mesh(dp, 1)
+    mesh = make_mesh(dp, tp)
     out = {"ppo": {}}
     for strategy in ("zero3", "tp"):
         he = HybridEngine(ACTOR, mesh, train_strategy=strategy, zero=1)
         out["ppo"][strategy] = ppo_run(inp, he, inp["prompts"], 2)
-    out["ppo"]["batch6"] = ppo_run(inp, HybridEngine(ACTOR, mesh),
-                                   inp["prompts6"], 1)
+    if tp == 1:
+        out["ppo"]["batch6"] = ppo_run(inp, HybridEngine(ACTOR, mesh),
+                                       inp["prompts6"], 1)
     out["engine"] = engine_run(inp, HybridEngine(ACTOR, mesh))
     out["reward"] = reward_run(inp, mesh)
+    if tp > 1:
+        out["lm"] = lm_run(inp, mesh)
     with open(dst, "wb") as f:
         pickle.dump(out, f)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2], int(sys.argv[3]))
+    main(sys.argv[1], sys.argv[2], *(int(a) for a in sys.argv[3:]))

@@ -1,16 +1,21 @@
-"""One rank of the port's data-parallel checks, on gloo over the CPU.
+"""One rank of the port's data- and tensor-parallel checks, on gloo over
+the CPU.
 
-Launched by ``tests/test_torch_multidevice.py`` and
-``tests/test_torch_hybrid_engine.py`` as::
+Launched by ``tests/test_torch_multidevice.py``,
+``tests/test_torch_hybrid_engine.py`` and
+``tests/test_torch_tensor_parallel.py`` as::
 
     python -m torch.distributed.run --standalone --nproc-per-node N \\
-        tests/_torch_mesh_driver.py --out DIR --cases ppo,lm,...
+        tests/_torch_mesh_driver.py --out DIR --cases ppo,lm,... \\
+        [--mesh DP,TP]
 
 Every rank builds the same weights from fixed seeds, runs the named cases
 on meshes over the first ranks, and rank 0 writes each case's results
-(full tensors, gathered) to ``DIR/<case>.pt``.  The tests hold them to the
-single-rank port and the reference.  Every process group times out after
-60 s, so a failing rank fails the run instead of hanging it.
+(full tensors, gathered) to ``DIR/<case>.pt``.  The ``tp_*`` cases run on
+the ``--mesh`` given (``DP x TP`` over the first ranks).  The tests hold
+them to the single-rank port and the reference.  Every process group
+times out after 60 s, so a failing rank fails the run instead of hanging
+it.
 """
 from __future__ import annotations
 
@@ -160,29 +165,7 @@ def case_ppo(dp: int) -> dict:
 def case_engine(dp: int) -> dict:
     """The engine under the mesh: greedy generate, the dense and the
     paged int8 request paths, a tight paged int8 pool."""
-    mesh = make_mesh(dp, 1)
-    he = HybridEngine(ACTOR, mesh)
-    params = T.init_params(ACTOR, _gen(1))
-    p_infer = he.to_inference(runtime.place_tree(params, he.train_shardings))
-    out = {}
-    e1 = he.generation_engine(device="cpu", **PPO_KW)
-    o = e1.generate(p_infer, torch.as_tensor(PROMPTS), _gen(7))
-    out["generate"] = {k: v.numpy() for k, v in o.items()}
-    out["generate_steps"] = e1.last_stats["decode_steps"]
-    reqs = [Request(uid=i, tokens=PROMPTS[i], max_new_tokens=8)
-            for i in range(len(PROMPTS))]
-    qcfg = ACTOR.replace(kv_quant=True)
-    paged = dict(kv_layout="paged", block_size=4)
-    for name, cfg, kw, skw in (
-            ("dense", ACTOR, {}, dict(slots=2)),
-            ("paged_int8", qcfg, paged, dict(slots=2)),
-            ("paged_int8_tight", qcfg, dict(paged, chunk=2),
-             dict(slots=2, max_seq_len=16, num_blocks=7, watermark=0))):
-        eng = he.generation_engine(cfg=cfg, device="cpu",
-                                   **{**PPO_KW, **kw})
-        comps = eng.serve(p_infer, reqs, _gen(7), **skw)
-        out[name] = {c.uid: (c.tokens, c.finish_reason) for c in comps}
-    return out
+    return engine_paths(make_mesh(dp, 1))
 
 
 # (arch, strategy, micro, steps): "zero3-gather" is zero3 with the
@@ -321,11 +304,12 @@ def case_refusals(world: int) -> dict:
             out[name] = f"{type(e).__name__}: {e}"
 
     mesh = make_mesh(world // 2, 2)                 # model = 2
-    grab("ppo_tp2", lambda: trainer(HybridEngine(ACTOR, mesh)))
-    grab("lm_step_tp2", lambda: make_sharded_lm_step(ACTOR, mesh, "zero3"))
-    grab("generate_tp2", lambda: GenerationEngine(
-        ACTOR, mesh=mesh, device="cpu", **PPO_KW).generate(
-            models()[0], torch.as_tensor(PROMPTS), _gen(0)))
+    grab("mla_tp2", lambda: make_sharded_lm_step(
+        lm_config("deepseek-v2-lite-16b"), mesh, "zero3"))
+    grab("ssm_tp2", lambda: make_sharded_lm_step(
+        lm_config("mamba2-370m"), mesh, "zero3"))
+    grab("xattn_tp2", lambda: make_sharded_lm_step(
+        lm_config("llama-3.2-vision-11b"), mesh, "zero3"))
     dmesh = make_mesh(world, 1)
     grab("core", lambda: GenerationEngine(
         ACTOR, mesh=dmesh, device="cpu", **PPO_KW).core(
@@ -338,22 +322,244 @@ def case_refusals(world: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# tensor-parallel cases, on the ``--mesh dp,tp`` mesh
+# --------------------------------------------------------------------- #
+# (name, arch, config overrides, strategy): the reduced configs, two LM
+# steps each; "mask" trains under a trainable_mask
+TP_LM_CASES = (("qwen3", "qwen3-8b", {}, "zero3"),
+               ("qwen3_tp", "qwen3-8b", {}, "tp"),
+               ("tied", "smollm-135m", {"tie_embeddings": True}, "zero3"),
+               ("vocab511", "smollm-135m", {"vocab_size": 511}, "zero3"),
+               ("remat", "smollm-135m", {"remat": True, "logit_chunk": 8},
+                "zero3"),
+               ("moe", "llama4-scout-17b-a16e", {}, "zero3"),
+               ("mask", "smollm-135m", {}, "zero3"))
+TP_LR = 1e-3
+SAMPLED = dict(max_new_tokens=8, temperature=0.8, eos_id=3)
+
+
+def tp_lm_config(arch: str, over: dict):
+    return lm_config(arch).replace(**over)
+
+
+def tp_lm_batches(cfg, steps: int = 2) -> list:
+    """``steps`` SFT batches of 8 rows of 16 tokens of the blend."""
+    return [{k: torch.as_tensor(v) for k, v in b.items()}
+            for b in tlaunch.lm_data(cfg, 16, 0).sft_batches(8, steps)]
+
+
+def tp_mask(params):
+    """A trainable_mask: the embedding frozen, the first layer's ``wq``
+    trained on its even columns only, the rest trained."""
+    mask = tree_map_like(params, True)
+    mask["embed"] = False
+    wq = params["segments"][0][0]["attn"]["wq"]
+    cols = torch.zeros(wq.shape, dtype=torch.bool)
+    cols[..., ::2] = True
+    mask["segments"][0][0]["attn"]["wq"] = cols
+    return mask
+
+
+def tree_map_like(tree, value):
+    from repro_torch.models.modules import tree_map
+    return tree_map(lambda _: value, tree)
+
+
+def tp_lm_run(cfg, state, step, mask=None) -> dict:
+    """Two LM steps of ``step`` at :data:`TP_LR` on :func:`tp_lm_batches`."""
+    losses, gnorms = [], []
+    for b in tp_lm_batches(cfg):
+        state, m = step(state, b, TP_LR, mask)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    return {"loss": losses, "grad_norm": gnorms,
+            "params": _tree_np(state.params)}
+
+
+def case_tp_lm(dp: int, tp: int) -> dict:
+    """make_sharded_lm_step's layouts (zero3 + ZeRO-1, tp + ZeRO-1) at
+    ``dp x tp`` on the reduced configs of :data:`TP_LM_CASES`."""
+    mesh = make_mesh(dp, tp)
+    if mesh.get_coordinate() is None:
+        return {}
+    out = {}
+    for name, arch, over, strategy in TP_LM_CASES:
+        cfg = tp_lm_config(arch, over)
+        _, sh, shard_batch = make_sharded_lm_step(cfg, mesh, strategy,
+                                                  zero=1)
+        params = T.init_params(cfg, _gen(5))
+        mask = tp_mask(params) if name == "mask" else None
+        state = TrainState.create(params, shardings=sh)
+        out[name] = tp_lm_run(cfg, state, lambda s, b, lr, m: lm_train_step(
+            cfg, s, shard_batch(b), lr, trainable_mask=m), mask)
+    return out
+
+
+def case_tp_ppo(dp: int, tp: int) -> dict:
+    """PPO through the Hybrid Engine (zero3, and tp + ZeRO-1) at
+    ``dp x tp``, two steps."""
+    mesh = make_mesh(dp, tp)
+    if mesh.get_coordinate() is None:
+        return {}
+    return {strategy: ppo_run(trainer(HybridEngine(
+        ACTOR, mesh, train_strategy=strategy, zero=1)), PROMPTS)
+        for strategy in ("zero3", "tp")}
+
+
+def case_tp_engine(dp: int, tp: int) -> dict:
+    """The engine's four paths at ``dp x tp`` (:func:`case_engine`'s), a
+    sampled generate whose every rank's tokens come back (the ranks of a
+    model group must agree), and the rank's KV arena."""
+    mesh = make_mesh(dp, tp)
+    if mesh.get_coordinate() is None:
+        return {}
+    out = engine_paths(mesh)
+    he = HybridEngine(ACTOR, mesh)
+    params = T.init_params(ACTOR, _gen(1))
+    p_infer = he.to_inference(runtime.place_tree(params, he.train_shardings))
+    eng = he.generation_engine(device="cpu", **SAMPLED)
+    seqs = eng.generate(p_infer, torch.as_tensor(PROMPTS), _gen(11))
+    got = [None] * dist.get_world_size()      # a launch of dp * tp ranks
+    dist.all_gather_object(got, seqs["sequences"].numpy())
+    out["sampled"] = got
+    view, _ = eng._view(p_infer)
+    lc = T.local_cfg(ACTOR, view)
+    out["kv_arena"] = {k: tuple(v[0]) for k, v in T.cache_struct(
+        lc, 2, 16)[0][0].items()}
+    return out
+
+
+def engine_paths(mesh) -> dict:
+    """Greedy generate, the dense and the paged int8 request paths and a
+    tight paged int8 pool, through the Hybrid Engine on ``mesh``."""
+    he = HybridEngine(ACTOR, mesh)
+    params = T.init_params(ACTOR, _gen(1))
+    p_infer = he.to_inference(runtime.place_tree(params, he.train_shardings))
+    out = {}
+    e1 = he.generation_engine(device="cpu", **PPO_KW)
+    o = e1.generate(p_infer, torch.as_tensor(PROMPTS), _gen(7))
+    out["generate"] = {k: v.numpy() for k, v in o.items()}
+    out["generate_steps"] = e1.last_stats["decode_steps"]
+    reqs = [Request(uid=i, tokens=PROMPTS[i], max_new_tokens=8)
+            for i in range(len(PROMPTS))]
+    qcfg = ACTOR.replace(kv_quant=True)
+    paged = dict(kv_layout="paged", block_size=4)
+    for name, cfg, kw, skw in (
+            ("dense", ACTOR, {}, dict(slots=2)),
+            ("paged_int8", qcfg, paged, dict(slots=2)),
+            ("paged_int8_tight", qcfg, dict(paged, chunk=2),
+             dict(slots=2, max_seq_len=16, num_blocks=7, watermark=0))):
+        eng = he.generation_engine(cfg=cfg, device="cpu",
+                                   **{**PPO_KW, **kw})
+        comps = eng.serve(p_infer, reqs, _gen(7), **skw)
+        out[name] = {c.uid: (c.tokens, c.finish_reason) for c in comps}
+    return out
+
+
+def case_tp_reward(dp: int, tp: int) -> dict:
+    mesh = make_mesh(dp, tp)
+    if mesh.get_coordinate() is None:
+        return {}
+    return reward_run(mesh)
+
+
+def case_tp_layout(dp: int, tp: int) -> dict:
+    """This rank's bytes at rest (the train state's params in the ``tp``
+    and ``zero3`` layouts) and while computing (the compute view), and the
+    gathers over ``model`` that taking the view makes."""
+    from torch.distributed.tensor import Replicate
+    mesh = make_mesh(dp, tp)
+    if mesh.get_coordinate() is None:
+        return {}
+    from repro_torch.training.steps import mesh_view
+    out = {}
+    gathers = []
+    real = runtime.redistribute
+    mi = mesh.mesh_dim_names.index("model")
+
+    def spy(x, placements):
+        if (x.placements[mi].is_shard() and mesh.size(mi) > 1
+                and isinstance(placements[mi], Replicate)):
+            gathers.append(tuple(x.shape))
+        return real(x, placements)
+    for strategy in ("tp", "zero3"):
+        he = HybridEngine(ACTOR, mesh, train_strategy=strategy, zero=1)
+        st = TrainState.create(models()[0],
+                               shardings=he.train_state_shardings())
+        runtime.redistribute = spy
+        try:
+            del gathers[:]
+            view, _, _ = mesh_view(ACTOR, st.params)
+        finally:
+            runtime.redistribute = real
+        out[strategy] = {
+            "rest_bytes": runtime.local_bytes(st.params),
+            "view_bytes": runtime.local_bytes(view),
+            "model_gathers": list(gathers),
+            "params": [tuple(runtime.local(t).shape)
+                       for t in tree_leaves(st.params)],
+            "m": [tuple(runtime.local(t).shape)
+                  for t in tree_leaves(st.opt.m)]}
+    return out
+
+
+def case_tp_refusals(dp: int, tp: int) -> dict:
+    """What ``model > 1`` still refuses, as the exception each raises."""
+    mesh = make_mesh(dp, tp)
+    if mesh.get_coordinate() is None:
+        return {}
+    out = {}
+
+    def grab(name, fn):
+        try:
+            fn()
+            out[name] = None
+        except Exception as e:                      # noqa: BLE001
+            out[name] = f"{type(e).__name__}: {e}"
+    for arch in ("deepseek-v2-lite-16b", "mamba2-370m",
+                 "llama-3.2-vision-11b", "zamba2-1.2b"):
+        grab(arch, lambda: make_sharded_lm_step(lm_config(arch), mesh,
+                                                "zero3"))
+    odd = ACTOR.replace(n_heads=6, n_kv_heads=3, d_model=96)
+    grab("heads_6_kv_3", lambda: make_sharded_lm_step(odd, mesh, "zero3"))
+    grab("engine_mla", lambda: GenerationEngine(
+        lm_config("deepseek-v2-lite-16b"), mesh=mesh, device="cpu",
+        **PPO_KW).generate(T.init_params(lm_config("deepseek-v2-lite-16b"),
+                                         _gen(0)),
+                           torch.as_tensor(PROMPTS), _gen(0)))
+    if dp > 1:          # an MoE decode over the data rank's rows only
+        moe = lm_config("llama4-scout-17b-a16e")
+        grab("engine_moe_rows", lambda: GenerationEngine(
+            moe, mesh=mesh, device="cpu", **PPO_KW).generate(
+                T.init_params(moe, _gen(0)), torch.as_tensor(PROMPTS),
+                _gen(0)))
+    return out
+
+
 CASES = {"reshard": case_reshard, "ppo": case_ppo, "engine": case_engine,
          "lm": case_lm, "embeds": case_embeds, "reward": case_reward,
          "refusals": case_refusals}
+TP_CASES = {"tp_lm": case_tp_lm, "tp_ppo": case_tp_ppo,
+            "tp_engine": case_tp_engine, "tp_reward": case_tp_reward,
+            "tp_layout": case_tp_layout, "tp_refusals": case_tp_refusals}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", required=True)
     ap.add_argument("--cases", required=True)
+    ap.add_argument("--mesh", default="1,1",
+                    help="dp,tp of the tp_* cases")
     args = ap.parse_args()
+    dp, tp = (int(x) for x in args.mesh.split(","))
     torch.set_num_threads(1)
     init_distributed("cpu", timeout_s=60.0)
     rank, world = dist.get_rank(), dist.get_world_size()
     try:
         for name in args.cases.split(","):
-            res = CASES[name](world)
+            res = (TP_CASES[name](dp, tp) if name in TP_CASES
+                   else CASES[name](world))
             if rank == 0:
                 torch.save(res, os.path.join(args.out, f"{name}.pt"))
     except Exception:                                # noqa: BLE001

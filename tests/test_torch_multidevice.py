@@ -32,7 +32,8 @@ leaf's max; everywhere within one Adam step, ``2.5 * lr``).
   ``lm_train_step`` on one rank.
 - The reward step (pairwise loss and accuracy over the global batch).
 - The train state's local shard shapes against the pspecs.
-- The refusals: model > 1 compute, ``core()`` on a mesh, ``rollout_mesh``,
+- The refusals: MLA, SSM and cross-attention layers on model > 1,
+  ``core()`` on a mesh, ``rollout_mesh``,
   ``--mesh`` with ``--ckpt-dir``; and ``torchrun ... launch.train --mesh
   2,1 --strategy zero3`` (SFT and ``--rlhf``) exits 0.
 """
@@ -354,7 +355,7 @@ def test_train_state_local_shapes_follow_the_pspecs(runs, dp, strategy):
         assert shapes["params"] == full and shapes["m"] != full
 
 
-@pytest.mark.parametrize("what", ["ppo_tp2", "lm_step_tp2", "generate_tp2",
+@pytest.mark.parametrize("what", ["mla_tp2", "ssm_tp2", "xattn_tp2",
                                   "core", "rollout_mesh"])
 def test_mesh_refusals(runs, what):
     msg = runs[4]["refusals"][what]

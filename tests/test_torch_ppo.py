@@ -570,15 +570,17 @@ def test_state_tree_round_trip():
 # refusals
 # --------------------------------------------------------------------- #
 class _TPMesh:
-    """A mesh shape with a model axis: tensor-parallel compute."""
-    shape = {"data": 1, "model": 2}
+    """A mesh shape with a model axis of 3, which does not divide the
+    reduced configs' 4 heads: a split that is not whole heads."""
+    shape = {"data": 1, "model": 3}
     axis_names = ("data", "model")
 
 
 @pytest.mark.parametrize("what", ["engine", "rollout_mesh"])
 def test_trainer_refuses_what_is_not_ported(what):
     """The rollout mesh (disaggregated generation) and an engine whose
-    mesh has a model axis (tensor-parallel compute) are not yet ported."""
+    mesh's model axis does not divide the heads (tensor-parallel compute
+    on partial heads) are not yet ported."""
     ajcfg, atcfg, cjcfg, ctcfg = _configs()
     jm = _models(ajcfg, cjcfg, seed=13)
     arg = (types.SimpleNamespace(mesh=_TPMesh()) if what == "engine"

@@ -482,9 +482,9 @@ def test_admission_prefills_at_the_exact_length(served, monkeypatch):
     seen = []
     orig = eng._prefill_row
 
-    def spy(params, tokens, length, row, positions=None):
+    def spy(params, tokens, length, row, positions=None, **kw):
         seen.append((tokens.shape[1], length))
-        return orig(params, tokens, length, row, positions)
+        return orig(params, tokens, length, row, positions, **kw)
 
     monkeypatch.setattr(eng, "_prefill_row", spy)
     eng.serve(tparams, reqs, torch.Generator(), slots=2)

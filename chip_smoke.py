@@ -292,6 +292,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -2789,87 +2790,258 @@ TP_DECODE128 = ((4, 4, "qwen3-8b rank of tp 2"), (2, 4, "qwen3-8b rank of "
                                                         "tp 4"))
 
 
+# MLA at deepseek-v2-lite: 8 and 4 of its 16 heads at D 192 (V padded from
+# 128); cross-attention at llama-3.2-vision: 16 / 4 and 8 / 2 of its 32 / 8
+# heads over the 1,601 encoder keys
+TP_FLASH192 = (("deepseek rank of tp 2 sft", 8, 8, 1, 512, 512, True, True),
+               ("deepseek rank of tp 4 sft", 8, 4, 1, 512, 512, True, True))
+TP_CROSS = (("vision rank of tp 2 decode", 4, 4, 4, 1, 1601, False, False),
+            ("vision rank of tp 2 sft", 8, 4, 4, 512, 1601, False, True),
+            ("vision rank of tp 4 decode", 4, 2, 4, 1, 1601, False, False),
+            ("vision rank of tp 4 sft", 8, 2, 4, 512, 1601, False, True))
+# the SSD pass at one rank's Mamba2 heads: (label, b, nc, q, h, p, n)
+TP_SSD = (("mamba2-370m rank of tp 2 admission", 1, 1, 256, 16, 64, 128),
+          ("mamba2-370m rank of tp 4 admission", 1, 1, 256, 8, 64, 128),
+          ("mamba2-370m rank of tp 2 sft", 8, 2, 256, 16, 64, 128),
+          ("mamba2-370m rank of tp 4 sft", 8, 2, 256, 8, 64, 128),
+          ("zamba2-1.2b rank of tp 2 admission", 1, 1, 256, 32, 64, 64),
+          ("zamba2-1.2b rank of tp 4 admission", 1, 1, 256, 16, 64, 64))
+
+
 def _tp_kernel_rows(state, failures):
-    """Kernel rows 2-7 at the head counts one rank of a 2- and a 4-way
+    """Kernel rows 2-8 at the head counts one rank of a 2- and a 4-way
     ``model`` axis launches them at (OPT-1.3B: 16 and 8 of its 32 heads at
-    D 64; qwen3-8b: 16 / 4 and 8 / 2 of its 32 / 8 at D 128), against
-    their plain versions at the script's tolerances, timed as phase
-    ``gqa128``'s rows are (under ``tp`` in the ``kernels`` line)."""
+    D 64; qwen3-8b: 16 / 4 and 8 / 2 of its 32 / 8 at D 128; MLA and
+    cross-attention: :data:`TP_FLASH192`, :data:`TP_CROSS`; the SSD pass:
+    :data:`TP_SSD`), against their plain versions at the script's
+    tolerances, timed as phase ``gqa128``'s rows are (under ``tp`` in the
+    ``kernels`` line)."""
     _flash_rows(state, failures, "tp", "hybrid", 64, TP_FLASH64, seed=261)
     _flash_rows(state, failures, "tp", "hybrid", 128, TP_FLASH128, seed=262)
     _decode_rows(state, failures, 64, TP_DECODE64, key="tp", tag="hybrid",
                  seed=263)
     _decode_rows(state, failures, 128, TP_DECODE128, key="tp", tag="hybrid",
                  seed=264)
+    _flash_rows(state, failures, "tp", "hybrid", 192, TP_FLASH192, seed=265,
+                pad_v=128)
+    _flash_rows(state, failures, "tp", "hybrid", 128, TP_CROSS, seed=266)
+    _tp_ssd_rows(state, failures)
+
+
+def _tp_ssd_rows(state, failures):
+    """``ssd_intra_fwd`` at :data:`TP_SSD` against its plain version: fp32
+    (TF32 off) checked, bf16 checked and timed warm and cold beside the
+    bound and the plain time (no single library call computes it)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_intra_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(267)
+    rel = lambda a, b: float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max().clamp(min=1e-30))
+    for label, b, nc, q, h, p, n in TP_SSD:
+        shape = f"{label} b={b} nc={nc} q={q} h={h} p={p} n={n}"
+        for dname, dtype in (("fp32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            args = _ssd_inputs(gen, b, nc, q, h, p, n, dtype)
+            y, s_c, acs = ssd_intra_fwd(*args)
+            torch.cuda.synchronize()
+            yr, sr, _, ar = ref.ssd_intra_ref(*args)
+            ey, es, ea = rel(y, yr), rel(s_c, sr), rel(acs, ar)
+            if es > 1e-4 or ea > 1e-5:
+                failures.append(f"ssd_intra_fwd {shape} {dname}: S_c "
+                                f"{es:.3g}, A_cs {ea:.3g}")
+            extra = {"s_err": es, "acs_err": ea}
+            tol = 1e-4 if dname == "fp32" else 2e-2
+            if dname == "fp32":
+                _row128(state, failures, "ssd_intra_fwd", shape, dname, ey,
+                        tol, extra=extra, key="tp", tag="hybrid")
+                continue
+            esize = args[0].element_size()
+            copies = [_ssd_inputs(gen, b, nc, q, h, p, n, dtype)
+                      for _ in range(cold_copies(ssd_bytes(
+                          b, nc, q, h, p, n, esize)))]
+            cold = time_ms_cold([lambda c=c: ssd_intra_fwd(*c)
+                                 for c in copies])
+            del copies
+            _row128(state, failures, "ssd_intra_fwd", shape, dname, ey, tol,
+                    time_ms(lambda: ssd_intra_fwd(*args)),
+                    time_ms(lambda: ref.ssd_intra_ref(*args), inner=5,
+                            repeats=5), None,
+                    ssd_bound(b, nc, q, h, p, n, esize, dname),
+                    cold_ms=cold, extra=extra, key="tp", tag="hybrid")
+        torch.cuda.empty_cache()
 
 
 def _hybrid_torchrun(state, failures):
-    """The launcher under ``torchrun`` on a 1 x 1 mesh, in the ``zero3``
-    and the ``tp`` layouts (the tensor-parallel path on a one-rank model
-    group): each exits 0 with a falling loss, and their losses agree."""
+    """The launcher under ``torchrun`` on a 1 x 1 mesh in the ``tp``
+    layout (the tensor-parallel path on a one-rank model group): it exits
+    0 with a falling loss, and its losses agree with the plain launcher's
+    run in this process.  (Its ``zero3`` twin went to make room for the
+    other layer kinds' rows and gates: ``_hybrid_sft`` holds the zero3
+    mesh step to the plain one bit for bit.)"""
     import os
     import re
 
     import torch
+    from repro_torch.launch import train as launch_train
     torch.cuda.empty_cache()
-    runs = {}
-    for strategy in ("zero3", "tp"):
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
-               "--arch", "opt-125m", "--mesh", "1,1", "--strategy",
-               strategy, "--zero", "1", "--steps", "5", "--batch", "8",
-               "--seq", "512"]
-        log(f"[hybrid] {' '.join(cmd[1:])}")
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=300, cwd=ROOT, env=dict(
-                                 os.environ, PYTHONPATH=str(ROOT / "src")))
-        wall = time.perf_counter() - t0
-        losses = [float(x) for x in re.findall(
-            r"^step +\d+ +loss=([\d.]+)", res.stdout, flags=re.M)]
-        log(f"[hybrid] torchrun --strategy {strategy} exit {res.returncode} "
-            f"in {wall:.1f}s; losses {losses}; "
-            + " | ".join(res.stdout.strip().splitlines()[-2:]))
-        runs[strategy] = {"rc": res.returncode, "losses": losses,
-                          "seconds": wall}
-        if (res.returncode != 0 or len(losses) < 2
-                or not losses[-1] < losses[0]):
-            failures.append(f"torchrun launcher --strategy {strategy}: rc "
-                            f"{res.returncode}, losses {losses}: "
-                            f"{res.stderr[-2000:]}")
-    state["hybrid"]["torchrun"] = runs
-    a, b = runs["zero3"]["losses"], runs["tp"]["losses"]
-    if len(a) != len(b) or any(abs(x - y) > 1e-4 * abs(x)
-                               for x, y in zip(a, b)):
-        failures.append(f"torchrun losses zero3 {a} and tp {b} differ")
+    argv = ["--arch", "opt-125m", "--steps", "5", "--batch", "8", "--seq",
+            "512"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+           *argv, "--mesh", "1,1", "--strategy", "tp", "--zero", "1"]
+    log(f"[hybrid] {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         cwd=ROOT, env=dict(os.environ,
+                                            PYTHONPATH=str(ROOT / "src")))
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in re.findall(
+        r"^step +\d+ +loss=([\d.]+)", res.stdout, flags=re.M)]
+    log(f"[hybrid] torchrun --strategy tp exit {res.returncode} in "
+        f"{wall:.1f}s; losses {losses}; "
+        + " | ".join(res.stdout.strip().splitlines()[-2:]))
+    if res.returncode != 0 or len(losses) < 2 or not losses[-1] < losses[0]:
+        failures.append(f"torchrun launcher --strategy tp: rc "
+                        f"{res.returncode}, losses {losses}: "
+                        f"{res.stderr[-2000:]}")
+    out = launch_train.main(argv)
+    plain = [float(f"{x:.4f}") for x in out["loss"]]
+    _free(out)
+    log(f"[hybrid] the plain launcher in this process: losses {plain}")
+    state["hybrid"]["torchrun"] = {"tp": {"rc": res.returncode,
+                                          "losses": losses, "seconds": wall},
+                                   "plain_losses": plain}
+    if len(losses) != len(plain) or any(abs(x - y) > 1e-4 * abs(x)
+                                        for x, y in zip(plain, losses)):
+        failures.append(f"torchrun tp losses {losses} and the plain "
+                        f"launcher's {plain} differ")
 
 
-def phase_hybrid(state):
+@contextlib.contextmanager
+def one_rank_mesh(tag: str):
+    """A one-rank NCCL group (from a FileStore) and its 1 x 1 ``data x
+    model`` mesh, destroyed on exit: the mesh path at one rank."""
     import shutil
     import tempfile
 
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_distributed, mesh_from_spec
 
-    tmp = tempfile.mkdtemp(prefix="hybrid_pg_")
+    tmp = tempfile.mkdtemp(prefix="one_rank_pg_")
     init_distributed("cuda", init_method=f"file://{tmp}/store", rank=0,
                      world_size=1)
-    failures = []
     try:
         mesh = mesh_from_spec("1,1")
-        log(f"[hybrid] one-rank NCCL group ({dist.get_backend()}), mesh "
+        log(f"[{tag}] one-rank NCCL group ({dist.get_backend()}), mesh "
             f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_hybrid(state):
+    failures = []
+    with one_rank_mesh("hybrid") as mesh:
         _hybrid_reshard(state, failures, mesh)
         _hybrid_sft(state, failures, mesh)
         _hybrid_ppo(state, failures, mesh)
         _hybrid_ppo_steps(state, failures, mesh)
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(tmp, ignore_errors=True)
     _hybrid_torchrun(state, failures)
     _tp_kernel_rows(state, failures)
     if failures:
         raise AssertionError("hybrid: " + "; ".join(failures))
+
+
+def mesh_identity(tag, cfg, batch, prompts, n_new, must, state, failures,
+                  encoder_embeds=None):
+    """The tensor-parallel path at 1 x 1 (a one-rank NCCL group) against
+    the plain path at ``cfg``, bf16 on fp32 masters: one SFT step of
+    ``make_sharded_lm_step(cfg, mesh, "tp", zero=1)`` beside
+    ``lm_train_step`` from the same params (loss, grad norm and updated
+    params bit for bit; the mesh step must launch ``must``, counts set to
+    0 just before it and read just after), and one greedy
+    ``GenerationEngine(mesh=).generate`` of ``prompts`` beside the plain
+    engine's (tokens identical)."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.sharding import runtime
+    from repro_torch.training.steps import lm_train_step, make_sharded_lm_step
+    from repro_torch.training.train_state import TrainState
+
+    def params():
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        p = T.init_params(cfg, gen)
+        if cfg.arch_type == "vlm":
+            _set_gates(p, gen)
+        return p
+    out = {}
+    with one_rank_mesh(tag) as mesh:
+        for path in ("plain", "mesh"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            if path == "plain":
+                st = TrainState.create(params())
+                step = lambda s: lm_train_step(cfg, s, batch, 1e-4)
+            else:
+                fn, sh, shard = make_sharded_lm_step(cfg, mesh, "tp", zero=1)
+                st = TrainState.create(params(), shardings=sh)
+                step = lambda s: fn(s, shard(batch), 1e-4)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            st, m = step(st)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = ops.launch_counts()
+            if path == "plain":
+                keep = [p.clone() for p in tree_leaves(st.params)]
+            else:
+                _launched(f"{tag}_mesh_sft", counts, must, state, failures)
+                same = all(torch.equal(runtime.full(p), q) for p, q in
+                           zip(tree_leaves(st.params), keep, strict=True))
+            out[path] = {"loss": loss, "grad_norm": gnorm, "step_ms": ms}
+            del st
+        del keep
+        sft_ok = (same and out["plain"]["loss"] == out["mesh"]["loss"]
+                  and out["plain"]["grad_norm"] == out["mesh"]["grad_norm"])
+        log(f"[{tag}] SFT step of {tuple(batch['labels'].shape)} on the mesh "
+            f"path at 1 x 1 == plain path bit for bit (loss, grad norm, "
+            f"params): {sft_ok}; {out}")
+        if not sft_ok:
+            failures.append(f"{tag}: the mesh SFT step at one rank differs "
+                            f"from the plain step: {out}, params equal "
+                            f"{same}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        p = T.cast_params(cfg, params())
+        seqs = {}
+        for path, m in (("plain", None), ("mesh", mesh)):
+            eng = GenerationEngine(cfg, mesh=m, max_new_tokens=n_new,
+                                   temperature=0.0, device="cuda")
+            ops.reset_launch_counts()
+            seqs[path] = eng.generate(
+                p, prompts, torch.Generator(device="cuda").manual_seed(7),
+                encoder_embeds=encoder_embeds)["sequences"]
+            if m is not None:
+                _launched(f"{tag}_mesh_generate", ops.launch_counts(),
+                          ("rmsnorm",), state, failures)
+        del p
+        gen_ok = torch.equal(seqs["plain"], seqs["mesh"])
+        log(f"[{tag}] greedy generate of {tuple(prompts.shape)} + {n_new} on "
+            f"the mesh path at 1 x 1 == plain engine's tokens: {gen_ok}")
+        if not gen_ok:
+            failures.append(f"{tag}: mesh generate at one rank differs from "
+                            "the plain engine's")
+    state.setdefault("mesh_identity", {})[tag] = {**out, "sft_equal": sft_ok,
+                                                  "generate_equal": gen_ok}
 
 
 # --------------------------------------------------------------------- #
@@ -2884,9 +3056,14 @@ def ssd_bound(b, nc, q, h, p, n, esize, kind="fp32"):
     read once and each output written once."""
     P = q * (q + 1) // 2
     flop = b * nc * (2 * n * P + h * (2 * p * P + 2 * q * p * n))
-    nbytes = (b * nc * (2 * q * h * p * esize + q * h * 4 + 2 * q * n * esize
-                        + h * p * n * 4 + h * q * 4) + h * 4)
-    return bound(nbytes, flop, kind)
+    return bound(ssd_bytes(b, nc, q, h, p, n, esize), flop, kind)
+
+
+def ssd_bytes(b, nc, q, h, p, n, esize) -> int:
+    """Bytes of one SSD intra-chunk pass: X, dt, B, C read, Y, S_c and
+    A_cs written, A read, each once."""
+    return (b * nc * (2 * q * h * p * esize + q * h * 4 + 2 * q * n * esize
+                      + h * p * n * 4 + h * q * 4) + h * 4)
 
 
 def _ssd_inputs(gen, b, nc, q, h, p, n, dtype, dt_scale=1.0):
@@ -3741,6 +3918,38 @@ def _zamba2_int8(state, failures):
     torch.cuda.empty_cache()
 
 
+def _gate_inputs(cfg, B: int, L: int, n_prompt: int, seed: int):
+    """An SFT batch of ``B`` x ``L`` tokens of the blend on the card and
+    ``B`` random prompts of ``n_prompt`` tokens (with encoder embeddings
+    for a VLM, the same for both)."""
+    import torch
+    from repro_torch.launch.train import lm_data, to_device
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batch = to_device(next(iter(lm_data(cfg, L, 0).sft_batches(B, 1))),
+                      "cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (B, n_prompt), generator=gen,
+                            device="cuda")
+    enc = None
+    if cfg.arch_type == "vlm":
+        enc = torch.randn((B, cfg.encoder_len, cfg.encoder_dim),
+                          generator=gen, device="cuda")
+        batch["encoder_embeds"] = enc
+    return batch, prompts, enc
+
+
+def _ssm_mesh_identity(state, failures):
+    """The tensor-parallel path at 1 x 1 against the plain path at
+    Mamba2-370M and Zamba2-1.2B, full size (:func:`mesh_identity`: one SFT
+    step of 4 x 512, bit for bit; a greedy generate of 4 x 64 + 16
+    tokens, token-identical)."""
+    from repro_torch.configs import get_config
+    for arch in ("mamba2-370m", "zamba2-1.2b"):
+        cfg = get_config(arch)
+        batch, prompts, _ = _gate_inputs(cfg, 4, 512, 64, seed=31)
+        mesh_identity(f"ssm_train_{arch}", cfg, batch, prompts, 16,
+                      SSM_TRAIN_KERNELS[arch], state, failures)
+
+
 def phase_ssm_train(state):
     """The SSM / hybrid training slice: the explicit SSD backward against
     autograd of the plain forward at the SFT shapes, timed beside the
@@ -3758,6 +3967,7 @@ def phase_ssm_train(state):
     _rmsnorm_bwd_rows(state, failures)
     _ssm_train_parity(failures)
     _ssm_sft(state, failures)
+    _ssm_mesh_identity(state, failures)
     _ssm_rlhf(state, failures)
     _zamba2_int8(state, failures)
     if failures:
@@ -5264,6 +5474,18 @@ def _mla_train(state, failures):
     _free(out)
 
 
+def _mla_mesh_identity(state, failures):
+    """The tensor-parallel path at 1 x 1 against the plain path at
+    deepseek-v2-lite, full width cut to ``MLA_TRAIN_LAYERS`` layers
+    (:func:`mesh_identity`: one SFT step of 4 x 512, a greedy generate of
+    4 x 64 + 16 tokens)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MLA_ARCH).replace(n_layers=MLA_TRAIN_LAYERS)
+    batch, prompts, _ = _gate_inputs(cfg, 4, 512, 64, seed=32)
+    mesh_identity("mla", cfg, batch, prompts, 16, TRAIN_KERNELS, state,
+                  failures)
+
+
 def _mla_rows(state, failures):
     """The flash kernels at MLA's head dim 192 (H = KV = 16, V padded from
     128): prefill B 1, L 256; SFT B 8, L 512 with the LSE, and the
@@ -5285,7 +5507,8 @@ def phase_mla(state):
     log(f"[mla] ptxas of the bf16 flash kernels at D = 192 (phase build): "
         + "; ".join(f"{fn}: {r} registers, {sp} bytes spilled"
                     for fn, (r, sp) in ptx.items()))
-    for part in (_mla_rows, _mla_parity, _mla_serve, _mla_train):
+    for part in (_mla_rows, _mla_parity, _mla_serve, _mla_train,
+                 _mla_mesh_identity):
         t0 = time.perf_counter()
         part(state, failures)
         gc.collect()          # engines and cores refer to each other
@@ -5473,6 +5696,20 @@ def _vlm_train(state, failures):
     _embed_sft("train_vision", cfg, 3, batch, state, failures)
 
 
+def _vlm_mesh_identity(state, failures):
+    """The tensor-parallel path at 1 x 1 against the plain path at
+    llama-3.2-vision, full width cut to one unit (4 self- and 1
+    cross-attention layer; :func:`mesh_identity`: one SFT step of 4 x 512
+    and a greedy generate of 4 x 64 + 16 tokens, each row with 1,601 x
+    1,280 encoder embeddings)."""
+    from repro_torch.configs import get_config
+    full = get_config(VLM_ARCH)
+    cfg = full.replace(n_layers=full.cross_attn_every)
+    batch, prompts, enc = _gate_inputs(cfg, 4, 512, 64, seed=33)
+    mesh_identity("xattn", cfg, batch, prompts, 16, TRAIN_KERNELS, state,
+                  failures, encoder_embeds=enc)
+
+
 def _audio(state, failures):
     """musicgen-medium at full size (48 layers, no embedding table): fp32
     (TF32 off) teacher-forced prefill of 256 frame embeddings and 32 decode
@@ -5537,7 +5774,8 @@ def phase_xattn(state):
 
     import torch
     failures = []
-    for part in (_xattn_rows, _vlm_generate, _vlm_train, _audio):
+    for part in (_xattn_rows, _vlm_generate, _vlm_train, _vlm_mesh_identity,
+                 _audio):
         t0 = time.perf_counter()
         part(state, failures)
         gc.collect()

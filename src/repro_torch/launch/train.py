@@ -75,12 +75,13 @@ experts over ``model``; ``tp``: those over ``model`` only;
 ``ddp``/``zero1``: replicated) and ``--zero 1`` shards the Adam moments
 over ``data``; the state is committed to that layout at creation, and the
 compute over ``model`` is tensor-parallel.  Under ``--rlhf`` the mesh goes
-to the Hybrid Engine (stage 3).  Rank 0 prints.  MLA, cross-attention and
-SSM layers on ``tp`` > 1, ``--mesh`` with ``--ckpt-dir`` / ``--resume``
-(sharded checkpoints), ``--async-rlhf`` on a mesh of more than one rank
-and the disaggregated meshes (``--rollout-mesh``, ``--train-mesh``) are
-not ported yet and are refused; ``--mesh`` with ``--lora`` is refused as
-in the reference.
+to the Hybrid Engine (stage 3).  Rank 0 prints.  Every layer kind trains
+on ``tp`` > 1 (attention whose heads ``tp`` does not split whole is
+computed whole on every rank).  ``--mesh`` with ``--ckpt-dir`` /
+``--resume`` (sharded checkpoints), ``--async-rlhf`` on a mesh of more
+than one rank and the disaggregated meshes (``--rollout-mesh``,
+``--train-mesh``) are not ported yet and are refused; ``--mesh`` with
+``--lora`` is refused as in the reference.
 
 Runs on CUDA; ``--device cpu`` runs on the CPU with the kernels' plain
 versions.

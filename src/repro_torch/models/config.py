@@ -177,6 +177,26 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """One rank's share of a config under tensor parallelism, for the
+    shapes of its cache: ``n_heads`` / ``n_kv_heads`` are the rank's, and
+    ``ssm_parts`` divides the Mamba2 mixer's inner width and heads (the
+    reference's fields stay as they are)."""
+    ssm_parts: int = 1
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model // self.ssm_parts
+
+
+def rank_config(cfg: ModelConfig, ssm_parts: int = 1, **kw) -> RankConfig:
+    """``cfg`` as a :class:`RankConfig` with ``kw`` replaced."""
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(ModelConfig)}
+    return RankConfig(**{**fields, **kw}, ssm_parts=ssm_parts)
+
+
+@dataclass(frozen=True)
 class InputShape:
     """One of the assigned benchmark input shapes."""
     name: str

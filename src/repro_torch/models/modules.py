@@ -575,9 +575,10 @@ def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
     split = H != cfg.n_heads
     if split:
         x = copy_to_model(x, tp)
-    q = (x @ p["wq"]).reshape(B, -1, H, hd)
-    k = (x @ p["wk"]).reshape(B, -1, KV, hd)
-    v = (x @ p["wv"]).reshape(B, -1, KV, hd)
+    L = x.shape[1]
+    q = (x @ p["wq"]).reshape(B, L, H, hd)
+    k = (x @ p["wk"]).reshape(B, L, KV, hd)
+    v = (x @ p["wv"]).reshape(B, L, KV, hd)
     if cfg.qk_norm:
         # replicated weights read by the rank's heads only: their grads
         # are summed over model
@@ -698,7 +699,7 @@ def attn_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
                     cache[name].copy_(torch.roll(r[:, -S:], shifts=-roll,
                                                  dims=1))
             new_cache = {name: cache[name] for name in rows}
-    out = o.reshape(B, -1, H * hd) @ p["wo"]
+    out = o.reshape(B, o.shape[1], H * hd) @ p["wo"]
     if split:                                   # wo is row-parallel
         out = reduce_from_model(out, tp)
     return out, new_cache
@@ -746,25 +747,29 @@ def mla_cache_shape(cfg: ModelConfig, batch: int, max_len: int):
                 krope=(batch, max_len, cfg.qk_rope_head_dim))
 
 
-def _mla_qkv(cfg, p, x, positions, rope=None):
+def _mla_qkv(cfg, p, x, positions, rope=None, H=None, w_dkv=None,
+             kv_norm=None):
     """(q_nope (B,L,H,dn), q_rope (B,L,H,dr), ckv (B,L,r), krope (B,L,dr));
     ``kv_norm`` runs plain, as in the reference (R3).  ``rope`` is
-    :func:`rope_cos_sin` of ``positions`` over ``dr``."""
+    :func:`rope_cos_sin` of ``positions`` over ``dr``; ``H`` the heads
+    ``wq`` holds, ``w_dkv`` / ``kv_norm`` the latent weights to read in
+    place of ``p``'s."""
     B, L, _ = x.shape
-    H = cfg.n_heads
+    H = H or cfg.n_heads
     dn, dr, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
     rope = rope or rope_cos_sin(positions, dr, cfg.rope_theta)
     q = (x @ p["wq"]).reshape(B, L, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta, rope)
-    dkv = x @ p["w_dkv"]                                    # (B,L,r+dr)
-    ckv = rmsnorm(dkv[..., :r], p["kv_norm"], cfg.rms_eps)
+    dkv = x @ (p["w_dkv"] if w_dkv is None else w_dkv)      # (B,L,r+dr)
+    ckv = rmsnorm(dkv[..., :r], p["kv_norm"] if kv_norm is None else kv_norm,
+                  cfg.rms_eps)
     krope = apply_rope(dkv[..., r:], positions, cfg.rope_theta, rope)
     return q_nope, q_rope, ckv, krope
 
 
 def mla_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
-              window=None, block_tables=None, rope=None):
+              window=None, block_tables=None, rope=None, tp=None):
     """MLA.  'full' / 'prefill': the latents expand to K (nope part from
     ``w_uk``, the rotated ``krope`` shared by every head) and V (``w_uv``),
     V is zero-padded from ``dv`` to the query/key width ``dn + dr`` so
@@ -776,14 +781,28 @@ def mla_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
     scores taken against the cached ``ckv`` and ``krope`` (written in place
     at ``pos % S``), ``w_uv`` applied to the attended latents; per token
     O(S (r + dr)) instead of O(S H (dn + dr)).  The absorbed scores round
-    otherwise than the expanded ones (ROADMAP Queue 3, R16)."""
+    otherwise than the expanded ones (ROADMAP Queue 3, R16).
+
+    Under tensor parallelism (``tp``, ``p`` a rank's compute view) ``wq``,
+    ``w_uk``, ``w_uv`` and ``wo`` hold the rank's ``H / tp`` heads, and
+    the latent weights ``w_dkv`` and ``kv_norm`` are whole: they enter the
+    model region (their grads, each rank's heads' share, are summed over
+    ``model``), every rank computes and caches the whole latents (they
+    carry no heads) and ``wo``'s partial outputs are all-reduced."""
     if block_tables is not None:
         raise NotImplementedError("paged KV: GQA only (MLA caches latents)")
     B = x.shape[0]
-    H = cfg.n_heads
     r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
                      cfg.qk_rope_head_dim, cfg.v_head_dim)
-    q_nope, q_rope, ckv, krope = _mla_qkv(cfg, p, x, positions, rope)
+    H = p["wq"].shape[-1] // (dn + dr)      # the rank's heads
+    split = H != cfg.n_heads
+    w_dkv = kv_norm = None
+    if split:
+        x = copy_to_model(x, tp)
+        w_dkv = copy_to_model(p["w_dkv"], tp)
+        kv_norm = copy_to_model(p["kv_norm"], tp)
+    q_nope, q_rope, ckv, krope = _mla_qkv(cfg, p, x, positions, rope, H,
+                                          w_dkv, kv_norm)
     scale = 1.0 / math.sqrt(dn + dr)
     new_cache = None
 
@@ -825,7 +844,9 @@ def mla_apply(cfg: ModelConfig, p, x, *, positions, mode, cache=None,
             cache["ckv"][:, :L] = ckv
             cache["krope"][:, :L] = krope
             new_cache = cache
-    out = o.reshape(B, -1, H * dv) @ p["wo"]
+    out = o.reshape(B, o.shape[1], H * dv) @ p["wo"]
+    if split:                                   # wo is row-parallel
+        out = reduce_from_model(out, tp)
     return out, new_cache
 
 
@@ -844,24 +865,36 @@ def cross_attn_specs(cfg: ModelConfig) -> dict:
 
 
 def cross_attn_apply(cfg: ModelConfig, p, x, enc, *, mode="full",
-                     cache=None):
+                     cache=None, tp=None):
     """x: (B, L, D) queries; enc: (B, Le, D) projected encoder states.
     'full' / 'prefill': K/V from ``enc``; 'prefill' writes them into the
     ``xk``/``xv`` arena (``(B, encoder_len, KV, hd)``, in place, so ``Le``
     must be the config's ``encoder_len``).  'decode': K/V from the cache,
     never recomputed in the decode loop.  Attention is non-causal over all
     ``Le`` keys (the flash kernels under ``cfg.use_kernels``), the output
-    gated by ``tanh(gate)``."""
+    gated by ``tanh(gate)``.
+
+    Under tensor parallelism (``tp``, ``p`` a rank's compute view) ``wq``
+    and ``wo`` hold the rank's heads and ``wk``/``wv`` the kv heads they
+    read, as in :func:`attn_apply`; ``enc`` has entered the model region
+    already (:func:`repro_torch.models.transformer.forward`), the cache
+    holds the rank's kv heads, and ``tanh(gate)`` multiplies the output
+    after ``wo``'s partial outputs are all-reduced, so its grad is whole
+    on every rank."""
     B, L, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    H, KV = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+    split = H != cfg.n_heads
+    if split:
+        x = copy_to_model(x, tp)
     q = (x @ p["wq"]).reshape(B, L, H, hd)
     if mode == "decode":
         assert cache is not None
         k, v = cache["xk"], cache["xv"]
         new_cache = cache
     else:
-        k = (enc @ p["wk"]).reshape(B, -1, KV, hd)
-        v = (enc @ p["wv"]).reshape(B, -1, KV, hd)
+        k = (enc @ p["wk"]).reshape(B, enc.shape[1], KV, hd)
+        v = (enc @ p["wv"]).reshape(B, enc.shape[1], KV, hd)
         if cache is not None:
             if cache["xk"].shape != k.shape:
                 raise ValueError(
@@ -875,6 +908,8 @@ def cross_attn_apply(cfg: ModelConfig, p, x, enc, *, mode="full",
             new_cache = dict(xk=k, xv=v)
     o = _attend(cfg, q, k, v, mode=mode, causal=False)
     out = o.reshape(B, L, H * hd) @ p["wo"]
+    if split:                                   # wo is row-parallel
+        out = reduce_from_model(out, tp)
     out = torch.tanh(p["gate"].float()).to(out.dtype) * out
     return out, new_cache
 
@@ -941,6 +976,30 @@ def moe_route(cfg: ModelConfig, probs):
     return gates, expert, pos, cap
 
 
+class _Dispatch(torch.autograd.Function):
+    """The MoE layer's dispatch: ``cat([x, 0])[inv]``, the row each
+    (expert, place) reads (row ``T``, zeros, where a place is empty).  The
+    backward gathers each token's ``K`` entries' grads through ``slot``
+    (an entry's place; the zero row past the places where it was dropped)
+    and sums them in ``k`` order: the same sum on every run, where
+    ``index_select``'s backward adds a token's grads in an order the
+    device picks."""
+
+    @staticmethod
+    def forward(ctx, x, inv, slot, K):
+        ctx.save_for_backward(slot)
+        ctx.shape = (x.shape[0], K)
+        return torch.cat([x, x.new_zeros((1, x.shape[1]))]).index_select(
+            0, inv)
+
+    @staticmethod
+    def backward(ctx, g):
+        slot, = ctx.saved_tensors
+        g_ext = torch.cat([g, g.new_zeros((1, g.shape[1]))])
+        per = g_ext.index_select(0, slot).reshape(*ctx.shape, g.shape[1])
+        return per.sum(1), None, None, None
+
+
 def moe_apply(cfg: ModelConfig, p, x, tp=None):
     """x: (B, L, D) -> (out, aux_loss), the reference's arithmetic in its
     order: router logits in the compute dtype, then fp32 and softmax;
@@ -958,15 +1017,16 @@ def moe_apply(cfg: ModelConfig, p, x, tp=None):
     runs its own experts or width on them, and one all-reduce over
     ``model`` sums the outputs; the shared expert is a tensor-parallel
     MLP.  With ``tp.rows`` (a data group: the batch is sharded over it)
-    the rows of every rank of that group are gathered first, so that the
-    capacity counts the global batch's rows as the reference's does (R13);
+    the rows of every rank of that group are gathered first (``tp.counts``
+    of them: a rank may hold none of a micro slice), so that the capacity
+    counts the global batch's rows as the reference's does (R13);
     the rank keeps its own rows' outputs, and the aux loss, computed on
     the global rows by each rank of the group, enters each rank's loss
     divided by the group's size (the ranks' losses sum to the global
     one)."""
     B, L, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    xf = gather_data_rows(x.reshape(B * L, D), tp)
+    xf = gather_data_rows(x, tp).reshape(-1, D)
     T = xf.shape[0]
     logits = (xf @ p["router"]).float()                        # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -985,15 +1045,15 @@ def moe_apply(cfg: ModelConfig, p, x, tp=None):
     # the row each (expert, place) reads: token T (a zero row) where empty
     inv = torch.full((El * cap + 1,), T, dtype=torch.long, device=x.device)
     inv[slot] = torch.arange(T * K, device=x.device) // K
-    xf_ext = torch.cat([xe, xe.new_zeros((1, D))], dim=0)
-    ein = xf_ext.index_select(0, inv[:El * cap]).reshape(El, cap, D)
+    ein = _Dispatch.apply(xe, inv[:El * cap], slot, K).reshape(El, cap, D)
     h = F.silu(torch.bmm(ein, p["w_gate"])) * torch.bmm(ein, p["w_up"])
     eout = torch.bmm(h, p["w_down"]).reshape(El * cap, D)
     eout_ext = torch.cat([eout, eout.new_zeros((1, D))], dim=0)
     gathered = eout_ext.index_select(0, slot)                  # (T*K, D)
-    w = (gates.reshape(T * K).to(x.dtype) * mine.to(x.dtype))[:, None]
-    if split:               # the gates' grads: summed over the ranks
-        w = copy_to_model(w, tp)
+    g = gates.reshape(T * K).to(x.dtype)
+    if split:   # the gates' grads, each rank's experts' share: summed
+        g = copy_to_model(g, tp)
+    w = (g * mine.to(x.dtype))[:, None]
     out = (gathered * w).reshape(T, K, D).sum(1)
     if split:
         out = reduce_from_model(out, tp)
@@ -1005,8 +1065,8 @@ def moe_apply(cfg: ModelConfig, p, x, tp=None):
     aux = (cfg.router_aux_coef * E * torch.sum(frac * imp) / K
            + cfg.router_z_coef
            * torch.mean(torch.logsumexp(logits, dim=-1) ** 2))
-    if T != B * L:                          # the data group's rows
-        r0 = tp.rows.rank() * B * L
+    if tp is not None and tp.rows is not None and tp.rows.size() > 1:
+        r0 = tp.row_offset(B) * L           # the data group's rows
         out = out[r0:r0 + B * L]
         aux = aux / tp.rows.size()
     return out.reshape(B, L, D), aux
@@ -1093,25 +1153,48 @@ def _conv_silu(win, w, b):
     return F.silu(acc.to(win.dtype) + b)
 
 
-def ssm_apply(cfg: ModelConfig, p, x, *, mode, cache=None):
+def ssm_apply(cfg: ModelConfig, p, x, *, mode, cache=None, tp=None):
     """Mamba2 block.  'full'/'prefill': causal depthwise conv, SiLU, the
     chunked SSD, the ``D_skip`` term and the gated norm; 'prefill' also
     writes the last ``K-1`` pre-activation conv inputs (zero-padded for a
     shorter prompt) and the final state into ``cache``.  'decode': the O(1)
     step, updating ``cache['conv']`` and ``cache['state']`` in place (see
-    the module docstring for the state's fp32 arena)."""
+    the module docstring for the state's fp32 arena).
+
+    Under tensor parallelism (``tp``, ``p`` a rank's compute view, whose
+    ``out_norm`` holds the rank's ``di / tp`` channels) the mixer runs on
+    the rank's ``nh / tp`` heads: ``w_in`` holds its ``z``, ``x`` and
+    ``dt`` columns and the whole of ``B`` and ``C``, ``conv_w`` /
+    ``conv_b`` its ``x`` channels and ``B`` and ``C``
+    (:func:`repro_torch.sharding.strategy.ssm_columns`), and the
+    replicated per-head vectors are read at its heads.  The input enters
+    the model region, so the ``B``/``C`` path's grads are each rank's
+    partial sums; the gated norm's sum of squares is summed over
+    ``model`` (:func:`_rms_over_model`) and ``w_out``'s partial outputs
+    are all-reduced.  The cache holds the rank's heads (``state``) and
+    channels (``conv``)."""
     B = x.shape[0]
-    di, nh, hp, N = (cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim,
-                     cfg.ssm_state)
+    hp, N = cfg.ssm_headdim, cfg.ssm_state
+    di = p["out_norm"].shape[-1]             # the rank's channels
+    nh = di // hp
+    split = di != cfg.d_inner
     G = cfg.ssm_ngroups
     K = cfg.ssm_conv
     conv_dim = di + 2 * G * N
+    A_log, D_skip, dt_bias = p["A_log"], p["D_skip"], p["dt_bias"]
+    if split:
+        # replicated per-head vectors read at the rank's heads: their
+        # grads are summed over model
+        x = copy_to_model(x, tp)
+        h0 = tp.rank * nh
+        A_log, D_skip, dt_bias = (copy_to_model(t, tp)[h0:h0 + nh]
+                                  for t in (A_log, D_skip, dt_bias))
     zxbcdt = x @ p["w_in"]
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + conv_dim]
     dt_raw = zxbcdt[..., di + conv_dim:]
-    A = -torch.exp(p["A_log"].float())
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    A = -torch.exp(A_log.float())
+    dt = F.softplus(dt_raw.float() + dt_bias.float())
     new_cache = None
 
     if mode == "decode":
@@ -1128,7 +1211,7 @@ def ssm_apply(cfg: ModelConfig, p, x, *, mode, cache=None):
         state.mul_(dA[..., None, None]).addcmul_(
             (xi * dt1[..., None])[..., None], Bv.float()[:, None, None, :])
         y = (state @ Cv.float()[:, None, :, None])[..., 0]  # (B,nh,hp)
-        y = y + p["D_skip"][None, :, None] * xi
+        y = y + D_skip[None, :, None] * xi
         y = y.reshape(B, 1, di)
         cache["conv"].copy_(win[:, 1:])
         new_cache = cache
@@ -1142,7 +1225,7 @@ def ssm_apply(cfg: ModelConfig, p, x, *, mode, cache=None):
         Cv = conv_out[..., di + N:di + 2 * N]
         Y, final = ssd_chunked(xi, dt, A, Bv, Cv, cfg.ssm_chunk,
                                use_kernels=cfg.use_kernels)
-        Y = Y + p["D_skip"][None, None, :, None] * xi
+        Y = Y + D_skip[None, None, :, None] * xi
         y = Y.reshape(B, L, di)
         if mode == "prefill":
             assert cache is not None
@@ -1150,5 +1233,24 @@ def ssm_apply(cfg: ModelConfig, p, x, *, mode, cache=None):
             # the reference's compute-dtype cache value, kept in fp32
             cache["state"].copy_(final.to(cfg.cdtype))
             new_cache = cache
-    y = rmsnorm_gated(y.to(x.dtype), z, p["out_norm"], cfg.rms_eps)
-    return (y @ p["w_out"]).to(x.dtype), new_cache
+    if not split:
+        y = rmsnorm_gated(y.to(x.dtype), z, p["out_norm"], cfg.rms_eps)
+        return (y @ p["w_out"]).to(x.dtype), new_cache
+    y = y.to(x.dtype)
+    y = _rms_over_model(y * F.silu(z.float()).to(y.dtype), p["out_norm"],
+                        cfg.rms_eps, cfg.d_inner, tp)
+    out = reduce_from_model(y @ p["w_out"], tp)         # w_out row-parallel
+    return out.to(x.dtype), new_cache
+
+
+def _rms_over_model(x, weight, eps: float, width: int, tp):
+    """:func:`rmsnorm` of rows whose ``width`` channels lie split over
+    ``model`` (``x`` holds the rank's): the fp32 sums of squares are
+    summed over ``model`` and divided by ``width``.  The sum enters every
+    rank's channels, so its grad is summed over ``model`` too (an
+    all-reduce both ways)."""
+    x32 = x.float()
+    ss = reduce_from_model(torch.sum(x32 * x32, dim=-1, keepdim=True), tp)
+    var = copy_to_model(ss, tp) / width
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * weight.float()).to(x.dtype)

@@ -32,7 +32,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import modules as M
-from repro_torch.models.config import ATTN, CROSS, SSM, ModelConfig
+from repro_torch.models.config import (ATTN, CROSS, SSM, ModelConfig,
+                                       rank_config)
 from repro_torch.models.modules import (ParamSpec, tree_leaves, tree_map,
                                         tree_unflatten)
 
@@ -200,29 +201,22 @@ def _layer(cfg: ModelConfig, spec, lp, x, positions, mode, lc, rope,
     """One layer: ``(x, aux)``, ``aux`` the MoE layer's aux loss or None.
     ``enc`` is the projected encoder states a cross-attention layer
     attends (None elsewhere); ``tp`` the tensor-parallel context."""
-    if tp is not None and tp.size > 1 and (spec.kind != ATTN or cfg.mla):
-        what = ("SSM (Mamba2)" if spec.kind == SSM else "cross-attention"
-                if spec.kind == CROSS else "MLA attention")
-        raise NotImplementedError(f"{what} layers on model > 1 "
-                                  "(tensor-parallel compute): not yet "
-                                  "ported")
     h = M.rmsnorm(x, lp["ln1"], cfg.rms_eps, cfg.use_kernels)
     if spec.kind == SSM:
-        s, _ = M.ssm_apply(cfg, lp["ssm"], h, mode=mode, cache=lc)
+        s, _ = M.ssm_apply(cfg, lp["ssm"], h, mode=mode, cache=lc, tp=tp)
         return x + s, None
     if spec.kind == CROSS:
         if enc is None and mode != "decode":
             raise ValueError(f"{cfg.name}: a cross-attention layer needs "
                              "encoder_embeds")
         att, _ = M.cross_attn_apply(cfg, lp["xattn"], h, enc, mode=mode,
-                                    cache=lc)
+                                    cache=lc, tp=tp)
     else:
         win = spec.sliding_window or cfg.sliding_window
-        kw = {} if cfg.mla else {"tp": tp}
         fn = M.mla_apply if cfg.mla else M.attn_apply
         att, _ = fn(cfg, lp["attn"], h, positions=positions, mode=mode,
                     cache=lc, window=win, block_tables=block_tables,
-                    rope=rope, **kw)
+                    rope=rope, tp=tp)
     x = x + att
     h2 = M.rmsnorm(x, lp["ln2"], cfg.rms_eps, cfg.use_kernels)
     if spec.moe:
@@ -259,8 +253,11 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
     MLP and the MoE layer on the rank's heads, width or experts, the
     embedding vocab-parallel when ``embed`` holds the rank's rows of the
     vocabulary; the hidden states are the same on every rank of the model
-    group.  The cache then holds the rank's kv heads
-    (:func:`local_cfg`)."""
+    group.  MLA, cross-attention and the Mamba2 mixer split by heads too
+    (where the heads split whole: else every rank computes them whole),
+    and the projected encoder states enter the model region once, so the
+    projector's grad sums every rank's cross layers.  The cache then holds
+    the rank's kv heads and SSM heads (:func:`local_cfg`)."""
     params = cast_params(cfg, params)
     x = (embed_lookup(cfg, params["embed"], tokens, tp)
          if cfg.embed_inputs else embeds)
@@ -277,6 +274,9 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
     if (cfg.arch_type == "vlm" and encoder_embeds is not None
             and mode != "decode"):
         enc = encoder_embeds.to(cfg.cdtype) @ params["projector"]
+        if _cross_split(cfg, params):
+            from repro_torch.sharding.runtime import copy_to_model
+            enc = copy_to_model(enc, tp)
     # activation checkpointing: each layer's activations are recomputed in
     # the backward instead of kept (the reference's jax.checkpoint)
     remat = cfg.remat and mode == "full" and torch.is_grad_enabled()
@@ -303,20 +303,32 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
     return x, cache, aux
 
 
+def _cross_split(cfg: ModelConfig, params) -> bool:
+    """Whether ``params`` (a compute view) hold a share of the heads of
+    their cross-attention layers."""
+    return any("xattn" in lp and lp["xattn"]["wq"].shape[-1]
+               != cfg.n_heads * cfg.head_dim
+               for seg in params["segments"] for lp in seg)
+
+
 def local_cfg(cfg: ModelConfig, params) -> ModelConfig:
     """``cfg`` with the head counts of ``params``' first attention layer
-    (a rank's compute view holds its share of the heads): the config the
-    rank's KV cache is built for.  ``cfg`` itself when they are whole."""
-    for seg in params.get("segments", ()):
-        for lp in seg:
-            a = lp.get("attn")
-            if a is not None and "wk" in a:
-                hd = cfg.head_dim
-                H, KV = a["wq"].shape[-1] // hd, a["wk"].shape[-1] // hd
-                if (H, KV) == (cfg.n_heads, cfg.n_kv_heads):
-                    return cfg
-                return cfg.replace(n_heads=H, n_kv_heads=KV)
-    return cfg
+    and the share of the SSM width of its first Mamba2 layer (a rank's
+    compute view holds its share of the heads): the config the rank's
+    cache is built for.  ``cfg`` itself when they are whole."""
+    H, KV, parts = cfg.n_heads, cfg.n_kv_heads, 1
+    layers = [lp for seg in params.get("segments", ()) for lp in seg]
+    a = next((lp["attn"] for lp in layers if "wk" in lp.get("attn", {})),
+             None)
+    if a is not None:
+        H, KV = (a["wq"].shape[-1] // cfg.head_dim,
+                 a["wk"].shape[-1] // cfg.head_dim)
+    m = next((lp["ssm"] for lp in layers if "ssm" in lp), None)
+    if m is not None:
+        parts = cfg.d_inner // m["out_norm"].shape[-1]
+    if (H, KV, parts) == (cfg.n_heads, cfg.n_kv_heads, 1):
+        return cfg
+    return rank_config(cfg, ssm_parts=parts, n_heads=H, n_kv_heads=KV)
 
 
 def embed_lookup(cfg: ModelConfig, embed, tokens, tp=None):

@@ -14,15 +14,20 @@ rank computes on its own heads, MLP width, vocabulary rows or experts.
 gathered over ``data`` (ZeRO-3's rule, a gather at use), and over
 ``model`` the rank's slice, the local shard itself where the pspec cuts
 exactly that slice and a local slice of the gathered leaf where it does
-not (kv heads cut into half heads at ``tp > KV``).  :func:`to_layout`
-takes the grads of that view back into ``DTensor``\\ s that the
-optimizer reduces into its layout.  The model code takes a :class:`TP`
-context (the model group, the rank in it and its size) and makes its
+not (kv heads cut into half heads at ``tp > KV``; the Mamba2 mixer's
+concatenated ``[z | x | B | C | dt]`` columns, whose rank's heads are
+ranges of the gathered leaf), or the whole leaf (a layer kind whose
+heads ``tp`` does not split whole is computed whole on every rank).
+:func:`to_layout` takes the grads of that view back into
+``DTensor``\\ s that the optimizer reduces into its layout.  The model
+code takes a :class:`TP` context (the model group, the rank in it and its
+size) and makes its
 collectives through three autograd functions (:func:`copy_to_model`,
 :func:`reduce_from_model`, :func:`gather_last`); on a one-rank model
 group each is the identity, so the 1 x 1 mesh computes the plain path's
 arithmetic.  :func:`check_compute_mesh` refuses what ``model > 1`` does
-not compute yet.
+not compute yet (Mamba2 mixers of several groups that ``model`` does not
+divide).
 """
 from __future__ import annotations
 
@@ -60,26 +65,17 @@ def mesh_size(mesh) -> int:
 
 def check_compute_mesh(mesh, what: str, cfg=None) -> None:
     """Refuse what a ``model`` axis larger than 1 does not compute yet:
-    MLA, cross-attention and SSM layers, and head counts whose split over
-    ``model`` is not whole heads on every rank (``n_heads % tp``, and
-    neither ``n_kv_heads % tp`` nor ``tp % n_kv_heads``)."""
+    Mamba2 mixers of more than one group that ``model`` does not divide
+    (every config of the repo has one)."""
     tp = 1 if mesh is None else mesh_axes(mesh).get("model", 1)
     if tp == 1 or cfg is None:
         return
-    from repro_torch.models.config import CROSS, SSM
+    from repro_torch.models.config import SSM
     kinds = {ls.kind for seg in cfg.segments() for ls in seg.unit_spec}
-    for bad, name in ((cfg.mla, "MLA attention"),
-                      (CROSS in kinds, "cross-attention layers"),
-                      (SSM in kinds, "SSM (Mamba2) layers")):
-        if bad:
-            raise NotImplementedError(
-                f"{what}: {name} on a mesh with model > 1 "
-                "(tensor-parallel compute): not yet ported")
-    H, KV = cfg.n_heads, cfg.n_kv_heads
-    if H % tp or (KV % tp and tp % KV):
+    if SSM in kinds and cfg.ssm_ngroups > 1 and cfg.ssm_ngroups % tp:
         raise NotImplementedError(
-            f"{what}: {H} heads / {KV} kv heads over model = {tp}: "
-            "not yet ported")
+            f"{what}: a Mamba2 mixer of {cfg.ssm_ngroups} groups over "
+            f"model = {tp}: not yet ported")
 
 
 # ===================================================================== #
@@ -90,14 +86,22 @@ class TP:
     """The tensor-parallel context the model code takes: the ``model``
     process group, this rank's index in it and its size; ``rows`` is the
     data group whose rows an MoE layer routes together (``None``: the
-    rows of the call)."""
+    rows of the call), and ``counts`` the number of rows each rank of it
+    holds (``None``: the same number on every rank)."""
     group: Any
     rank: int
     size: int
     rows: Any = None
+    counts: Optional[tuple] = None
 
-    def with_rows(self, rows) -> "TP":
-        return dataclasses.replace(self, rows=rows)
+    def with_rows(self, rows, counts=None) -> "TP":
+        return dataclasses.replace(self, rows=rows, counts=counts)
+
+    def row_offset(self, n: int) -> int:
+        """The first of this rank's ``n`` rows in the data group's rows,
+        gathered in rank order."""
+        r = self.rows.rank()
+        return r * n if self.counts is None else sum(self.counts[:r])
 
 
 def tp_context(mesh, rows=None) -> Optional[TP]:
@@ -165,20 +169,26 @@ class _GatherLast(torch.autograd.Function):
 
 
 class _GatherRows(torch.autograd.Function):
-    """The data group's rows concatenated in rank order; backward sums
+    """The data group's rows concatenated in rank order (``counts``: each
+    rank's number of rows, ``None`` where they are equal); backward sums
     the grads over the group and keeps this rank's rows (each rank
     computes on every row, so a row's grad is the sum of the ranks')."""
 
     @staticmethod
-    def forward(ctx, x, group, rank, size):
-        ctx.group, ctx.rank, ctx.n = group, rank, x.shape[0]
-        return gather_rows(x, group)
+    def forward(ctx, x, group, rank, counts):
+        ctx.group, ctx.n = group, x.shape[0]
+        ctx.lo = rank * ctx.n if counts is None else sum(counts[:rank])
+        if counts is None:
+            return gather_rows(x, group)
+        m = max(counts)                     # padded to the most rows
+        pad = torch.cat([x, x.new_zeros((m - ctx.n,) + tuple(x.shape[1:]))])
+        out = gather_rows(pad, group)
+        return torch.cat([out[j * m:j * m + c] for j, c in enumerate(counts)])
 
     @staticmethod
     def backward(ctx, g):
         g = _all_reduce(g, ctx.group)
-        lo = ctx.rank * ctx.n
-        return g[lo:lo + ctx.n], None, None, None
+        return g[ctx.lo:ctx.lo + ctx.n], None, None, None
 
 
 def copy_to_model(x, tp):
@@ -210,12 +220,12 @@ def max_over_model(x, tp):
 
 def gather_data_rows(x, tp):
     """The rows of every rank of ``tp.rows`` (the data group), in rank
-    order, with the backward of :class:`_GatherRows`; ``x`` itself without
-    one."""
+    order (``tp.counts`` of them on each rank: a rank may hold none), with
+    the backward of :class:`_GatherRows`; ``x`` itself without one."""
     g = None if tp is None else tp.rows
     if g is None or g.size() == 1:
         return x
-    return _GatherRows.apply(x, g, g.rank(), g.size())
+    return _GatherRows.apply(x, g, g.rank(), tp.counts)
 
 
 # ===================================================================== #
@@ -274,13 +284,16 @@ def mesh_view(cfg, params, mesh, rows=None):
 
 
 def _view_leaf(x, v):
-    from repro_torch.sharding.strategy import ALIGNED, SLICED
+    from repro_torch.sharding.strategy import ALIGNED, SEGMENTS, SLICED
     if v.kind == ALIGNED:
         return _gather_data(x)
     t = full(x)
     if v.kind == SLICED:
         n = t.shape[v.dim] // v.parts
         t = t.narrow(v.dim, v.index * n, n).contiguous()
+    elif v.kind == SEGMENTS:
+        t = torch.cat([t.narrow(v.dim, a, b - a) for a, b in v.cols],
+                      dim=v.dim)
     return t
 
 
@@ -299,10 +312,12 @@ def to_layout(grads, params, views, group):
     """Grads of the compute view as ``DTensor``\\ s laid out over the params'
     mesh: partial over ``data`` when the batch is sharded over ``group``
     (replicated with ``group=None``), and over ``model`` the shard
-    (aligned), a partial full-shape leaf (sliced: zeros outside the
-    slice) or the whole leaf (full)."""
+    (aligned), a partial full-shape leaf (sliced or segments: zeros
+    outside the rank's columns; where the ranks' columns overlap, as the
+    Mamba2 mixer's ``B`` and ``C`` do, each holds its partial sum) or the
+    whole leaf (full)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
-    from repro_torch.sharding.strategy import ALIGNED, SLICED
+    from repro_torch.sharding.strategy import ALIGNED, SEGMENTS, SLICED
 
     def one(v, g, p):
         if not is_dtensor(p):
@@ -314,7 +329,7 @@ def to_layout(grads, params, views, group):
                 pls.append(Partial() if group is not None else Replicate())
             elif v.kind == ALIGNED:
                 pls.append(Shard(v.dim))
-            elif v.kind == SLICED:
+            elif v.kind in (SLICED, SEGMENTS):
                 pls.append(Partial())
             else:
                 pls.append(Replicate())
@@ -322,6 +337,12 @@ def to_layout(grads, params, views, group):
             z = g.new_zeros(p.shape)
             n = p.shape[v.dim] // v.parts
             z.narrow(v.dim, v.index * n, n).copy_(g)
+            g = z
+        elif v.kind == SEGMENTS:
+            z, o = g.new_zeros(p.shape), 0
+            for a, b in v.cols:
+                z.narrow(v.dim, a, b - a).copy_(g.narrow(v.dim, o, b - a))
+                o += b - a
             g = z
         return from_local(g.contiguous(), mesh, pls, p.shape)
     return tree_map(one, views, grads, params, is_leaf=_is_view)

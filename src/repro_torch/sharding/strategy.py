@@ -166,18 +166,49 @@ def batch_pspec(mesh, batch: int, ndim: int = 2) -> tuple:
 FULL = "full"          # the whole leaf (replicated over model)
 ALIGNED = "aligned"    # the local model shard itself
 SLICED = "sliced"      # a local slice of the leaf gathered over model
+SEGMENTS = "segments"  # column ranges of the leaf gathered over model
 
 
 @dataclasses.dataclass(frozen=True)
 class View:
     """The piece of a leaf one rank of a ``tp``-way model group computes
-    on: the whole leaf (``FULL``), or ``chunk(parts, dim)[index]`` of it,
+    on: the whole leaf (``FULL``), ``chunk(parts, dim)[index]`` of it,
     which is the rank's shard itself (``ALIGNED``) or a slice of the leaf
-    gathered over ``model`` (``SLICED``)."""
+    gathered over ``model`` (``SLICED``), or the ranges ``cols`` (``(start,
+    stop)`` pairs) of dim ``dim`` of the gathered leaf, concatenated
+    (``SEGMENTS``)."""
     kind: str
     dim: int = 0
     parts: int = 1
     index: int = 0
+    cols: tuple = ()
+
+
+def heads_split_whole(cfg: ModelConfig, tp: int) -> bool:
+    """Whether ``tp`` ranks each compute whole heads of ``cfg``'s attention
+    layers: ``n_heads % tp == 0``, and (but for MLA, whose latents carry no
+    heads) ``tp`` divides the kv heads or they divide ``tp``.  Where they do
+    not, every rank computes the attention layers whole."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    return H % tp == 0 and (cfg.mla or KV % tp == 0 or tp % KV == 0)
+
+
+def ssm_columns(cfg: ModelConfig, name: str, tp: int, rank: int) -> tuple:
+    """The ``(start, stop)`` column ranges rank ``rank`` of ``tp`` computes
+    on of the Mamba2 leaf ``name`` (``w_in``'s last dim is ``[z | x | B |
+    C | dt]``, ``conv_w``'s and ``conv_b``'s ``[x | B | C]``): its heads of
+    ``z``, ``x`` and ``dt`` and the whole of ``B`` and ``C`` (one group,
+    read by every head)."""
+    di, nh = cfg.d_inner, cfg.ssm_nheads
+    gn = cfg.ssm_ngroups * cfg.ssm_state
+    dl, hl = di // tp, nh // tp
+    x = (rank * dl, (rank + 1) * dl)
+    if name == "w_in":
+        return ((x[0], x[1]), (di + x[0], di + x[1]),
+                (2 * di, 2 * di + 2 * gn),
+                (2 * di + 2 * gn + rank * hl, 2 * di + 2 * gn
+                 + (rank + 1) * hl))
+    return (x, (di, di + 2 * gn))
 
 
 def compute_slice(axes: tuple, model_dim, *, heads_cut: bool,
@@ -206,6 +237,24 @@ def compute_slice(axes: tuple, model_dim, *, heads_cut: bool,
     return View(ALIGNED, model_dim, tp, rank)
 
 
+def _ssm_slice(cfg: ModelConfig, name: str, axes: tuple, model_dim,
+               tp: int, rank: int) -> View:
+    """The :class:`View` of the Mamba2 leaf ``name`` when its heads are
+    split over ``model``: ``w_in``, ``conv_w`` and ``conv_b`` by
+    :func:`ssm_columns` (the pspec cuts their concatenated dim into
+    contiguous chunks, which do not follow the heads), ``out_norm`` and
+    ``w_out`` on their head-major ``mlp`` dim, and the per-head vectors
+    ``A_log``, ``D_skip`` and ``dt_bias`` whole (the mixer takes the
+    rank's heads)."""
+    if name in ("w_in", "conv_w", "conv_b"):
+        return View(SEGMENTS, axes.index("mlp"), tp, rank,
+                    ssm_columns(cfg, name, tp, rank))
+    if "mlp" in axes:
+        d = axes.index("mlp")
+        return View(ALIGNED if model_dim == d else SLICED, d, tp, rank)
+    return View(FULL)
+
+
 def model_dim(pspec: tuple):
     """The dim a pspec puts on ``model`` (``None``: none)."""
     return next((d for d, e in enumerate(pspec)
@@ -216,18 +265,54 @@ def model_dim(pspec: tuple):
 def compute_slices(specs, dims, cfg: ModelConfig, tp: int, rank: int):
     """A tree of :class:`View`: each leaf of the ParamSpec tree ``specs``
     at the dim ``dims`` (a matching tree) puts on a ``tp``-way ``model``
-    axis, for ``rank``.  With ``tp == 1`` every leaf is ``FULL``."""
+    axis, for ``rank``.  With ``tp == 1`` every leaf is ``FULL``.
+
+    A layer kind whose leaves the layout cuts over ``model`` is split over
+    the ranks by its heads (:func:`compute_slice`; the Mamba2 mixer by
+    :func:`_ssm_slice`), unless its heads do not split whole
+    (:func:`heads_split_whole`; ``ssm_nheads % tp`` for the mixer): then
+    its leaves
+    are ``FULL`` and every rank computes it whole, while the MLP, the
+    experts and the vocabulary stay split."""
     flat_s = tree_leaves(specs, is_leaf=_is_spec)
+    paths = _spec_paths(specs)
     flat_d = tree_leaves(tree_map(lambda s, d: d, specs, dims,
                                   is_leaf=_is_spec), is_leaf=_is_dim)
     if tp == 1:
         flat_d = [None] * len(flat_s)
+    ssm = ["ssm" in p for p in paths]
     heads_cut = any(d is not None and s.axes[d] == "heads"
                     for s, d in zip(flat_s, flat_d))
-    it = iter(flat_d)
-    return tree_map(lambda s: compute_slice(
-        s.axes, next(it), heads_cut=heads_cut, n_kv_heads=cfg.n_kv_heads,
-        tp=tp, rank=rank), specs, is_leaf=_is_spec)
+    attn_whole = tp > 1 and not heads_split_whole(cfg, tp)
+    ssm_cut = any(d is not None for d, m in zip(flat_d, ssm) if m)
+    ssm_whole = not ssm_cut or cfg.ssm_nheads % tp != 0
+    views = []
+    for s, d, p, m in zip(flat_s, flat_d, paths, ssm):
+        if m:
+            views.append(View(FULL) if ssm_whole else
+                         _ssm_slice(cfg, p[-1], s.axes, d, tp, rank))
+        elif attn_whole and ("heads" in s.axes or "kv_heads" in s.axes):
+            views.append(View(FULL))
+        else:
+            views.append(compute_slice(
+                s.axes, d, heads_cut=heads_cut, n_kv_heads=cfg.n_kv_heads,
+                tp=tp, rank=rank))
+    it = iter(views)
+    return tree_map(lambda s: next(it), specs, is_leaf=_is_spec)
+
+
+def _spec_paths(tree, path=()) -> list:
+    """The key path of each ParamSpec leaf, in :func:`tree_leaves`
+    order."""
+    if _is_spec(tree):
+        return [path]
+    if isinstance(tree, dict):
+        return [q for k, v in tree.items()
+                for q in _spec_paths(v, path + (k,))]
+    if isinstance(tree, (tuple, list)):
+        return [q for i, v in enumerate(tree)
+                for q in _spec_paths(v, path + (i,))]
+    return []
 
 
 def _is_dim(x) -> bool:

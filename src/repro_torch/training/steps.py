@@ -77,31 +77,41 @@ def lm_value_and_grad(cfg: ModelConfig, params, batch, micro: int = 1,
     ``[i*B/micro, (i+1)*B/micro)``.  The rank computes its own rows of
     each slice (none, for a slice other ranks hold), divided by the
     slice's global token count; the loss and metrics are the global
-    batch's, the grads this rank's partial sums.  ``tp``: the
-    tensor-parallel context of a compute view ``params``."""
+    batch's, the grads this rank's partial sums.  An MoE layer routes the
+    data group's rows of each slice together, so on an MoE model every
+    rank takes part in every slice, with as many rows as it holds of it
+    (``TP.counts``), none included.  ``tp``: the tensor-parallel context
+    of a compute view ``params``."""
     batch = {k: v for k, v in batch.items() if v is not None}
     n_loc = next(iter(batch.values())).shape[0]
     row0, n = _rows(n_loc, group)
     if n % micro:
         raise ValueError(f"batch {n} is not a multiple of micro={micro}")
     size = n // micro
-    spans = [(max(i * size, row0) - row0,
-              min((i + 1) * size, row0 + n_loc) - row0)
-             for i in range(micro)]
+    span = lambda i, r0: (max(i * size, r0) - r0,
+                          min((i + 1) * size, r0 + n_loc) - r0)
+    spans = [span(i, row0) for i in range(micro)]
     counts = [None] * micro
     if group is not None:
         mask = batch["mask"].float()
         counts = runtime.all_sum(
             [mask[lo:hi].sum() if hi > lo else mask.new_zeros(())
              for lo, hi in spans], group)
+    # every rank's rows of each slice, where an MoE layer gathers them
+    every = cfg.moe and group is not None and group.size() > 1
     gacc, parts = None, []
-    for (lo, hi), cnt in zip(spans, counts):
-        if hi <= lo:
+    for i, ((lo, hi), cnt) in enumerate(zip(spans, counts)):
+        if hi <= lo and not every:
             parts.append(None)
             continue
         sub = {k: v[lo:hi] for k, v in batch.items()}
+        tpi = tp
+        if every and micro > 1:
+            tpi = tp.with_rows(tp.rows, tuple(
+                max(0, b - a) for a, b in (span(i, r * n_loc)
+                                           for r in range(group.size()))))
         (l, met), g = value_and_grad(
-            lambda p: lm_loss_fn(cfg, p, sub, count=cnt, tp=tp), params)
+            lambda p: lm_loss_fn(cfg, p, sub, count=cnt, tp=tpi), params)
         if micro > 1:
             g = tree_map(lambda x: x.float(), g)
             if gacc is None:
@@ -152,7 +162,7 @@ def lm_train_step(cfg: ModelConfig, state: TrainState, batch, lr,
            else state.params)
     tp = views = None
     if on_mesh:
-        check_mesh_compute(cfg, state, group, "lm_train_step", micro)
+        check_mesh_compute(cfg, state, "lm_train_step")
         params, views, tp = mesh_view(cfg, src, group)
     else:
         params = src
@@ -175,14 +185,8 @@ def in_mesh_layout(state) -> bool:
     return any(runtime.is_dtensor(p) for p in tree_leaves(state.params))
 
 
-def check_mesh_compute(cfg: ModelConfig, state, group, what: str,
-                       micro: int = 1) -> None:
+def check_mesh_compute(cfg: ModelConfig, state, what: str) -> None:
     runtime.check_compute_mesh(_tree_mesh(state.params), what, cfg)
-    if cfg.moe and group is not None and micro > 1:
-        # an MoE layer gathers the data group's rows of each call (R13);
-        # a micro slice that some ranks hold no rows of has no call there
-        raise NotImplementedError(f"{what}: MoE over a sharded batch with "
-                                  "micro > 1: not yet ported")
 
 
 def _tree_mesh(tree):
@@ -234,7 +238,7 @@ def mesh_value_and_grad(cfg: ModelConfig, what: str, loss_fn, state,
     on_mesh = in_mesh_layout(state)
     tp = None
     if on_mesh:
-        check_mesh_compute(cfg, state, group, what)
+        check_mesh_compute(cfg, state, what)
         params, views, tp = mesh_view(cfg, state.params, group)
     else:
         params = state.params

@@ -1,6 +1,7 @@
 """The reference's data- and tensor-parallel runs, on simulated host
-devices, for ``tests/test_torch_multidevice.py`` and
-``tests/test_torch_tensor_parallel.py``::
+devices, for ``tests/test_torch_multidevice.py``,
+``tests/test_torch_tensor_parallel.py`` and
+``tests/test_torch_tp_layers.py``::
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
         python tests/_jax_mesh_reference.py IN.pkl OUT.pkl DP [TP]
@@ -20,6 +21,10 @@ weights, prompts and reward and LM batches).  The reference runs, on a
 - with ``TP``: two steps of ``make_sharded_lm_step(..., "zero3")`` on each
   reduced config the inputs name (``lm``), with each step's grads, and no
   batch of 6.
+
+Inputs that hold ``tpl_lm`` (``tests/test_torch_tp_layers.py``) run
+:func:`layers_run` alone: the Mamba2, Zamba2, MLA, cross-attention,
+uneven-heads and MoE micro-2 steps and the greedy generations.
 
 ``OUT`` gets the results as numpy, params as trees (the reference's
 structure, which ``repro_torch.models.convert`` reads).
@@ -176,10 +181,62 @@ def lm_run(inp, mesh):
     return out
 
 
+def _reduced(arch, over):
+    return jconfigs.reduced(jconfigs.get_config(arch)).replace(
+        use_pallas=False, **over)
+
+
+def layers_run(inp, mesh):
+    """The remaining layer kinds on the mesh: two ``make_sharded_lm_step(
+    ..., "zero3")`` steps of each config of ``inp["tpl_lm"]`` (name ->
+    arch, overrides, micro, params, batches), with each step's grads (the
+    mean of the micro slices'), and greedy ``generate`` through the Hybrid
+    Engine of each of ``inp["tpl_gen"]`` (name -> arch, overrides, params,
+    encoder embeddings or None)."""
+    lm, gen = {}, {}
+    for name, (arch, over, micro, params, batches) in inp["tpl_lm"].items():
+        cfg = _reduced(arch, over)
+        step, sh, shard_batch = make_sharded_lm_step(cfg, mesh, "zero3",
+                                                     zero=1, micro=micro)
+        state = TrainState.create(_jnp(params), shardings=sh)
+        grad = jax.jit(jax.grad(lambda p, b: lm_loss_fn(cfg, p, b)[0]))
+        losses, gnorms, grads = [], [], []
+        for b in batches:
+            n = len(b["labels"]) // micro
+            gs = [_np(grad(state.params, {k: jnp.asarray(v[i * n:(i + 1) * n])
+                                          for k, v in b.items()}))
+                  for i in range(micro)]
+            grads.append(jax.tree.map(lambda *g: sum(g) / micro, *gs))
+            state, m = step(state, shard_batch(
+                {k: jnp.asarray(v) for k, v in b.items()}), inp["lm_lr"])
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        lm[name] = {"loss": losses, "grad_norm": gnorms,
+                    "params": _np(state.params), "grads": grads}
+    for name, (arch, over, params, enc) in inp["tpl_gen"].items():
+        cfg = _reduced(arch, over)
+        if cfg.moe and mesh.shape["data"] > 1:
+            continue
+        he = HybridEngine(cfg, mesh)
+        p_infer = he.to_inference(jax.device_put(_jnp(params),
+                                                 he.train_shardings))
+        e = he.generation_engine(**inp["ppo_kw"])
+        o = e.generate(p_infer, jnp.asarray(inp["prompts"]), KEY,
+                       encoder_embeds=None if enc is None
+                       else jnp.asarray(enc))
+        gen[name] = {k: np.asarray(v) for k, v in o.items()}
+        gen[name]["steps"] = e.last_stats["decode_steps"]
+    return {"lm": lm, "gen": gen}
+
+
 def main(src: str, dst: str, dp: int, tp: int = 1) -> None:
     with open(src, "rb") as f:
         inp = pickle.load(f)
     mesh = make_mesh(dp, tp)
+    if "tpl_lm" in inp:
+        with open(dst, "wb") as f:
+            pickle.dump(layers_run(inp, mesh), f)
+        return
     out = {"ppo": {}}
     for strategy in ("zero3", "tp"):
         he = HybridEngine(ACTOR, mesh, train_strategy=strategy, zero=1)

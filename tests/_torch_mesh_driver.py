@@ -293,7 +293,9 @@ def case_reward(dp: int) -> dict:
 
 
 def case_refusals(world: int) -> dict:
-    """What a mesh still refuses, as the exception each raises."""
+    """What a mesh still refuses, as the exception each raises (``None``:
+    accepted): MLA, SSM and cross-attention layers on ``model = 2`` are
+    accepted."""
     out = {}
 
     def grab(name, fn):
@@ -517,17 +519,6 @@ def case_tp_refusals(dp: int, tp: int) -> dict:
             out[name] = None
         except Exception as e:                      # noqa: BLE001
             out[name] = f"{type(e).__name__}: {e}"
-    for arch in ("deepseek-v2-lite-16b", "mamba2-370m",
-                 "llama-3.2-vision-11b", "zamba2-1.2b"):
-        grab(arch, lambda: make_sharded_lm_step(lm_config(arch), mesh,
-                                                "zero3"))
-    odd = ACTOR.replace(n_heads=6, n_kv_heads=3, d_model=96)
-    grab("heads_6_kv_3", lambda: make_sharded_lm_step(odd, mesh, "zero3"))
-    grab("engine_mla", lambda: GenerationEngine(
-        lm_config("deepseek-v2-lite-16b"), mesh=mesh, device="cpu",
-        **PPO_KW).generate(T.init_params(lm_config("deepseek-v2-lite-16b"),
-                                         _gen(0)),
-                           torch.as_tensor(PROMPTS), _gen(0)))
     if dp > 1:          # an MoE decode over the data rank's rows only
         moe = lm_config("llama4-scout-17b-a16e")
         grab("engine_moe_rows", lambda: GenerationEngine(
@@ -537,12 +528,160 @@ def case_tp_refusals(dp: int, tp: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# the remaining layer kinds on ``model > 1``: Mamba2 / Zamba2, MLA,
+# cross-attention, heads that do not split whole, MoE at micro 2
+# --------------------------------------------------------------------- #
+# (name, arch, config overrides): each reduced config trains under zero3
+# and under tp (``<name>_tp``); "heads9" has 9 heads and 3 kv heads, which
+# no model axis of 2 or 4 splits whole
+TPL_ARCHS = (("mamba2", "mamba2-370m", {}), ("zamba2", "zamba2-1.2b", {}),
+             ("mla", "deepseek-v2-lite-16b", {}),
+             ("vision", "llama-3.2-vision-11b", {}),
+             ("heads9", "smollm-135m", {"n_heads": 9, "n_kv_heads": 3}))
+# (name, arch, config overrides, strategy, micro)
+TPL_LM_CASES = tuple(
+    (name + sfx, arch, over, strategy, 1)
+    for name, arch, over in TPL_ARCHS
+    for sfx, strategy in (("", "zero3"), ("_tp", "tp"))) + (
+    ("moe_micro2", "llama4-scout-17b-a16e", {}, "zero3", 2),)
+# (name, arch, config overrides): greedy generate through the Hybrid
+# Engine; MLA's MoE layers are not generated over a batch sharded on data
+TPL_GEN_CASES = (("mamba2", "mamba2-370m", {}), ("zamba2", "zamba2-1.2b", {}),
+                 ("zamba2_int8", "zamba2-1.2b", {"kv_quant": True}),
+                 ("mla", "deepseek-v2-lite-16b", {}),
+                 ("vision", "llama-3.2-vision-11b", {}))
+
+
+def tpl_config(arch: str, over: dict):
+    return lm_config(arch).replace(**over)
+
+
+def tpl_batches(cfg) -> list:
+    """Two SFT batches of 8 rows of 16 tokens (with encoder embeddings
+    for the VLM)."""
+    return (embed_batches(cfg, 2) if cfg.arch_type == "vlm"
+            else tp_lm_batches(cfg))
+
+
+def tpl_encoder(cfg, n: int = 4):
+    """Encoder embeddings for ``n`` prompts of a VLM (``None`` else)."""
+    if cfg.arch_type != "vlm":
+        return None
+    return torch.randn((n, cfg.encoder_len, cfg.encoder_dim),
+                       generator=_gen(12))
+
+
+def tpl_gen_params(cfg):
+    """Greedy-generation params (cross-attention gates at 0.7)."""
+    params = T.init_params(cfg, _gen(1))
+    for seg in params["segments"]:
+        for lp in seg:
+            if "xattn" in lp:
+                lp["xattn"]["gate"].fill_(0.7)
+    return params
+
+
+def case_tpl_lm(dp: int, tp: int) -> dict:
+    """make_sharded_lm_step (zero3 + ZeRO-1 and tp + ZeRO-1) at ``dp x tp``
+    on the reduced configs of :data:`TPL_LM_CASES`, two steps each."""
+    mesh = make_mesh(dp, tp)
+    if mesh.get_coordinate() is None:
+        return {}
+    out = {}
+    for name, arch, over, strategy, micro in TPL_LM_CASES:
+        cfg = tpl_config(arch, over)
+        step, sh, shard_batch = make_sharded_lm_step(cfg, mesh, strategy,
+                                                     zero=1, micro=micro)
+        state = TrainState.create(embed_params(cfg), shardings=sh)
+        losses, gnorms = [], []
+        for b in tpl_batches(cfg):
+            state, m = step(state, shard_batch(b), TP_LR)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        out[name] = {"loss": losses, "grad_norm": gnorms,
+                     "params": _tree_np(state.params)}
+    return out
+
+
+def tpl_generate(eng, cfg, params) -> dict:
+    o = eng.generate(params, torch.as_tensor(PROMPTS), _gen(7),
+                     encoder_embeds=tpl_encoder(cfg))
+    return {**{k: v.numpy() for k, v in o.items()},
+            "steps": eng.last_stats["decode_steps"]}
+
+
+def case_tpl_engine(dp: int, tp: int) -> dict:
+    """Greedy generate at ``dp x tp`` through the Hybrid Engine for
+    :data:`TPL_GEN_CASES` (MLA only on ``dp == 1``), and the rank's cache
+    shapes."""
+    mesh = make_mesh(dp, tp)
+    if mesh.get_coordinate() is None:
+        return {}
+    out = {}
+    for name, arch, over in TPL_GEN_CASES:
+        cfg = tpl_config(arch, over)
+        if cfg.moe and dp > 1:
+            continue
+        he = HybridEngine(cfg, mesh)
+        p_infer = he.to_inference(runtime.place_tree(
+            tpl_gen_params(cfg), he.train_shardings))
+        eng = he.generation_engine(device="cpu", **PPO_KW)
+        out[name] = tpl_generate(eng, cfg, p_infer)
+        view, _ = eng._view(p_infer)
+        out[name]["cache"] = [
+            {k: tuple(v[0]) for k, v in unit.items()}
+            for seg in T.cache_struct(T.local_cfg(cfg, view), 2, 16)
+            for unit in seg]
+    return out
+
+
+def tpl_trainer(cfg, engine):
+    """The greedy PPO trainer of a reduced ``cfg`` actor and critic."""
+    actor = T.init_params(cfg, _gen(0))
+    return PPOTrainer(actor_cfg=cfg, critic_cfg=cfg, actor_params=actor,
+                      critic_params=R.init_params(cfg, _gen(1)),
+                      ref_params=clone_params(actor),
+                      reward_params=R.init_params(cfg, _gen(2)),
+                      ppo=PPOConfig(**PPO_KW), engine=engine)
+
+
+def case_tpl_ppo(dp: int, tp: int) -> dict:
+    """One ``train_rlhf`` step of PPO through the Hybrid Engine (zero3 +
+    ZeRO-1) with a reduced Zamba2 actor and critic."""
+    mesh = make_mesh(dp, tp)
+    if mesh.get_coordinate() is None:
+        return {}
+    cfg = lm_config("zamba2-1.2b")
+    return ppo_run(tpl_trainer(cfg, HybridEngine(
+        cfg, mesh, train_strategy="zero3", zero=1)), PROMPTS, steps=1)
+
+
+def case_tpl_layout(dp: int, tp: int) -> dict:
+    """Reduced Mamba2 in the ``tp`` layout: this rank's bytes at rest, and
+    the shapes of its compute view's mixer leaves."""
+    mesh = make_mesh(dp, tp)
+    if mesh.get_coordinate() is None:
+        return {}
+    from repro_torch.training.steps import mesh_view
+    cfg = lm_config("mamba2-370m")
+    st = TrainState.create(T.init_params(cfg, _gen(0)),
+                           shardings=S.train_state_shardings(cfg, mesh, "tp",
+                                                             zero=1))
+    view, _, _ = mesh_view(cfg, st.params)
+    ssm = view["segments"][0][0]["ssm"]
+    return {"rest_bytes": runtime.local_bytes(st.params),
+            "view": {k: tuple(v.shape) for k, v in ssm.items()}}
+
+
 CASES = {"reshard": case_reshard, "ppo": case_ppo, "engine": case_engine,
          "lm": case_lm, "embeds": case_embeds, "reward": case_reward,
          "refusals": case_refusals}
 TP_CASES = {"tp_lm": case_tp_lm, "tp_ppo": case_tp_ppo,
             "tp_engine": case_tp_engine, "tp_reward": case_tp_reward,
-            "tp_layout": case_tp_layout, "tp_refusals": case_tp_refusals}
+            "tp_layout": case_tp_layout, "tp_refusals": case_tp_refusals,
+            "tpl_lm": case_tpl_lm, "tpl_engine": case_tpl_engine,
+            "tpl_ppo": case_tpl_ppo, "tpl_layout": case_tpl_layout}
 
 
 def main() -> int:

@@ -32,8 +32,7 @@ leaf's max; everywhere within one Adam step, ``2.5 * lr``).
   ``lm_train_step`` on one rank.
 - The reward step (pairwise loss and accuracy over the global batch).
 - The train state's local shard shapes against the pspecs.
-- The refusals: MLA, SSM and cross-attention layers on model > 1,
-  ``core()`` on a mesh, ``rollout_mesh``,
+- The refusals: ``core()`` on a mesh, ``rollout_mesh``,
   ``--mesh`` with ``--ckpt-dir``; and ``torchrun ... launch.train --mesh
   2,1 --strategy zero3`` (SFT and ``--rlhf``) exits 0.
 """
@@ -358,7 +357,13 @@ def test_train_state_local_shapes_follow_the_pspecs(runs, dp, strategy):
 @pytest.mark.parametrize("what", ["mla_tp2", "ssm_tp2", "xattn_tp2",
                                   "core", "rollout_mesh"])
 def test_mesh_refusals(runs, what):
+    """``core()`` on a mesh and ``rollout_mesh`` are refused; MLA, SSM and
+    cross-attention layers on ``model > 1`` are accepted (their compute
+    is ``tests/test_torch_tp_layers.py``'s)."""
     msg = runs[4]["refusals"][what]
+    if what.endswith("_tp2"):
+        assert msg is None
+        return
     assert msg is not None and msg.startswith("NotImplementedError")
     assert "not yet ported" in msg
 

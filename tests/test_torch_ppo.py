@@ -570,8 +570,8 @@ def test_state_tree_round_trip():
 # refusals
 # --------------------------------------------------------------------- #
 class _TPMesh:
-    """A mesh shape with a model axis of 3, which does not divide the
-    reduced configs' 4 heads: a split that is not whole heads."""
+    """A mesh shape with a model axis of 3, which does not divide a Mamba2
+    mixer of 2 groups."""
     shape = {"data": 1, "model": 3}
     axis_names = ("data", "model")
 
@@ -579,12 +579,14 @@ class _TPMesh:
 @pytest.mark.parametrize("what", ["engine", "rollout_mesh"])
 def test_trainer_refuses_what_is_not_ported(what):
     """The rollout mesh (disaggregated generation) and an engine whose
-    mesh's model axis does not divide the heads (tensor-parallel compute
-    on partial heads) are not yet ported."""
+    mesh's model axis does not divide an actor's Mamba2 groups are not
+    yet ported (the check comes before the params are read)."""
     ajcfg, atcfg, cjcfg, ctcfg = _configs()
     jm = _models(ajcfg, cjcfg, seed=13)
     arg = (types.SimpleNamespace(mesh=_TPMesh()) if what == "engine"
            else object())
+    if what == "engine":
+        atcfg = config_pair("mamba2-370m")[1].replace(ssm_ngroups=2)
     kw, cfg = {what: arg}, tppo.PPOConfig()
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tppo.PPOTrainer(actor_cfg=atcfg, critic_cfg=ctcfg,

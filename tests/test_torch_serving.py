@@ -204,10 +204,11 @@ class _Mesh:
 
 def test_engine_refuses_unported_layouts(model):
     """On a mesh, tensor-parallel decode over a model axis that does not
-    divide the heads (3 over the reduced config's 4) and the stepwise
-    core over more than one rank are not yet ported."""
+    divide a Mamba2 mixer's groups (3 over 2) and the stepwise core over
+    more than one rank are not yet ported."""
     _, tcfg, _, _ = model
-    eng = GenerationEngine(tcfg, max_new_tokens=4, mesh=_Mesh(1, 3),
+    ssm = config_pair("mamba2-370m")[1].replace(ssm_ngroups=2)
+    eng = GenerationEngine(ssm, max_new_tokens=4, mesh=_Mesh(1, 3),
                            device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         eng.generate({}, torch.zeros((1, 4), dtype=torch.long),

@@ -29,8 +29,10 @@ grad near 0 into up to an LR-sized step.
 - Local bytes and shapes: at rest, a rank holds its replicated leaves
   plus ``1 / tp`` of its ``model``-sharded ones; an aligned 1 x 2 view
   gathers no weight over ``model``.
-- What ``model > 1`` still refuses, and ``torchrun ... launch.train
-  --mesh 1,2`` (SFT and ``--rlhf``) against ``--mesh 1,1``.
+- What ``model > 1`` still refuses (MoE generation over a batch sharded
+  on ``data``), and ``torchrun ... launch.train --mesh 1,2`` (SFT and
+  ``--rlhf``) against ``--mesh 1,1``.  The other layer kinds on ``model >
+  1`` are ``tests/test_torch_tp_layers.py``'s.
 """
 import os
 import pickle
@@ -498,20 +500,6 @@ def test_compute_slices_follow_the_heads_each_rank_reads(arch, tp,
         assert {mlp[k].kind for k in mlp} == {S.ALIGNED}
         assert v["embed"].kind == S.ALIGNED
         assert v["final_norm"].kind == S.FULL
-
-
-REFUSED = ("deepseek-v2-lite-16b", "mamba2-370m", "llama-3.2-vision-11b",
-           "zamba2-1.2b", "heads_6_kv_3", "engine_mla")
-
-
-@pytest.mark.parametrize("what", REFUSED)
-def test_tp_refusals(runs, what):
-    """MLA, SSM / hybrid and cross-attention layers and a head split that
-    is not whole heads stay refused on ``model > 1``."""
-    for mesh in MESHES:
-        msg = runs[mesh]["tp_refusals"][what]
-        assert msg is not None and msg.startswith("NotImplementedError")
-        assert "not yet ported" in msg
 
 
 def test_tp_moe_generation_over_data_is_refused(runs):

@@ -398,9 +398,10 @@ def test_remat_gives_the_same_grads():
 
 
 def test_sharded_pieces_are_not_ported():
-    """What of the sharded training path is still not ported: SSM layers
-    on a mesh with a model axis (tensor parallelism) and the disaggregated
-    meshes; the gather / grad pspecs need a state in a mesh layout."""
+    """What of the sharded training path is still not ported: a Mamba2
+    mixer whose groups the model axis does not divide (3 over 2) and the
+    disaggregated meshes; the gather / grad pspecs need a state in a mesh
+    layout."""
     from types import SimpleNamespace
     from repro_torch.launch import mesh as tmesh
     _, tcfg = config_pair("opt-1.3b")
@@ -408,7 +409,8 @@ def test_sharded_pieces_are_not_ported():
     tp_mesh = SimpleNamespace(shape={"data": 1, "model": 2},
                               axis_names=("data", "model"))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tsteps.make_sharded_lm_step(ssm, tp_mesh, "zero3")
+        tsteps.make_sharded_lm_step(ssm.replace(ssm_ngroups=3), tp_mesh,
+                                    "zero3")
     state = TrainState.create({"w": torch.zeros(2)})
     with pytest.raises(ValueError, match="mesh layout"):
         tsteps.lm_train_step(tcfg, state, {}, 1e-3, gather_pspecs={})

@@ -94,16 +94,33 @@ Phases (any failure raises, so the run exits non-zero):
    paged int8 decode; PPO's scoring (``make_experience``) and one actor
    and critic step on the mesh path (compute views, the tensor-parallel
    context of a one-rank model group, ``zero3`` + ZeRO-1 states) against
-   the plain path at OPT-1.3B / OPT-350M: bit for bit; then ``torchrun
-   --nproc-per-node 1 -m repro_torch.launch.train --arch opt-125m --mesh
-   1,1 --strategy zero3 --zero 1`` and ``--strategy tp`` (5 steps of 8 x
-   512 each): exit 0, a falling loss, the two runs' losses equal to 1e-4;
-   last, kernel rows 2-7 at the head counts one rank of a 2- and 4-way
-   ``model`` axis launches (OPT-1.3B 16 and 8 heads at D 64, qwen3-8b 16
+   the plain path at OPT-1.3B / OPT-350M: bit for bit; last, kernel rows
+   2-7 at the head counts one rank of a 2- and 4-way ``model`` axis
+   launches (OPT-1.3B 16 and 8 heads at D 64, qwen3-8b 16
    / 4 and 8 / 2 at D 128) against their plain versions at phase
    ``gqa128``'s tolerances, timed (``tp`` in the ``kernels`` line).
+10. ``serve_mesh`` — the launchers and the request core on a mesh at
+   1 x 1.  Two ``torchrun --nproc-per-node 1`` runs start first and run
+   beside the rest of the phase: ``-m repro_torch.launch.train --arch
+   opt-125m --mesh 1,1 --strategy tp --zero 1`` (5 steps of 8 x 512): exit
+   0, a falling loss, its losses equal to the plain launcher's run in this
+   process to 1e-4; and (a) ``-m repro_torch.launch.serve --mesh 1,1``
+   with phase ``serve``'s 32-request workload and seed (OPT-1.3B, full
+   size, bf16): exit 0, and its summary's generated tokens and slot
+   utilization equal the plain launcher's (phase ``serve``'s run, or one
+   here), both tok/s printed (the mesh run's beside this process's work);
+   (b) on a one-rank NCCL group, the launcher with ``--mesh 1,1``
+   in this process on phase ``serve``'s greedy preempting case with int8
+   KV (OPT-1.3B, the paged pool of 121 blocks): every completion by uid
+   and every stat (preemptions, block high water, mean concurrency) equal
+   to the plain launcher's run, at least one preemption, the paged int8
+   kernel launched and no dense decode kernel; (c) deepseek-v2-lite at
+   full width cut to 4 layers, bf16: greedy ``generate`` (4 x 64 + 16) and
+   the request core (8 ragged requests, 4 slots, 16 new) through the mesh
+   path beside the plain one, identical tokens, stats equal, RMSNorm and
+   the flash forward launched on the mesh path.
 
-10. ``ssm``     — the SSM / hybrid serving slice: ``ssd_intra_fwd`` (the
+11. ``ssm``     — the SSM / hybrid serving slice: ``ssd_intra_fwd`` (the
    Mamba2 SSD intra-chunk pass) against its plain version at Mamba2-370M
    (q = 256, a ragged 137, one token, four chunks, the fixed path's b = 8)
    and Zamba2-1.2B widths in fp32 (the CUDA-core kernel) and bf16 (the
@@ -120,7 +137,7 @@ Phases (any failure raises, so the run exits non-zero):
    continuous engine against each request alone (identical, in fp32);
    one Mamba2 decode step at 16 slots eager and as a
    CUDA-graph replay.
-11. ``ssm_train`` — the SSM / hybrid training slice: at the SFT shapes
+12. ``ssm_train`` — the SSM / hybrid training slice: at the SFT shapes
    (b 8, nc 2, q 256; Mamba2-370M and Zamba2-1.2B widths) the forward
    kernel against its plain version (phase ``ssm``'s tolerances) and the
    explicit SSD backward (``ref.ssd_intra_bwd_ref``) against autograd of
@@ -144,7 +161,7 @@ Phases (any failure raises, so the run exits non-zero):
    at 1e-4, free-running within a tenth of the int8 error, tokens
    identical, the first attention layer's int8 rows at most one step
    apart).
-12. ``gqa128`` — the head-dim-128 GQA family at full size: the flash
+13. ``gqa128`` — the head-dim-128 GQA family at full size: the flash
    forward (with the LSE) at the prefills of qwen3-8b (KV 8, G 4), yi-9b
    (KV 4, G 8), llama3.2-3b (KV 8, G 3) and llama4-scout (KV 8, G 5) and
    at the llama3.2-3b SFT shape (B 8, H 24, L 512), the flash backward at
@@ -156,16 +173,16 @@ Phases (any failure raises, so the run exits non-zero):
    registers and spills of every D = 128 instantiation (from ``build``,
    printed, not gated); qwen3-8b, yi-9b and llama3.2-3b at full width and
    depth in fp32, teacher-forced (prefill 256 + 32 decode), kernel path
-   against plain path (1e-4); ``launch.serve`` of qwen3-8b on the
-   32-request workload at 64 new tokens (dense bf16), yi-9b greedy paged
-   == dense on 8 requests, llama3.2-3b greedy on dense and paged int8 KV
-   (tok/s and peak memory; each run's launch set gated); ``launch.train`` SFT at llama3.2-3b full size (5 steps of 8 x
+   against plain path (1e-4); ``launch.serve`` of yi-9b greedy paged ==
+   dense on 8 requests, llama3.2-3b greedy on dense and paged int8 KV
+   (tok/s and peak memory; each run's launch set gated); ``launch.train``
+   SFT at llama3.2-3b full size (5 steps of 8 x
    512, bf16 on fp32 masters, remat; fails if it does not fit), a
    qwen3-8b fp32 LM step at 2 layers kernel vs plain (loss 1e-5, grads
    1e-4 of each leaf's max); ``RLHFPipeline`` with llama3.2-3b actor and
    critic cut to 4 layers (2 SFT, 2 RM steps, 1 PPO iteration of 8 x 256
    + 64 on int8 KV) under phase ``rlhf``'s checks.
-13. ``moe`` — the MoE layer at llama4-scout-17b-a16e, full width (107.8 B
+14. ``moe`` — the MoE layer at llama4-scout-17b-a16e, full width (107.8 B
    parameters whole, so cut in depth): ``launch.serve`` at 12 layers
    (``cfg=``; 28.5 B, bf16 weights only) on the 32-request workload (64
    new tokens) with
@@ -178,7 +195,7 @@ Phases (any failure raises, so the run exits non-zero):
    vs plain (loss and aux 1e-5, grads 1e-4); ``launch.train --lora 8``
    at 2 layers, 3 bf16 steps of 4 x 512 (every loss and aux finite, the
    adapters moved).
-14. ``mla`` — MLA at deepseek-v2-lite-16b (16.2 B parameters, every layer
+15. ``mla`` — MLA at deepseek-v2-lite-16b (16.2 B parameters, every layer
    MoE): the flash forward and backward at head dim 192 (H = KV = 16, V
    zero-padded from 128) at the prefill (B 1, L 256) and the SFT shape
    (B 8, L 512, with the LSE), fp32 and bf16 against the plain versions,
@@ -195,7 +212,7 @@ Phases (any failure raises, so the run exits non-zero):
    decode kernel: the absorbed decode is plain products); ``launch.train``
    SFT at full width cut to 4 layers, 5 steps of 8 x 512 (bf16 on fp32
    masters): the D = 192 backward inside a step.
-15. ``xattn`` — cross-attention and embedding inputs: the flash kernels
+16. ``xattn`` — cross-attention and embedding inputs: the flash kernels
    over llama-3.2-vision's 1,601 encoder keys (D 128, H 32 / KV 8,
    non-causal; Lq 1 and 64 at B 4, and the SFT shape B 8, Lq 512 with the
    backward), checked and timed as in phase ``mla``;
@@ -211,7 +228,7 @@ Phases (any failure raises, so the run exits non-zero):
    kernel path against plain path (1e-4), and 5 SFT steps of 8 x 512 on
    frame embeddings (bf16 on fp32 masters; every loss finite, the training
    kernels launched).
-16. ``ckpt`` — checkpoint/resume, LoRA and the torch example, under
+17. ``ckpt`` — checkpoint/resume, LoRA and the torch example, under
    ``build/ckpt_phase`` (deleted at the end): the free disk (60 GB
    at least) and host RAM (2x the largest snapshot) first; two
    uninterrupted ``launch.train`` runs of OPT-1.3B (full width cut to 8
@@ -236,7 +253,7 @@ Phases (any failure raises, so the run exits non-zero):
    Launch counts are set to 0 before each leg's first run and read after
    it (SFT, PPO, LoRA, serve, example); every kernel of the leg must have
    launched.
-17. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
+18. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
    that no earlier timing runs after a profiler session: the CUDA kernels
    one call of each decode row of phase ``kernels`` runs (the split
    kernel, then the combine exactly when the host's plan splits the
@@ -294,6 +311,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -304,8 +322,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "train", "rlhf",
-          "async", "hybrid", "ssm", "ssm_train", "gqa128", "moe", "mla",
-          "xattn", "ckpt", "profile")
+          "async", "hybrid", "serve_mesh", "ssm", "ssm_train", "gqa128",
+          "moe", "mla", "xattn", "ckpt", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the time bound of a kernel is
 # the larger of bytes / memory rate and operations / peak rate for the type
@@ -1630,7 +1648,9 @@ def phase_serve(state):
     if res8["tokens"] != sum(r.max_new_tokens for r in res8["requests"]):
         raise AssertionError("serve --kv-quant: the run lost tokens")
     state["launches"]["serve_int8"] = counts8
-    state["serve"] = {"tok_s": res["tok_s"], "tok_s_int8": res8["tok_s"]}
+    state["serve"] = {"tok_s": res["tok_s"], "tok_s_int8": res8["tok_s"],
+                      "summary": {k: res[k] for k in ("tokens", "slot_util",
+                                                      "tok_s")}}
 
     argv = ["--arch", "smollm-135m", "--requests", "8", "--ragged",
             "--prompt-len", "64", "--max-new", "32", "--batch", "4",
@@ -1659,6 +1679,12 @@ def workload(arch: str = "opt-1.3b", max_new: int = 256) -> list:
 REPEAT_NEW = 64
 SERVE_ARGV = workload(max_new=REPEAT_NEW)
 PAGED = ["--kv-layout", "paged", "--block-size", "16"]
+# greedy, the workload's 32 ragged prompts with 64 new tokens each; a pool
+# of 121 blocks makes the paged layout preempt
+GREEDY = ["--arch", "opt-1.3b", "--requests", "32", "--ragged",
+          "--prompt-len", "256", "--max-new", "64", "--batch", "16",
+          "--chunk", "8", "--temperature", "0"]
+PREEMPT = PAGED + ["--num-blocks", "121"]
 
 
 def _serve_run(argv, tag, must, state, warmup=True, cfg=None):
@@ -1737,16 +1763,13 @@ def _paged_serve(state):
     # ragged prompts of the workload with 64 new tokens each (not 256: the
     # streams' identity is gated on every token either way), so the
     # preempting pool is 121 blocks
-    greedy = ["--arch", "opt-1.3b", "--requests", "32", "--ragged",
-              "--prompt-len", "256", "--max-new", "64", "--batch", "16",
-              "--chunk", "8", "--temperature", "0"]
+    greedy = GREEDY
     d = _serve_run(greedy, "serve_greedy_dense", SERVE_KERNELS, state,
                    warmup=False)
     p = _serve_run(greedy + PAGED, "serve_greedy_paged", SERVE_PAGED_KERNELS,
                    state, warmup=False)
-    pre = _serve_run(greedy + PAGED + ["--num-blocks", "121"],
-                     "serve_greedy_preempt", SERVE_PAGED_KERNELS, state,
-                     warmup=False)
+    pre = _serve_run(greedy + PREEMPT, "serve_greedy_preempt",
+                     SERVE_PAGED_KERNELS, state, warmup=False)
     same = d["completions"] == p["completions"]
     same_pre = pre["completions"] == p["completions"]
     n_pre = pre["stats"]["preemptions"]
@@ -2873,52 +2896,6 @@ def _tp_ssd_rows(state, failures):
         torch.cuda.empty_cache()
 
 
-def _hybrid_torchrun(state, failures):
-    """The launcher under ``torchrun`` on a 1 x 1 mesh in the ``tp``
-    layout (the tensor-parallel path on a one-rank model group): it exits
-    0 with a falling loss, and its losses agree with the plain launcher's
-    run in this process.  (Its ``zero3`` twin went to make room for the
-    other layer kinds' rows and gates: ``_hybrid_sft`` holds the zero3
-    mesh step to the plain one bit for bit.)"""
-    import os
-    import re
-
-    import torch
-    from repro_torch.launch import train as launch_train
-    torch.cuda.empty_cache()
-    argv = ["--arch", "opt-125m", "--steps", "5", "--batch", "8", "--seq",
-            "512"]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
-           *argv, "--mesh", "1,1", "--strategy", "tp", "--zero", "1"]
-    log(f"[hybrid] {' '.join(cmd[1:])}")
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
-                         cwd=ROOT, env=dict(os.environ,
-                                            PYTHONPATH=str(ROOT / "src")))
-    wall = time.perf_counter() - t0
-    losses = [float(x) for x in re.findall(
-        r"^step +\d+ +loss=([\d.]+)", res.stdout, flags=re.M)]
-    log(f"[hybrid] torchrun --strategy tp exit {res.returncode} in "
-        f"{wall:.1f}s; losses {losses}; "
-        + " | ".join(res.stdout.strip().splitlines()[-2:]))
-    if res.returncode != 0 or len(losses) < 2 or not losses[-1] < losses[0]:
-        failures.append(f"torchrun launcher --strategy tp: rc "
-                        f"{res.returncode}, losses {losses}: "
-                        f"{res.stderr[-2000:]}")
-    out = launch_train.main(argv)
-    plain = [float(f"{x:.4f}") for x in out["loss"]]
-    _free(out)
-    log(f"[hybrid] the plain launcher in this process: losses {plain}")
-    state["hybrid"]["torchrun"] = {"tp": {"rc": res.returncode,
-                                          "losses": losses, "seconds": wall},
-                                   "plain_losses": plain}
-    if len(losses) != len(plain) or any(abs(x - y) > 1e-4 * abs(x)
-                                        for x, y in zip(plain, losses)):
-        failures.append(f"torchrun tp losses {losses} and the plain "
-                        f"launcher's {plain} differ")
-
-
 @contextlib.contextmanager
 def one_rank_mesh(tag: str):
     """A one-rank NCCL group (from a FileStore) and its 1 x 1 ``data x
@@ -2949,7 +2926,6 @@ def phase_hybrid(state):
         _hybrid_sft(state, failures, mesh)
         _hybrid_ppo(state, failures, mesh)
         _hybrid_ppo_steps(state, failures, mesh)
-    _hybrid_torchrun(state, failures)
     _tp_kernel_rows(state, failures)
     if failures:
         raise AssertionError("hybrid: " + "; ".join(failures))
@@ -3042,6 +3018,227 @@ def mesh_identity(tag, cfg, batch, prompts, n_new, must, state, failures,
                             "the plain engine's")
     state.setdefault("mesh_identity", {})[tag] = {**out, "sft_equal": sft_ok,
                                                   "generate_equal": gen_ok}
+
+
+# --------------------------------------------------------------------- #
+# the request core on a mesh, at 1 x 1
+# --------------------------------------------------------------------- #
+SUMMARY = re.compile(r"generated (\d+) tokens in ([\d.]+)s  \(([\d.]+) "
+                     r"tok/s, slot utilization ([\d.]+)%\)")
+
+
+def _launch(tag: str, module: str, argv: list):
+    """``torchrun --standalone --nproc-per-node 1 -m module argv`` started
+    (not waited on) from the repository root, its output to a file:
+    ``(process, log path, start time)``."""
+    import os
+    import tempfile
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", module, *argv]
+    log(f"[serve_mesh] {tag}: {' '.join(cmd[1:])}")
+    fd, path = tempfile.mkstemp(prefix=f"{tag}_", suffix=".log")
+    with os.fdopen(fd, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                text=True, cwd=ROOT, env=dict(
+                                    os.environ, PYTHONPATH=str(ROOT / "src")))
+    return proc, path, time.perf_counter()
+
+
+def _finish(run, timeout: float = 600.0):
+    """``(exit code, output, seconds)`` of a :func:`_launch` run, killed
+    if it outlives ``timeout``."""
+    import os
+    proc, path, t0 = run
+    try:
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    out = Path(path).read_text(errors="replace")
+    os.unlink(path)
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+# ``launch.train --mesh 1,1 --strategy tp`` (the tensor-parallel path on a
+# one-rank model group) and the plain launcher on the same arguments
+TRAIN_TP_ARGV = ["--arch", "opt-125m", "--steps", "5", "--batch", "8",
+                 "--seq", "512"]
+
+
+def _train_launcher(state, failures, run):
+    """The train launcher under ``torchrun`` on a 1 x 1 mesh in the ``tp``
+    layout exits 0 with a falling loss, and its losses agree with the
+    plain launcher's run in this process to 1e-4.  (Its ``zero3`` twin
+    went to make room for the other layer kinds' rows and gates:
+    ``_hybrid_sft`` holds the zero3 mesh step to the plain one bit for
+    bit.)"""
+    from repro_torch.launch import train as launch_train
+    out = launch_train.main(TRAIN_TP_ARGV)
+    plain = [float(f"{x:.4f}") for x in out["loss"]]
+    _free(out)
+    log(f"[serve_mesh] the plain train launcher in this process: losses "
+        f"{plain}")
+    rc, text, wall = _finish(run)
+    losses = [float(x) for x in re.findall(
+        r"^step +\d+ +loss=([\d.]+)", text, flags=re.M)]
+    log(f"[serve_mesh] torchrun train --strategy tp exit {rc} in "
+        f"{wall:.1f}s; losses {losses}")
+    state.setdefault("serve_mesh", {})["train_torchrun"] = {
+        "rc": rc, "losses": losses, "seconds": wall, "plain_losses": plain}
+    if rc != 0 or len(losses) < 2 or not losses[-1] < losses[0]:
+        failures.append(f"torchrun train --strategy tp: rc {rc}, losses "
+                        f"{losses}: {text[-2000:]}")
+    elif len(losses) != len(plain) or any(abs(x - y) > 1e-4 * abs(x)
+                                          for x, y in zip(plain, losses)):
+        failures.append(f"torchrun tp losses {losses} and the plain "
+                        f"launcher's {plain} differ")
+
+
+def _serve_launcher(state, failures, run):
+    """(a) ``torchrun --nproc-per-node 1 -m repro_torch.launch.serve --mesh
+    1,1`` with phase ``serve``'s workload and seed: its summary's generated
+    tokens and slot utilization against the plain launcher's (phase
+    ``serve``'s run of the same arguments, or one here)."""
+    from repro_torch.launch import serve
+    plain = state.get("serve", {}).get("summary")
+    if plain is None:
+        res = serve.main(SERVE_ARGV)
+        plain = {k: res[k] for k in ("tokens", "slot_util", "tok_s")}
+        _free(res)
+    rc, text, wall = _finish(run)
+    lines = [s for s in text.splitlines() if SUMMARY.search(s)]
+    log(f"[serve_mesh] torchrun serve --mesh 1,1 exit {rc} in {wall:.1f}s: "
+        + " | ".join(s for s in text.splitlines()
+                     if s.startswith(("mesh=", "scheduler="))))
+    # (tokens, seconds, tok/s, slot utilization %) of the summary line
+    got = SUMMARY.search(lines[-1]).groups() if lines else ("",) * 4
+    want = (str(plain["tokens"]), f"{100 * plain['slot_util']:.1f}")
+    log(f"[serve_mesh] opt-1.3b bf16 workload: mesh 1 x 1 {got[2]} tok/s "
+        f"(beside this process's other runs), plain launcher "
+        f"{plain['tok_s']:.1f} tok/s; generated tokens and slot utilization "
+        f"{(got[0], got[3])} against {want}")
+    state.setdefault("serve_mesh", {})["launcher"] = {
+        "rc": rc, "seconds": wall, "tok_s": got[2],
+        "plain_tok_s": plain["tok_s"]}
+    if rc != 0 or len(lines) != 1 or (got[0], got[3]) != want:
+        failures.append(f"torchrun serve --mesh 1,1: rc {rc}, summary "
+                        f"{lines} against {want}: {text[-2000:]}")
+
+
+def _mesh_preempt(state, failures):
+    """(b) the launcher with ``--mesh 1,1`` in this process (the one-rank
+    group of :func:`one_rank_mesh`) on phase ``serve``'s greedy preempting
+    case with int8 KV, against the plain launcher's run: completions by
+    uid and stats equal, at least one preemption."""
+    argv = GREEDY + PREEMPT + ["--kv-quant"]
+    runs = {}
+    for tag, extra in (("serve_preempt_int8", []),
+                       ("serve_mesh_preempt_int8", ["--mesh", "1,1"])):
+        runs[tag] = _serve_run(argv + extra, tag, SERVE_PAGED_INT8_KERNELS,
+                               state, warmup=False)
+    plain, mesh = runs.values()
+    same = plain["completions"] == mesh["completions"]
+    same_st = plain["stats"] == mesh["stats"]
+    n_pre = mesh["stats"]["preemptions"]
+    log(f"[serve_mesh] paged int8, 121 blocks: mesh core at 1 x 1 == plain "
+        f"core: completions {same}, stats {same_st} (preemptions {n_pre}, "
+        f"block_high_water {mesh['stats']['block_high_water']}); tok/s "
+        f"{mesh['tok_s']:.1f} mesh, {plain['tok_s']:.1f} plain")
+    state.setdefault("serve_mesh", {})["preempt"] = {
+        "equal": same and same_st, "preemptions": n_pre,
+        "tok_s": mesh["tok_s"], "plain_tok_s": plain["tok_s"]}
+    if not (same and same_st and n_pre > 0):
+        failures.append(f"mesh core paged int8: completions equal {same}, "
+                        f"stats equal {same_st} ({mesh['stats']} against "
+                        f"{plain['stats']}), preemptions {n_pre}")
+    _free(plain, mesh)
+
+
+def _mesh_moe(state, failures, mesh):
+    """(c) deepseek-v2-lite at full width cut to ``MLA_TRAIN_LAYERS``
+    layers, bf16 weights: greedy ``generate`` of 4 x 64 + 16 and the
+    request core on 8 ragged requests (4 slots, 16 new) through the mesh
+    path at 1 x 1 beside the plain path: identical tokens and stats."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import GenerationEngine, Request
+
+    cfg = get_config(MLA_ARCH).replace(n_layers=MLA_TRAIN_LAYERS)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        11), cfg.cdtype)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 64), device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(33))
+    rng = np.random.default_rng(34)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, int(
+        rng.integers(16, 65))).astype(np.int32), max_new_tokens=16)
+        for i in range(8)]
+    gen = lambda: torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for path, m in (("plain", None), ("mesh", mesh)):
+        eng = GenerationEngine(cfg, mesh=m, max_new_tokens=16,
+                               temperature=0.0, chunk=8, device="cuda")
+        ops.reset_launch_counts()
+        seqs = eng.generate(params, prompts, gen())["sequences"]
+        _, st, dt, fin = serve.run_schedule(eng, params, reqs, gen(),
+                                            mode="continuous", slots=4,
+                                            max_seq_len=80)
+        counts = ops.launch_counts()
+        if m is not None:
+            _launched("serve_mesh_deepseek", counts,
+                      ("rmsnorm", "flash_attention_fwd"), state, failures)
+        out[path] = (seqs, fin, st, dt)
+    del params
+    gen_ok = torch.equal(out["plain"][0], out["mesh"][0])
+    core_ok = out["plain"][1:3] == out["mesh"][1:3]
+    log(f"[serve_mesh] deepseek-v2-lite at {MLA_TRAIN_LAYERS} layers (MLA, "
+        f"MoE): mesh generate == plain {gen_ok}; mesh core == plain core "
+        f"(completions, stats) {core_ok}; core {out['mesh'][3]:.2f}s mesh, "
+        f"{out['plain'][3]:.2f}s plain")
+    state.setdefault("serve_mesh", {})["moe"] = {"generate_equal": gen_ok,
+                                                 "core_equal": core_ok}
+    if not (gen_ok and core_ok):
+        failures.append(f"deepseek mesh path at 1 x 1: generate equal "
+                        f"{gen_ok}, core equal {core_ok}")
+
+
+def phase_serve_mesh(state):
+    """The launchers and the request core on a mesh at 1 x 1: the train
+    launcher (``--strategy tp``) and the serve launcher (OPT-1.3B) under
+    ``torchrun``, both started first and run beside this process's work:
+    the mesh core on a preempting paged int8 pool and an MoE model's mesh
+    ``generate`` and core, then the plain train launcher."""
+    import gc
+
+    import torch
+    failures = []
+    runs = {"train": _launch("train_tp", "repro_torch.launch.train", [
+        *TRAIN_TP_ARGV, "--mesh", "1,1", "--strategy", "tp", "--zero", "1"]),
+        "serve": _launch("serve_mesh", "repro_torch.launch.serve",
+                         [*SERVE_ARGV, "--mesh", "1,1"])}
+    try:
+        with one_rank_mesh("serve_mesh") as mesh:
+            for part in (_mesh_preempt, _mesh_moe):
+                t0 = time.perf_counter()
+                part(state, failures, *([mesh] if part is _mesh_moe
+                                        else []))
+                gc.collect()      # engines and cores refer to each other
+                torch.cuda.empty_cache()
+                log(f"[serve_mesh] {part.__name__}: "
+                    f"{time.perf_counter() - t0:.1f}s")
+        _train_launcher(state, failures, runs["train"])
+        _serve_launcher(state, failures, runs["serve"])
+    finally:
+        for proc, _, _ in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failures:
+        raise AssertionError("serve_mesh: " + "; ".join(failures))
 
 
 # --------------------------------------------------------------------- #
@@ -4786,13 +4983,14 @@ def _serve_peak(argv, tag, must, state, warmup=True, cfg=None):
 
 def _gqa128_serve(state, failures):
     """``launch.serve`` at full width and depth, weights in bf16 only:
-    qwen3-8b on the 32-request workload (dense bf16 KV); yi-9b greedy
-    paged == dense on 8 requests of up to 64 new tokens (its run of the
-    whole workload on the paged pool, whose gates these two runs hold too,
-    went to make room for phases ``mla`` and ``xattn``); llama3.2-3b
-    greedy on those 8 requests on the dense and the paged int8 KV."""
+    yi-9b greedy paged == dense on 8 requests of up to 64 new tokens (its
+    run of the whole workload on the paged pool, whose gates these two runs
+    hold too, went to make room for phases ``mla`` and ``xattn``; qwen3-8b's
+    run of the workload on the dense arena, whose D = 128 launch set the
+    yi-9b runs hold, for phase ``serve_mesh``: yi-9b's first run now
+    includes its first calls); llama3.2-3b greedy on those 8 requests on
+    the dense and the paged int8 KV."""
     argv = lambda arch: workload(arch, REPEAT_NEW)
-    _serve_peak(argv("qwen3-8b"), "serve_qwen3_8b", SERVE_KERNELS, state)
     d = _serve_peak(argv("yi-9b") + GREEDY8, "serve_yi_9b_greedy_dense",
                     SERVE_KERNELS, state, warmup=False)
     p = _serve_peak(argv("yi-9b") + GREEDY8 + PAGED,
@@ -5788,7 +5986,8 @@ def phase_xattn(state):
 PHASE_FNS = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "parity": phase_parity,
              "serve": phase_serve, "train": phase_train, "rlhf": phase_rlhf,
-             "async": phase_async, "hybrid": phase_hybrid, "ssm": phase_ssm,
+             "async": phase_async, "hybrid": phase_hybrid,
+             "serve_mesh": phase_serve_mesh, "ssm": phase_ssm,
              "ssm_train": phase_ssm_train,
              "gqa128": phase_gqa128, "moe": phase_moe,
              "mla": phase_mla, "xattn": phase_xattn,

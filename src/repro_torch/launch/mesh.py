@@ -33,8 +33,11 @@ def init_distributed(device, *, init_method: Optional[str] = None,
     The rank, world size and rendezvous come from the ``torchrun``
     environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
     ``MASTER_ADDR``/``MASTER_PORT``) unless ``init_method`` (e.g.
-    ``file://...``) with ``rank`` and ``world_size`` is given.  ``cuda``
-    uses NCCL on GPU ``LOCAL_RANK``, never gloo; ``cpu`` uses gloo.  Every
+    ``file://...``) with ``rank`` and ``world_size`` is given; a process
+    started without either is a group of its own (one rank, its store in
+    memory), so a launcher's ``--mesh 1,1`` runs without ``torchrun``.
+    ``cuda`` uses NCCL on GPU ``LOCAL_RANK``, never gloo; ``cpu`` uses
+    gloo.  Every
     collective of the group fails after ``timeout_s`` rather than hang."""
     import torch.distributed as dist
     dev = torch.device(device)
@@ -54,10 +57,15 @@ def init_distributed(device, *, init_method: Optional[str] = None,
         backend = "gloo"
     else:
         raise ValueError(f"unsupported device {device!r}")
-    dist.init_process_group(
-        backend, init_method=init_method or "env://", rank=rank,
-        world_size=world_size,
-        timeout=datetime.timedelta(seconds=timeout_s))
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if init_method is None and world_size == 1 and (
+            "MASTER_ADDR" not in os.environ):
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1, timeout=timeout)
+    else:
+        dist.init_process_group(
+            backend, init_method=init_method or "env://", rank=rank,
+            world_size=world_size, timeout=timeout)
     return _rank_device(dev)
 
 

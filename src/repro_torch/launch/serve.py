@@ -64,12 +64,34 @@ fp32 and rounded leaf by leaf.
 --ckpt``, either package's ``checkpoint.save``) in place of random
 weights, which are otherwise drawn from ``--seed``.
 
+``--mesh dp,tp`` serves on a ``("data", "model")`` mesh of ``dp * tp``
+ranks, one process a device under ``torchrun`` (gloo with ``--device
+cpu``, NCCL with one GPU a rank on CUDA; a single process without
+``torchrun`` is a one-rank group, enough for ``--mesh 1,1``)::
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+        -m repro_torch.launch.serve --device cpu --arch smollm-135m \\
+        --reduced --mesh 2,1 --requests 8 --ragged --max-new 8
+
+The params (``--ckpt`` loads, then places) are placed in the ``tp``
+layout, as the reference's launcher places them, and served through one
+mesh-wide request core (:meth:`GenerationEngine.core`): ``--batch`` slots
+and ``--num-blocks`` mean what they mean on one device, the dense arena
+holds a data rank's share of the slots and every rank its kv heads, and
+every rank takes the same host decisions.  Rank 0 alone prints ``mesh=...
+params=tp layout`` and the summary line, whose tokens, slot utilization
+and pool statistics are the one-device run's.  ``--chat`` on a mesh: rank
+0 reads each line and sends it to every rank, which drive the same
+persistent core.
+
 Runs on CUDA; ``--device cpu`` runs on the CPU with the kernels' plain
-versions.  The reference's ``--mesh`` is not ported yet and is refused.
+versions.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import sys
 import time
@@ -77,14 +99,17 @@ from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import ByteTokenizer
+from repro_torch.launch.mesh import init_distributed, mesh_from_spec
 from repro_torch.models import transformer as T
 from repro_torch.models.modules import ParamSpec, tree_map
 from repro_torch.serving.engine import (GenerationEngine, Request,
                                         SamplingParams)
+from repro_torch.sharding import runtime, strategy
 from repro_torch.training import checkpoint
 
 
@@ -176,7 +201,8 @@ def chat_loop(engine, params, tok: ByteTokenizer, args) -> None:
     each turn's prompt is the whole conversation so far plus the new line.
     When the conversation outgrows the KV geometry the context is cleared.
     Replies stop at the byte tokenizer's EOS unless ``--eos-id`` overrides
-    it."""
+    it.  On a mesh rank 0 reads each line and broadcasts it, so every rank
+    drives the core alike."""
     print("chat mode — empty line to exit")
     S = 4 * (args.prompt_len + args.max_new)
     eos = (args.eos_id if args.eos_id is not None
@@ -186,10 +212,7 @@ def chat_loop(engine, params, tok: ByteTokenizer, args) -> None:
     history = np.zeros((0,), np.int32)
     turn = 0
     while True:
-        try:
-            text = input("Human: ")
-        except EOFError:
-            break
+        text = _read_line(engine.mesh)
         if not text.strip():
             break
         ids = np.minimum(tok.encode(text, max_len=args.prompt_len),
@@ -213,6 +236,30 @@ def chat_loop(engine, params, tok: ByteTokenizer, args) -> None:
         print()
         history = np.concatenate([prompt, np.asarray(reply, np.int32)])
         turn += 1
+
+
+def _read_line(mesh) -> str:
+    """The next ``Human:`` line ("" at the end of the input); on a mesh
+    rank 0 reads it and every rank gets it."""
+    line = [""]
+    if mesh is None or dist.get_rank() == 0:
+        try:
+            line[0] = input("Human: ")
+        except EOFError:
+            pass
+    if mesh is not None:
+        dist.broadcast_object_list(line, src=0)
+    return line[0]
+
+
+def mesh_spec(text: str) -> str:
+    """A ``--mesh`` value: ``dp,tp``, two sizes >= 1."""
+    parts = text.split(",")
+    if len(parts) != 2 or not all(p.isdigit() and int(p) >= 1
+                                  for p in parts):
+        raise argparse.ArgumentTypeError(
+            f"expects 'dp,tp', two sizes >= 1 (got {text!r})")
+    return text
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -251,7 +298,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefix-cache", choices=["on", "off"], default="off",
                     help="paged: prefix-aware block reuse (cached prompt "
                          "prefixes are mapped, only the suffix prefilled)")
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", type=mesh_spec, default=None,
+                    help="dp,tp: serve on a (data, model) mesh of dp * tp "
+                         "ranks, one process a device under torchrun, "
+                         "params in the tp layout")
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--top-k", type=int, default=40)
     ap.add_argument("--top-p", type=float, default=1.0)
@@ -273,8 +323,30 @@ def main(argv=None, params=None, warmup: bool = True, cfg=None) -> dict:
     cut in depth, for a model one card cannot hold whole)."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        ap.error("--mesh: not yet ported")
+    if args.mesh is None:
+        return _main(ap, args, params, warmup, cfg)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        ap.error("CUDA is not available; pass --device cpu to run on the "
+                 "CPU with the kernels' plain versions")
+    owned = not dist.is_initialized()
+    device = init_distributed(args.device)
+    try:
+        dp, tp = (int(x) for x in args.mesh.split(","))
+        if dist.get_world_size() != dp * tp:
+            ap.error(f"--mesh {args.mesh} takes {dp * tp} ranks, the group "
+                     f"has {dist.get_world_size()}")
+        mesh = mesh_from_spec(args.mesh)
+        quiet = dist.get_rank() != 0
+        with contextlib.redirect_stdout(io.StringIO()) if quiet \
+                else contextlib.nullcontext():
+            return _main(ap, args, params, warmup, cfg, mesh=mesh,
+                         device=device)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _main(ap, args, params, warmup, cfg, mesh=None, device=None) -> dict:
     if params is not None and args.ckpt:
         ap.error("--ckpt and params= are two sources of weights")
     if args.kv_layout == "dense" and (args.num_blocks is not None
@@ -282,10 +354,11 @@ def main(argv=None, params=None, warmup: bool = True, cfg=None) -> dict:
         ap.error("--num-blocks/--watermark require --kv-layout paged")
     if args.prefix_cache == "on" and args.kv_layout != "paged":
         ap.error("--prefix-cache on requires --kv-layout paged")
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        ap.error(str(e))
+    if device is None:
+        try:
+            device = resolve_device(args.device)
+        except RuntimeError as e:
+            ap.error(str(e))
 
     if cfg is None:
         cfg = get_config(args.arch)
@@ -310,6 +383,11 @@ def main(argv=None, params=None, warmup: bool = True, cfg=None) -> dict:
         params = T.init_params(
             cfg, torch.Generator(device=device).manual_seed(args.seed),
             cfg.cdtype)
+    if mesh is not None:
+        params = runtime.place_tree(
+            params, strategy.param_shardings(cfg, mesh, "tp"))
+        print(f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+              f"params=tp layout")
 
     tok = ByteTokenizer()
     engine = GenerationEngine(cfg, max_new_tokens=args.max_new,
@@ -319,7 +397,7 @@ def main(argv=None, params=None, warmup: bool = True, cfg=None) -> dict:
                               kv_layout=args.kv_layout,
                               block_size=args.block_size,
                               prefix_cache=args.prefix_cache == "on",
-                              device=device)
+                              mesh=mesh, device=device)
     if args.chat:
         chat_loop(engine, params, tok, args)
         return {}

@@ -56,22 +56,39 @@ result, the port updates it in place: decode writes one row per slot per
 step (into the arena row, or into the block its table names).
 
 On a mesh (``mesh=``, a ``("data", "model")`` ``DeviceMesh``; the Hybrid
-Engine hands it over when the mesh has more than one rank) each rank
-computes on the params' compute view
+Engine hands it over when the mesh has more than one rank, and
+``launch/serve.py --mesh dp,tp`` builds one with a process a device) each
+rank computes on the params' compute view
 (:func:`repro_torch.sharding.runtime.compute_view`: gathered over
 ``data``, its heads, MLP width, vocabulary rows or experts over ``model``)
 and its KV arena or pool holds its own kv heads.  Every rank of a model
 group samples from the same logits, all-gathered over ``model``, with the
-same generator, so it makes the same host decisions (admission,
-preemption, EOS, block tables).  :meth:`GenerationEngine.generate` decodes
-the data rank's rows of the batch, drawing the noise the whole batch
-would, and returns the global batch's ``sequences`` and ``response_mask``
-on every rank; :meth:`GenerationEngine.serve` serves the data rank's
-share of the requests on its own KV pool and returns every rank's
-completions.  A batch or a request list that does not divide the
-``data`` axis is decoded whole on every data rank.  The stepwise
-:meth:`GenerationEngine.core` on a mesh of more than one rank is not yet
-ported.
+same generator.  Rows and slots are split over ``data`` in contiguous
+shares (:func:`repro_torch.sharding.runtime.data_share`; a count that
+does not divide ``data`` is held whole on every data rank):
+
+- :meth:`GenerationEngine.generate` decodes the data rank's rows of the
+  batch, drawing the noise the whole batch would, and returns the global
+  batch's ``sequences`` and ``response_mask`` on every rank; the data
+  ranks agree on every early exit (one all-reduce a chunk).
+- :meth:`GenerationEngine.core` returns one mesh-wide core: every rank
+  holds the same host state and takes the same host decisions
+  (admission, preemption, EOS, block tables), so every rank emits the
+  same events, completions and ``stats()``, those of the core on one
+  device with the same ``slots`` and ``num_blocks``.  The dense arena
+  holds the data rank's share of the slots; the paged pool stays whole on
+  every data rank (a prefix-cache block one slot writes is read by
+  others), which then computes every slot.  The one host sync of a chunk
+  gathers its tokens and done flags over ``data``.
+  :meth:`GenerationEngine.serve` drains that core.
+- An MoE layer routes the data group's rows together, as the reference
+  routes the global batch (R13): a decode step routes every slot (or row)
+  in order, idle and finished ones with the pad token, and a core's
+  admission routes exactly the prompt's padded bucket, the other data
+  ranks joining with no rows.
+
+At 1 x 1 the mesh paths make their collectives on one-rank groups and
+compute the plain path's bits.
 
 Ragged prefill correctness: prompts are right-padded to a shape bucket and
 prefilled with causal attention, so real tokens never attend padding.  The
@@ -317,50 +334,39 @@ class GenerationEngine:
         """Same ``sequences`` / ``response_mask`` contract and tokens as
         :func:`repro_torch.serving.generate.generate`, but decode stops once
         every sequence has emitted EOS.  ``self.last_stats`` records how
-        many decode steps actually ran (on a mesh, the most any rank ran).
-        Draws advance ``generator``.  A ``vlm`` model takes
-        ``encoder_embeds`` (B, Le, encoder_dim): the prefill caches each
-        cross-attention layer's K/V once, and decode reads them there."""
+        many decode steps actually ran.  Draws advance ``generator``.  A
+        ``vlm`` model takes ``encoder_embeds`` (B, Le, encoder_dim): the
+        prefill caches each cross-attention layer's K/V once, and decode
+        reads them there.
+
+        On a mesh each data rank decodes its share of the rows
+        (:func:`~repro_torch.sharding.runtime.data_share`), drawing the
+        noise the whole batch would; an MoE layer routes the data group's
+        rows of the prefill and of every step together (R13), and the data
+        ranks exit early together.  Every rank returns the whole batch."""
         params, tp = self._view(params)
         if not isinstance(tokens, torch.Tensor):
             tokens = torch.as_tensor(np.asarray(tokens))
         tokens = tokens.to(device=self.device, dtype=torch.long)
         if encoder_embeds is not None:
             encoder_embeds = torch.as_tensor(encoder_embeds).to(self.device)
-        if self.mesh is None:
-            return self._generate(params, tokens, generator, encoder_embeds)
         B = tokens.shape[0]
-        rows = self._rows(B)
-        if rows is None:            # every rank decodes the whole batch
+        r0, r1, group = runtime.data_share(B, self.mesh)
+        if group is None:          # one device, or every rank every row
             return self._generate(params, tokens, generator, encoder_embeds,
                                   tp=tp)
-        r0, r1 = rows
         out = self._generate(params, tokens[r0:r1], generator,
                              None if encoder_embeds is None
                              else encoder_embeds[r0:r1], noise_rows=(r0, B),
-                             tp=tp)
-        group = runtime.data_group(self.mesh)
+                             tp=tp.with_rows(group), group=group)
         seqs = runtime.gather_rows(out["sequences"], group)
         mask = runtime.gather_rows(
             out["response_mask"].to(torch.uint8), group).bool()
-        steps = int(runtime.all_max(self.last_stats["decode_steps"], group))
+        steps = self.last_stats["decode_steps"]
         self.last_stats = {"decode_steps": steps,
                            "scheduled_tokens": B * steps,
                            "generated_tokens": int(mask.sum())}
         return {"sequences": seqs, "response_mask": mask}
-
-    def _rows(self, n: int):
-        """This data rank's ``(start, stop)`` of ``n`` rows on the mesh
-        (``None``: every rank takes every row).  An MoE model's decode
-        would route the rank's rows apart from the global batch's, which
-        the reference routes in one call (R13): refused."""
-        rows = runtime.rows_of(n, self.mesh)
-        if (rows is not None and self.cfg.moe
-                and rows[1] - rows[0] != n):
-            raise NotImplementedError(
-                "MoE generation over a batch sharded on data (global "
-                "routing in the decode loop): not yet ported")
-        return rows
 
     def _view(self, params):
         """``(the params this rank computes on, the tensor-parallel
@@ -374,10 +380,11 @@ class GenerationEngine:
         return view, tp
 
     def _generate(self, params, tokens, generator: torch.Generator,
-                  encoder_embeds=None, noise_rows=None, tp=None):
+                  encoder_embeds=None, noise_rows=None, tp=None, group=None):
         """:meth:`generate` on one device (``noise_rows``: see
         :func:`~repro_torch.serving.sampling.sample`; ``tp``: the
-        tensor-parallel context of a compute view ``params``)."""
+        tensor-parallel context of a compute view ``params``; ``group``:
+        the data group whose ranks take every early exit together)."""
         cfg = self.cfg
         B, Lp = tokens.shape
         max_new = self.max_new_tokens
@@ -415,7 +422,7 @@ class GenerationEngine:
             was_parts.append(torch.stack(was).cpu().numpy())
             steps += n
             if (self.eos_id is not None and steps < max_new
-                    and bool(carry[4].all())):
+                    and runtime.all_true(carry[4], group)):
                 break
 
         gen = np.concatenate(tok_parts, axis=0).T          # (B, steps)
@@ -445,10 +452,14 @@ class GenerationEngine:
         place); returns the logits of the TRUE last prompt token
         (``length`` is the unpadded prompt length).  A prefix-cache
         admission passes the suffix, its ``positions`` and a ``row`` that
-        carries the prefix history."""
+        carries the prefix history.  A data rank that joins another rank's
+        admission (an MoE layer routes the data group's rows together)
+        passes ``tokens`` and ``row`` of no rows and gets ``None``."""
         cfg = self.cfg
         hidden, _, _ = T.forward(cfg, params, tokens=tokens, mode="prefill",
                                  cache=row, positions=positions, tp=tp)
+        if tokens.shape[0] == 0:
+            return None
         h_last = hidden[0, length - 1]
         return T.logits_fn(cfg, params, h_last[None, None], tp)[0, 0]
 
@@ -459,7 +470,9 @@ class GenerationEngine:
         ``block_tables`` the KV is read and written through them (the same
         step body for both layouts).  Updates the core's logits/pos/done
         and returns the (chunk, slots) tokens and pre-step done flags,
-        still on the device."""
+        still on the device: on a mesh, of the rank's slots, which draw
+        the whole slot batch's shared noise and route an MoE layer with
+        the data group's slots."""
         cfg, params = self.cfg, core.params
         temp, top_k, top_p, eos = core.sampling_tensors()
         pad_tok = torch.where(eos >= 0, eos, 0)
@@ -469,11 +482,13 @@ class GenerationEngine:
         for _ in range(self.chunk):
             tok = sample_rows(logits, core.generator, temperature=temp,
                               top_k=top_k, top_p=top_p,
-                              row_generators=core.slot_generators)
+                              row_generators=core.slot_generators[
+                                  core.s0:core.s1],
+                              noise_rows=core.noise_rows)
             tok = torch.where(done, pad_tok, tok)
             logits, cache = decode_step(cfg, params, tok, cache, pos,
                                         block_tables=block_tables,
-                                        tp=core.tp)
+                                        tp=core.decode_tp)
             toks.append(tok)
             was.append(done)
             done = done | (pos + 1 >= limit) | ((eos >= 0) & (tok == eos))
@@ -504,13 +519,12 @@ class GenerationEngine:
     def core(self, params, generator: torch.Generator, *, slots: int = 8,
              max_seq_len: int, num_blocks: Optional[int] = None,
              watermark: Optional[int] = None) -> "EngineCore":
-        """Build a stepwise :class:`EngineCore` bound to ``params``."""
-        if self.mesh is not None and runtime.mesh_size(self.mesh) > 1:
-            raise NotImplementedError("GenerationEngine.core() on a mesh of "
-                                      "more than one rank: not yet ported")
-        return EngineCore(self, runtime.full_tree(params), generator,
-                          slots=slots, max_seq_len=max_seq_len,
-                          num_blocks=num_blocks, watermark=watermark)
+        """Build a stepwise :class:`EngineCore` bound to ``params`` (on a
+        mesh, the mesh-wide core over their compute view)."""
+        params, tp = self._view(params)
+        return EngineCore(self, params, generator, slots=slots,
+                          max_seq_len=max_seq_len, num_blocks=num_blocks,
+                          watermark=watermark, tp=tp)
 
     def serve(self, params, requests: Sequence[Request],
               generator: torch.Generator, *, slots: int = 8,
@@ -520,7 +534,9 @@ class GenerationEngine:
         """Drain a queue of ragged requests through the stepwise core and
         return their :class:`Completion`\\ s in finish order.  Free slots
         are refilled at chunk boundaries; each slot attends only its own
-        rows, so greedy results equal running each request alone.
+        rows, so greedy results equal running each request alone.  On a
+        mesh it drains the one mesh-wide core, and every rank returns the
+        same completions and ``last_stats``.
 
         With ``kv_layout="paged"``, ``num_blocks`` sizes the shared pool
         (default: dense-arena parity, ``slots * ceil(S / block_size)``
@@ -531,34 +547,13 @@ class GenerationEngine:
         if self.kv_layout != "paged" and (num_blocks is not None
                                           or watermark is not None):
             raise ValueError("num_blocks/watermark require kv_layout='paged'")
-        requests = list(requests)
-        params, tp = self._view(params)
-        rows = None if self.mesh is None else self._rows(len(requests))
-        kw = dict(slots=slots, max_seq_len=max_seq_len,
-                  num_blocks=num_blocks, watermark=watermark, tp=tp)
-        if rows is None:
-            return self._serve(params, requests, generator, **kw)
-        # this data rank's share of the queue on its own pool, then every
-        # data rank's completions (in rank order)
-        group = runtime.data_group(self.mesh)
-        mine = self._serve(params, requests[rows[0]:rows[1]], generator,
-                           **kw)
-        import torch.distributed as dist
-        got = [None] * group.size()
-        dist.all_gather_object(got, (mine, self.last_stats), group=group)
-        self.last_stats = _merge_stats([st for _, st in got])
-        return [c for part, _ in got for c in part]
-
-    def _serve(self, params, requests, generator, *, slots, max_seq_len,
-               num_blocks, watermark, tp=None) -> List[Completion]:
         need = max((len(r.tokens) + self.resolve(r)[3] for r in requests),
                    default=1)
         S = max_seq_len or need
         if need > S:
             raise ValueError(f"max_seq_len={S} < longest request ({need})")
-        core = EngineCore(self, params, generator, slots=slots,
-                          max_seq_len=S, num_blocks=num_blocks,
-                          watermark=watermark, tp=tp)
+        core = self.core(params, generator, slots=slots, max_seq_len=S,
+                         num_blocks=num_blocks, watermark=watermark)
         prompts: Dict[int, np.ndarray] = {}
         for r in requests:
             core.add_request(r)
@@ -581,27 +576,6 @@ class GenerationEngine:
         return out
 
 
-# the scheduler counters that add up over the ranks of a mesh
-_SUMMED = ("requests", "admitted", "scheduled_tokens", "generated_tokens",
-           "preemptions", "cached_prefill_tokens", "computed_prefill_tokens")
-
-
-def _merge_stats(parts: List[dict]) -> dict:
-    """The ranks' ``last_stats`` as one: counters summed, ``decode_steps``
-    the most any rank ran, the prefix hit rate over the summed tokens;
-    other entries are rank 0's."""
-    out = dict(parts[0])
-    for k in _SUMMED:
-        if k in out:
-            out[k] = sum(p[k] for p in parts)
-    out["decode_steps"] = max(p["decode_steps"] for p in parts)
-    if "prefill_hit_rate" in out:
-        tot = out["cached_prefill_tokens"] + out["computed_prefill_tokens"]
-        out["prefill_hit_rate"] = (out["cached_prefill_tokens"] / tot
-                                   if tot else 0.0)
-    return out
-
-
 # ===================================================================== #
 # cache backends: the dense arena and the paged block pool present the
 # same check / admit / prepare / dispatch / release surface to the core
@@ -614,7 +588,8 @@ class _DenseBackend:
 
     def __init__(self, core: "EngineCore"):
         self.core = core
-        self.cache = T.init_cache(core.cache_cfg, core.slots, core.S,
+        # the rank's slots [s0, s1) on a mesh (every slot otherwise)
+        self.cache = T.init_cache(core.cache_cfg, core.s1 - core.s0, core.S,
                                   device=core.engine.device)
 
     def check(self, uid: int, Lp: int, max_new: int) -> None:
@@ -629,15 +604,24 @@ class _DenseBackend:
     def admit(self, slot: int, tokens: np.ndarray, Lp: int,
               max_new: int) -> None:
         c, e = self.core, self.core.engine
-        padded = _pad_bucket(tokens, Lp if e._exact_prefill
-                             else min(_next_bucket(Lp), c.S))
-        # the slot's arena rows (K/V and, with int8 KV, their scale
-        # planes; an SSM layer's whole conv and state rows) as a one-row
-        # cache: prefill writes in place
-        row = tree_map(lambda a: a[:, slot:slot + 1], self.cache)
-        logit = e._prefill_row(c.params, torch.as_tensor(
-            padded, device=e.device), Lp, row, tp=c.tp)
-        c.slot_reset(slot, logit, Lp, max_new)
+        padded = torch.as_tensor(_pad_bucket(
+            tokens, Lp if e._exact_prefill else min(_next_bucket(Lp), c.S)),
+            device=e.device)
+        if c.owns(slot):
+            # the slot's arena rows (K/V and, with int8 KV, their scale
+            # planes; an SSM layer's whole conv and state rows) as a
+            # one-row cache: prefill writes in place
+            i = slot - c.s0
+            row = tree_map(lambda a: a[:, i:i + 1], self.cache)
+            logit = e._prefill_row(c.params, padded, Lp, row,
+                                   tp=c.admit_tp(slot))
+            c.slot_reset(slot, logit, Lp, max_new)
+        elif c.join_admissions:
+            # another data rank's slot: its MoE layers gather this rank's
+            # rows too, which are none
+            e._prefill_row(c.params, padded[:0], Lp,
+                           tree_map(lambda a: a[:, :0], self.cache),
+                           tp=c.admit_tp(slot))
 
     def prepare_chunk(self, events: List[StepEvent]) -> None:
         pass                                   # nothing to top up
@@ -863,6 +847,20 @@ class EngineCore:
 
     The params are cast to the compute dtype once, here, so the decode
     steps never re-cast the fp32 masters.
+
+    On a mesh (``engine.mesh``; ``params`` the rank's compute view, ``tp``
+    its tensor-parallel context) the core is mesh-wide: every rank holds
+    the same host state (queue, slots, block tables, counters), takes the
+    same host decisions and returns the same :class:`StepEvent`\\ s.  The
+    dense arena holds the data rank's contiguous share of the slots
+    (:func:`~repro_torch.sharding.runtime.data_share`; every slot where
+    ``data`` does not divide them), the paged pool stays whole on every
+    data rank, which then computes every slot; either holds the rank's kv
+    heads.  A slot's admission prefills on the rank that holds it (an MoE
+    layer's other data ranks join with no rows), a decode step samples the
+    rank's slots from the whole slot batch's shared noise and routes an
+    MoE layer with the data group's slots, in slot order, and the one host
+    sync of a chunk gathers its tokens and done flags over ``data``.
     """
 
     def __init__(self, engine: GenerationEngine, params,
@@ -888,6 +886,20 @@ class EngineCore:
         self.tp = tp
         self.cache_cfg = T.local_cfg(cfg, params)
         self.slots = int(slots)
+        # this data rank's slots [s0, s1) and the data group they are
+        # split over (None: every rank holds every slot; always so on the
+        # paged pool); the decode step's context routes an MoE layer with
+        # the group's slots, and the shared noise is drawn for every slot
+        self.s0, self.s1, self.group = (
+            runtime.data_share(self.slots, engine.mesh)
+            if engine.kv_layout == "dense" else (0, self.slots, None))
+        split = self.group is not None
+        self.decode_tp = tp.with_rows(self.group) if split else tp
+        self.noise_rows = (self.s0, self.slots) if split else None
+        # a data rank that does not hold a slot joins its admission when
+        # an MoE layer gathers the data group's rows
+        self.join_admissions = (split and cfg.moe
+                                and self.group.size() > 1)
         S = int(max_seq_len)
         if engine.kv_layout == "paged":        # a whole number of blocks
             S = -(-S // engine.block_size) * engine.block_size
@@ -895,12 +907,14 @@ class EngineCore:
 
         # device state of the decode loop
         self.generator = generator
-        self.logits = torch.zeros((self.slots, cfg.vocab_size),
-                                  dtype=torch.float32, device=dev)
-        self.pos = torch.zeros((self.slots,), dtype=torch.long, device=dev)
-        self.done = torch.ones((self.slots,), dtype=torch.bool, device=dev)
-        self.limit = torch.zeros((self.slots,), dtype=torch.long, device=dev)
-        # a seeded request's own generator; None = the shared one
+        n = self.s1 - self.s0                  # the rank's slots
+        self.logits = torch.zeros((n, cfg.vocab_size), dtype=torch.float32,
+                                  device=dev)
+        self.pos = torch.zeros((n,), dtype=torch.long, device=dev)
+        self.done = torch.ones((n,), dtype=torch.bool, device=dev)
+        self.limit = torch.zeros((n,), dtype=torch.long, device=dev)
+        # a seeded request's own generator, on the rank that holds its
+        # slot; None = the shared one
         self.slot_generators: List[Optional[torch.Generator]] = \
             [None] * self.slots
 
@@ -939,10 +953,25 @@ class EngineCore:
         return bool(self.queue) or self.n_active > 0
 
     def sampling_tensors(self):
-        """The per-slot (temperature, top_k, top_p, eos) tensors."""
+        """The per-slot (temperature, top_k, top_p, eos) tensors of the
+        rank's slots."""
         dev = self.engine.device
-        return tuple(torch.as_tensor(a, device=dev) for a in
+        return tuple(torch.as_tensor(a[self.s0:self.s1], device=dev) for a in
                      (self._temp, self._topk, self._topp, self._eos))
+
+    def owns(self, slot: int) -> bool:
+        """Whether this rank holds slot ``slot``'s device state."""
+        return self.s0 <= slot < self.s1
+
+    def admit_tp(self, slot: int):
+        """The tensor-parallel context of slot ``slot``'s admission: with
+        the slots split over ``data``, an MoE layer routes the prompt rows
+        of the rank that holds the slot, and none of the others'."""
+        if self.group is None:
+            return self.tp
+        n = self.s1 - self.s0
+        return self.tp.with_rows(self.group, tuple(
+            int(r == slot // n) for r in range(self.group.size())))
 
     def add_request(self, r: Request) -> int:
         """Queue a request (FIFO).  Validates that it can ever run under
@@ -967,11 +996,13 @@ class EngineCore:
         return True
 
     def slot_reset(self, slot: int, logit, Lp: int, max_new: int) -> None:
-        """Reset slot ``slot``'s decode state for a fresh admission."""
-        self.logits[slot] = logit
-        self.pos[slot] = Lp
-        self.done[slot] = False
-        self.limit[slot] = Lp + max_new
+        """Reset slot ``slot``'s decode state for a fresh admission (on
+        the rank that holds it)."""
+        i = slot - self.s0
+        self.logits[i] = logit
+        self.pos[i] = Lp
+        self.done[i] = False
+        self.limit[i] = Lp + max_new
 
     # ---------------------------------------------------------------- #
     def release_slot(self, b: int, *, requeue: bool,
@@ -1029,7 +1060,8 @@ class EngineCore:
                 continue
             self._cancelled.discard(a.req.uid)
             # stop the lane from decoding garbage until the slot refills
-            self.done[b] = True
+            if self.owns(b):
+                self.done[b - self.s0] = True
             self._finish(b, _no_tokens(), "cancelled", events)
 
     def _admit_phase(self, events: List[StepEvent]) -> None:
@@ -1063,8 +1095,9 @@ class EngineCore:
         self.backend.admit(b, np.asarray(r.tokens), Lp, max_new)
         self._temp[b], self._topk[b], self._topp[b] = temp, top_k, top_p
         self._eos[b] = -1 if eos is None else eos
-        self.slot_generators[b] = None if seed is None else \
-            torch.Generator(device=self.engine.device).manual_seed(seed)
+        self.slot_generators[b] = (
+            None if seed is None or not self.owns(b)
+            else torch.Generator(device=self.engine.device).manual_seed(seed))
         self.active[b] = _Active(req=r, max_new=max_new, eos=eos)
         self._tick += 1
         self.stamp[b] = self._tick
@@ -1086,10 +1119,10 @@ class EngineCore:
             return events
         toks, was = self.backend.dispatch()
         self.chunks += 1
-        # the one host sync of the chunk
-        toks_h = toks.cpu().numpy().astype(np.int32)
-        was_h = was.cpu().numpy()
-        done_h = self.done.cpu().numpy()
+        # the one host sync of the chunk (every data rank's slots, with
+        # the slots split over data)
+        toks_h, was_h, done_h = runtime.gather_chunk(toks, was, self.done,
+                                                     self.group)
         for b in range(self.slots):
             a = self.active[b]
             if a is None:

@@ -69,7 +69,8 @@ def decode_scan_step(cfg: ModelConfig, params, *, temperature: float,
     (the EOS token itself counts as generated), every later step forces
     ``eos_id`` out of the sampler with ``was_done=True``.  ``noise_rows``
     goes to :func:`~repro_torch.serving.sampling.sample`; ``tp`` to
-    :func:`decode_step`.
+    :func:`decode_step` (with ``tp.rows`` set, an MoE layer routes the
+    data group's rows of each step together, as one batch would be).
     """
     def step(carry):
         logits, cache, gen, pos, done = carry

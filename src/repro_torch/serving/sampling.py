@@ -44,6 +44,18 @@ def _gumbel(shape, generator, device):
     return -torch.log(-torch.log(u))
 
 
+def _noise(shape, generator, device, noise_rows=None):
+    """Gumbel noise of a ``shape`` ``(B, V)`` batch, or with ``noise_rows
+    = (r0, n)`` rows ``r0 .. r0 + B`` of an ``n``-row batch's noise (a
+    data-parallel rank's rows draw what the whole batch would, so the
+    shared generator advances alike on every rank)."""
+    if noise_rows is None:
+        return _gumbel(shape, generator, device)
+    r0, n = noise_rows
+    return _gumbel((n,) + tuple(shape[1:]), generator,
+                   device)[r0:r0 + shape[0]]
+
+
 def sample(logits, generator: torch.Generator, *, temperature: float = 1.0,
            top_k: int = 0, top_p: float = 1.0, noise_rows=None):
     """logits: (B, V) -> (B,) int64.  Static (whole-batch) parameters;
@@ -59,12 +71,7 @@ def sample(logits, generator: torch.Generator, *, temperature: float = 1.0,
         logits = torch.where(logits < kth, NEG_INF, logits)
     if top_p < 1.0:
         logits = _top_p_mask(logits, top_p)
-    if noise_rows is None:
-        noise = _gumbel(logits.shape, generator, logits.device)
-    else:
-        r0, n = noise_rows
-        noise = _gumbel((n,) + tuple(logits.shape[1:]), generator,
-                        logits.device)[r0:r0 + logits.shape[0]]
+    noise = _noise(logits.shape, generator, logits.device, noise_rows)
     return torch.argmax(logits + noise, dim=-1)
 
 
@@ -90,7 +97,7 @@ def filter_rows(logits, *, temperature, top_k, top_p):
 def sample_rows(logits, generator: torch.Generator, *, temperature, top_k,
                 top_p,
                 row_generators: Optional[Sequence[Optional[torch.Generator]]]
-                = None):
+                = None, noise_rows=None):
     """Per-row-parameter sampling: logits (B, V) -> (B,) int64.
 
     ``temperature`` (float), ``top_k`` (int) and ``top_p`` (float) are
@@ -98,10 +105,12 @@ def sample_rows(logits, generator: torch.Generator, *, temperature, top_k,
     (``temperature[i] <= 0`` greedy, ``top_k[i] == 0`` / ``top_p[i] ==
     1.0`` filter off).  Every row draws its noise from the shared
     ``generator``, except rows whose entry in ``row_generators`` is a
-    generator of their own (the engine's seeded requests)."""
+    generator of their own (the engine's seeded requests).
+    ``noise_rows``: as :func:`sample` (the shared draw is then the
+    ``n``-row batch's; ``row_generators`` are this call's rows')."""
     scaled = filter_rows(logits, temperature=temperature, top_k=top_k,
                          top_p=top_p)
-    noise = _gumbel(scaled.shape, generator, scaled.device)
+    noise = _noise(scaled.shape, generator, scaled.device, noise_rows)
     for i, g in enumerate(row_generators or ()):
         if g is not None:
             noise[i] = _gumbel(scaled.shape[-1:], g, scaled.device)

@@ -35,6 +35,7 @@ import dataclasses
 import math
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.models.modules import tree_leaves, tree_map
@@ -465,14 +466,16 @@ def all_sum(values, group):
     return list(flat.unbind())
 
 
-def all_max(value: float, group) -> float:
+def all_true(flags, group) -> bool:
+    """Whether every one of ``flags`` (a bool tensor) is set on every rank
+    of ``group``: one all-reduce, so that the ranks take the same branch
+    (``bool(flags.all())`` when ``group`` is None)."""
     if group is None:
-        return value
+        return bool(flags.all())
     import torch.distributed as dist
-    t = torch.tensor([float(value)], dtype=torch.float64,
-                     device=_group_device(group))
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
-    return float(t.item())
+    t = flags.all().to(torch.int32).reshape(1).to(_group_device(group))
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    return bool(t.item())
 
 
 def _group_device(group) -> torch.device:
@@ -523,12 +526,30 @@ def gather_rows(x, group) -> torch.Tensor:
     return out
 
 
-def rows_of(n: int, mesh) -> Optional[tuple]:
-    """``(start, stop)`` of this rank's rows of an ``n``-row batch on
-    ``mesh``'s data axis, or ``None`` when ``n`` does not divide it (every
-    rank then takes every row)."""
+def data_share(n: int, mesh) -> tuple:
+    """``(start, stop, group)``: this rank's contiguous share of ``n`` rows
+    (a batch, or the slots of a request core) over ``mesh``'s data axis
+    and the data group they are split over, so that gathering the ranks'
+    rows in rank order gives row order; ``(0, n, None)`` without a mesh
+    or when ``n`` does not divide the axis (every rank then holds every
+    row).  On a one-rank data axis the group is that one rank."""
+    if mesh is None:
+        return 0, n, None
     dp = mesh_axes(mesh)["data"]
     if n % dp:
-        return None
+        return 0, n, None
     r = mesh.get_coordinate()[mesh.mesh_dim_names.index("data")]
-    return r * (n // dp), (r + 1) * (n // dp)
+    return r * (n // dp), (r + 1) * (n // dp), data_group(mesh)
+
+
+def gather_chunk(toks, was, done, group):
+    """A serve chunk's ``(chunk, n)`` tokens and pre-step done flags and
+    the ``(n,)`` done flags after it, for this rank's ``n`` slots, as host
+    arrays over every rank's slots of ``group`` in rank order: one
+    all-gather of the three packed together, then one copy to the host
+    (the rank's own arrays when ``group`` is None)."""
+    c = toks.shape[0]
+    packed = torch.cat([toks.T, was.T.long(), done[:, None].long()], dim=1)
+    h = gather_rows(packed, group).cpu().numpy()
+    return (h[:, :c].T.astype(np.int32), h[:, c:2 * c].T.astype(bool),
+            h[:, 2 * c].astype(bool))

@@ -24,7 +24,10 @@ weights, prompts and reward and LM batches).  The reference runs, on a
 
 Inputs that hold ``tpl_lm`` (``tests/test_torch_tp_layers.py``) run
 :func:`layers_run` alone: the Mamba2, Zamba2, MLA, cross-attention,
-uneven-heads and MoE micro-2 steps and the greedy generations.
+uneven-heads and MoE micro-2 steps and the greedy generations.  Inputs
+that hold ``ms`` (``tests/test_torch_mesh_serving.py``) run
+:func:`serving_run` alone: ``serve`` on the greedy request paths, and
+reduced MoE models' ``generate`` and ``serve`` on the mesh.
 
 ``OUT`` gets the results as numpy, params as trees (the reference's
 structure, which ``repro_torch.models.convert`` reads).
@@ -215,8 +218,6 @@ def layers_run(inp, mesh):
                     "params": _np(state.params), "grads": grads}
     for name, (arch, over, params, enc) in inp["tpl_gen"].items():
         cfg = _reduced(arch, over)
-        if cfg.moe and mesh.shape["data"] > 1:
-            continue
         he = HybridEngine(cfg, mesh)
         p_infer = he.to_inference(jax.device_put(_jnp(params),
                                                  he.train_shardings))
@@ -229,14 +230,55 @@ def layers_run(inp, mesh):
     return {"lm": lm, "gen": gen}
 
 
+def _serve(eng, params, reqs, skw):
+    return {c.uid: (np.asarray(c.tokens), c.finish_reason)
+            for c in eng.serve(params, reqs, KEY, **skw)}
+
+
+def serving_run(inp, mesh):
+    """The request core on the mesh: ``serve`` of ``inp["reqs"]`` on each
+    greedy path of ``inp["paths"]`` (name -> config overrides, engine and
+    serve kwargs) through the Hybrid Engine on ``inp["engine_params"]``;
+    and for each reduced MoE config of ``inp["moe"]`` (name -> arch,
+    params, layouts) a greedy ``generate`` of ``inp["prompts"]`` and
+    ``serve`` of the requests on 2 slots in each layout."""
+    kw = inp["ppo_kw"]
+    reqs = [Request(uid=i, tokens=t, max_new_tokens=kw["max_new_tokens"])
+            for i, t in enumerate(inp["reqs"])]
+    he = HybridEngine(ACTOR, mesh)
+    p_infer = he.to_inference(jax.device_put(_jnp(inp["engine_params"]),
+                                             he.train_shardings))
+    out = {"paths": {}, "moe": {}}
+    for name, (over, ekw, skw) in inp["paths"].items():
+        eng = he.generation_engine(cfg=ACTOR.replace(**over), **{**kw, **ekw})
+        out["paths"][name] = _serve(eng, p_infer, reqs, skw)
+    for name, (arch, params, layouts) in inp["moe"].items():
+        cfg = _reduced(arch, {})
+        mhe = HybridEngine(cfg, mesh)
+        p = mhe.to_inference(jax.device_put(_jnp(params),
+                                            mhe.train_shardings))
+        e = mhe.generation_engine(**kw)
+        o = e.generate(p, jnp.asarray(inp["prompts"]), KEY)
+        res = {"generate": {**{k: np.asarray(v) for k, v in o.items()},
+                            "steps": e.last_stats["decode_steps"]}}
+        for layout in layouts:
+            ekw = (dict(kv_layout="paged", block_size=4)
+                   if layout == "paged" else {})
+            res[layout] = _serve(mhe.generation_engine(**kw, **ekw), p,
+                                 reqs, {"slots": 2})
+        out["moe"][name] = res
+    return out
+
+
 def main(src: str, dst: str, dp: int, tp: int = 1) -> None:
     with open(src, "rb") as f:
         inp = pickle.load(f)
     mesh = make_mesh(dp, tp)
-    if "tpl_lm" in inp:
-        with open(dst, "wb") as f:
-            pickle.dump(layers_run(inp, mesh), f)
-        return
+    for key, run in (("tpl_lm", layers_run), ("ms", serving_run)):
+        if key in inp:
+            with open(dst, "wb") as f:
+                pickle.dump(run(inp, mesh), f)
+            return
     out = {"ppo": {}}
     for strategy in ("zero3", "tp"):
         he = HybridEngine(ACTOR, mesh, train_strategy=strategy, zero=1)

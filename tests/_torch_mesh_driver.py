@@ -2,8 +2,9 @@
 the CPU.
 
 Launched by ``tests/test_torch_multidevice.py``,
-``tests/test_torch_hybrid_engine.py`` and
-``tests/test_torch_tensor_parallel.py`` as::
+``tests/test_torch_hybrid_engine.py``, ``tests/test_torch_tensor_parallel.py``,
+``tests/test_torch_tp_layers.py`` and ``tests/test_torch_mesh_serving.py``
+as::
 
     python -m torch.distributed.run --standalone --nproc-per-node N \\
         tests/_torch_mesh_driver.py --out DIR --cases ppo,lm,... \\
@@ -11,8 +12,9 @@ Launched by ``tests/test_torch_multidevice.py``,
 
 Every rank builds the same weights from fixed seeds, runs the named cases
 on meshes over the first ranks, and rank 0 writes each case's results
-(full tensors, gathered) to ``DIR/<case>.pt``.  The ``tp_*`` cases run on
-the ``--mesh`` given (``DP x TP`` over the first ranks).  The tests hold
+(full tensors, gathered) to ``DIR/<case>.pt``.  The ``tp_*``, ``tpl_*``
+and ``ms_*`` cases run on the ``--mesh`` given (``DP x TP`` over the first
+ranks).  The tests hold
 them to the single-rank port and the reference.  Every process group
 times out after 60 s, so a failing rank fails the run instead of hanging
 it.
@@ -20,6 +22,7 @@ it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import traceback
@@ -38,7 +41,8 @@ from repro_torch.models import reward as R
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import tree_leaves
-from repro_torch.serving.engine import GenerationEngine, Request
+from repro_torch.serving.engine import (GenerationEngine, Request,
+                                        SamplingParams)
 from repro_torch.sharding import runtime
 from repro_torch.sharding import strategy as S
 from repro_torch.training.steps import lm_train_step, make_sharded_lm_step
@@ -295,7 +299,8 @@ def case_reward(dp: int) -> dict:
 def case_refusals(world: int) -> dict:
     """What a mesh still refuses, as the exception each raises (``None``:
     accepted): MLA, SSM and cross-attention layers on ``model = 2`` are
-    accepted."""
+    accepted, and so is the request core on a ``world x 1`` mesh (its
+    ``stats()`` after draining :func:`ms_requests` on 4 slots are kept)."""
     out = {}
 
     def grab(name, fn):
@@ -313,9 +318,17 @@ def case_refusals(world: int) -> dict:
     grab("xattn_tp2", lambda: make_sharded_lm_step(
         lm_config("llama-3.2-vision-11b"), mesh, "zero3"))
     dmesh = make_mesh(world, 1)
-    grab("core", lambda: GenerationEngine(
-        ACTOR, mesh=dmesh, device="cpu", **PPO_KW).core(
-            models()[0], _gen(0), max_seq_len=16))
+
+    def core_drain():
+        core = GenerationEngine(ACTOR, mesh=dmesh, device="cpu",
+                                **PPO_KW).core(models()[0], _gen(0), slots=4,
+                                               max_seq_len=16)
+        for r in ms_requests():
+            core.add_request(r)
+        while core.has_work():
+            core.step()
+        out["core_stats"] = core.stats()
+    grab("core", core_drain)
     grab("rollout_mesh", lambda: PPOTrainer(
         actor_cfg=ACTOR, critic_cfg=CRITIC, actor_params=models()[0],
         critic_params=models()[2], ref_params=models()[1],
@@ -507,7 +520,10 @@ def case_tp_layout(dp: int, tp: int) -> dict:
 
 
 def case_tp_refusals(dp: int, tp: int) -> dict:
-    """What ``model > 1`` still refuses, as the exception each raises."""
+    """What ``model > 1`` still refuses, as the exception each raises
+    (``None``: accepted).  At ``dp > 1`` an MoE model's greedy decode over
+    the data rank's rows runs (its MoE layers route the data group's rows
+    together) and its sequences are kept."""
     mesh = make_mesh(dp, tp)
     if mesh.get_coordinate() is None:
         return {}
@@ -519,12 +535,13 @@ def case_tp_refusals(dp: int, tp: int) -> dict:
             out[name] = None
         except Exception as e:                      # noqa: BLE001
             out[name] = f"{type(e).__name__}: {e}"
-    if dp > 1:          # an MoE decode over the data rank's rows only
+    if dp > 1:          # an MoE decode over the data rank's rows
         moe = lm_config("llama4-scout-17b-a16e")
-        grab("engine_moe_rows", lambda: GenerationEngine(
-            moe, mesh=mesh, device="cpu", **PPO_KW).generate(
-                T.init_params(moe, _gen(0)), torch.as_tensor(PROMPTS),
-                _gen(0)))
+        grab("engine_moe_rows", lambda: out.__setitem__(
+            "moe_sequences", GenerationEngine(
+                moe, mesh=mesh, device="cpu", **PPO_KW).generate(
+                    T.init_params(moe, _gen(0)), torch.as_tensor(PROMPTS),
+                    _gen(0))["sequences"].numpy()))
     return out
 
 
@@ -546,7 +563,7 @@ TPL_LM_CASES = tuple(
     for sfx, strategy in (("", "zero3"), ("_tp", "tp"))) + (
     ("moe_micro2", "llama4-scout-17b-a16e", {}, "zero3", 2),)
 # (name, arch, config overrides): greedy generate through the Hybrid
-# Engine; MLA's MoE layers are not generated over a batch sharded on data
+# Engine (MLA's MoE layers route the data group's rows together at 2 x 2)
 TPL_GEN_CASES = (("mamba2", "mamba2-370m", {}), ("zamba2", "zamba2-1.2b", {}),
                  ("zamba2_int8", "zamba2-1.2b", {"kv_quant": True}),
                  ("mla", "deepseek-v2-lite-16b", {}),
@@ -613,16 +630,13 @@ def tpl_generate(eng, cfg, params) -> dict:
 
 def case_tpl_engine(dp: int, tp: int) -> dict:
     """Greedy generate at ``dp x tp`` through the Hybrid Engine for
-    :data:`TPL_GEN_CASES` (MLA only on ``dp == 1``), and the rank's cache
-    shapes."""
+    :data:`TPL_GEN_CASES`, and the rank's cache shapes."""
     mesh = make_mesh(dp, tp)
     if mesh.get_coordinate() is None:
         return {}
     out = {}
     for name, arch, over in TPL_GEN_CASES:
         cfg = tpl_config(arch, over)
-        if cfg.moe and dp > 1:
-            continue
         he = HybridEngine(cfg, mesh)
         p_infer = he.to_inference(runtime.place_tree(
             tpl_gen_params(cfg), he.train_shardings))
@@ -674,6 +688,149 @@ def case_tpl_layout(dp: int, tp: int) -> dict:
             "view": {k: tuple(v.shape) for k, v in ssm.items()}}
 
 
+# --------------------------------------------------------------------- #
+# the request core on a mesh: serve and core() over slots split on data,
+# and MoE generation that routes the data group's rows together
+# --------------------------------------------------------------------- #
+PAGED = dict(kv_layout="paged", block_size=4)
+SAMPLED_KW = dict(temperature=0.8, top_k=40)
+# (name, config overrides, engine kwargs, serve kwargs): a 2-slot dense
+# arena (its slots split over data at dp 2), a 4-slot one, the paged int8
+# pool, a paged int8 pool tight enough to preempt, and sampled runs with
+# one seeded request (dense and paged)
+MS_PATHS = (("dense", {}, {}, dict(slots=2)),
+            ("dense4", {}, {}, dict(slots=4)),
+            ("paged_int8", {"kv_quant": True}, PAGED, dict(slots=2)),
+            ("paged_int8_tight", {"kv_quant": True}, dict(PAGED, chunk=2),
+             dict(slots=2, max_seq_len=16, num_blocks=7, watermark=0)),
+            ("sampled", {}, SAMPLED_KW, dict(slots=2)),
+            ("sampled_paged", {}, dict(PAGED, **SAMPLED_KW), dict(slots=2)))
+MS_LENS = (3, 7, 5, 6, 4, 8)
+# (name, arch, layouts): reduced MoE configs served over data
+MS_MOE = (("scout", "llama4-scout-17b-a16e", ("dense", "paged")),
+          ("deepseek", "deepseek-v2-lite-16b", ("dense",)))
+
+
+def ms_requests(seeded: bool = False) -> list:
+    """Six ragged requests of up to 8 new tokens (request 2 with a seed
+    of its own when ``seeded``)."""
+    rng = np.random.RandomState(13)
+    return [Request(uid=i, tokens=rng.randint(0, V, size=n),
+                    max_new_tokens=8,
+                    params=SamplingParams(seed=5 if seeded and i == 2
+                                          else None))
+            for i, n in enumerate(MS_LENS)]
+
+
+def _engine_maker(cfg, params, mesh):
+    """``(params to serve, engine(**kw))``: through the Hybrid Engine's
+    inference layout on ``mesh``, the plain params and engine without."""
+    if mesh is None:
+        return params, lambda c=cfg, **kw: GenerationEngine(
+            c, device="cpu", **kw)
+    he = HybridEngine(cfg, mesh)
+    p = he.to_inference(runtime.place_tree(params, he.train_shardings))
+    return p, lambda c=cfg, **kw: he.generation_engine(cfg=c, device="cpu",
+                                                       **kw)
+
+
+def _drain(eng, params, reqs, skw) -> dict:
+    """``serve`` and ``core()`` (driven by the serve launcher's drain loop)
+    on the same requests: completions by uid and ``last_stats`` /
+    ``stats()``."""
+    from repro_torch.launch.serve import run_schedule
+    comps = eng.serve(params, reqs, _gen(7), **skw)
+    out = {"serve": {c.uid: (c.tokens, c.finish_reason) for c in comps},
+           "serve_stats": dict(eng.last_stats)}
+    S = skw.get("max_seq_len") or max(len(r.tokens) + r.max_new_tokens
+                                      for r in reqs)
+    _, st, _, fin = run_schedule(eng, params, reqs, _gen(7),
+                                 mode="continuous", max_seq_len=S,
+                                 **{k: v for k, v in skw.items()
+                                    if k != "max_seq_len"})
+    out.update(core={u: np.asarray(t, np.int32) for u, t in fin.items()},
+               core_stats=st)
+    return out
+
+
+def ms_serve(mesh=None) -> dict:
+    """:data:`MS_PATHS` through ``serve`` and ``core()`` on ``mesh`` (one
+    rank without), on ``engine_paths``' weights."""
+    params, make = _engine_maker(ACTOR, T.init_params(ACTOR, _gen(1)), mesh)
+    out = {}
+    for name, over, kw, skw in MS_PATHS:
+        eng = make(ACTOR.replace(**over), **{**PPO_KW, **kw})
+        out[name] = _drain(eng, params, ms_requests(name.startswith(
+            "sampled")), skw)
+    return out
+
+
+@contextlib.contextmanager
+def routed_rows(log: list):
+    """Each MoE layer's router probabilities ``(T, E)`` in call order: the
+    rows the layer routes together (R13)."""
+    from repro_torch.models import modules as M
+    real = M.moe_route
+
+    def spy(cfg, probs):
+        log.append(probs.detach().clone())
+        return real(cfg, probs)
+    M.moe_route = spy
+    try:
+        yield log
+    finally:
+        M.moe_route = real
+
+
+def ms_moe(mesh=None) -> dict:
+    """:data:`MS_MOE`: greedy ``generate`` of :data:`PROMPTS` and the six
+    requests through ``serve`` and ``core()`` on 2 slots, with the rows
+    each MoE call routed."""
+    out = {}
+    for name, arch, layouts in MS_MOE:
+        cfg = lm_config(arch)
+        params, make = _engine_maker(cfg, T.init_params(cfg, _gen(1)), mesh)
+        res = {}
+        with routed_rows([]) as log:
+            eng = make(**PPO_KW)
+            o = eng.generate(params, torch.as_tensor(PROMPTS), _gen(7))
+            res["generate"] = {**{k: v.numpy() for k, v in o.items()},
+                               "steps": eng.last_stats["decode_steps"],
+                               "routes": list(log)}
+            for layout in layouts:
+                del log[:]
+                eng = make(**PPO_KW, **(PAGED if layout == "paged" else {}))
+                res[layout] = _drain(eng, params, ms_requests(), {"slots": 2})
+                res[layout]["routes"] = list(log)
+        out[name] = res
+    return out
+
+
+def ms_ppo_moe(mesh=None) -> dict:
+    """One stage-3 experience (greedy, zero3 + ZeRO-1 on ``mesh``) with a
+    reduced llama4-scout actor and critic."""
+    cfg = lm_config("llama4-scout-17b-a16e")
+    he = None if mesh is None else HybridEngine(cfg, mesh,
+                                                train_strategy="zero3",
+                                                zero=1)
+    return ppo_run(tpl_trainer(cfg, he), PROMPTS, steps=0)
+
+
+def case_ms_engine(dp: int, tp: int) -> dict:
+    mesh = make_mesh(dp, tp)
+    return {} if mesh.get_coordinate() is None else ms_serve(mesh)
+
+
+def case_ms_moe(dp: int, tp: int) -> dict:
+    mesh = make_mesh(dp, tp)
+    return {} if mesh.get_coordinate() is None else ms_moe(mesh)
+
+
+def case_ms_ppo(dp: int, tp: int) -> dict:
+    mesh = make_mesh(dp, tp)
+    return {} if mesh.get_coordinate() is None else ms_ppo_moe(mesh)
+
+
 CASES = {"reshard": case_reshard, "ppo": case_ppo, "engine": case_engine,
          "lm": case_lm, "embeds": case_embeds, "reward": case_reward,
          "refusals": case_refusals}
@@ -681,7 +838,9 @@ TP_CASES = {"tp_lm": case_tp_lm, "tp_ppo": case_tp_ppo,
             "tp_engine": case_tp_engine, "tp_reward": case_tp_reward,
             "tp_layout": case_tp_layout, "tp_refusals": case_tp_refusals,
             "tpl_lm": case_tpl_lm, "tpl_engine": case_tpl_engine,
-            "tpl_ppo": case_tpl_ppo, "tpl_layout": case_tpl_layout}
+            "tpl_ppo": case_tpl_ppo, "tpl_layout": case_tpl_layout,
+            "ms_engine": case_ms_engine, "ms_moe": case_ms_moe,
+            "ms_ppo": case_ms_ppo}
 
 
 def main() -> int:

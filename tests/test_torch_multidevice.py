@@ -32,9 +32,10 @@ leaf's max; everywhere within one Adam step, ``2.5 * lr``).
   ``lm_train_step`` on one rank.
 - The reward step (pairwise loss and accuracy over the global batch).
 - The train state's local shard shapes against the pspecs.
-- The refusals: ``core()`` on a mesh, ``rollout_mesh``,
-  ``--mesh`` with ``--ckpt-dir``; and ``torchrun ... launch.train --mesh
-  2,1 --strategy zero3`` (SFT and ``--rlhf``) exits 0.
+- The refusals: ``rollout_mesh``, ``--mesh`` with ``--ckpt-dir``; the
+  request core on a 4 x 1 mesh, accepted, with the single-rank core's
+  stats; and ``torchrun ... launch.train --mesh 2,1 --strategy zero3``
+  (SFT and ``--rlhf``) exits 0.
 """
 import os
 import pickle
@@ -357,12 +358,24 @@ def test_train_state_local_shapes_follow_the_pspecs(runs, dp, strategy):
 @pytest.mark.parametrize("what", ["mla_tp2", "ssm_tp2", "xattn_tp2",
                                   "core", "rollout_mesh"])
 def test_mesh_refusals(runs, what):
-    """``core()`` on a mesh and ``rollout_mesh`` are refused; MLA, SSM and
-    cross-attention layers on ``model > 1`` are accepted (their compute
-    is ``tests/test_torch_tp_layers.py``'s)."""
+    """``rollout_mesh`` is refused; MLA, SSM and cross-attention layers on
+    ``model > 1`` are accepted (their compute is
+    ``tests/test_torch_tp_layers.py``'s), and so is ``core()`` on a 4 x 1
+    mesh: drained on 4 slots (one a data rank), its ``stats()`` are the
+    single-rank core's (its streams: ``tests/test_torch_mesh_serving.py``)."""
     msg = runs[4]["refusals"][what]
     if what.endswith("_tp2"):
         assert msg is None
+        return
+    if what == "core":
+        assert msg is None
+        core = GenerationEngine(D.ACTOR, device="cpu", **D.PPO_KW).core(
+            D.models()[0], D._gen(0), slots=4, max_seq_len=16)
+        for r in D.ms_requests():
+            core.add_request(r)
+        while core.has_work():
+            core.step()
+        assert runs[4]["refusals"]["core_stats"] == core.stats()
         return
     assert msg is not None and msg.startswith("NotImplementedError")
     assert "not yet ported" in msg

@@ -62,10 +62,19 @@ def test_serve_cli_runs_on_cpu():
 
 @pytest.mark.parametrize("flag", [["--mesh", "1,1"]])
 def test_serve_cli_refuses_unported_flags(flag):
-    res = _run(["-m", "repro_torch.launch.serve", "--device", "cpu",
-                "--arch", "smollm-135m", "--reduced", *flag])
-    assert res.returncode != 0
-    assert "not yet ported" in res.stderr
+    """``--mesh`` serves: one process is a one-rank group, and its summary
+    line is the plain run's; a malformed spec is refused by the parser."""
+    base = ["-m", "repro_torch.launch.serve", "--device", "cpu", "--arch",
+            "smollm-135m", "--reduced", "--requests", "4", "--max-new", "8"]
+    res, plain = _run([*base, *flag]), _run(base)
+    assert res.returncode == 0, res.stderr
+    assert "mesh={'data': 1, 'model': 1} params=tp layout" in res.stdout
+    line = lambda out: re.sub(r"in [0-9.]+s  \([0-9.]+ tok/s", "",
+                              out.strip().splitlines()[-1])
+    assert line(res.stdout) == line(plain.stdout)
+    assert re.search(r"requests=4  generated 32 tokens", res.stdout)
+    bad = _run([*base, flag[0], flag[1].replace(",", "x")])
+    assert bad.returncode == 2 and "expects 'dp,tp'" in bad.stderr
 
 
 @pytest.mark.parametrize("flag", [

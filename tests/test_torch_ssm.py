@@ -519,23 +519,30 @@ def test_paged_and_prefix_cache_are_refused(arch):
 def test_launchers_refuse_what_is_not_ported(arch, launcher, argv, capsys):
     """Both launchers take the SSM and hybrid ids as the reference does:
     ``serve --kv-quant`` serves (int8 K/V rows for the hybrid's attention
-    layers) and ``train`` trains.  What is still not ported (``serve``'s
-    device mesh, ``train``'s disaggregated rollout mesh) is refused with
-    "not yet ported"."""
+    layers), on a 1 x 1 mesh too (a one-rank group in this process: the
+    same completions), and ``train`` trains.  What is still not ported
+    (``train``'s disaggregated rollout mesh) is refused with "not yet
+    ported"; ``serve`` refuses a malformed ``--mesh``."""
     base = ["--device", "cpu", "--arch", arch, "--reduced", *argv]
     if launcher == "serve":
-        res = serve.main([*base, "--requests", "3", "--max-new", "3",
-                          "--prompt-len", "12"])
+        run = [*base, "--requests", "3", "--max-new", "3", "--prompt-len",
+               "12"]
+        res = serve.main(run)
         assert res["tokens"] == 9
-        refused = ["--mesh", "1x1"]
-    else:
-        res = train.main([*base, "--batch", "2", "--seq", "16"])
-        assert len(res["loss"]) == 1 and np.isfinite(res["loss"]).all()
-        refused = ["--rollout-mesh", "2"]
-    mod = serve if launcher == "serve" else train
+        on_mesh = serve.main([*run, "--mesh", "1,1"])
+        assert on_mesh["completions"] == res["completions"]
+        assert on_mesh["stats"] == res["stats"]
+        capsys.readouterr()
+        with pytest.raises(SystemExit) as e:
+            serve.main([*base, "--mesh", "1x1"])
+        assert e.value.code == 2
+        assert "expects 'dp,tp'" in capsys.readouterr().err
+        return
+    res = train.main([*base, "--batch", "2", "--seq", "16"])
+    assert len(res["loss"]) == 1 and np.isfinite(res["loss"]).all()
     capsys.readouterr()
     with pytest.raises(SystemExit) as e:
-        mod.main([*base, *refused])
+        train.main([*base, "--rollout-mesh", "2"])
     assert e.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
 

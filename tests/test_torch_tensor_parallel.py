@@ -29,10 +29,11 @@ grad near 0 into up to an LR-sized step.
 - Local bytes and shapes: at rest, a rank holds its replicated leaves
   plus ``1 / tp`` of its ``model``-sharded ones; an aligned 1 x 2 view
   gathers no weight over ``model``.
-- What ``model > 1`` still refuses (MoE generation over a batch sharded
-  on ``data``), and ``torchrun ... launch.train --mesh 1,2`` (SFT and
-  ``--rlhf``) against ``--mesh 1,1``.  The other layer kinds on ``model >
-  1`` are ``tests/test_torch_tp_layers.py``'s.
+- MoE generation over a batch sharded on ``data`` at 2 x 2 (its decode
+  routes the data group's rows together), token-identical, and
+  ``torchrun ... launch.train --mesh 1,2`` (SFT and ``--rlhf``) against
+  ``--mesh 1,1``.  The other layer kinds on ``model > 1`` are
+  ``tests/test_torch_tp_layers.py``'s.
 """
 import os
 import pickle
@@ -503,12 +504,17 @@ def test_compute_slices_follow_the_heads_each_rank_reads(arch, tp,
 
 
 def test_tp_moe_generation_over_data_is_refused(runs):
-    """At 2 x 2 an MoE model's decode would route each data rank's rows
-    apart from the global batch's (R13): refused, while scoring and the
-    steps route the data group's rows together (the ``moe`` LM case)."""
-    msg = runs[(2, 2)]["tp_refusals"]["engine_moe_rows"]
-    assert msg is not None and msg.startswith("NotImplementedError")
-    assert "not yet ported" in msg
+    """At 2 x 2 an MoE model's greedy decode over a batch sharded on
+    ``data`` runs (it routes the data group's rows together, R13), and its
+    tokens are the single-rank engine's (``tests/test_torch_mesh_serving.py``
+    holds the rows each MoE call routes)."""
+    got = runs[(2, 2)]["tp_refusals"]
+    assert got["engine_moe_rows"] is None
+    moe = D.lm_config("llama4-scout-17b-a16e")
+    want = GenerationEngine(moe, device="cpu", **D.PPO_KW).generate(
+        T.init_params(moe, D._gen(0)), torch.as_tensor(D.PROMPTS),
+        D._gen(0))["sequences"].numpy()
+    np.testing.assert_array_equal(got["moe_sequences"], want)
 
 
 # --------------------------------------------------------------------- #

@@ -21,9 +21,9 @@ and everywhere within one Adam step (``2.5 * lr``).
   reduced llama4-scout-17b-a16e at ``micro=2`` (at 2 x 2 each micro slice
   is one data rank's rows: the other rank routes zero rows with it).
 - Greedy ``generate`` through the Hybrid Engine for Mamba2, Zamba2 (its
-  KV arena in the compute dtype and in int8), MLA (1 x 2 and 1 x 4: MoE
-  generation over a batch sharded on ``data`` stays refused) and the
-  vision model, token-identical; the rank's cache holds its SSM heads
+  KV arena in the compute dtype and in int8), MLA (at 2 x 2 its MoE
+  layers route the data group's rows together) and the vision model,
+  token-identical; the rank's cache holds its SSM heads
   and channels, its kv heads, or the whole MLA latents.
 - One ``train_rlhf`` step of PPO through the Hybrid Engine with a reduced
   Zamba2 actor and critic.
@@ -72,8 +72,7 @@ LM_IDS = [c[0] for c in D.TPL_LM_CASES]
 # the reference runs the zero3 layout of each config (its tp layout
 # computes the same function)
 REF_LM = [c for c in D.TPL_LM_CASES if c[3] == "zero3"]
-GEN = [(m, name) for m in MESHES for name, arch, over in D.TPL_GEN_CASES
-       if not (m[0] > 1 and D.tpl_config(arch, over).moe)]
+GEN = [(m, name) for m in MESHES for name, _, _ in D.TPL_GEN_CASES]
 GEN_IDS = [f"{dp}x{tp}-{n}" for (dp, tp), n in GEN]
 
 

@@ -236,13 +236,23 @@ Phases (any failure raises, so the run exits non-zero):
    with ``--save-every 2 --ckpt-dir``, whose state SHA-256s must be equal;
    the step-3 checkpoint deleted, rerun with ``--resume``: its hash must
    be the witness's (bytes, snapshot ms, write and restore s and GB/s, the step
-   that overlaps a write against one that does not); ``launch.train
+   that overlaps a write against one that does not); the same run on the
+   mesh path at 1 x 1 (``--mesh 1,1 --strategy tp --zero 1``, a one-rank
+   NCCL group in this process), whose sharded step-2 manifest must equal
+   the plain run's (leaves, windows, sizes, CRCs) and final hash the
+   witness, then the plain run's checkpoint resumed on the mesh path and
+   the mesh run's on the plain path, each ending on the witness (the mesh
+   path's snapshot ms, write and restore GB/s beside the plain path's);
+   ``launch.train
    --rlhf`` at OPT-125M (3 steps a stage, 8 x 512, 64 new) with
    ``--save-every 2``, its last checkpoint deleted (a crash after
    iteration 1's commit) and rerun on the same directory: the rerun
    resumes at iteration 2, and its reward scores, per-iteration metrics
    without the wall-time keys and the actor, critic and EMA hashes equal
-   the first run's;
+   the first run's; the same on ``--rlhf --mesh 1,1`` (an uninterrupted
+   run with its own saves, its last checkpoint deleted, rerun): both must
+   end as the plain uninterrupted run did (the engine's reshard metrics
+   aside; at one rank the pipeline's trainer is the plain one);
    LoRA rank 8 at OPT-1.3B: one fp32 step at full width cut to 4 layers,
    2 x 512, loss and adapter grads kernel path against plain path (1e-4,
    ``worst``), then 5 bf16 steps of 8 x 512 with ``--ckpt`` (adapter
@@ -251,8 +261,8 @@ Phases (any failure raises, so the run exits non-zero):
    serving the folded params from memory; ``examples/torch_rlhf_e2e.py``
    at its default scale with ``tests/test_system.py``'s learning checks.
    Launch counts are set to 0 before each leg's first run and read after
-   it (SFT, PPO, LoRA, serve, example); every kernel of the leg must have
-   launched.
+   it (SFT, mesh SFT and its resume, PPO, mesh PPO, LoRA, serve,
+   example); every kernel of the leg must have launched.
 18. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
    that no earlier timing runs after a profiler session: the CUDA kernels
    one call of each decode row of phase ``kernels`` runs (the split
@@ -294,7 +304,8 @@ pool (identical streams; the greedy runs skip the warm-up, their shapes
 already warm, and generate 64 tokens a request), a 121-block pool that
 preempts (identical streams), and
 the prefix cache on a
-shared-system-prompt mix (hit rate >= 0.5; greedy streams on vs off
+shared-system-prompt mix, unwarmed, its tok/s cold (hit rate >= 0.5;
+greedy streams on vs off
 identical in fp32, counted in bf16, whose suffix GEMMs round otherwise than
 the full prompt's); paged runs
 must launch a paged kernel and never a dense decode kernel.  The rlhf phase
@@ -1806,10 +1817,8 @@ def _paged_serve(state):
                                    chunk=8, kv_layout="paged", block_size=16,
                                    prefix_cache=pc, device="cuda")
             kw = dict(mode="continuous", slots=16, max_seq_len=S)
-            if dname == "bfloat16":     # warm-up: bf16 tok/s are the reading
-                serve.run_schedule(eng, params, reqs[:16], torch.Generator(
-                    device="cuda").manual_seed(0), **kw)
-            ops.reset_launch_counts()
+            ops.reset_launch_counts()   # no warm-up: the gates are the hit
+            # rate and the fp32 identity; the tok/s are cold (first calls in)
             n_tok, st, dt, fin = serve.run_schedule(
                 eng, params, reqs,
                 torch.Generator(device="cuda").manual_seed(1), **kw)
@@ -1819,7 +1828,8 @@ def _paged_serve(state):
             outs[pc] = (fin, st, n_tok / dt)
             log(f"[serve] shared-system-prompt mix (32 requests, 192 + "
                 f"16-64 prompt tokens, 32-128 new), {tag}: {n_tok} tokens "
-                f"in {dt:.3f}s = {n_tok / dt:.1f} tok/s, prefill_hit_rate "
+                f"in {dt:.3f}s = {n_tok / dt:.1f} tok/s cold (first calls "
+                f"included: not a rate to compare), prefill_hit_rate "
                 f"{st['prefill_hit_rate']:.3f} (cached "
                 f"{st['cached_prefill_tokens']}, computed "
                 f"{st['computed_prefill_tokens']} prompt tokens), "
@@ -1838,8 +1848,8 @@ def _paged_serve(state):
             f"{len(off)} greedy streams identical; the others first differ "
             f"at generated token {first}")
         state["serve"][f"prefix_{dname}"] = {
-            "hit_rate": hit, "tok_s_on": outs[True][2],
-            "tok_s_off": outs[False][2], "identical": len(same)}
+            "hit_rate": hit, "tok_s_on_cold": outs[True][2],
+            "tok_s_off_cold": outs[False][2], "identical": len(same)}
         del params
         torch.cuda.empty_cache()
         if hit < 0.5 or (dname == "float32" and len(same) != len(off)):
@@ -4270,6 +4280,8 @@ def _ckpt_sft(state, failures) -> None:
         failures.append(f"ckpt: two uninterrupted OPT-1.3B runs differ: "
                         f"{hashes}")
     _free(first)
+    with open(d / "step_00000002" / "manifest.json") as f:
+        leaves = json.load(f)["leaves"]       # for the mesh leg
     shutil.rmtree(d / "step_00000003")         # a crash after step 2's commit
     log(f"[ckpt] deleted step_00000003; rerun with --resume")
     again = launch_train.main([*argv, "--resume"], cfg=cfg)
@@ -4294,23 +4306,105 @@ def _ckpt_sft(state, failures) -> None:
         f"{again['state_sha256'] == hashes[0]}")
     state["ckpt"] = {"saves": st, "restore": rs, "step_ms": ms[1:3],
                      "witness_equal": hashes[0] == hashes[1]}
-    shutil.rmtree(d, ignore_errors=True)
+    return {"witness": witness, "dir": d, "leaves": leaves}
 
 
-def _ppo_record(out) -> dict:
+def _ckpt_io(tag, saves, restore) -> None:
+    for s in saves:
+        log(f"[ckpt] {tag} save of step {s['step']}: {s['bytes'] / 1e9:.3f} "
+            f"GB; snapshot {s['snapshot_s'] * 1e3:.1f} ms; write "
+            f"{s['write_s']:.2f} s = {s['bytes'] / 1e9 / s['write_s']:.3f} "
+            f"GB/s")
+    if restore:
+        log(f"[ckpt] {tag} restore of step {restore['step']}: "
+            f"{restore['bytes'] / 1e9:.3f} GB in {restore['seconds']:.2f} s "
+            f"= {restore['bytes'] / 1e9 / restore['seconds']:.3f} GB/s")
+
+
+def _ckpt_mesh(state, failures, sft) -> None:
+    """(5) sharded checkpoints on the mesh path at 1 x 1 (a one-rank NCCL
+    group in this process, as phase ``serve_mesh`` drives its launchers):
+    OPT-1.3B SFT at ``CKPT_SFT_LAYERS`` layers, ``--mesh 1,1 --strategy tp
+    --zero 1`` with saves, whose step-2 manifest must be the plain run's
+    (leaves, windows, sizes, CRCs) and final hash the witness; then the
+    plain run's checkpoint resumed on the mesh path and the mesh run's
+    (its last step deleted) on the plain path, each ending on the
+    witness (the resumes save nothing: their restores are the reading)."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    cfg = _ckpt_sft_cfg()
+    mesh_argv = ["--mesh", "1,1", "--strategy", "tp", "--zero", "1"]
+    dm = CKPT_ROOT / "sft_mesh"
+    argv = [*OPT13_SFT, "--save-every", "2", "--keep", "2"]
+    got = {}
+    with one_rank_mesh("ckpt"):
+        log(f"[ckpt] mesh: python -m repro_torch.launch.train "
+            f"{' '.join(argv + mesh_argv)} --ckpt-dir {dm} (n_layers "
+            f"{CKPT_SFT_LAYERS})")
+        ops.reset_launch_counts()
+        run = launch_train.main([*argv, *mesh_argv, "--ckpt-dir", str(dm)],
+                                cfg=cfg)
+        _launched("ckpt_mesh_sft", ops.launch_counts(), TRAIN_KERNELS,
+                  state, failures)
+        with open(dm / "step_00000002" / "manifest.json") as f:
+            leaves = json.load(f)["leaves"]
+        got["manifest"] = leaves == sft["leaves"]
+        got["run"] = run["state_sha256"] == sft["witness"]
+        saves = run["ckpt_stats"]
+        _free(run)
+        shutil.rmtree(sft["dir"] / "step_00000003")
+        log("[ckpt] mesh: the plain run's checkpoint (step 3 deleted) "
+            "resumed on the mesh path")
+        ops.reset_launch_counts()
+        on_mesh = launch_train.main([*OPT13_SFT, *mesh_argv, "--ckpt-dir",
+                                     str(sft["dir"]), "--resume"], cfg=cfg)
+        _launched("ckpt_mesh_resume", ops.launch_counts(), TRAIN_KERNELS,
+                  state, failures)
+        got["plain_on_mesh"] = (on_mesh["state_sha256"] == sft["witness"]
+                                and on_mesh["start"] == 2)
+        rs_mesh = on_mesh["restore"]
+        _free(on_mesh)
+    shutil.rmtree(sft["dir"], ignore_errors=True)
+    shutil.rmtree(dm / "step_00000003")
+    log("[ckpt] mesh: the mesh run's checkpoint (step 3 deleted) resumed on "
+        "the plain path")
+    on_plain = launch_train.main([*OPT13_SFT, "--ckpt-dir", str(dm),
+                                  "--resume"], cfg=cfg)
+    got["mesh_on_plain"] = (on_plain["state_sha256"] == sft["witness"]
+                            and on_plain["start"] == 2)
+    rs_plain = on_plain["restore"]
+    _free(on_plain)
+    shutil.rmtree(dm, ignore_errors=True)
+    _ckpt_io("mesh 1 x 1", saves, rs_mesh)
+    _ckpt_io("plain path, of the mesh run's", [], rs_plain)
+    for k, ok in got.items():
+        what = ("equal to the plain run's" if k == "manifest"
+                else "ends on the witness")
+        log(f"[ckpt] mesh: {k} {what}: {ok}")
+        if not ok:
+            failures.append(f"ckpt: mesh leg {k} differs")
+    state["ckpt"]["mesh"] = {"saves": saves, "restore": rs_mesh,
+                             "restore_plain": rs_plain, **got}
+
+
+def _ppo_record(out, drop=()) -> dict:
     return {"scores": out["ppo_scores"],
-            "stage3": [{k: v for k, v in m.items() if k not in WALL_TIME}
+            "stage3": [{k: v for k, v in m.items()
+                        if k not in WALL_TIME + drop}
                        for m in out["stage3"]],
             "sha": out["state_sha256"]}
 
 
-def _ckpt_ppo(state, failures) -> None:
+def _ckpt_ppo(state, failures) -> dict:
     """(4) PPO resume at OPT-125M, full width and depth: an uninterrupted
     run that checkpoints its stage boundaries, iteration 1 and the last
     (``--save-every 2 --keep 2``), its last checkpoint deleted (a crash
     after iteration 1's commit, the SFT leg's technique), then a rerun
     from a fresh engine on the same directory, which resumes at iteration
-    2 and must end as the uninterrupted run did."""
+    2 and must end as the uninterrupted run did.  Returns the
+    uninterrupted run's record."""
     import shutil
 
     from repro_torch.kernels import ops
@@ -4346,6 +4440,59 @@ def _ckpt_ppo(state, failures) -> None:
             f"{s['write_s']:.2f} s")
     state.setdefault("ckpt", {})["ppo_save"] = saves[-1]
     _free(out)
+    shutil.rmtree(d, ignore_errors=True)
+    return ref
+
+
+def _ckpt_ppo_mesh(state, failures, ref) -> None:
+    """(6) the PPO resume of (4) on ``--rlhf --mesh 1,1`` (the Hybrid
+    Engine at one rank, on ``one_rank_mesh``): an uninterrupted run with
+    its own saves, its last checkpoint deleted, and a rerun that resumes at
+    iteration 2; both must end as the plain uninterrupted run did (the
+    engine's reshard metrics aside).  At one rank the pipeline keeps its
+    models in no mesh layout (``RLHFPipeline._layouts`` is ``None``), so
+    this holds the launcher's mesh path with checkpoints, and the trainer
+    it runs is the plain one."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    d = CKPT_ROOT / "ppo_mesh"
+    argv = [*PPO_ARGV, "--ckpt-dir", str(d), "--save-every", "2", "--keep",
+            "2", "--mesh", "1,1"]
+    drop = ("reshard_bytes", "reshard_s")
+    want = dict(ref, stage3=[{k: v for k, v in m.items() if k not in drop}
+                             for m in ref["stage3"]])
+    runs = {}
+    with one_rank_mesh("ckpt"):
+        for name in ("uninterrupted", "resumed"):
+            log(f"[ckpt] mesh {name}: python -m repro_torch.launch.train "
+                f"{' '.join(argv)}")
+            ops.reset_launch_counts()
+            runs[name] = launch_train.main(argv)
+            _launched(f"ckpt_ppo_mesh_{name}", ops.launch_counts(),
+                      PPO_KERNELS, state, failures)
+            if name == "uninterrupted":
+                last = sorted(p.name for p in d.iterdir()
+                              if p.name.startswith("step_"))
+                shutil.rmtree(d / last[-1])   # a crash after iteration 1
+                log(f"[ckpt] mesh: deleted {last[-1]}")
+    saved = [len(r["ckpt_stats"]) for r in runs.values()]
+    log(f"[ckpt] mesh PPO: saves {saved} (the resume runs one iteration)")
+    if saved[1] != 1:
+        failures.append(f"ckpt: the mesh PPO rerun saved {saved[1]} times")
+    for name, out in runs.items():
+        got = _ppo_record(out, drop=drop)
+        for k in ("scores", "stage3", "sha"):
+            same = got[k] == want[k]
+            log(f"[ckpt] mesh PPO {name}: {k} equal to the uninterrupted "
+                f"plain run: {same}")
+            if not same:
+                failures.append(f"ckpt: mesh PPO {name} {k}: {got[k]} vs "
+                                f"{want[k]}")
+    state["ckpt"]["ppo_mesh_save"] = runs["uninterrupted"]["ckpt_stats"][-1]
+    for out in runs.values():
+        _free(out)
     shutil.rmtree(d, ignore_errors=True)
 
 
@@ -4495,9 +4642,13 @@ def phase_ckpt(state):
     try:
         _ckpt_room()
         t0 = time.perf_counter()
-        _ckpt_sft(state, failures)
+        sft = _ckpt_sft(state, failures)
+        tm = time.perf_counter()
+        _ckpt_mesh(state, failures, sft)
         t1 = time.perf_counter()
-        _ckpt_ppo(state, failures)
+        ref = _ckpt_ppo(state, failures)
+        tp = time.perf_counter()
+        _ckpt_ppo_mesh(state, failures, ref)
         t2 = time.perf_counter()
         path, folded = _ckpt_lora(state, failures)
         _ckpt_serve(state, failures, path, folded)
@@ -4505,7 +4656,8 @@ def phase_ckpt(state):
         torch.cuda.empty_cache()
         t3 = time.perf_counter()
         _ckpt_example(state, failures)
-        log(f"[ckpt] legs: SFT {t1 - t0:.1f}s, PPO {t2 - t1:.1f}s, LoRA + "
+        log(f"[ckpt] legs: SFT {tm - t0:.1f}s, mesh SFT {t1 - tm:.1f}s, "
+            f"PPO {tp - t1:.1f}s, mesh PPO {t2 - tp:.1f}s, LoRA + "
             f"serve {t3 - t2:.1f}s, example {time.perf_counter() - t3:.1f}s")
     finally:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)

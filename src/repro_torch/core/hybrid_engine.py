@@ -33,16 +33,6 @@ from repro_torch.sharding import runtime
 from repro_torch.sharding import strategy as S
 
 
-def _move(x, sharding: S.Sharding):
-    """``x`` (a ``DTensor``, or a plain tensor that every rank holds whole)
-    in ``sharding``'s layout."""
-    if runtime.is_dtensor(x):
-        if tuple(x.placements) == tuple(sharding.placements):
-            return x
-        return runtime.redistribute(x, sharding.placements)
-    return runtime.place(x, sharding.mesh, sharding.placements)
-
-
 def mesh_total(value: int, mesh) -> int:
     """The sum of an integer over every rank of ``mesh``."""
     import torch.distributed as dist
@@ -98,7 +88,7 @@ class HybridEngine:
         first = direction not in self._warm
         _sync(self.mesh)
         t0 = time.perf_counter()
-        out = tree_map(lambda s, p: _move(p, s), shardings, params,
+        out = tree_map(lambda s, p: runtime.move(p, s), shardings, params,
                        is_leaf=runtime.is_sharding)
         _sync(self.mesh)
         dt = time.perf_counter() - t0

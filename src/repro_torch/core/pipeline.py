@@ -27,7 +27,13 @@ latest valid checkpoint and continues bit for bit as an uninterrupted run
 would.  Every stage-3 draw comes from that one generator.  A reference
 checkpoint taken mid-PPO does not resume here: its PRNG carry is a JAX
 key (``uint32[2]``), which restore refuses by shape; stage-boundary
-checkpoints hold params only and cross both ways.
+checkpoints hold params only and cross both ways.  On a mesh of more than
+one rank every checkpoint is a sharded one: the stage-boundary params are
+saved placed in their stage-3 layouts, stage 3's state as the trainer and
+the engine hold it, and each restore reads every tree straight into the
+current mesh's layouts (``restore(shardings=)``), whatever mesh it was
+saved on; every rank must then hold the same generator state, and a save
+checks that it does.
 
 ``RLHFEngine(mesh=)`` builds the Hybrid Engine over a ``dp x tp`` mesh
 (``train_strategy`` params, ZeRO-1 moments), and stage 3 trains through
@@ -43,16 +49,16 @@ the synchronous run bit for bit, checkpoints included: a checkpoint saves
 the generator state carried by the item just consumed, never the live
 state, which the producer may already be advancing.
 
-The disaggregated rollout mesh (``rollout_mesh=``), asynchronous stage 3
-on a mesh of more than one rank (two threads issuing collectives on one
-process group would have to keep the same order on every rank) and a
-checkpointer on a mesh (sharded save and restore) are not yet ported and
-raise ``NotImplementedError``.
+The disaggregated rollout mesh (``rollout_mesh=``) and asynchronous stage
+3 on a mesh of more than one rank (two threads issuing collectives on one
+process group would have to keep the same order on every rank) are not
+yet ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import zlib
 from typing import Optional
 
 import numpy as np
@@ -70,6 +76,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import tree_leaves, tree_map
 from repro_torch.sharding import runtime
+from repro_torch.sharding import strategy as S
 from repro_torch.training import checkpoint, schedules
 from repro_torch.training.optimizer import AdamState
 from repro_torch.training.steps import lm_train_step, reward_train_step
@@ -159,10 +166,6 @@ class RLHFPipeline:
             raise NotImplementedError("RLHFPipeline(async_cfg=) on a mesh "
                                       "of more than one rank: not yet "
                                       "ported")
-        if checkpointer is not None and engine.hybrid is not None:
-            raise NotImplementedError("RLHFPipeline(checkpointer=) on a mesh "
-                                      "(sharded save and restore): not yet "
-                                      "ported")
         self.e = engine
         self.blender = blender
         self.stages = stages
@@ -199,8 +202,7 @@ class RLHFPipeline:
         self.e.ref_params = clone_params(state.params)
         if self.ckpt is not None:
             self.ckpt.save(self.SFT_STEP,
-                           {"actor": self.e.actor_params,
-                            "ref": self.e.ref_params},
+                           self._boundary_tree(("actor", "ref")),
                            self._meta("sft_done"))
         return self.log["stage1"]
 
@@ -225,12 +227,8 @@ class RLHFPipeline:
         self.e.critic_params = clone_params(state.params)
         self.rm_acc = accs
         if self.ckpt is not None:
-            self.ckpt.save(self.RM_STEP,
-                           {"actor": self.e.actor_params,
-                            "ref": self.e.ref_params,
-                            "critic": self.e.critic_params,
-                            "reward": self.e.reward_params},
-                           self._meta("rm_done"))
+            self.ckpt.save(self.RM_STEP, self._boundary_tree(
+                ("actor", "ref", "critic", "reward")), self._meta("rm_done"))
         return accs
 
     # ------------------------ Step 3: PPO -------------------------- #
@@ -415,12 +413,44 @@ class RLHFPipeline:
         return {"stage": stage, "log": self.log, "rm_acc": self.rm_acc,
                 "timings": self.timings}
 
+    def _layouts(self) -> Optional[dict]:
+        """Where stage 3 keeps each model on a mesh of more than one rank
+        (``None`` otherwise): the actor's and the critic's TrainStates in
+        the training layout, and under ``"params"`` the four models'
+        params, the frozen ref and reward models in the ``tp`` layout as
+        the trainer places them."""
+        he = self.e.hybrid
+        if he is None or runtime.mesh_size(he.mesh) == 1:
+            return None
+        crit = R.param_specs(self.e.critic_cfg)
+        a = he.train_state_shardings(self.e.actor_cfg)
+        c = he.train_state_shardings(self.e.critic_cfg, specs=crit)
+        return {"actor": a, "critic": c, "params": {
+            "actor": a.params, "critic": c.params,
+            "ref": S.param_shardings(self.e.actor_cfg, he.mesh, "tp"),
+            "reward": S.shardings_for_tree(crit, he.mesh, "tp")}}
+
+    def _boundary_tree(self, names) -> dict:
+        """The stage-boundary params ``names`` as a checkpoint holds them:
+        placed in their stage-3 layouts on a mesh of more than one rank,
+        so that each rank writes its own pieces."""
+        tree = {n: getattr(self.e, f"{n}_params") for n in names}
+        lay = self._layouts()
+        if lay is None:
+            return tree
+        return {n: runtime.place_tree(t, lay["params"][n])
+                for n, t in tree.items()}
+
     def _save_ppo(self, trainer, rng_state: torch.Tensor,
                   done: int) -> None:
         """Commit the whole stage-3 state after ``done`` completed
         iterations: trainer states (moments + EMA), frozen ref/reward
         params, ``rng_state`` (the generator state iteration ``done`` will
         draw from), and (in metadata) the data cursor + metrics log."""
+        if self._layouts() is not None and not runtime.same_on_ranks(
+                zlib.crc32(rng_state.numpy().tobytes())):
+            raise RuntimeError("the stage-3 generator's state differs "
+                               "between the ranks of the mesh")
         tree = {"trainer": trainer.state_tree(),
                 "ref": trainer.ref_params,
                 "reward": trainer.reward_params,
@@ -437,11 +467,18 @@ class RLHFPipeline:
         actor = _like_train_state(checkpoint.like(self.e.actor_params, dev))
         critic = _like_train_state(checkpoint.like(self.e.critic_params,
                                                    dev))
+        ema = self.ppo.use_ema
         like = {"trainer": {"actor": actor, "critic": critic,
-                            "ema": actor.opt.m if self.ppo.use_ema else None},
+                            "ema": actor.opt.m if ema else None},
                 "ref": actor.params, "reward": critic.params,
                 "rng": generator.get_state()}
-        tree, meta = self.ckpt.restore(like, step=step)
+        lay, sh = self._layouts(), None
+        if lay is not None:
+            sh = {"trainer": {"actor": lay["actor"], "critic": lay["critic"],
+                              "ema": lay["actor"].params if ema else None},
+                  "ref": lay["params"]["ref"],
+                  "reward": lay["params"]["reward"], "rng": None}
+        tree, meta = self.ckpt.restore(like, step=step, shardings=sh)
         self.e.ref_params = tree["ref"]
         self.e.reward_params = tree["reward"]
         self.e.actor_params = tree["trainer"]["actor"].params
@@ -462,7 +499,10 @@ class RLHFPipeline:
             critic = checkpoint.like(self.e.critic_params, dev)
             like["critic"] = critic
             like["reward"] = critic
-        tree, meta = self.ckpt.restore(like, step=step)
+        lay = self._layouts()
+        tree, meta = self.ckpt.restore(
+            like, step=step, shardings=None if lay is None
+            else {k: lay["params"][k] for k in like})
         self.e.actor_params = tree["actor"]
         self.e.ref_params = tree["ref"]
         if "critic" in tree:

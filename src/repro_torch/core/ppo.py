@@ -38,9 +38,10 @@ both steps run tensor-parallel on the compute views
 with every batch-wide mean (advantage whitening, the losses and their
 metrics, ``reward_score``) taken over the global batch: the single-device
 result, up to the order of the sums.  The experience is then a tree of
-``DTensor``s sharded over ``data``.  At one rank the trainer runs as with
-``engine=None``.  The rollout mesh (disaggregated generation) is not yet
-ported.
+``DTensor``s sharded over ``data``.  :meth:`PPOTrainer.load_state_tree`
+places a restored state in this mesh's training layout, whatever layout
+it was saved in.  At one rank the trainer runs as with ``engine=None``.
+The rollout mesh (disaggregated generation) is not yet ported.
 
 The asynchronous seam (:mod:`repro_torch.core.replay`, one device and the
 1 x 1 mesh): :meth:`PPOTrainer.generate_rollout` takes ``gen_params``
@@ -66,7 +67,7 @@ from repro_torch.core.replay import RolloutBatch
 from repro_torch.models import reward as R
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.modules import tree_leaves
+from repro_torch.models.modules import tree_leaves, tree_map
 from repro_torch.serving.engine import GenerationEngine
 from repro_torch.sharding import runtime
 from repro_torch.sharding import strategy as S
@@ -254,9 +255,10 @@ def staleness_guard_stats(cfg: ModelConfig, params, sequences,
 
 
 def _shares_storage(a, b) -> bool:
-    ptrs = {t.untyped_storage().data_ptr() for t in tree_leaves(a)}
-    return any(t.untyped_storage().data_ptr() in ptrs
-               for t in tree_leaves(b))
+    def ptr(t):
+        return runtime.local(t).untyped_storage().data_ptr()
+    ptrs = {ptr(t) for t in tree_leaves(a)}
+    return any(ptr(t) in ptrs for t in tree_leaves(b))
 
 
 # ===================================================================== #
@@ -565,10 +567,19 @@ class PPOTrainer:
                 "ema": a_sh.params if self.ema is not None else None}
 
     def load_state_tree(self, tree):
-        """Adopt a state tree (as :meth:`state_tree` returns it)."""
-        if self._multi:
-            raise NotImplementedError("PPOTrainer.load_state_tree on a mesh "
-                                      "(sharded restore): not yet ported")
+        """Adopt a state tree (as :meth:`state_tree` returns it).  On a mesh
+        of more than one rank its leaves are placed in the training layout
+        of :meth:`state_shardings`: full tensors (every rank holds the same
+        whole tree) are sliced locally, ``DTensor``\\ s (a tree that
+        ``CheckpointManager.restore(shardings=)`` placed) are kept, or moved
+        when they are laid out otherwise; the step counters stay host
+        tensors."""
+        sh = self.state_shardings()
+        if sh is not None:
+            tree = tree_map(
+                lambda s, x: x if x is None or x.dim() == 0
+                else runtime.move(x, s), sh, tree,
+                is_leaf=runtime.is_sharding)
         self.actor = tree["actor"]
         self.critic = tree["critic"]
         self.ema = tree["ema"]

@@ -77,11 +77,20 @@ over ``data``; the state is committed to that layout at creation, and the
 compute over ``model`` is tensor-parallel.  Under ``--rlhf`` the mesh goes
 to the Hybrid Engine (stage 3).  Rank 0 prints.  Every layer kind trains
 on ``tp`` > 1 (attention whose heads ``tp`` does not split whole is
-computed whole on every rank).  ``--mesh`` with ``--ckpt-dir`` /
-``--resume`` (sharded checkpoints), ``--async-rlhf`` on a mesh of more
-than one rank and the disaggregated meshes (``--rollout-mesh``,
-``--train-mesh``) are not ported yet and are refused; ``--mesh`` with
-``--lora`` is refused as in the reference.
+computed whole on every rank).  ``--ckpt-dir`` on a mesh writes sharded
+checkpoints, every rank its own pieces (the directory must be one that
+every rank sees), and ``--resume`` reads one into the current layout,
+whatever mesh, ``--strategy`` or ``--zero`` it was saved under, or none::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch opt-125m --mesh 2,1 --ckpt-dir ck --save-every 2 --steps 6
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch opt-125m --mesh 1,2 --strategy tp --ckpt-dir ck --resume \
+        --steps 8
+
+``--async-rlhf`` on a mesh of more than one rank and the disaggregated
+meshes (``--rollout-mesh``, ``--train-mesh``) are not ported yet and are
+refused; ``--mesh`` with ``--lora`` is refused as in the reference.
 
 Runs on CUDA; ``--device cpu`` runs on the CPU with the kernels' plain
 versions.
@@ -322,8 +331,7 @@ def run_rlhf(args, cfg, device, iter_hook=None, mesh=None) -> dict:
     return dict(out, stage3=pipe.log["stage3"], step_ms=pipe.step_ms,
                 **{"async": summary_async},
                 gen_tok_s=pipe.gen_tok_s,
-                state_sha256={k: checkpoint.tree_sha256(
-                    runtime.full_tree(v)) for k, v in (
+                state_sha256={k: checkpoint.tree_sha256(v) for k, v in (
                         ("actor", tr.actor), ("critic", tr.critic),
                         ("ema", tr.ema))},
                 ckpt_stats=mgr.stats if mgr is not None else None)
@@ -354,9 +362,6 @@ def main(argv=None, iter_hook=None, cfg=None) -> dict:
                  "ported")
     if args.lora:
         ap.error("--mesh with --lora is not supported")
-    if args.ckpt_dir or args.resume:
-        raise NotImplementedError("--mesh with --ckpt-dir / --resume "
-                                  "(sharded checkpoints): not yet ported")
     import torch.distributed as dist
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("CUDA is not available; pass --device cpu to run on the "
@@ -433,7 +438,7 @@ def _main(ap, args, iter_hook, cfg, mesh=None, device=None) -> dict:
                                     if cuda else None))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.init_params(cfg, gen)
-    step_fn, n_adapter = None, None
+    step_fn, n_adapter, shardings = None, None, None
     if args.lora:
         adapters = LoRA.init(params, args.lora, gen)
         state = TrainState.create(adapters)
@@ -455,7 +460,7 @@ def _main(ap, args, iter_hook, cfg, mesh=None, device=None) -> dict:
         if args.resume and mgr.latest_step() is not None:
             target = checkpoint.like(state)
             state = None                  # free the fresh state first
-            state, meta = mgr.restore(target)
+            state, meta = mgr.restore(target, shardings=shardings)
             start = int(meta["step"]) + 1
             print(f"resumed from step {meta['step']} "
                   f"(checkpoint {mgr.latest_step()})")
@@ -487,8 +492,7 @@ def _main(ap, args, iter_hook, cfg, mesh=None, device=None) -> dict:
                 peak_mem_bytes=peak, state=state,
                 params=params if args.lora else state.params,
                 start=start, adapter_params=n_adapter,
-                state_sha256=checkpoint.tree_sha256(
-                    runtime.full_tree(state)),
+                state_sha256=checkpoint.tree_sha256(state),
                 ckpt_stats=mgr.stats if mgr is not None else None,
                 restore=mgr.last_restore if mgr is not None else None,
                 export_s=export_s)

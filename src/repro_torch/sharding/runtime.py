@@ -28,10 +28,17 @@ group each is the identity, so the 1 x 1 mesh computes the plain path's
 arithmetic.  :func:`check_compute_mesh` refuses what ``model > 1`` does
 not compute yet (Mamba2 mixers of several groups that ``model`` does not
 divide).
+
+A sharded checkpoint addresses a rank's piece by its window
+(:func:`window`: each dim's ``[start, stop)`` at a mesh coordinate, from
+the pspec alone, the inverse of :func:`chunk`); a restore builds the
+piece from the windows the files hold and wraps it with
+:func:`from_local` (:mod:`repro_torch.training.checkpoint`).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, Optional
 
@@ -371,6 +378,56 @@ def chunk(t, mesh, placements):
     return out
 
 
+def pspec_of(placements, names, ndim: int) -> tuple:
+    """The pspec of ``placements`` on a mesh of axes ``names``: for each of
+    ``ndim`` tensor dims the axes that shard it (``None``, a name, or a
+    tuple of names major-first: mesh-dim order, as ``DTensor`` applies
+    them)."""
+    from torch.distributed.tensor import Replicate, Shard
+    axes = [[] for _ in range(ndim)]
+    for name, pl in zip(names, placements):
+        if type(pl) is Shard:
+            axes[pl.dim].append(name)
+        elif type(pl) is not Replicate:
+            raise ValueError(f"placement {pl} is neither Shard nor "
+                             f"Replicate")
+    return tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
+                 for a in axes)
+
+
+def window(pspec, axes: dict, shape, coord) -> tuple:
+    """The piece of a tensor of global ``shape`` laid out by ``pspec`` that
+    the rank at mesh coordinate ``coord`` holds, on a mesh of ``axes``
+    (``{name: size}``; ``coord`` one index per axis, in that order): each
+    dim's ``(start, stop)``, or ``None`` where the rank holds the whole
+    dim.  An entry naming several axes splits the dim over them
+    major-first, as the reference's ``PartitionSpec`` does.  The inverse
+    of :func:`chunk`; a pure function (no process group).  The strategies
+    shard a dim only where its axes divide it, so every piece is even: a
+    dim they do not divide raises ``ValueError``."""
+    names = list(axes)
+    out = []
+    for d, n in enumerate(shape):
+        e = pspec[d] if d < len(pspec) else None
+        parts, idx = 1, 0
+        for a in (() if e is None else (e,) if isinstance(e, str) else e):
+            parts *= axes[a]
+            idx = idx * axes[a] + coord[names.index(a)]
+        if n % parts:
+            raise ValueError(f"dim {d} of {tuple(shape)}: {n} does not "
+                             f"split evenly over {e!r} ({parts} ways)")
+        lo, hi = idx * (n // parts), (idx + 1) * (n // parts)
+        out.append(None if (lo, hi) == (0, n) else (lo, hi))
+    return tuple(out)
+
+
+def mesh_coords(axes: dict) -> list:
+    """Every coordinate of a mesh of ``axes``, in row-major order: the
+    order of its ranks (:func:`repro_torch.launch.mesh.make_mesh`) and of
+    the reference's devices."""
+    return list(itertools.product(*(range(s) for s in axes.values())))
+
+
 def place(t, mesh, placements):
     """``t`` (the same full tensor on every rank) as a ``DTensor`` under
     ``placements``: the local piece is sliced here, and copied when it is a
@@ -404,11 +461,21 @@ def zeros_like_global(p, dtype, sharding):
     return from_local(loc, sharding.mesh, sharding.placements, p.shape)
 
 
+def move(x, sharding):
+    """``x`` (a ``DTensor``, or a plain tensor that every rank holds whole)
+    in ``sharding``'s layout: itself when it is laid out so already."""
+    if is_dtensor(x):
+        if tuple(x.placements) == tuple(sharding.placements):
+            return x
+        return redistribute(x, sharding.placements)
+    return place(x, sharding.mesh, sharding.placements)
+
+
 def place_tree(tree, shardings):
-    """A tree of full tensors placed by a matching tree of
-    :class:`~repro_torch.sharding.strategy.Sharding`\\ s."""
-    return tree_map(lambda s, t: place(t, s.mesh, s.placements), shardings,
-                    tree, is_leaf=is_sharding)
+    """A tree of full tensors (or ``DTensor``\\ s, moved) placed by a
+    matching tree of :class:`~repro_torch.sharding.strategy.Sharding`\\ s."""
+    return tree_map(lambda s, t: move(t, s), shardings, tree,
+                    is_leaf=is_sharding)
 
 
 def is_sharding(x) -> bool:
@@ -476,6 +543,17 @@ def all_true(flags, group) -> bool:
     t = flags.all().to(torch.int32).reshape(1).to(_group_device(group))
     dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
     return bool(t.item())
+
+
+def same_on_ranks(value: int, group=None) -> bool:
+    """Whether the integer ``value`` is the same on every rank of ``group``
+    (the default group with ``None``): one all-reduce, so that every rank
+    gets the same answer."""
+    import torch.distributed as dist
+    t = torch.tensor([value, -value], dtype=torch.int64,
+                     device=_group_device(group))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return int(t[0]) == value == -int(t[1])
 
 
 def _group_device(group) -> torch.device:

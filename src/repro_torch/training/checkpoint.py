@@ -34,8 +34,33 @@ sorted order, a NamedTuple field as ``.name``, a sequence index as the
 index, ``None`` an empty subtree), each path component escaped (``%``
 and ``/``) and joined by ``/``.  So a tree and its JAX twin give the same
 keys, the same shard file names (``{leaf:05d}.{shard:02d}.npy``) and the
-same bytes.  This package runs on one device, so every leaf is one
-full-window shard; ``restore(shardings=)`` is not ported yet.
+same bytes.
+
+A tree with ``DTensor`` leaves (a state on a ``("data", "model")`` mesh)
+is saved by every rank of the mesh at once, each writing its own pieces:
+a leaf's shards are the distinct windows the ranks hold
+(:func:`repro_torch.sharding.runtime.window`), numbered in rank order
+(row-major over the mesh, the reference's ``addressable_shards`` order),
+and each is written once, by one of the ranks that hold it (a plain
+leaf of such a tree, which every rank holds whole, is one window): the
+one given the fewest bytes so far, so that replicated windows spread
+over their holders, and every rank derives the same assignment.  So the
+files and the manifest are the reference's for the same state on the
+same mesh, and file names need no communication.  All ranks write into
+one temp directory, whose name the first rank chooses; the ranks'
+background writers then exchange their shard entries and whether they
+succeeded, over a gloo group of their own (made at the first save of a
+multi-rank tree, so that they never interleave with the training's
+collectives, whose timeout is 60 s plus the time the largest rank's
+share takes at a floor rate, so that a rank that writes more is not
+taken for a hung one).  The first rank writes the manifest and
+commits, and every rank learns the outcome.  A failure on any rank
+fails the save on every rank, and nothing commits.  The directory must be one that every rank
+sees (one host's disk, or a shared file system).  ``restore(like,
+shardings=)`` has each rank read only the shards that overlap its own
+piece and returns ``DTensor``\\ s in the target layout, which need not be
+the one the checkpoint was saved in (another mesh, strategy or ZeRO
+stage, or one device with ``shardings=None``).
 
 bfloat16 leaves go by their 16 bits: a shard's ``.npy`` header says
 ``'<V2'`` (as ``np.save`` of an ``ml_dtypes`` bfloat16 array writes it)
@@ -51,13 +76,20 @@ later step's values.
 Fault injection for crash tests: pass ``fault_hook`` (called as
 ``fault_hook(event, count)`` with events ``"shard"``, ``"before_commit"``,
 ``"after_commit"``) or set ``REPRO_CKPT_FAULT=<event>:<n>`` in the
-environment to ``os._exit(41)`` on the n-th occurrence of the event.
+environment to ``os._exit(41)`` on the n-th occurrence of the event in
+this process.  In a multi-rank save ``"shard"`` fires after each file
+this rank writes, ``"before_commit"`` on the other ranks once their
+files are synced (before the exchange) and on the first rank just
+before its commit, and ``"after_commit"`` on every rank once the commit
+is known.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -73,12 +105,18 @@ import torch
 
 from repro_torch.models.modules import (flatten_with_path,
                                         tree_unflatten_paths)
+from repro_torch.sharding import runtime
 
 FORMAT = "repro-ckpt-v1"
 _STEP_RE = re.compile(r"^step_(\d{8})$")
 FAULT_EXIT_CODE = 41
 _BF16 = "bfloat16"
 _IO_THREADS = 8
+# the timeout of a multi-rank save's writers' group: that of every mesh
+# group, plus the time the largest rank's share takes at a floor rate far
+# below a disk's
+_WRITERS_TIMEOUT_S = 60.0
+_WRITE_FLOOR_BPS = 64 << 20
 
 
 class CheckpointError(Exception):
@@ -297,28 +335,31 @@ def load_metadata(path: str) -> dict:
 
 def tree_sha256(tree) -> str:
     """SHA-256 over each leaf's key, dtype, shape and the SHA-256 of its
-    bytes, in flattening order (the leaves hashed on host threads)."""
-    flat = list(_flat(tree).items())
-
-    def digest(item):
-        key, leaf = item
+    bytes, in flattening order (the leaves hashed on host threads).  A
+    ``DTensor`` leaf is hashed as its full tensor, gathered on this
+    thread, so the hash of a state on a mesh is the hash of the same
+    state on one device; the gathers are collectives, and every rank of
+    the mesh calls this."""
+    def digest(key, leaf):
         name, arr = _host(leaf)
         return (f"{key}|{name}|{tuple(arr.shape)}|"
                 + hashlib.sha256(_bytes(arr)).hexdigest())
 
     with ThreadPoolExecutor(_IO_THREADS) as pool:
-        lines = list(pool.map(digest, flat))
+        futs = []
+        for key, leaf in _flat(tree).items():
+            if runtime.is_dtensor(leaf):
+                for f in futs[:-_IO_THREADS]:   # bound the gathered leaves
+                    f.result()                  # waiting to be hashed
+                leaf = runtime.full(leaf)
+            futs.append(pool.submit(digest, key, leaf))
+        lines = [f.result() for f in futs]
     return hashlib.sha256("\n".join(lines).encode()).hexdigest()
 
 
 # ===================================================================== #
 # helpers of the manager
 # ===================================================================== #
-def _index_to_slices(index) -> tuple:
-    return tuple(slice(None) if w is None else slice(w[0], w[1])
-                 for w in index)
-
-
 def _fsync_dir(path: str) -> None:
     fd = os.open(path, os.O_RDONLY)
     try:
@@ -344,6 +385,176 @@ def _env_fault_hook() -> Optional[Callable[[str, int], None]]:
 
 
 # ===================================================================== #
+# the shards of a tree on a mesh
+# ===================================================================== #
+def _index(win) -> list:
+    """A :func:`repro_torch.sharding.runtime.window` as the manifest
+    spells it: ``[start, stop]`` or ``None`` per dim."""
+    return [None if w is None else list(w) for w in win]
+
+
+def _itemsize(name: str) -> int:
+    return 2 if name == _BF16 else np.dtype(name).itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class _Writers:
+    """The ranks that save a tree together: those of the mesh its
+    ``DTensor`` leaves lie on (``axes`` ``{name: size}``, global ``ranks``
+    in row-major order), or this process alone for a tree without (no
+    axes, one rank); ``index`` is this rank's place among them.  Their
+    background writers' collectives run over ``group`` (``None`` for one
+    rank, where each is the identity)."""
+    axes: dict
+    ranks: tuple
+    index: int
+    group: Any = None
+
+    def all_gather(self, obj) -> list:
+        if self.group is None:
+            return [obj]
+        import torch.distributed as dist
+        out = [None] * len(self.ranks)
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+    def broadcast(self, obj):
+        if self.group is None:
+            return obj
+        import torch.distributed as dist
+        box = [obj]
+        dist.broadcast_object_list(box, src=self.ranks[0], group=self.group)
+        return box[0]
+
+
+def _writers_of(flat: dict) -> _Writers:
+    """The ranks that save ``flat`` together (no group yet): those of the
+    mesh its ``DTensor`` leaves lie on (they must all lie on one), or
+    this process alone."""
+    import torch.distributed as dist
+    found = None
+    for key, leaf in flat.items():
+        if not runtime.is_dtensor(leaf):
+            continue
+        m = leaf.device_mesh
+        mesh = (dict(zip(m.mesh_dim_names, (int(n) for n in m.mesh.shape))),
+                tuple(m.mesh.flatten().tolist()))
+        if found is None:
+            found = mesh
+        elif mesh != found:
+            raise CheckpointError(f"leaf {key!r} lies on another mesh than "
+                                  f"the tree's other DTensor leaves")
+    if found is None:
+        return _Writers({}, (0,), 0)
+    axes, ranks = found
+    if dist.get_rank() not in ranks:
+        raise CheckpointError("this rank holds no part of the tree's mesh")
+    return _Writers(axes, ranks, ranks.index(dist.get_rank()))
+
+
+def _assign(layouts: list, size: int) -> tuple:
+    """Who writes what: for each leaf's ``(windows, global shape, item
+    size)``, ``windows`` the window of each of ``size`` ranks in rank
+    order, the writer (a rank's index) of each distinct window, in the
+    order of first appearance; and the bytes each rank writes.  A window
+    goes to the rank that holds it and has been given the fewest bytes so
+    far (the lowest on a tie), so that the replicated windows (a leaf
+    replicated over ``data``, a FULL leaf, a plain leaf) spread over
+    their holders and every rank derives the same assignment on its
+    own."""
+    loads = [0] * size
+    writers = []
+    for wins, shape, itemsize in layouts:
+        who = []
+        for win in dict.fromkeys(wins):
+            r = min((r for r, x in enumerate(wins) if x == win),
+                    key=loads.__getitem__)
+            loads[r] += itemsize * math.prod(
+                n if w is None else w[1] - w[0] for n, w in zip(shape, win))
+            who.append(r)
+        writers.append(who)
+    return writers, loads
+
+
+def _piece(leaf, win) -> np.ndarray:
+    """This rank's host copy of ``leaf`` in the window ``win``: a plain
+    leaf whole, a ``DTensor``'s local piece (checked against ``win``)."""
+    if not runtime.is_dtensor(leaf):
+        return _host(leaf)[1]
+    loc = runtime.local(leaf)
+    want = tuple(n if w is None else w[1] - w[0]
+                 for n, w in zip(leaf.shape, win))
+    if tuple(loc.shape) != want:
+        raise CheckpointError(f"a local piece of {tuple(loc.shape)} where "
+                              f"the layout gives the window {win}")
+    return _host(loc)[1]
+
+
+def _plan(flat: dict, w: _Writers) -> tuple:
+    """``({key: (dtype name, global shape, number of shards, pieces)},
+    the bytes each rank writes)``, ``pieces`` the ``(shard, index, host
+    array)`` this rank writes.  A leaf's shards are its distinct windows
+    in rank order (a ``DTensor``'s by its layout; a plain leaf, which
+    every rank holds whole, is one), each written by the rank
+    :func:`_assign` gives it."""
+    layouts = []
+    for leaf in flat.values():
+        shape = _target_shape(leaf)
+        wins = [(None,) * len(shape)] * len(w.ranks)
+        if runtime.is_dtensor(leaf):
+            pspec = runtime.pspec_of(leaf.placements,
+                                     leaf.device_mesh.mesh_dim_names,
+                                     len(shape))
+            wins = [runtime.window(pspec, w.axes, shape, c)
+                    for c in runtime.mesh_coords(w.axes)]
+        layouts.append((wins, shape, _itemsize(_dtype_name(leaf))))
+    writers, loads = _assign(layouts, len(w.ranks))
+    plan = {}
+    for (key, leaf), (wins, shape, _), who in zip(flat.items(), layouts,
+                                                  writers):
+        distinct = list(dict.fromkeys(wins))
+        plan[key] = (_dtype_name(leaf), list(shape), len(distinct),
+                     [(j, _index(win), _piece(leaf, win))
+                      for j, (win, r) in enumerate(zip(distinct, who))
+                      if r == w.index])
+    return plan, loads
+
+
+def _box(shape, win) -> list:
+    return [(0, n) if w is None else (w[0], w[1]) for n, w in zip(shape, win)]
+
+
+def _match_shardings(like_tree, shardings) -> list:
+    """The leaf of ``shardings`` at each leaf of ``like_tree``, in
+    :func:`flatten_with_path` order: a
+    :class:`~repro_torch.sharding.strategy.Sharding` or ``None``.  Any
+    other structure raises :class:`CheckpointError`."""
+    paths = [p for p, _ in flatten_with_path(like_tree)]
+
+    def at(tree, path):
+        for c in path:
+            if isinstance(tree, dict):
+                tree = tree[c]
+            elif hasattr(tree, "_fields") and isinstance(c, str):
+                tree = getattr(tree, c[1:])
+            elif isinstance(tree, (tuple, list)):
+                tree = tree[c]
+            else:
+                raise TypeError(c)
+        return tree
+    try:
+        got = [at(shardings, p) for p in paths]
+    except (KeyError, IndexError, TypeError, AttributeError) as e:
+        raise CheckpointError("shardings tree does not match the restore "
+                              "target") from e
+    extra = {p for p, _ in flatten_with_path(shardings)} - set(paths)
+    if extra or not all(s is None or runtime.is_sharding(s) for s in got):
+        raise CheckpointError("shardings tree does not match the restore "
+                              "target")
+    return got
+
+
+# ===================================================================== #
 # CheckpointManager
 # ===================================================================== #
 class CheckpointManager:
@@ -356,7 +567,12 @@ class CheckpointManager:
     thread CRCs them.  Two threads leave the host's other cores to the
     training loop: on an 8-core H100 host, CRCs spread over 8 threads made
     the OPT-1.3B SFT step that overlapped a write 474 ms against 222 ms.
-    ``async_write=False`` makes every save synchronous.
+    ``async_write=False`` makes every save synchronous.  A tree with
+    ``DTensor`` leaves is saved by every rank of its mesh together (see
+    the module's docstring): every rank of the default process group
+    constructs the manager (the first sweeps stale temp directories while
+    the others wait at a barrier) and calls :meth:`save` and
+    :meth:`wait_for_save` alike.
 
     ``stats`` holds one dict per save: ``step``, ``bytes`` (the shard
     files), ``snapshot_s`` (the synchronous copy, the stall training
@@ -375,14 +591,20 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._fault_counts: dict = {}
+        self._groups: dict = {}   # mesh ranks -> (writers' group, timeout)
         self.stats: list = []
         self.last_restore: dict = {}
         os.makedirs(directory, exist_ok=True)
+        import torch.distributed as dist
+        ranks = dist.is_initialized() and dist.get_world_size() > 1
         # stale temp dirs from a previous crashed writer are dead weight
-        for name in os.listdir(directory):
+        for name in os.listdir(directory) if not ranks or (
+                dist.get_rank() == 0) else ():
             if name.startswith(".tmp-"):
                 shutil.rmtree(os.path.join(directory, name),
                               ignore_errors=True)
+        if ranks:
+            dist.barrier()
 
     # ------------------------- bookkeeping ------------------------- #
     def _step_dir(self, step: int) -> str:
@@ -428,39 +650,121 @@ class CheckpointManager:
         # mutating its metrics log while the background thread writes
         metadata = json.loads(json.dumps(metadata or {}))
         t0 = time.perf_counter()
-        flat = {k: _host(v) for k, v in _flat(tree).items()}
+        flat = _flat(tree)
+        writers = _writers_of(flat)
+        plan, loads = _plan(flat, writers)
+        # the ranks' writes end apart by up to the largest share's time
+        writers = self._grouped(writers, _WRITERS_TIMEOUT_S
+                                + max(loads) / _WRITE_FLOOR_BPS)
         stat = {"step": step, "snapshot_s": time.perf_counter() - t0,
                 "bytes": 0}
         self.stats.append(stat)
         if self.async_write and not wait:
             self._thread = threading.Thread(
                 target=self._write_guarded,
-                args=(step, flat, metadata, stat), daemon=True)
+                args=(step, plan, metadata, stat, writers), daemon=True)
             self._thread.start()
         else:
-            self._write(step, flat, metadata, stat)
+            self._write(step, plan, metadata, stat, writers)
         return self._step_dir(step)
 
-    def _write_guarded(self, step, flat, metadata, stat):
+    def _grouped(self, w: _Writers, timeout: float) -> _Writers:
+        """``w`` with its writers' gloo group, made here, on the main
+        thread, at the first save on its ranks, and made again with a
+        longer ``timeout`` (seconds) when a save needs one."""
+        if len(w.ranks) == 1:
+            return w
+        group, had = self._groups.get(w.ranks, (None, 0.0))
+        if had < timeout:
+            import torch.distributed as dist
+            group = dist.new_group(
+                list(w.ranks), backend="gloo",
+                timeout=datetime.timedelta(seconds=timeout),
+                use_local_synchronization=True)
+            self._groups[w.ranks] = (group, timeout)
+        return dataclasses.replace(w, group=group)
+
+    def _write_guarded(self, *args):
         try:
-            self._write(step, flat, metadata, stat)
+            self._write(*args)
         except BaseException as e:                # surfaced on next wait
             self._error = e
 
-    def _write(self, step: int, flat: dict, metadata: dict,
-               stat: dict) -> None:
+    def _write(self, step: int, plan: dict, metadata: dict, stat: dict,
+               w: _Writers) -> None:
+        """The first rank makes the temp directory and sends its name;
+        every rank writes its pieces; the ranks exchange their entries and
+        whether they succeeded; the first commits and sends the outcome.
+        Any failure raises on every rank (its own exception on the rank
+        that failed) and nothing commits.  With one rank each exchange is
+        the identity."""
         t0 = time.perf_counter()
-        final = self._step_dir(step)
+        tmp, failure = None, None
+        if w.index == 0:
+            try:
+                tmp = self._fresh_tmp(step)
+            except Exception as e:                  # noqa: BLE001
+                failure = e
+        tmp, msg = w.broadcast((tmp, None if failure is None
+                                else repr(failure)))
+        if failure is not None:
+            raise failure
+        if msg is not None:
+            raise CheckpointError(f"step {step}: the first rank could not "
+                                  f"make the temp directory ({msg})")
+        entries = {}
+        try:
+            entries = self._write_shards(tmp, plan, stat)
+            if w.index:
+                self._fire("before_commit")
+        except Exception as e:                      # noqa: BLE001
+            failure = e
+        got = w.all_gather((w.ranks[w.index], entries,
+                            None if failure is None else repr(failure)))
+        failed = {r: m for r, _, m in got if m is not None}
+        if failure is not None:
+            raise failure
+        if failed:
+            raise CheckpointError(
+                f"step {step}: the write failed on rank(s) "
+                f"{sorted(failed)}: {failed}; nothing was committed")
+        if w.index == 0:
+            try:
+                self._commit(step, tmp, plan,
+                             {k: v for _, e, _ in got for k, v in e.items()},
+                             metadata)
+            except Exception as e:                  # noqa: BLE001
+                failure = e
+        msg = w.broadcast(None if failure is None else repr(failure))
+        if failure is not None:
+            raise failure
+        if msg is not None:
+            raise CheckpointError(f"step {step}: the first rank could not "
+                                  f"commit ({msg})")
+        if w.index:
+            self._fire("after_commit")
+        stat["write_s"] = time.perf_counter() - t0
+
+    def _fresh_tmp(self, step: int) -> str:
         tmp = os.path.join(self.directory,
                            f".tmp-step_{step:08d}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(os.path.join(tmp, "shards"))
+        return tmp
+
+    def _write_shards(self, tmp: str, plan: dict, stat: dict) -> dict:
+        """Write this process's pieces of ``plan`` into ``tmp``, each file
+        fsynced, while one more thread CRCs them; returns their manifest
+        entries by ``(leaf, shard)``."""
         shards_dir = os.path.join(tmp, "shards")
-        os.makedirs(shards_dir)
-        leaves = {}
+        mine = [(i, j, index, name, arr)
+                for i, (name, _, _, pieces) in enumerate(plan.values())
+                for j, index, arr in pieces]
+        entries = {}
         with ThreadPoolExecutor(1) as crc_thread:
-            crcs = [crc_thread.submit(_crc, arr) for _, arr in flat.values()]
-            for i, (key, (name, arr)) in enumerate(flat.items()):
-                fname = f"{i:05d}.00.npy"
+            crcs = [crc_thread.submit(_crc, p[-1]) for p in mine]
+            for (i, j, index, name, arr), crc in zip(mine, crcs):
+                fname = f"{i:05d}.{j:02d}.npy"
                 fpath = os.path.join(shards_dir, fname)
                 with open(fpath, "wb") as f:
                     _write_npy(f, name, arr)
@@ -468,30 +772,42 @@ class CheckpointManager:
                     os.fsync(f.fileno())
                 nbytes = os.path.getsize(fpath)
                 stat["bytes"] += nbytes
-                entry = {"file": f"shards/{fname}",
-                         "index": [None] * arr.ndim,
-                         "nbytes": nbytes,
-                         "crc32": crcs[i].result()}
+                entries[(i, j)] = {"file": f"shards/{fname}", "index": index,
+                                   "nbytes": nbytes,
+                                   "crc32": crc.result()}
                 self._fire("shard")
-                leaves[key] = {"shape": list(arr.shape), "dtype": name,
-                               "shards": [entry]}
+        _fsync_dir(shards_dir)
+        return entries
+
+    def _commit(self, step: int, tmp: str, plan: dict, entries: dict,
+                metadata: dict) -> None:
+        """The manifest of ``plan`` from every piece's entry, then the
+        atomic publication of ``tmp`` as ``step`` and the old steps'
+        collection."""
+        leaves = {}
+        for i, (key, (name, shape, n, _)) in enumerate(plan.items()):
+            missing = [j for j in range(n) if (i, j) not in entries]
+            if missing:
+                raise CheckpointError(f"leaf {key!r}: no rank wrote "
+                                      f"shard(s) {missing}")
+            leaves[key] = {"shape": shape, "dtype": name,
+                           "shards": [entries[(i, j)] for j in range(n)]}
         manifest = {"format": FORMAT, "step": step, "leaves": leaves,
                     "metadata": metadata}
-        man_path = os.path.join(tmp, "manifest.json")
-        with open(man_path, "w") as f:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f, indent=1)
             f.flush()
             os.fsync(f.fileno())
-        _fsync_dir(shards_dir)
+        _fsync_dir(os.path.join(tmp, "shards"))
         _fsync_dir(tmp)
         self._fire("before_commit")
+        final = self._step_dir(step)
         if os.path.isdir(final):      # overwrite of a committed step
             shutil.rmtree(final)
         os.replace(tmp, final)        # THE commit point
         _fsync_dir(self.directory)
         self._fire("after_commit")
         self._gc()
-        stat["write_s"] = time.perf_counter() - t0
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -525,41 +841,66 @@ class CheckpointManager:
             raise CheckpointError(f"no checkpoints in {self.directory}")
         return self._manifest(step).get("metadata", {})
 
-    def _assemble_leaf(self, step_dir: str, key: str,
-                       entry: dict) -> np.ndarray:
-        """The leaf's host array from its shards (bfloat16 as uint16
-        bits), each checked against the manifest's size and CRC."""
-        shape, name = tuple(entry["shape"]), entry["dtype"]
-        dtype = np.uint16 if name == _BF16 else np.dtype(name)
-        arr, covered = None, 0
-        for sh in entry["shards"]:
-            fpath = os.path.join(step_dir, sh["file"])
-            if not os.path.exists(fpath):
-                raise CheckpointCorruptError(
-                    f"leaf {key!r}: shard file {sh['file']} is missing")
-            if os.path.getsize(fpath) != sh["nbytes"]:
-                raise CheckpointCorruptError(
-                    f"leaf {key!r}: shard file {sh['file']} is "
-                    f"{os.path.getsize(fpath)} bytes, manifest says "
-                    f"{sh['nbytes']} (torn write?)")
-            piece = _as_bits(np.load(fpath), name)
-            if _crc(piece) != sh["crc32"]:
-                raise CheckpointCorruptError(
-                    f"leaf {key!r}: shard file {sh['file']} fails its "
-                    f"manifest CRC")
-            if all(w is None for w in sh["index"]) and \
-                    len(entry["shards"]) == 1 and piece.shape == shape:
-                arr = piece           # one full-window shard: no copy
-            else:
-                if arr is None:
-                    arr = np.empty(shape, dtype)
-                arr[_index_to_slices(sh["index"])] = piece
-            covered += piece.size
-        size = int(np.prod(shape, dtype=np.int64))
-        if arr is None or covered != size:
+    @staticmethod
+    def _read_shard(step_dir: str, key: str, sh: dict,
+                    name: str) -> np.ndarray:
+        """One shard file's array (bfloat16 as uint16 bits), checked
+        against the manifest's size and CRC."""
+        fpath = os.path.join(step_dir, sh["file"])
+        if not os.path.exists(fpath):
             raise CheckpointCorruptError(
-                f"leaf {key!r}: shards cover {covered} of {size} elements")
-        return arr
+                f"leaf {key!r}: shard file {sh['file']} is missing")
+        if os.path.getsize(fpath) != sh["nbytes"]:
+            raise CheckpointCorruptError(
+                f"leaf {key!r}: shard file {sh['file']} is "
+                f"{os.path.getsize(fpath)} bytes, manifest says "
+                f"{sh['nbytes']} (torn write?)")
+        piece = _as_bits(np.load(fpath), name)
+        if _crc(piece) != sh["crc32"]:
+            raise CheckpointCorruptError(
+                f"leaf {key!r}: shard file {sh['file']} fails its "
+                f"manifest CRC")
+        return piece
+
+    def _read_window(self, step_dir: str, key: str, entry: dict,
+                     win: tuple) -> np.ndarray:
+        """The leaf's host array in the window ``win``
+        (:func:`repro_torch.sharding.runtime.window`; all ``None`` for
+        the whole leaf; bfloat16 as uint16 bits), from the shards that
+        overlap it: each read whole and checked against its size, CRC and
+        window, and the piece checked to be covered."""
+        shape, name = tuple(entry["shape"]), entry["dtype"]
+        box = _box(shape, win)
+        want = tuple(b - a for a, b in box)
+        out, covered = None, 0
+        for sh in entry["shards"]:
+            sbox = _box(shape, sh["index"])
+            cut = [(max(a, c), min(b, d)) for (a, b), (c, d) in zip(box, sbox)]
+            if any(lo >= hi for lo, hi in cut):
+                continue
+            piece = self._read_shard(step_dir, key, sh, name)
+            if piece.shape != tuple(d - c for c, d in sbox):
+                raise CheckpointCorruptError(
+                    f"leaf {key!r}: shard file {sh['file']} holds "
+                    f"{piece.shape}, its window {sh['index']}")
+            if out is None and sbox == box:
+                out = piece               # the rank's very window: no copy
+            else:
+                if out is None:
+                    out = np.empty(want, piece.dtype)
+                out[tuple(slice(lo - a, hi - a) for (lo, hi), (a, _)
+                          in zip(cut, box))] = piece[tuple(
+                              slice(lo - c, hi - c) for (lo, hi), (c, _)
+                              in zip(cut, sbox))]
+            covered += math.prod(hi - lo for lo, hi in cut)
+        if covered != math.prod(want):
+            raise CheckpointCorruptError(
+                f"leaf {key!r}: shards cover {covered} of the "
+                f"{math.prod(want)} elements of this rank's window {win}")
+        if out is None:                   # an empty window
+            out = np.empty(want, np.uint16 if name == _BF16
+                           else np.dtype(name))
+        return out
 
     def restore(self, like_tree, *, step: Optional[int] = None,
                 shardings=None, cast: bool = False):
@@ -568,11 +909,17 @@ class CheckpointManager:
         ``like_tree`` supplies the structure and the expected shapes,
         dtypes and devices (live tensors, or :class:`Like` leaves from
         :func:`like`); each restored leaf is a tensor on its target's
-        device (a CPU tensor for a numpy or scalar target).  Returns
-        ``(tree, metadata)``."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "CheckpointManager.restore(shardings=...): not yet ported")
+        device (a CPU tensor for a numpy or scalar target).
+
+        ``shardings`` — a tree matching ``like_tree`` of
+        :class:`~repro_torch.sharding.strategy.Sharding` (or ``None``
+        leaves) on the *target* mesh, which need not be the one the
+        checkpoint was saved on — makes each leaf a ``DTensor`` in that
+        layout: each rank reads only the shards that overlap its own
+        piece, and nothing is communicated.  A ``None`` leaf, and a 0-d
+        leaf (the host step counters of a TrainState, which the port
+        keeps off the mesh), comes back as with ``shardings=None``.
+        Returns ``(tree, metadata)``."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise CheckpointError(f"no checkpoints in {self.directory}")
@@ -582,6 +929,8 @@ class CheckpointManager:
         leaves_meta = manifest["leaves"]
         targets = [(_path_key(p), leaf)
                    for p, leaf in flatten_with_path(like_tree)]
+        layouts = ([None] * len(targets) if shardings is None
+                   else _match_shardings(like_tree, shardings))
         for key, _ in targets:
             if key not in leaves_meta:
                 raise CheckpointError(
@@ -589,19 +938,33 @@ class CheckpointManager:
                     f"(saved tree structure differs)")
 
         def one(item):
-            key, leaf = item
+            (key, leaf), sh = item
             entry = leaves_meta[key]
-            arr = self._assemble_leaf(step_dir, key, entry)
-            if arr.shape != _target_shape(leaf):
+            shape = tuple(entry["shape"])
+            if shape != _target_shape(leaf):
                 raise CheckpointError(
-                    f"leaf {key!r}: saved shape {arr.shape} != target "
+                    f"leaf {key!r}: saved shape {shape} != target "
                     f"shape {_target_shape(leaf)}")
+            win = (None,) * len(shape)
+            if sh is not None and shape:
+                coord = sh.mesh.get_coordinate()
+                if coord is None:
+                    raise CheckpointError("this rank holds no part of the "
+                                          "target mesh")
+                axes = dict(zip(sh.mesh.mesh_dim_names,
+                                (int(n) for n in sh.mesh.mesh.shape)))
+                pspec = runtime.pspec_of(sh.placements,
+                                         sh.mesh.mesh_dim_names, len(shape))
+                win = runtime.window(pspec, axes, shape, coord)
+            arr = self._read_window(step_dir, key, entry, win)
             return (_place(_to_tensor(arr, entry["dtype"]), key,
                            entry["dtype"], leaf, cast), arr.nbytes)
 
         with ThreadPoolExecutor(_IO_THREADS) as pool:
-            got = list(pool.map(one, targets))
-        out = [t for t, _ in got]
+            got = list(pool.map(one, zip(targets, layouts)))
+        out = [t if sh is None or t.dim() == 0 else runtime.from_local(
+                   t, sh.mesh, sh.placements, _target_shape(leaf))
+               for (t, _), sh, (_, leaf) in zip(got, layouts, targets)]
         for t in out:
             if t.device.type == "cuda":
                 torch.cuda.synchronize(t.device)
@@ -623,7 +986,8 @@ class CheckpointManager:
         step_dir = self._step_dir(step)
         listed = set()
         for key, entry in manifest["leaves"].items():
-            self._assemble_leaf(step_dir, key, entry)
+            self._read_window(step_dir, key, entry,
+                              (None,) * len(entry["shape"]))
             listed.update(sh["file"] for sh in entry["shards"])
         on_disk = {os.path.join("shards", f)
                    for f in os.listdir(os.path.join(step_dir, "shards"))}

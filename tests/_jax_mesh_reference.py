@@ -29,6 +29,13 @@ that hold ``ms`` (``tests/test_torch_mesh_serving.py``) run
 :func:`serving_run` alone: ``serve`` on the greedy request paths, and
 reduced MoE models' ``generate`` and ``serve`` on the mesh.
 
+Inputs that hold ``ck`` (``tests/test_torch_mesh_checkpoint.py``) run
+:func:`ck_run` alone: the shard windows of the layouts the window tests
+use, then the port's 2 x 2 PPO state (``state.pkl``, which the port's
+launch writes; this process waits for it) saved sharded on the 2 x 2
+mesh, and the port's checkpoint of that state restored onto 4 x 1 and one
+device.
+
 ``OUT`` gets the results as numpy, params as trees (the reference's
 structure, which ``repro_torch.models.convert`` reads).
 
@@ -270,11 +277,97 @@ def serving_run(inp, mesh):
     return out
 
 
+def _windows(cfg, strategy, mesh):
+    """Each leaf's shard windows (``[start, stop]`` or None per dim) in
+    ``addressable_shards`` order, by checkpoint key, of a TrainState of
+    ``cfg`` under ``strategy`` params and ZeRO-1 moments on ``mesh``."""
+    from repro.models import transformer as JT
+    from repro.training import checkpoint as C
+    state = jax.device_put(
+        TrainState.create(JT.init_params(cfg, jax.random.PRNGKey(0))),
+        S.train_state_shardings(cfg, mesh, strategy, zero=1))
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(state)[0]:
+        wins = []
+        for sh in leaf.addressable_shards:
+            wins.append([None if (sl.start in (None, 0) and sl.stop in
+                                  (None, n)) else [sl.start or 0,
+                                                   n if sl.stop is None
+                                                   else sl.stop]
+                         for sl, n in zip(sh.index, leaf.shape)])
+        out[C._path_key(path)] = wins
+    return out
+
+
+def _wait(path, timeout=240.0):
+    import os
+    import time
+    t0 = time.time()
+    while not os.path.exists(path):
+        if time.time() - t0 > timeout:
+            raise TimeoutError(path)
+        time.sleep(0.2)
+
+
+def _ck_tree(state):
+    """The port's state (numpy, by model) as the reference's trees."""
+    from repro.training.optimizer import AdamState
+
+    def ts(d):
+        return TrainState(params=d["params"],
+                          opt=AdamState(m=d["m"], v=d["v"],
+                                        step=np.int32(d["opt_step"])),
+                          step=np.int32(d["step"]))
+    return {"trainer": {"actor": ts(state["actor"]),
+                        "critic": ts(state["critic"]), "ema": state["ema"]},
+            "rng": state["rng"]}
+
+
+def _ck_shardings(mesh):
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    a = S.train_state_shardings(ACTOR, mesh, "tp", zero=1)
+    c = S.train_state_shardings(CRITIC, mesh, "tp", zero=1,
+                                specs=R.param_specs(CRITIC))
+    return {"trainer": {"actor": a, "critic": c, "ema": a.params},
+            "rng": NamedSharding(mesh, P())}
+
+
+def ck_run(inp, mesh):
+    """The windows of ``inp["layouts"]`` on each of ``inp["meshes"]``; the
+    port's state saved on ``mesh`` (2 x 2) under ``inp["ref_dir"]``; the
+    port's checkpoint (``inp["port_dir"]``) restored onto 4 x 1 and one
+    device."""
+    import os
+    from repro.training import checkpoint as C
+    out = {"windows": {}, "restored": {}}
+    for name, arch, over, strategy in inp["layouts"]:
+        cfg = _reduced(arch, over)
+        for dp, tp in inp["meshes"]:
+            out["windows"][(name, dp, tp)] = _windows(cfg, strategy,
+                                                      make_mesh(dp, tp))
+    _wait(inp["state"])
+    with open(inp["state"], "rb") as f:
+        tree = _ck_tree(pickle.load(f))
+    C.CheckpointManager(inp["ref_dir"]).save(
+        1, jax.device_put(tree, _ck_shardings(mesh)), {"ppo_iter": 1},
+        wait=True)
+    _wait(os.path.join(inp["port_dir"], "step_00000001", "manifest.json"))
+    port = C.CheckpointManager(inp["port_dir"])
+    for name, m in (("4x1", make_mesh(4, 1)), ("1x1", None)):
+        got, meta = port.restore(tree, shardings=None if m is None
+                                 else _ck_shardings(m))
+        out["restored"][name] = {"tree": {
+            C._path_key(p): np.asarray(leaf) for p, leaf in
+            jax.tree_util.tree_flatten_with_path(got)[0]}, "meta": meta}
+    return out
+
+
 def main(src: str, dst: str, dp: int, tp: int = 1) -> None:
     with open(src, "rb") as f:
         inp = pickle.load(f)
     mesh = make_mesh(dp, tp)
-    for key, run in (("tpl_lm", layers_run), ("ms", serving_run)):
+    for key, run in (("tpl_lm", layers_run), ("ms", serving_run),
+                     ("ck", ck_run)):
         if key in inp:
             with open(dst, "wb") as f:
                 pickle.dump(run(inp, mesh), f)

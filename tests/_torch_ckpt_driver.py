@@ -33,7 +33,18 @@ Soak injection (asynchronous modes):
 - ``--slow-producer-iters A:B`` sleeps on the producer thread before those
   batches (``rollout_hook``): the consumer waits on an empty queue.
 
-It is launched with ``sys.executable``; it is not a pytest module.
+On a mesh (``--mesh DP,TP``, under ``torchrun`` with ``DP * TP`` ranks on
+gloo) the pipeline runs through the Hybrid Engine, its checkpoints are
+sharded, and rank 0 writes the record (the hashes are of the full
+states, gathered).
+
+``--lm ARGS...`` runs ``repro_torch.launch.train.main(ARGS)`` instead (the
+LM loop, on a mesh under ``torchrun`` when ``ARGS`` holds ``--mesh``) and
+records the SHA-256 of the state the loop starts from (the restored one
+after ``--resume``), of the final state, and the losses.
+
+It is launched with ``sys.executable`` or ``torchrun``; it is not a pytest
+module.
 """
 from __future__ import annotations
 
@@ -49,6 +60,7 @@ from repro_torch.core import (AsyncConfig, PPOConfig, RLHFEngine,
                               RLHFPipeline, StageConfig)
 from repro_torch.data import (ConstantTaskDataset, CopyTaskDataset,
                               DataBlender)
+from repro_torch.launch.mesh import init_distributed, mesh_from_spec
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.checkpoint import CheckpointManager, tree_sha256
 
@@ -63,7 +75,8 @@ CRITIC = ACTOR.replace(name="c")
 # from the bit-identity record
 WALL_TIME = ("gen_tok_s", "gen_s", "score_ms", "actor_ms", "critic_ms",
              "publish_s", "publish_bytes", "queue_depth", "policy_lag",
-             "is_ratio_mean", "is_ratio_max", "lockstep_fallback")
+             "is_ratio_mean", "is_ratio_max", "lockstep_fallback",
+             "reshard_s")
 
 
 def _async_cfg(args):
@@ -82,7 +95,30 @@ def _span(spec):
     return int(a), int(b)
 
 
-def main():
+def _write(path, record) -> None:
+    if int(os.environ.get("RANK", 0)) == 0:
+        with open(path, "w") as f:
+            json.dump(record, f, indent=1)
+
+
+def run_lm(args) -> None:
+    """The LM launcher on ``args.lm``, with the hash of the state its loop
+    starts from."""
+    from repro_torch.launch import train as tlaunch
+    start = {}
+    loop = tlaunch.train_lm
+
+    def spy(cfg, state, **kw):
+        start["sha"] = tree_sha256(state)      # a collective on a mesh
+        return loop(cfg, state, **kw)
+    tlaunch.train_lm = spy
+    out = tlaunch.main(args.lm)
+    _write(args.out, {"start_sha": start["sha"], "start": out["start"],
+                      "state_sha256": out["state_sha256"],
+                      "loss": out["loss"]})
+
+
+def parse(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--out", required=True)
@@ -96,13 +132,36 @@ def main():
     ap.add_argument("--slow-consumer-iters", default=None)
     ap.add_argument("--slow-producer-iters", default=None)
     ap.add_argument("--slow-ms", type=int, default=150)
-    args = ap.parse_args()
+    ap.add_argument("--mesh", default=None, help="dp,tp")
+    ap.add_argument("--lm", nargs=argparse.REMAINDER, default=None,
+                    help="the LM launcher's arguments")
+    return ap.parse_args(argv)
+
+
+def main():
+    args = parse()
     torch.set_num_threads(1)
+    if args.lm is not None:
+        return run_lm(args)
+    _write(args.out, run(args))
+    if args.mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def run(args) -> dict:
+    """The pipeline of ``args`` (on the ``--mesh`` given, joining the
+    process group first); its record."""
+    mesh = None
+    if args.mesh is not None:
+        init_distributed("cpu", timeout_s=60.0)
+        mesh = mesh_from_spec(args.mesh)
 
     ds = [ConstantTaskDataset(200, 6, 6, V, seed=1),
           CopyTaskDataset(200, 6, 6, V, seed=2)]
     bl = DataBlender(ds, [0.7, 0.3], seed=0)
-    eng = RLHFEngine(ACTOR, CRITIC, torch.Generator().manual_seed(0))
+    eng = RLHFEngine(ACTOR, CRITIC, torch.Generator().manual_seed(0),
+                     mesh=mesh)
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     pipe = RLHFPipeline(
         eng, bl,
@@ -133,7 +192,7 @@ def main():
         pipe.rollout_hook = producer_hook
 
     out = pipe.run()
-    record = {
+    return {
         "scores": out["ppo_scores"],
         "stage3": [{k: v for k, v in m.items() if k not in WALL_TIME}
                    for m in pipe.log["stage3"]],
@@ -142,8 +201,6 @@ def main():
         "critic_sha": tree_sha256(pipe.trainer.critic),
         "async_stats": pipe.async_stats,
     }
-    with open(args.out, "w") as f:
-        json.dump(record, f, indent=1)
 
 
 if __name__ == "__main__":

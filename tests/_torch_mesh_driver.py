@@ -3,8 +3,8 @@ the CPU.
 
 Launched by ``tests/test_torch_multidevice.py``,
 ``tests/test_torch_hybrid_engine.py``, ``tests/test_torch_tensor_parallel.py``,
-``tests/test_torch_tp_layers.py`` and ``tests/test_torch_mesh_serving.py``
-as::
+``tests/test_torch_tp_layers.py``, ``tests/test_torch_mesh_serving.py`` and
+``tests/test_torch_mesh_checkpoint.py`` as::
 
     python -m torch.distributed.run --standalone --nproc-per-node N \\
         tests/_torch_mesh_driver.py --out DIR --cases ppo,lm,... \\
@@ -12,10 +12,11 @@ as::
 
 Every rank builds the same weights from fixed seeds, runs the named cases
 on meshes over the first ranks, and rank 0 writes each case's results
-(full tensors, gathered) to ``DIR/<case>.pt``.  The ``tp_*``, ``tpl_*``
-and ``ms_*`` cases run on the ``--mesh`` given (``DP x TP`` over the first
-ranks).  The tests hold
-them to the single-rank port and the reference.  Every process group
+(full tensors, gathered) to ``DIR/<case>.pt``.  The ``tp_*``, ``tpl_*``,
+``ms_*`` and ``ck_*`` cases run on the ``--mesh`` given (``DP x TP`` over
+the first ranks; the ``ck_*`` cases' checkpoints under ``--ck``).  The
+tests hold them to the single-rank port and the reference.  Every process
+group
 times out after 60 s, so a failing rank fails the run instead of hanging
 it.
 """
@@ -25,6 +26,7 @@ import argparse
 import contextlib
 import os
 import sys
+import time
 import traceback
 
 import numpy as np
@@ -87,7 +89,9 @@ def trainer(engine):
 
 
 def _np(x):
-    return runtime.full(x).detach().cpu().numpy()
+    """The full tensor as a numpy copy (a replicated leaf's local tensor is
+    the live one, which a later step updates in place)."""
+    return runtime.full(x).detach().cpu().numpy().copy()
 
 
 def _tree_np(tree):
@@ -831,6 +835,246 @@ def case_ms_ppo(dp: int, tp: int) -> dict:
     return {} if mesh.get_coordinate() is None else ms_ppo_moe(mesh)
 
 
+# --------------------------------------------------------------------- #
+# sharded checkpoints, on the ``--mesh dp,tp`` mesh; checkpoints under
+# ``--ck`` (shared by the launches and the reference's ``ck`` run)
+# --------------------------------------------------------------------- #
+# the layouts the window tests hold to ``chunk`` and to the reference's
+# shards: (name, arch, config overrides, strategy), ZeRO-1 moments
+CK_LAYOUTS = (("zero3", "smollm-135m", {}, "zero3"),
+              ("tp_zero1", "smollm-135m", {}, "tp"),
+              ("heads9", "smollm-135m", {"n_heads": 9, "n_kv_heads": 3},
+               "zero3"),
+              ("mamba2", "mamba2-370m", {}, "zero3"))
+CK = {"dir": None}                 # --ck: the checkpoints' root
+CK_WAIT_S = 240.0                  # for a checkpoint another process makes
+# ck_slow: rank 1's writes held up CK_SLOW_S, past the writers' base wait
+# (cut to CK_SLOW_BASE_S), within the wait its share's bytes give at the
+# floor rate (cut to CK_SLOW_FLOOR_BPS: tens of seconds for these params)
+CK_SLOW_S, CK_SLOW_BASE_S, CK_SLOW_FLOOR_BPS = 8.0, 4.0, 4096
+NOT_METRICS = ("actor_ms", "critic_ms")
+
+
+def ck_trainer(mesh):
+    """:func:`trainer` with ``tp`` params and ZeRO-1 moments on ``mesh``
+    (plain without): the reference test's trainer."""
+    return trainer(None if mesh is None else HybridEngine(
+        ACTOR, mesh, train_strategy="tp", zero=1))
+
+
+def ck_shardings(mesh):
+    """:func:`ck_trainer`'s state layouts on ``mesh`` (at any size, 1 x 1
+    included) for a ``{"trainer", "rng"}`` tree; ``None`` without."""
+    if mesh is None:
+        return None
+    a = S.train_state_shardings(ACTOR, mesh, "tp", zero=1)
+    c = S.train_state_shardings(CRITIC, mesh, "tp", zero=1,
+                                specs=R.param_specs(CRITIC))
+    return {"trainer": {"actor": a, "critic": c, "ema": a.params},
+            "rng": None}
+
+
+def ck_like():
+    """The ``{"trainer", "rng"}`` restore target (structure only)."""
+    from repro_torch.training import checkpoint
+    return {"trainer": checkpoint.like(trainer(None).state_tree()),
+            "rng": _gen(7).get_state()}
+
+
+def ck_wait(step_dir: str) -> str:
+    """``step_dir`` once its checkpoint has committed (another process
+    writes it)."""
+    t0 = time.time()
+    while not os.path.exists(os.path.join(step_dir, "manifest.json")):
+        if time.time() - t0 > CK_WAIT_S:
+            raise TimeoutError(f"no checkpoint at {step_dir}")
+        time.sleep(0.2)
+    return os.path.dirname(step_dir)
+
+
+def ck_state_numpy(state_tree, rng) -> dict:
+    """A PPO state tree and the generator state as numpy, by model, for
+    the reference (which builds its own TrainStates from it)."""
+    def ts(s):
+        return {"params": _tree_np_dict(s.params), "m": _tree_np_dict(
+            s.opt.m), "v": _tree_np_dict(s.opt.v),
+            "opt_step": int(s.opt.step), "step": int(s.step)}
+    return {"actor": ts(state_tree["actor"]),
+            "critic": ts(state_tree["critic"]),
+            "ema": _tree_np_dict(state_tree["ema"]), "rng": rng.numpy()}
+
+
+def _tree_np_dict(tree):
+    from repro_torch.models.modules import tree_map
+    return tree_map(_np, tree)
+
+
+def ck_keyed(tree) -> dict:
+    """The tree's leaves, full and as numpy, by checkpoint key."""
+    from repro_torch.models.modules import flatten_with_path
+    from repro_torch.training.checkpoint import _path_key
+    return {_path_key(p): _np(t) for p, t in flatten_with_path(tree)}
+
+
+def ck_continue(tr, rng) -> dict:
+    """One more greedy experience and PPO step of ``tr`` from the generator
+    state ``rng``: the tokens, the metrics (but times) and the state."""
+    g = torch.Generator()
+    g.set_state(rng)
+    exp, _ = tr.generate_experience(PROMPTS, g)
+    m = tr.train_rlhf(exp)
+    return {"tokens": _np(exp.sequences),
+            "metrics": {k: v for k, v in m.items() if k not in NOT_METRICS},
+            "state": ck_keyed(tr.state_tree())}
+
+
+def ck_resume(ckdir: str, mesh) -> dict:
+    """The reference test's ``_resume_on``: a fresh :func:`ck_trainer` on
+    ``mesh`` restores the checkpoint in ``ckdir`` into its layout, then
+    continues (:func:`ck_continue`); with the restored state."""
+    from repro_torch.training.checkpoint import CheckpointManager
+    tr = ck_trainer(mesh)
+    sh = tr.state_shardings()
+    tree, meta = CheckpointManager(ckdir).restore(
+        ck_like(), shardings=None if sh is None else {"trainer": sh,
+                                                      "rng": None})
+    restored = ck_keyed(tree)
+    tr.load_state_tree(tree["trainer"])
+    return dict(ck_continue(tr, tree["rng"]), restored=restored, meta=meta)
+
+
+def ck_restore(ckdir: str, mesh) -> dict:
+    """The checkpoint in ``ckdir`` read into :func:`ck_shardings`' layouts
+    on ``mesh`` (full tensors without one), gathered to numpy."""
+    from repro_torch.training.checkpoint import CheckpointManager
+    tree, meta = CheckpointManager(ckdir).restore(
+        ck_like(), shardings=ck_shardings(mesh))
+    return {"tree": ck_keyed(tree), "meta": meta,
+            "dtensors": sum(runtime.is_dtensor(t)
+                            for t in tree_leaves(tree))}
+
+
+def case_ck_save(dp: int, tp: int) -> dict:
+    """One greedy PPO step of :func:`ck_trainer` on the mesh, saved as
+    ``port/step_00000001`` with the generator state; rank 0 then writes
+    the state as numpy (``state.pkl``, for the reference to save on its
+    own mesh).  Then the uninterrupted continuation and a same-mesh resume
+    of the checkpoint."""
+    import pickle
+    from repro_torch.training.checkpoint import CheckpointManager
+    mesh = make_mesh(dp, tp)
+    tr = ck_trainer(mesh)
+    g = _gen(7)
+    exp, _ = tr.generate_experience(PROMPTS, g)
+    tr.train_rlhf(exp)
+    rng = g.get_state()
+    ckdir = os.path.join(CK["dir"], "port")
+    mgr = CheckpointManager(ckdir)
+    mgr.save(1, {"trainer": tr.state_tree(), "rng": rng}, {"ppo_iter": 1},
+             wait=True)
+    state = ck_state_numpy(tr.state_tree(), rng)
+    if dist.get_rank() == 0:
+        tmp = os.path.join(CK["dir"], ".state.pkl")
+        with open(tmp, "wb") as f:
+            pickle.dump(state, f)
+        os.replace(tmp, os.path.join(CK["dir"], "state.pkl"))
+    return {"saved": ck_keyed({"trainer": tr.state_tree(), "rng": rng}),
+            "stats": mgr.stats, "continued": ck_continue(tr, rng),
+            "resumed": ck_resume(ckdir, mesh)}
+
+
+def case_ck_resume(dp: int, tp: int) -> dict:
+    """On the mesh: the resume of the port's 2 x 2 checkpoint (once it has
+    committed), then the reference's checkpoint read into the layout."""
+    mesh = make_mesh(dp, tp)
+    port = ck_wait(os.path.join(CK["dir"], "port", "step_00000001"))
+    out = {"resumed": ck_resume(port, mesh)}
+    ref = ck_wait(os.path.join(CK["dir"], "ref", "step_00000001"))
+    out["reference"] = ck_restore(ref, mesh)
+    return out
+
+
+def case_ck_fault(dp: int, tp: int) -> dict:
+    """A ``fault_hook`` that raises on rank 1 alone, at its first shard of
+    step 2, synchronously and in the background: every rank's result
+    (the exception each rank's ``save`` / ``wait_for_save`` raised, its
+    seconds, the committed steps, and whether step 1 verifies)."""
+    from repro_torch.training.checkpoint import CheckpointManager
+    mesh = make_mesh(dp, tp)
+    rank = dist.get_rank()
+    armed = []
+
+    def hook(event, n):
+        if armed and rank == 1 and event == "shard":
+            raise RuntimeError("rank 1 cannot write")
+    tree = runtime.place_tree(T.init_params(ACTOR, _gen(3)),
+                              S.param_shardings(ACTOR, mesh, "tp"))
+    out = {}
+    for mode in ("sync", "async"):
+        mgr = CheckpointManager(os.path.join(CK["dir"], f"fault_{mode}"),
+                                fault_hook=hook)
+        armed.clear()
+        mgr.save(1, tree, {"ok": 1}, wait=True)
+        armed.append(True)
+        t0, err = time.perf_counter(), None
+        try:
+            mgr.save(2, tree, {"ok": 0}, wait=mode == "sync")
+            mgr.wait_for_save()
+        except Exception as e:                       # noqa: BLE001
+            err = f"{type(e).__name__}: {e}"
+        mgr.verify(1)
+        res = {"error": err, "seconds": time.perf_counter() - t0,
+               "steps": mgr.all_steps()}
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, res)
+        out[mode] = got
+    return out
+
+
+def case_ck_slow(dp: int, tp: int) -> list:
+    """Rank 1's first shard held up :data:`CK_SLOW_S` by its ``fault_hook``,
+    past the writers' base wait (cut to :data:`CK_SLOW_BASE_S`, and the
+    floor rate to :data:`CK_SLOW_FLOOR_BPS`): every rank's result (the
+    exception its ``save`` raised, its seconds, the bytes it wrote, the
+    committed steps)."""
+    from repro_torch.training import checkpoint as C
+    mesh = make_mesh(dp, tp)
+    rank = dist.get_rank()
+
+    def hook(event, n):
+        if rank == 1 and event == "shard" and n == 1:
+            time.sleep(CK_SLOW_S)
+    tree = runtime.place_tree(T.init_params(ACTOR, _gen(3)),
+                              S.param_shardings(ACTOR, mesh, "tp"))
+    kept = C._WRITERS_TIMEOUT_S, C._WRITE_FLOOR_BPS
+    C._WRITERS_TIMEOUT_S, C._WRITE_FLOOR_BPS = CK_SLOW_BASE_S, \
+        CK_SLOW_FLOOR_BPS
+    try:
+        mgr = C.CheckpointManager(os.path.join(CK["dir"], "slow"),
+                                  fault_hook=hook)
+        t0, err = time.perf_counter(), None
+        try:
+            mgr.save(1, tree, {"ok": 1}, wait=True)
+        except Exception as e:                       # noqa: BLE001
+            err = f"{type(e).__name__}: {e}"
+        res = {"error": err, "seconds": time.perf_counter() - t0,
+               "bytes": mgr.stats[-1]["bytes"], "steps": mgr.all_steps()}
+    finally:
+        C._WRITERS_TIMEOUT_S, C._WRITE_FLOOR_BPS = kept
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, res)
+    return got
+
+
+def case_ck_pipe(dp: int, tp: int) -> dict:
+    """``tests/_torch_ckpt_driver.py``'s pipeline, uninterrupted and without
+    checkpoints, on a 2 x (world / 2) mesh of this launch's ranks: the
+    record its killed and crashed runs are held to."""
+    import _torch_ckpt_driver as K
+    return K.run(K.parse(["--out", "-", "--mesh",
+                          f"2,{dist.get_world_size() // 2}"]))
+
+
 CASES = {"reshard": case_reshard, "ppo": case_ppo, "engine": case_engine,
          "lm": case_lm, "embeds": case_embeds, "reward": case_reward,
          "refusals": case_refusals}
@@ -840,7 +1084,9 @@ TP_CASES = {"tp_lm": case_tp_lm, "tp_ppo": case_tp_ppo,
             "tpl_lm": case_tpl_lm, "tpl_engine": case_tpl_engine,
             "tpl_ppo": case_tpl_ppo, "tpl_layout": case_tpl_layout,
             "ms_engine": case_ms_engine, "ms_moe": case_ms_moe,
-            "ms_ppo": case_ms_ppo}
+            "ms_ppo": case_ms_ppo, "ck_save": case_ck_save,
+            "ck_resume": case_ck_resume, "ck_fault": case_ck_fault,
+            "ck_slow": case_ck_slow, "ck_pipe": case_ck_pipe}
 
 
 def main() -> int:
@@ -849,7 +1095,10 @@ def main() -> int:
     ap.add_argument("--cases", required=True)
     ap.add_argument("--mesh", default="1,1",
                     help="dp,tp of the tp_* cases")
+    ap.add_argument("--ck", default=None,
+                    help="the ck_* cases' checkpoints' root")
     args = ap.parse_args()
+    CK["dir"] = args.ck
     dp, tp = (int(x) for x in args.mesh.split(","))
     torch.set_num_threads(1)
     init_distributed("cpu", timeout_s=60.0)

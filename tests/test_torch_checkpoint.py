@@ -240,7 +240,7 @@ def test_dtype_mismatch_needs_cast(tmp_path):
         mgr.restore(dict(_small_tree(), b=torch.ones(4)))
     with pytest.raises(tckpt.CheckpointError, match="no leaf"):
         mgr.restore(dict(_small_tree(), d=torch.ones(1)))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(tckpt.CheckpointError, match="shardings tree"):
         mgr.restore(_small_tree(), shardings=object())
 
 

@@ -32,11 +32,13 @@ leaf's max; everywhere within one Adam step, ``2.5 * lr``).
   ``lm_train_step`` on one rank.
 - The reward step (pairwise loss and accuracy over the global batch).
 - The train state's local shard shapes against the pspecs.
-- The refusals: ``rollout_mesh``, ``--mesh`` with ``--ckpt-dir``; the
+- The refusals: ``rollout_mesh``, ``--mesh`` with ``--lora``; the
   request core on a 4 x 1 mesh, accepted, with the single-rank core's
-  stats; and ``torchrun ... launch.train --mesh 2,1 --strategy zero3``
-  (SFT and ``--rlhf``) exits 0.
+  stats; ``torchrun ... launch.train --mesh 2,1 --ckpt-dir`` commits
+  sharded checkpoints that verify; and ``torchrun ... launch.train --mesh
+  2,1 --strategy zero3`` (SFT and ``--rlhf``) exits 0.
 """
+import json
 import os
 import pickle
 import re
@@ -382,10 +384,22 @@ def test_mesh_refusals(runs, what):
 
 
 def test_mesh_with_checkpoints_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tlaunch.main(["--device", "cpu", "--arch", "smollm-135m",
-                      "--reduced", "--mesh", "2,1", "--ckpt-dir",
-                      str(tmp_path)])
+    """``--mesh 2,1 --ckpt-dir`` saves (sharded, both ranks writing; the
+    checkpoints verify and some leaf has a shard per data rank);
+    ``--mesh`` with ``--lora`` stays refused."""
+    from repro_torch.training.checkpoint import CheckpointManager
+    res = _torchrun(2, "-m", "repro_torch.launch.train", "--device", "cpu",
+                    "--arch", "smollm-135m", "--reduced", "--mesh", "2,1",
+                    "--seq", "16", "--batch", "4", "--steps", "2",
+                    "--save-every", "1", "--ckpt-dir", str(tmp_path))
+    assert res.returncode == 0, res.stderr[-4000:]
+    mgr = CheckpointManager(str(tmp_path))
+    assert mgr.all_steps() == [1, 2]
+    for step in (1, 2):
+        mgr.verify(step)
+    with open(tmp_path / "step_00000002" / "manifest.json") as f:
+        leaves = json.load(f)["leaves"]
+    assert max(len(e["shards"]) for e in leaves.values()) == 2
     with pytest.raises(SystemExit):
         tlaunch.main(["--device", "cpu", "--arch", "smollm-135m",
                       "--reduced", "--mesh", "2,1", "--lora", "4"])

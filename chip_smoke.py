@@ -76,7 +76,27 @@ Phases (any failure raises, so the run exits non-zero):
    publish seconds, retained bytes and peak memory); ``launch.train
    --rlhf --async-rlhf --max-lag 1`` at OPT-125M (2 steps a stage): its
    ``async`` summary, ``produced`` equal to the PPO steps.
-9. ``hybrid``  — the Hybrid Engine on a one-rank NCCL group (a
+9. ``disagg``  — the disaggregated split at ``1 | 1`` on the one card:
+   ``torchrun --nproc-per-node 2 chip_smoke.py --disagg-worker`` (rank 0
+   the rollout mesh, rank 1 the training mesh; the default group gloo for
+   host tensors and NCCL for CUDA tensors, the bridge gloo through pinned
+   host memory), at the RLHF cell's full width and depth (phase
+   ``async``'s models, weights, blend and recipe): 3 iterations
+   synchronous over the split and 3 under ``AsyncConfig.lockstep()``
+   at 64 new tokens, each equal to phase ``async``'s one-device
+   synchronous run bit for bit (every scored batch, the metrics without
+   the wall-time keys, the final actor, critic and EMA by an exact
+   fingerprint); 4 one-step-stale iterations at 256 new tokens, lags
+   exactly 0, 1, 0, 1; RMSNorm, the flash forward and the dense decode
+   kernel launched on the rollout rank and RMSNorm and both flash kernels
+   on the training rank in every leg; then ``launch.train --rlhf
+   --rollout-mesh 1 --train-mesh 1 --async-rlhf --kv-quant`` at OPT-125M
+   in that world: its ``async`` summary, the int8 decode kernel (never the
+   dense one) on the rollout rank.  Per leg and rank: each iteration's
+   wall, generation, scoring and step times, the publish seconds, bytes
+   and GB/s over the bridge, the queue's waits and each process's peak
+   memory.
+10. ``hybrid``  — the Hybrid Engine on a one-rank NCCL group (a
    ``FileStore`` in a temporary directory; no gloo fallback) and
    ``mesh_from_spec("1,1")``: ``to_inference`` / ``to_train`` on OPT-1.3B's
    fp32 params at full size (bitwise roundtrip, 0 bytes gathered and
@@ -99,7 +119,7 @@ Phases (any failure raises, so the run exits non-zero):
    launches (OPT-1.3B 16 and 8 heads at D 64, qwen3-8b 16
    / 4 and 8 / 2 at D 128) against their plain versions at phase
    ``gqa128``'s tolerances, timed (``tp`` in the ``kernels`` line).
-10. ``serve_mesh`` — the launchers and the request core on a mesh at
+11. ``serve_mesh`` — the launchers and the request core on a mesh at
    1 x 1.  Two ``torchrun --nproc-per-node 1`` runs start first and run
    beside the rest of the phase: ``-m repro_torch.launch.train --arch
    opt-125m --mesh 1,1 --strategy tp --zero 1`` (5 steps of 8 x 512): exit
@@ -120,7 +140,7 @@ Phases (any failure raises, so the run exits non-zero):
    path beside the plain one, identical tokens, stats equal, RMSNorm and
    the flash forward launched on the mesh path.
 
-11. ``ssm``     — the SSM / hybrid serving slice: ``ssd_intra_fwd`` (the
+12. ``ssm``     — the SSM / hybrid serving slice: ``ssd_intra_fwd`` (the
    Mamba2 SSD intra-chunk pass) against its plain version at Mamba2-370M
    (q = 256, a ragged 137, one token, four chunks, the fixed path's b = 8)
    and Zamba2-1.2B widths in fp32 (the CUDA-core kernel) and bf16 (the
@@ -137,7 +157,7 @@ Phases (any failure raises, so the run exits non-zero):
    continuous engine against each request alone (identical, in fp32);
    one Mamba2 decode step at 16 slots eager and as a
    CUDA-graph replay.
-12. ``ssm_train`` — the SSM / hybrid training slice: at the SFT shapes
+13. ``ssm_train`` — the SSM / hybrid training slice: at the SFT shapes
    (b 8, nc 2, q 256; Mamba2-370M and Zamba2-1.2B widths) the forward
    kernel against its plain version (phase ``ssm``'s tolerances) and the
    explicit SSD backward (``ref.ssd_intra_bwd_ref``) against autograd of
@@ -161,7 +181,7 @@ Phases (any failure raises, so the run exits non-zero):
    at 1e-4, free-running within a tenth of the int8 error, tokens
    identical, the first attention layer's int8 rows at most one step
    apart).
-13. ``gqa128`` — the head-dim-128 GQA family at full size: the flash
+14. ``gqa128`` — the head-dim-128 GQA family at full size: the flash
    forward (with the LSE) at the prefills of qwen3-8b (KV 8, G 4), yi-9b
    (KV 4, G 8), llama3.2-3b (KV 8, G 3) and llama4-scout (KV 8, G 5) and
    at the llama3.2-3b SFT shape (B 8, H 24, L 512), the flash backward at
@@ -182,7 +202,7 @@ Phases (any failure raises, so the run exits non-zero):
    1e-4 of each leaf's max); ``RLHFPipeline`` with llama3.2-3b actor and
    critic cut to 4 layers (2 SFT, 2 RM steps, 1 PPO iteration of 8 x 256
    + 64 on int8 KV) under phase ``rlhf``'s checks.
-14. ``moe`` — the MoE layer at llama4-scout-17b-a16e, full width (107.8 B
+15. ``moe`` — the MoE layer at llama4-scout-17b-a16e, full width (107.8 B
    parameters whole, so cut in depth): ``launch.serve`` at 12 layers
    (``cfg=``; 28.5 B, bf16 weights only) on the 32-request workload (64
    new tokens) with
@@ -195,7 +215,7 @@ Phases (any failure raises, so the run exits non-zero):
    vs plain (loss and aux 1e-5, grads 1e-4); ``launch.train --lora 8``
    at 2 layers, 3 bf16 steps of 4 x 512 (every loss and aux finite, the
    adapters moved).
-15. ``mla`` — MLA at deepseek-v2-lite-16b (16.2 B parameters, every layer
+16. ``mla`` — MLA at deepseek-v2-lite-16b (16.2 B parameters, every layer
    MoE): the flash forward and backward at head dim 192 (H = KV = 16, V
    zero-padded from 128) at the prefill (B 1, L 256) and the SFT shape
    (B 8, L 512, with the LSE), fp32 and bf16 against the plain versions,
@@ -212,7 +232,7 @@ Phases (any failure raises, so the run exits non-zero):
    decode kernel: the absorbed decode is plain products); ``launch.train``
    SFT at full width cut to 4 layers, 5 steps of 8 x 512 (bf16 on fp32
    masters): the D = 192 backward inside a step.
-16. ``xattn`` — cross-attention and embedding inputs: the flash kernels
+17. ``xattn`` — cross-attention and embedding inputs: the flash kernels
    over llama-3.2-vision's 1,601 encoder keys (D 128, H 32 / KV 8,
    non-causal; Lq 1 and 64 at B 4, and the SFT shape B 8, Lq 512 with the
    backward), checked and timed as in phase ``mla``;
@@ -228,7 +248,7 @@ Phases (any failure raises, so the run exits non-zero):
    kernel path against plain path (1e-4), and 5 SFT steps of 8 x 512 on
    frame embeddings (bf16 on fp32 masters; every loss finite, the training
    kernels launched).
-17. ``ckpt`` — checkpoint/resume, LoRA and the torch example, under
+18. ``ckpt`` — checkpoint/resume, LoRA and the torch example, under
    ``build/ckpt_phase`` (deleted at the end): the free disk (60 GB
    at least) and host RAM (2x the largest snapshot) first; two
    uninterrupted ``launch.train`` runs of OPT-1.3B (full width cut to 8
@@ -263,7 +283,7 @@ Phases (any failure raises, so the run exits non-zero):
    Launch counts are set to 0 before each leg's first run and read after
    it (SFT, mesh SFT and its resume, PPO, mesh PPO, LoRA, serve,
    example); every kernel of the leg must have launched.
-18. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
+19. ``profile`` — ``torch.profiler`` over the decode kernels, last, so
    that no earlier timing runs after a profiler session: the CUDA kernels
    one call of each decode row of phase ``kernels`` runs (the split
    kernel, then the combine exactly when the host's plan splits the
@@ -333,7 +353,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "train", "rlhf",
-          "async", "hybrid", "serve_mesh", "ssm", "ssm_train", "gqa128",
+          "async", "disagg", "hybrid", "serve_mesh", "ssm", "ssm_train", "gqa128",
           "moe", "mla", "xattn", "ckpt", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the time bound of a kernel is
@@ -2367,6 +2387,9 @@ def phase_async(state):
     from repro_torch.models.modules import tree_leaves
 
     failures = []
+    if "disagg" in state.get("phases", ()):
+        # phase disagg's ranks start now and initialize beside this phase
+        state["disagg_run"] = _start_disagg()
     actor, critic = get_config("opt-1.3b"), get_config("opt-350m")
     bl = lm_data(actor, 512, 0)
     eng = RLHFEngine(actor, critic,
@@ -2402,6 +2425,8 @@ def phase_async(state):
             tree_leaves(s["final"][k]), tree_leaves(a["final"][k])))
            for k in ("actor", "critic", "ema")}}
     log(f"[async] lockstep == sync: {same}")
+    # what phase disagg holds the split's synchronous and lockstep legs to
+    state["async_sync"] = _sync_record(s)
     for i, (ms, ma) in enumerate(zip(s["log"], a["log"])):
         diff = {k: (ms.get(k), ma.get(k)) for k in set(strip(ms))
                 | set(strip(ma)) if ms.get(k) != ma.get(k)}
@@ -2454,6 +2479,10 @@ def phase_async(state):
     del st
     eng = None
     torch.cuda.empty_cache()
+    if "disagg_run" in state:
+        # the card now has room for phase disagg's ranks (this phase's
+        # launcher runs OPT-125M): they start their legs beside it
+        _say_go(state["disagg_run"][0])
 
     # (3) the launcher
     log(f"[async] python -m repro_torch.launch.train "
@@ -2474,6 +2503,385 @@ def phase_async(state):
     _free(out)
     if failures:
         raise AssertionError("async: " + "; ".join(failures))
+
+
+# --------------------------------------------------------------------- #
+# the disaggregated split at 1 | 1: a rollout rank and a training rank,
+# two processes on the one card
+# --------------------------------------------------------------------- #
+# what each role's rank must launch on its main path (the rollout rank
+# decodes, the training rank scores and steps); row 5 under --kv-quant
+DISAGG_KERNELS = {"rollout": ("rmsnorm", "flash_attention_fwd",
+                              "decode_attention_fwd"),
+                  "train": ("rmsnorm", "flash_attention_fwd",
+                            "flash_attention_bwd")}
+DISAGG_LAUNCHER = ["--arch", "opt-125m", "--rlhf", "--rollout-mesh", "1",
+                   "--train-mesh", "1", "--async-rlhf", "--max-lag", "1",
+                   "--kv-quant", "--steps", "2", "--batch", "8", "--seq",
+                   "256", "--max-new", "32"]
+
+
+def _fingerprint(tree) -> str:
+    """An exact fingerprint of a tree of tensors on the card, the same in
+    any process for the same bits: each leaf's dtype and shape and two
+    wrapping int64 sums of its bytes read as int32 words (plain and
+    position-weighted), hashed together."""
+    import hashlib
+
+    import torch
+    from repro_torch.models.modules import tree_leaves
+    h = hashlib.sha256()
+    for x in tree_leaves(tree):
+        if x is None:
+            continue
+        b = x.detach().contiguous().view(-1).view(torch.uint8)
+        if b.numel() % 4:
+            b = torch.cat([b, b.new_zeros(4 - b.numel() % 4)])
+        v = b.view(torch.int32).long()
+        w = (torch.arange(v.numel(), device=v.device) * 2654435761
+             + 1) & 0x7FFFFFFF
+        sums = torch.stack([v.sum(), (v * w).sum()]).tolist()
+        h.update(f"{x.dtype}|{tuple(x.shape)}|{sums};".encode())
+        del b, v, w
+    return h.hexdigest()
+
+
+def _seq_sha(x) -> str:
+    import hashlib
+
+    import numpy as np
+    a = np.ascontiguousarray(np.asarray(x, dtype=np.int64))
+    return hashlib.sha256(a.tobytes() + str(a.shape).encode()).hexdigest()
+
+
+def _disagg_leg(role, tag, eng, start, bl, stages, ppo, async_cfg):
+    """One stage-3 run over the split from ``start`` (the training rank's
+    actor and critic params), the generator seeded 3 on both ranks; this
+    rank's record: launches, peak memory and the stage's seconds; on the
+    training rank also the metrics, each scored batch's SHA-256, the wall
+    of each iteration, the final actor, critic and EMA fingerprints, the
+    async telemetry, and ``final`` (the actor's and critic's params, the
+    next leg's start)."""
+    import gc
+
+    import torch
+    from repro_torch.core import RLHFPipeline
+    from repro_torch.core import ppo as tppo
+    from repro_torch.kernels import ops
+
+    if role == "train":
+        eng.actor_params, eng.critic_params = start
+    del start
+    free, total = torch.cuda.mem_get_info()
+    print(f"[disagg-worker] {role} rank, {tag}: starts with "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card",
+          flush=True)
+    pipe = RLHFPipeline(eng, bl, stages, ppo, async_cfg=async_cfg)
+    seqs, tops = [], []
+    score = tppo.PPOTrainer.score_rollout
+
+    def recording(self, rollout, **kw):
+        seqs.append(_seq_sha(torch.as_tensor(rollout.sequences).cpu()))
+        return score(self, rollout, **kw)
+
+    pipe.iter_hook = lambda i: tops.append(time.perf_counter())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tppo.PPOTrainer.score_rollout = recording
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        pipe.run_ppo(torch.Generator(device="cuda").manual_seed(3))
+    finally:
+        tppo.PPOTrainer.score_rollout = score
+    torch.cuda.synchronize()
+    tops.append(time.perf_counter())
+    rec = {"launches": ops.launch_counts(),
+           "stage3_s": time.perf_counter() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "async": pipe.async_stats}
+    print(f"[disagg-worker] {role} rank, {tag}: {rec['stage3_s']:.2f}s, "
+          f"peak {rec['peak_gib']:.2f} GiB", flush=True)
+    if role == "train":
+        tr = pipe.trainer
+        rec.update(
+            log=pipe.log["stage3"], seqs=seqs,
+            wall_s=[b - a for a, b in zip(tops, tops[1:])],
+            fingerprint={k: _fingerprint(v) for k, v in (
+                ("actor", tr.actor.params), ("critic", tr.critic.params),
+                ("ema", tr.ema))},
+            final=(tr.actor.params, tr.critic.params))
+        eng.actor_params = eng.critic_params = None
+        del tr
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def disagg_worker(out: str) -> int:
+    """One rank of phase ``disagg`` (``torchrun --nproc-per-node 2
+    chip_smoke.py --disagg-worker OUT``): rank 0 the rollout mesh, rank 1
+    the training mesh, both on the card.  Three stage-3 legs at the RLHF
+    cell's full size (phase ``async``'s models, weights, blend and
+    recipe): 3 iterations synchronous over the split and 3 under
+    ``AsyncConfig.lockstep()`` from the same start, at ``REPEAT_NEW`` new
+    tokens, then 4 one-step-stale iterations (``publish_every=2,
+    max_lag=1``) at 256 from where lockstep ended; then
+    ``launch.train`` with ``DISAGG_LAUNCHER`` in this world.  Writes
+    ``OUT/rank<r>.json``."""
+    import json
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import AsyncConfig, PPOConfig, RLHFEngine, StageConfig
+    from repro_torch.core.pipeline import clone_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import (init_distributed,
+                                         make_disaggregated_meshes)
+    from repro_torch.launch.train import lm_data
+
+    init_distributed("cuda", shared_cards=True)
+    rm, tm, role = make_disaggregated_meshes(rollout=1, train=1)
+    rank = dist.get_rank()
+    # started early (beside phase async), the ranks hold nothing on the
+    # card until the phase says go
+    go, t0, parent = os.path.join(out, "go"), time.perf_counter(), \
+        os.getppid()
+    while not os.path.exists(go):
+        if time.perf_counter() - t0 > 1200 or os.getppid() != parent:
+            raise SystemExit("phase disagg never said go")
+        time.sleep(0.1)
+    actor, critic = get_config("opt-1.3b"), get_config("opt-350m")
+    bl = lm_data(actor, 512, 0)
+    eng = RLHFEngine(actor, critic,
+                     torch.Generator(device="cuda").manual_seed(0),
+                     mesh=tm, rollout_mesh=rm)
+    start = None
+    if role == "train":
+        start = (eng.actor_params, eng.critic_params)
+        eng.ref_params = clone_params(eng.actor_params)
+        eng.reward_params = clone_params(eng.critic_params)
+    ppo = PPOConfig(max_new_tokens=REPEAT_NEW, temperature=1.0,
+                    ptx_coef=0.05, use_ema=True)
+    stages = StageConfig(ppo_steps=3, ppo_batch=8)
+    rec = {"role": role, "rank": rank,
+           "device": torch.cuda.get_device_name(torch.cuda.current_device())}
+    copy = (tuple(clone_params(t) for t in start) if role == "train"
+            else None)
+    rec["sync"] = _disagg_leg(role, "sync", eng, copy, bl, stages, ppo,
+                              None)
+    del copy
+    rec["sync"].pop("final", None)
+    rec["lockstep"] = _disagg_leg(role, "lockstep", eng, start, bl, stages,
+                                  ppo, AsyncConfig.lockstep())
+    start = rec["lockstep"].pop("final", None)
+    rec["stale"] = _disagg_leg(
+        role, "stale", eng, start, bl,
+        StageConfig(ppo_steps=4, ppo_batch=8),
+        PPOConfig(max_new_tokens=256, temperature=1.0, ptx_coef=0.05,
+                  use_ema=True), AsyncConfig(publish_every=2, max_lag=1))
+    rec["stale"].pop("final", None)
+    del start, eng
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    summ = launch_train.main(DISAGG_LAUNCHER)
+    rec["launcher"] = {
+        "launches": ops.launch_counts(), "seconds": time.perf_counter() - t0,
+        "async": summ.get("async"), "ppo_scores": summ["ppo_scores"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f, default=str)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_disagg(state):
+    """The disaggregated split at ``1 | 1`` on the one card: ``torchrun
+    --nproc-per-node 2 chip_smoke.py --disagg-worker`` (rank 0 rollout,
+    rank 1 training; :func:`disagg_worker`), started first, then checked:
+    both exit 0; the synchronous and the lockstep legs each equal phase
+    ``async``'s one-device synchronous run of the same seeds bit for bit
+    (each scored batch, the metrics without the wall-time keys, the final
+    actor, critic and EMA; the one-device run is made here when phase
+    ``async`` did not run); the stale leg's ``policy_lag`` exactly 0, 1,
+    0, 1 and its ratios 1.0 at lag 0, finite and positive at lag 1; rows
+    1, 2 and 4 launched on the rollout rank and rows 1-3 on the training
+    rank in every leg, row 5 (and never row 4) on the rollout rank of the
+    ``--kv-quant`` launcher run, whose ``async`` summary holds
+    ``produced == 2``.  Logged per leg and rank: the stage's seconds,
+    each iteration's wall, generation, scoring and step times, the
+    publish seconds, bytes and GB/s over the host-staged gloo bridge, the
+    queue's waits (the training rank's gets, the rollout rank's credit
+    waits) and the peak memory of each process."""
+    import json
+    import math
+    import os
+
+    failures = []
+    out, run = state.pop("disagg_run", None) or _start_disagg()
+    _say_go(out)
+    try:
+        rc, text, wall = _finish(run, timeout=900.0)
+    finally:
+        if run[0].poll() is None:
+            run[0].terminate()                   # torchrun stops its ranks
+            run[0].wait()
+    log(f"[disagg] torchrun --nproc-per-node 2 exit {rc} in {wall:.1f}s")
+    recs = {}
+    for r in (0, 1):
+        path = os.path.join(out, f"rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                recs[r] = json.load(f)
+    if rc != 0 or sorted(recs) != [0, 1]:
+        tail = "\n".join(text.splitlines()[-400:])
+        raise AssertionError(f"disagg: the workers failed (rc {rc}):\n{tail}")
+    for line in text.splitlines():
+        if line.startswith("[disagg-worker]"):
+            log(line)
+    roll, train = recs[0], recs[1]
+    if (roll["role"], train["role"]) != ("rollout", "train"):
+        failures.append(f"roles {roll['role']}, {train['role']}")
+    strip = lambda m: {k: v for k, v in m.items() if k not in ASYNC_WALL}
+    ref = state.get("async_sync") or _one_device_sync(state)
+    for leg in ("sync", "lockstep", "stale"):
+        t, r = train[leg], roll[leg]
+        for i, m in enumerate(t["log"]):
+            gbs = (m["publish_bytes"] / m["publish_s"] / 1e9
+                   if m.get("publish_s") else float("nan"))
+            lag = (f", policy_lag {m['policy_lag']:.0f} is_ratio_max "
+                   f"{m['is_ratio_max']:.6f}" if "policy_lag" in m else "")
+            log(f"[disagg] {leg} iteration {i}: wall {t['wall_s'][i]:.2f}s, "
+                f"gen {m['gen_s']:.2f}s = {m['gen_tok_s']:.1f} tok/s, scoring "
+                f"{m['score_ms']:.1f} ms, actor {m['actor_ms']:.1f} ms, "
+                f"critic {m['critic_ms']:.1f} ms; publish "
+                f"{m.get('publish_s', float('nan')):.3f}s "
+                f"{m.get('publish_bytes', 0) / 1e9:.3f} GB = {gbs:.2f} GB/s"
+                f"{lag}")
+        a_t, a_r = t["async"] or {}, r["async"] or {}
+        log(f"[disagg] {leg}: stage 3 {t['stage3_s']:.2f}s (rollout rank "
+            f"{r['stage3_s']:.2f}s); peak {r['peak_gib']:.2f} GiB rollout, "
+            f"{t['peak_gib']:.2f} GiB training; queue get_wait "
+            f"{(a_t.get('queue') or {}).get('get_wait_s', float('nan')):.3f}s"
+            f", credit waits {(a_r.get('rollout') or {}).get('put_wait_s', float('nan')):.3f}s; "
+            f"publisher {a_t.get('publisher')}; launches rollout "
+            f"{r['launches']}, training {t['launches']}")
+        for role, rr in (("rollout", r), ("train", t)):
+            missing = [k for k in DISAGG_KERNELS[role]
+                       if not rr["launches"].get(k)]
+            if missing:
+                failures.append(f"{leg}: {role} rank never launched "
+                                f"{missing}")
+        if leg == "stale":
+            continue
+        same = {"sequences": t["seqs"] == ref["seqs"],
+                "metrics": [strip(m) for m in t["log"]] == ref["metrics"],
+                **{k: t["fingerprint"][k] == ref["fingerprint"][k]
+                   for k in ("actor", "critic", "ema")}}
+        log(f"[disagg] {leg} over the split == one-device sync: {same}")
+        if not all(same.values()):
+            failures.append(f"{leg} over the split != one-device sync: "
+                            f"{same}")
+    st = train["stale"]
+    lags = [m["policy_lag"] for m in st["log"]]
+    if lags != [0.0, 1.0, 0.0, 1.0]:
+        failures.append(f"stale: policy_lag {lags}, wanted 0, 1, 0, 1")
+    if not all((m["is_ratio_mean"] == m["is_ratio_max"] == 1.0) if lag == 0
+               else all(math.isfinite(m[k]) and m[k] > 0
+                        for k in ("is_ratio_mean", "is_ratio_max"))
+               for lag, m in zip(lags, st["log"])):
+        failures.append("stale: is_ratio_* not 1.0 at lag 0 or not finite "
+                        "and positive at lag 1")
+    lr, lt = roll["launcher"], train["launcher"]
+    log(f"[disagg] launcher {' '.join(DISAGG_LAUNCHER)}: {lt['seconds']:.1f}s"
+        f", ppo_scores {lt['ppo_scores']}, async "
+        f"{ {k: (lt['async'] or {}).get(k) for k in ('produced', 'max_depth', 'dropped', 'fallbacks', 'publishes')} }; "
+        f"launches rollout {lr['launches']}, training {lt['launches']}; peak "
+        f"{lr['peak_gib']:.2f} / {lt['peak_gib']:.2f} GiB")
+    if (lt["async"] or {}).get("produced") != 2 or len(lt["ppo_scores"]) != 2:
+        failures.append(f"launcher: async summary {lt['async']}")
+    if not lr["launches"].get("decode_attention_quant_fwd") or \
+            lr["launches"].get("decode_attention_fwd"):
+        failures.append(f"launcher --kv-quant: rollout launches "
+                        f"{lr['launches']}")
+    for role, rr in (("rollout", lr), ("train", lt)):
+        want = tuple(k for k in DISAGG_KERNELS[role]
+                     if k != "decode_attention_fwd")
+        if any(not rr["launches"].get(k) for k in want):
+            failures.append(f"launcher: {role} launches {rr['launches']}")
+    for leg in ("sync", "lockstep", "stale"):
+        for role, rr in (("disagg_" + leg + "_rollout", roll[leg]),
+                         ("disagg_" + leg + "_train", train[leg])):
+            state.setdefault("launches", {})[role] = rr["launches"]
+    state["disagg"] = {
+        "stale_lags": lags, "wall_s": {leg: train[leg]["wall_s"]
+                                       for leg in ("sync", "lockstep",
+                                                   "stale")},
+        "peak_gib": {leg: (roll[leg]["peak_gib"], train[leg]["peak_gib"])
+                     for leg in ("sync", "lockstep", "stale")},
+        "one_device_sync_wall_s": ref.get("wall_s")}
+    if failures:
+        raise AssertionError("disagg: " + "; ".join(failures))
+
+
+def _start_disagg():
+    """Start phase ``disagg``'s two ranks (they initialize, then wait for
+    the phase): ``(output directory, run)``."""
+    import tempfile
+    out = tempfile.mkdtemp(prefix="disagg_")
+    return out, _launch("disagg", None, ["--disagg-worker", out], nproc=2,
+                        script=ROOT / "chip_smoke.py", env={
+                            "PYTORCH_CUDA_ALLOC_CONF":
+                                "expandable_segments:True"})
+
+
+def _say_go(out) -> None:
+    """Let phase ``disagg``'s ranks (waiting in ``out``) start their legs."""
+    import os
+    with open(os.path.join(out, "go"), "w"):
+        pass
+
+
+def _one_device_sync(state) -> dict:
+    """Phase ``async``'s synchronous leg, made here (phase ``async`` did not
+    run in this invocation): its record for phase ``disagg``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import PPOConfig, RLHFEngine, StageConfig
+    from repro_torch.core.pipeline import clone_params
+    from repro_torch.launch.train import lm_data
+    actor, critic = get_config("opt-1.3b"), get_config("opt-350m")
+    eng = RLHFEngine(actor, critic,
+                     torch.Generator(device="cuda").manual_seed(0))
+    start = (eng.actor_params, eng.critic_params)
+    eng.ref_params = clone_params(eng.actor_params)
+    eng.reward_params = clone_params(eng.critic_params)
+    s = _async_leg("sync", eng, start, lm_data(actor, 512, 0),
+                   StageConfig(ppo_steps=3, ppo_batch=8),
+                   PPOConfig(max_new_tokens=REPEAT_NEW, temperature=1.0,
+                             ptx_coef=0.05, use_ema=True), None)
+    out = _sync_record(s)
+    del s, eng, start
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sync_record(s) -> dict:
+    """What phase ``disagg`` holds a split's leg to, of a one-device
+    synchronous leg (:func:`_async_leg`)."""
+    return {"metrics": [{k: v for k, v in m.items() if k not in ASYNC_WALL}
+                        for m in s["log"]],
+            "seqs": [_seq_sha(x) for x in s["seqs"]],
+            "fingerprint": {k: _fingerprint(s["final"][k])
+                            for k in ("actor", "critic", "ema")},
+            "wall_s": s["wall_s"]}
 
 
 # --------------------------------------------------------------------- #
@@ -3037,20 +3445,24 @@ SUMMARY = re.compile(r"generated (\d+) tokens in ([\d.]+)s  \(([\d.]+) "
                      r"tok/s, slot utilization ([\d.]+)%\)")
 
 
-def _launch(tag: str, module: str, argv: list):
-    """``torchrun --standalone --nproc-per-node 1 -m module argv`` started
-    (not waited on) from the repository root, its output to a file:
-    ``(process, log path, start time)``."""
+def _launch(tag: str, module, argv: list, nproc: int = 1, script=None,
+            env=None):
+    """``torchrun --standalone --nproc-per-node nproc -m module argv`` (or
+    ``script argv``) started (not waited on) from the repository root,
+    ``env`` added to the environment, its output to a file: ``(process,
+    log path, start time)``."""
     import os
     import tempfile
+    target = ["-m", module] if script is None else [str(script)]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", "1", "-m", module, *argv]
-    log(f"[serve_mesh] {tag}: {' '.join(cmd[1:])}")
+           "--nproc-per-node", str(nproc), *target, *argv]
+    log(f"[{tag}] {' '.join(cmd[1:])}")
     fd, path = tempfile.mkstemp(prefix=f"{tag}_", suffix=".log")
     with os.fdopen(fd, "w") as f:
         proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
                                 text=True, cwd=ROOT, env=dict(
-                                    os.environ, PYTHONPATH=str(ROOT / "src")))
+                                    os.environ, PYTHONPATH=str(ROOT / "src"),
+                                    **(env or {})))
     return proc, path, time.perf_counter()
 
 
@@ -3062,8 +3474,12 @@ def _finish(run, timeout: float = 600.0):
     try:
         proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
     except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
+        proc.terminate()                 # torchrun stops its ranks
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
     out = Path(path).read_text(errors="replace")
     os.unlink(path)
     return proc.returncode, out, time.perf_counter() - t0
@@ -6138,7 +6554,8 @@ def phase_xattn(state):
 PHASE_FNS = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "parity": phase_parity,
              "serve": phase_serve, "train": phase_train, "rlhf": phase_rlhf,
-             "async": phase_async, "hybrid": phase_hybrid,
+             "async": phase_async, "disagg": phase_disagg,
+             "hybrid": phase_hybrid,
              "serve_mesh": phase_serve_mesh, "ssm": phase_ssm,
              "ssm_train": phase_ssm_train,
              "gqa128": phase_gqa128, "moe": phase_moe,
@@ -6150,7 +6567,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--disagg-worker", default=None, metavar="OUT",
+                    help=argparse.SUPPRESS)   # a rank of phase disagg
     args = ap.parse_args()
+    if args.disagg_worker is not None:
+        return disagg_worker(args.disagg_worker)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
@@ -6167,13 +6588,23 @@ def main() -> int:
               f"repository root", file=sys.stderr)
         return 1
 
-    state: dict = {}
+    state: dict = {"phases": phases}
     t_all = time.perf_counter()
-    for name in PHASES:
-        if name in phases:
-            t0 = time.perf_counter()
-            PHASE_FNS[name](state)
-            log(f"[{name}] phase done in {time.perf_counter() - t0:.1f}s")
+    try:
+        for name in PHASES:
+            if name in phases:
+                t0 = time.perf_counter()
+                PHASE_FNS[name](state)
+                log(f"[{name}] phase done in {time.perf_counter() - t0:.1f}s")
+    finally:
+        early = state.pop("disagg_run", None)      # a phase failed first
+        if early is not None and early[1][0].poll() is None:
+            early[1][0].terminate()                  # torchrun stops its ranks
+            try:
+                early[1][0].wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                early[1][0].kill()
+                early[1][0].wait()
     log(f"total {time.perf_counter() - t_all:.1f}s")
 
     # launches: each main path's run (serve, train), counts set to 0 just

@@ -42,20 +42,44 @@ layout, tensor-parallel over ``model`` (see :mod:`repro_torch.core.ppo`).  Stage
 of the mesh alike, as the reference runs them outside the mesh.
 
 ``async_cfg`` (an :class:`~repro_torch.core.replay.AsyncConfig`) runs
-stage 3 asynchronously, on one device or the 1 x 1 mesh: a producer thread
-generates batch N+1 while this thread scores and trains batch N
-(:meth:`RLHFPipeline._run_ppo_async`).  ``AsyncConfig.lockstep()`` gives
-the synchronous run bit for bit, checkpoints included: a checkpoint saves
-the generator state carried by the item just consumed, never the live
-state, which the producer may already be advancing.
+stage 3 asynchronously, on one device, the 1 x 1 mesh or the
+disaggregated split: a producer thread generates batch N+1 while this
+thread scores and trains batch N (:meth:`RLHFPipeline._run_ppo_async`).
+``AsyncConfig.lockstep()`` gives the synchronous run bit for bit,
+checkpoints included: a checkpoint saves the generator state carried by
+the item just consumed, never the live state, which the producer may
+already be advancing.
 
-The disaggregated rollout mesh (``rollout_mesh=``) and asynchronous stage
-3 on a mesh of more than one rank (two threads issuing collectives on one
-process group would have to keep the same order on every rank) are not
-yet ported and raise ``NotImplementedError``.
+``RLHFEngine(mesh=, rollout_mesh=)`` with the two meshes of
+:func:`repro_torch.launch.mesh.make_disaggregated_meshes` is the
+disaggregated split: every rank runs the pipeline, each its role's half.
+The training ranks run stages 1 and 2 (on every rank of the training
+mesh alike) while the rollout ranks wait, then the consumer of stage 3:
+scoring and the PPO steps on the training mesh, each version of the actor
+pushed across the bridge to the rollout mesh's ``tp`` layout, each batch
+taken from the rollout channel (:class:`~repro_torch.core.replay.
+SplitEnds`).  The rollout ranks run the producer: generation on the
+rollout mesh with the versions that have landed there, drawing from the
+stage-3 generator (seeded ``seed + 3``, or the state the training ranks
+restored and sent).  Synchronous stage 3 is the same exchange one batch
+at a time, each batch generated with the actor pushed just before it.  A
+producer error on a rollout rank ends the run on every rank with
+``RuntimeError("rollout producer failed")``; a consumer error stops the
+rollout ranks (``RuntimeError("training consumer failed: ...")``).
+Checkpoints are the training ranks': the generator state saved is the one
+that came back with the last consumed batch, and a resume publishes the
+restored actor and hands the rollout ranks that state.  Every rank
+constructs the :class:`~repro_torch.training.checkpoint.CheckpointManager`
+(its constructor is a barrier of the world).
+
+Asynchronous stage 3 on a shared mesh of more than one rank (two threads
+issuing collectives on one process group would have to keep the same
+order on every rank) is not yet ported and raises
+``NotImplementedError``: run it disaggregated.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import zlib
@@ -68,8 +92,8 @@ from repro_torch import to_device
 from repro_torch.core.hybrid_engine import HybridEngine
 from repro_torch.core.ppo import PPOConfig, PPOTrainer
 from repro_torch.core.replay import (AsyncConfig, ExperienceProducer,
-                                     ReplayClosed, ReplayQueue,
-                                     WeightPublisher)
+                                     RemoteProducer, ReplayClosed,
+                                     ReplayQueue, SplitEnds, WeightPublisher)
 from repro_torch.data.blending import DataBlender
 from repro_torch.models import reward as R
 from repro_torch.models import transformer as T
@@ -118,28 +142,38 @@ class RLHFEngine:
     from ``generator`` (the reference splits one key in two; weights that
     must match the reference are carried across with
     ``models/convert.py``) on ``generator``'s device; on a mesh every rank
-    draws the same weights from the same seed."""
+    draws the same weights from the same seed.  With ``rollout_mesh`` (the
+    disaggregated split; ``mesh`` is then the training mesh) ``role`` is
+    this rank's, and a rollout rank holds no params."""
 
     def __init__(self, actor_cfg: ModelConfig, critic_cfg: ModelConfig,
                  generator: torch.Generator, mesh=None,
                  train_strategy: str = "zero3", rollout_mesh=None,
                  zero: int = 1):
-        if rollout_mesh is not None:
-            raise NotImplementedError("RLHFEngine(rollout_mesh=) "
-                                      "(disaggregated meshes): not yet "
-                                      "ported")
         self.actor_cfg, self.critic_cfg = actor_cfg, critic_cfg
-        self.actor_params = T.init_params(actor_cfg, generator)
-        self.critic_params = R.init_params(critic_cfg, generator)
+        self.rollout_mesh, self.role = rollout_mesh, None
+        if rollout_mesh is not None:
+            from repro_torch.launch.mesh import bridge_of
+            if mesh is None:
+                raise ValueError("RLHFEngine(rollout_mesh=) needs mesh=, "
+                                 "the training mesh")
+            self.bridge = bridge_of(rollout_mesh, mesh)
+            self.role = self.bridge.role
+        self._device = torch.device(generator.device)
+        self.actor_params = self.critic_params = None
         self.ref_params = None       # cloned from the SFT actor
         self.reward_params = None    # the trained RM (critic gets a clone)
         self.hybrid = (HybridEngine(actor_cfg, mesh,
                                     train_strategy=train_strategy, zero=zero)
                        if mesh is not None else None)
-        self.rollout_mesh = None
+        if self.role != "rollout":
+            self.actor_params = T.init_params(actor_cfg, generator)
+            self.critic_params = R.init_params(critic_cfg, generator)
 
     @property
     def device(self) -> torch.device:
+        if self.actor_params is None:
+            return self._device
         return tree_leaves(self.actor_params)[0].device
 
 
@@ -162,10 +196,13 @@ class RLHFPipeline:
                  save_every: int = 1,
                  async_cfg: Optional[AsyncConfig] = None):
         if (async_cfg is not None and engine.hybrid is not None
+                and getattr(engine, "rollout_mesh", None) is None
                 and runtime.mesh_size(engine.hybrid.mesh) > 1):
-            raise NotImplementedError("RLHFPipeline(async_cfg=) on a mesh "
-                                      "of more than one rank: not yet "
-                                      "ported")
+            raise NotImplementedError(
+                "RLHFPipeline(async_cfg=) on a shared mesh of more than one "
+                "rank: not yet ported; run it disaggregated "
+                "(RLHFEngine(rollout_mesh=), launch.train --rollout-mesh "
+                "--train-mesh)")
         self.e = engine
         self.blender = blender
         self.stages = stages
@@ -182,6 +219,7 @@ class RLHFPipeline:
         self.timings = {}          # seconds per stage
         self.gen_tok_s = 0.0       # mean stage-3 generation throughput
         self.trainer: Optional[PPOTrainer] = None
+        self.ends: Optional[SplitEnds] = None   # the split's, during a run
 
     # ------------------------- Step 1: SFT ------------------------- #
     def run_sft(self):
@@ -239,11 +277,97 @@ class RLHFPipeline:
         a stage-3 one, the run resumes from it: trainer states, frozen
         models, logs, the data cursor and ``generator``'s state.  With
         ``async_cfg`` the iterations overlap (:meth:`_run_ppo_async`), and
-        the producer thread draws from ``generator``.  Returns the mean
-        reward score of each iteration."""
-        st, dev = self.stages, self.e.device
+        the producer thread draws from ``generator``.  On the
+        disaggregated split each rank runs its role's half (see the
+        module's docstring); a rollout rank's ``generator`` is the one
+        drawn from.  Returns the mean reward score of each iteration (none
+        on a rollout rank)."""
+        st = self.stages
         if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(st.seed + 3)
+            generator = torch.Generator(
+                device=self.e.device).manual_seed(st.seed + 3)
+        with self._split():
+            if self.e.role == "rollout":
+                return self._rollout_ppo(generator)
+            return self._run_ppo(generator)
+
+    @contextlib.contextmanager
+    def _split(self):
+        """This rank's ends of the bridge (:class:`SplitEnds`) for a run of
+        the disaggregated split: opened here unless a run holds them
+        already, and ended with it (``close``, or ``cancel`` with its
+        error); nothing without a rollout mesh."""
+        e = self.e
+        if getattr(e, "rollout_mesh", None) is None or self.ends is not None:
+            yield
+            return
+        acfg = self.async_cfg or AsyncConfig.lockstep()
+        one = len(e.bridge.rollout_ranks) == 1
+        self.ends = SplitEnds(
+            e.bridge, depth=acfg.queue_depth,
+            shardings=S.param_shardings(e.actor_cfg, e.rollout_mesh, "tp"),
+            device=e.device, keep=1 if one else acfg.max_lag + 2,
+            get_timeout_s=acfg.get_timeout_s)
+        error = None
+        try:
+            yield
+        except BaseException as err:
+            error = err
+            raise
+        finally:
+            ends, self.ends = self.ends, None
+            if ends.role == "train":
+                ends.finish(error)
+            else:
+                ends.end_up(error)
+                ends.wait_end()
+            ends.release()
+
+    def _rollout_ppo(self, generator: torch.Generator) -> list:
+        """A rollout rank's stage 3: once the training ranks send the
+        start (and the generator state to draw from, on a resume), the
+        producer generates every batch with the versions that land here
+        (``AsyncConfig.lockstep()`` for the synchronous loop: a batch per
+        pushed version) and sends it to the training ranks, until they
+        end the run."""
+        st, ends = self.stages, self.ends
+        msg = ends.wait_start()
+        start = msg["start"]
+        if msg["rng"] is not None:
+            generator.set_state(msg["rng"])
+        acfg = self.async_cfg or AsyncConfig.lockstep()
+        trainer = PPOTrainer(
+            actor_cfg=self.e.actor_cfg, critic_cfg=self.e.critic_cfg,
+            actor_params=None, critic_params=None, ref_params=None,
+            reward_params=None, ppo=self.ppo, engine=self.e.hybrid,
+            rollout_mesh=self.e.rollout_mesh, ends=ends)
+        self.trainer = trainer
+        producer = ExperienceProducer(
+            trainer=trainer, generator=generator, start=start,
+            steps=st.ppo_steps,
+            batches=self.blender.prompt_batches(st.ppo_batch,
+                                                st.ppo_steps, skip=start),
+            queue=ends, publisher=ends.publisher, cfg=acfg,
+            rollout_hook=self.rollout_hook, lockstep=ends.lockstep,
+            decide=ends.decide)
+        t0 = time.perf_counter()
+        producer.start()
+        producer.join()
+        ends.end_up(producer.error)
+        ends.wait_end()
+        self.timings["stage3"] = time.perf_counter() - t0
+        self.async_stats = {"produced": producer.produced,
+                            "rollout": ends.stats(),
+                            "publisher": ends.publisher.stats()}
+        if producer.error is not None:
+            raise RuntimeError("rollout producer failed") \
+                from producer.error
+        if ends.cancelled is not None:
+            raise RuntimeError(ends._ended_message())
+        return []
+
+    def _run_ppo(self, generator: torch.Generator):
+        st, dev = self.stages, self.e.device
         start, restored = 0, None
         if self.ckpt is not None:
             latest = self.ckpt.latest_step()
@@ -258,10 +382,14 @@ class RLHFPipeline:
             critic_params=self.e.critic_params,
             ref_params=self.e.ref_params,
             reward_params=self.e.reward_params, ppo=self.ppo,
-            engine=self.e.hybrid)
+            engine=self.e.hybrid,
+            rollout_mesh=getattr(self.e, "rollout_mesh", None),
+            ends=self.ends)
         if restored is not None:
             trainer.load_state_tree(restored["trainer"])
         self.trainer = trainer
+        if self.ends is not None:
+            self.ends.start(start, restored["rng"] if restored else None)
         ptx_iter = (self.blender.pretrain_batches(st.ppo_batch, st.ppo_steps,
                                                   skip=start)
                     if self.ppo.ptx_coef > 0 else None)
@@ -325,17 +453,25 @@ class RLHFPipeline:
         st, acfg, dev = self.stages, self.async_cfg, self.e.device
         publisher = WeightPublisher(shardings=trainer.publish_shardings(),
                                     keep=acfg.max_lag + 2,
-                                    async_push=acfg.async_publish)
+                                    async_push=acfg.async_publish,
+                                    ends=self.ends)
         publisher.publish(trainer.actor.params, start)
-        queue = ReplayQueue(acfg.queue_depth)
-        producer = ExperienceProducer(
-            trainer=trainer, generator=generator, start=start,
-            steps=st.ppo_steps,
-            batches=self.blender.prompt_batches(st.ppo_batch,
-                                                st.ppo_steps, skip=start),
-            queue=queue, publisher=publisher, cfg=acfg,
-            rollout_hook=self.rollout_hook)
-        producer.start()
+        if self.ends is not None:
+            # the producer runs on the rollout ranks: the rollout channel
+            # and a handle on it
+            queue, producer = self.ends.queue, RemoteProducer(self.ends,
+                                                              acfg)
+        else:
+            queue = ReplayQueue(acfg.queue_depth)
+            producer = ExperienceProducer(
+                trainer=trainer, generator=generator, start=start,
+                steps=st.ppo_steps,
+                batches=self.blender.prompt_batches(st.ppo_batch,
+                                                    st.ppo_steps,
+                                                    skip=start),
+                queue=queue, publisher=publisher, cfg=acfg,
+                rollout_hook=self.rollout_hook)
+            producer.start()
         version, fallbacks = start, 0
         try:
             for i in range(start, st.ppo_steps):
@@ -394,6 +530,8 @@ class RLHFPipeline:
                 "lockstep_fallbacks": fallbacks,
                 "retained_bytes": publisher.retained_bytes(),
             }
+            if self.ends is not None:
+                self.async_stats["rollout"] = self.ends.producer_stats
         if producer.error is not None:
             raise RuntimeError("rollout producer failed") \
                 from producer.error
@@ -447,8 +585,8 @@ class RLHFPipeline:
         iterations: trainer states (moments + EMA), frozen ref/reward
         params, ``rng_state`` (the generator state iteration ``done`` will
         draw from), and (in metadata) the data cursor + metrics log."""
-        if self._layouts() is not None and not runtime.same_on_ranks(
-                zlib.crc32(rng_state.numpy().tobytes())):
+        if self._layouts() is not None and not runtime.same_on_mesh(
+                zlib.crc32(rng_state.numpy().tobytes()), self.e.hybrid.mesh):
             raise RuntimeError("the stage-3 generator's state differs "
                                "between the ranks of the mesh")
         tree = {"trainer": trainer.state_tree(),
@@ -525,7 +663,17 @@ class RLHFPipeline:
     def run(self, generator: Optional[torch.Generator] = None):
         """End-to-end 3-stage run; with a checkpointer, a rerun after a
         crash skips the completed stages and resumes stage 3 mid-stream
-        from the latest valid checkpoint."""
+        from the latest valid checkpoint.  On the disaggregated split the
+        bridge is open for the whole run, and a rollout rank goes straight
+        to its half of stage 3."""
+        with self._split():
+            if self.e.role == "rollout":
+                return {"sft_loss": [], "rm_acc": [],
+                        "ppo_scores": self.run_ppo(generator),
+                        "timings": self.timings}
+            return self._run(generator)
+
+    def _run(self, generator):
         resume = self.maybe_restore()
         stage = resume[0] if resume else None
         if stage in ("sft_done", "rm_done"):

@@ -41,15 +41,30 @@ result, up to the order of the sums.  The experience is then a tree of
 ``DTensor``s sharded over ``data``.  :meth:`PPOTrainer.load_state_tree`
 places a restored state in this mesh's training layout, whatever layout
 it was saved in.  At one rank the trainer runs as with ``engine=None``.
-The rollout mesh (disaggregated generation) is not yet ported.
 
-The asynchronous seam (:mod:`repro_torch.core.replay`, one device and the
-1 x 1 mesh): :meth:`PPOTrainer.generate_rollout` takes ``gen_params``
+With ``rollout_mesh=`` (disaggregated: generation on a mesh of its own,
+disjoint from the engine's training mesh, both from
+:func:`repro_torch.launch.mesh.make_disaggregated_meshes`) the trainer
+takes this rank's role.  On a training rank it holds the states as above
+and no generation engine; :meth:`PPOTrainer.publish_shardings` is the
+rollout mesh's ``tp`` layout, and the synchronous
+:meth:`PPOTrainer.generate_rollout` pushes the actor there through the
+bridge (``cross_mesh_put``, never ``to_inference``) and takes the batch
+the rollout ranks send back.  On a rollout rank it holds only the
+generation engine, bound to the rollout mesh (a plain engine on this
+rank's device when that mesh has one rank), and generates with the
+params published to it.  The bridge's ends (:class:`~repro_torch.core.
+replay.SplitEnds`) come from :class:`~repro_torch.core.pipeline.
+RLHFPipeline`, which runs each role's half of stage 3.
+
+The asynchronous seam (:mod:`repro_torch.core.replay`: one device, the
+1 x 1 mesh and the disaggregated split): :meth:`PPOTrainer.generate_rollout` takes ``gen_params``
 already published (no ``to_inference``, no reshard metrics) and tags the
 rollout with their ``version``; :meth:`PPOTrainer.score_rollout` scores
 with the behavior policy's retained params and reports ``policy_lag``,
 ``is_ratio_mean`` and ``is_ratio_max`` (the guard forward runs only when
-the lag is above 0).
+the lag is above 0; on a training mesh of more than one rank on the
+compute views, its mean and max reduced over the data group).
 """
 from __future__ import annotations
 
@@ -244,14 +259,21 @@ def make_experience(actor_cfg: ModelConfig, critic_cfg: ModelConfig,
 
 @torch.no_grad()
 def staleness_guard_stats(cfg: ModelConfig, params, sequences,
-                          behavior_logp, mask):
+                          behavior_logp, mask, group=None, tp=None):
     """Per-token importance ratio of the current policy against the
-    behavior policy that sampled the rollout (off-policy telemetry)."""
-    logp = actor_logprobs(cfg, params, sequences)
+    behavior policy that sampled the rollout (off-policy telemetry).  With
+    a data ``group`` the rows are this rank's part of a batch sharded over
+    it, and the mean and max are the global batch's; ``tp``: the
+    tensor-parallel context of a compute view ``params``."""
+    logp = actor_logprobs(cfg, params, sequences, tp)
     ratio = torch.exp(logp - behavior_logp)
-    n = torch.clamp(mask.sum(), min=1.0)
-    return {"is_ratio_mean": (ratio * mask).sum() / n,
-            "is_ratio_max": torch.max(torch.where(mask > 0, ratio, 1.0))}
+    n = _count(mask, group)
+    total = (ratio * mask).sum()
+    top = torch.max(torch.where(mask > 0, ratio, 1.0))
+    if group is not None:
+        total = runtime.all_sum([total], group)[0]
+        top = runtime.all_max(top, group)
+    return {"is_ratio_mean": total / n, "is_ratio_max": top}
 
 
 def _shares_storage(a, b) -> bool:
@@ -275,10 +297,21 @@ class PPOTrainer:
 
     def __init__(self, *, actor_cfg: ModelConfig, critic_cfg: ModelConfig,
                  actor_params, critic_params, ref_params, reward_params,
-                 ppo: PPOConfig, engine=None, rollout_mesh=None):
+                 ppo: PPOConfig, engine=None, rollout_mesh=None, ends=None):
+        self.rollout_mesh, self.ends, self.role = rollout_mesh, ends, None
         if rollout_mesh is not None:
-            raise NotImplementedError("PPOTrainer(rollout_mesh=): "
-                                      "not yet ported")
+            from repro_torch.launch.mesh import bridge_of
+            if engine is None:
+                raise ValueError("PPOTrainer(rollout_mesh=) needs engine=: "
+                                 "a HybridEngine on the training mesh, "
+                                 "disjoint from the rollout mesh")
+            self.role = bridge_of(rollout_mesh, engine.mesh).role
+            if self.role is None:
+                raise ValueError("PPOTrainer(rollout_mesh=): this rank is "
+                                 "on neither mesh")
+        if self.role == "rollout":
+            self._init_rollout(actor_cfg, critic_cfg, ppo, rollout_mesh)
+            return
         if engine is not None:
             for c in (actor_cfg, critic_cfg):
                 runtime.check_compute_mesh(engine.mesh, "PPOTrainer(engine=)",
@@ -323,17 +356,35 @@ class PPOTrainer:
         # int8-KV experience generation: only the engine's view of the
         # model flips (cache dtypes + scale planes); the actor params it
         # consumes and every training-side forward are unchanged
+        gen_cfg, gen_opts = self._gen_options(actor_cfg, ppo)
+        self.gen_engine = (
+            None if self.role == "train"     # generation is the rollout's
+            else engine.generation_engine(cfg=gen_cfg, **gen_opts)
+            if engine is not None else GenerationEngine(gen_cfg, **gen_opts))
+
+    def _gen_options(self, actor_cfg: ModelConfig, ppo: PPOConfig):
         gen_cfg = (actor_cfg.replace(kv_quant=True) if ppo.kv_quant
                    else actor_cfg)
-        gen_opts = dict(
+        return gen_cfg, dict(
             max_new_tokens=ppo.max_new_tokens, temperature=ppo.temperature,
             top_k=ppo.top_k, top_p=ppo.top_p, eos_id=ppo.eos_id,
             chunk=ppo.decode_chunk, kv_layout=ppo.kv_layout,
             block_size=ppo.kv_block_size, prefix_cache=ppo.prefix_cache,
             device=self.device)
-        self.gen_engine = (engine.generation_engine(cfg=gen_cfg, **gen_opts)
-                           if engine is not None
-                           else GenerationEngine(gen_cfg, **gen_opts))
+
+    def _init_rollout(self, actor_cfg, critic_cfg, ppo, mesh) -> None:
+        """A rollout rank's trainer: the generation engine on the rollout
+        mesh (plain on this rank's device at one rank), no states."""
+        self.actor_cfg, self.critic_cfg, self.ppo = actor_cfg, critic_cfg, ppo
+        self.device = (torch.device("cuda", torch.cuda.current_device())
+                       if mesh.device_type == "cuda" else torch.device("cpu"))
+        self.engine, self.mesh, self._multi = None, mesh, False
+        self.actor = self.critic = self.ema = None
+        self.ref_params = self.reward_params = None
+        gen_cfg, gen_opts = self._gen_options(actor_cfg, ppo)
+        self.gen_engine = GenerationEngine(
+            gen_cfg, mesh=mesh if runtime.mesh_size(mesh) > 1 else None,
+            **gen_opts)
 
     def _shard_batch(self, tree):
         """A batch tree committed to the data axis (replicated when it does
@@ -368,6 +419,11 @@ class PPOTrainer:
         ``to_inference`` (one reshard per phase) and the metrics carry its
         ``reshard_bytes`` and ``reshard_s``.  ``gen_s`` waits for the
         calling thread's stream only."""
+        if self.role == "train":
+            return self._rollout_across(generator)
+        if self.role == "rollout" and gen_params is None:
+            raise ValueError("a rollout rank generates with the params "
+                             "published to it (gen_params=)")
         t0 = time.perf_counter()
         if not isinstance(prompts, torch.Tensor):
             prompts = torch.as_tensor(np.asarray(prompts))
@@ -399,6 +455,24 @@ class PPOTrainer:
         return RolloutBatch(sequences=out["sequences"],
                             response_mask=out["response_mask"],
                             attn_mask=None, version=version), gm
+
+    def _rollout_across(self, generator: torch.Generator):
+        """The synchronous generation phase of a training rank: the actor
+        pushed to the rollout mesh (``cross_mesh_put`` over the bridge,
+        waited for), then the batch the rollout ranks generated with it;
+        ``generator`` takes the state the rollout ranks' generator had
+        after it (what the synchronous loop checkpoints)."""
+        if self.ends is None:
+            raise ValueError("a training rank of the disaggregated split "
+                             "generates through the bridge's ends "
+                             "(PPOTrainer(ends=), as RLHFPipeline opens "
+                             "them)")
+        pushed = self.ends.push_now(self.actor.params)
+        item = self.ends.queue.get(timeout=self.ends.get_timeout_s)
+        generator.set_state(item.generator_state)
+        return item.rollout, {**item.gen_metrics,
+                              "publish_s": pushed["seconds"],
+                              "publish_bytes": float(pushed["bytes"])}
 
     def score_rollout(self, rollout: RolloutBatch, *, behavior_params=None,
                       policy_lag: Optional[int] = None):
@@ -432,16 +506,11 @@ class PPOTrainer:
                 sm.update(self._guard(exp, policy_lag))
             sm["score_ms"] = (time.perf_counter() - t0) * 1e3
             return exp, sm
-        if behavior_params is not None or policy_lag is not None:
-            raise NotImplementedError(
-                "PPOTrainer.score_rollout(behavior_params=, policy_lag=) on "
-                "a mesh of more than one rank (asynchronous RLHF there): "
-                "not yet ported")
         # this rank's rows, scored tensor-parallel on the compute views
         batch = self._shard_batch((seqs, mask, attn))
         (lseqs, lmask, lattn), group = runtime.batch_local(batch)
         views = [mesh_view(c, p, group)[::2] for c, p in (
-            (self.actor_cfg, self.actor.params),
+            (self.actor_cfg, behavior),
             (self.actor_cfg, self.ref_params),
             (self.critic_cfg, self.critic.params),
             (self.critic_cfg, self.reward_params))]
@@ -452,16 +521,24 @@ class PPOTrainer:
         total = (runtime.all_sum([score.sum()], group)[0] if group
                  is not None else score.sum())
         sm = {"reward_score": float(total) / seqs.shape[0]}
+        if policy_lag is not None:
+            sm.update(self._guard(exp, policy_lag, group))
         sm["score_ms"] = (time.perf_counter() - t0) * 1e3
         return X.Experience(*runtime.wrap_rows(tuple(exp), batch[0])), sm
 
-    def _guard(self, exp: X.Experience, policy_lag: int) -> dict:
+    def _guard(self, exp: X.Experience, policy_lag: int,
+               group=None) -> dict:
         """The staleness-guard metrics of a rollout scored at
-        ``policy_lag``."""
+        ``policy_lag`` (on a mesh of more than one rank ``exp`` holds this
+        rank's rows of a batch sharded over ``group``)."""
         sm = {"policy_lag": float(policy_lag)}
         if policy_lag > 0:
-            g = staleness_guard_stats(self.actor_cfg, self.actor.params,
-                                      exp.sequences, exp.logprobs, exp.mask)
+            params, tp = self.actor.params, None
+            if self._multi:
+                params, _, tp = mesh_view(self.actor_cfg, params, group)
+            g = staleness_guard_stats(self.actor_cfg, params,
+                                      exp.sequences, exp.logprobs, exp.mask,
+                                      group=group, tp=tp)
             sm["is_ratio_mean"] = float(g["is_ratio_mean"])
             sm["is_ratio_max"] = float(g["is_ratio_max"])
         else:
@@ -470,15 +547,19 @@ class PPOTrainer:
         return sm
 
     def publish_shardings(self):
-        """Target layout for asynchronous weight publication: ``None`` (the
-        single-device mode: the publisher clones the params in place) on
-        one device and at 1 x 1.  On a mesh of more than one rank the
-        reference publishes to the engine's inference layout; that is not
-        yet ported."""
+        """Target layout for asynchronous weight publication: the rollout
+        mesh's ``tp`` layout when there is one (disaggregated), else
+        ``None`` (the single-device mode: the publisher clones the params
+        in place) on one device and at 1 x 1.  On a shared mesh of more
+        than one rank the reference publishes to the engine's inference
+        layout; that is not yet ported."""
+        if self.rollout_mesh is not None:
+            return S.param_shardings(self.actor_cfg, self.rollout_mesh, "tp")
         if self._multi:
             raise NotImplementedError("PPOTrainer.publish_shardings on a "
-                                      "mesh of more than one rank: not yet "
-                                      "ported")
+                                      "shared mesh of more than one rank: "
+                                      "not yet ported; run it "
+                                      "disaggregated (rollout_mesh=)")
         return None
 
     def _expand_samples(self, requests):

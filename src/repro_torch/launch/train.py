@@ -23,7 +23,7 @@ actor's config, as in the reference.  PPO generates ``--max-new`` tokens
 per prompt at temperature 1.0; ``--kv-quant`` runs that generation on an
 int8 KV cache.  ``--async-rlhf`` overlaps stage 3's generation and
 training through the replay queue (:mod:`repro_torch.core.replay`; one
-device or ``--mesh 1,1``), with the reference's ``--queue-depth``,
+device, ``--mesh 1,1`` or the disaggregated split below), with the reference's ``--queue-depth``,
 ``--publish-every``, ``--max-lag`` (0 = lockstep, bit-identical to the
 synchronous run) and ``--is-ratio-abort``, and prints the reference's
 ``async: produced= ...`` line::
@@ -88,9 +88,25 @@ whatever mesh, ``--strategy`` or ``--zero`` it was saved under, or none::
         --arch opt-125m --mesh 1,2 --strategy tp --ckpt-dir ck --resume \
         --steps 8
 
-``--async-rlhf`` on a mesh of more than one rank and the disaggregated
-meshes (``--rollout-mesh``, ``--train-mesh``) are not ported yet and are
-refused; ``--mesh`` with ``--lora`` is refused as in the reference.
+``--rollout-mesh R --train-mesh T`` (with ``--rlhf``; the two go
+together) runs stage 3 disaggregated (:mod:`repro_torch.core.pipeline`):
+``torchrun`` with ``nr + nt`` ranks, the first ``nr`` a rollout mesh
+that generates, the next ``nt`` a training mesh that runs stages 1 and 2,
+scoring and the PPO steps, bridged by two gloo groups (weights one way,
+rollout batches the other).  ``R`` and ``T`` are rank counts (``n`` is
+``1 x n`` for rollout, ``n x 1`` for training) or ``dp,tp``.  With
+``--async-rlhf`` generation overlaps training; the first training rank
+prints the ``disaggregated: rollout=... train=...`` line and the
+summaries.  On CUDA one card may hold one rank of each role (two ranks of
+one role mesh on one card are refused), so one card runs ``1 | 1``::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch opt-125m --rlhf --rollout-mesh 1 --train-mesh 1 --async-rlhf
+
+``--mesh`` with the split is refused (the reference lets the split win
+silently), as is ``--async-rlhf`` on a shared ``--mesh`` of more than one
+rank (not ported yet: run it disaggregated); ``--mesh`` with ``--lora`` is
+refused as in the reference.
 
 Runs on CUDA; ``--device cpu`` runs on the CPU with the kernels' plain
 versions.
@@ -114,7 +130,9 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core import lora as LoRA
 from repro_torch.data import CopyTaskDataset, DataBlender, SortTaskDataset
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import init_distributed, mesh_from_spec
+from repro_torch.launch.mesh import (_submesh_shape, init_distributed,
+                                     make_disaggregated_meshes,
+                                     mesh_from_spec)
 from repro_torch.models import transformer as T
 from repro_torch.models.modules import tree_leaves
 from repro_torch.sharding import runtime
@@ -124,9 +142,6 @@ from repro_torch.training.steps import (lm_loss_fn, lm_train_step,
                                         value_and_grad)
 from repro_torch.training.train_state import TrainState
 
-# the reference's options that belong to later slices: (flag, dest)
-NOT_PORTED = (("--rollout-mesh", "rollout_mesh"),
-              ("--train-mesh", "train_mesh"))
 # the asynchronous stage 3's knobs: (flag, dest, the reference's default)
 ASYNC_KNOBS = (("--queue-depth", "queue_depth", 2),
                ("--publish-every", "publish_every", 1),
@@ -183,8 +198,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "(--rlhf); training forwards are untouched")
     ap.add_argument("--async-rlhf", action="store_true",
                     help="overlap stage-3 generation and training via "
-                         "the replay queue (--rlhf; one device or --mesh "
-                         "1,1)")
+                         "the replay queue (--rlhf; one device, --mesh 1,1 "
+                         "or the disaggregated split)")
     ap.add_argument("--queue-depth", type=int, default=None,
                     help="replay queue capacity (backpressure bound; "
                          "default 2)")
@@ -197,9 +212,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--is-ratio-abort", type=float, default=None,
                     help="importance-ratio ceiling: a stale batch whose "
                          "max ratio exceeds it drops the run to lockstep")
-    for flag, dest in NOT_PORTED:
-        ap.add_argument(flag, dest=dest, default=None,
-                        help=argparse.SUPPRESS)
+    ap.add_argument("--rollout-mesh", default=None,
+                    help="disaggregated stage 3 (--rlhf, with "
+                         "--train-mesh): the rollout mesh, 'n' (1 x n) or "
+                         "'dp,tp', on the first ranks under torchrun; "
+                         "refused with --mesh")
+    ap.add_argument("--train-mesh", default=None,
+                    help="disaggregated stage 3 (--rlhf, with "
+                         "--rollout-mesh): the training mesh, 'n' (n x 1) "
+                         "or 'dp,tp', on the ranks after the rollout mesh")
     return ap
 
 
@@ -268,10 +289,12 @@ def train_lm(cfg, state: TrainState, *, steps: int, batch: int, seq: int,
                    "tokens_per_step": batch * seq}
 
 
-def run_rlhf(args, cfg, device, iter_hook=None, mesh=None) -> dict:
+def run_rlhf(args, cfg, device, iter_hook=None, mesh=None,
+             rollout_mesh=None) -> dict:
     """SFT -> RM -> PPO on the synthetic blend (the reference's
-    ``run_rlhf`` without the disaggregated meshes; ``--ckpt-dir`` makes it
-    durable and resumable, ``--async-rlhf`` overlaps stage 3).
+    ``run_rlhf``; ``--ckpt-dir`` makes it durable and resumable,
+    ``--async-rlhf`` overlaps stage 3, ``rollout_mesh`` with ``mesh`` the
+    training mesh runs it disaggregated).
     Prints the reference's summary lines and returns the pipeline's logs:
     ``sft_loss``, ``rm_acc``, ``ppo_scores``, ``stage3`` (one metrics dict
     per PPO iteration), ``step_ms``, ``timings``, ``gen_tok_s``, the
@@ -280,7 +303,8 @@ def run_rlhf(args, cfg, device, iter_hook=None, mesh=None) -> dict:
     the reference's summary keys (``produced``, ``max_depth``,
     ``dropped``, ``fallbacks``, ``publishes``) beside the queue's, the
     publisher's and the producer's whole telemetry.  ``iter_hook(pipeline,
-    i)`` is called at the top of each PPO iteration."""
+    i)`` is called at the top of each PPO iteration.  On a rollout rank
+    of the split the logs are empty and ``state_sha256`` is ``None``."""
     from repro_torch.core import (AsyncConfig, PPOConfig, RLHFEngine,
                                   RLHFPipeline, StageConfig)
     async_cfg = None
@@ -293,7 +317,7 @@ def run_rlhf(args, cfg, device, iter_hook=None, mesh=None) -> dict:
     eng = RLHFEngine(cfg, cfg.replace(name=cfg.name + "-critic"),
                      torch.Generator(device=device).manual_seed(args.seed),
                      mesh=mesh, train_strategy=args.strategy,
-                     zero=args.zero)
+                     zero=args.zero, rollout_mesh=rollout_mesh)
     mgr = (checkpoint.CheckpointManager(args.ckpt_dir, keep=args.keep)
            if args.ckpt_dir else None)
     pipe = RLHFPipeline(
@@ -309,6 +333,10 @@ def run_rlhf(args, cfg, device, iter_hook=None, mesh=None) -> dict:
     if iter_hook is not None:
         pipe.iter_hook = functools.partial(iter_hook, pipe)
     out = pipe.run()
+    if eng.role == "rollout":
+        return dict(out, stage3=[], step_ms=pipe.step_ms, gen_tok_s=0.0,
+                    **{"async": pipe.async_stats or None},
+                    state_sha256=None, ckpt_stats=None)
     t = out["timings"]
     print(f"sft_loss={out['sft_loss'][-1]:.4f}  "
           f"rm_acc={np.mean(out['rm_acc']):.2f}  "
@@ -354,12 +382,15 @@ def main(argv=None, iter_hook=None, cfg=None) -> dict:
     card cannot hold whole)."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.rollout_mesh is not None or args.train_mesh is not None:
+        return _main_split(ap, args, iter_hook, cfg)
     if args.mesh is None:
         return _main(ap, args, iter_hook, cfg)
     if args.async_rlhf and math.prod(
             int(x) for x in args.mesh.split(",")) > 1:
-        ap.error("--async-rlhf on a mesh of more than one rank: not yet "
-                 "ported")
+        ap.error("--async-rlhf on a shared mesh of more than one rank: not "
+                 "yet ported; run it disaggregated (--rollout-mesh, "
+                 "--train-mesh)")
     if args.lora:
         ap.error("--mesh with --lora is not supported")
     import torch.distributed as dist
@@ -381,10 +412,50 @@ def main(argv=None, iter_hook=None, cfg=None) -> dict:
             dist.destroy_process_group()
 
 
-def _main(ap, args, iter_hook, cfg, mesh=None, device=None) -> dict:
-    for flag, dest in NOT_PORTED:
-        if getattr(args, dest) is not None:
-            ap.error(f"{flag}: not yet ported")
+def _main_split(ap, args, iter_hook, cfg) -> dict:
+    """The disaggregated split under ``torchrun`` (``nr + nt`` ranks)."""
+    if args.rollout_mesh is None or args.train_mesh is None:
+        ap.error("--rollout-mesh and --train-mesh go together")
+    if args.mesh is not None:
+        ap.error("--mesh with --rollout-mesh/--train-mesh: give the "
+                 "training mesh as --train-mesh")
+    if not args.rlhf:
+        ap.error("--rollout-mesh and --train-mesh apply to --rlhf")
+    try:
+        shapes = (_submesh_shape(args.rollout_mesh, "model", "--rollout-mesh"),
+                  _submesh_shape(args.train_mesh, "data", "--train-mesh"))
+    except ValueError as e:
+        ap.error(str(e))
+    import torch.distributed as dist
+    if args.device == "cuda" and not torch.cuda.is_available():
+        ap.error("CUDA is not available; pass --device cpu to run on the "
+                 "CPU with the kernels' plain versions")
+    owned = not dist.is_initialized()
+    device = init_distributed(args.device, shared_cards=True)
+    try:
+        n = sum(dp * tp for dp, tp in shapes)
+        if dist.get_world_size() != n:
+            raise SystemExit(
+                f"--rollout-mesh {args.rollout_mesh} --train-mesh "
+                f"{args.train_mesh} needs exactly {n} ranks (torchrun "
+                f"--nproc-per-node {n}), have {dist.get_world_size()}")
+        rollout_mesh, mesh, role = make_disaggregated_meshes(
+            rollout=args.rollout_mesh, train=args.train_mesh)
+        quiet = dist.get_rank() != shapes[0][0] * shapes[0][1]
+        with contextlib.redirect_stdout(io.StringIO()) if quiet \
+                else contextlib.nullcontext():
+            print("disaggregated: rollout={} train={}".format(*(
+                dict(zip(m.mesh_dim_names, m.shape))
+                for m in (rollout_mesh, mesh))))
+            return _main(ap, args, iter_hook, cfg, mesh=mesh, device=device,
+                         rollout_mesh=rollout_mesh)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _main(ap, args, iter_hook, cfg, mesh=None, device=None,
+          rollout_mesh=None) -> dict:
     if not args.rlhf and (args.max_new is not None or args.kv_quant
                           or args.async_rlhf):
         ap.error("--max-new, --kv-quant and --async-rlhf apply to --rlhf")
@@ -430,7 +501,8 @@ def _main(ap, args, iter_hook, cfg, mesh=None, device=None) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     if args.rlhf:
         before = ops.launch_counts()
-        summary = run_rlhf(args, cfg, device, iter_hook, mesh=mesh)
+        summary = run_rlhf(args, cfg, device, iter_hook, mesh=mesh,
+                           rollout_mesh=rollout_mesh)
         after = ops.launch_counts()
         return dict(summary, arch=cfg.name, device=str(device),
                     launches={k: after[k] - before[k] for k in after},

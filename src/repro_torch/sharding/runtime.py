@@ -533,6 +533,14 @@ def all_sum(values, group):
     return list(flat.unbind())
 
 
+def all_max(x, group):
+    """The elementwise max of ``x`` over ``group`` (no grad)."""
+    import torch.distributed as dist
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
 def all_true(flags, group) -> bool:
     """Whether every one of ``flags`` (a bool tensor) is set on every rank
     of ``group``: one all-reduce, so that the ranks take the same branch
@@ -545,14 +553,15 @@ def all_true(flags, group) -> bool:
     return bool(t.item())
 
 
-def same_on_ranks(value: int, group=None) -> bool:
-    """Whether the integer ``value`` is the same on every rank of ``group``
-    (the default group with ``None``): one all-reduce, so that every rank
-    gets the same answer."""
+def same_on_mesh(value: int, mesh) -> bool:
+    """Whether the integer ``value`` is the same on every rank of ``mesh``
+    (one all-reduce over each of its axes of more than one rank)."""
     import torch.distributed as dist
     t = torch.tensor([value, -value], dtype=torch.int64,
-                     device=_group_device(group))
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+                     device=_group_device(mesh.get_group(0)))
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(i))
     return int(t[0]) == value == -int(t[1])
 
 
@@ -631,3 +640,225 @@ def gather_chunk(toks, was, done, group):
     h = gather_rows(packed, group).cpu().numpy()
     return (h[:, :c].T.astype(np.int32), h[:, c:2 * c].T.astype(bool),
             h[:, 2 * c].astype(bool))
+
+
+# ===================================================================== #
+# from one mesh to another: windows sent point to point
+# ===================================================================== #
+@dataclasses.dataclass(frozen=True)
+class Side:
+    """One end of a cross-mesh transfer: the mesh's ``axes``
+    (``{name: size}``) and its global ``ranks`` in row-major order (one
+    rank and no axes for a tree of plain tensors)."""
+    axes: dict
+    ranks: tuple
+
+
+def side_of(mesh) -> Side:
+    """The :class:`Side` of a ``DeviceMesh``."""
+    return Side(dict(mesh_axes(mesh)),
+                tuple(int(r) for r in mesh.mesh.flatten().tolist()))
+
+
+def _box(win, shape) -> tuple:
+    """A :func:`window` with every dim as ``(start, stop)``."""
+    return tuple((0, n) if w is None else tuple(w)
+                 for w, n in zip(win, shape))
+
+
+def _meet(a, b):
+    """The intersection of two boxes, ``None`` when it is empty."""
+    out = tuple((max(a0, b0), min(a1, b1)) for (a0, a1), (b0, b1)
+                in zip(a, b))
+    return out if all(lo < hi for lo, hi in out) else None
+
+
+def bridge_plan(leaves, src: Side, dst: Side) -> list:
+    """Who sends what to whom, for leaves ``(global shape, source pspec,
+    destination pspec)`` laid out on ``src`` and wanted on ``dst``: per
+    leaf the pieces ``(source rank, destination rank, box, source box,
+    destination box)``, boxes as ``(start, stop)`` per dim.  Each
+    destination rank's window is covered exactly once, by its overlaps
+    with the distinct source windows; an overlap that several source ranks
+    hold goes to the one given the fewest elements so far (the lowest on a
+    tie), as a checkpoint's writers are chosen.  A pure function: both
+    sides derive the same plan, and run its pieces in its order."""
+    load = [0] * len(src.ranks)
+    s_coords, d_coords = mesh_coords(src.axes), mesh_coords(dst.axes)
+    plan = []
+    for shape, s_ps, d_ps in leaves:
+        s_wins = [_box(window(s_ps, src.axes, shape, c), shape)
+                  for c in s_coords]
+        pieces = []
+        for di, c in enumerate(d_coords):
+            dw = _box(window(d_ps, dst.axes, shape, c), shape)
+            for sw in dict.fromkeys(s_wins):
+                box = _meet(sw, dw)
+                if box is None:
+                    continue
+                si = min((i for i, w in enumerate(s_wins) if w == sw),
+                         key=lambda i: (load[i], i))
+                load[si] += math.prod(hi - lo for lo, hi in box)
+                pieces.append((src.ranks[si], dst.ranks[di], box, sw, dw))
+        plan.append(pieces)
+    return plan
+
+
+def _rel(box, origin) -> tuple:
+    """``box`` as slices of a tensor whose window is ``origin``."""
+    return tuple(slice(lo - o, hi - o) for (lo, hi), (o, _) in
+                 zip(box, origin))
+
+
+def tree_meta(leaves) -> dict:
+    """What the destination needs to know of a source tree's leaves
+    (``DTensor``\\ s on one mesh, or plain tensors at one rank): each
+    leaf's global shape, dtype and pspec, and the source :class:`Side`."""
+    import torch.distributed as dist
+    out, src = [], None
+    for x in leaves:
+        if is_dtensor(x):
+            m = x.device_mesh
+            side = side_of(m)
+            ps = pspec_of(x.placements, m.mesh_dim_names, x.dim())
+        else:
+            side = Side({}, (dist.get_rank(),))
+            ps = (None,) * x.dim()
+        if src is None:
+            src = side
+        elif side != src:
+            raise ValueError("cross-mesh transfer: the source tree's "
+                             "leaves lie on more than one mesh")
+        out.append((tuple(x.shape), str(x.dtype).removeprefix("torch."),
+                    ps))
+    return {"leaves": out, "src": src}
+
+
+def _plan_of(meta: dict, dst_shardings: list) -> list:
+    dst = side_of(dst_shardings[0].mesh)
+    leaves = [(shape, ps, sh.spec) for (shape, _, ps), sh in
+              zip(meta["leaves"], dst_shardings)]
+    return bridge_plan(leaves, meta["src"], dst)
+
+
+def window_bytes(meta: dict, dst_shardings: list) -> int:
+    """Bytes the destination ranks hold of the tree after a transfer: each
+    rank's window, replicas counted once per rank (the reference's
+    ``_tree_device_bytes`` of the placed tree)."""
+    dst = side_of(dst_shardings[0].mesh)
+    total = 0
+    for (shape, dt, _), sh in zip(meta["leaves"], dst_shardings):
+        item = torch.empty((), dtype=getattr(torch, dt)).element_size()
+        for c in mesh_coords(dst.axes):
+            box = _box(window(sh.spec, dst.axes, shape, c), shape)
+            total += item * math.prod(hi - lo for lo, hi in box)
+    return total
+
+
+# a piece is spread over the lanes from this many bytes up
+_LANE_MIN_BYTES = 4 << 20
+
+
+def _lanes_of(host, groups) -> list:
+    """``(chunk, group)``: the bytes of the pinned (or CPU) tensor ``host``
+    in contiguous chunks, one per group (one alone below
+    ``_LANE_MIN_BYTES``)."""
+    flat = host.view(-1).view(torch.uint8)
+    n = len(groups) if flat.numel() >= _LANE_MIN_BYTES else 1
+    return list(zip(flat.chunk(n), groups))
+
+
+def send_windows(leaves, meta: dict, dst_shardings: list, groups,
+                 ready=None) -> None:
+    """This rank's pieces of a transfer (:func:`bridge_plan`) sent over the
+    gloo ``groups`` (a large piece's bytes spread over all of them, sent
+    at once), one piece after another in the plan's order.  A piece on
+    the card is copied to pinned host memory first, on a stream of its own
+    that waits for ``ready`` (an event after the tree's last write, or
+    ``None``); the next piece's copy runs while this one is sent, so at
+    most two pieces are held on the host."""
+    import torch.distributed as dist
+    me = dist.get_rank()
+    plan = _plan_of(meta, dst_shardings)
+    mine = [(i, p) for i, pieces in enumerate(plan) for p in pieces
+            if p[0] == me]
+    if not mine:
+        return
+    dev = local(leaves[mine[0][0]]).device
+    cuda = dev.type == "cuda"
+    stream = torch.cuda.Stream(dev) if cuda else None
+    if cuda and ready is not None:
+        stream.wait_event(ready)
+
+    def stage(i, box, sw):
+        piece = local(leaves[i])[_rel(box, sw)]
+        if not cuda:
+            return piece.contiguous(), None
+        host = torch.empty(piece.shape, dtype=piece.dtype, pin_memory=True)
+        with torch.cuda.stream(stream):
+            host.copy_(piece, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return host, done
+
+    works = []
+    nxt = stage(mine[0][0], mine[0][1][2], mine[0][1][3])
+    for k, (_, (_, dst, _, _, _)) in enumerate(mine):
+        host, done = nxt
+        if done is not None:
+            done.synchronize()
+        for w in works:                       # the previous piece is out
+            w.wait()
+        works = [dist.isend(chunk, dst, group=g)
+                 for chunk, g in _lanes_of(host, groups)]
+        if k + 1 < len(mine):
+            i, (_, _, box, sw, _) = mine[k + 1]
+            nxt = stage(i, box, sw)
+    for w in works:
+        w.wait()
+
+
+def recv_windows(meta: dict, dst_shardings: list, groups, device):
+    """The other end of :func:`send_windows` on a destination rank: this
+    rank's window of every leaf, received piece by piece in the plan's
+    order into tensors on ``device`` (through pinned host memory and a
+    stream of its own on the card; the tensors are made on the calling
+    thread's stream and are complete on return), as ``DTensor``\\ s on the
+    destination mesh, or plain tensors when it has one rank."""
+    import torch.distributed as dist
+    me = dist.get_rank()
+    plan = _plan_of(meta, dst_shardings)
+    mesh = dst_shardings[0].mesh
+    coord = mesh.get_coordinate()
+    axes = mesh_axes(mesh)
+    cuda = torch.device(device).type == "cuda"
+    stream = torch.cuda.Stream(device) if cuda else None
+    out = []
+    for (shape, dt, _), sh, pieces in zip(meta["leaves"], dst_shardings,
+                                          plan):
+        dtype = getattr(torch, dt)
+        dw = _box(window(sh.spec, axes, shape, coord), shape)
+        loc = torch.empty(tuple(hi - lo for lo, hi in dw), dtype=dtype,
+                          device=device)
+        if cuda:
+            stream.wait_stream(torch.cuda.current_stream(device))
+        for src, dst, box, _, _ in pieces:
+            if dst != me:
+                continue
+            host = torch.empty(tuple(hi - lo for lo, hi in box),
+                               dtype=dtype, pin_memory=cuda)
+            for w in [dist.irecv(chunk, src, group=g)
+                      for chunk, g in _lanes_of(host, groups)]:
+                w.wait()
+            if cuda:
+                with torch.cuda.stream(stream):
+                    loc[_rel(box, dw)].copy_(host, non_blocking=True)
+            else:
+                loc[_rel(box, dw)].copy_(host)
+        out.append(loc if mesh_size(mesh) == 1 else from_local(
+            loc, mesh, sh.placements, shape))
+    if cuda:
+        done = torch.cuda.Event()
+        done.record(stream)
+        done.synchronize()
+    return out

@@ -28,11 +28,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.modules import ParamSpec, tree_leaves, tree_map
+from repro_torch.models.modules import (ParamSpec, tree_leaves, tree_map,
+                                        tree_unflatten)
 
 STRATEGIES = ("ddp", "zero1", "zero3", "tp")
 
@@ -409,13 +410,103 @@ def train_state_shardings(cfg: ModelConfig, mesh, strategy: str, *,
                                            specs=specs), mesh)
 
 
-def cross_mesh_put(tree, shardings):
-    """Placement onto another device set (the disaggregated weight push):
-    belongs to the disaggregated meshes, not yet ported."""
+def cross_mesh_put(tree, shardings, bridge=None):
+    """``tree`` placed onto ``shardings`` on a disjoint set of ranks: the
+    disaggregated weight push from the training mesh to the rollout mesh,
+    a collective over ``bridge`` (a
+    :class:`repro_torch.launch.mesh.Bridge`, its ``weights`` group).
+
+    On a training rank ``tree`` is in the training layout (``DTensor``\\ s
+    on the training mesh, ZeRO-sharded and cut over ``model``, or plain
+    tensors when that mesh has one rank); the first training rank sends
+    every rollout rank the tree's shapes, dtypes and layout, then each
+    piece of a rollout rank's window goes from one training rank that
+    holds it (:func:`repro_torch.sharding.runtime.bridge_plan`), leaf by
+    leaf, through pinned host memory on gloo; returns ``None``.  On a
+    rollout rank ``tree`` is not read, and the result is this rank's
+    window of every leaf, bit for bit (``DTensor``\\ s on the rollout mesh,
+    plain tensors when it has one rank).  Other ranks get ``None``.
+    ``shardings=None`` returns ``tree`` unchanged (one device)."""
     if shardings is None:
         return tree
-    raise NotImplementedError("cross_mesh_put (disaggregated meshes): "
-                              "not yet ported")
+    if bridge is None:
+        raise ValueError("cross_mesh_put to another mesh needs the bridge "
+                         "between the two meshes (launch.mesh.bridge_of)")
+    role = bridge.role
+    if role == "train":
+        push_tree(tree, shardings, bridge)
+        return None
+    if role == "rollout":
+        import torch
+        header = recv_header(bridge)
+        if header.get("kind") != "weights":
+            raise ValueError(f"cross_mesh_put: expected weights, got "
+                             f"{header.get('kind')!r}")
+        mesh = tree_leaves(shardings, is_leaf=_is_sharding)[0].mesh
+        dev = torch.device("cuda", torch.cuda.current_device()) if (
+            mesh.device_type == "cuda") else torch.device("cpu")
+        return pull_tree(header, shardings, bridge, dev)
+    return None
+
+
+def _is_sharding(x) -> bool:
+    return isinstance(x, Sharding)
+
+
+def push_tree(tree, shardings, bridge, ready=None, **header) -> dict:
+    """The training side of :func:`cross_mesh_put`: the first training rank
+    sends each rollout rank a header (``kind="weights"``, the tree's meta
+    and ``header``'s keys), then every training rank sends its pieces
+    (``ready``: see :func:`repro_torch.sharding.runtime.send_windows`).
+    Returns ``bytes``, what the rollout ranks hold after it
+    (:func:`repro_torch.sharding.runtime.window_bytes`)."""
+    from repro_torch.sharding import runtime
+    sh = tree_leaves(shardings, is_leaf=_is_sharding)
+    # the tree's leaves in the shardings' order
+    leaves = tree_leaves(tree_map(lambda _, x: x, shardings, tree,
+                                  is_leaf=_is_sharding))
+    meta = runtime.tree_meta(leaves)
+    if bridge.train_ranks[0] == _rank():
+        for r in bridge.rollout_ranks:
+            send_header(bridge, r, dict(header, kind="weights", meta=meta))
+    runtime.send_windows(leaves, meta, sh,
+                         (bridge.weights,) + tuple(bridge.lanes), ready)
+    return {"bytes": runtime.window_bytes(meta, sh)}
+
+
+def pull_tree(header: dict, shardings, bridge, device):
+    """The rollout side of :func:`cross_mesh_put` after its ``header``:
+    this rank's windows as a tree shaped as ``shardings``."""
+    from repro_torch.sharding import runtime
+    sh = tree_leaves(shardings, is_leaf=_is_sharding)
+    leaves = runtime.recv_windows(header["meta"], sh,
+                                  (bridge.weights,) + tuple(bridge.lanes),
+                                  device)
+    return tree_unflatten(shardings, leaves, is_leaf=_is_sharding)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def send_header(bridge, dst: int, msg: dict, group=None) -> None:
+    """One message (a small picklable dict) to rank ``dst`` over the
+    bridge's ``weights`` group (or ``group``)."""
+    import torch.distributed as dist
+    dist.send_object_list([msg], dst,
+                          group=bridge.weights if group is None else group)
+
+
+def recv_header(bridge, src: Optional[int] = None, group=None) -> dict:
+    """The next message from ``src`` (default: the first training rank)
+    over the bridge's ``weights`` group (or ``group``)."""
+    import torch.distributed as dist
+    box = [None]
+    dist.recv_object_list(box, bridge.train_ranks[0] if src is None
+                          else src,
+                          group=bridge.weights if group is None else group)
+    return box[0]
 
 
 def shard_batch(tree, mesh):

@@ -11,6 +11,14 @@ only, from those weights, on the copy + constant blend) and writes, as
 numpy: the sequences each scored rollout held, the per-iteration metrics,
 ``async_stats`` and the final actor, critic and EMA params.
 
+With ``split`` ``(rollout, train)`` in ``IN`` (for
+``tests/test_torch_disaggregated.py``; run it with
+``XLA_FLAGS=--xla_force_host_platform_device_count=4``) every mode runs
+disaggregated, on ``make_disaggregated_meshes(rollout=, train=)``; a mode
+whose keywords are ``None`` is the synchronous loop over the split; and
+``put`` holds, for each rollout device in mesh order, the shard of every
+leaf of the actor that ``cross_mesh_put`` placed there.
+
 ``repro.core`` does not import on Python 3.12 (ROADMAP Queue 3, R1):
 ``tests/_jax_mesh_reference.py``'s loader, imported first, gives
 ``repro.serving.engine``'s one field a ``default_factory``; the file is
@@ -47,17 +55,20 @@ def blender(V: int, width: int):
     return DataBlender(ds, [0.7, 0.3], seed=0)
 
 
-def run_mode(inp, async_kw) -> dict:
+def run_mode(inp, async_kw, meshes=None) -> dict:
     actor_cfg = ModelConfig(name="a", **inp["model"])
     critic_cfg = actor_cfg.replace(name="c")
-    eng = RLHFEngine(actor_cfg, critic_cfg, jax.random.PRNGKey(0))
+    rollout_mesh, mesh = meshes or (None, None)
+    eng = RLHFEngine(actor_cfg, critic_cfg, jax.random.PRNGKey(0),
+                     mesh=mesh, rollout_mesh=rollout_mesh)
     for k in ("actor", "ref", "critic", "reward"):
         setattr(eng, f"{k}_params", _jnp(inp[k]))
     pipe = RLHFPipeline(eng, blender(inp["model"]["vocab_size"],
                                      inp["width"]),
                         StageConfig(**inp["stages"]),
                         PPOConfig(**inp["ppo_kw"]),
-                        async_cfg=AsyncConfig(**async_kw))
+                        async_cfg=(None if async_kw is None
+                                   else AsyncConfig(**async_kw)))
     seen = []
     score = PPOTrainer.score_rollout
 
@@ -77,10 +88,30 @@ def run_mode(inp, async_kw) -> dict:
             "ema": _np(tr.ema_params())}
 
 
+def put_shards(inp, rollout_mesh) -> list:
+    """Each rollout device's shard of every actor leaf after
+    ``cross_mesh_put`` into the rollout mesh's ``tp`` layout."""
+    from repro.sharding import strategy as S
+    cfg = ModelConfig(name="a", **inp["model"])
+    out = S.cross_mesh_put(_jnp(inp["actor"]),
+                           S.param_shardings(cfg, rollout_mesh, "tp"))
+    return [jax.tree.map(lambda leaf, d=d: np.asarray(next(
+        sh.data for sh in leaf.addressable_shards if sh.device == d)), out)
+        for d in rollout_mesh.devices.flat]
+
+
 def main(src: str, dst: str) -> None:
     with open(src, "rb") as f:
         inp = pickle.load(f)
-    out = {name: run_mode(inp, kw) for name, kw in inp["modes"].items()}
+    meshes = None
+    if "split" in inp:
+        from repro.launch.mesh import make_disaggregated_meshes
+        meshes = make_disaggregated_meshes(rollout=inp["split"][0],
+                                           train=inp["split"][1])
+    out = {name: run_mode(inp, kw, meshes)
+           for name, kw in inp["modes"].items()}
+    if meshes is not None:
+        out["put"] = put_shards(inp, meshes[0])
     with open(dst, "wb") as f:
         pickle.dump(out, f)
 

@@ -333,11 +333,16 @@ def case_refusals(world: int) -> dict:
             core.step()
         out["core_stats"] = core.stats()
     grab("core", core_drain)
-    grab("rollout_mesh", lambda: PPOTrainer(
+    # a rollout mesh needs the training mesh's engine beside it, and the
+    # two must be make_disaggregated_meshes' disjoint pair
+    trainer = lambda **kw: PPOTrainer(
         actor_cfg=ACTOR, critic_cfg=CRITIC, actor_params=models()[0],
         critic_params=models()[2], ref_params=models()[1],
         reward_params=models()[3], ppo=PPOConfig(**PPO_KW),
-        rollout_mesh=dmesh))
+        rollout_mesh=dmesh, **kw)
+    grab("rollout_mesh", trainer)
+    grab("rollout_mesh_shared",
+         lambda: trainer(engine=HybridEngine(ACTOR, dmesh)))
     return out
 
 

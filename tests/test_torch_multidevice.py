@@ -360,7 +360,10 @@ def test_train_state_local_shapes_follow_the_pspecs(runs, dp, strategy):
 @pytest.mark.parametrize("what", ["mla_tp2", "ssm_tp2", "xattn_tp2",
                                   "core", "rollout_mesh"])
 def test_mesh_refusals(runs, what):
-    """``rollout_mesh`` is refused; MLA, SSM and cross-attention layers on
+    """A ``rollout_mesh`` without the training mesh's engine, or sharing
+    the engine's ranks (not the disjoint pair of
+    ``make_disaggregated_meshes``), is refused (the split itself:
+    ``tests/test_torch_disaggregated.py``); MLA, SSM and cross-attention layers on
     ``model > 1`` are accepted (their compute is
     ``tests/test_torch_tp_layers.py``'s), and so is ``core()`` on a 4 x 1
     mesh: drained on 4 slots (one a data rank), its ``stats()`` are the
@@ -379,8 +382,12 @@ def test_mesh_refusals(runs, what):
             core.step()
         assert runs[4]["refusals"]["core_stats"] == core.stats()
         return
-    assert msg is not None and msg.startswith("NotImplementedError")
-    assert "not yet ported" in msg
+    assert msg == ("ValueError: PPOTrainer(rollout_mesh=) needs engine=: a "
+                   "HybridEngine on the training mesh, disjoint from the "
+                   "rollout mesh")
+    shared = runs[4]["refusals"]["rollout_mesh_shared"]
+    assert shared.startswith("ValueError: a rollout mesh and a training "
+                             "mesh come from make_disaggregated_meshes")
 
 
 def test_mesh_with_checkpoints_is_refused(tmp_path):

@@ -578,9 +578,11 @@ class _TPMesh:
 
 @pytest.mark.parametrize("what", ["engine", "rollout_mesh"])
 def test_trainer_refuses_what_is_not_ported(what):
-    """The rollout mesh (disaggregated generation) and an engine whose
-    mesh's model axis does not divide an actor's Mamba2 groups are not
-    yet ported (the check comes before the params are read)."""
+    """An engine whose mesh's model axis does not divide an actor's Mamba2
+    groups is not yet ported; a rollout mesh (disaggregated generation)
+    without the training mesh's engine is refused (the split itself:
+    ``tests/test_torch_disaggregated.py``).  Both checks come before the
+    params are read."""
     ajcfg, atcfg, cjcfg, ctcfg = _configs()
     jm = _models(ajcfg, cjcfg, seed=13)
     arg = (types.SimpleNamespace(mesh=_TPMesh()) if what == "engine"
@@ -588,7 +590,9 @@ def test_trainer_refuses_what_is_not_ported(what):
     if what == "engine":
         atcfg = config_pair("mamba2-370m")[1].replace(ssm_ngroups=2)
     kw, cfg = {what: arg}, tppo.PPOConfig()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    err, match = ((NotImplementedError, "not yet ported") if what == "engine"
+                  else (ValueError, "needs engine="))
+    with pytest.raises(err, match=match):
         tppo.PPOTrainer(actor_cfg=atcfg, critic_cfg=ctcfg,
                         actor_params=_tensors(jm[0]),
                         critic_params=_tensors(jm[2]),
@@ -619,7 +623,9 @@ def test_trainer_refuses_aliased_frozen_models(frozen):
 def test_pipeline_refuses_what_is_not_ported():
     _, atcfg, _, ctcfg = _configs()
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # a rollout mesh goes with the training mesh (the disaggregated split,
+    # tests/test_torch_disaggregated.py)
+    with pytest.raises(ValueError, match="needs mesh=, the training mesh"):
         RLHFEngine(atcfg, ctcfg, gen, rollout_mesh=object())
     eng = RLHFEngine(atcfg, ctcfg, gen)
     bl = DataBlender([CopyTaskDataset(50, 4, 4, 64, seed=1)])
@@ -630,6 +636,7 @@ def test_pipeline_refuses_what_is_not_ported():
                  async_cfg=AsyncConfig.lockstep())
     two = types.SimpleNamespace(hybrid=types.SimpleNamespace(
         mesh=types.SimpleNamespace(shape={"data": 2, "model": 1})))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError,
+                       match="not yet ported; run it disaggregated"):
         RLHFPipeline(two, bl, StageConfig(), tppo.PPOConfig(),
                      async_cfg=AsyncConfig.lockstep())

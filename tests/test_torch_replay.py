@@ -377,9 +377,11 @@ def test_in_place_update_after_publish_leaves_the_version_unchanged(
 
 
 def test_publish_to_another_layout_is_not_yet_ported():
-    pub = R.WeightPublisher(shardings=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pub.publish(_params(0), 0)
+    """Another mesh's layout is reached across the bridge between the two
+    meshes: without its ends (``SplitEnds``) the publisher is refused (the
+    split: ``tests/test_torch_disaggregated.py``)."""
+    with pytest.raises(ValueError, match="across the bridge"):
+        R.WeightPublisher(shardings=object())
 
 
 @pytest.mark.async_rlhf

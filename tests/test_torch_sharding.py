@@ -129,10 +129,12 @@ def test_placements_follow_the_pspec():
 
 
 def test_disaggregated_pieces_are_refused():
-    """The cross-mesh put belongs to the disaggregated meshes (not yet
-    ported); with no target layout it is the identity, as in the
-    reference."""
+    """The cross-mesh put is a collective over the bridge between the
+    disaggregated meshes (``tests/test_torch_disaggregated.py``): without
+    one it is refused; with no target layout it is the identity, as in
+    the reference."""
     tree = {"a": 1}
     assert TS.cross_mesh_put(tree, None) is tree
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="needs the bridge between the two "
+                       "meshes"):
         TS.cross_mesh_put(tree, object())

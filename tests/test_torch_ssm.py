@@ -520,9 +520,9 @@ def test_launchers_refuse_what_is_not_ported(arch, launcher, argv, capsys):
     """Both launchers take the SSM and hybrid ids as the reference does:
     ``serve --kv-quant`` serves (int8 K/V rows for the hybrid's attention
     layers), on a 1 x 1 mesh too (a one-rank group in this process: the
-    same completions), and ``train`` trains.  What is still not ported
-    (``train``'s disaggregated rollout mesh) is refused with "not yet
-    ported"; ``serve`` refuses a malformed ``--mesh``."""
+    same completions), and ``train`` trains.  ``train`` refuses
+    ``--rollout-mesh`` without ``--train-mesh`` (they go together);
+    ``serve`` refuses a malformed ``--mesh``."""
     base = ["--device", "cpu", "--arch", arch, "--reduced", *argv]
     if launcher == "serve":
         run = [*base, "--requests", "3", "--max-new", "3", "--prompt-len",
@@ -544,7 +544,8 @@ def test_launchers_refuse_what_is_not_ported(arch, launcher, argv, capsys):
     with pytest.raises(SystemExit) as e:
         train.main([*base, "--rollout-mesh", "2"])
     assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert "--rollout-mesh and --train-mesh go together" in \
+        capsys.readouterr().err
 
 
 @pytest.mark.parametrize("arch", ARCHS)

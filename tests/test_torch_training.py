@@ -414,7 +414,10 @@ def test_sharded_pieces_are_not_ported():
     state = TrainState.create({"w": torch.zeros(2)})
     with pytest.raises(ValueError, match="mesh layout"):
         tsteps.lm_train_step(tcfg, state, {}, 1e-3, gather_pspecs={})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # the split needs a world of both meshes' ranks: a process without a
+    # group is one rank
+    with pytest.raises(ValueError, match="disaggregated meshes need 1 "
+                       "rollout \\+ 1 train = 2 ranks, have 1"):
         tmesh.make_disaggregated_meshes(rollout=1, train=1)
 
 
@@ -474,10 +477,11 @@ def test_train_main_returns_a_summary():
     ["--publish-every", "1"], ["--max-lag", "1"], ["--is-ratio-abort", "2"],
     ["--max-new", "8"], ["--kv-quant"]])
 def test_train_cli_refuses_unported_flags(flag):
-    """What is not ported (the disaggregated meshes, asynchronous RLHF on a
-    mesh of more than one rank), and the RLHF options without ``--rlhf``
-    (the asynchronous knobs also without ``--async-rlhf``), exit with an
-    error before anything runs."""
+    """What is not ported (asynchronous RLHF on a shared mesh of more than
+    one rank), one of ``--rollout-mesh`` / ``--train-mesh`` without the
+    other, and the RLHF options without ``--rlhf`` (the asynchronous knobs
+    also without ``--async-rlhf``), exit with an error before anything
+    runs."""
     with pytest.raises(SystemExit) as e:
         tlaunch.main(["--device", "cpu", "--arch", "smollm-135m",
                       "--reduced", *flag])
@@ -485,10 +489,15 @@ def test_train_cli_refuses_unported_flags(flag):
 
 
 def test_train_cli_refusal_names_the_flag():
+    """The split's flags go together (the reference's words); the split
+    itself runs under ``torchrun`` (``tests/test_torch_disaggregated.py``)."""
     res = _run(["--device", "cpu", "--arch", "smollm-135m", "--reduced",
                 "--rollout-mesh", "2"])
-    assert res.returncode != 0 and "--rollout-mesh: not yet ported" in \
-        res.stderr
+    assert res.returncode == 2 and \
+        "--rollout-mesh and --train-mesh go together" in res.stderr
+    res = _run(["--device", "cpu", "--arch", "smollm-135m", "--reduced",
+                "--rlhf", "--async-rlhf", "--mesh", "2,1"])
+    assert res.returncode == 2 and "run it disaggregated" in res.stderr
 
 
 def test_train_cli_without_a_card_refuses_to_run():

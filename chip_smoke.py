@@ -73,9 +73,20 @@ Phases (any failure raises, so the run exits non-zero):
    1, ``produced`` 4, ``puts == gets + dropped + depth``, RMSNorm, both
    flash kernels and the dense decode kernel launched (per iteration:
    wall, gen, scoring, actor and critic times and the queue's waits; the
-   publish seconds, retained bytes and peak memory); ``launch.train
-   --rlhf --async-rlhf --max-lag 1`` at OPT-125M (2 steps a stage): its
-   ``async`` summary, ``produced`` equal to the PPO steps.
+   publish seconds, retained bytes and peak memory); then on the shared
+   mesh at 1 x 1 (a one-rank NCCL group, ``RLHFEngine(mesh=)``): the
+   producer on a twin of the mesh (one-rank groups of its own) and a CUDA
+   stream of its own, each version published through the Hybrid Engine's
+   ``to_inference``: 3 lockstep iterations equal to the synchronous run
+   bit for bit (each scored batch, the metrics, each consumed item's
+   generator state, the final actor, critic and EMA), 2 stale iterations
+   at 256 new tokens with lags 0, 1, the producer's stream and groups
+   other than the mesh's, the four kernels launched (each iteration's
+   wall beside the one-device lockstep leg's); ``launch.train --rlhf
+   --async-rlhf --max-lag 1`` at OPT-125M (2 steps a stage): its
+   ``async`` summary, ``produced`` equal to the PPO steps; the same with
+   ``--mesh 1,1`` under ``torchrun --nproc-per-node 1``, started with the
+   phase.
 9. ``disagg``  — the disaggregated split at ``1 | 1`` on the one card:
    ``torchrun --nproc-per-node 2 chip_smoke.py --disagg-worker`` (rank 0
    the rollout mesh, rank 1 the training mesh; the default group gloo for
@@ -258,7 +269,10 @@ Phases (any failure raises, so the run exits non-zero):
    be the witness's (bytes, snapshot ms, write and restore s and GB/s, the step
    that overlaps a write against one that does not); the same run on the
    mesh path at 1 x 1 (``--mesh 1,1 --strategy tp --zero 1``, a one-rank
-   NCCL group in this process), whose sharded step-2 manifest must equal
+   NCCL group; this and the PPO mesh legs below run in a ``torchrun``
+   process of their own, ``chip_smoke.py --ckpt-mesh-worker``, started
+   with the phase and run beside its plain legs), whose sharded step-2
+   manifest must equal
    the plain run's (leaves, windows, sizes, CRCs) and final hash the
    witness, then the plain run's checkpoint resumed on the mesh path and
    the mesh run's on the plain path, each ending on the witness (the mesh
@@ -275,7 +289,7 @@ Phases (any failure raises, so the run exits non-zero):
    aside; at one rank the pipeline's trainer is the plain one);
    LoRA rank 8 at OPT-1.3B: one fp32 step at full width cut to 4 layers,
    2 x 512, loss and adapter grads kernel path against plain path (1e-4,
-   ``worst``), then 5 bf16 steps of 8 x 512 with ``--ckpt`` (adapter
+   ``worst``), then 3 bf16 steps of 8 x 512 with ``--ckpt`` (adapter
    count, peak memory, median step beside phase ``train``'s full SFT);
    ``launch.serve --ckpt`` of that export, greedy, whose tokens must equal
    serving the folded params from memory; ``examples/torch_rlhf_e2e.py``
@@ -2254,13 +2268,18 @@ def _paged_ppo_iteration(state, trainer, bl, ptx) -> list:
 # --------------------------------------------------------------------- #
 ASYNC_KERNELS = ("rmsnorm", "flash_attention_fwd", "flash_attention_bwd",
                  "decode_attention_fwd")
-# wall-time and async-only keys: left out of the lockstep == sync gate
+# wall-time, topology and async-only keys: left out of the lockstep ==
+# sync gate (the split's synchronous loop reports the training mesh's
+# reshard, 0 bytes, as the reference does)
 ASYNC_WALL = ("gen_tok_s", "gen_s", "score_ms", "actor_ms", "critic_ms",
               "publish_s", "publish_bytes", "queue_depth", "policy_lag",
-              "is_ratio_mean", "is_ratio_max", "lockstep_fallback")
+              "is_ratio_mean", "is_ratio_max", "lockstep_fallback",
+              "reshard_bytes", "reshard_s")
 ASYNC_LAUNCHER = ["--arch", "opt-125m", "--rlhf", "--async-rlhf", "--max-lag",
                   "1", "--steps", "2", "--batch", "8", "--seq", "256",
                   "--max-new", "32"]
+# the same on the shared 1 x 1 mesh, under torchrun (phase async starts it)
+ASYNC_MESH_LAUNCHER = [*ASYNC_LAUNCHER, "--mesh", "1,1"]
 
 
 def _async_leg(tag, eng, start, bl, stages, ppo, async_cfg):
@@ -2356,6 +2375,106 @@ def _async_leg(tag, eng, start, bl, stages, ppo, async_cfg):
     return out
 
 
+def _async_mesh(state, failures, models, bl, ppo, stages, lockstep_wall):
+    """(2b) asynchronous stage 3 on the shared mesh at 1 x 1 (a one-rank
+    NCCL group, ``RLHFEngine(mesh=)``): the producer on the mesh's twin
+    (one-rank groups of its own) and a CUDA stream of its own, each
+    version published through the Hybrid Engine's ``to_inference``.  3
+    lockstep iterations at ``REPEAT_NEW`` new tokens from the synchronous
+    leg's start and seeds (``models``: the actor's and critic's configs),
+    equal to it bit for bit (``state["async_sync"]``: each scored batch,
+    the metrics without the wall-time keys, each consumed item's generator
+    state, the final actor, critic and EMA), then 2 one-step-stale
+    iterations at 256 (lags exactly 0, 1).  Both legs ran the producer on a
+    non-default stream and on groups other than the mesh's, and launched
+    RMSNorm, both flash kernels and the dense decode kernel."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import AsyncConfig, RLHFEngine
+    from repro_torch.core.pipeline import clone_params
+    from repro_torch.sharding import runtime
+
+    want = state["async_sync"]
+    with one_rank_mesh("async") as mesh:
+        mine = runtime.group_names(mesh)
+        eng = RLHFEngine(*models,
+                         torch.Generator(device="cuda").manual_seed(0),
+                         mesh=mesh)
+        eng.ref_params = clone_params(eng.actor_params)
+        eng.reward_params = clone_params(eng.critic_params)
+        runs = {"lockstep": _async_leg(
+            "mesh lockstep", eng, (eng.actor_params, eng.critic_params), bl,
+            stages, ppo, AsyncConfig.lockstep())}
+        lock = runs["lockstep"]
+        same = {
+            "sequences": [_seq_sha(x) for x in lock["seqs"]] == want["seqs"],
+            "metrics": [{k: v for k, v in m.items() if k not in ASYNC_WALL}
+                        for m in lock["log"]] == want["metrics"],
+            "generator_states": len(lock["states"]) == len(want["states"])
+            and all(torch.equal(x, y) for x, y in zip(lock["states"],
+                                                      want["states"])),
+            **{k: _fingerprint(lock["final"][k]) == want["fingerprint"][k]
+               for k in ("actor", "critic", "ema")}}
+        log(f"[async] mesh 1 x 1 lockstep == one-device sync: {same}")
+        for i, (w0, w1) in enumerate(zip(lockstep_wall, lock["wall_s"])):
+            log(f"[async]   iteration {i}: wall one device (lockstep) "
+                f"{w0:.2f}s, mesh 1 x 1 {w1:.2f}s")
+        if not all(same.values()):
+            failures.append(f"mesh lockstep != one-device sync: {same}")
+        start = (lock["final"]["actor"], lock["final"]["critic"])
+        del lock
+        runs["lockstep"].pop("final")
+        torch.cuda.empty_cache()
+        runs["stale"] = _async_leg(
+            "mesh stale", eng, start, bl,
+            dataclasses.replace(stages, ppo_steps=2),
+            dataclasses.replace(ppo, max_new_tokens=256),
+            AsyncConfig(publish_every=2, max_lag=1))
+        del start
+        runs["stale"].pop("final")
+        lags = [m["policy_lag"] for m in runs["stale"]["log"]]
+        if lags != [0.0, 1.0]:
+            failures.append(f"mesh stale: policy_lag {lags}, wanted 0, 1")
+        for name, run in runs.items():
+            a = run["async"]
+            twin = a["producer_groups"]
+            log(f"[async] mesh {name}: producer on a stream of its own "
+                f"{a['producer_stream']}, on groups {twin}, the mesh's "
+                f"{mine}")
+            if not a["producer_stream"] or set(twin.values()) & set(
+                    mine.values()):
+                failures.append(f"mesh {name}: producer stream "
+                                f"{a['producer_stream']}, groups {twin} "
+                                f"against the mesh's {mine}")
+            _launched(f"async_mesh_{name}", run["launches"], ASYNC_KERNELS,
+                      state, failures)
+        state["async"]["mesh"] = {
+            "lockstep_equal": same, "stale_lags": lags,
+            "lockstep_wall_s": runs["lockstep"]["wall_s"],
+            "stale_wall_s": runs["stale"]["wall_s"],
+            "producer_groups": runs["stale"]["async"]["producer_groups"],
+            "mesh_groups": mine}
+        del runs, eng
+        torch.cuda.empty_cache()
+
+
+def _async_mesh_launcher(state, failures, run) -> None:
+    """(4) ``torchrun --nproc-per-node 1 -m repro_torch.launch.train
+    ASYNC_MESH_LAUNCHER`` (started with the phase): exit 0, and its
+    ``async`` summary line with ``produced`` equal to the PPO steps."""
+    rc, text, wall = _finish(run)
+    line = re.search(r"^async: produced=(\d+) max_depth=\d+ dropped=0 "
+                     r"fallbacks=\d+ publishes=\d+$", text, flags=re.M)
+    log(f"[async] torchrun launch.train {' '.join(ASYNC_MESH_LAUNCHER)}: "
+        f"exit {rc} in {wall:.1f}s; {line.group(0) if line else None}")
+    state["async"]["mesh_launcher"] = {"rc": rc, "seconds": wall}
+    steps = int(ASYNC_LAUNCHER[ASYNC_LAUNCHER.index("--steps") + 1])
+    if rc != 0 or line is None or int(line.group(1)) != steps:
+        failures.append(f"torchrun --mesh 1,1 --async-rlhf: rc {rc}, "
+                        f"summary {line}: {text[-2000:]}")
+
+
 def phase_async(state):
     """Asynchronous stage 3 at the RLHF cell's full width and depth
     (OPT-1.3B actor and reference, OPT-350M critic and reward model, bf16
@@ -2371,9 +2490,33 @@ def phase_async(state):
     ``policy_lag`` exactly 0, 1, 0, 1, ``is_ratio_*`` exactly 1.0 at lag 0
     and finite and positive at lag 1, ``produced == 4``, ``puts == gets +
     dropped + depth``, RMSNorm, both flash kernels and the dense decode
-    kernel launched; (3) ``launch.train --rlhf --async-rlhf --max-lag 1``
-    at OPT-125M (2 steps a stage): its ``async`` summary, ``produced``
-    equal to the PPO steps."""
+    kernel launched; (2b) the shared mesh at 1 x 1 (:func:`_async_mesh`:
+    3 lockstep iterations equal to (1)'s synchronous run bit for bit, 2
+    stale ones at lags 0, 1, the producer on its own stream and groups);
+    (3) ``launch.train --rlhf --async-rlhf --max-lag 1`` at OPT-125M (2
+    steps a stage): its ``async`` summary, ``produced`` equal to the PPO
+    steps; (4) the same with ``--mesh 1,1`` under ``torchrun``, started
+    with the phase and run beside it."""
+    failures = []
+    if "disagg" in state.get("phases", ()):
+        # phase disagg's ranks start now and initialize beside this phase
+        state["disagg_run"] = _start_disagg()
+    # (4) runs beside the phase (OPT-125M: the card has room for it)
+    mesh_launcher = _launch("async_mesh", "repro_torch.launch.train",
+                            ASYNC_MESH_LAUNCHER)
+    try:
+        _async_phase(state, failures)
+        _async_mesh_launcher(state, failures, mesh_launcher)
+    finally:
+        if mesh_launcher[0].poll() is None:
+            mesh_launcher[0].kill()
+            mesh_launcher[0].wait()
+    if failures:
+        raise AssertionError("async: " + "; ".join(failures))
+
+
+def _async_phase(state, failures):
+    """Phase ``async``'s legs (1)-(3) in this process."""
     import dataclasses
     import math
 
@@ -2386,10 +2529,6 @@ def phase_async(state):
     from repro_torch.launch.train import lm_data
     from repro_torch.models.modules import tree_leaves
 
-    failures = []
-    if "disagg" in state.get("phases", ()):
-        # phase disagg's ranks start now and initialize beside this phase
-        state["disagg_run"] = _start_disagg()
     actor, critic = get_config("opt-1.3b"), get_config("opt-350m")
     bl = lm_data(actor, 512, 0)
     eng = RLHFEngine(actor, critic,
@@ -2438,6 +2577,7 @@ def phase_async(state):
            for m in a["log"]) or a["async"]["produced"] != stages.ppo_steps:
         failures.append("lockstep: not on policy, or not every batch")
     state.setdefault("launches", {})["async_lockstep"] = a["launches"]
+    lockstep_wall = a["wall_s"]
     # (2) one step stale at the paper's 256 new tokens, from where the
     # synchronous leg ended
     start = (s["final"]["actor"], s["final"]["critic"])
@@ -2479,6 +2619,10 @@ def phase_async(state):
     del st
     eng = None
     torch.cuda.empty_cache()
+    # (2b) the shared mesh at 1 x 1, once the card is free again and before
+    # phase disagg's ranks take it
+    _async_mesh(state, failures, (actor, critic), bl, ppo, stages,
+                lockstep_wall)
     if "disagg_run" in state:
         # the card now has room for phase disagg's ranks (this phase's
         # launcher runs OPT-125M): they start their legs beside it
@@ -2501,8 +2645,6 @@ def phase_async(state):
         failures.append(f"launcher: async summary {summ}")
     _launched("async_launcher", counts, ASYNC_KERNELS, state, failures)
     _free(out)
-    if failures:
-        raise AssertionError("async: " + "; ".join(failures))
 
 
 # --------------------------------------------------------------------- #
@@ -2879,6 +3021,7 @@ def _sync_record(s) -> dict:
     return {"metrics": [{k: v for k, v in m.items() if k not in ASYNC_WALL}
                         for m in s["log"]],
             "seqs": [_seq_sha(x) for x in s["seqs"]],
+            "states": s["states"],
             "fingerprint": {k: _fingerprint(s["final"][k])
                             for k in ("actor", "critic", "ema")},
             "wall_s": s["wall_s"]}
@@ -4737,72 +4880,95 @@ def _ckpt_io(tag, saves, restore) -> None:
             f"= {restore['bytes'] / 1e9 / restore['seconds']:.3f} GB/s")
 
 
-def _ckpt_mesh(state, failures, sft) -> None:
-    """(5) sharded checkpoints on the mesh path at 1 x 1 (a one-rank NCCL
-    group in this process, as phase ``serve_mesh`` drives its launchers):
-    OPT-1.3B SFT at ``CKPT_SFT_LAYERS`` layers, ``--mesh 1,1 --strategy tp
-    --zero 1`` with saves, whose step-2 manifest must be the plain run's
-    (leaves, windows, sizes, CRCs) and final hash the witness; then the
-    plain run's checkpoint resumed on the mesh path and the mesh run's
-    (its last step deleted) on the plain path, each ending on the
-    witness (the resumes save nothing: their restores are the reading)."""
-    import shutil
-
+def _ckpt_sft_run(res: dict, name: str, argv: list, mesh: bool) -> None:
+    """``launch.train argv`` at OPT-1.3B cut to ``CKPT_SFT_LAYERS`` layers
+    (on a one-rank NCCL group when ``mesh``): ``res[name]`` takes its hash,
+    first step, saves, restore and launches."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
-    cfg = _ckpt_sft_cfg()
-    mesh_argv = ["--mesh", "1,1", "--strategy", "tp", "--zero", "1"]
+    log(f"[ckpt] {name}: python -m repro_torch.launch.train "
+        f"{' '.join(argv)} (n_layers {CKPT_SFT_LAYERS})")
+    ops.reset_launch_counts()
+    with one_rank_mesh("ckpt") if mesh else contextlib.nullcontext():
+        out = launch_train.main(argv, cfg=_ckpt_sft_cfg())
+    res[name] = {"sha": out["state_sha256"], "start": out["start"],
+                 "saves": out["ckpt_stats"], "restore": out["restore"],
+                 "launches": ops.launch_counts()}
+    _free(out)
+
+
+CKPT_MESH_ARGV = ["--mesh", "1,1", "--strategy", "tp", "--zero", "1"]
+
+
+def _ckpt_mesh_sft(res: dict) -> None:
+    """(5) in the worker: sharded checkpoints on the mesh path at 1 x 1:
+    OPT-1.3B SFT at ``CKPT_SFT_LAYERS`` layers, ``--mesh 1,1 --strategy tp
+    --zero 1`` with saves (its step-2 manifest and final hash), then its
+    checkpoint (last step deleted) resumed on the plain path, which saves
+    nothing: its restore is the reading.  :func:`_ckpt_mesh_check` holds
+    both to the plain run's."""
+    import shutil
     dm = CKPT_ROOT / "sft_mesh"
-    argv = [*OPT13_SFT, "--save-every", "2", "--keep", "2"]
-    got = {}
-    with one_rank_mesh("ckpt"):
-        log(f"[ckpt] mesh: python -m repro_torch.launch.train "
-            f"{' '.join(argv + mesh_argv)} --ckpt-dir {dm} (n_layers "
-            f"{CKPT_SFT_LAYERS})")
-        ops.reset_launch_counts()
-        run = launch_train.main([*argv, *mesh_argv, "--ckpt-dir", str(dm)],
-                                cfg=cfg)
-        _launched("ckpt_mesh_sft", ops.launch_counts(), TRAIN_KERNELS,
-                  state, failures)
-        with open(dm / "step_00000002" / "manifest.json") as f:
-            leaves = json.load(f)["leaves"]
-        got["manifest"] = leaves == sft["leaves"]
-        got["run"] = run["state_sha256"] == sft["witness"]
-        saves = run["ckpt_stats"]
-        _free(run)
-        shutil.rmtree(sft["dir"] / "step_00000003")
-        log("[ckpt] mesh: the plain run's checkpoint (step 3 deleted) "
-            "resumed on the mesh path")
-        ops.reset_launch_counts()
-        on_mesh = launch_train.main([*OPT13_SFT, *mesh_argv, "--ckpt-dir",
-                                     str(sft["dir"]), "--resume"], cfg=cfg)
-        _launched("ckpt_mesh_resume", ops.launch_counts(), TRAIN_KERNELS,
-                  state, failures)
-        got["plain_on_mesh"] = (on_mesh["state_sha256"] == sft["witness"]
-                                and on_mesh["start"] == 2)
-        rs_mesh = on_mesh["restore"]
-        _free(on_mesh)
-    shutil.rmtree(sft["dir"], ignore_errors=True)
+    _ckpt_sft_run(res, "mesh_sft", [*OPT13_SFT, "--save-every", "2",
+                                    "--keep", "2", *CKPT_MESH_ARGV,
+                                    "--ckpt-dir", str(dm)], True)
+    with open(dm / "step_00000002" / "manifest.json") as f:
+        res["mesh_sft"]["leaves"] = json.load(f)["leaves"]
     shutil.rmtree(dm / "step_00000003")
-    log("[ckpt] mesh: the mesh run's checkpoint (step 3 deleted) resumed on "
-        "the plain path")
-    on_plain = launch_train.main([*OPT13_SFT, "--ckpt-dir", str(dm),
-                                  "--resume"], cfg=cfg)
-    got["mesh_on_plain"] = (on_plain["state_sha256"] == sft["witness"]
-                            and on_plain["start"] == 2)
-    rs_plain = on_plain["restore"]
-    _free(on_plain)
+    _ckpt_sft_run(res, "mesh_on_plain", [*OPT13_SFT, "--ckpt-dir", str(dm),
+                                         "--resume"], False)
     shutil.rmtree(dm, ignore_errors=True)
-    _ckpt_io("mesh 1 x 1", saves, rs_mesh)
-    _ckpt_io("plain path, of the mesh run's", [], rs_plain)
+
+
+def _ckpt_mesh_check(state, failures, sft, ref, res) -> None:
+    """(5), (6): the worker's mesh legs against the phase's plain runs: the
+    mesh SFT run's step-2 manifest equal to the plain run's (leaves,
+    windows, sizes, CRCs), every SFT run and resume ending on the witness
+    (the resumes at step 2), the mesh PPO runs ending as the plain
+    uninterrupted run did (the engine's reshard metrics aside), the mesh
+    PPO rerun saving once, and every leg's kernels launched."""
+    got = {"manifest": res["mesh_sft"]["leaves"] == sft["leaves"],
+           "run": res["mesh_sft"]["sha"] == sft["witness"]}
+    for k in ("plain_on_mesh", "mesh_on_plain"):
+        got[k] = (res[k]["sha"] == sft["witness"]
+                  and res[k]["start"] == 2)
+    _ckpt_io("mesh 1 x 1", res["mesh_sft"]["saves"],
+             res["plain_on_mesh"]["restore"])
+    _ckpt_io("plain path, of the mesh run's", [],
+             res["mesh_on_plain"]["restore"])
     for k, ok in got.items():
         what = ("equal to the plain run's" if k == "manifest"
                 else "ends on the witness")
         log(f"[ckpt] mesh: {k} {what}: {ok}")
         if not ok:
             failures.append(f"ckpt: mesh leg {k} differs")
-    state["ckpt"]["mesh"] = {"saves": saves, "restore": rs_mesh,
-                             "restore_plain": rs_plain, **got}
+    for tag, k in (("ckpt_mesh_sft", "mesh_sft"),
+                   ("ckpt_mesh_resume", "plain_on_mesh")):
+        _launched(tag, res[k]["launches"], TRAIN_KERNELS, state, failures)
+    state["ckpt"]["mesh"] = {"saves": res["mesh_sft"]["saves"],
+                             "restore": res["plain_on_mesh"]["restore"],
+                             "restore_plain": res["mesh_on_plain"]["restore"],
+                             **got}
+    ppo = res["ppo"]
+    drop = ("reshard_bytes", "reshard_s")
+    want = dict(ref, stage3=[{k: v for k, v in m.items() if k not in drop}
+                             for m in ref["stage3"]])
+    log(f"[ckpt] mesh PPO: saves {ppo['saved']} (the resume runs one "
+        f"iteration)")
+    if ppo["saved"][1] != 1:
+        failures.append(f"ckpt: the mesh PPO rerun saved {ppo['saved'][1]} "
+                        f"times")
+    for name in ("uninterrupted", "resumed"):
+        _launched(f"ckpt_ppo_mesh_{name}", ppo["launches"][name],
+                  PPO_KERNELS, state, failures)
+        for k in ("scores", "stage3", "sha"):
+            same = ppo[name][k] == want[k]
+            log(f"[ckpt] mesh PPO {name}: {k} equal to the uninterrupted "
+                f"plain run: {same}")
+            if not same:
+                failures.append(f"ckpt: mesh PPO {name} {k}: "
+                                f"{ppo[name][k]} vs {want[k]}")
+    state["ckpt"]["ppo_mesh_save"] = ppo["save"]
 
 
 def _ppo_record(out, drop=()) -> dict:
@@ -4860,12 +5026,13 @@ def _ckpt_ppo(state, failures) -> dict:
     return ref
 
 
-def _ckpt_ppo_mesh(state, failures, ref) -> None:
-    """(6) the PPO resume of (4) on ``--rlhf --mesh 1,1`` (the Hybrid
-    Engine at one rank, on ``one_rank_mesh``): an uninterrupted run with
-    its own saves, its last checkpoint deleted, and a rerun that resumes at
-    iteration 2; both must end as the plain uninterrupted run did (the
-    engine's reshard metrics aside).  At one rank the pipeline keeps its
+def _ckpt_ppo_mesh(res: dict) -> None:
+    """(6) in the worker: the PPO resume of (4) on ``--rlhf --mesh 1,1``
+    (the Hybrid Engine at one rank, on ``one_rank_mesh``): an
+    uninterrupted run with its own saves, its last checkpoint deleted, and
+    a rerun that resumes at iteration 2; ``res["ppo"]`` takes both runs'
+    records (:func:`_ppo_record`, without the engine's reshard metrics),
+    their save counts and launches.  At one rank the pipeline keeps its
     models in no mesh layout (``RLHFPipeline._layouts`` is ``None``), so
     this holds the launcher's mesh path with checkpoints, and the trainer
     it runs is the plain one."""
@@ -4877,39 +5044,63 @@ def _ckpt_ppo_mesh(state, failures, ref) -> None:
     argv = [*PPO_ARGV, "--ckpt-dir", str(d), "--save-every", "2", "--keep",
             "2", "--mesh", "1,1"]
     drop = ("reshard_bytes", "reshard_s")
-    want = dict(ref, stage3=[{k: v for k, v in m.items() if k not in drop}
-                             for m in ref["stage3"]])
-    runs = {}
+    ppo = res["ppo"] = {"launches": {}, "saved": []}
     with one_rank_mesh("ckpt"):
         for name in ("uninterrupted", "resumed"):
             log(f"[ckpt] mesh {name}: python -m repro_torch.launch.train "
                 f"{' '.join(argv)}")
             ops.reset_launch_counts()
-            runs[name] = launch_train.main(argv)
-            _launched(f"ckpt_ppo_mesh_{name}", ops.launch_counts(),
-                      PPO_KERNELS, state, failures)
+            out = launch_train.main(argv)
+            ppo["launches"][name] = ops.launch_counts()
+            ppo[name] = _ppo_record(out, drop=drop)
+            ppo["saved"].append(len(out["ckpt_stats"]))
             if name == "uninterrupted":
+                ppo["save"] = out["ckpt_stats"][-1]
                 last = sorted(p.name for p in d.iterdir()
                               if p.name.startswith("step_"))
                 shutil.rmtree(d / last[-1])   # a crash after iteration 1
                 log(f"[ckpt] mesh: deleted {last[-1]}")
-    saved = [len(r["ckpt_stats"]) for r in runs.values()]
-    log(f"[ckpt] mesh PPO: saves {saved} (the resume runs one iteration)")
-    if saved[1] != 1:
-        failures.append(f"ckpt: the mesh PPO rerun saved {saved[1]} times")
-    for name, out in runs.items():
-        got = _ppo_record(out, drop=drop)
-        for k in ("scores", "stage3", "sha"):
-            same = got[k] == want[k]
-            log(f"[ckpt] mesh PPO {name}: {k} equal to the uninterrupted "
-                f"plain run: {same}")
-            if not same:
-                failures.append(f"ckpt: mesh PPO {name} {k}: {got[k]} vs "
-                                f"{want[k]}")
-    state["ckpt"]["ppo_mesh_save"] = runs["uninterrupted"]["ckpt_stats"][-1]
-    for out in runs.values():
-        _free(out)
+            _free(out)
     shutil.rmtree(d, ignore_errors=True)
+
+
+def ckpt_mesh_worker(out: str) -> int:
+    """Phase ``ckpt``'s mesh legs in a process of their own (``torchrun
+    --nproc-per-node 1 chip_smoke.py --ckpt-mesh-worker OUT``), started
+    with the phase and run beside its plain legs: the mesh SFT legs
+    (:func:`_ckpt_mesh_sft`; the resume of the plain run's checkpoint waits
+    for ``OUT/sft_ready``) and the mesh PPO legs (:func:`_ckpt_ppo_mesh`).
+    Writes ``OUT/result.json`` (with ``error`` if a leg raised), which the
+    phase holds to its plain runs (:func:`_ckpt_mesh_check`)."""
+    import os
+    import traceback
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parent, t0 = os.getppid(), time.perf_counter()
+
+    def ready():
+        path = os.path.join(out, "sft_ready")
+        while not os.path.exists(path):
+            if time.perf_counter() - t0 > 1200 or os.getppid() != parent:
+                raise SystemExit("phase ckpt never said the plain SFT "
+                                 "checkpoint is ready")
+            time.sleep(0.1)
+
+    res: dict = {}
+    try:
+        _ckpt_mesh_sft(res)
+        _ckpt_ppo_mesh(res)
+        ready()            # the plain run's checkpoint, resumed on the mesh
+        _ckpt_sft_run(res, "plain_on_mesh", [
+            *OPT13_SFT, *CKPT_MESH_ARGV, "--ckpt-dir",
+            str(CKPT_ROOT / "sft"), "--resume"], True)
+    except Exception:                              # noqa: BLE001
+        res["error"] = traceback.format_exc()
+    with open(os.path.join(out, "result.json"), "w") as f:
+        json.dump(res, f, default=str)
+    return 1 if "error" in res else 0
 
 
 def _ckpt_lora(state, failures):
@@ -4957,7 +5148,7 @@ def _ckpt_lora(state, failures):
     torch.cuda.empty_cache()
 
     path = CKPT_ROOT / "lora.npz"
-    argv = ["--arch", "opt-1.3b", "--steps", "5", "--batch", "8", "--seq",
+    argv = ["--arch", "opt-1.3b", "--steps", "3", "--batch", "8", "--seq",
             "512", "--lora", "8", "--ckpt", str(path)]
     log(f"[ckpt] python -m repro_torch.launch.train {' '.join(argv)}")
     ops.reset_launch_counts()
@@ -5042,12 +5233,42 @@ def _ckpt_example(state, failures) -> None:
                         f"acc {acc10:.3f}, scores {sc}")
 
 
+def _start_ckpt_mesh():
+    """Start phase ``ckpt``'s mesh legs (:func:`ckpt_mesh_worker`) in a
+    ``torchrun`` process of their own: ``(output directory, run)``."""
+    import tempfile
+    out = tempfile.mkdtemp(prefix="ckpt_mesh_")
+    return out, _launch("ckpt_mesh", None, ["--ckpt-mesh-worker", out],
+                        script=ROOT / "chip_smoke.py")
+
+
+def _finish_ckpt_mesh(worker) -> dict:
+    """The mesh legs' results, their log relayed (each line's seconds are
+    the worker's own); raises if the worker failed."""
+    import shutil
+    out, run = worker
+    rc, text, wall = _finish(run, timeout=900.0)
+    for line in text.splitlines():
+        if line.strip():
+            log(f"[ckpt-mesh-worker] {line}")
+    log(f"[ckpt] the mesh legs' process: exit {rc} in {wall:.1f}s")
+    path = Path(out) / "result.json"
+    res = json.loads(path.read_text()) if path.exists() else {}
+    shutil.rmtree(out, ignore_errors=True)
+    if rc != 0 or "error" in res or not res:
+        raise AssertionError(f"ckpt: the mesh legs failed (exit {rc}): "
+                             f"{res.get('error', text[-2000:])}")
+    return res
+
+
 def phase_ckpt(state):
     """Checkpoint/resume, LoRA and the torch example at full width: room
     first, the determinism witness, SFT and PPO kill-and-resume, LoRA with
-    its fp32 gate, export -> serve, ``examples/torch_rlhf_e2e.py``.  Every
-    directory it writes is under ``build/ckpt_phase`` and deleted at
-    the end."""
+    its fp32 gate, export -> serve, ``examples/torch_rlhf_e2e.py``; the
+    mesh legs in a process of their own beside them
+    (:func:`ckpt_mesh_worker`), checked at the end.  Every directory it
+    writes is under ``build/ckpt_phase`` and deleted at the end."""
+    import os
     import shutil
 
     import torch
@@ -5055,16 +5276,18 @@ def phase_ckpt(state):
     torch.backends.cudnn.allow_tf32 = False
     failures = []
     CKPT_ROOT.mkdir(parents=True, exist_ok=True)
+    worker = None
     try:
         _ckpt_room()
+        worker = _start_ckpt_mesh()
         t0 = time.perf_counter()
         sft = _ckpt_sft(state, failures)
-        tm = time.perf_counter()
-        _ckpt_mesh(state, failures, sft)
+        # the mesh legs resume this run's checkpoint from step 2
+        shutil.rmtree(sft["dir"] / "step_00000003")
+        with open(os.path.join(worker[0], "sft_ready"), "w"):
+            pass
         t1 = time.perf_counter()
         ref = _ckpt_ppo(state, failures)
-        tp = time.perf_counter()
-        _ckpt_ppo_mesh(state, failures, ref)
         t2 = time.perf_counter()
         path, folded = _ckpt_lora(state, failures)
         _ckpt_serve(state, failures, path, folded)
@@ -5072,10 +5295,17 @@ def phase_ckpt(state):
         torch.cuda.empty_cache()
         t3 = time.perf_counter()
         _ckpt_example(state, failures)
-        log(f"[ckpt] legs: SFT {tm - t0:.1f}s, mesh SFT {t1 - tm:.1f}s, "
-            f"PPO {tp - t1:.1f}s, mesh PPO {t2 - tp:.1f}s, LoRA + "
-            f"serve {t3 - t2:.1f}s, example {time.perf_counter() - t3:.1f}s")
+        t4 = time.perf_counter()
+        res, worker = _finish_ckpt_mesh(worker), None
+        _ckpt_mesh_check(state, failures, sft, ref, res)
+        log(f"[ckpt] legs: SFT {t1 - t0:.1f}s, PPO {t2 - t1:.1f}s, LoRA + "
+            f"serve {t3 - t2:.1f}s, example {t4 - t3:.1f}s, then the mesh "
+            f"legs' process (started with the phase) "
+            f"{time.perf_counter() - t4:.1f}s more")
     finally:
+        if worker is not None and worker[1][0].poll() is None:
+            worker[1][0].kill()
+            worker[1][0].wait()
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     if failures:
         raise AssertionError("ckpt: " + "; ".join(failures))
@@ -6569,9 +6799,13 @@ def main() -> int:
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--disagg-worker", default=None, metavar="OUT",
                     help=argparse.SUPPRESS)   # a rank of phase disagg
+    ap.add_argument("--ckpt-mesh-worker", default=None, metavar="OUT",
+                    help=argparse.SUPPRESS)   # phase ckpt's mesh legs
     args = ap.parse_args()
     if args.disagg_worker is not None:
         return disagg_worker(args.disagg_worker)
+    if args.ckpt_mesh_worker is not None:
+        return ckpt_mesh_worker(args.ckpt_mesh_worker)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import stream_event
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import ParamSpec, tree_leaves, tree_map
@@ -51,8 +52,12 @@ def _mesh_device(mesh) -> torch.device:
 
 
 def _sync(mesh) -> None:
-    if mesh.device_type == "cuda":
-        torch.cuda.synchronize()
+    """Wait for the work enqueued so far on the calling thread's stream
+    (never the whole device: asynchronous stage 3 publishes on the
+    consumer's thread while the producer decodes on a stream of its own)."""
+    done = stream_event(_mesh_device(mesh))
+    if done is not None:
+        done.synchronize()
 
 
 @dataclasses.dataclass
@@ -71,7 +76,8 @@ class HybridEngine:
         self.train_shardings = S.shardings_of(self.train_pspecs, self.mesh)
         self.infer_shardings = S.shardings_of(self.infer_pspecs, self.mesh)
         # measured stats of the LAST phase transition: wall time between
-        # two device synchronizations, and the bytes of the local tensors
+        # two waits on the calling thread's stream, and the bytes of the
+        # local tensors
         # before and after, summed over every rank of the mesh
         self.last_reshard_stats: dict = {}
         self._warm: set = set()        # directions already run once
@@ -146,16 +152,21 @@ class HybridEngine:
     # ---------------------------------------------------------------- #
     # generation engine
     # ---------------------------------------------------------------- #
-    def generation_engine(self, cfg=None, **gen_kwargs):
+    def generation_engine(self, cfg=None, mesh=None, **gen_kwargs):
         """A :class:`repro_torch.serving.engine.GenerationEngine` for this
         actor (``cfg`` overrides its config, e.g. ``kv_quant``; it must
         describe the same parameters).  The engine expects the params of
         :meth:`to_inference`: one reshard per phase, then the decode loop.
         On a mesh of more than one rank the engine is handed the mesh: it
         decodes the data rank's rows of each batch, tensor-parallel over
-        ``model``."""
+        ``model``.  ``mesh``, when given, is the mesh the engine is bound
+        to at any size, a twin of this one
+        (:func:`repro_torch.launch.mesh.twin_mesh`): every collective of
+        its decode runs on that mesh's groups (asynchronous stage 3's
+        producer)."""
         from repro_torch.serving.engine import GenerationEngine
-        mesh = self.mesh if self.n_ranks > 1 else None
+        if mesh is None:
+            mesh = self.mesh if self.n_ranks > 1 else None
         return GenerationEngine(cfg if cfg is not None else self.cfg,
                                 mesh=mesh, **gen_kwargs)
 

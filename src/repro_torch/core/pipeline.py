@@ -42,13 +42,26 @@ layout, tensor-parallel over ``model`` (see :mod:`repro_torch.core.ppo`).  Stage
 of the mesh alike, as the reference runs them outside the mesh.
 
 ``async_cfg`` (an :class:`~repro_torch.core.replay.AsyncConfig`) runs
-stage 3 asynchronously, on one device, the 1 x 1 mesh or the
+stage 3 asynchronously, on one device, a shared mesh of any size or the
 disaggregated split: a producer thread generates batch N+1 while this
 thread scores and trains batch N (:meth:`RLHFPipeline._run_ppo_async`).
 ``AsyncConfig.lockstep()`` gives the synchronous run bit for bit,
 checkpoints included: a checkpoint saves the generator state carried by
 the item just consumed, never the live state, which the producer may
 already be advancing.
+
+On a shared mesh (``RLHFEngine(mesh=)``, the Hybrid Engine's; the 1 x 1
+mesh included) both threads run on every rank and both issue
+collectives, so the producer gets groups of its own: a twin of the mesh
+(:func:`repro_torch.launch.mesh.twin_mesh`, built on this thread in the
+same order on every rank), a generation engine bound to it, and on the
+card a CUDA stream of its own.  A publish is the Hybrid Engine's
+``to_inference`` of the actor's clone on this thread, rebound onto the
+twin (:class:`~repro_torch.core.replay.WeightPublisher`); the mesh's first
+rank chooses the version of every batch and the others take it.  Each
+iteration the consumers first agree, over the mesh, that every rank has
+its batch: a producer failure on any rank ends every rank with
+``RuntimeError("rollout producer failed")``.
 
 ``RLHFEngine(mesh=, rollout_mesh=)`` with the two meshes of
 :func:`repro_torch.launch.mesh.make_disaggregated_meshes` is the
@@ -71,11 +84,6 @@ that came back with the last consumed batch, and a resume publishes the
 restored actor and hands the rollout ranks that state.  Every rank
 constructs the :class:`~repro_torch.training.checkpoint.CheckpointManager`
 (its constructor is a barrier of the world).
-
-Asynchronous stage 3 on a shared mesh of more than one rank (two threads
-issuing collectives on one process group would have to keep the same
-order on every rank) is not yet ported and raises
-``NotImplementedError``: run it disaggregated.
 """
 from __future__ import annotations
 
@@ -92,8 +100,9 @@ from repro_torch import to_device
 from repro_torch.core.hybrid_engine import HybridEngine
 from repro_torch.core.ppo import PPOConfig, PPOTrainer
 from repro_torch.core.replay import (AsyncConfig, ExperienceProducer,
-                                     RemoteProducer, ReplayClosed,
-                                     ReplayQueue, SplitEnds, WeightPublisher)
+                                     RemoteError, RemoteProducer,
+                                     ReplayClosed, ReplayQueue, SplitEnds,
+                                     WeightPublisher, _Decisions)
 from repro_torch.data.blending import DataBlender
 from repro_torch.models import reward as R
 from repro_torch.models import transformer as T
@@ -189,20 +198,14 @@ class RLHFPipeline:
     ``rollout_hook(i)``, when set, is called on the producer thread before
     batch ``i`` (the soak tests slow it there), and ``async_stats`` holds
     the queue's, the publisher's and the producer's telemetry after the
-    run."""
+    run, with ``producer_groups`` (the name of the producer's group on
+    each dim of its twin mesh, ``None`` without a shared mesh) and
+    ``producer_stream`` (whether it ran on a stream of its own)."""
 
     def __init__(self, engine: RLHFEngine, blender: DataBlender,
                  stages: StageConfig, ppo: PPOConfig, checkpointer=None,
                  save_every: int = 1,
                  async_cfg: Optional[AsyncConfig] = None):
-        if (async_cfg is not None and engine.hybrid is not None
-                and getattr(engine, "rollout_mesh", None) is None
-                and runtime.mesh_size(engine.hybrid.mesh) > 1):
-            raise NotImplementedError(
-                "RLHFPipeline(async_cfg=) on a shared mesh of more than one "
-                "rank: not yet ported; run it disaggregated "
-                "(RLHFEngine(rollout_mesh=), launch.train --rollout-mesh "
-                "--train-mesh)")
         self.e = engine
         self.blender = blender
         self.stages = stages
@@ -446,15 +449,30 @@ class RLHFPipeline:
         ``generator``, and a checkpoint saves the state its item carried
         (the producer may already be drawing the next batch).
 
+        On a shared mesh the producer runs on the mesh's twin (see the
+        module's docstring), and on a mesh of more than one rank the
+        consumers agree each iteration that every rank has its batch
+        before any other collective of it.
+
         A producer failure raises ``RuntimeError("rollout producer
         failed")`` from the producer's exception, also when this thread
         was waiting on the queue the producer cancelled (the reference
-        raises the queue's ``ReplayClosed`` then, ROADMAP Queue 3, R17)."""
+        raises the queue's ``ReplayClosed`` then, ROADMAP Queue 3, R17),
+        and on every rank of the mesh from a failure on any one."""
         st, acfg, dev = self.stages, self.async_cfg, self.e.device
+        he = self.e.hybrid if self.ends is None else None
+        twin = agree = None
+        if he is not None:
+            from repro_torch.launch.mesh import twin_mesh
+            twin = twin_mesh(he.mesh)
+            if runtime.mesh_size(he.mesh) > 1:
+                # every rank joins (one all-reduce a dim): all have a batch
+                agree = lambda ok: (runtime.same_on_mesh(int(ok), he.mesh)
+                                    and ok)
         publisher = WeightPublisher(shardings=trainer.publish_shardings(),
                                     keep=acfg.max_lag + 2,
                                     async_push=acfg.async_publish,
-                                    ends=self.ends)
+                                    ends=self.ends, engine=he, mesh=twin)
         publisher.publish(trainer.actor.params, start)
         if self.ends is not None:
             # the producer runs on the rollout ranks: the rollout channel
@@ -470,14 +488,33 @@ class RLHFPipeline:
                                                     st.ppo_steps,
                                                     skip=start),
                 queue=queue, publisher=publisher, cfg=acfg,
-                rollout_hook=self.rollout_hook)
+                rollout_hook=self.rollout_hook,
+                decide=(None if agree is None else _Decisions(
+                    he.mesh.mesh.flatten().tolist(), "shared_mesh")),
+                engine=(None if twin is None
+                        else trainer.generation_engine(twin)),
+                stream=(torch.cuda.Stream(dev)
+                        if twin is not None and dev.type == "cuda"
+                        else None))
             producer.start()
-        version, fallbacks = start, 0
+        version, fallbacks, elsewhere = start, 0, False
         try:
             for i in range(start, st.ppo_steps):
                 if self.iter_hook is not None:
                     self.iter_hook(i)
-                item = queue.get(timeout=acfg.get_timeout_s)
+                try:
+                    item = queue.get(timeout=acfg.get_timeout_s)
+                except ReplayClosed:
+                    # the producer cancelled the queue under this get: its
+                    # own error is raised below, with this as its context
+                    if producer.error is None or agree is None:
+                        raise
+                    item = None
+                if agree is not None and not agree(item is not None):
+                    elsewhere = producer.error is None
+                    break
+                if item.ready is not None:
+                    torch.cuda.current_stream(dev).wait_event(item.ready)
                 lag = version - item.rollout.version
                 exp, sm = trainer.score_rollout(
                     item.rollout,
@@ -515,8 +552,6 @@ class RLHFPipeline:
                                               + time.perf_counter() - t0)
                     self._save_ppo(trainer, item.generator_state, i + 1)
         except ReplayClosed:
-            # the producer cancelled the queue under this thread's get:
-            # its own error is raised below, with this as its context
             if producer.error is None:
                 raise
         finally:
@@ -529,12 +564,17 @@ class RLHFPipeline:
                 "produced": producer.produced,
                 "lockstep_fallbacks": fallbacks,
                 "retained_bytes": publisher.retained_bytes(),
+                "producer_groups": (None if twin is None
+                                    else runtime.group_names(twin)),
+                "producer_stream": producer.side_stream,
             }
             if self.ends is not None:
                 self.async_stats["rollout"] = self.ends.producer_stats
-        if producer.error is not None:
-            raise RuntimeError("rollout producer failed") \
-                from producer.error
+        if producer.error is not None or elsewhere:
+            raise RuntimeError("rollout producer failed") from (
+                producer.error or RemoteError(
+                    "the rollout producer of another rank of the mesh "
+                    "failed"))
 
     # -------------------- checkpoint/resume seam ------------------- #
     # monotonic checkpoint step ids: stage boundaries, then one per

@@ -57,9 +57,12 @@ params published to it.  The bridge's ends (:class:`~repro_torch.core.
 replay.SplitEnds`) come from :class:`~repro_torch.core.pipeline.
 RLHFPipeline`, which runs each role's half of stage 3.
 
-The asynchronous seam (:mod:`repro_torch.core.replay`: one device, the
-1 x 1 mesh and the disaggregated split): :meth:`PPOTrainer.generate_rollout` takes ``gen_params``
-already published (no ``to_inference``, no reshard metrics) and tags the
+The asynchronous seam (:mod:`repro_torch.core.replay`: one device, a
+shared mesh of any size and the disaggregated split):
+:meth:`PPOTrainer.generate_rollout` takes ``gen_params`` already published
+(no ``to_inference``, no reshard metrics), decodes them on ``gen_engine``
+when given (on a shared mesh the producer's, from
+:meth:`PPOTrainer.generation_engine` on its twin of the mesh) and tags the
 rollout with their ``version``; :meth:`PPOTrainer.score_rollout` scores
 with the behavior policy's retained params and reports ``policy_lag``,
 ``is_ratio_mean`` and ``is_ratio_max`` (the guard forward runs only when
@@ -372,6 +375,15 @@ class PPOTrainer:
             block_size=ppo.kv_block_size, prefix_cache=ppo.prefix_cache,
             device=self.device)
 
+    def generation_engine(self, mesh):
+        """A generation engine like the trainer's own, bound to ``mesh``, a
+        twin of the engine's mesh (:func:`repro_torch.launch.mesh.
+        twin_mesh`), at any size: the asynchronous producer's on a shared
+        mesh, whose every collective runs on ``mesh``'s groups."""
+        gen_cfg, gen_opts = self._gen_options(self.actor_cfg, self.ppo)
+        return self.engine.generation_engine(cfg=gen_cfg, mesh=mesh,
+                                             **gen_opts)
+
     def _init_rollout(self, actor_cfg, critic_cfg, ppo, mesh) -> None:
         """A rollout rank's trainer: the generation engine on the rollout
         mesh (plain on this rank's device at one rank), no states."""
@@ -410,15 +422,17 @@ class PPOTrainer:
 
     # ---------------- rollout / scoring split ---------------------- #
     def generate_rollout(self, prompts, generator: torch.Generator, *,
-                         gen_params=None, version: int = 0):
+                         gen_params=None, version: int = 0,
+                         gen_engine=None):
         """Generation phase only: decode a fixed-shape prompt batch into a
         version-tagged :class:`~repro_torch.core.replay.RolloutBatch`.
         ``gen_params`` are params already published for generation (the
         asynchronous :class:`~repro_torch.core.replay.WeightPublisher`'s);
         with ``None`` the actor's current params go through the engine's
         ``to_inference`` (one reshard per phase) and the metrics carry its
-        ``reshard_bytes`` and ``reshard_s``.  ``gen_s`` waits for the
-        calling thread's stream only."""
+        ``reshard_bytes`` and ``reshard_s``.  ``gen_engine`` decodes them
+        (default the trainer's own).  ``gen_s`` waits for the calling
+        thread's stream only."""
         if self.role == "train":
             return self._rollout_across(generator)
         if self.role == "rollout" and gen_params is None:
@@ -439,7 +453,8 @@ class PPOTrainer:
             params = self.actor.params
             if self.engine is not None:    # one reshard per phase
                 params = self.engine.to_inference(params)
-        out = self.gen_engine.generate(params, prompts, generator)
+        engine = gen_engine if gen_engine is not None else self.gen_engine
+        out = engine.generate(params, prompts, generator)
         del params
         done = stream_event(self.device)
         if done is not None:
@@ -448,8 +463,7 @@ class PPOTrainer:
         n_gen = float(out["response_mask"].sum())
         gm = {"gen_len": float(out["response_mask"].sum(1).float().mean()),
               "gen_tok_s": n_gen / max(gen_s, 1e-9), "gen_s": gen_s,
-              "decode_steps": float(
-                  self.gen_engine.last_stats["decode_steps"])}
+              "decode_steps": float(engine.last_stats["decode_steps"])}
         if gen_params is None:
             self._add_reshard_metrics(gm)
         return RolloutBatch(sequences=out["sequences"],
@@ -461,18 +475,30 @@ class PPOTrainer:
         pushed to the rollout mesh (``cross_mesh_put`` over the bridge,
         waited for), then the batch the rollout ranks generated with it;
         ``generator`` takes the state the rollout ranks' generator had
-        after it (what the synchronous loop checkpoints)."""
+        after it (what the synchronous loop checkpoints).
+
+        The metrics are the reference's: ``gen_s`` runs from before the
+        push until the batch is back, ``gen_tok_s`` is the batch's
+        response tokens over it, and ``reshard_bytes`` / ``reshard_s`` are
+        the training mesh's engine's (which never reshards here: 0, as the
+        reference reports).  The port's extras beside them: ``gen_s``,
+        and the push's ``publish_s`` and ``publish_bytes``."""
         if self.ends is None:
             raise ValueError("a training rank of the disaggregated split "
                              "generates through the bridge's ends "
                              "(PPOTrainer(ends=), as RLHFPipeline opens "
                              "them)")
+        t0 = time.perf_counter()
         pushed = self.ends.push_now(self.actor.params)
         item = self.ends.queue.get(timeout=self.ends.get_timeout_s)
+        gen_s = time.perf_counter() - t0
         generator.set_state(item.generator_state)
-        return item.rollout, {**item.gen_metrics,
-                              "publish_s": pushed["seconds"],
-                              "publish_bytes": float(pushed["bytes"])}
+        n_gen = float(torch.as_tensor(item.rollout.response_mask).sum())
+        gm = {**item.gen_metrics, "gen_tok_s": n_gen / max(gen_s, 1e-9),
+              "gen_s": gen_s, "publish_s": pushed["seconds"],
+              "publish_bytes": float(pushed["bytes"])}
+        self._add_reshard_metrics(gm)
+        return item.rollout, gm
 
     def score_rollout(self, rollout: RolloutBatch, *, behavior_params=None,
                       policy_lag: Optional[int] = None):
@@ -547,19 +573,14 @@ class PPOTrainer:
         return sm
 
     def publish_shardings(self):
-        """Target layout for asynchronous weight publication: the rollout
-        mesh's ``tp`` layout when there is one (disaggregated), else
-        ``None`` (the single-device mode: the publisher clones the params
-        in place) on one device and at 1 x 1.  On a shared mesh of more
-        than one rank the reference publishes to the engine's inference
-        layout; that is not yet ported."""
+        """Target layout for asynchronous weight publication, as the
+        reference's: the rollout mesh's ``tp`` layout when there is one
+        (disaggregated), the Hybrid Engine's inference layout on a shared
+        mesh of several ranks, else ``None`` (one device and 1 x 1)."""
         if self.rollout_mesh is not None:
             return S.param_shardings(self.actor_cfg, self.rollout_mesh, "tp")
         if self._multi:
-            raise NotImplementedError("PPOTrainer.publish_shardings on a "
-                                      "shared mesh of more than one rank: "
-                                      "not yet ported; run it "
-                                      "disaggregated (rollout_mesh=)")
+            return self.engine.infer_shardings
         return None
 
     def _expand_samples(self, requests):

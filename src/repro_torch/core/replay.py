@@ -1,6 +1,7 @@
 """Asynchronous RLHF: replay queue, weight publisher, experience producer
-(counterpart of ``repro/core/replay.py``: one device, the 1 x 1 mesh and
-the disaggregated split between processes).
+(counterpart of ``repro/core/replay.py``: one device, a shared
+``data x model`` mesh of any size and the disaggregated split between
+processes).
 
 Synchronous stage 3 runs generate -> score -> train one after the other.
 The asynchronous mode overlaps generation of batch N+1 with the PPO step
@@ -36,6 +37,17 @@ Two differences from the reference come from PyTorch:
   generator and each :class:`ReplayItem` carries its state right after
   that batch's draws (what a checkpoint saves).
 
+On a shared mesh (the Hybrid Engine's, the paper's stage 3 on a node of
+several GPUs) every rank runs both threads, and each issues collectives:
+the consumer scoring, the steps and the publish's reshard; the producer
+its decode's gathers.  Two threads keep no common order on one process
+group, so the producer has groups of its own, a twin of the training mesh
+(:func:`repro_torch.launch.mesh.twin_mesh`), and on the card a stream of
+its own.  A publish is the Hybrid Engine's ``to_inference`` of the clone
+on the consumer's thread, rebound onto the twin; the first rank of the
+mesh chooses each batch's version and the others take it
+(:class:`_Decisions`).
+
 Disaggregated (:class:`SplitEnds`), the producer runs on the rollout
 ranks and the consumer on the training ranks, in other processes, and the
 reference's in-process hand-overs become two gloo groups between them
@@ -56,6 +68,7 @@ reference's in-process hand-overs become two gloo groups between them
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import threading
@@ -137,6 +150,9 @@ class ReplayItem:
     # the stage-3 generator's state right after this batch's draws: what
     # the synchronous loop's generator holds after iteration ``seq``
     generator_state: Optional[torch.Tensor] = None
+    # on a producer stream of its own: an event after the batch on that
+    # stream, which the consumer's stream waits on before it reads it
+    ready: Optional[torch.cuda.Event] = None
 
 
 class ReplayQueue:
@@ -265,13 +281,29 @@ class ReplayQueue:
 class WeightPublisher:
     """Versioned actor weights, from the consumer to the producer.
 
-    ``shardings=None`` is the single-device mode (one device, or the
-    1 x 1 mesh): ``publish`` clones the params (the consumer updates the
-    live ones in place) and retains the clone as both the rollout view and
-    the train view of the version, ``keep`` most recent versions.  The
-    measured ``seconds`` (the clone, until its copies are done) and
-    ``bytes`` (0: nothing crossed to another layout) are in
-    :attr:`last_publish_stats`.
+    Without ``engine`` or ``ends`` it is the single-device mode:
+    ``publish`` clones the params (the consumer updates the live ones in
+    place) and retains the clone as both the rollout view and the train
+    view of the version, ``keep`` most recent versions.  The measured
+    ``seconds`` (the clone, until its copies are done) and ``bytes`` (0:
+    nothing crossed to another layout) are in :attr:`last_publish_stats`.
+
+    With ``engine`` (a :class:`~repro_torch.core.hybrid_engine.
+    HybridEngine`) and ``mesh`` (the producer's twin of its mesh,
+    :func:`repro_torch.launch.mesh.twin_mesh`) it is the shared-mesh mode,
+    at any mesh size: ``publish`` clones the params in the training layout
+    (the train view, the behavior policy), enqueues ``engine.to_inference``
+    of the clone on the calling thread's stream (its collectives on the
+    training mesh's groups, on the consumer's thread) and rebinds the
+    result onto ``mesh`` (the rollout view: the producer's gathers of it
+    run on the twin's groups), then records an event there
+    (:meth:`ready`), which the producer's stream waits on.  ``bytes`` are
+    what the rollout view holds over the mesh when ``shardings`` (the
+    engine's inference layout) is given, the reference's
+    ``_tree_device_bytes``, else 0, as the reference counts at 1 x 1.  With
+    ``async_push`` the worker thread only waits for that event (and
+    coalesces, as on one device): no thread but the caller's issues a
+    collective.
 
     With ``ends`` (this rank's :class:`SplitEnds` of a disaggregated run)
     ``shardings`` is the rollout mesh's layout, and the publisher is one
@@ -292,13 +324,21 @@ class WeightPublisher:
     """
 
     def __init__(self, shardings=None, *, keep: int = 3,
-                 async_push: bool = False, ends=None):
-        if shardings is not None and ends is None:
+                 async_push: bool = False, ends=None, engine=None,
+                 mesh=None):
+        if shardings is not None and ends is None and engine is None:
             raise ValueError("WeightPublisher(shardings=) publishes to "
                              "another mesh's layout across the bridge "
-                             "between the meshes: pass ends= (SplitEnds)")
+                             "between the meshes (pass ends=, SplitEnds) "
+                             "or to the Hybrid Engine's inference layout "
+                             "(pass engine= and mesh=)")
+        if (engine is None) != (mesh is None):
+            raise ValueError("WeightPublisher: engine= and mesh= go "
+                             "together (the shared-mesh mode)")
         self._shardings = shardings
         self._ends = ends
+        self._engine, self._mesh = engine, mesh
+        self._ready: dict = {}         # version -> its publish's event
         self._keep = max(int(keep), 1)
         self._cv = threading.Condition()
         # version -> (train_layout_params, rollout_layout_params)
@@ -324,22 +364,34 @@ class WeightPublisher:
 
     # ------------------------------------------------------------ #
     def _snapshot(self, params):
-        """``(copy, t0, event)``: a copy of ``params`` that the consumer's
-        in-place updates do not reach, the time its copy started, and an
-        event on the caller's stream after the copy (``None`` on the CPU;
-        :func:`repro_torch.stream_event`), which ``_push`` waits for."""
+        """``(views, t0, event, bytes)`` of a publish of ``params``: the
+        train view, a copy that the consumer's in-place updates do not
+        reach, and the rollout view (the copy itself, or in the
+        shared-mesh mode its inference layout on the producer's mesh); the
+        time the copy started; an event on the caller's stream after the
+        last of it (``None`` on the CPU; :func:`repro_torch.stream_event`),
+        which ``_push`` waits for; and the bytes to count."""
         from repro_torch.core.pipeline import clone_params
         from repro_torch.sharding import runtime
         t0 = time.perf_counter()
-        snapshot = clone_params(params)
-        return snapshot, t0, stream_event(
-            runtime.local(tree_leaves(snapshot)[0]).device)
+        train = clone_params(params)
+        rollout, nbytes = train, 0
+        if self._engine is not None:
+            rollout = runtime.rebind(self._engine.to_inference(train),
+                                     self._mesh)
+            if self._shardings is not None:
+                nbytes = self._engine.last_reshard_stats["out_bytes"]
+        return (train, rollout), t0, stream_event(
+            runtime.local(tree_leaves(train)[0]).device), nbytes
 
-    def _push(self, snapshot, t0: float, copied, version: int) -> dict:
-        if copied is not None:
-            copied.synchronize()
+    def _push(self, views, t0: float, ready, nbytes: int,
+              version: int) -> dict:
+        if ready is not None:
+            ready.synchronize()
         dt = time.perf_counter() - t0
-        self._record(version, (snapshot, snapshot), dt, 0)
+        with self._cv:
+            self._ready[version] = ready
+        self._record(version, views, dt, nbytes)
         return self.last_publish_stats
 
     def _retain(self, version: int, views) -> None:
@@ -347,7 +399,7 @@ class WeightPublisher:
         newest versions (the caller holds the lock)."""
         self._versions[version] = views
         while len(self._versions) > self._keep:
-            self._versions.popitem(last=False)
+            self._ready.pop(self._versions.popitem(last=False)[0], None)
         if self._latest is None or version > self._latest:
             self._latest = version
 
@@ -392,7 +444,7 @@ class WeightPublisher:
         with self._cv:
             if self._closed:
                 raise ReplayClosed("publish on closed publisher")
-        snapshot, t0, copied = self._snapshot(params)
+        (snapshot, _), t0, copied, _ = self._snapshot(params)
         with self._cv:               # the behavior policy of ``version``
             self._retain(version, (snapshot, None))
 
@@ -479,6 +531,13 @@ class WeightPublisher:
                 raise ReplayClosed("no version published yet")
             return self._versions[self._latest][1], self._latest
 
+    def ready(self, version: int):
+        """The event after ``version``'s publish on the publishing thread's
+        stream (``None`` on the CPU and across the bridge), which the
+        producer's stream waits on before it reads the version."""
+        with self._cv:
+            return self._ready.get(version)
+
     def at(self, version: int, timeout: Optional[float] = None,
            stop: Optional[threading.Event] = None):
         """The rollout-layout params of ``version`` once it has landed
@@ -539,21 +598,40 @@ class ExperienceProducer:
     :attr:`error`.
 
     Grad mode and the current device are thread-local in PyTorch: the
-    thread generates under ``torch.no_grad()`` on the trainer's device,
-    on that device's default stream (the consumer's stream too: the two
-    threads' work is ordered on the device as it is enqueued).
+    thread generates under ``torch.no_grad()`` on the trainer's device.
+    Without ``stream`` it runs on that device's default stream (the
+    consumer's stream too: the two threads' work is ordered on the device
+    as it is enqueued).  With ``stream`` (on a shared mesh, where the two
+    threads issue collectives on groups of their own) it runs on that
+    stream: its stream waits on a version's publish event
+    (:meth:`WeightPublisher.ready`) before it reads the version, and each
+    item carries an event after its batch (``ReplayItem.ready``), which the
+    consumer's stream waits on; the batch's tensors are marked used by the
+    consumer's stream (``record_stream``), so that the caching allocator
+    cannot hand their blocks back to this stream while the consumer reads
+    them.  ``engine`` is the generation engine it decodes with (default
+    the trainer's; on a shared mesh one bound to the producer's twin
+    mesh), and ``decide`` (:class:`_Decisions`) makes every rank of a
+    mesh generate each batch with the same version.
     """
 
     def __init__(self, *, trainer, batches, generator: torch.Generator,
                  start: int, steps: int, queue: ReplayQueue,
                  publisher: WeightPublisher, cfg: AsyncConfig,
-                 rollout_hook=None, lockstep=None, decide=None):
+                 rollout_hook=None, lockstep=None, decide=None,
+                 engine=None, stream=None):
         self.trainer = trainer
         self.batches = batches
         self.generator = generator
         self.start_iter, self.steps = start, steps
         self.queue, self.publisher, self.cfg = queue, publisher, cfg
         self.rollout_hook = rollout_hook
+        self.engine, self.stream = engine, stream
+        # the consumer's stream: this (the constructing) thread's
+        self._consumer_stream = (
+            None if stream is None
+            else torch.cuda.current_stream(stream.device))
+        self.side_stream = False       # ran on a non-default stream
         self.error: Optional[BaseException] = None
         self.produced = 0
         self._stop = threading.Event()
@@ -594,17 +672,40 @@ class ExperienceProducer:
     # ------------------------------------------------------------ #
     def _pick(self, i: int, need):
         """The params and version batch ``i`` is generated with: the
-        newest published once the gate opens; on a rollout rank other than
-        the first (``decide``), the version that rank chose."""
+        newest published once the gate opens; on a rank other than the
+        first of its mesh (``decide``), the version that rank chose, and
+        the first starts the batch only once every other rank holds it."""
         wait = self.cfg.publish_wait_s
         if self.decide is not None and not self.decide.leader:
             version = self.decide.take(i, wait, self._stop)
-            return self.publisher.at(version, wait, self._stop), version
+            params = self.publisher.at(version, wait, self._stop)
+            self.decide.hold(i)
+            return params, version
         self.publisher.wait_for(need, timeout=wait, stop=self._stop)
         params, version = self.publisher.latest()
         if self.decide is not None:
             self.decide.post(i, version)
+            self.decide.wait_held(i, wait, self._stop)
         return params, version
+
+    def _generate(self, batch, params, version: int):
+        """One batch, on this thread's stream, handed over to the
+        consumer's (see the class's docstring)."""
+        if self.stream is not None:
+            ready = self.publisher.ready(version)
+            if ready is not None:
+                self.stream.wait_event(ready)
+        with torch.no_grad():
+            rollout, gm = self.trainer.generate_rollout(
+                batch["prompts"], self.generator, gen_params=params,
+                version=version, gen_engine=self.engine)
+        done = None
+        if self.stream is not None:
+            for t in (rollout.sequences, rollout.response_mask):
+                if t.is_cuda:
+                    t.record_stream(self._consumer_stream)
+            done = stream_event(self.trainer.device)
+        return rollout, gm, done
 
     def _run(self) -> None:
         i = self.start_iter
@@ -612,38 +713,43 @@ class ExperienceProducer:
             device = self.trainer.device
             if device.type == "cuda":
                 torch.cuda.set_device(device)
-            for i, batch in zip(range(self.start_iter, self.steps),
-                                self.batches):
-                if self._stop.is_set():
-                    break
-                if self.rollout_hook is not None:
-                    self.rollout_hook(i)
+            with (torch.cuda.stream(self.stream) if self.stream is not None
+                  else contextlib.nullcontext()):
+                self.side_stream = device.type == "cuda" and (
+                    torch.cuda.current_stream(device)
+                    != torch.cuda.default_stream(device))
+                for i, batch in zip(range(self.start_iter, self.steps),
+                                    self.batches):
+                    if self._stop.is_set():
+                        break
+                    if self.rollout_hook is not None:
+                        self.rollout_hook(i)
 
-                def need(i=i):
-                    # re-evaluated on every wakeup: a mid-wait lockstep
-                    # fallback tightens the gate of this very wait
-                    lag = (0 if self._lockstep.is_set()
-                           else self.cfg.max_lag)
-                    return max(i - lag, self.start_iter)
+                    def need(i=i):
+                        # re-evaluated on every wakeup: a mid-wait lockstep
+                        # fallback tightens the gate of this very wait
+                        lag = (0 if self._lockstep.is_set()
+                               else self.cfg.max_lag)
+                        return max(i - lag, self.start_iter)
 
-                params, version = self._pick(i, need)
-                with torch.no_grad():
-                    rollout, gm = self.trainer.generate_rollout(
-                        batch["prompts"], self.generator,
-                        gen_params=params, version=version)
-                del params
-                self.queue.put(ReplayItem(
-                    rollout=rollout, seq=i, gen_metrics=gm,
-                    generator_state=self.generator.get_state()),
-                    timeout=self.cfg.put_timeout_s)
-                self.produced += 1
-                i += 1
+                    params, version = self._pick(i, need)
+                    rollout, gm, done = self._generate(batch, params,
+                                                       version)
+                    del params
+                    self.queue.put(ReplayItem(
+                        rollout=rollout, seq=i, gen_metrics=gm,
+                        generator_state=self.generator.get_state(),
+                        ready=done), timeout=self.cfg.put_timeout_s)
+                    self.produced += 1
+                    i += 1
             self.queue.close()
         except ReplayClosed:
             pass                      # consumer shut us down: clean exit
         except BaseException as e:    # noqa: BLE001 — must wake consumer
             self.error = e
             self.queue.cancel()
+            if self.decide is not None:
+                self.decide.fail()
         finally:
             if self.decide is not None:
                 self.decide.end(i)
@@ -789,18 +895,26 @@ class _Receiver:
 
 
 class _Decisions:
-    """The version each batch is generated with, when the rollout mesh has
-    more than one rank: the first rollout rank chooses it (its gate opens
-    on what has landed there) and writes it to the default group's store;
-    the others read it, so that every rank decodes with the same weights.
-    A ``None`` choice ends the others' loops (the first stopped)."""
-    _runs = itertools.count()
+    """The version each batch is generated with, when the producer runs on
+    a mesh of more than one rank (``ranks``, the first one ``leader``):
+    the first rank chooses it (its gate opens on what has landed or been
+    published there) and writes it to the default group's store under a
+    key of its own ``kind`` and run; the others read it, so that every
+    rank decodes with the same weights, and say when they hold it: the
+    first starts the batch (and its collectives) only then.  A ``None``
+    choice ends the others' loops (the first stopped).  A producer that
+    fails on any rank says so under the run's ``failed`` key, and every
+    wait here then raises :class:`RemoteError`: no rank starts a batch
+    whose collectives a failed rank would never join."""
+    _runs = collections.defaultdict(itertools.count)
 
-    def __init__(self, leader: bool):
+    def __init__(self, ranks, kind: str = "disaggregated"):
         import torch.distributed as dist
-        self.leader = leader
+        self.rank = dist.get_rank()
+        self.ranks = tuple(int(r) for r in ranks)
+        self.leader = self.rank == self.ranks[0]
         self._store = dist.distributed_c10d._get_default_store()
-        self._prefix = f"repro_torch/disaggregated/{next(self._runs)}/"
+        self._prefix = f"repro_torch/{kind}/{next(self._runs[kind])}/"
         self._next = None
 
     def post(self, i: int, version: Optional[int]) -> None:
@@ -813,20 +927,44 @@ class _Decisions:
         if self.leader:
             self.post(self._next if self._next is not None else i, None)
 
-    def take(self, i: int, timeout: float, stop: threading.Event) -> int:
-        key = self._prefix + str(i)
+    def fail(self) -> None:
+        """This rank's producer failed: every rank's waits here end."""
+        self._store.set(self._prefix + "failed", str(self.rank))
+
+    def _wait(self, keys: list, what: str, timeout: float,
+              stop: threading.Event) -> None:
         deadline = time.monotonic() + timeout
-        while not self._store.check([key]):
+        failed = self._prefix + "failed"
+        while not self._store.check(keys):
+            if self._store.check([failed]):
+                r = self._store.get(failed).decode()
+                raise RemoteError(f"the rollout producer of rank {r} "
+                                  f"failed")
             if stop.is_set():
                 raise ReplayClosed("producer stopped under waiter")
             if time.monotonic() > deadline:
-                raise ReplayTimeout(f"no version chosen for batch {i} "
-                                    f"within {timeout}s")
+                raise ReplayTimeout(f"{what} within {timeout}s")
             time.sleep(0.02)
+
+    def take(self, i: int, timeout: float, stop: threading.Event) -> int:
+        key = self._prefix + str(i)
+        self._wait([key], f"no version chosen for batch {i}", timeout, stop)
         v = self._store.get(key).decode()
         if v == "stop":
-            raise ReplayClosed("the first rollout rank stopped")
+            raise ReplayClosed("the first rank's producer stopped")
         return int(v)
+
+    def hold(self, i: int) -> None:
+        """This rank holds batch ``i``'s version."""
+        self._store.set(f"{self._prefix}{i}/held/{self.rank}", "1")
+
+    def wait_held(self, i: int, timeout: float,
+                  stop: threading.Event) -> None:
+        """On the first rank: until every other rank holds batch ``i``'s
+        version."""
+        self._wait([f"{self._prefix}{i}/held/{r}" for r in self.ranks[1:]],
+                   f"not every rank took batch {i}'s version", timeout,
+                   stop)
 
 
 class _TrainQueue:
@@ -858,6 +996,8 @@ class RemoteProducer:
     ``force_lockstep`` sends the flip ahead of any later publish (the
     bridge keeps the order), ``error`` is the producer's failure as it
     came back (:class:`RemoteError`), ``produced`` what it sent."""
+
+    side_stream = False
 
     def __init__(self, ends, cfg: AsyncConfig):
         self._ends = ends
@@ -944,7 +1084,7 @@ class SplitEnds:
             self.leader = rank == bridge.rollout_ranks[0]
             self.publisher = WeightPublisher(shardings, keep=keep, ends=self)
             self.lockstep = threading.Event()
-            self.decide = (_Decisions(self.leader)
+            self.decide = (_Decisions(bridge.rollout_ranks)
                            if len(bridge.rollout_ranks) > 1 else None)
             self._cv = threading.Condition()
             self._credits = depth
@@ -1100,11 +1240,12 @@ class SplitEnds:
             self._put_wait_s += time.monotonic() - t0
             self._puts += 1
         r = item.rollout
-        host = dataclasses.replace(item, rollout=dataclasses.replace(
+        rollout = dataclasses.replace(
             r, sequences=torch.as_tensor(r.sequences).cpu(),
             response_mask=torch.as_tensor(r.response_mask).cpu(),
             attn_mask=(None if r.attn_mask is None
-                       else torch.as_tensor(r.attn_mask).cpu())))
+                       else torch.as_tensor(r.attn_mask).cpu()))
+        host = dataclasses.replace(item, rollout=rollout, ready=None)
         self._up.message({"kind": "item", "item": host})
 
     def close(self) -> None:

@@ -6,7 +6,9 @@ One process per device: under ``torchrun`` every rank calls
 group is NCCL with one GPU per rank (``LOCAL_RANK``); on ``cpu`` it is
 gloo.  A mesh is a ``DeviceMesh`` named ``("data", "model")`` over the
 first ``dp * tp`` ranks; ranks beyond it take no part in its collectives
-(``mesh.get_coordinate()`` is ``None`` there).
+(``mesh.get_coordinate()`` is ``None`` there).  :func:`twin_mesh` gives a
+mesh its twin: the same ranks and dim names on process groups of its own,
+for asynchronous stage 3's producer thread.
 
 :func:`make_disaggregated_meshes` splits the world into a rollout mesh
 (generation) and a disjoint training mesh (asynchronous RLHF), and makes
@@ -111,6 +113,31 @@ def make_mesh(dp: int, tp: int):
         raise ValueError(f"mesh {dp}x{tp} needs {n} ranks, have {world}")
     return DeviceMesh(_device_type(), torch.arange(n).view(dp, tp),
                       mesh_dim_names=("data", "model"))
+
+
+def twin_mesh(mesh):
+    """A mesh over the same ranks, of the same shape and dim names as
+    ``mesh``, whose every dim has a process group of its own, made here:
+    for a second thread that issues collectives beside the one that uses
+    ``mesh`` (asynchronous stage 3's producer), since two threads keep no
+    common order on one group.  No group of ``mesh`` is reused, not even
+    the default group that ``DeviceMesh`` takes for a dim spanning the
+    world.  Each new group is made by every rank of the default group, so
+    every rank calls this, on one thread, in the same order.  Its ops time
+    out after :data:`DEFAULT_TIMEOUT_S`."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks, me = mesh.mesh, dist.get_rank()
+    timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
+    mine = []
+    for d in range(mesh.ndim):
+        # the groups of dim d: the lines of ranks that differ along d only
+        for line in ranks.movedim(d, -1).reshape(-1, ranks.shape[d]).tolist():
+            group = dist.new_group(line, timeout=timeout)
+            if me in line:
+                mine.append(group)
+    return DeviceMesh.from_group(mine, mesh.device_type, mesh=ranks.clone(),
+                                 mesh_dim_names=mesh.mesh_dim_names)
 
 
 def mesh_from_spec(spec: str):

@@ -75,12 +75,20 @@ experts over ``model``; ``tp``: those over ``model`` only;
 ``ddp``/``zero1``: replicated) and ``--zero 1`` shards the Adam moments
 over ``data``; the state is committed to that layout at creation, and the
 compute over ``model`` is tensor-parallel.  Under ``--rlhf`` the mesh goes
-to the Hybrid Engine (stage 3).  Rank 0 prints.  Every layer kind trains
-on ``tp`` > 1 (attention whose heads ``tp`` does not split whole is
-computed whole on every rank).  ``--ckpt-dir`` on a mesh writes sharded
-checkpoints, every rank its own pieces (the directory must be one that
-every rank sees), and ``--resume`` reads one into the current layout,
-whatever mesh, ``--strategy`` or ``--zero`` it was saved under, or none::
+to the Hybrid Engine (stage 3), and ``--async-rlhf`` overlaps stage 3 on
+it: generation and training share every rank, the producer on its own
+twin groups and CUDA stream (:mod:`repro_torch.core.pipeline`)::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch opt-125m --rlhf --mesh 2,1 --async-rlhf --max-lag 1
+
+Rank 0 prints.  A mesh larger than the world is an error.  Every layer
+kind trains on ``tp`` > 1 (attention whose heads ``tp`` does not split
+whole is computed whole on every rank).  ``--ckpt-dir`` on a mesh writes
+sharded checkpoints, every rank its own pieces (the directory must be one
+that every rank sees), and ``--resume`` reads one into the current
+layout, whatever mesh, ``--strategy`` or ``--zero`` it was saved under,
+or none::
 
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
         --arch opt-125m --mesh 2,1 --ckpt-dir ck --save-every 2 --steps 6
@@ -104,9 +112,7 @@ one role mesh on one card are refused), so one card runs ``1 | 1``::
         --arch opt-125m --rlhf --rollout-mesh 1 --train-mesh 1 --async-rlhf
 
 ``--mesh`` with the split is refused (the reference lets the split win
-silently), as is ``--async-rlhf`` on a shared ``--mesh`` of more than one
-rank (not ported yet: run it disaggregated); ``--mesh`` with ``--lora`` is
-refused as in the reference.
+silently); ``--mesh`` with ``--lora`` is refused as in the reference.
 
 Runs on CUDA; ``--device cpu`` runs on the CPU with the kernels' plain
 versions.
@@ -117,7 +123,6 @@ import argparse
 import contextlib
 import functools
 import io
-import math
 import statistics
 import time
 
@@ -386,11 +391,6 @@ def main(argv=None, iter_hook=None, cfg=None) -> dict:
         return _main_split(ap, args, iter_hook, cfg)
     if args.mesh is None:
         return _main(ap, args, iter_hook, cfg)
-    if args.async_rlhf and math.prod(
-            int(x) for x in args.mesh.split(",")) > 1:
-        ap.error("--async-rlhf on a shared mesh of more than one rank: not "
-                 "yet ported; run it disaggregated (--rollout-mesh, "
-                 "--train-mesh)")
     if args.lora:
         ap.error("--mesh with --lora is not supported")
     import torch.distributed as dist
@@ -400,7 +400,10 @@ def main(argv=None, iter_hook=None, cfg=None) -> dict:
     owned = not dist.is_initialized()
     device = init_distributed(args.device)
     try:
-        mesh = mesh_from_spec(args.mesh)
+        try:
+            mesh = mesh_from_spec(args.mesh)
+        except ValueError as e:        # a malformed --mesh, or too few ranks
+            ap.error(str(e))
         quiet = dist.get_rank() != 0
         with contextlib.redirect_stdout(io.StringIO()) if quiet \
                 else contextlib.nullcontext():

@@ -88,7 +88,13 @@ does not divide ``data`` is held whole on every data rank):
   ranks joining with no rows.
 
 At 1 x 1 the mesh paths make their collectives on one-rank groups and
-compute the plain path's bits.
+compute the plain path's bits.  Every group an engine's decode uses is
+its mesh's: ``data_share``, the early-exit ``all_true``, the row gathers
+and the ``TP`` context read ``self.mesh``, and the params are rebound onto
+it before their compute view is gathered
+(:func:`repro_torch.sharding.runtime.rebind`), so an engine bound to a
+twin of the training mesh (asynchronous stage 3's producer) never
+gathers on the training mesh's groups.
 
 Ragged prefill correctness: prompts are right-padded to a shape bucket and
 prefilled with causal attention, so real tokens never attend padding.  The
@@ -372,11 +378,12 @@ class GenerationEngine:
         """``(the params this rank computes on, the tensor-parallel
         context)``: the whole params without a mesh, else their compute
         view (after :func:`~repro_torch.sharding.runtime.
-        check_compute_mesh`)."""
+        check_compute_mesh`), gathered on this engine's mesh."""
         if self.mesh is None:
             return runtime.full_tree(params), None
         runtime.check_compute_mesh(self.mesh, "GenerationEngine", self.cfg)
-        view, _, tp = runtime.mesh_view(self.cfg, params, self.mesh)
+        view, _, tp = runtime.mesh_view(
+            self.cfg, runtime.rebind(params, self.mesh), self.mesh)
         return view, tp
 
     def _generate(self, params, tokens, generator: torch.Generator,

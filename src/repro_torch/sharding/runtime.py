@@ -34,6 +34,10 @@ A sharded checkpoint addresses a rank's piece by its window
 the pspec alone, the inverse of :func:`chunk`); a restore builds the
 piece from the windows the files hold and wraps it with
 :func:`from_local` (:mod:`repro_torch.training.checkpoint`).
+
+:func:`rebind` moves a tree onto a twin of its mesh (the same ranks on
+other process groups) without moving data, so that a second thread
+gathers it on groups of its own (asynchronous stage 3's producer).
 """
 from __future__ import annotations
 
@@ -359,6 +363,31 @@ def to_layout(grads, params, views, group):
 def data_group(mesh):
     """The process group of ``mesh``'s ``data`` axis."""
     return mesh.get_group("data")
+
+
+def group_names(mesh) -> dict:
+    """The name of ``mesh``'s process group on each dim."""
+    return {n: mesh.get_group(n).group_name for n in mesh.mesh_dim_names}
+
+
+def rebind(tree, mesh):
+    """``tree``'s ``DTensor`` leaves on ``mesh``, a mesh over the same ranks
+    with the same shape and dim names as theirs (its twin,
+    :func:`repro_torch.launch.mesh.twin_mesh`), with the same local
+    tensors and placements: nothing moves, and every collective that a
+    later gather of them makes runs on ``mesh``'s groups.  Leaves already
+    on ``mesh`` and plain tensors are kept."""
+    def one(x):
+        if not is_dtensor(x) or x.device_mesh is mesh:
+            return x
+        m = x.device_mesh
+        if (m.mesh_dim_names != mesh.mesh_dim_names
+                or not torch.equal(m.mesh, mesh.mesh)):
+            raise ValueError(f"rebind: a leaf of mesh {m} onto {mesh}, "
+                             f"another shape or other ranks")
+        return _from_local(local(x), mesh, tuple(x.placements), x.shape,
+                           x.stride())
+    return tree_map(one, tree)
 
 
 def _from_local(t, mesh, placements, shape=None, stride=None):

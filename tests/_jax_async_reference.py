@@ -19,6 +19,12 @@ whose keywords are ``None`` is the synchronous loop over the split; and
 ``put`` holds, for each rollout device in mesh order, the shard of every
 leaf of the actor that ``cross_mesh_put`` placed there.
 
+With ``mesh`` ``(dp, tp)`` in ``IN`` (for ``tests/test_torch_async_mesh.py``;
+run it with ``XLA_FLAGS=--xla_force_host_platform_device_count=2``) every
+mode runs on the shared mesh ``make_mesh(dp, tp)``: the Hybrid Engine's,
+asynchronous stage 3 publishing to its inference layout; ``None``
+keywords again mean the synchronous loop.
+
 ``repro.core`` does not import on Python 3.12 (ROADMAP Queue 3, R1):
 ``tests/_jax_mesh_reference.py``'s loader, imported first, gives
 ``repro.serving.engine``'s one field a ``default_factory``; the file is
@@ -108,9 +114,12 @@ def main(src: str, dst: str) -> None:
         from repro.launch.mesh import make_disaggregated_meshes
         meshes = make_disaggregated_meshes(rollout=inp["split"][0],
                                            train=inp["split"][1])
+    elif "mesh" in inp:
+        from repro.launch.mesh import make_mesh
+        meshes = (None, make_mesh(*inp["mesh"]))
     out = {name: run_mode(inp, kw, meshes)
            for name, kw in inp["modes"].items()}
-    if meshes is not None:
+    if "split" in inp:
         out["put"] = put_shards(inp, meshes[0])
     with open(dst, "wb") as f:
         pickle.dump(out, f)

@@ -333,6 +333,30 @@ def test_lockstep_over_the_split_is_sync_bit_for_bit(main_world):
                    for m in s[r]["log"])
 
 
+# what the port's synchronous split adds to the reference's metrics: its
+# generation seconds, the push's seconds and bytes, the scoring's and the
+# two steps' milliseconds (core/ppo.py::PPOTrainer._rollout_across)
+SYNC_EXTRAS = {"gen_s", "publish_s", "publish_bytes", "score_ms",
+               "actor_ms", "critic_ms"}
+
+
+def test_sync_split_metrics_are_the_references(main_world, reference):
+    """P3: a synchronous iteration over the split reports the reference's
+    keys (and the port's extras), its ``reshard_bytes``, and a ``gen_s``
+    that covers the push, as the reference times it."""
+    recs, want = _records(main_world, "sync"), reference["sync"]["log"]
+    for r in TRAIN:
+        log = recs[r]["log"]
+        assert len(log) == len(want) == 4
+        for mg, mw in zip(log, want):
+            assert set(mg) == set(mw) | SYNC_EXTRAS, \
+                set(mg) ^ (set(mw) | SYNC_EXTRAS)
+            assert mg["reshard_bytes"] == mw["reshard_bytes"]
+            assert mg["gen_s"] >= mg["publish_s"] > 0
+            assert mg["gen_tok_s"] * mg["gen_s"] == pytest.approx(
+                mg["gen_len"] * 4)
+
+
 def test_launcher_runs_the_split_with_async_rlhf(main_world):
     recs = _records(main_world, "launcher")
     first = recs[TRAIN[0]]

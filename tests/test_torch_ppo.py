@@ -629,14 +629,13 @@ def test_pipeline_refuses_what_is_not_ported():
         RLHFEngine(atcfg, ctcfg, gen, rollout_mesh=object())
     eng = RLHFEngine(atcfg, ctcfg, gen)
     bl = DataBlender([CopyTaskDataset(50, 4, 4, 64, seed=1)])
-    # asynchronous stage 3 runs on one device and at 1 x 1; on a mesh of
-    # more than one rank it is refused (a stand-in engine whose Hybrid
-    # Engine spans 2 ranks: the check reads the mesh's shape only)
+    # asynchronous stage 3 runs on one device and on a shared mesh of any
+    # size (a stand-in engine whose Hybrid Engine spans 2 ranks: nothing
+    # is read before the run; tests/test_torch_async_mesh.py runs it)
     RLHFPipeline(eng, bl, StageConfig(), tppo.PPOConfig(),
                  async_cfg=AsyncConfig.lockstep())
     two = types.SimpleNamespace(hybrid=types.SimpleNamespace(
         mesh=types.SimpleNamespace(shape={"data": 2, "model": 1})))
-    with pytest.raises(NotImplementedError,
-                       match="not yet ported; run it disaggregated"):
-        RLHFPipeline(two, bl, StageConfig(), tppo.PPOConfig(),
-                     async_cfg=AsyncConfig.lockstep())
+    pipe = RLHFPipeline(two, bl, StageConfig(), tppo.PPOConfig(),
+                        async_cfg=AsyncConfig.lockstep())
+    assert pipe.e is two and pipe.async_cfg == AsyncConfig.lockstep()

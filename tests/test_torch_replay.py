@@ -439,7 +439,7 @@ class _FakeTrainer:
         self.versions = []
 
     def generate_rollout(self, prompts, generator, *, gen_params=None,
-                         version=0):
+                         version=0, gen_engine=None):
         if len(self.versions) == self.fail_at:
             raise ValueError("decode failed")
         self.versions.append(version)

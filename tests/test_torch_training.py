@@ -477,11 +477,11 @@ def test_train_main_returns_a_summary():
     ["--publish-every", "1"], ["--max-lag", "1"], ["--is-ratio-abort", "2"],
     ["--max-new", "8"], ["--kv-quant"]])
 def test_train_cli_refuses_unported_flags(flag):
-    """What is not ported (asynchronous RLHF on a shared mesh of more than
-    one rank), one of ``--rollout-mesh`` / ``--train-mesh`` without the
-    other, and the RLHF options without ``--rlhf`` (the asynchronous knobs
-    also without ``--async-rlhf``), exit with an error before anything
-    runs."""
+    """A mesh the world cannot hold (``--mesh 2,1`` in one process, here
+    with ``--rlhf --async-rlhf``), one of ``--rollout-mesh`` /
+    ``--train-mesh`` without the other, and the RLHF options without
+    ``--rlhf`` (the asynchronous knobs also without ``--async-rlhf``),
+    exit with an error before anything runs."""
     with pytest.raises(SystemExit) as e:
         tlaunch.main(["--device", "cpu", "--arch", "smollm-135m",
                       "--reduced", *flag])
@@ -490,14 +490,17 @@ def test_train_cli_refuses_unported_flags(flag):
 
 def test_train_cli_refusal_names_the_flag():
     """The split's flags go together (the reference's words); the split
-    itself runs under ``torchrun`` (``tests/test_torch_disaggregated.py``)."""
+    itself runs under ``torchrun`` (``tests/test_torch_disaggregated.py``).
+    A ``--mesh`` larger than the world names the ranks it needs (on two
+    ranks ``--async-rlhf`` runs there: ``tests/test_torch_async_mesh.py``)."""
     res = _run(["--device", "cpu", "--arch", "smollm-135m", "--reduced",
                 "--rollout-mesh", "2"])
     assert res.returncode == 2 and \
         "--rollout-mesh and --train-mesh go together" in res.stderr
     res = _run(["--device", "cpu", "--arch", "smollm-135m", "--reduced",
                 "--rlhf", "--async-rlhf", "--mesh", "2,1"])
-    assert res.returncode == 2 and "run it disaggregated" in res.stderr
+    assert res.returncode == 2 and \
+        "mesh 2x1 needs 2 ranks, have 1" in res.stderr
 
 
 def test_train_cli_without_a_card_refuses_to_run():
